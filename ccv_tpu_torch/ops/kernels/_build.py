@@ -1,0 +1,76 @@
+"""Builds the port's CUDA sources into plain-C shared libraries on first use.
+
+Each library is compiled with nvcc for Hopper (``sm_90a``) from the sources
+in ``ccv_tpu_torch/csrc`` into ``ccv_tpu_torch/_build`` (not committed) and
+loaded with ctypes. The file name carries a hash of the sources and the
+flags, so an edited source is rebuilt and a fresh checkout builds
+everything it calls. Nothing here runs at import time: the CPU tests import
+every module on machines with no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's usual place."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.isfile(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _key(sources: Sequence[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+    """The ctypes handle of lib<name>, built from ``csrc/<sources>``."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        paths = [CSRC / s for s in sources]
+        so = BUILD_DIR / f"lib{name}-{_key(paths)}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   *(str(p) for p in paths)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed building lib{name} (exit "
+                    f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        _loaded[name] = lib
+        return lib

@@ -1,0 +1,260 @@
+"""Kernel K1: the full SCD cascade over every window of an octave.
+
+Counterpart of ccv_tpu/ops/pallas/scd_cascade.py. Three pieces:
+
+- ``build_tables``: the whole cascade (every feature, stage-ordered) as
+  host arrays, with device copies made once per device;
+- ``cascade_eval_levels_ref``: the plain PyTorch version, vectorised over
+  windows, in the op order of the kernel (the twin of the NumPy oracle in
+  tests/test_scd_kernel.py);
+- ``cascade_eval_levels``: the wrapper. On a CPU tensor it runs the plain
+  version; on a CUDA tensor it launches the hand-written kernel
+  (csrc/scd_cascade.cu) or raises. ``LAUNCHES`` counts its launches.
+
+Input is the channels-first SAT stack of one octave, ``(L, 8, H1, W1)``
+float32, zero-padded to the octave's largest level; ``dims`` holds each
+level's real ``(ny, nx)`` window grid. Window ``(wy, wx)`` reads corner
+``(oy, ox)`` at ``sat[l, c, wy*step + oy, wx*step + ox]``. Outputs are
+``conf`` float32 and ``passed`` bool, both ``(L, NY, NX)`` with
+``NY, NX = dims.max(0)``; entries outside a level's grid are not passed.
+``conf`` is the sum of the last stage a window reached and is meaningful
+only where ``passed``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ccv_tpu_torch.device import to_device
+from ccv_tpu_torch.ops.kernels import _build
+
+THETA = 2.0 / math.sqrt(32.0)  # L2Hys clip
+CHANNELS = 8
+
+# kernel launches made by cascade_eval_levels (CUDA tensors only)
+LAUNCHES = 0
+
+
+@dataclasses.dataclass
+class CascadeTables:
+    """A whole cascade, features in stage order.
+
+    boxes[f, b] = (sy, sx, dy, dx) of box b of feature f; w[f, b*8 + c] is
+    the weight of box b, channel c."""
+
+    stage_ranges: Tuple[Tuple[int, int], ...]  # (f0, f1) per stage
+    thresholds: np.ndarray                     # (S,) float32
+    boxes: np.ndarray                          # (F, 4, 4) int32
+    w: np.ndarray                              # (F, 32) float32
+    bias: np.ndarray                           # (F,) float32
+    _on: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.stage_ranges)
+
+    @property
+    def n_features(self) -> int:
+        return len(self.bias)
+
+    @property
+    def extent(self) -> Tuple[int, int]:
+        """(largest corner row offset, largest corner column offset)."""
+        ys = self.boxes[:, :, [0, 2]]
+        xs = self.boxes[:, :, [1, 3]]
+        return int(ys.max()), int(xs.max())
+
+    def on(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """The kernel's device buffers, made once per device."""
+        key = str(device)
+        got = self._on.get(key)
+        if got is None:
+            ends = np.array([f1 for _f0, f1 in self.stage_ranges], np.int32)
+            feats = np.concatenate([self.w, self.bias[:, None]], axis=1)
+            got = dict(
+                stage_end=to_device(ends, device),
+                thresholds=to_device(self.thresholds.astype(np.float32),
+                                     device),
+                boxes=to_device(self.boxes.reshape(-1, 16).astype(np.int32),
+                                device),
+                feats=to_device(feats.astype(np.float32), device))
+            self._on[key] = got
+        return got
+
+
+def build_tables(thresholds, sx, sy, dx, dy, bias, w,
+                 stage_of) -> CascadeTables:
+    """CascadeTables from per-feature arrays (ScdClassifierCascade fields).
+
+    Each stage's features must be one contiguous run, stages in order: the
+    kernel walks features f0..f1 per stage. Raises ValueError otherwise."""
+    stage_of = np.asarray(stage_of)
+    n_features = len(stage_of)
+    ranges = []
+    start = 0
+    for s in range(len(thresholds)):
+        idx = np.nonzero(stage_of == s)[0]
+        if (len(idx) == 0 or idx[0] != start
+                or idx[-1] - idx[0] + 1 != len(idx)):
+            raise ValueError(
+                f"stage {s}: features are not one contiguous run after "
+                f"feature {start} (the cascade evaluator walks stages in "
+                f"feature order)")
+        ranges.append((int(idx[0]), int(idx[-1]) + 1))
+        start = int(idx[-1]) + 1
+    if start != n_features:
+        raise ValueError(f"features {start}..{n_features} belong to no stage")
+    boxes = np.stack([np.asarray(sy), np.asarray(sx), np.asarray(dy),
+                      np.asarray(dx)], axis=-1).astype(np.int32)
+    return CascadeTables(
+        stage_ranges=tuple(ranges),
+        thresholds=np.asarray(thresholds, np.float32).copy(),
+        boxes=boxes,
+        w=np.asarray(w, np.float32).reshape(n_features, 32).copy(),
+        bias=np.asarray(bias, np.float32).copy())
+
+
+def _check(sat_l: torch.Tensor, tables: CascadeTables, step: int,
+           dims) -> np.ndarray:
+    if sat_l.dtype != torch.float32:
+        raise TypeError(f"sat_l must be float32, got {sat_l.dtype}")
+    if sat_l.dim() != 4 or sat_l.shape[1] != CHANNELS:
+        raise ValueError(f"sat_l must be (L, 8, H1, W1), got "
+                         f"{tuple(sat_l.shape)}")
+    if not sat_l.is_contiguous():
+        raise ValueError("sat_l must be contiguous")
+    if step < 1:
+        raise ValueError(f"step must be >= 1, got {step}")
+    L, _, H1, W1 = sat_l.shape
+    dims = np.asarray(dims, np.int64).reshape(-1, 2)
+    if dims.shape[0] != L:
+        raise ValueError(f"dims has {dims.shape[0]} levels, sat_l has {L}")
+    if (dims < 1).any():
+        raise ValueError(f"every level needs ny, nx >= 1, got {dims}")
+    ey, ex = tables.extent
+    NY, NX = (int(v) for v in dims.max(axis=0))
+    if (NY - 1) * step + ey >= H1 or (NX - 1) * step + ex >= W1:
+        raise ValueError(
+            f"window grid ({NY}, {NX}) at step {step} with corner extent "
+            f"({ey}, {ex}) reads outside the ({H1}, {W1}) SAT")
+    return dims
+
+
+def _finish(vs: torch.Tensor, tables: CascadeTables, dims: np.ndarray):
+    """Stage sums (L, S, NY, NX) -> (conf, passed) with the early exit's
+    meaning: conf is the sum of the first failing stage, or of the last."""
+    L, S, NY, NX = vs.shape
+    th = to_device(tables.thresholds, vs.device)
+    ok = (vs > th[None, :, None, None]).to(torch.int32)
+    n_ok = torch.cumprod(ok, dim=1).sum(dim=1)             # stages in a row
+    conf = vs.gather(1, n_ok.clamp(max=S - 1)[:, None]).squeeze(1)
+    d = to_device(dims, vs.device)
+    rows = torch.arange(NY, device=vs.device)[None, :, None]
+    cols = torch.arange(NX, device=vs.device)[None, None, :]
+    valid = (rows < d[:, 0, None, None]) & (cols < d[:, 1, None, None])
+    passed = (n_ok == S) & valid
+    return torch.where(valid, conf, torch.zeros_like(conf)), passed
+
+
+def cascade_stage_sums_ref(sat_l: torch.Tensor, tables: CascadeTables,
+                           step: int, dims) -> torch.Tensor:
+    """Every stage's response sum for every window, (L, S, NY, NX) float32,
+    with no early exit. Plain PyTorch in the kernel's op order."""
+    dims = _check(sat_l, tables, step, dims)
+    NY, NX = (int(v) for v in dims.max(axis=0))
+    L = sat_l.shape[0]
+    ylen, xlen = (NY - 1) * step + 1, (NX - 1) * step + 1
+
+    def corner(oy: int, ox: int) -> torch.Tensor:      # (L, 8, NY, NX)
+        return sat_l[:, :, oy:oy + ylen:step, ox:ox + xlen:step]
+
+    w = to_device(tables.w.reshape(-1, 4, CHANNELS), sat_l.device)
+    vs = sat_l.new_zeros((L, tables.n_stages, NY, NX))
+    for s, (f0, f1) in enumerate(tables.stage_ranges):
+        acc = None
+        for f in range(f0, f1):
+            vals = []
+            for b in range(4):
+                sy, sx, dy, dx = (int(v) for v in tables.boxes[f, b])
+                vals.append(corner(sy, sx) - corner(sy, dx)
+                            - corner(dy, sx) + corner(dy, dx))
+            # squares summed over boxes, then over channels
+            sq = vals[0] * vals[0]
+            for v in vals[1:]:
+                sq = sq + v * v
+            inv = 1.0 / (torch.sqrt(sq.sum(dim=1, keepdim=True)) + 1e-6)
+            sq2 = acc_w = None
+            for b, v in enumerate(vals):
+                u = torch.clamp(v * inv, -THETA, THETA)
+                t = u * w[f, b][None, :, None, None]
+                sq2 = u * u if sq2 is None else sq2 + u * u
+                acc_w = t if acc_w is None else acc_w + t
+            inv2 = 1.0 / (torch.sqrt(sq2.sum(dim=1)) + 1e-6)
+            logit = acc_w.sum(dim=1) * inv2 + float(tables.bias[f])
+            resp = torch.tanh(0.5 * logit)
+            acc = resp if acc is None else acc + resp
+        vs[:, s] = acc
+    return vs
+
+
+def cascade_eval_levels_ref(sat_l: torch.Tensor, tables: CascadeTables,
+                            step: int, dims):
+    """Plain PyTorch version of the kernel: (conf, passed), (L, NY, NX)."""
+    vs = cascade_stage_sums_ref(sat_l, tables, step, dims)
+    return _finish(vs, tables, np.asarray(dims, np.int64).reshape(-1, 2))
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("scd_cascade", ["scd_cascade.cu"])
+    fn = lib.scd_cascade_levels
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, i, i, i, p, i, i, p, p, i, p, p, i, p, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build() -> None:
+    """Compile (or find on disk) and load the kernel's library."""
+    _library()
+
+
+def cascade_eval_levels(sat_l: torch.Tensor, tables: CascadeTables,
+                        step: int, dims: Sequence):
+    """(conf, passed), each (L, NY, NX), for every window of every level.
+
+    A CPU tensor goes through the plain PyTorch version; a CUDA tensor
+    launches the CUDA kernel once for the whole stack, on the current
+    stream, without synchronising."""
+    global LAUNCHES
+    dims = _check(sat_l, tables, step, dims)
+    if sat_l.device.type == "cpu":
+        return cascade_eval_levels_ref(sat_l, tables, step, dims)
+    if sat_l.device.type != "cuda":
+        raise ValueError(f"no cascade kernel for device {sat_l.device}")
+    fn = _library().scd_cascade_levels
+    dev = sat_l.device
+    L, _, H1, W1 = sat_l.shape
+    NY, NX = (int(v) for v in dims.max(axis=0))
+    tab = tables.on(dev)
+    dims_d = to_device(dims.astype(np.int32), dev)
+    conf = torch.empty((L, NY, NX), dtype=torch.float32, device=dev)
+    passed = torch.empty((L, NY, NX), dtype=torch.uint8, device=dev)
+    err = fn(sat_l.get_device(), sat_l.data_ptr(), L, H1, W1,
+             dims_d.data_ptr(), NY, NX, tab["stage_end"].data_ptr(),
+             tab["thresholds"].data_ptr(), tables.n_stages,
+             tab["boxes"].data_ptr(), tab["feats"].data_ptr(), step,
+             conf.data_ptr(), passed.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scd_cascade kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    return conf, passed.view(torch.bool)

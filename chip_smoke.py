@@ -1,0 +1,326 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (ccv_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the cascade kernel K1 from ccv_tpu_torch/csrc with nvcc, holds it
+against its plain PyTorch version on the card, then drives the SCD
+face-detection main path (``ccv_tpu_torch.detectors.scd.detect``) with the
+repository's face cascade (tests/data/face_low.sqlite3): the crop180 window
+sets against the C goldens, and a 640x480 and a 1920x1080 frame against the
+same path with the plain evaluator. Prints one line per phase, then a JSON
+line of kernel results, the card's name and power limit, and as the last
+line ``{"ok": true, "device": {...}}``. Any failed check raises and the
+exit code is not 0. Needs a CUDA device; imports no JAX.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(ROOT, "tests", "data")
+STEP = 4
+MARGIN = 1e-4           # stage sums this close to a threshold may flip
+ATOL, RTOL = 2e-4, 1e-5  # final-stage confidence, kernel vs plain
+
+
+def log(phase, msg):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def check(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def frame_1080p(read):
+    """A 1920x1080 gray frame: text_test.png (640x480) tiled 3x3, cropped."""
+    tt = read(os.path.join(DATA, "text_test.png")).numpy()
+    return np.ascontiguousarray(np.tile(tt, (3, 3))[:1080, :1920])
+
+
+def synth_cascade(scd, rng, feats_per_stage=(2, 3, 4, 5), wh=16):
+    F = sum(feats_per_stage)
+    sx = rng.integers(0, wh - 4, (F, 4))
+    sy = rng.integers(0, wh - 4, (F, 4))
+    return scd.cascade_from_numpy(dict(
+        width=wh, height=wh, margin=(0, 0, 0, 0),
+        stage_counts=feats_per_stage,
+        thresholds=np.zeros(len(feats_per_stage)),
+        sx=sx, sy=sy, dx=sx + rng.integers(2, 5, (F, 4)),
+        dy=sy + rng.integers(2, 5, (F, 4)),
+        bias=rng.normal(0, 0.5, F), w=rng.normal(0, 1, (F, 32)),
+        stage_of=np.repeat(np.arange(len(feats_per_stage)), feats_per_stage)))
+
+
+def with_median_thresholds(scd, k1, cascade, sat_l, dims):
+    """The cascade with every stage threshold near the median of the plain
+    version's stage sums over the real windows, so stages kill real windows
+    and the early exit runs. Flat image regions give many windows the same
+    sum, so the threshold goes in a gap between distinct sums at least
+    4 * MARGIN wide (none of them lies near it), the one whose pass share is
+    closest to one half; failing that, in the widest gap."""
+    vs = k1.cascade_stage_sums_ref(sat_l, scd.cascade_tables(cascade), STEP,
+                                   dims)
+    th = []
+    for s in range(cascade.n_stages):
+        vals = torch.cat([vs[li, s, :ny, :nx].reshape(-1)
+                          for li, (ny, nx) in enumerate(dims)]).sort().values
+        u = torch.unique(vals)
+        mids, gaps = (u[1:] + u[:-1]) / 2, u[1:] - u[:-1]
+        frac = 1 - torch.searchsorted(vals, mids, right=True) / vals.numel()
+        wide = gaps > 4 * MARGIN
+        i = (int(torch.where(wide, (frac - 0.5).abs(), 2.0).argmin())
+             if bool(wide.any()) else int(gaps.argmax()))
+        th.append(float(mids[i]))
+    return dataclasses.replace(cascade, thresholds=np.asarray(th, np.float32))
+
+
+def kernel_vs_plain(scd, k1, cascade, sat_l, dims):
+    """K1 and its plain version on the same SAT stack. Returns (max |conf
+    difference| where both pass, windows passed, windows in the margin)."""
+    tables = scd.cascade_tables(cascade)
+    vs = k1.cascade_stage_sums_ref(sat_l, tables, STEP, dims)
+    conf0, pass0 = k1.cascade_eval_levels_ref(sat_l, tables, STEP, dims)
+    conf1, pass1 = k1.cascade_eval_levels(sat_l, tables, STEP, dims)
+    torch.cuda.synchronize()
+    th = torch.as_tensor(tables.thresholds, device=sat_l.device)
+    margin_ok = ((vs - th[None, :, None, None]).abs() > MARGIN).all(dim=1)
+    differ = int(((pass0 != pass1) & margin_ok).sum())
+    check(differ == 0, f"K1 and plain disagree on {differ} windows outside "
+                       f"the {MARGIN} margin")
+    both = pass0 & pass1
+    check(bool(both.any()), "no window passed: the comparison is vacuous")
+    err = (conf0 - conf1)[both].abs()
+    bound = ATOL + RTOL * conf0[both].abs()
+    check(bool((err <= bound).all()),
+          f"conf differs by up to {float(err.max())}")
+    return float(err.max()), int(pass0.sum()), int((~margin_ok).sum())
+
+
+def time_cuda(fn, reps):
+    """Mean ms per call on the card: CUDA events around `reps` calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rect_set(comps):
+    return {(c.x, c.y, c.width, c.height) for c in comps}
+
+
+def golden_rects(name):
+    out = {}
+    with open(os.path.join(DATA, name)) as f:
+        for line in f:
+            x, y, w, h, conf = line.split()
+            out[(int(x), int(y), int(w), int(h))] = float(conf)
+    return out
+
+
+def margin_rects(scd, k1, img, cascade, params, dev):
+    """Rects of the windows whose plain stage sums lie within MARGIN of a
+    threshold in some stage: the only ones allowed to differ."""
+    tables = scd.cascade_tables(cascade)
+    th = torch.as_tensor(tables.thresholds, device=dev)
+    specs, octaves = scd.octave_sats(img, cascade, params, dev)
+    outs = []
+    for _lspecs, sat_l, dims in octaves:
+        vs = k1.cascade_stage_sums_ref(sat_l, tables, STEP, dims)
+        near = ((vs - th[None, :, None, None]).abs() <= MARGIN).any(dim=1)
+        outs += [(near[li, :ny, :nx].cpu().numpy(), np.zeros((ny, nx)))
+                 for li, (ny, nx) in enumerate(dims)]
+    eff_w = cascade.width - cascade.margin[0] - cascade.margin[2]
+    eff_h = cascade.height - cascade.margin[1] - cascade.margin[3]
+    return rect_set(scd._comps_from_levels(outs, specs, eff_w, eff_h, STEP))
+
+
+def main():
+    sys.path.insert(0, ROOT)
+    from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
+    from ccv_tpu_torch.detectors import scd
+    from ccv_tpu_torch.device import require_cuda
+    from ccv_tpu_torch.ops import resample
+    from ccv_tpu_torch.ops.kernels import scd_cascade as k1
+
+    dev = require_cuda()  # raises without a card: no result is printed
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(1, f"device {kind}; torch {torch.__version__} cuda "
+           f"{torch.version.cuda}; nvidia-smi: {card}")
+
+    t0 = time.perf_counter()
+    k1.build()
+    log(2, f"K1 built and loaded in {time.perf_counter() - t0:.2f} s from "
+           f"ccv_tpu_torch/csrc/scd_cascade.cu for sm_90a")
+
+    # -- 3: K1 against its plain version on the card ------------------------
+    max_err = 0.0
+    rng = np.random.default_rng(7)
+    for dims in ([[11, 21]], [[8, 128]], [[17, 140]],
+                 [[13, 140], [9, 100], [5, 60]]):
+        dims = np.asarray(dims)
+        cascade = synth_cascade(scd, rng)
+        H1 = (dims[:, 0].max() - 1) * STEP + cascade.height + 1
+        W1 = (dims[:, 1].max() - 1) * STEP + cascade.width + 1
+        sat_l = torch.from_numpy(rng.normal(0, 10, (len(dims), 8, H1, W1))
+                                 .astype(np.float32)).to(dev)
+        cascade = with_median_thresholds(scd, k1, cascade, sat_l, dims)
+        err, n, near = kernel_vs_plain(scd, k1, cascade, sat_l, dims)
+        max_err = max(max_err, err)
+        log(3, f"synthetic dims {dims.tolist()}: {n} passed, {near} in the "
+               f"margin, max conf diff {err:.3g}")
+    face = scd.load_cascade(os.path.join(DATA, "face_low.sqlite3"))
+    frame = frame_1080p(read)
+    frame_t = torch.from_numpy(frame).to(dev)[..., None]
+    specs, _ = scd._level_specs(*frame.shape, face, scd.ScdParams())
+    dims0 = np.array([specs[0][4:6]])
+    sat0 = scd._sat_cf8(scd.scd_map_cf8(frame_t))[None].contiguous()
+    face_med = with_median_thresholds(scd, k1, face, sat0, dims0)
+    err, n, near = kernel_vs_plain(scd, k1, face_med, sat0, dims0)
+    max_err = max(max_err, err)
+    log(3, f"face cascade, median thresholds {face_med.thresholds.tolist()},"
+           f" 1080p level-0 SAT {tuple(sat0.shape)} dims {dims0.tolist()}: "
+           f"{n} passed, {near} in the margin, max conf diff {err:.3g}")
+    err_open, n_open, _ = kernel_vs_plain(scd, k1, face, sat0, dims0)
+    max_err = max(max_err, err_open)
+    log(3, f"face cascade, open thresholds, same SAT: {n_open} passed, max "
+           f"conf diff {err_open:.3g}")
+    tabs_med, tabs_open = scd.cascade_tables(face_med), scd.cascade_tables(face)
+    ms = time_cuda(lambda: k1.cascade_eval_levels(sat0, tabs_med, STEP, dims0),
+                   20)
+    plain_ms = time_cuda(
+        lambda: k1.cascade_eval_levels_ref(sat0, tabs_med, STEP, dims0), 3)
+    ms_open = time_cuda(
+        lambda: k1.cascade_eval_levels(sat0, tabs_open, STEP, dims0), 5)
+    plain_open = time_cuda(
+        lambda: k1.cascade_eval_levels_ref(sat0, tabs_open, STEP, dims0), 2)
+    log(3, f"K1 at the 1080p level-0 shape on {card}: median thresholds "
+           f"{ms:.3f} ms (plain {plain_ms:.3f} ms); open thresholds "
+           f"{ms_open:.3f} ms (plain {plain_open:.3f} ms)")
+
+    # -- the prolog on the card against the CPU ----------------------------
+    tt = read(os.path.join(DATA, "text_test.png"))
+    for name, img in (("640x480", tt.tensor), ("1080p", torch.from_numpy(
+            frame))):
+        H, W = img.shape
+        for (o, k, rows, cols, *_r) in scd._level_specs(
+                H, W, face, scd.ScdParams())[0]:
+            if o == 0 and k > 0:
+                args = dict(rows=rows, cols=cols, rows_scale=rows / H,
+                            cols_scale=cols / W)
+                cpu = resample.resample(img, **args)
+                gpu = resample.resample(img.to(dev), **args).cpu()
+                check(torch.equal(cpu, gpu), f"{name} INTER_AREA to "
+                      f"{rows}x{cols} differs between the card and the CPU")
+        check(torch.equal(resample.sample_down(img),
+                          resample.sample_down(img.to(dev)).cpu()),
+              f"{name} sample_down differs between the card and the CPU")
+        m_cpu = scd.scd_map_cf8(img[..., None])
+        m_gpu = scd.scd_map_cf8(img.to(dev)[..., None])
+        check(torch.equal(m_cpu, m_gpu.cpu()),
+              f"{name} scd_map_cf8 differs between the card and the CPU")
+        s_cpu, s_gpu = scd._sat_cf8(m_cpu), scd._sat_cf8(m_gpu).cpu()
+        rel = float((s_cpu - s_gpu).abs().max() / s_cpu.abs().max())
+        log(3, f"{name} prolog: INTER_AREA levels, sample_down and "
+               f"scd_map_cf8 bit-exact card vs CPU; SAT max diff {rel:.3g} "
+               f"of its largest value")
+
+    # -- 4: the main path, crop180 against the C goldens --------------------
+    k1.LAUNCHES = 0
+    crop = read(os.path.join(DATA, "crop180.png"), IO_RGB_COLOR, device=dev)
+    for interval, golden, tol in ((1, "crop180.scd_i1.txt", 6e-3),
+                                  (5, "crop180.scd_open.txt", 2e-2)):
+        params = scd.ScdParams(min_neighbors=0, interval=interval)
+        n_oct = len({s[0] for s in scd._level_specs(180, 180, face, params)[0]})
+        before = k1.LAUNCHES
+        out = scd.detect(crop, face, params)
+        check(k1.LAUNCHES - before == n_oct,
+              f"detect launched K1 {k1.LAUNCHES - before} times for "
+              f"{n_oct} octaves")
+        ref = golden_rects(golden)
+        mine = {(c.x, c.y, c.width, c.height): c.confidence for c in out}
+        check(set(mine) == set(ref), f"crop180 interval={interval}: "
+              f"{len(mine)} windows vs {len(ref)} in {golden}")
+        diff = max(abs(mine[r] - ref[r]) for r in ref)
+        check(diff < tol, f"crop180 interval={interval}: conf diff {diff}")
+        log(4, f"crop180 interval={interval}: {len(mine)} windows = "
+               f"{golden}, max conf diff {diff:.3g} (< {tol}), {n_oct} "
+               f"K1 launches")
+
+    # -- 5: real sizes, kernel against the plain evaluator ------------------
+    params = scd.ScdParams(min_neighbors=0)
+    for name, img, cascade, reps in (
+            ("640x480", tt.tensor.to(dev), face, 20),
+            ("1920x1080", torch.from_numpy(frame).to(dev), face_med, 20)):
+        H, W = img.shape
+        n_oct = len({s[0] for s in scd._level_specs(H, W, cascade,
+                                                    params)[0]})
+        before = k1.LAUNCHES
+        got = rect_set(scd.detect(img, cascade, params))
+        check(k1.LAUNCHES - before == n_oct, f"{name}: detect launched K1 "
+              f"{k1.LAUNCHES - before} times for {n_oct} octaves")
+        want = rect_set(scd.detect(img, cascade, params,
+                                   evaluate=k1.cascade_eval_levels_ref))
+        check(len(want) > 0, f"{name}: no windows passed")
+        odd = got ^ want
+        if odd:
+            near = margin_rects(scd, k1, img, cascade, params, dev)
+            check(odd <= near, f"{name}: {len(odd - near)} windows differ "
+                               f"outside the margin")
+        timings = []  # per-image ms: (kernel, plain)
+        for evaluate, n in ((None, reps), (k1.cascade_eval_levels_ref, 3)):
+            scd.detect(img, cascade, params, evaluate=evaluate)  # warm-up
+            ms_each = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scd.detect(img, cascade, params, evaluate=evaluate)
+                torch.cuda.synchronize()
+                ms_each.append((time.perf_counter() - t0) * 1000)
+            timings.append(ms_each)
+        med, worst = float(np.median(timings[0])), max(timings[0])
+        log(5, f"{name}: {len(got)} windows, kernel = plain ({len(odd)} in "
+               f"the margin); detect with K1: median {med:.2f} ms/image "
+               f"(max {worst:.2f}, n={reps}) = {H * W / 1e3 / med:.3f} MP/s; "
+               f"with the plain evaluator: median "
+               f"{float(np.median(timings[1])):.2f} ms/image (n=3); {card}")
+    launches = k1.LAUNCHES
+    check(launches > 0, "the main path launched K1 no time")
+
+    print(json.dumps({"kernels": [{
+        "name": "scd_cascade", "route": "cuda",
+        "source": "ccv_tpu_torch/csrc/scd_cascade.cu",
+        "replaces": "ccv_tpu/ops/pallas/scd_cascade.py:58",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms}]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,211 @@
+"""Port parity: the SCD face-detection main path.
+
+Goldens (tests/data, made with the C implementation; see tests/test_scd.py):
+crop180.scdmap.bin (the feature map), crop180.scd_i1.txt (every window at
+interval=1) and crop180.scd_open.txt (default params), both with
+face_low.sqlite3, whose stage thresholds are all -1000. The port is also
+held against ccv_tpu's own functions on the same inputs.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ccv_tpu.core import io as jio
+from ccv_tpu.detectors import common as jcommon
+from ccv_tpu.detectors import scd as jscd
+from ccv_tpu_torch.core import io as tio
+from ccv_tpu_torch.detectors import common as tcommon
+from ccv_tpu_torch.detectors import scd as tscd
+from ccv_tpu_torch.ops.kernels import scd_cascade as tkernel
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CASCADE = os.path.join(DATA, "face_low.sqlite3")
+
+
+@pytest.fixture(scope="module")
+def crop():
+    return tio.read(os.path.join(DATA, "crop180.png"), tio.IO_RGB_COLOR)
+
+
+@pytest.fixture(scope="module")
+def cascade():
+    return tscd.load_cascade(CASCADE)
+
+
+def _golden(name):
+    ref = {}
+    with open(os.path.join(DATA, name)) as f:
+        for line in f:
+            x, y, w, h, conf = line.split()
+            ref[(int(x), int(y), int(w), int(h))] = float(conf)
+    return ref
+
+
+def _by_rect(comps):
+    return {(int(c.x), int(c.y), int(c.width), int(c.height)): c.confidence
+            for c in comps}
+
+
+def test_scd_map_cf8_matches_golden(crop):
+    golden = tio.read(os.path.join(DATA, "crop180.scdmap.bin")).numpy()
+    got = tscd.scd_map_cf8(crop.tensor).numpy()
+    assert got.shape == (8,) + golden.shape[:2]
+    np.testing.assert_array_equal(got, golden[..., :8].transpose(2, 0, 1))
+
+
+@pytest.mark.parametrize("name,flags", [("crop180.png", jio.IO_RGB_COLOR),
+                                        ("text_test.png", 0),
+                                        ("crop120.png", jio.IO_RGB_COLOR)])
+def test_scd_map_cf8_matches_jax(name, flags):
+    img = np.array(jio.read(os.path.join(DATA, name), flags).numpy())
+    if img.ndim == 2:
+        img = img[..., None]
+    want = np.asarray(jscd.scd_map_cf8(jnp.asarray(img)))
+    got = tscd.scd_map_cf8(torch.from_numpy(img)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sat_cf8_matches_jax():
+    x = np.random.default_rng(3).integers(-600, 600, (8, 97, 131)).astype(
+        np.float32)
+    x[4:] = np.abs(x[4:])
+    want = np.asarray(jscd._sat_cf8(jnp.asarray(x)))
+    got = tscd._sat_cf8(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (8, 98, 132)
+    # summation order differs (cumsum vs a triangular matmul): 1e-6 of the
+    # largest magnitude
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    assert not got[:, 0].any() and not got[:, :, 0].any()
+
+
+@pytest.mark.parametrize("H,W", [(180, 180), (480, 640), (1080, 1920),
+                                 (47, 300), (97, 61)])
+@pytest.mark.parametrize("interval,step", [(5, 4), (1, 4), (3, 2)])
+def test_level_specs_match_jax(cascade, H, W, interval, step):
+    jc = jscd.load_cascade(CASCADE)
+    params = dict(interval=interval, step_through=step)
+    assert tscd._level_specs(H, W, cascade, tscd.ScdParams(**params)) == \
+        jscd._level_specs(H, W, jc, jscd.ScdParams(**params))
+
+
+@pytest.mark.parametrize("interval,golden,tol", [
+    (1, "crop180.scd_i1.txt", 6e-3), (5, "crop180.scd_open.txt", 2e-2)])
+def test_window_parity_with_c_goldens(crop, cascade, interval, golden, tol):
+    out = tscd.detect(crop, cascade,
+                      tscd.ScdParams(min_neighbors=0, interval=interval))
+    mine, ref = _by_rect(out), _golden(golden)
+    assert set(mine) == set(ref), (len(mine), len(ref))
+    assert max(abs(mine[k] - ref[k]) for k in ref) < tol
+
+
+def test_merge_detections_matches_jax():
+    rng = np.random.default_rng(9)
+    rects = []
+    for _ in range(120):
+        x, y = rng.integers(0, 200, 2)
+        s = int(rng.integers(20, 60))
+        # coarse confidences force ties: the first maximum must win
+        rects.append((int(x), int(y), s, s, float(rng.integers(0, 6)) / 2,
+                      int(rng.integers(1, 3))))
+    for min_neighbors in (0, 1, 2, 3):
+        want = jcommon.merge_detections(
+            [jcommon.Comp(*r[:5], classification_id=r[5]) for r in rects],
+            min_neighbors)
+        got = tcommon.merge_detections(
+            [tcommon.Comp(*r[:5], classification_id=r[5]) for r in rects],
+            min_neighbors)
+        assert [dataclasses.astuple(c) for c in got] == \
+            [dataclasses.astuple(c) for c in want]
+
+
+@pytest.fixture(scope="module")
+def jax_detections():
+    img = jio.read(os.path.join(DATA, "crop180.png"), jio.IO_RGB_COLOR)
+    jc = jscd.load_cascade(CASCADE)
+    return {mn: jscd.detect(img.array, jc, jscd.ScdParams(
+        min_neighbors=mn, interval=1)) for mn in (0, 1)}
+
+
+@pytest.mark.parametrize("min_neighbors", [0, 1])
+def test_detect_matches_jax(crop, cascade, jax_detections, min_neighbors):
+    """The slice end to end: same boxes in the same order, neighbors equal,
+    confidences within 6e-3 (ccv_tpu's CPU path sums boxes by a matmul)."""
+    got = tscd.detect(crop, cascade, tscd.ScdParams(
+        min_neighbors=min_neighbors, interval=1))
+    want = jax_detections[min_neighbors]
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert (g.x, g.y, g.width, g.height, g.neighbors) == \
+            (w.x, w.y, w.width, w.height, w.neighbors)
+        assert abs(g.confidence - w.confidence) < 6e-3
+
+
+def test_detect_async_collect_equals_detect(crop, cascade):
+    params = tscd.ScdParams(min_neighbors=0, interval=1)
+    handle = tscd.detect_async(crop, cascade, params)
+    planes = tscd.level_planes(handle)
+    assert [p.shape for p, _c in planes] == [
+        (ny, nx) for (*_r, ny, nx, _s) in handle.specs]
+    assert tscd.detect_collect(handle) == tscd.detect(crop, cascade, params)
+
+
+def test_detect_accepts_numpy_gray_and_small_images(cascade):
+    gray = np.array(jio.read(os.path.join(DATA, "crop120.png"),
+                             jio.IO_GRAY).numpy())
+    got = tscd.detect(gray, cascade, tscd.ScdParams(min_neighbors=0,
+                                                    interval=1),
+                      device="cpu")
+    want = tscd.detect(torch.from_numpy(gray)[..., None], cascade,
+                       tscd.ScdParams(min_neighbors=0, interval=1))
+    assert got == want and len(got) > 0
+    assert tscd.detect(gray[:40, :40], cascade) == []
+    with pytest.raises(NotImplementedError):
+        tscd.detect(gray, cascade, tscd.ScdParams(size=(24, 24)))
+
+
+def test_detect_launches_no_kernel_on_cpu(crop, cascade):
+    before = tkernel.LAUNCHES
+    tscd.detect(crop, cascade, tscd.ScdParams(min_neighbors=0, interval=1))
+    assert tkernel.LAUNCHES == before
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "from ccv_tpu_torch.core.io import read, IO_RGB_COLOR\n"
+        "from ccv_tpu_torch.detectors import scd\n"
+        f"img = read({os.path.join(DATA, 'crop180.png')!r}, IO_RGB_COLOR)\n"
+        f"c = scd.load_cascade({CASCADE!r})\n"
+        "out = scd.detect(img, c, scd.ScdParams(interval=1))\n"
+        "assert len(out) == 1, out\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ccv_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_scddetect_cli(cascade):
+    image = os.path.join(DATA, "crop120.png")
+    proc = subprocess.run(
+        [sys.executable, "-m", "ccv_tpu_torch.bin.scddetect", image,
+         CASCADE], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    want = tscd.detect(tio.read(image, tio.IO_RGB_COLOR), cascade)
+    assert lines[-1].startswith(f"total : {len(want)} in time")
+    assert [tuple(int(v) for v in ln.split()[:4]) for ln in lines[:-1]] == [
+        (c.x, c.y, c.width, c.height) for c in want]
