@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}   # one per library: builds overlap
+_locks_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -53,8 +54,11 @@ def _key(sources: Sequence[Path]) -> str:
 
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """The ctypes handle of lib<name>, built from ``csrc/<sources>``."""
-    with _lock:
+    """The ctypes handle of lib<name>, built from ``csrc/<sources>``.
+    Different libraries may be built from different threads at once."""
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib

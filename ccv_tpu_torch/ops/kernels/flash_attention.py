@@ -1,0 +1,293 @@
+"""Kernels K2a/K2b/K2c: flash attention, forward and FlashAttention-2 backward.
+
+Counterpart of ccv_tpu/ops/pallas/flash_attention.py. Pieces, in the
+kernels' op order:
+
+- ``flash_fwd_ref``, ``flash_dq_ref``, ``flash_dkv_ref``: the plain PyTorch
+  versions of the three kernels on ``(BH, T, D)`` tensors;
+- ``flash_fwd``, ``flash_dq``, ``flash_dkv``: the wrappers. On a CPU tensor
+  each runs its plain version; on a CUDA tensor it launches its hand-written
+  kernel (csrc/flash_attention.cu) or raises. ``LAUNCHES`` counts kernel
+  launches per kernel;
+- ``FlashAttention`` / ``flash_attention``: the autograd function on
+  ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
+
+The TPU layout is gone: D is not padded to 128, and lse and delta are
+``(BH, Tq)`` float32 rather than broadcast over 128 lanes. The causal mask
+is aligned bottom-right: key ``k`` counts for query ``q`` when
+``k <= q + (Tk - Tq)``. Causal attention with ``Tq > Tk`` (query rows with
+no key) is refused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ccv_tpu_torch.ops.kernels import _build
+
+NEG_INF = -1e30          # masked score, as in the Pallas kernel
+HEAD_DIMS = (32, 64)     # head dims the kernels are built for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches made by the wrappers (CUDA tensors only)
+LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
+
+
+def _valid(t_q: int, t_k: int, causal: bool,
+           device: torch.device) -> Optional[torch.Tensor]:
+    """(Tq, Tk) bool mask of the keys each query sees, or None for all."""
+    if not causal:
+        return None
+    return torch.ones(t_q, t_k, dtype=torch.bool, device=device).tril(
+        t_k - t_q)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """f32 scores (BH, Tq, Tk): input-type products summed in f32."""
+    return torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+
+
+def _probs(q, k, lse, scale, causal) -> torch.Tensor:
+    """The backward's recomputed p = exp(s - lse), 0 where masked."""
+    p = torch.exp(_scores(q, k, scale) - lse[..., None])
+    valid = _valid(q.shape[1], k.shape[1], causal, q.device)
+    return p if valid is None else torch.where(valid, p, 0.0)
+
+
+def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, causal: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2a: (o (BH, Tq, D) in q's type, lse (BH, Tq) f32)."""
+    _check_qkv(q, k, v, causal)
+    s = _scores(q, k, scale)
+    valid = _valid(q.shape[1], k.shape[1], causal, q.device)
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_dq_ref(q, k, v, do, lse, delta, scale: float,
+                 causal: bool) -> torch.Tensor:
+    """Plain version of K2b: dq (BH, Tq, D) in q's type."""
+    _check_bwd(q, k, v, do, lse, delta, causal)
+    p = _probs(q, k, lse, scale, causal)
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = p * (dp - delta[..., None]) * scale
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def flash_dkv_ref(q, k, v, do, lse, delta, scale: float,
+                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2c: (dk, dv), each (BH, Tk, D) in k's type."""
+    _check_bwd(q, k, v, do, lse, delta, causal)
+    p = _probs(q, k, lse, scale, causal)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    dk = torch.matmul(ds.transpose(1, 2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_ref(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """Plain FlashAttention-2 backward: (dq, dk, dv)."""
+    return (flash_dq_ref(q, k, v, do, lse, delta, scale, causal),
+            *flash_dkv_ref(q, k, v, do, lse, delta, scale, causal))
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{t.dtype}")
+        if t.dim() != 3:
+            raise ValueError(f"{name} must be (BH, T, D), got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v types differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    bh, t_q, d = q.shape
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit (BH, T, D)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
+    if t_q < 1 or k.shape[1] < 1:
+        raise ValueError("empty sequence")
+    if causal and t_q > k.shape[1]:
+        raise ValueError(f"causal attention with Tq {t_q} > Tk {k.shape[1]} "
+                         f"leaves query rows with no key")
+
+
+def _check_bwd(q, k, v, do, lse, delta, causal: bool) -> None:
+    _check_qkv(q, k, v, causal)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must be {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {tuple(q.shape[:2])} float32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
+        if not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("flash_attention", ["flash_attention.cu"])
+    if lib.flash_attention_fwd.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_fwd.argtypes = [i, i, i, p, p, p, p, p, i, i, i,
+                                            f, i, p]
+        lib.flash_attention_dq.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i,
+                                           i, f, i, p]
+        lib.flash_attention_dkv.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
+                                            i, i, i, f, i, p]
+        for fn in (lib.flash_attention_fwd, lib.flash_attention_dq,
+                   lib.flash_attention_dkv):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def build() -> None:
+    """Compile (or find on disk) and load the kernels' library."""
+    _library()
+
+
+def _on_card(*ts: torch.Tensor) -> bool:
+    """False for CPU tensors (plain version); True for CUDA tensors that the
+    kernels can read; raises for anything else."""
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {dev}")
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("the kernels need 16-byte aligned tensors")
+    return True
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"flash_attention {name} kernel launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _head(q: torch.Tensor):
+    """(device index, dtype code, head dim, BH, Tq, stream) for a launch."""
+    return (q.get_device(), _DTYPE_CODE[q.dtype], q.shape[2], q.shape[0],
+            q.shape[1], torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float, causal: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2a: (o (BH, Tq, D), lse (BH, Tq) f32) for q (BH, Tq, D), k and v
+    (BH, Tk, D). A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel on the current stream, without synchronising."""
+    _check_qkv(q, k, v, causal)
+    if not _on_card(q, k, v):
+        return flash_fwd_ref(q, k, v, scale, causal)
+    dev, code, d, bh, t_q, stream = _head(q)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, t_q), dtype=torch.float32, device=q.device)
+    _launched("fwd", _library().flash_attention_fwd(
+        dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, t_q, k.shape[1], scale, int(causal), stream))
+    return o, lse
+
+
+def flash_dq(q, k, v, do, lse, delta, scale: float,
+             causal: bool) -> torch.Tensor:
+    """K2b: dq (BH, Tq, D) from do (BH, Tq, D), lse and delta (BH, Tq)."""
+    _check_bwd(q, k, v, do, lse, delta, causal)
+    if not _on_card(q, k, v, do, lse, delta):
+        return flash_dq_ref(q, k, v, do, lse, delta, scale, causal)
+    dev, code, d, bh, t_q, stream = _head(q)
+    dq = torch.empty_like(q)
+    _launched("dq", _library().flash_attention_dq(
+        dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh,
+        t_q, k.shape[1], scale, int(causal), stream))
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, scale: float,
+              causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2c: (dk, dv), each (BH, Tk, D), from the same inputs as K2b."""
+    _check_bwd(q, k, v, do, lse, delta, causal)
+    if not _on_card(q, k, v, do, lse, delta):
+        return flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
+    dev, code, d, bh, t_q, stream = _head(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launched("dkv", _library().flash_attention_dkv(
+        dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, t_q, k.shape[1], scale, int(causal), stream))
+    return dk, dv
+
+
+def _to_bthd(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, D) -> contiguous (B*H, T, D)."""
+    b, t, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+
+def _from_bthd(x: torch.Tensor, b: int) -> torch.Tensor:
+    """(B*H, T, D) -> (B, T, H, D) view."""
+    bh, t, d = x.shape
+    return x.view(b, bh // b, t, d).transpose(1, 2)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Fused attention on (B, T, H, D): K2a forward, K2b and K2c backward.
+
+    Forward saves (q, k, v, o, lse), as ccv_tpu's custom_vjp does; the
+    backward forms delta = rowsum(dO * O) in plain torch (ccv_tpu forms it
+    outside Pallas too) and runs K2b, then K2c."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, is_causal: bool):
+        o, lse = flash_fwd(_to_bthd(q), _to_bthd(k), _to_bthd(v), scale,
+                           is_causal)
+        o = _from_bthd(o, q.shape[0])
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, is_causal
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        b = q.shape[0]
+        delta = _to_bthd((g.float() * o.float()).sum(-1, keepdim=True))
+        args = (_to_bthd(q), _to_bthd(k), _to_bthd(v),
+                _to_bthd(g.to(q.dtype)), lse, delta[..., 0].contiguous(),
+                ctx.scale, ctx.causal)
+        dq = flash_dq(*args)
+        dk, dv = flash_dkv(*args)
+        return (_from_bthd(dq, b), _from_bthd(dk, b), _from_bthd(dv, b),
+                None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None,
+                    is_causal: bool = False) -> torch.Tensor:
+    """Fused scaled-dot-product attention, (B, T, H, D) layout; the scale
+    defaults to 1/sqrt(D). Differentiable in q, k and v."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttention.apply(q, k, v, float(scale), bool(is_causal))

@@ -3,15 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the cascade kernel K1 from ccv_tpu_torch/csrc with nvcc, holds it
-against its plain PyTorch version on the card, then drives the SCD
-face-detection main path (``ccv_tpu_torch.detectors.scd.detect``) with the
-repository's face cascade (tests/data/face_low.sqlite3): the crop180 window
-sets against the C goldens, and a 640x480 and a 1920x1080 frame against the
-same path with the plain evaluator. Prints one line per phase, then a JSON
-line of kernel results, the card's name and power limit, and as the last
-line ``{"ok": true, "device": {...}}``. Any failed check raises and the
-exit code is not 0. Needs a CUDA device; imports no JAX.
+Builds every kernel from ccv_tpu_torch/csrc with nvcc (one nvcc per source,
+started together) and drives the port's two main paths:
+
+- SCD face detection (phases 3-5): the cascade kernel K1 against its plain
+  PyTorch version, then ``ccv_tpu_torch.detectors.scd.detect`` with the
+  repository's face cascade (tests/data/face_low.sqlite3): the crop180
+  window sets against the C goldens, and a 640x480 and a 1920x1080 frame
+  against the same path with the plain evaluator;
+- transformer-LM training (phases 6-7): the flash-attention kernels K2a
+  (forward), K2b (dq) and K2c (dk, dv) against their plain versions at the
+  parity tests' shapes and the LM's, a 2-layer step at the LM's widths with
+  the kernels against one with plain attention, then
+  ``ccv_tpu_torch.bin.lm_bench.measure`` at its defaults (GPT-2-medium
+  shape, 24 layers) for a warm-up step and a few timed steps.
+
+Prints one line per phase, then a JSON line of kernel results, the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``. Any failed check raises and the exit code is not 0. Needs a CUDA
+device; imports no JAX.
 """
 
 import dataclasses
@@ -20,6 +30,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -29,6 +40,30 @@ DATA = os.path.join(ROOT, "tests", "data")
 STEP = 4
 MARGIN = 1e-4           # stage sums this close to a threshold may flip
 ATOL, RTOL = 2e-4, 1e-5  # final-stage confidence, kernel vs plain
+# K2 against its plain version. float32: 1e-4 + 1e-4 * max|plain| (both sum
+# exact f32 products in another order; ccv_tpu's own gates are 2e-2 forward
+# and 5e-3 backward). bfloat16: 2e-2 * max|plain|: p and ds are rounded to
+# bf16 before their products on both sides, but relative to the running
+# max in the kernel and the final max in the plain version (2^-8 each).
+K2_F32 = 1e-4
+K2_BF16 = 2e-2
+# K2 shapes (BH, Tq, Tk, D, causal): the parity tests' (B 2 x H 3 at D 64,
+# B 2 x H 2 at D 32), then the LM's (B 8 x H 16, T 1024, D 64, causal)
+K2_SHAPES = ([(6, t, t, 64, c) for t in (128, 100, 257) for c in (False, True)]
+             + [(4, 72, 136, 32, c) for c in (False, True)]
+             + [(4, 64, 64, 32, True)])
+K2_LM = (128, 1024, 1024, 64, True)
+# the 2-layer LM step with the kernels against plain attention (bf16):
+# loss within 1e-3 relative; each gradient within 1e-1 of its largest
+# magnitude (the plain path's backward runs through bf16 einsums, so it
+# rounds the probabilities' and dP's gradients to bf16 where the kernels
+# keep f32, and at initialisation the attention weights' gradients are
+# small sums of such terms); after one Adam step (rate 1e-4: each
+# parameter moves by rate * g / (|g| + eps), within [-rate, rate]) every
+# parameter within 2 * rate, and at least 98% of them equal to 1e-6 (the
+# same sign of update; gradients near 0 may take either sign)
+LM_LOSS_REL, LM_GRAD_REL, LM_SAME_SIGN = 1e-3, 1e-1, 0.98
+LM_STEPS = 4  # timed steps of the full-depth run, after one warm-up
 
 
 def log(phase, msg):
@@ -126,6 +161,145 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def k2_inputs(shape, dtype, dev, rng):
+    bh, tq, tk, d, _causal = shape
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, t, d),
+                                                        np.float32))
+                   .to(dev, dtype) for t in (tq, tk, tk, tq))
+    return q, k, v, do
+
+
+def k2_compare(k2, shape, dtype, dev, rng):
+    """K2a/b/c and their plain versions on the same inputs. Returns the max
+    abs error of each kernel's outputs (fwd: o and lse; dkv: dk and dv)."""
+    q, k, v, do = k2_inputs(shape, dtype, dev, rng)
+    causal, scale = shape[4], 1.0 / np.sqrt(shape[3])
+    o0, lse0 = k2.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do.float() * o0.float()).sum(-1)
+    dq0 = k2.flash_dq_ref(q, k, v, do, lse0, delta, scale, causal)
+    dk0, dv0 = k2.flash_dkv_ref(q, k, v, do, lse0, delta, scale, causal)
+    o1, lse1 = k2.flash_fwd(q, k, v, scale, causal)
+    dq1 = k2.flash_dq(q, k, v, do, lse0, delta, scale, causal)
+    dk1, dv1 = k2.flash_dkv(q, k, v, do, lse0, delta, scale, causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for key, name, got, ref in (("fwd", "o", o1, o0), ("fwd", "lse", lse1, lse0),
+                                ("dq", "dq", dq1, dq0), ("dkv", "dk", dk1, dk0),
+                                ("dkv", "dv", dv1, dv0)):
+        err = float((got.float() - ref.float()).abs().max())
+        top = float(ref.float().abs().max())
+        bound = (K2_F32 + K2_F32 * top if ref.dtype == torch.float32
+                 else K2_BF16 * top)
+        check(bool(torch.isfinite(got).all()) and err <= bound,
+              f"K2 {name} at {shape} {dtype}: max error {err:.3g} > "
+              f"{bound:.3g} (max |plain| {top:.3g})")
+        errs[key] = max(errs.get(key, 0.0), err)
+    return errs
+
+
+def k2_vs_plain(k2, dev, card):
+    rng = np.random.default_rng(17)
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = {}
+        for shape in K2_SHAPES:
+            for key, err in k2_compare(k2, shape, dtype, dev, rng).items():
+                worst[key] = max(worst.get(key, 0.0), err)
+        log(6, f"K2 vs plain, {dtype}, {len(K2_SHAPES)} shapes "
+               f"(T 128/100/257 causal and not at D 64; 72x136 causal and "
+               f"not, 64 causal at D 32): max abs error "
+               f"{ {k: f'{e:.3g}' for k, e in worst.items()} }")
+    errs = k2_compare(k2, K2_LM, torch.bfloat16, dev, rng)
+    log(6, f"K2 vs plain at the LM shape {K2_LM} bf16: max abs error "
+           f"{ {k: f'{e:.3g}' for k, e in errs.items()} }")
+    q, k, v, do = k2_inputs(K2_LM, torch.bfloat16, dev, rng)
+    scale = 1.0 / np.sqrt(K2_LM[3])
+    o, lse = k2.flash_fwd(q, k, v, scale, True)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, scale, True)
+    times = {}
+    for key, kern, plain in (
+            ("fwd", lambda: k2.flash_fwd(q, k, v, scale, True),
+             lambda: k2.flash_fwd_ref(q, k, v, scale, True)),
+            ("dq", lambda: k2.flash_dq(*bwd), lambda: k2.flash_dq_ref(*bwd)),
+            ("dkv", lambda: k2.flash_dkv(*bwd),
+             lambda: k2.flash_dkv_ref(*bwd))):
+        times[key] = (time_cuda(kern, 20), time_cuda(plain, 5))
+    bh, t, _, d, _ = K2_LM
+    flop = {"fwd": 4, "dq": 6, "dkv": 8}  # x BH*T*T*D, halved by causality
+    log(6, "K2 at the LM shape (CUDA events; kernel 20 launches, plain 5): "
+        + "; ".join(f"{key} {ms:.3f} ms = "
+                    f"{flop[key] * bh * t * t * d / 2 / ms / 1e9:.1f} TFLOP/s "
+                    f"(plain {pms:.3f} ms)"
+                    for key, (ms, pms) in times.items()) + f"; {card}")
+    return errs, times
+
+
+def lm_two_layers(k2, dev):
+    """One step at the LM's widths, 2 layers, from the same parameters and
+    batch: with the kernels, and with plain attention."""
+    from ccv_tpu_torch.bin import lm_bench
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.nn import optimizers
+
+    cfg = tfm.TransformerConfig(vocab_size=32768, layers=2, heads=16,
+                                head_dim=64, ff=4096, max_len=1024,
+                                dropout=0.0, dtype=torch.bfloat16, remat=True,
+                                remat_policy="dots")
+    ids = torch.randint(0, cfg.vocab_size, (8, 1025), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    runs = []
+    for plain in (False, True):
+        params = tfm.init_lm(torch.Generator(device=dev).manual_seed(2), cfg)
+        opt = optimizers.adam(rate=1e-4)
+        state = opt.init(params)
+        before = dict(k2.LAUNCHES)
+        with lm_bench.plain_attention(plain):
+            loss = float(lm_bench.train_step(params, opt, state, cfg, ids))
+        used = {k: v - before[k] for k, v in k2.LAUNCHES.items()}
+        check(used == ({"fwd": 0, "dq": 0, "dkv": 0} if plain else
+                       {"fwd": 4, "dq": 2, "dkv": 2}),
+              f"2-layer step (plain={plain}) launched K2 {used}")
+        runs.append((loss, named_leaves(params)))
+    (loss_k, p_k), (loss_p, p_p) = runs
+    # the key bias bk is left out of the gradient check: adding q.bk to
+    # every score of a row leaves the softmax unchanged, so its true
+    # gradient is 0 and both sides give rounding noise
+    g_rel = {name: float((p_k[name].grad - p_p[name].grad).abs().max()
+                         / p_p[name].grad.abs().max().clamp_min(1e-30))
+             for name in p_k if not name.endswith(".bk")}
+    worst = max(g_rel, key=g_rel.get)
+    diffs = torch.cat([(p_k[n].detach() - p_p[n].detach()).abs().flatten()
+                       for n in p_k])
+    same = float((diffs <= 1e-6).float().mean())
+    log(7, f"2-layer step at the LM widths (B 8, T 1024, bf16, remat dots): "
+           f"loss {loss_k:.5f} with the kernels, {loss_p:.5f} plain; "
+           f"gradients within {g_rel[worst]:.3g} of their largest magnitude "
+           f"(worst {worst}); after Adam {same:.5f} of parameters equal, max "
+           f"diff {float(diffs.max()):.3g}")
+    check(np.isfinite(loss_k) and abs(loss_k - loss_p) <= LM_LOSS_REL * abs(
+        loss_p), f"2-layer loss {loss_k} with the kernels, {loss_p} plain")
+    check(g_rel[worst] <= LM_GRAD_REL, f"2-layer gradient {worst} differs by "
+                                       f"{g_rel[worst]:.3g} of its largest "
+                                       f"magnitude")
+    check(float(diffs.max()) <= 2e-4 and same >= LM_SAME_SIGN,
+          f"2-layer parameters after Adam: max diff {float(diffs.max()):.3g}, "
+          f"{same:.4f} equal")
+
+
+def named_leaves(tree, prefix=""):
+    """{dotted name: tensor} of a nested dict/list of parameters."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = ((str(i), sub) for i, sub in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, sub in items:
+        out.update(named_leaves(sub, f"{prefix}.{key}" if prefix else key))
+    return out
+
+
 def rect_set(comps):
     return {(c.x, c.y, c.width, c.height) for c in comps}
 
@@ -162,6 +336,7 @@ def main():
     from ccv_tpu_torch.detectors import scd
     from ccv_tpu_torch.device import require_cuda
     from ccv_tpu_torch.ops import resample
+    from ccv_tpu_torch.ops.kernels import flash_attention as k2
     from ccv_tpu_torch.ops.kernels import scd_cascade as k1
 
     dev = require_cuda()  # raises without a card: no result is printed
@@ -171,9 +346,12 @@ def main():
            f"{torch.version.cuda}; nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    k1.build()
-    log(2, f"K1 built and loaded in {time.perf_counter() - t0:.2f} s from "
-           f"ccv_tpu_torch/csrc/scd_cascade.cu for sm_90a")
+    with ThreadPoolExecutor(2) as ex:
+        for fut in [ex.submit(k.build) for k in (k1, k2)]:
+            fut.result()
+    log(2, f"K1 and K2 built and loaded in {time.perf_counter() - t0:.2f} s "
+           f"from ccv_tpu_torch/csrc/{{scd_cascade,flash_attention}}.cu for "
+           f"sm_90a")
 
     # -- 3: K1 against its plain version on the card ------------------------
     max_err = 0.0
@@ -308,13 +486,53 @@ def main():
                f"{float(np.median(timings[1])):.2f} ms/image (n=3); {card}")
     launches = k1.LAUNCHES
     check(launches > 0, "the main path launched K1 no time")
-
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "scd_cascade", "route": "cuda",
         "source": "ccv_tpu_torch/csrc/scd_cascade.cu",
         "replaces": "ccv_tpu/ops/pallas/scd_cascade.py:58",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "ms": ms, "plain_ms": plain_ms}]
+
+    # -- 6: K2 against its plain version on the card -----------------------
+    k2_err, k2_ms = k2_vs_plain(k2, dev, card)
+
+    # -- 7: the LM training step -------------------------------------------
+    lm_two_layers(k2, dev)
+    from ccv_tpu_torch.bin import lm_bench
+    for name in k2.LAUNCHES:
+        k2.LAUNCHES[name] = 0
+    res = lm_bench.measure(steps=LM_STEPS)
+    k2_launches = dict(k2.LAUNCHES)
+    steps, layers = 1 + LM_STEPS, 24
+    want = {"fwd": 2 * layers * steps, "dq": layers * steps,
+            "dkv": layers * steps}  # remat recomputes the forward
+    check(k2_launches == want, f"lm_bench launched K2 {k2_launches}, "
+                               f"expected {want}")
+    losses = res["losses"]
+    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss does not fall: {losses}")
+    log(7, f"lm_bench {res['model']} ({res['params_m']} M params), batch "
+           f"{res['batch']} x seq {res['seq']}, bf16, remat "
+           f"{res['remat_policy']}, flash: step {res['step_ms']:.2f} ms "
+           f"(mean of {LM_STEPS} after a warm-up of {res['warmup_s']:.2f} s), "
+           f"{res['tokens_per_s']:.0f} tokens/s, "
+           f"{res['model_tflops_per_s']:.2f} model TFLOP/s, MFU "
+           f"{res['mfu']:.4f} of {res['peak_tflops']:.0f} TFLOP/s; peak "
+           f"memory {res['peak_mem_gb']:.2f} GB; losses "
+           f"{[round(x, 4) for x in losses]}; K2 launches {k2_launches}; "
+           f"{card}")
+
+    sources = {"fwd": ("flash_attention_fwd", "flash_attention.py:36"),
+               "dq": ("flash_attention_dq", "flash_attention.py:173"),
+               "dkv": ("flash_attention_dkv", "flash_attention.py:210")}
+    for key, (name, line) in sources.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ccv_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"ccv_tpu/ops/pallas/{line}",
+            "launches": k2_launches[key], "max_abs_err": k2_err[key],
+            "ms": k2_ms[key][0], "plain_ms": k2_ms[key][1]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,30 @@
+"""The port stands alone: importing every module of ccv_tpu_torch loads
+neither jax nor ccv_tpu."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, pkgutil, sys
+import ccv_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(ccv_tpu_torch.__path__,
+                                                    "ccv_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "ccv_tpu"))
+print(len(names), leaked)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, leaked = out.stdout.split(" ", 1)
+    assert int(n) >= 20, out.stdout  # every module was found and imported
+    assert leaked.strip() == "[]", leaked
