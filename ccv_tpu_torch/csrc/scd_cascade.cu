@@ -37,26 +37,22 @@
 // keeps most windows to the first stages (12 features); shared-memory SAT
 // tiles (TMA) are the next step.
 //
-// Numerics follow the JAX op order: squares summed over boxes then
-// channels, IEEE sqrt and division (no fast math), and __fmul_rn wherever
-// the reference multiplies and then adds, so no FMA contraction changes
-// the rounding. tanhf is CUDA's (2 ulp).
+// The per-feature math and its numerics are in scd_feature.cuh, shared
+// with the phase-A kernel (scd_phase.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scd_feature.cuh"
+
 namespace {
 
-constexpr int kChannels = 8;
+using scd::kBoxInts;
+using scd::kChannels;
+using scd::kFeatFloats;
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 4;
-constexpr int kBoxInts = 16;      // per feature: 4 boxes x (sy, sx, dy, dx)
-constexpr int kFeatFloats = 33;   // per feature: w[box * 8 + channel], bias
-constexpr float kTheta = 0.35355339059327373f;  // 2 / sqrt(32)
-
-__device__ __forceinline__ float clip_theta(float v) {
-  return fminf(fmaxf(v, -kTheta), kTheta);
-}
 
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 scd_cascade_kernel(const float* __restrict__ sat, int H1, int W1,
@@ -89,49 +85,9 @@ scd_cascade_kernel(const float* __restrict__ sat, int H1, int W1,
     const int f1 = __ldg(stage_end + s);
     vs = 0.f;
     for (; f < f1; ++f) {
-      const int* bx = boxes + f * kBoxInts;
-      float val[4][kChannels];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int sy = __ldg(bx + 4 * b), sx = __ldg(bx + 4 * b + 1);
-        const int dy = __ldg(bx + 4 * b + 2), dx = __ldg(bx + 4 * b + 3);
-        const float* p0 = base + sy * W1 + sx;
-        const float* p1 = base + sy * W1 + dx;
-        const float* p2 = base + dy * W1 + sx;
-        const float* p3 = base + dy * W1 + dx;
-#pragma unroll
-        for (int c = 0; c < kChannels; ++c) {
-          const size_t o = c * plane;
-          val[b][c] = ((__ldg(p0 + o) - __ldg(p1 + o)) - __ldg(p2 + o)) +
-                      __ldg(p3 + o);
-        }
-      }
-      float ss = 0.f;
-#pragma unroll
-      for (int c = 0; c < kChannels; ++c) {
-        float q = __fmul_rn(val[0][c], val[0][c]);
-#pragma unroll
-        for (int b = 1; b < 4; ++b) q = q + __fmul_rn(val[b][c], val[b][c]);
-        ss = ss + q;
-      }
-      const float inv = 1.0f / (sqrtf(ss) + 1e-6f);
-      const float* wf = feats + f * kFeatFloats;
-      float ss2 = 0.f, dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < kChannels; ++c) {
-        float q2 = 0.f, acc = 0.f;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const float u = clip_theta(__fmul_rn(val[b][c], inv));
-          q2 = q2 + __fmul_rn(u, u);
-          acc = acc + __fmul_rn(u, __ldg(wf + b * kChannels + c));
-        }
-        ss2 = ss2 + q2;
-        dot = dot + acc;
-      }
-      const float inv2 = 1.0f / (sqrtf(ss2) + 1e-6f);
-      const float logit = __fmul_rn(dot, inv2) + __ldg(wf + 32);
-      vs = vs + tanhf(0.5f * logit);
+      vs = vs + scd::feature_response<true>(base, plane, W1,
+                                            boxes + f * kBoxInts,
+                                            feats + f * kFeatFloats);
     }
     alive = vs > __ldg(thresholds + s);
   }

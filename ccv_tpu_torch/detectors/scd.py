@@ -1,22 +1,33 @@
 """SCD (SURF-cascade) face detector (counterpart of ccv_tpu/detectors/scd.py;
 reference: lib/ccv_scd.c).
 
-The main path, per image:
+The main path, per image or per batch of same-shape images:
 
 1. host: plan the pyramid levels (``_level_specs``);
 2. per octave, on the device, per level: INTER_AREA resample, margin pad,
    the 8-channel gradient map (``scd_map_cf8``) and its zero-padded SAT
-   (``_sat_cf8``), stacked into one ``(L, 8, H1, W1)`` tensor;
-3. one launch of the cascade kernel K1 per octave over every stride-4
-   window of every level (ops/kernels/scd_cascade.py);
+   (``_sat_cf8``), stacked into one ``(B*L, 8, H1, W1)`` tensor: a batch's
+   levels ride the kernels' level axis;
+3. per octave, the cascade over every stride-4 window of every level, in
+   one of two forms (``form=``):
+   - ``"pallas_full"`` (the default): one launch of the full-cascade kernel
+     K1 (ops/kernels/scd_cascade.py);
+   - ``"pallas"``: the staged cascade (``_staged_eval``, ccv_tpu's
+     ``_eval_level``): phase A, the leading stages, over every window in one
+     launch of kernel K3 (ops/kernels/scd_phase.py); phase B1, the next
+     block of stages, densely as torch ops; one compaction to the first K2
+     survivors in window order; phase B2, the rest, on them;
 4. ``sample_down`` to the next octave;
-5. host: one device->host copy of the per-level ``passed`` / ``conf``
-   planes, windows -> rects in window order (``_comps_from_levels``), then
-   ``merge_detections``.
+5. host: one device->host copy for the image or batch, windows -> rects in
+   window order (``_comps_from_levels``), then ``merge_detections``. In the
+   staged form a level with more survivors than K2 is run again from its
+   octave's source at full capacity (the overflow rerun).
 
 ``detect_async`` queues steps 1-4 without waiting for the device;
-``detect_collect`` does step 5. Cascade files are the reference's SQLite
-format (ccv_scd.c:1547), read with Python's sqlite3.
+``detect_collect`` does step 5; ``detect_batch`` does both for a batch.
+ccv_tpu's other staged forms (``slices``, ``xla``, ``matmul``) and its
+autotuned choice between forms are not ported. Cascade files are the
+reference's SQLite format (ccv_scd.c:1547), read with Python's sqlite3.
 """
 
 from __future__ import annotations
@@ -24,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import sqlite3
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +44,16 @@ import torch.nn.functional as F
 from ccv_tpu_torch import device as _device
 from ccv_tpu_torch.core.dense_matrix import as_array
 from ccv_tpu_torch.detectors.common import Comp, merge_detections
+from ccv_tpu_torch.device import to_device
 from ccv_tpu_torch.ops import basic, resample
-from ccv_tpu_torch.ops.kernels import scd_cascade
+from ccv_tpu_torch.ops.kernels import scd_cascade, scd_phase
+from ccv_tpu_torch.ops.kernels.scd_cascade import CascadeTables
+
+FORMS = ("pallas_full", "pallas")
+
+# levels of the staged form run again at full capacity because more windows
+# survived phases A and B1 than K2 holds (the overflow rerun)
+RERUNS = 0
 
 
 @dataclasses.dataclass
@@ -124,8 +143,7 @@ def cascade_from_numpy(fields: dict) -> ScdClassifierCascade:
         **{k: np.array(fields[k], np.float32) for k in floats})
 
 
-def cascade_tables(cascade: ScdClassifierCascade
-                   ) -> scd_cascade.CascadeTables:
+def cascade_tables(cascade: ScdClassifierCascade) -> CascadeTables:
     """The kernel's tables for ``cascade``, built once and kept on it."""
     tabs = getattr(cascade, "_tables", None)
     if tabs is None:
@@ -137,6 +155,87 @@ def cascade_tables(cascade: ScdClassifierCascade
 
 
 # ---------------------------------------------------------------------------
+# the staged cascade's phases and capacities
+# ---------------------------------------------------------------------------
+
+_EARLY_FEATS = 16  # stages up to this cumulative feature count: phase A
+_MID_FEATS = 64    # the next stage block's feature budget: phase B1
+
+
+def phase_split(stage_counts) -> Tuple[int, int]:
+    """(split, split2): phase A is stages [0, split), B1 [split, split2),
+    B2 the rest. Phase A holds at least stage 0, even past _EARLY_FEATS
+    features, and B1 at least one stage when any is left."""
+    counts = [int(c) for c in stage_counts]
+    split, cum = 0, 0
+    while split < len(counts) and cum + counts[split] <= _EARLY_FEATS:
+        cum += counts[split]
+        split += 1
+    split = max(1, split)
+    split2, cum2 = split, 0
+    while split2 < len(counts) and cum2 + counts[split2] <= _MID_FEATS:
+        cum2 += counts[split2]
+        split2 += 1
+    return split, max(split + 1, split2)
+
+
+@dataclasses.dataclass
+class StagedTables:
+    """The staged cascade's per-phase tables; B1 or B2 is None when no
+    stage is left for it."""
+
+    phase_a: CascadeTables
+    phase_b1: Optional[CascadeTables]
+    phase_b2: Optional[CascadeTables]
+    n_stages: int
+    last_count: float             # the last stage's feature count
+
+
+def staged_tables(cascade: ScdClassifierCascade) -> StagedTables:
+    """The staged form's tables for ``cascade``, built once and kept on it
+    (apart from the full-cascade tables of ``cascade_tables``)."""
+    tabs = getattr(cascade, "_staged", None)
+    if tabs is None:
+        split, split2 = phase_split(cascade.stage_counts)
+        S = cascade.n_stages
+
+        def phase(s0, s1):
+            if s0 >= min(s1, S):
+                return None
+            return scd_phase.phase_tables(
+                cascade.thresholds, cascade.sx, cascade.sy, cascade.dx,
+                cascade.dy, cascade.bias, cascade.w, cascade.stage_of, s0,
+                min(s1, S))
+
+        tabs = StagedTables(phase_a=phase(0, split),
+                            phase_b1=phase(split, split2),
+                            phase_b2=phase(split2, S), n_stages=S,
+                            last_count=float(cascade.stage_counts[-1]))
+        cascade._staged = tabs
+    return tabs
+
+
+def _level_capacity(nwin: int) -> int:
+    """ccv_tpu's phase-B1 buffer size (~1.3x the worst phase-A survivor rate
+    it observed). The staged form here runs B1 densely and needs it only to
+    bound K2."""
+    return int(min(nwin, max(128, nwin // 14)))
+
+
+def _level_capacity2(nwin: int) -> int:
+    """K2, the phase-B2 buffer size: ~2x the worst post-B1 survivor rate
+    ccv_tpu observed (~1%). More survivors make the host rerun the level at
+    full capacity."""
+    return int(min(_level_capacity(nwin), max(64, nwin // 48)))
+
+
+def _out_len(tabs: StagedTables, nwin: int, K2: int) -> int:
+    """Rows a level gives in the staged form: every window when there is no
+    phase B2 (phases A and B1 are dense), else the K2 compacted ones."""
+    return nwin if tabs.phase_b2 is None else K2
+
+
+# ---------------------------------------------------------------------------
 # feature map and SAT
 # ---------------------------------------------------------------------------
 
@@ -144,11 +243,12 @@ def scd_map_cf8(img: torch.Tensor) -> torch.Tensor:
     """Channels-first (8, H, W) float32 gradient map: the first 8 scd_map
     channels [dx, dy, du, dv, |dx|, |dy|, |du|, |dv|], the only ones the
     cascade features read (ccv_scd.c:325, :445). blur(0.5) -> four 3-tap
-    sobels -> per-pixel strongest channel for color images."""
+    sobels -> per-pixel strongest channel for color images. ``img`` is
+    (H, W), (H, W, C), or a batch (B, H, W, C) -> (B, 8, H, W)."""
     blurred = basic.blur(img, sigma=0.5)
     grads = [basic.sobel(blurred, 1, 0), basic.sobel(blurred, 0, 1),
              basic.sobel(blurred, 1, 1), basic.sobel(blurred, -1, 1)]
-    color = img.dim() == 3 and img.shape[-1] == 3
+    color = img.dim() >= 3 and img.shape[-1] == 3
     chans = []
     for gim in grads:
         gf = gim.to(torch.float32)
@@ -159,19 +259,19 @@ def scd_map_cf8(img: torch.Tensor) -> torch.Tensor:
             a0, a1, a2 = g0.abs(), g1.abs(), g2.abs()
             v = torch.where(a1 > a0, g1, g0)
             gf = torch.where(a2 > torch.maximum(a0, a1), g2, v)
-        elif gf.dim() == 3:
+        elif gf.dim() >= 3:
             gf = gf[..., 0]
         chans.append(gf)
-    return torch.stack(chans + [c.abs() for c in chans], dim=0)
+    return torch.stack(chans + [c.abs() for c in chans], dim=-3)
 
 
 def _sat_cf8(x: torch.Tensor) -> torch.Tensor:
-    """Zero-padded summed-area table of a channels-first (C, H, W) map:
-    (C, H+1, W+1) float32, summed along W then H as ccv_tpu does."""
-    C, H, W = x.shape
-    out = x.new_zeros((C, H + 1, W + 1), dtype=torch.float32)
-    out[:, 1:, 1:] = torch.cumsum(torch.cumsum(x.to(torch.float32), dim=2),
-                                  dim=1)
+    """Zero-padded summed-area table of a channels-first (..., C, H, W) map:
+    (..., C, H+1, W+1) float32, summed along W then H as ccv_tpu does."""
+    H, W = x.shape[-2:]
+    out = x.new_zeros(x.shape[:-2] + (H + 1, W + 1), dtype=torch.float32)
+    out[..., 1:, 1:] = torch.cumsum(torch.cumsum(x.to(torch.float32), dim=-1),
+                                    dim=-2)
     return out
 
 
@@ -207,26 +307,28 @@ def _level_specs(H: int, W: int, cascade: ScdClassifierCascade,
 
 
 def _octave_sats(src: torch.Tensor, lspecs, margin) -> torch.Tensor:
-    """(L, 8, H1, W1) SAT stack of one octave's levels, zero-padded to the
-    largest: per level, INTER_AREA resample of the octave source -> margin
-    pad -> scd_map_cf8 -> _sat_cf8."""
+    """(B*L, 8, H1, W1) SAT stack of one octave's levels for a (B, H, W, C)
+    batch of octave sources, image-major and zero-padded to the largest
+    level: per level, INTER_AREA resample -> margin pad -> scd_map_cf8 ->
+    _sat_cf8, each over the whole batch."""
+    B, H, W = src.shape[:3]
     sats = []
     for (k, rows, cols, _ny, _nx) in lspecs:
         image = src if k == 0 else resample.resample(
-            src, rows=rows, cols=cols, rows_scale=rows / src.shape[0],
-            cols_scale=cols / src.shape[1], interp=resample.INTER_AREA)
+            src, rows=rows, cols=cols, rows_scale=rows / H,
+            cols_scale=cols / W, interp=resample.INTER_AREA)
         if any(margin):
             image = F.pad(image, (0, 0, margin[0], margin[2], margin[1],
                                   margin[3]))
-        sats.append(_sat_cf8(scd_map_cf8(image)))
-    H1 = max(s.shape[1] for s in sats)
-    W1 = max(s.shape[2] for s in sats)
+        sats.append(_sat_cf8(scd_map_cf8(image)))      # (B, 8, h1, w1)
+    H1 = max(s.shape[2] for s in sats)
+    W1 = max(s.shape[3] for s in sats)
     if len(sats) == 1:
-        return sats[0][None]
-    out = sats[0].new_zeros((len(sats), 8, H1, W1))
+        return sats[0]
+    out = sats[0].new_zeros((B, len(sats), 8, H1, W1))
     for i, s in enumerate(sats):
-        out[i, :, :s.shape[1], :s.shape[2]] = s
-    return out
+        out[:, i, :, :s.shape[2], :s.shape[3]] = s
+    return out.reshape(B * len(sats), 8, H1, W1)
 
 
 def octave_sats(img, cascade: ScdClassifierCascade,
@@ -238,12 +340,15 @@ def octave_sats(img, cascade: ScdClassifierCascade,
     int64 array of their window grids. Each SAT stack is made only when the
     iterator reaches it."""
     params = params or ScdParams()
-    a = _image(img, cascade, params, device)
-    specs, scale_upto = _level_specs(a.shape[0], a.shape[1], cascade, params)
-    return specs, _octaves(a, specs, scale_upto, cascade.margin)
+    a = _image(img, cascade, params, device)[None]
+    specs, scale_upto = _level_specs(a.shape[1], a.shape[2], cascade, params)
+    return specs, ((lspecs, sat_l, dims) for _o, _src, lspecs, sat_l, dims
+                   in _octaves(a, specs, scale_upto, cascade.margin))
 
 
 def _octaves(src: torch.Tensor, specs, scale_upto: int, margin):
+    """Yields (octave, source, lspecs, sat_l, dims) for every octave of a
+    (B, H, W, C) batch that has levels; dims is per image, (L, 2)."""
     by_octave: dict = {}
     for (octave, k, rows, cols, ny, nx, _scale) in specs:
         by_octave.setdefault(octave, []).append((k, rows, cols, ny, nx))
@@ -251,16 +356,20 @@ def _octaves(src: torch.Tensor, specs, scale_upto: int, margin):
         lspecs = by_octave.get(octave, [])
         if lspecs:
             dims = np.array([(ny, nx) for (*_r, ny, nx) in lspecs], np.int64)
-            yield lspecs, _octave_sats(src, lspecs, margin), dims
+            yield octave, src, lspecs, _octave_sats(src, lspecs, margin), dims
         if octave < scale_upto - 1:
             src = resample.sample_down(src)
 
 
 def _image(img, cascade: ScdClassifierCascade, params: ScdParams,
-           device: _device.DeviceLike) -> torch.Tensor:
+           device: _device.DeviceLike, batch: bool = False) -> torch.Tensor:
+    """(H, W, C), or (B, H, W, C) with ``batch``, on the device."""
     a = as_array(img, device)
-    if a.dim() == 2:
+    if a.dim() == (3 if batch else 2):
         a = a[..., None]
+    if a.dim() != (4 if batch else 3):
+        want = "(B, H, W[, C])" if batch else "(H, W[, C])"
+        raise ValueError(f"expected {want} images, got {tuple(a.shape)}")
     size_w, size_h = params.size
     up_ratio = max(1.0, cascade.width / size_w, cascade.height / size_h)
     if up_ratio - 1.0 > 1e-4:
@@ -272,89 +381,266 @@ def _image(img, cascade: ScdClassifierCascade, params: ScdParams,
 
 
 # ---------------------------------------------------------------------------
+# the staged cascade (ccv_tpu's _eval_level, accelerator branch)
+# ---------------------------------------------------------------------------
+
+# SAT floats gathered per chunk of phase-B2 features: 128 MB
+_GATHER_FLOATS = 1 << 25
+
+
+def _stage_sums_at(sat_l: torch.Tensor, tables: CascadeTables, step: int,
+                   wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+    """(Lb, S, K) stage sums of ``tables`` at windows ``(wy, wx)``, each
+    (Lb, K), of every level: each feature's 16 SAT corners gathered per
+    window and its box sums taken as ``c0 - c1 - c2 + c3`` (no corner
+    matrix product: SAT values reach ~1e6 at 1080p), then K1's per-feature
+    math as tensor ops. Features go in chunks that bound the gather."""
+    Lb, C, H1, W1 = sat_l.shape
+    K, F = wy.shape[1], tables.n_features
+    dev = sat_l.device
+    b = tables.boxes.astype(np.int64)      # (F, 4, 4): sy, sx, dy, dx
+    sy, sx, dy, dx = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    off = to_device(np.stack([sy * W1 + sx, sy * W1 + dx, dy * W1 + sx,
+                              dy * W1 + dx], axis=-1).reshape(F, 16), dev)
+    feats = tables.on(dev)["feats"]
+    w = feats[:, :32].reshape(F, 4, C).permute(2, 0, 1)   # (C, F, 4)
+    base = (wy * (step * W1) + wx * step).to(torch.int64)
+    flat = sat_l.reshape(Lb, C, H1 * W1)
+    chunk = max(1, _GATHER_FLOATS // (Lb * C * K * 16))
+    resp = []
+    for f0 in range(0, F, chunk):
+        f1 = min(F, f0 + chunk)
+        idx = (base[:, :, None] + off[f0:f1].reshape(1, 1, -1)).reshape(
+            Lb, 1, -1)
+        g = flat.gather(2, idx.expand(Lb, C, idx.shape[2])).reshape(
+            Lb, C, K, f1 - f0, 4, 4)
+        box = ((g[..., 0] - g[..., 1]) - g[..., 2]) + g[..., 3]
+        # squares summed over boxes, then over channels
+        inv = 1.0 / (torch.sqrt((box * box).sum(-1).sum(1)) + 1e-6)
+        u = torch.clamp(box * inv[:, None, :, :, None], -scd_cascade.THETA,
+                        scd_cascade.THETA)
+        inv2 = 1.0 / (torch.sqrt((u * u).sum(-1).sum(1)) + 1e-6)
+        dot = (u * w[None, :, None, f0:f1]).sum(-1).sum(1)  # (Lb, K, Fc)
+        resp.append(torch.tanh(0.5 * (dot * inv2 + feats[f0:f1, 32])))
+    resp = torch.cat(resp, dim=-1)
+    return torch.stack([resp[..., f0:f1].sum(-1)
+                        for f0, f1 in tables.stage_ranges], dim=1)
+
+
+def _dense_rows(passed: torch.Tensor, conf: torch.Tensor, dims):
+    """Per level, (ny*nx, 3) rows [window index, passed, conf] of every
+    window of its grid, in window order."""
+    rows = []
+    for li, (ny, nx) in enumerate(dims):
+        n = int(ny) * int(nx)
+        rows.append(torch.stack([
+            torch.arange(n, dtype=torch.float32, device=conf.device),
+            passed[li, :ny, :nx].reshape(n).to(torch.float32),
+            conf[li, :ny, :nx].reshape(n)], dim=1))
+    return rows
+
+
+def _staged_eval(sat_l: torch.Tensor, dims, tabs: StagedTables, step: int,
+                 caps, phase_a: Callable):
+    """The staged cascade over every window of every level of ``sat_l``:
+    phase A over every window (``phase_a``, kernel K3 on the card), phase B1
+    densely, then ONE compaction of the A&B1 survivors to the first
+    ``caps[l]`` in window order (a stable sort: ``argsort(~alive)``) and
+    phase B2 on them. No step waits for the device.
+
+    Returns (rows, counts): per level a float32 (n, 3) tensor of rows
+    [window index (wy * nx + wx), passed, conf], n = ``_out_len``, and the
+    (Lb, 2) survivor counts of phase A and of A&B1 (0 without B2)."""
+    dev = sat_l.device
+    Lb = sat_l.shape[0]
+    NX = int(dims[:, 1].max())
+    conf_a, alive = phase_a(sat_l, tabs.phase_a, step, dims)
+    count_a = alive.sum(dim=(1, 2))
+    zero = torch.zeros_like(count_a)
+
+    def norm(v):
+        return v / tabs.last_count + (tabs.n_stages - 1)
+
+    if tabs.phase_b1 is None:
+        return (_dense_rows(alive, norm(conf_a), dims),
+                torch.stack([count_a, zero], 1).to(torch.float32))
+    vs1 = scd_cascade.cascade_stage_sums_ref(sat_l, tabs.phase_b1, step,
+                                             dims)
+    th1 = tabs.phase_b1.on(dev)["thresholds"]
+    alive = alive & (vs1 > th1[None, :, None, None]).all(dim=1)
+    if tabs.phase_b2 is None:
+        return (_dense_rows(alive, norm(vs1[:, -1]), dims),
+                torch.stack([count_a, zero], 1).to(torch.float32))
+    count_b1 = alive.sum(dim=(1, 2))
+    K = max(caps)
+    flat = alive.reshape(Lb, -1)
+    order = torch.sort((~flat).to(torch.uint8), dim=1,
+                       stable=True).indices[:, :K]
+    wy, wx = order // NX, order % NX
+    vs2 = _stage_sums_at(sat_l, tabs.phase_b2, step, wy, wx)
+    th2 = tabs.phase_b2.on(dev)["thresholds"]
+    cap = to_device(np.asarray(caps, np.int64), dev)
+    # padding slots past the survivors hold dead windows: masked
+    valid = ((torch.arange(K, device=dev)[None]
+              < torch.minimum(count_b1, cap)[:, None])
+             & flat.gather(1, order))
+    passed = (vs2 > th2[None, :, None]).all(dim=1) & valid
+    nx = to_device(np.asarray(dims[:, 1], np.int64), dev)
+    rows = torch.stack([(wy * nx[:, None] + wx).to(torch.float32),
+                        passed.to(torch.float32), norm(vs2[:, -1])], dim=-1)
+    return ([rows[li, :c] for li, c in enumerate(caps)],
+            torch.stack([count_a, count_b1], 1).to(torch.float32))
+
+
+def staged_level(src: torch.Tensor, spec, cascade: ScdClassifierCascade,
+                 params: ScdParams, evaluate: Optional[Callable] = None):
+    """One level of the staged form from its octave's (H, W, C) source, at
+    the capacity of every window, as the overflow rerun runs it. Waits for
+    the device; returns numpy (idx, passed, conf, count2)."""
+    (_octave, k, rows, cols, ny, nx, _scale) = spec
+    sat = _octave_sats(src[None], [(k, rows, cols, ny, nx)], cascade.margin)
+    out, counts = _staged_eval(
+        sat, np.array([[ny, nx]], np.int64), staged_tables(cascade),
+        params.step_through, [ny * nx], evaluate or scd_phase.phase_a)
+    arr = out[0].cpu().numpy()
+    return (arr[:, 0].astype(np.int64), arr[:, 1] != 0.0, arr[:, 2],
+            counts[0].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
 # detect
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class _Pending:
-    """A detect_async dispatch: the packed planes on their way to the host."""
+    """A detect_async / detect_batch dispatch: the packed results of every
+    image on their way to the host."""
 
-    host: torch.Tensor            # flat float32, per octave (2, L, NY, NX)
+    host: torch.Tensor            # (B, N) float32: per image, per octave
     ready: Optional[torch.cuda.Event]
-    layout: list                  # per octave (offset, L, NY, NX)
+    layout: list                  # per octave (offset, L, NY, NX) for
+    #   "pallas_full" (passed and conf planes), (offset, lens) for "pallas"
+    #   (rows, then the count pairs)
     specs: tuple
-    eff_w: int
-    eff_h: int
+    cascade: ScdClassifierCascade
     params: ScdParams
+    form: str
+    evaluate: Callable
+    pyr: dict                     # "pallas": octave -> its (B, H, W, C)
+    #   source on the device, for the overflow rerun
+
+
+def _dispatch(a: torch.Tensor, cascade: ScdClassifierCascade,
+              params: ScdParams, form: str,
+              evaluate: Optional[Callable]) -> _Pending:
+    """Queue a (B, H, W, C) batch: per octave one launch of K1 or K3 for
+    every level of every image, then one copy of the packed results to
+    pinned host memory, all without waiting for the device."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    B, H, W = a.shape[:3]
+    step = params.step_through
+    specs, scale_upto = _level_specs(H, W, cascade, params)
+    if form == "pallas_full":
+        tabs = cascade_tables(cascade)
+        evaluate = evaluate or scd_cascade.cascade_eval_levels
+    else:
+        tabs = staged_tables(cascade)
+        evaluate = evaluate or scd_phase.phase_a
+    pieces, layout, pyr, offset = [], [], {}, 0
+    for octave, src, lspecs, sat_l, dims in _octaves(a, specs, scale_upto,
+                                                      cascade.margin):
+        L, dims_b = len(lspecs), np.tile(dims, (B, 1))
+        if form == "pallas_full":
+            conf, passed = evaluate(sat_l, tabs, step, dims_b)
+            conf = (conf / float(cascade.stage_counts[-1])
+                    + (cascade.n_stages - 1))
+            piece = torch.stack([passed.to(torch.float32), conf]).reshape(
+                2, B, -1).transpose(0, 1).reshape(B, -1)
+            layout.append((offset, L) + tuple(conf.shape[1:]))
+        else:
+            caps = [_level_capacity2(int(ny) * int(nx)) for ny, nx in dims]
+            rows, counts = _staged_eval(sat_l, dims_b, tabs, step, caps * B,
+                                        evaluate)
+            piece = torch.cat([torch.cat(rows).reshape(B, -1),
+                               counts.reshape(B, -1)], dim=1)
+            layout.append((offset, tuple(
+                _out_len(tabs, int(ny) * int(nx), cap)
+                for (ny, nx), cap in zip(dims, caps))))
+            pyr[octave] = src
+        pieces.append(piece)
+        offset += piece.shape[1]
+    ready = None
+    if not pieces:
+        host = torch.zeros((B, 0))
+    else:
+        packed = torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0]
+        if packed.device.type == "cuda":
+            # start the one device->host copy now, into pinned memory, so a
+            # caller pipelining images overlaps it with the next dispatch
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(packed.device))
+        else:
+            host = packed
+    return _Pending(host, ready, layout, specs, cascade, params, form,
+                    evaluate, pyr)
 
 
 def detect_async(img, cascade: ScdClassifierCascade,
                  params: Optional[ScdParams] = None,
                  device: _device.DeviceLike = None,
-                 evaluate: Optional[Callable] = None) -> _Pending:
-    """Queue the pyramid and one cascade launch per octave without waiting
+                 evaluate: Optional[Callable] = None,
+                 form: str = "pallas_full") -> _Pending:
+    """Queue the pyramid and one kernel launch per octave without waiting
     for the device; returns a handle for detect_collect. ``img`` is
     (H, W[, C]) on ``device`` (default: where a tensor is, else the default
-    device). ``evaluate`` replaces the cascade evaluator (same signature as
-    ``scd_cascade.cascade_eval_levels``) to compare it with another."""
+    device). ``form`` is "pallas_full" (kernel K1, the whole cascade) or
+    "pallas" (the staged cascade, kernel K3 for phase A). ``evaluate``
+    replaces the form's kernel (same signature as
+    ``scd_cascade.cascade_eval_levels`` or ``scd_phase.phase_a``) to compare
+    it with another."""
     params = params or ScdParams()
-    evaluate = evaluate or scd_cascade.cascade_eval_levels
-    tabs = cascade_tables(cascade)
-    last_count = float(cascade.stage_counts[-1])
-    specs, octaves = octave_sats(img, cascade, params, device)
-    pieces, layout, offset = [], [], 0
-    for _lspecs, sat_l, dims in octaves:
-        conf, passed = evaluate(sat_l, tabs, params.step_through, dims)
-        conf = conf / last_count + (cascade.n_stages - 1)
-        pieces.append(torch.stack([passed.to(torch.float32), conf]).reshape(-1))
-        layout.append((offset,) + tuple(conf.shape))
-        offset += pieces[-1].numel()
-    eff_h = cascade.height - cascade.margin[1] - cascade.margin[3]
-    eff_w = cascade.width - cascade.margin[0] - cascade.margin[2]
-    if not pieces:
-        return _Pending(torch.zeros(0), None, [], specs, eff_w, eff_h, params)
-    packed = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
-    ready = None
-    if packed.device.type == "cuda":
-        # start the one device->host copy now, into pinned memory, so a
-        # caller pipelining images overlaps it with the next dispatch
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(packed.device))
-    else:
-        host = packed
-    return _Pending(host, ready, layout, specs, eff_w, eff_h, params)
+    return _dispatch(_image(img, cascade, params, device)[None], cascade,
+                     params, form, evaluate)
 
 
 def _comps_from_levels(outs, specs, eff_w: int, eff_h: int,
                        step: int) -> List[Comp]:
-    """Host edge: per-level (passed, conf) planes -> Comp list, levels in
-    ``specs`` order and windows in row-major order within a level. The
-    rect arithmetic is ccv_tpu's, vectorised: float64 then truncation
-    toward zero, as Python's int() does."""
+    """Host edge: per level in ``specs`` order, (idx, conf) of its passed
+    windows in window order (idx = wy * nx + wx) -> Comp list. The rect
+    arithmetic is ccv_tpu's, vectorised: float64 then truncation toward
+    zero, as Python's int() does."""
     comps: List[Comp] = []
-    for spec, (passed, conf) in zip(specs, outs):
+    for spec, (idx, conf) in zip(specs, outs):
         (octave, _k, _rows, _cols, _ny, nx, scale) = spec
         sc = scale * (1 << octave)
-        idx = np.flatnonzero(passed)
-        wy, wx = np.divmod(idx, nx)
+        wy, wx = np.divmod(np.asarray(idx, np.int64), nx)
         xs = ((wx * step + 0.5) * sc - 0.5).astype(np.int64).tolist()
         ys = ((wy * step + 0.5) * sc - 0.5).astype(np.int64).tolist()
         width, height = int(eff_w * sc), int(eff_h * sc)
         comps.extend(
             Comp(x=x, y=y, width=width, height=height, confidence=c,
                  classification_id=1)
-            for x, y, c in zip(xs, ys, conf.reshape(-1)[idx].tolist()))
+            for x, y, c in zip(xs, ys, np.asarray(conf).tolist()))
     return comps
 
 
-def level_planes(handle: _Pending):
-    """Wait for a dispatch; per level in specs order, (passed (ny, nx) bool,
-    conf (ny, nx) float32) numpy planes."""
+def _host(handle: _Pending, b: int) -> np.ndarray:
     if handle.ready is not None:
         handle.ready.synchronize()
-    arr = handle.host.numpy()
+    return handle.host[b].numpy()
+
+
+def level_planes(handle: _Pending, b: int = 0):
+    """Wait for a "pallas_full" dispatch; per level of image ``b`` in specs
+    order, (passed (ny, nx) bool, conf (ny, nx) float32) numpy planes."""
+    if handle.form != "pallas_full":
+        raise ValueError(f"level_planes reads a pallas_full dispatch, not "
+                         f"{handle.form!r}: use level_rows")
+    arr = _host(handle, b)
     outs = []
     for offset, L, NY, NX in handle.layout:
         grid = arr[offset:offset + 2 * L * NY * NX].reshape(2, L, NY, NX)
@@ -363,18 +649,77 @@ def level_planes(handle: _Pending):
             for g, (*_r, ny, nx, _s) in zip(outs, handle.specs)]
 
 
+def level_rows(handle: _Pending, b: int = 0):
+    """Wait for a "pallas" dispatch; per level of image ``b`` in specs
+    order, numpy (idx, passed, conf, count2) as the device left them (no
+    overflow rerun)."""
+    if handle.form != "pallas":
+        raise ValueError(f"level_rows reads a pallas dispatch, not "
+                         f"{handle.form!r}: use level_planes")
+    arr = _host(handle, b)
+    outs = []
+    for offset, lens in handle.layout:
+        n = sum(lens)
+        rows = arr[offset:offset + 3 * n].reshape(n, 3)
+        counts = arr[offset + 3 * n:offset + 3 * n + 2 * len(lens)].reshape(
+            -1, 2)
+        starts = np.cumsum((0,) + lens)
+        outs.extend((rows[s:e, 0].astype(np.int64), rows[s:e, 1] != 0.0,
+                     rows[s:e, 2], counts[li])
+                    for li, (s, e) in enumerate(zip(starts[:-1], starts[1:])))
+    return outs
+
+
+def _collect(handle: _Pending, b: int) -> List[Comp]:
+    """Image ``b`` of a dispatch: its passed windows (rerunning any level
+    whose survivors overflowed K2) -> rects -> merge_detections."""
+    global RERUNS
+    cascade, params = handle.cascade, handle.params
+    outs = []
+    if handle.form == "pallas_full":
+        for passed, conf in level_planes(handle, b):
+            idx = np.flatnonzero(passed)
+            outs.append((idx, conf.reshape(-1)[idx]))
+    else:
+        for spec, (idx, passed, conf, count2) in zip(
+                handle.specs, level_rows(handle, b)):
+            if count2[1] > _level_capacity2(spec[4] * spec[5]):
+                RERUNS += 1
+                idx, passed, conf, _ = staged_level(
+                    handle.pyr[spec[0]][b], spec, cascade, params,
+                    evaluate=handle.evaluate)
+            outs.append((idx[passed], conf[passed]))
+    eff_h = cascade.height - cascade.margin[1] - cascade.margin[3]
+    eff_w = cascade.width - cascade.margin[0] - cascade.margin[2]
+    comps = _comps_from_levels(outs, handle.specs, eff_w, eff_h,
+                               params.step_through)
+    return merge_detections(comps, params.min_neighbors)
+
+
 def detect_collect(handle: _Pending) -> List[Comp]:
     """Wait for a detect_async dispatch and run the host-edge grouping."""
-    comps = _comps_from_levels(level_planes(handle), handle.specs,
-                               handle.eff_w, handle.eff_h,
-                               handle.params.step_through)
-    return merge_detections(comps, handle.params.min_neighbors)
+    return _collect(handle, 0)
 
 
 def detect(img, cascade: ScdClassifierCascade,
            params: Optional[ScdParams] = None,
            device: _device.DeviceLike = None,
-           evaluate: Optional[Callable] = None) -> List[Comp]:
+           evaluate: Optional[Callable] = None,
+           form: str = "pallas_full") -> List[Comp]:
     """ccv_scd_detect_objects twin (ccv_scd.c:1653) for a single cascade."""
     return detect_collect(detect_async(img, cascade, params, device,
-                                       evaluate))
+                                       evaluate, form))
+
+
+def detect_batch(imgs, cascade: ScdClassifierCascade,
+                 params: Optional[ScdParams] = None,
+                 device: _device.DeviceLike = None,
+                 form: str = "pallas_full") -> List[List[Comp]]:
+    """``detect`` for a (B, H, W[, C]) batch of same-shape images: one
+    kernel launch per octave for the whole batch (its B*L levels on the
+    kernel's level axis) and one device->host copy; a level that overflows
+    K2 is rerun for its image alone."""
+    params = params or ScdParams()
+    handle = _dispatch(_image(imgs, cascade, params, device, batch=True),
+                       cascade, params, form, None)
+    return [_collect(handle, b) for b in range(handle.host.shape[0])]

@@ -2,8 +2,9 @@
 
 Each library is compiled with nvcc for Hopper (``sm_90a``) from the sources
 in ``ccv_tpu_torch/csrc`` into ``ccv_tpu_torch/_build`` (not committed) and
-loaded with ctypes. The file name carries a hash of the sources and the
-flags, so an edited source is rebuilt and a fresh checkout builds
+loaded with ctypes. The file name carries a hash of the sources, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a fresh checkout builds
 everything it calls. Nothing here runs at import time: the CPU tests import
 every module on machines with no nvcc.
 """
@@ -47,7 +48,7 @@ def nvcc_path() -> str:
 
 def _key(sources: Sequence[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -16,7 +16,14 @@ started together) and drives the port's two main paths:
   parity tests' shapes and the LM's, a 2-layer step at the LM's widths with
   the kernels against one with plain attention, then
   ``ccv_tpu_torch.bin.lm_bench.measure`` at its defaults (GPT-2-medium
-  shape, 24 layers) for a warm-up step and a few timed steps.
+  shape, 24 layers) for a warm-up step and a few timed steps;
+- the staged SCD cascade (phases 8-9): the phase-A kernel K3 against its
+  plain version (synthetic cascades, one whose stage 0 holds 20 features,
+  the face cascade's phase A at the 1080p level-0 SAT), then
+  ``detect(form="pallas")`` on crop180 against the C goldens with its
+  overflow reruns counted, at 640x480 and 1920x1080 against
+  ``form="pallas_full"`` with both timed in turns, and ``detect_batch`` of
+  four 1080p frames in both forms against per-image ``detect``.
 
 Prints one line per phase, then a JSON line of kernel results, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -330,6 +337,187 @@ def margin_rects(scd, k1, img, cascade, params, dev):
     return rect_set(scd._comps_from_levels(outs, specs, eff_w, eff_h, STEP))
 
 
+def phase_a_vs_plain(k1, k3, tables, sat_l, dims):
+    """K3 and its plain version on the same SAT stack. Returns (max |conf
+    difference| over every window, windows passed, windows in the margin).
+    K3's conf is the last phase-A stage's sum for every window, so it is
+    compared everywhere, passed or not."""
+    vs = k1.cascade_stage_sums_ref(sat_l, tables, STEP, dims)
+    conf0, pass0 = k3.phase_a_ref(sat_l, tables, STEP, dims)
+    conf1, pass1 = k3.phase_a(sat_l, tables, STEP, dims)
+    torch.cuda.synchronize()
+    th = torch.as_tensor(tables.thresholds, device=sat_l.device)
+    margin_ok = ((vs - th[None, :, None, None]).abs() > MARGIN).all(dim=1)
+    differ = int(((pass0 != pass1) & margin_ok).sum())
+    check(differ == 0, f"K3 and plain disagree on {differ} windows outside "
+                       f"the {MARGIN} margin")
+    check(bool(pass0.any()), "no window passed: the comparison is vacuous")
+    err = (conf0 - conf1).abs()
+    check(bool((err <= ATOL + RTOL * conf0.abs()).all()),
+          f"K3 conf differs by up to {float(err.max())}")
+    return float(err.max()), int(pass0.sum()), int((~margin_ok).sum())
+
+
+def k3_vs_plain(scd, k1, k3, dev, card, sat0, dims0, face, face_med):
+    """Phase 8: K3 against its plain version on the synthetic dims K1 is
+    checked on, on a cascade whose stage 0 holds 20 features (phase A takes
+    it past the 16), and on the face cascade's phase A at the 1080p level-0
+    SAT with near-median and open thresholds; then both timed there."""
+    max_err = 0.0
+    rng = np.random.default_rng(8)
+    for counts, dims in (((2, 3, 4, 5, 6), [[11, 21]]),
+                         ((2, 3, 4, 5, 6), [[8, 128]]),
+                         ((2, 3, 4, 5, 6), [[17, 140]]),
+                         ((2, 3, 4, 5, 6), [[13, 140], [9, 100], [5, 60]]),
+                         ((20, 3, 4), [[17, 140]])):
+        dims = np.asarray(dims)
+        cascade = synth_cascade(scd, rng, counts)
+        H1 = (dims[:, 0].max() - 1) * STEP + cascade.height + 1
+        W1 = (dims[:, 1].max() - 1) * STEP + cascade.width + 1
+        sat_l = torch.from_numpy(rng.normal(0, 10, (len(dims), 8, H1, W1))
+                                 .astype(np.float32)).to(dev)
+        cascade = with_median_thresholds(scd, k1, cascade, sat_l, dims)
+        tables = scd.staged_tables(cascade).phase_a
+        err, n, near = phase_a_vs_plain(k1, k3, tables, sat_l, dims)
+        max_err = max(max_err, err)
+        log(8, f"stages {counts}, phase A {tables.n_stages} stages / "
+               f"{tables.n_features} features, dims {dims.tolist()}: {n} "
+               f"passed, {near} in the margin, max conf diff {err:.3g}")
+    for name, cascade in (("near-median", face_med), ("open", face)):
+        tables = scd.staged_tables(cascade).phase_a
+        err, n, near = phase_a_vs_plain(k1, k3, tables, sat0, dims0)
+        max_err = max(max_err, err)
+        log(8, f"face cascade phase A ({tables.n_stages} stages, "
+               f"{tables.n_features} features), {name} thresholds, 1080p "
+               f"level-0 SAT {tuple(sat0.shape)} dims {dims0.tolist()}: {n} "
+               f"passed, {near} in the margin, max conf diff {err:.3g}")
+    tables = scd.staged_tables(face_med).phase_a
+    ms = time_cuda(lambda: k3.phase_a(sat0, tables, STEP, dims0), 20)
+    plain_ms = time_cuda(lambda: k3.phase_a_ref(sat0, tables, STEP, dims0), 3)
+    log(8, f"K3 at the 1080p level-0 shape on {card}: {ms:.3f} ms (plain "
+           f"{plain_ms:.3f} ms)")
+    return max_err, ms, plain_ms
+
+
+def detect_ms(scd, img, cascade, params, form, n):
+    """Per-image ms of ``n`` detects, the host synchronised with the card
+    inside each timed window."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scd.detect(img, cascade, params, form=form)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1000)
+    return out
+
+
+def staged_path(scd, k1, k3, dev, card, crop, tt, frame, face, face_med):
+    """Phase 9, the staged form's main path (K3 for phase A, B1 dense, B2
+    on the first K2 survivors, the overflow rerun) and detect_batch in both
+    forms. Returns K3's launches in it."""
+    def levels(H, W, cascade, params):
+        specs = scd._level_specs(H, W, cascade, params)[0]
+        return specs, len({s[0] for s in specs})
+
+    k3.LAUNCHES = 0
+    # crop180 against the C goldens. face_low's thresholds are open: every
+    # window survives, so every level with more windows than K2 is rerun
+    for interval, golden, tol in ((1, "crop180.scd_i1.txt", 6e-3),
+                                  (5, "crop180.scd_open.txt", 2e-2)):
+        params = scd.ScdParams(min_neighbors=0, interval=interval)
+        specs, n_oct = levels(180, 180, face, params)
+        want_reruns = sum(s[4] * s[5] > scd._level_capacity2(s[4] * s[5])
+                          for s in specs)
+        before, reruns = k3.LAUNCHES, scd.RERUNS
+        out = scd.detect(crop, face, params, form="pallas")
+        launched, reruns = k3.LAUNCHES - before, scd.RERUNS - reruns
+        check(reruns == want_reruns > 0, f"crop180 interval={interval}: "
+              f"{reruns} levels rerun, {want_reruns} overflow K2")
+        check(launched == n_oct + reruns, f"crop180 interval={interval}: K3 "
+              f"launched {launched} times for {n_oct} octaves and {reruns} "
+              f"reruns")
+        ref = golden_rects(golden)
+        mine = {(c.x, c.y, c.width, c.height): c.confidence for c in out}
+        check(set(mine) == set(ref), f"crop180 interval={interval}, staged: "
+              f"{len(mine)} windows vs {len(ref)} in {golden}")
+        diff = max(abs(mine[r] - ref[r]) for r in ref)
+        check(diff < tol, f"crop180 interval={interval}, staged: conf diff "
+                          f"{diff}")
+        log(9, f"crop180 interval={interval}, form pallas: {len(mine)} "
+               f"windows = {golden}, max conf diff {diff:.3g} (< {tol}); K3 "
+               f"{launched} launches = {n_oct} octaves + {reruns} reruns")
+
+    # real sizes: the staged form against the full-cascade form
+    params = scd.ScdParams(min_neighbors=0)
+    for name, img, cascade, reps in (
+            ("640x480", tt.tensor.to(dev), face, 5),
+            ("1920x1080", torch.from_numpy(frame).to(dev), face_med, 5)):
+        H, W = img.shape
+        _specs, n_oct = levels(H, W, cascade, params)
+        before, reruns = k3.LAUNCHES, scd.RERUNS
+        got = rect_set(scd.detect(img, cascade, params, form="pallas"))
+        launched, reruns = k3.LAUNCHES - before, scd.RERUNS - reruns
+        check(launched == n_oct + reruns, f"{name}: K3 launched {launched} "
+              f"times for {n_oct} octaves and {reruns} reruns")
+        want = rect_set(scd.detect(img, cascade, params))
+        check(len(want) > 0, f"{name}: no windows passed")
+        odd = got ^ want
+        if odd:
+            near = margin_rects(scd, k1, img, cascade, params, dev)
+            check(odd <= near, f"{name}: the forms differ on "
+                               f"{len(odd - near)} windows outside the margin")
+        full, staged = [], []
+        for _ in range(reps):  # in turns
+            full += detect_ms(scd, img, cascade, params, "pallas_full", 1)
+            staged += detect_ms(scd, img, cascade, params, "pallas", 1)
+        log(9, f"{name}: {len(got)} windows, form pallas = pallas_full "
+               f"({len(odd)} in the margin); K3 {launched} launches = {n_oct} "
+               f"octaves + {reruns} reruns; median ms/image (n={reps}, in "
+               f"turns): pallas {float(np.median(staged)):.2f}, pallas_full "
+               f"{float(np.median(full)):.2f}; {card}")
+
+    # detect_batch: 4 different 1080p frames, one dispatch per octave
+    frames = np.stack([frame, frame[:, ::-1], frame[::-1],
+                       np.roll(frame, 200, axis=1)])
+    batch = torch.from_numpy(frames).to(dev)
+    _specs, n_oct = levels(*frame.shape, face_med, params)
+    for form, kern in (("pallas_full", k1), ("pallas", k3)):
+        before, reruns = kern.LAUNCHES, scd.RERUNS
+        got = scd.detect_batch(batch, face_med, params, form=form)
+        launched, reruns = kern.LAUNCHES - before, scd.RERUNS - reruns
+        check(launched == n_oct + (reruns if form == "pallas" else 0),
+              f"detect_batch {form}: {launched} launches for {n_oct} "
+              f"octaves and {reruns} reruns")
+        single = [scd.detect(batch[b], face_med, params, form=form)
+                  for b in range(len(frames))]
+        n_odd = 0
+        for b, (g, s) in enumerate(zip(got, single)):
+            odd = rect_set(g) ^ rect_set(s)
+            if odd:
+                near = margin_rects(scd, k1, batch[b], face_med, params, dev)
+                check(odd <= near, f"detect_batch {form}, frame {b}: "
+                      f"{len(odd - near)} windows differ from detect outside "
+                      f"the margin")
+            n_odd += len(odd)
+        check(all(len(g) > 0 for g in got), f"detect_batch {form}: a frame "
+                                            f"found nothing")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scd.detect_batch(batch, face_med, params, form=form)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1000 / len(frames)
+        single_ms = float(np.mean([detect_ms(scd, batch[b], face_med, params,
+                                             form, 1)[0]
+                                   for b in range(len(frames))]))
+        log(9, f"detect_batch of {len(frames)} 1080p frames, form {form}: "
+               f"{[len(g) for g in got]} windows = per-image detect "
+               f"({n_odd} in the margin); {launched} launches for {n_oct} "
+               f"octaves and {reruns} reruns; {batch_ms:.2f} ms/image "
+               f"batched, {single_ms:.2f} ms/image one at a time; {card}")
+    return k3.LAUNCHES
+
+
 def main():
     sys.path.insert(0, ROOT)
     from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
@@ -338,6 +526,7 @@ def main():
     from ccv_tpu_torch.ops import resample
     from ccv_tpu_torch.ops.kernels import flash_attention as k2
     from ccv_tpu_torch.ops.kernels import scd_cascade as k1
+    from ccv_tpu_torch.ops.kernels import scd_phase as k3
 
     dev = require_cuda()  # raises without a card: no result is printed
     kind = torch.cuda.get_device_name(0)
@@ -346,12 +535,12 @@ def main():
            f"{torch.version.cuda}; nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        for fut in [ex.submit(k.build) for k in (k1, k2)]:
+    with ThreadPoolExecutor(3) as ex:
+        for fut in [ex.submit(k.build) for k in (k1, k2, k3)]:
             fut.result()
-    log(2, f"K1 and K2 built and loaded in {time.perf_counter() - t0:.2f} s "
-           f"from ccv_tpu_torch/csrc/{{scd_cascade,flash_attention}}.cu for "
-           f"sm_90a")
+    log(2, f"K1, K2 and K3 built and loaded in "
+           f"{time.perf_counter() - t0:.2f} s from ccv_tpu_torch/csrc/"
+           f"{{scd_cascade,flash_attention,scd_phase}}.cu for sm_90a")
 
     # -- 3: K1 against its plain version on the card ------------------------
     max_err = 0.0
@@ -532,6 +721,21 @@ def main():
             "replaces": f"ccv_tpu/ops/pallas/{line}",
             "launches": k2_launches[key], "max_abs_err": k2_err[key],
             "ms": k2_ms[key][0], "plain_ms": k2_ms[key][1]})
+
+    # -- 8: K3 against its plain version on the card -----------------------
+    k3_err, k3_ms, k3_plain_ms = k3_vs_plain(scd, k1, k3, dev, card, sat0,
+                                             dims0, face, face_med)
+
+    # -- 9: the staged cascade and detect_batch -----------------------------
+    k3_launches = staged_path(scd, k1, k3, dev, card, crop, tt, frame, face,
+                              face_med)
+    check(k3_launches > 0, "the staged path launched K3 no time")
+    kernels.append({
+        "name": "scd_phase_a", "route": "cuda",
+        "source": "ccv_tpu_torch/csrc/scd_phase.cu",
+        "replaces": "ccv_tpu/ops/pallas/scd_phase.py:44",
+        "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
+        "plain_ms": k3_plain_ms})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "ccv_tpu"))
 print(len(names), leaked)
+print(" ".join(names))
 """
 
 
@@ -25,6 +26,10 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, leaked = out.stdout.split(" ", 1)
-    assert int(n) >= 20, out.stdout  # every module was found and imported
+    counts, names = out.stdout.splitlines()
+    n, leaked = counts.split(" ", 1)
+    assert int(n) >= 24, out.stdout  # every module was found and imported
     assert leaked.strip() == "[]", leaked
+    # the staged SCD path's modules among them
+    assert {"ccv_tpu_torch.detectors.scd",
+            "ccv_tpu_torch.ops.kernels.scd_phase"} <= set(names.split())
