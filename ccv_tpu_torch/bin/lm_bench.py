@@ -28,7 +28,7 @@ from typing import Dict
 
 import torch
 
-from ccv_tpu_torch.device import require_cuda
+from ccv_tpu_torch.device import default_device
 from ccv_tpu_torch.models import transformer as tfm
 from ccv_tpu_torch.nn import optimizers
 
@@ -95,9 +95,11 @@ def measure(layers=24, dim=1024, heads=16, ff=4096, batch=8, seq=1024,
     """Run the LM training-throughput measurement on the first CUDA card.
 
     One warm-up step, then ``steps`` timed steps on one batch. ``profile``:
-    a directory for a ``torch.profiler`` trace of 3 more steps
-    (trace.json and a table of device time by kernel, kernels.txt)."""
-    dev = require_cuda()
+    a directory for a ``torch.profiler`` trace of 3 more steps (trace.json,
+    a table of device time by kernel, kernels.txt, and summary.json); the
+    result then also holds the device's busy ms per step, its idle share
+    of the timed step, and the flash kernels' device ms per step."""
+    dev = default_device()
     peak = peak_tflops(dev) * 1e12
     cfg = tfm.TransformerConfig(
         vocab_size=vocab, layers=layers, heads=heads, head_dim=dim // heads,
@@ -127,12 +129,14 @@ def measure(layers=24, dim=1024, heads=16, ff=4096, batch=8, seq=1024,
         dt = (time.perf_counter() - t0) / steps
         peak_mem = torch.cuda.max_memory_allocated(dev)
 
-        if profile:
-            _profile(profile, lambda: train_step(params, opt, opt_state, cfg,
-                                                 ids))
+        prof = (_profile(profile, lambda: train_step(params, opt, opt_state,
+                                                     cfg, ids))
+                if profile else {})
+        if prof:
+            prof["idle_share"] = 1 - prof["device_busy_ms"] / (dt * 1e3)
 
     flops = model_flops(n, layers, B, T, cfg.dim)
-    return {
+    return {**prof,
         "model": f"L{layers} d{cfg.dim} h{heads} ff{ff}",
         "params_m": round(n / 1e6, 1),
         "batch": B, "seq": T,
@@ -150,19 +154,42 @@ def measure(layers=24, dim=1024, heads=16, ff=4096, batch=8, seq=1024,
     }
 
 
-def _profile(out_dir: str, step) -> None:
+# the flash kernels by the names the profiler gives them: the "wgmma-tma"
+# K2a and K2c, and the "wmma-smem" kernels (K2b; K2a and K2c at f32 or D 32)
+FLASH_KERNELS = {"fwd": ("fwd_sm90_kernel", "::fwd_kernel<"),
+                 "dq": ("::dq_kernel<",),
+                 "dkv": ("dkv_sm90_kernel", "::dkv_kernel<")}
+
+
+def _profile(out_dir: str, step, steps: int = 3) -> Dict:
+    """Profiles ``steps`` calls of ``step``; returns the device's busy ms
+    per step (the sum of the device-side events) and the flash kernels'
+    share of it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    averages = prof.key_averages()
     with open(os.path.join(out_dir, "kernels.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=40))
+        f.write(averages.table(sort_by="self_cuda_time_total", row_limit=40))
+    # device events only: the host-side ops carry their kernels' time too
+    dev_ms = {e.key: e.self_device_time_total / 1e3 / steps
+              for e in averages if e.device_type == DeviceType.CUDA}
+    out = {"device_busy_ms": sum(dev_ms.values()),
+           "flash_ms": {k: sum(ms for name, ms in dev_ms.items()
+                               if any(p in name for p in pats))
+                        for k, pats in FLASH_KERNELS.items()},
+           "device_ms_top": dict(sorted(dev_ms.items(),
+                                        key=lambda kv: -kv[1])[:15])}
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
 
 
 def main():

@@ -1,10 +1,13 @@
 """bin/scddetect twin on the PyTorch port:
 
     python -m ccv_tpu_torch.bin.scddetect <image> <cascade.sqlite3>
+        [--device cuda|cpu]
 
 Prints `x y width height confidence` per detection and a total line. Runs
-on the first CUDA device when there is one, else on the CPU."""
+on the first CUDA device (the default, which raises without one), or on
+the CPU with `--device cpu`."""
 
+import argparse
 import sys
 import time
 
@@ -14,13 +17,17 @@ from ccv_tpu_torch.detectors import scd
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) < 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    dev = device.default_device()
-    image = read(argv[0], IO_RGB_COLOR, device=dev)
-    cascade = scd.load_cascade(argv[1])
+    ap = argparse.ArgumentParser(
+        prog="python -m ccv_tpu_torch.bin.scddetect",
+        description="SCD face detection; prints one window per line.")
+    ap.add_argument("image")
+    ap.add_argument("cascade")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    dev = (device.default_device() if args.device == "cuda"
+           else device.resolve("cpu"))
+    image = read(args.image, IO_RGB_COLOR, device=dev)
+    cascade = scd.load_cascade(args.cascade)
     scd.detect(image, cascade)  # warm-up: kernel build, allocator
     t0 = time.perf_counter()
     seq = scd.detect(image, cascade)  # returns once the device is done

@@ -65,9 +65,12 @@ class DenseMatrix:
         return self.tensor.cpu().numpy()
 
 
-def from_numpy(arr: np.ndarray, device: _device.DeviceLike = "cpu"
+def from_numpy(arr: np.ndarray, device: _device.DeviceLike = None
                ) -> DenseMatrix:
-    return DenseMatrix(torch.from_numpy(np.ascontiguousarray(arr)).to(device))
+    """A DenseMatrix of ``arr`` on ``device`` (default: the card; raises
+    without one)."""
+    return DenseMatrix(torch.from_numpy(np.ascontiguousarray(arr)).to(
+        _device.resolve(device)))
 
 
 def as_array(m, device: _device.DeviceLike = None) -> torch.Tensor:

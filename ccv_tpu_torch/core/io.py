@@ -143,8 +143,10 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def read(path: str, flags: int = 0,
-         device: _device.DeviceLike = "cpu") -> DenseMatrix:
-    """ccv_read twin: decode a PNG (or CCVBINDM blob) into a DenseMatrix."""
+         device: _device.DeviceLike = None) -> DenseMatrix:
+    """ccv_read twin: decode a PNG (or CCVBINDM blob) into a DenseMatrix on
+    ``device`` (default: the card; raises without one, so pass
+    ``device="cpu"`` to keep the image on the host)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == b"CCVBINDM":

@@ -1,6 +1,9 @@
-// Flash attention for Hopper (sm_90a): the forward (K2a) and the two
-// FlashAttention-2 backward kernels, dq (K2b) and dk/dv (K2c). Port of the
-// Pallas TPU kernels in ccv_tpu/ops/pallas/flash_attention.py:
+// Flash attention for Hopper (sm_90a), the "wmma-smem" design: the dq
+// backward (K2b) for every input, and the forward (K2a) and dk/dv backward
+// (K2c) for f32 and for head dim 32, which the parity tests use. K2a and
+// K2c at bf16 and head dim 64, the LM's, run the "wgmma-tma" design of
+// flash_attention_sm90.cu. Port of the Pallas TPU kernels in
+// ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (via _flash_bwd_bthd)
@@ -26,23 +29,22 @@
 // shared memory (dynamic: up to 145 KB, f32 K2b and K2c); the products run
 // tile by tile out of shared memory: bf16 through the tensor cores with
 // nvcuda::wmma (16x16x16 fragments, f32 accumulators), f32 as plain FMA
-// loops (the f32 path exists for the parity tests; the LM runs bf16). The
-// score tile and the running accumulators (o, dq, dk, dv) stay in shared
-// memory in f32, so the softmax rescale and the masks are plain per-element
-// code. The loops stop at the causal diagonal: a k-tile counts only if
-// j*64 <= i*64 + 63 + (Tk - Tq). Ragged tails are masked in the kernel; the
-// tensors are not padded. The split of the backward into a dq kernel and a
-// dk/dv kernel needs no atomics, so the gradients are deterministic.
+// loops. The score tile and the running accumulators (o, dq, dk, dv) stay
+// in shared memory in f32, so the softmax rescale and the masks are plain
+// per-element code. The loops stop at the causal diagonal: a k-tile counts
+// only if j*64 <= i*64 + 63 + (Tk - Tq). Ragged tails are masked in the
+// kernel; the tensors are not padded. The split of the backward into a dq
+// kernel and a dk/dv kernel needs no atomics, so the gradients are
+// deterministic.
 //
-// Bound on this card. At the LM's shape (BH 128, T 1024, D 64, causal) the
-// work is ~17 GFLOP forward and ~43 GFLOP backward per layer, far above the
-// card's ratio of FLOP to byte: the kernels are compute bound. wmma's
-// mma.sync path reaches a fraction of the card's bf16 rate (wgmma is the
-// only path to all of it), and every product here round-trips its f32
-// result through shared memory, so shared-memory bandwidth and the block
-// barriers between the phases bound the kernels before the tensor cores
-// do. Register-resident accumulators, wgmma and TMA loads of the tiles are
-// the next steps.
+// Bound on this card. At the LM's shape (BH 128, T 1024, D 64, causal) K2b
+// does 25.8 GFLOP on 84.9 MB: 0.026 ms at the H100's 989 TFLOP/s bf16
+// (operations bound). wmma's mma.sync path reaches a fraction of the card's
+// bf16 rate (wgmma is the only path to all of it), and every product here
+// round-trips its f32 result through shared memory, so shared-memory
+// bandwidth and the block barriers between the phases bound the kernels
+// before the tensor cores do; flash_attention_sm90.cu is the redesign that
+// removes both, for K2a and K2c so far.
 //
 // A query row with no valid key (causal with Tq > Tk) is refused by the
 // wrapper: the Pallas kernel gives such rows the mean of v over the keys of
@@ -444,18 +446,27 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 inline int n_tiles(int t) { return (t + kTile - 1) / kTile; }
 
+// K2a and K2c at bf16 and head dim 64 run flash_attention_sm90.cu: this
+// file builds no instance of them and refuses the pair.
+template <typename T, int D>
+constexpr bool kSm90Serves = std::is_same<T, bf16>::value && D == 64;
+
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int tq, int tk, float scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = fwd_smem<T, D>();
-  cudaError_t err = set_smem(fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fwd_kernel<T, D><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, tq, tk, scale,
-      causal);
-  return (int)cudaGetLastError();
+  if constexpr (kSm90Serves<T, D>) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const size_t smem = fwd_smem<T, D>();
+    cudaError_t err = set_smem(fwd_kernel<T, D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    fwd_kernel<T, D><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, tq, tk, scale,
+        causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -477,14 +488,18 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int bh, int tq, int tk, float scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = dkv_smem<T, D>();
-  cudaError_t err = set_smem(dkv_kernel<T, D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dkv_kernel<T, D><<<bh * n_tiles(tk), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, scale, causal);
-  return (int)cudaGetLastError();
+  if constexpr (kSm90Serves<T, D>) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const size_t smem = dkv_smem<T, D>();
+    cudaError_t err = set_smem(dkv_kernel<T, D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    dkv_kernel<T, D><<<bh * n_tiles(tk), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, scale, causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Instantiates the launcher for one

@@ -1,5 +1,11 @@
 """Device choice and the float32 numerics policy of the port.
 
+The port runs on the card unless the caller asks for the CPU: with no
+device given and no tensor to take one from, the device is the first CUDA
+device, and a machine without one raises rather than running on the CPU.
+A tensor or ``DenseMatrix`` that is already on the CPU is the caller asking
+for the CPU.
+
 TF32 is switched off for matmuls and cuDNN convolutions when the package is
 imported. The INTER_AREA resample is a pair of matmuls whose results are
 floored back to uint8; TF32 keeps about three decimal digits, which moves
@@ -22,8 +28,12 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    """The first CUDA device; raises when there is none (ask for the CPU
+    explicitly with ``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device is required, and torch sees none "
+                           "(pass device='cpu' to run on the CPU)")
+    return torch.device("cuda:0")
 
 
 def resolve(device: DeviceLike = None,
@@ -44,10 +54,3 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
-
-
-def require_cuda() -> torch.device:
-    """The first CUDA device; raises when there is none."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("a CUDA device is required, and torch sees none")
-    return torch.device("cuda:0")

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from ccv_tpu_torch import device as _device
 from ccv_tpu_torch.ops.kernels.flash_attention import flash_attention
 
 
@@ -120,7 +121,9 @@ def params_from_jax(tree, device=None) -> Dict[str, Any]:
     """The port's parameters from ``ccv_tpu``'s: ``tree`` is the nested dict
     (and lists) of numpy arrays that
     ``jax.tree_util.tree_map(np.asarray, init_lm(...))`` gives. Same
-    layout, so this is a copy."""
+    layout, so this is a copy, on ``device`` (default: the card; raises
+    without one)."""
+    device = _device.resolve(device)
     def conv(x):
         if isinstance(x, dict):
             return {key: conv(val) for key, val in x.items()}

@@ -7,8 +7,14 @@ kernels' op order:
   versions of the three kernels on ``(BH, T, D)`` tensors;
 - ``flash_fwd``, ``flash_dq``, ``flash_dkv``: the wrappers. On a CPU tensor
   each runs its plain version; on a CUDA tensor it launches its hand-written
-  kernel (csrc/flash_attention.cu) or raises. ``LAUNCHES`` counts kernel
-  launches per kernel;
+  kernel or raises. ``LAUNCHES`` counts kernel launches per kernel,
+  ``DESIGN_LAUNCHES`` per kernel and design. ``_design`` picks the design:
+  "wgmma-tma" (csrc/flash_attention_sm90.cu: wgmma, TMA, register-resident
+  softmax and accumulators) for K2a and K2c at bf16 and head dim 64, the
+  LM's; "wmma-smem" (csrc/flash_attention.cu: wmma tiles and accumulators in
+  shared memory) for K2b, and for f32 and head dim 32, which the parity
+  tests use;
+- ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
 
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import torch
@@ -33,8 +40,61 @@ NEG_INF = -1e30          # masked score, as in the Pallas kernel
 HEAD_DIMS = (32, 64)     # head dims the kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches made by the wrappers (CUDA tensors only)
+# kernel launches made by the wrappers (CUDA tensors only), per kernel and
+# per kernel and design
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
+DESIGN_LAUNCHES = {"fwd": {"wgmma-tma": 0, "wmma-smem": 0},
+                   "dq": {"wmma-smem": 0},
+                   "dkv": {"wgmma-tma": 0, "wmma-smem": 0}}
+
+
+def reset_launches() -> None:
+    """Sets every launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        for design in DESIGN_LAUNCHES[name]:
+            DESIGN_LAUNCHES[name][design] = 0
+
+
+def _design(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """The kernel design that serves ``kernel`` ("fwd", "dq" or "dkv") for
+    inputs of type ``dtype`` and head dim ``d``."""
+    if kernel != "dq" and dtype == torch.bfloat16 and d == 64:
+        return "wgmma-tma"
+    return "wmma-smem"
+
+
+def causal_pairs(t_q: int, t_k: int, causal: bool) -> int:
+    """Number of (query, key) pairs that count: every pair, or with the
+    bottom-right causal mask those with k <= q + (Tk - Tq)."""
+    if not causal:
+        return t_q * t_k
+    diag = t_k - t_q
+    return sum(min(t_k, max(0, q + diag + 1)) for q in range(t_q))
+
+
+# operations per counted pair and head-dim element: 2 products of 2 each in
+# the forward (q.k, p.v), 3 in dq (q.k, do.v, ds.k), 4 in dk/dv
+_FLOP_PER_PAIR = {"fwd": 4, "dq": 6, "dkv": 8}
+
+
+def flash_work(kernel: str, bh: int, t_q: int, t_k: int, d: int,
+               causal: bool, dtype: torch.dtype) -> Tuple[int, int]:
+    """(operations, bytes) of one call of ``kernel``: the products over the
+    pairs that count, and each input read once and each output written
+    once (q, k, v, o and lse for the forward; q, k, v, do, lse and delta
+    in, dq or dk and dv out for the backward)."""
+    esize = dtype.itemsize
+    q_bytes, k_bytes, row_bytes = bh * t_q * d * esize, bh * t_k * d * esize, \
+        bh * t_q * 4
+    ops = _FLOP_PER_PAIR[kernel] * causal_pairs(t_q, t_k, causal) * d * bh
+    if kernel == "fwd":
+        nbytes = 2 * q_bytes + 2 * k_bytes + row_bytes
+    elif kernel == "dq":
+        nbytes = 3 * q_bytes + 2 * k_bytes + 2 * row_bytes
+    else:
+        nbytes = 2 * q_bytes + 4 * k_bytes + 2 * row_bytes
+    return ops, nbytes
 
 
 def _valid(t_q: int, t_k: int, causal: bool,
@@ -161,9 +221,27 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _sm90_library() -> ctypes.CDLL:
+    lib = _build.load_library("flash_attention_sm90",
+                              ["flash_attention_sm90.cu"])
+    if lib.flash_attention_fwd_sm90.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_fwd_sm90.argtypes = [i, p, p, p, p, p, i, i, i,
+                                                 f, i, p]
+        lib.flash_attention_dkv_sm90.argtypes = [i, p, p, p, p, p, p, p, p,
+                                                 i, i, i, f, i, p]
+        for fn in (lib.flash_attention_fwd_sm90,
+                   lib.flash_attention_dkv_sm90):
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def build() -> None:
-    """Compile (or find on disk) and load the kernels' library."""
-    _library()
+    """Compile (or find on disk) and load the kernels' two libraries, one
+    nvcc for each, started together."""
+    with ThreadPoolExecutor(2) as ex:
+        for fut in [ex.submit(_library), ex.submit(_sm90_library)]:
+            fut.result()
 
 
 def _on_card(*ts: torch.Tensor) -> bool:
@@ -180,11 +258,12 @@ def _on_card(*ts: torch.Tensor) -> bool:
     return True
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, design: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"flash_attention {name} kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention {name} kernel ({design}) launch "
+                           f"failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    DESIGN_LAUNCHES[name][design] += 1
 
 
 def _head(q: torch.Tensor):
@@ -205,9 +284,17 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev, code, d, bh, t_q, stream = _head(q)
     o = torch.empty_like(q)
     lse = torch.empty((bh, t_q), dtype=torch.float32, device=q.device)
-    _launched("fwd", _library().flash_attention_fwd(
-        dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, t_q, k.shape[1], scale, int(causal), stream))
+    design = _design("fwd", q.dtype, d)
+    if design == "wgmma-tma":
+        err = _sm90_library().flash_attention_fwd_sm90(
+            dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, t_q, k.shape[1], scale, int(causal), stream)
+    else:
+        err = _library().flash_attention_fwd(
+            dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), bh, t_q, k.shape[1], scale,
+            int(causal), stream)
+    _launched("fwd", design, err)
     return o, lse
 
 
@@ -219,7 +306,7 @@ def flash_dq(q, k, v, do, lse, delta, scale: float,
         return flash_dq_ref(q, k, v, do, lse, delta, scale, causal)
     dev, code, d, bh, t_q, stream = _head(q)
     dq = torch.empty_like(q)
-    _launched("dq", _library().flash_attention_dq(
+    _launched("dq", "wmma-smem", _library().flash_attention_dq(
         dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh,
         t_q, k.shape[1], scale, int(causal), stream))
@@ -234,10 +321,17 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float,
         return flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
     dev, code, d, bh, t_q, stream = _head(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launched("dkv", _library().flash_attention_dkv(
-        dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, t_q, k.shape[1], scale, int(causal), stream))
+    design = _design("dkv", q.dtype, d)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if design == "wgmma-tma":
+        err = _sm90_library().flash_attention_dkv_sm90(
+            dev, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
+    else:
+        err = _library().flash_attention_dkv(
+            dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
+            stream)
+    _launched("dkv", design, err)
     return dk, dv
 
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -147,6 +147,16 @@ def _check(sat_l: torch.Tensor, tables: CascadeTables, step: int,
     return dims
 
 
+def valid_windows(dims: np.ndarray, NY: int, NX: int,
+                  device: torch.device) -> torch.Tensor:
+    """(L, NY, NX) bool on ``device``: the windows inside each level's
+    grid."""
+    d = to_device(dims, device)
+    rows = torch.arange(NY, device=device)[None, :, None]
+    cols = torch.arange(NX, device=device)[None, None, :]
+    return (rows < d[:, 0, None, None]) & (cols < d[:, 1, None, None])
+
+
 def _finish(vs: torch.Tensor, tables: CascadeTables, dims: np.ndarray):
     """Stage sums (L, S, NY, NX) -> (conf, passed) with the early exit's
     meaning: conf is the sum of the first failing stage, or of the last."""
@@ -155,10 +165,7 @@ def _finish(vs: torch.Tensor, tables: CascadeTables, dims: np.ndarray):
     ok = (vs > th[None, :, None, None]).to(torch.int32)
     n_ok = torch.cumprod(ok, dim=1).sum(dim=1)             # stages in a row
     conf = vs.gather(1, n_ok.clamp(max=S - 1)[:, None]).squeeze(1)
-    d = to_device(dims, vs.device)
-    rows = torch.arange(NY, device=vs.device)[None, :, None]
-    cols = torch.arange(NX, device=vs.device)[None, None, :]
-    valid = (rows < d[:, 0, None, None]) & (cols < d[:, 1, None, None])
+    valid = valid_windows(dims, NY, NX, vs.device)
     passed = (n_ok == S) & valid
     return torch.where(valid, conf, torch.zeros_like(conf)), passed
 
@@ -209,6 +216,46 @@ def cascade_eval_levels_ref(sat_l: torch.Tensor, tables: CascadeTables,
     """Plain PyTorch version of the kernel: (conf, passed), (L, NY, NX)."""
     vs = cascade_stage_sums_ref(sat_l, tables, step, dims)
     return _finish(vs, tables, np.asarray(dims, np.int64).reshape(-1, 2))
+
+
+# FP32 operations of one feature at one window, counted off
+# csrc/scd_feature.cuh's feature_response: 96 for the 32 box sums (3 each),
+# 64 for the squares and their sums, 224 for the clipped normalisation and
+# the dot (7 for each of 32 box-channel values), 16 for their sums over
+# channels, 11 for the two norms (sqrt, add, division each), the logit, the
+# tanh and the add to the stage sum: 411, each sqrt, division and tanh
+# counted as one operation.
+FEATURE_FLOP = 411
+
+
+def io_bytes(sat_l: torch.Tensor, tables: CascadeTables, dims) -> int:
+    """Bytes K1 and K3 must move: the SAT stack and the tables read once,
+    conf (f32) and passed (u8) written once for every grid entry."""
+    dims = np.asarray(dims, np.int64).reshape(-1, 2)
+    NY, NX = (int(v) for v in dims.max(axis=0))
+    tab = tables.n_features * 4 * (16 + 33) + tables.n_stages * 8
+    return sat_l.numel() * 4 + tab + sat_l.shape[0] * NY * NX * 5
+
+
+def cascade_work(sat_l: torch.Tensor, tables: CascadeTables, step: int,
+                 dims, vs: Optional[torch.Tensor] = None
+                 ) -> Tuple[int, int]:
+    """(FP32 operations, bytes) that K1 needs on these inputs. A window
+    evaluates every stage it reaches: stage 0, and each later stage while
+    all the stages before it passed, read off the plain stage sums ``vs``
+    (``cascade_stage_sums_ref``, computed when not given) against the
+    thresholds; each feature of a reached stage costs FEATURE_FLOP."""
+    dims = _check(sat_l, tables, step, dims)
+    if vs is None:
+        vs = cascade_stage_sums_ref(sat_l, tables, step, dims)
+    L, S, NY, NX = vs.shape
+    ok = (vs.cpu() > torch.from_numpy(tables.thresholds)[None, :, None, None])
+    reached = torch.ones_like(ok)
+    reached[:, 1:] = torch.cumprod(ok[:, :-1].to(torch.int32), dim=1).bool()
+    counts = torch.tensor([f1 - f0 for f0, f1 in tables.stage_ranges])
+    feats = (reached.to(torch.int64) * counts[None, :, None, None]).sum(1)
+    n = int(feats[valid_windows(dims, NY, NX, feats.device)].sum())
+    return n * FEATURE_FLOP, io_bytes(sat_l, tables, dims)
 
 
 def _library() -> ctypes.CDLL:

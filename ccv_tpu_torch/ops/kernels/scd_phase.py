@@ -27,7 +27,7 @@ AND of ``sum > threshold`` over the phase's stages, false outside the grid.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,14 +71,23 @@ def phase_a_ref(sat_l: torch.Tensor, tables: CascadeTables, step: int,
     """Plain PyTorch version of the kernel: (conf, passed), (L, NY, NX)."""
     vs = scd_cascade.cascade_stage_sums_ref(sat_l, tables, step, dims)
     L, _S, NY, NX = vs.shape
-    d = to_device(np.asarray(dims, np.int64).reshape(-1, 2), vs.device)
-    rows = torch.arange(NY, device=vs.device)[None, :, None]
-    cols = torch.arange(NX, device=vs.device)[None, None, :]
-    valid = (rows < d[:, 0, None, None]) & (cols < d[:, 1, None, None])
+    valid = scd_cascade.valid_windows(
+        np.asarray(dims, np.int64).reshape(-1, 2), NY, NX, vs.device)
     th = to_device(tables.thresholds, vs.device)
     passed = (vs > th[None, :, None, None]).all(dim=1) & valid
     conf = torch.where(valid, vs[:, -1], torch.zeros_like(vs[:, -1]))
     return conf, passed
+
+
+def phase_a_work(sat_l: torch.Tensor, tables: CascadeTables, step: int,
+                 dims) -> Tuple[int, int]:
+    """(FP32 operations, bytes) that K3 needs on these inputs: every window
+    of every level's grid evaluates every feature of the phase (no early
+    exit), scd_cascade.FEATURE_FLOP each."""
+    dims = scd_cascade._check(sat_l, tables, step, dims)
+    windows = int((dims[:, 0] * dims[:, 1]).sum())
+    return (windows * tables.n_features * scd_cascade.FEATURE_FLOP,
+            scd_cascade.io_bytes(sat_l, tables, dims))
 
 
 def _library() -> ctypes.CDLL:

@@ -13,10 +13,14 @@ started together) and drives the port's two main paths:
   against the same path with the plain evaluator;
 - transformer-LM training (phases 6-7): the flash-attention kernels K2a
   (forward), K2b (dq) and K2c (dk, dv) against their plain versions at the
-  parity tests' shapes and the LM's, a 2-layer step at the LM's widths with
-  the kernels against one with plain attention, then
-  ``ccv_tpu_torch.bin.lm_bench.measure`` at its defaults (GPT-2-medium
-  shape, 24 layers) for a warm-up step and a few timed steps;
+  parity tests' shapes and the LM's, each launch checked for its design
+  ("wgmma-tma" for K2a and K2c at bf16 and head dim 64, else "wmma-smem"),
+  timed at the LM shape in turns with the PyTorch calls that compute the
+  same functions (yardsticks only: SDPA's flash forward, the flash
+  backward op); a 2-layer step at the LM's widths with the kernels against
+  one with plain attention, then ``ccv_tpu_torch.bin.lm_bench.measure`` at
+  its defaults (GPT-2-medium shape, 24 layers) for a warm-up step and a few
+  timed steps;
 - the staged SCD cascade (phases 8-9): the phase-A kernel K3 against its
   plain version (synthetic cascades, one whose stage 0 holds 20 features,
   the face cascade's phase A at the 1080p level-0 SAT), then
@@ -25,9 +29,10 @@ started together) and drives the port's two main paths:
   ``form="pallas_full"`` with both timed in turns, and ``detect_batch`` of
   four 1080p frames in both forms against per-image ``detect``.
 
-Prints one line per phase, then a JSON line of kernel results, the card's
-name and power limit, and as the last line ``{"ok": true, "device":
-{...}}``. Any failed check raises and the exit code is not 0. Needs a CUDA
+Prints one line per phase, then a JSON line of kernel results (time, plain
+and library time, the bound from ``ops/kernels/roofline.py`` for this run's
+inputs, launches on the main path, design), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed check raises and the exit code is not 0. Needs a CUDA
 device; imports no JAX.
 """
 
@@ -54,10 +59,17 @@ ATOL, RTOL = 2e-4, 1e-5  # final-stage confidence, kernel vs plain
 # max in the kernel and the final max in the plain version (2^-8 each).
 K2_F32 = 1e-4
 K2_BF16 = 2e-2
+# and beside it, for every (BH, T, D) output (o, dq, dk, dv) in either type:
+# ||kernel - plain||_F <= 1e-2 ||plain||_F over each 64-row tile of each
+# head. The max-magnitude gate is loose where a row's values are small (o
+# and dv of late rows at T 1024); this one holds every tile to its own size,
+# so a skipped or misplaced key or query tile fails it, while bf16 rounding
+# (8-bit mantissas) moves a tile by a few parts in a thousand
+K2_TILE_REL = 1e-2
 # K2 shapes (BH, Tq, Tk, D, causal): the parity tests' (B 2 x H 3 at D 64,
-# B 2 x H 2 at D 32), then the LM's (B 8 x H 16, T 1024, D 64, causal)
+# B 2 x H 2 at D 32 and 64), then the LM's (B 8 x H 16, T 1024, D 64, causal)
 K2_SHAPES = ([(6, t, t, 64, c) for t in (128, 100, 257) for c in (False, True)]
-             + [(4, 72, 136, 32, c) for c in (False, True)]
+             + [(4, 72, 136, d, c) for d in (32, 64) for c in (False, True)]
              + [(4, 64, 64, 32, True)])
 K2_LM = (128, 1024, 1024, 64, True)
 # the 2-layer LM step with the kernels against plain attention (bf16):
@@ -91,7 +103,7 @@ def card_line():
 
 def frame_1080p(read):
     """A 1920x1080 gray frame: text_test.png (640x480) tiled 3x3, cropped."""
-    tt = read(os.path.join(DATA, "text_test.png")).numpy()
+    tt = read(os.path.join(DATA, "text_test.png"), device="cpu").numpy()
     return np.ascontiguousarray(np.tile(tt, (3, 3))[:1080, :1920])
 
 
@@ -176,11 +188,30 @@ def k2_inputs(shape, dtype, dev, rng):
     return q, k, v, do
 
 
+def tile_rel_err(got, ref, rows=64):
+    """max over heads and `rows`-row tiles of ||got - ref||_F / ||ref||_F,
+    for (BH, T, D) tensors (a ragged last tile counts as it is)."""
+    bh, t, d = ref.shape
+    pad = (-t) % rows
+    diff = torch.nn.functional.pad(got.float() - ref.float(), (0, 0, 0, pad))
+    ref = torch.nn.functional.pad(ref.float(), (0, 0, 0, pad))
+    num = diff.view(bh, -1, rows * d).norm(dim=-1)
+    den = ref.view(bh, -1, rows * d).norm(dim=-1)
+    return float((num / den.clamp_min(1e-30)).max())
+
+
 def k2_compare(k2, shape, dtype, dev, rng):
     """K2a/b/c and their plain versions on the same inputs. Returns the max
-    abs error of each kernel's outputs (fwd: o and lse; dkv: dk and dv)."""
+    abs error of each kernel's outputs (fwd: o and lse; dkv: dk and dv) and
+    the largest tile-relative error of each (o; dq; dk and dv).
+    Checks that K2a and K2c ran the "wgmma-tma" design at bf16 and head dim
+    64 and the "wmma-smem" one otherwise, and that K2b ran "wmma-smem"."""
     q, k, v, do = k2_inputs(shape, dtype, dev, rng)
     causal, scale = shape[4], 1.0 / np.sqrt(shape[3])
+    new = dtype == torch.bfloat16 and shape[3] == 64
+    want = {"fwd": "wgmma-tma" if new else "wmma-smem", "dq": "wmma-smem",
+            "dkv": "wgmma-tma" if new else "wmma-smem"}
+    before = {key: dict(c) for key, c in k2.DESIGN_LAUNCHES.items()}
     o0, lse0 = k2.flash_fwd_ref(q, k, v, scale, causal)
     delta = (do.float() * o0.float()).sum(-1)
     dq0 = k2.flash_dq_ref(q, k, v, do, lse0, delta, scale, causal)
@@ -189,7 +220,11 @@ def k2_compare(k2, shape, dtype, dev, rng):
     dq1 = k2.flash_dq(q, k, v, do, lse0, delta, scale, causal)
     dk1, dv1 = k2.flash_dkv(q, k, v, do, lse0, delta, scale, causal)
     torch.cuda.synchronize()
-    errs = {}
+    ran = {key: {d: n - before[key][d] for d, n in c.items() if n > before[key][d]}
+           for key, c in k2.DESIGN_LAUNCHES.items()}
+    check(ran == {key: {d: 1} for key, d in want.items()},
+          f"K2 at {shape} {dtype} ran the designs {ran}, expected {want}")
+    errs, rels = {}, {}
     for key, name, got, ref in (("fwd", "o", o1, o0), ("fwd", "lse", lse1, lse0),
                                 ("dq", "dq", dq1, dq0), ("dkv", "dk", dk1, dk0),
                                 ("dkv", "dv", dv1, dv0)):
@@ -201,44 +236,102 @@ def k2_compare(k2, shape, dtype, dev, rng):
               f"K2 {name} at {shape} {dtype}: max error {err:.3g} > "
               f"{bound:.3g} (max |plain| {top:.3g})")
         errs[key] = max(errs.get(key, 0.0), err)
-    return errs
+        if name != "lse":
+            rel = tile_rel_err(got, ref)
+            check(rel <= K2_TILE_REL, f"K2 {name} at {shape} {dtype}: a 64-row "
+                  f"tile is off by {rel:.3g} of its norm (> {K2_TILE_REL})")
+            rels[key] = max(rels.get(key, 0.0), rel)
+    return errs, rels
 
 
-def k2_vs_plain(k2, dev, card):
+def k2_library(q, k, v, do, scale):
+    """The PyTorch calls that compute K2's functions at the LM shape, used
+    only here as yardsticks: SDPA's flash forward (the flash backend forced,
+    so a missing one raises instead of timing another), and the flash
+    backward op, which gives dq, dk and dv in one call, fed from the flash
+    forward op's outputs. Inputs are (BH, T, D) with BH = 8 x 16."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, h = 8, K2_LM[0] // 8
+    q4, k4, v4, do4 = (x.view(b, h, *x.shape[1:]) for x in (q, k, v, do))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out = torch.ops.aten._scaled_dot_product_flash_attention(
+            q4, k4, v4, 0.0, True, False, scale=scale)
+    o, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = out
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, scale=scale)
+
+    def bwd():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, o, lse, cum_q, cum_k, max_q, max_k, 0.0, True,
+            seed, offset, scale=scale)
+    return fwd, bwd
+
+
+def k2_vs_plain(k2, roofline, dev, card):
     rng = np.random.default_rng(17)
     for dtype in (torch.float32, torch.bfloat16):
-        worst = {}
+        worst, worst_rel = {}, {}
         for shape in K2_SHAPES:
-            for key, err in k2_compare(k2, shape, dtype, dev, rng).items():
-                worst[key] = max(worst.get(key, 0.0), err)
+            errs, rels = k2_compare(k2, shape, dtype, dev, rng)
+            for key in errs:
+                worst[key] = max(worst.get(key, 0.0), errs[key])
+                worst_rel[key] = max(worst_rel.get(key, 0.0), rels[key])
         log(6, f"K2 vs plain, {dtype}, {len(K2_SHAPES)} shapes "
                f"(T 128/100/257 causal and not at D 64; 72x136 causal and "
-               f"not, 64 causal at D 32): max abs error "
-               f"{ {k: f'{e:.3g}' for k, e in worst.items()} }")
-    errs = k2_compare(k2, K2_LM, torch.bfloat16, dev, rng)
-    log(6, f"K2 vs plain at the LM shape {K2_LM} bf16: max abs error "
-           f"{ {k: f'{e:.3g}' for k, e in errs.items()} }")
+               f"not at D 32 and 64, 64 causal at D 32): max abs error "
+               f"{ {k: f'{e:.3g}' for k, e in worst.items()} }; worst "
+               f"64-row tile error / tile norm "
+               f"{ {k: f'{e:.3g}' for k, e in worst_rel.items()} }; designs "
+               f"checked per shape")
+    errs, rels = k2_compare(k2, K2_LM, torch.bfloat16, dev, rng)
+    log(6, f"K2 vs plain at the LM shape {K2_LM} bf16 (K2a and K2c "
+           f"wgmma-tma, K2b wmma-smem): max abs error "
+           f"{ {k: f'{e:.3g}' for k, e in errs.items()} }; worst 64-row "
+           f"tile error / tile norm "
+           f"{ {k: f'{e:.3g}' for k, e in rels.items()} }")
     q, k, v, do = k2_inputs(K2_LM, torch.bfloat16, dev, rng)
     scale = 1.0 / np.sqrt(K2_LM[3])
     o, lse = k2.flash_fwd(q, k, v, scale, True)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, scale, True)
-    times = {}
-    for key, kern, plain in (
+    lib_fwd, lib_bwd = k2_library(q, k, v, do, scale)
+    # the library against the plain versions, logged (a yardstick, no gate)
+    o_ref = k2.flash_fwd_ref(q, k, v, scale, True)[0]
+    g_ref = k2.flash_bwd_ref(*bwd)
+    lib_err = [float((a.reshape(b.shape).float() - b.float()).abs().max()
+                     / b.float().abs().max())
+               for a, b in zip((lib_fwd(), *lib_bwd()), (o_ref, *g_ref))]
+    out = {}
+    for key, kern, plain, lib in (
             ("fwd", lambda: k2.flash_fwd(q, k, v, scale, True),
-             lambda: k2.flash_fwd_ref(q, k, v, scale, True)),
-            ("dq", lambda: k2.flash_dq(*bwd), lambda: k2.flash_dq_ref(*bwd)),
+             lambda: k2.flash_fwd_ref(q, k, v, scale, True), lib_fwd),
+            ("dq", lambda: k2.flash_dq(*bwd), lambda: k2.flash_dq_ref(*bwd),
+             lib_bwd),
             ("dkv", lambda: k2.flash_dkv(*bwd),
-             lambda: k2.flash_dkv_ref(*bwd))):
-        times[key] = (time_cuda(kern, 20), time_cuda(plain, 5))
-    bh, t, _, d, _ = K2_LM
-    flop = {"fwd": 4, "dq": 6, "dkv": 8}  # x BH*T*T*D, halved by causality
-    log(6, "K2 at the LM shape (CUDA events; kernel 20 launches, plain 5): "
-        + "; ".join(f"{key} {ms:.3f} ms = "
-                    f"{flop[key] * bh * t * t * d / 2 / ms / 1e9:.1f} TFLOP/s "
-                    f"(plain {pms:.3f} ms)"
-                    for key, (ms, pms) in times.items()) + f"; {card}")
-    return errs, times
+             lambda: k2.flash_dkv_ref(*bwd), lib_bwd)):
+        # in turns: kernel, library, library, kernel (20 calls each)
+        ms = [time_cuda(kern, 20), time_cuda(lib, 20), time_cuda(lib, 20),
+              time_cuda(kern, 20)]
+        flop, nbytes = k2.flash_work(key, *K2_LM, torch.bfloat16)
+        bound, by = roofline.bound_ms(flop, nbytes, "bf16")
+        out[key] = dict(ms=(ms[0] + ms[3]) / 2, library_ms=(ms[1] + ms[2]) / 2,
+                        plain_ms=time_cuda(plain, 5), bound_ms=bound,
+                        bound_by=by, tflops=flop / ((ms[0] + ms[3]) / 2) / 1e9)
+    log(6, "K2 at the LM shape (CUDA events, 2 x 20 launches in turns with "
+        "the library call; plain 5): " + "; ".join(
+            f"{key} {r['ms']:.4f} ms = {r['tflops']:.1f} TFLOP/s, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['ms']:.3f} of it; library "
+            f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms"
+            for key, r in out.items())
+        + f"; library = SDPA flash forward, and for dq and dkv the flash "
+          f"backward op (dq, dk and dv in one call); library vs plain max "
+          f"error / max|plain| (o, dq, dk, dv) "
+          f"{[f'{e:.3g}' for e in lib_err]}; {card}")
+    return errs, out
 
 
 def lm_two_layers(k2, dev):
@@ -358,7 +451,8 @@ def phase_a_vs_plain(k1, k3, tables, sat_l, dims):
     return float(err.max()), int(pass0.sum()), int((~margin_ok).sum())
 
 
-def k3_vs_plain(scd, k1, k3, dev, card, sat0, dims0, face, face_med):
+def k3_vs_plain(scd, k1, k3, roofline, dev, card, sat0, dims0, face,
+                face_med):
     """Phase 8: K3 against its plain version on the synthetic dims K1 is
     checked on, on a cascade whose stage 0 holds 20 features (phase A takes
     it past the 16), and on the face cascade's phase A at the 1080p level-0
@@ -394,9 +488,11 @@ def k3_vs_plain(scd, k1, k3, dev, card, sat0, dims0, face, face_med):
     tables = scd.staged_tables(face_med).phase_a
     ms = time_cuda(lambda: k3.phase_a(sat0, tables, STEP, dims0), 20)
     plain_ms = time_cuda(lambda: k3.phase_a_ref(sat0, tables, STEP, dims0), 3)
+    bound, by = roofline.bound_ms(
+        *k3.phase_a_work(sat0, tables, STEP, dims0), "f32")
     log(8, f"K3 at the 1080p level-0 shape on {card}: {ms:.3f} ms (plain "
-           f"{plain_ms:.3f} ms)")
-    return max_err, ms, plain_ms
+           f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by})")
+    return max_err, ms, plain_ms, bound, by
 
 
 def detect_ms(scd, img, cascade, params, form, n):
@@ -522,13 +618,14 @@ def main():
     sys.path.insert(0, ROOT)
     from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
     from ccv_tpu_torch.detectors import scd
-    from ccv_tpu_torch.device import require_cuda
+    from ccv_tpu_torch.device import default_device
     from ccv_tpu_torch.ops import resample
     from ccv_tpu_torch.ops.kernels import flash_attention as k2
+    from ccv_tpu_torch.ops.kernels import roofline
     from ccv_tpu_torch.ops.kernels import scd_cascade as k1
     from ccv_tpu_torch.ops.kernels import scd_phase as k3
 
-    dev = require_cuda()  # raises without a card: no result is printed
+    dev = default_device()  # raises without a card: no result is printed
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(1, f"device {kind}; torch {torch.__version__} cuda "
@@ -540,7 +637,8 @@ def main():
             fut.result()
     log(2, f"K1, K2 and K3 built and loaded in "
            f"{time.perf_counter() - t0:.2f} s from ccv_tpu_torch/csrc/"
-           f"{{scd_cascade,flash_attention,scd_phase}}.cu for sm_90a")
+           f"{{scd_cascade,flash_attention,flash_attention_sm90,scd_phase}}.cu "
+           f"for sm_90a")
 
     # -- 3: K1 against its plain version on the card ------------------------
     max_err = 0.0
@@ -583,12 +681,18 @@ def main():
         lambda: k1.cascade_eval_levels(sat0, tabs_open, STEP, dims0), 5)
     plain_open = time_cuda(
         lambda: k1.cascade_eval_levels_ref(sat0, tabs_open, STEP, dims0), 2)
+    # the bound: the features each window reaches, from the plain sums
+    k1_bound, k1_by = roofline.bound_ms(
+        *k1.cascade_work(sat0, tabs_med, STEP, dims0), "f32")
+    open_bound, open_by = roofline.bound_ms(
+        *k1.cascade_work(sat0, tabs_open, STEP, dims0), "f32")
     log(3, f"K1 at the 1080p level-0 shape on {card}: median thresholds "
-           f"{ms:.3f} ms (plain {plain_ms:.3f} ms); open thresholds "
-           f"{ms_open:.3f} ms (plain {plain_open:.3f} ms)")
+           f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {k1_bound:.4f} ms "
+           f"by {k1_by}); open thresholds {ms_open:.3f} ms (plain "
+           f"{plain_open:.3f} ms, bound {open_bound:.4f} ms by {open_by})")
 
     # -- the prolog on the card against the CPU ----------------------------
-    tt = read(os.path.join(DATA, "text_test.png"))
+    tt = read(os.path.join(DATA, "text_test.png"), device="cpu")
     for name, img in (("640x480", tt.tensor), ("1080p", torch.from_numpy(
             frame))):
         H, W = img.shape
@@ -680,23 +784,30 @@ def main():
         "source": "ccv_tpu_torch/csrc/scd_cascade.cu",
         "replaces": "ccv_tpu/ops/pallas/scd_cascade.py:58",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound,
+        "bound_by": k1_by, "library_ms": None, "design": "thread-per-window",
+        "open_ms": ms_open, "open_bound_ms": open_bound}]
 
     # -- 6: K2 against its plain version on the card -----------------------
-    k2_err, k2_ms = k2_vs_plain(k2, dev, card)
+    k2_err, k2_res = k2_vs_plain(k2, roofline, dev, card)
 
     # -- 7: the LM training step -------------------------------------------
     lm_two_layers(k2, dev)
     from ccv_tpu_torch.bin import lm_bench
-    for name in k2.LAUNCHES:
-        k2.LAUNCHES[name] = 0
+    k2.reset_launches()
     res = lm_bench.measure(steps=LM_STEPS)
     k2_launches = dict(k2.LAUNCHES)
+    k2_designs = {key: dict(c) for key, c in k2.DESIGN_LAUNCHES.items()}
     steps, layers = 1 + LM_STEPS, 24
     want = {"fwd": 2 * layers * steps, "dq": layers * steps,
             "dkv": layers * steps}  # remat recomputes the forward
     check(k2_launches == want, f"lm_bench launched K2 {k2_launches}, "
                                f"expected {want}")
+    check(k2_designs == {
+        "fwd": {"wgmma-tma": want["fwd"], "wmma-smem": 0},
+        "dq": {"wmma-smem": want["dq"]},
+        "dkv": {"wgmma-tma": want["dkv"], "wmma-smem": 0}},
+        f"lm_bench ran the K2 designs {k2_designs}")
     losses = res["losses"]
     check(all(np.isfinite(losses)), f"loss not finite: {losses}")
     check(losses[-1] < losses[0], f"loss does not fall: {losses}")
@@ -708,23 +819,31 @@ def main():
            f"{res['model_tflops_per_s']:.2f} model TFLOP/s, MFU "
            f"{res['mfu']:.4f} of {res['peak_tflops']:.0f} TFLOP/s; peak "
            f"memory {res['peak_mem_gb']:.2f} GB; losses "
-           f"{[round(x, 4) for x in losses]}; K2 launches {k2_launches}; "
-           f"{card}")
+           f"{[round(x, 4) for x in losses]}; K2 launches by design "
+           f"{k2_designs}; {card}")
 
-    sources = {"fwd": ("flash_attention_fwd", "flash_attention.py:36"),
-               "dq": ("flash_attention_dq", "flash_attention.py:173"),
-               "dkv": ("flash_attention_dkv", "flash_attention.py:210")}
-    for key, (name, line) in sources.items():
+    sources = {"fwd": ("flash_attention_fwd", "flash_attention.py:36",
+                       "flash_attention_sm90.cu", "wgmma-tma"),
+               "dq": ("flash_attention_dq", "flash_attention.py:173",
+                      "flash_attention.cu", "wmma-smem"),
+               "dkv": ("flash_attention_dkv", "flash_attention.py:210",
+                       "flash_attention_sm90.cu", "wgmma-tma")}
+    for key, (name, line, src, design) in sources.items():
+        r = k2_res[key]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "ccv_tpu_torch/csrc/flash_attention.cu",
+            "source": f"ccv_tpu_torch/csrc/{src}",
             "replaces": f"ccv_tpu/ops/pallas/{line}",
             "launches": k2_launches[key], "max_abs_err": k2_err[key],
-            "ms": k2_ms[key][0], "plain_ms": k2_ms[key][1]})
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "design": design,
+            **({} if key == "fwd" else {
+                "library_note": "one flash backward call: dq, dk and dv"})})
 
     # -- 8: K3 against its plain version on the card -----------------------
-    k3_err, k3_ms, k3_plain_ms = k3_vs_plain(scd, k1, k3, dev, card, sat0,
-                                             dims0, face, face_med)
+    k3_err, k3_ms, k3_plain_ms, k3_bound, k3_by = k3_vs_plain(
+        scd, k1, k3, roofline, dev, card, sat0, dims0, face, face_med)
 
     # -- 9: the staged cascade and detect_batch -----------------------------
     k3_launches = staged_path(scd, k1, k3, dev, card, crop, tt, frame, face,
@@ -735,7 +854,8 @@ def main():
         "source": "ccv_tpu_torch/csrc/scd_phase.cu",
         "replaces": "ccv_tpu/ops/pallas/scd_phase.py:44",
         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
-        "plain_ms": k3_plain_ms})
+        "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+        "library_ms": None, "design": "thread-per-window"})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

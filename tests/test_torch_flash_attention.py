@@ -24,6 +24,7 @@ import torch
 from ccv_tpu.nn import ops as jops
 from ccv_tpu_torch.nn import ops as tops
 from ccv_tpu_torch.ops.kernels import flash_attention as tfa
+from ccv_tpu_torch.ops.kernels import roofline
 
 # the package re-exports the function under the module's name
 jfa = importlib.import_module("ccv_tpu.ops.pallas.flash_attention")
@@ -45,6 +46,7 @@ FWD_CASES = {  # (BH, Tq, Tk, D, causal): ccv_tpu's test shapes
     "128": (6, 128, 128, 64, False), "128c": (6, 128, 128, 64, True),
     "100c": (6, 100, 100, 64, True), "257": (6, 257, 257, 64, False),
     "72x136": (4, 72, 136, 32, False), "72x136c": (4, 72, 136, 32, True),
+    "72x136d64": (4, 72, 136, 64, False), "72x136d64c": (4, 72, 136, 64, True),
 }
 
 
@@ -174,6 +176,7 @@ def test_wrapper_on_cpu_is_the_plain_version():
     rng = np.random.default_rng(7)
     q, k, v, do = (torch.from_numpy(_rand(rng, 4, 72, 32)) for _ in range(4))
     before = dict(tfa.LAUNCHES)
+    by_design = {n: dict(c) for n, c in tfa.DESIGN_LAUNCHES.items()}
     o, lse = tfa.flash_fwd(q, k, v, 0.3, True)
     o0, lse0 = tfa.flash_fwd_ref(q, k, v, 0.3, True)
     delta = (do * o).sum(-1)
@@ -183,6 +186,7 @@ def test_wrapper_on_cpu_is_the_plain_version():
     qh, kh, vh = (x.view(2, 2, 72, 32).transpose(1, 2) for x in (q, k, v))
     oh = tfa.flash_attention(qh, kh, vh, 0.3, True)
     assert tfa.LAUNCHES == before  # no kernel launched for a CPU tensor
+    assert tfa.DESIGN_LAUNCHES == by_design
     assert torch.equal(o, o0) and torch.equal(lse, lse0)
     assert torch.equal(oh.transpose(1, 2).reshape(4, 72, 32), o0)
     for a, b in zip((dq, dk, dv),
@@ -210,6 +214,63 @@ def test_wrapper_rejects_bad_input():
                      0.1, False)
 
 
+def test_design_choice():
+    """bf16 at head dim 64 (the LM's) takes the wgmma-tma K2a and K2c;
+    everything else, and K2b always, the wmma-smem kernels."""
+    for kernel in ("fwd", "dkv"):
+        assert tfa._design(kernel, torch.bfloat16, 64) == "wgmma-tma"
+    assert tfa._design("dq", torch.bfloat16, 64) == "wmma-smem"
+    for kernel in ("fwd", "dq", "dkv"):
+        for dtype, d in ((torch.float32, 64), (torch.float32, 32),
+                         (torch.bfloat16, 32)):
+            assert tfa._design(kernel, dtype, d) == "wmma-smem"
+            assert tfa._design(kernel, dtype, d) in tfa.DESIGN_LAUNCHES[kernel]
+
+
+def test_reset_launches():
+    tfa.LAUNCHES["fwd"] += 1
+    tfa.DESIGN_LAUNCHES["dkv"]["wgmma-tma"] += 2
+    tfa.reset_launches()
+    assert set(tfa.LAUNCHES.values()) == {0}
+    assert all(set(c.values()) == {0} for c in tfa.DESIGN_LAUNCHES.values())
+
+
+PAIR_CASES = {"64c": (64, 64, True), "100c": (100, 100, True),
+              "72x136c": (72, 136, True), "72x136": (72, 136, False),
+              "1x5c": (1, 5, True), "257c": (257, 257, True)}
+
+
+@pytest.mark.parametrize("case", list(PAIR_CASES.values()),
+                         ids=list(PAIR_CASES))
+def test_causal_pairs_match_the_mask(case):
+    tq, tk, causal = case
+    mask = tfa._valid(tq, tk, causal, torch.device("cpu"))
+    want = tq * tk if mask is None else int(mask.sum())
+    assert tfa.causal_pairs(tq, tk, causal) == want
+
+
+def test_flash_work_and_bound_at_the_lm_shape():
+    """The LM's shape, BH 128, T 1024, D 64, bf16, causal: 4, 6 and 8
+    operations per pair and head-dim element; each tensor read or written
+    once. The forward is bound by its bytes, the backward by operations."""
+    bh, t, d = 128, 1024, 64
+    pairs, tensor, rows = t * (t + 1) // 2, bh * t * d * 2, bh * t * 4
+    want = {"fwd": (4, 4 * tensor + rows, "bytes"),
+            "dq": (6, 5 * tensor + 2 * rows, "operations"),
+            "dkv": (8, 6 * tensor + 2 * rows, "operations")}
+    for kernel, (per_pair, nbytes, by) in want.items():
+        got = tfa.flash_work(kernel, bh, t, t, d, True, torch.bfloat16)
+        assert got == (per_pair * bh * pairs * d, nbytes)
+        ms, bound_by = roofline.bound_ms(*got, "bf16")
+        assert bound_by == by
+        assert ms == pytest.approx(max(got[0] / 989e12, nbytes / 3.35e12)
+                                   * 1e3)
+    flop, nbytes = tfa.flash_work("fwd", 4, 72, 136, 32, False,
+                                  torch.float32)
+    assert (flop, nbytes) == (4 * 4 * 72 * 136 * 32,
+                              4 * (2 * 72 + 2 * 136) * 32 * 4 + 4 * 72 * 4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -228,15 +289,48 @@ def test_cuda_kernels_match_plain(dtype):
         ref = (o0, lse0,
                *tfa.flash_bwd_ref(q, k, v, do, lse0, delta, 0.125, causal))
         before = dict(tfa.LAUNCHES)
+        by_design = {n: dict(c) for n, c in tfa.DESIGN_LAUNCHES.items()}
         got = (*tfa.flash_fwd(q, k, v, 0.125, causal),
                tfa.flash_dq(q, k, v, do, lse0, delta, 0.125, causal),
                *tfa.flash_dkv(q, k, v, do, lse0, delta, 0.125, causal))
         torch.cuda.synchronize()
         assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
             "fwd": 1, "dq": 1, "dkv": 1}
+        new = "wgmma-tma" if dtype == torch.bfloat16 and d == 64 else (
+            "wmma-smem")
+        ran = {n: [x for x, c in counts.items() if c > by_design[n][x]]
+               for n, counts in tfa.DESIGN_LAUNCHES.items()}
+        assert ran == {"fwd": [new], "dq": ["wmma-smem"], "dkv": [new]}
         for a, b in zip(got, ref):
             err = float((a.float() - b.float()).abs().max())
             if dtype == torch.float32 or b.dtype == torch.float32:
                 assert err <= 1e-4 + 1e-4 * float(b.abs().max()), err
             else:
                 assert err <= BF16_REL * float(b.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_kernels_at_the_lm_shape():
+    """K2a and K2c alone at the LM's shape (BH 128, T 1024, D 64, bf16,
+    causal), one launch each of the wgmma-tma design, against their plain
+    versions (chip_smoke.py times them there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    q, k, v, do = (torch.from_numpy(_rand(rng, 128, 1024, 64))
+                   .to(dev, torch.bfloat16) for _ in range(4))
+    o0, lse0 = tfa.flash_fwd_ref(q, k, v, 0.125, True)
+    delta = (do.float() * o0.float()).sum(-1)
+    ref = (o0, lse0, *tfa.flash_dkv_ref(q, k, v, do, lse0, delta, 0.125,
+                                       True))
+    before = {n: dict(c) for n, c in tfa.DESIGN_LAUNCHES.items()}
+    got = (*tfa.flash_fwd(q, k, v, 0.125, True),
+           *tfa.flash_dkv(q, k, v, do, lse0, delta, 0.125, True))
+    torch.cuda.synchronize()
+    for n in ("fwd", "dkv"):
+        assert tfa.DESIGN_LAUNCHES[n]["wgmma-tma"] == (
+            before[n]["wgmma-tma"] + 1)
+    for a, b in zip(got, ref):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= BF16_REL * float(b.float().abs().max()), err

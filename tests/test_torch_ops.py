@@ -53,7 +53,7 @@ def _level_scales(shape):
 @pytest.mark.parametrize("flags", FLAGS)
 def test_read_matches_jax(name, flags):
     want = _jax_image(name, flags)
-    got = tio.read(os.path.join(DATA, name), flags)
+    got = tio.read(os.path.join(DATA, name), flags, device="cpu")
     assert got.tensor.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got.rows, got.cols) == want.shape[:2]
@@ -62,7 +62,7 @@ def test_read_matches_jax(name, flags):
 def test_read_ccv_binary_matches_jax():
     path = os.path.join(DATA, "crop180.scdmap.bin")
     want = jio.read(path).numpy()
-    got = tio.read(path).numpy()
+    got = tio.read(path, device="cpu").numpy()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
 

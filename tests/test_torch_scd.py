@@ -20,6 +20,8 @@ import torch
 from ccv_tpu.core import io as jio
 from ccv_tpu.detectors import common as jcommon
 from ccv_tpu.detectors import scd as jscd
+from ccv_tpu_torch import device as tdevice
+from ccv_tpu_torch.bin import scddetect
 from ccv_tpu_torch.core import io as tio
 from ccv_tpu_torch.detectors import common as tcommon
 from ccv_tpu_torch.detectors import scd as tscd
@@ -32,7 +34,8 @@ CASCADE = os.path.join(DATA, "face_low.sqlite3")
 
 @pytest.fixture(scope="module")
 def crop():
-    return tio.read(os.path.join(DATA, "crop180.png"), tio.IO_RGB_COLOR)
+    return tio.read(os.path.join(DATA, "crop180.png"), tio.IO_RGB_COLOR,
+                    device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +58,8 @@ def _by_rect(comps):
 
 
 def test_scd_map_cf8_matches_golden(crop):
-    golden = tio.read(os.path.join(DATA, "crop180.scdmap.bin")).numpy()
+    golden = tio.read(os.path.join(DATA, "crop180.scdmap.bin"),
+                      device="cpu").numpy()
     got = tscd.scd_map_cf8(crop.tensor).numpy()
     assert got.shape == (8,) + golden.shape[:2]
     np.testing.assert_array_equal(got, golden[..., :8].transpose(2, 0, 1))
@@ -166,9 +170,10 @@ def test_detect_accepts_numpy_gray_and_small_images(cascade):
     want = tscd.detect(torch.from_numpy(gray)[..., None], cascade,
                        tscd.ScdParams(min_neighbors=0, interval=1))
     assert got == want and len(got) > 0
-    assert tscd.detect(gray[:40, :40], cascade) == []
+    assert tscd.detect(gray[:40, :40], cascade, device="cpu") == []
     with pytest.raises(NotImplementedError):
-        tscd.detect(gray, cascade, tscd.ScdParams(size=(24, 24)))
+        tscd.detect(gray, cascade, tscd.ScdParams(size=(24, 24)),
+                    device="cpu")
 
 
 def test_detect_launches_no_kernel_on_cpu(crop, cascade):
@@ -182,7 +187,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "from ccv_tpu_torch.core.io import read, IO_RGB_COLOR\n"
         "from ccv_tpu_torch.detectors import scd\n"
-        f"img = read({os.path.join(DATA, 'crop180.png')!r}, IO_RGB_COLOR)\n"
+        f"img = read({os.path.join(DATA, 'crop180.png')!r}, IO_RGB_COLOR, "
+        "device='cpu')\n"
         f"c = scd.load_cascade({CASCADE!r})\n"
         "out = scd.detect(img, c, scd.ScdParams(interval=1))\n"
         "assert len(out) == 1, out\n"
@@ -201,11 +207,46 @@ def test_scddetect_cli(cascade):
     image = os.path.join(DATA, "crop120.png")
     proc = subprocess.run(
         [sys.executable, "-m", "ccv_tpu_torch.bin.scddetect", image,
-         CASCADE], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+         CASCADE, "--device", "cpu"], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
-    want = tscd.detect(tio.read(image, tio.IO_RGB_COLOR), cascade)
+    want = tscd.detect(tio.read(image, tio.IO_RGB_COLOR, device="cpu"),
+                       cascade)
+    assert lines[-1].startswith(f"total : {len(want)} in time")
+    assert [tuple(int(v) for v in ln.split()[:4]) for ln in lines[:-1]] == [
+        (c.x, c.y, c.width, c.height) for c in want]
+
+
+def test_no_card_raises_rather_than_running_on_the_cpu(cascade, monkeypatch):
+    """With no card, the default device raises, and so does every entry
+    point handed a numpy image or a file and no device; a CPU tensor or an
+    explicit device="cpu" is the caller asking for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        tdevice.default_device()
+    gray = np.zeros((60, 60), np.uint8)
+    for call in (lambda: tscd.detect(gray, cascade),
+                 lambda: tscd.detect_async(gray, cascade),
+                 lambda: tscd.detect_batch(gray[None], cascade),
+                 lambda: scddetect.main([os.path.join(DATA, "crop120.png"),
+                                         CASCADE]),
+                 lambda: tio.read(os.path.join(DATA, "crop120.png")),
+                 lambda: tio.from_numpy(gray)):
+        with pytest.raises(RuntimeError, match="CUDA device is required"):
+            call()
+    on_cpu = tscd.detect(gray, cascade, device="cpu")
+    assert len(on_cpu) > 0  # face_low's open thresholds pass windows
+    assert tscd.detect(torch.from_numpy(gray), cascade) == on_cpu
+
+
+def test_scddetect_cpu_in_process_matches_detect(cascade, capsys):
+    image = os.path.join(DATA, "crop180.png")
+    assert scddetect.main([image, CASCADE, "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    want = tscd.detect(tio.read(image, tio.IO_RGB_COLOR, device="cpu"),
+                       cascade)
+    assert len(want) > 0
     assert lines[-1].startswith(f"total : {len(want)} in time")
     assert [tuple(int(v) for v in ln.split()[:4]) for ln in lines[:-1]] == [
         (c.x, c.y, c.width, c.height) for c in want]

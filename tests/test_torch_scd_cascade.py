@@ -151,6 +151,42 @@ def test_wrapper_on_cpu_is_the_plain_version():
     assert torch.equal(passed, ref_passed)
 
 
+def test_cascade_work_counts_the_stages_each_window_reaches():
+    """K1's bound counts, for each window of each level's grid, the
+    features of every stage it reaches (the early exit stops after the
+    first stage whose plain sum is not above its threshold): a brute-force
+    walk over the windows gives the same count."""
+    rng = np.random.default_rng(11)
+    jcascade = _synth_cascade(rng)
+    dims = np.array([[6, 9], [4, 5]])
+    sat_l = torch.from_numpy(rng.normal(0, 10, (2, 8, 40, 52))
+                             .astype(np.float32))
+    _median_thresholds(jcascade, sat_l, dims)
+    tables = _tables(jcascade)
+    vs = tkernel.cascade_stage_sums_ref(sat_l, tables, STEP, dims).numpy()
+    counts = [f1 - f0 for f0, f1 in tables.stage_ranges]
+    want = 0
+    for li, (ny, nx) in enumerate(dims):
+        for y in range(ny):
+            for x in range(nx):
+                for s, n in enumerate(counts):
+                    want += n
+                    if not vs[li, s, y, x] > tables.thresholds[s]:
+                        break
+    windows = int((dims[:, 0] * dims[:, 1]).sum())
+    assert counts[0] * windows < want < sum(counts) * windows  # exits ran
+    flop, nbytes = tkernel.cascade_work(sat_l, tables, STEP, dims)
+    assert flop == want * tkernel.FEATURE_FLOP
+    assert nbytes == (sat_l.numel() * 4 + tables.n_features * 4 * 49
+                      + tables.n_stages * 8 + 2 * 6 * 9 * 5)
+    # the same count from precomputed sums; open thresholds reach all
+    assert tkernel.cascade_work(sat_l, tables, STEP, dims,
+                                torch.from_numpy(vs))[0] == flop
+    tables.thresholds[:] = -1e9
+    assert tkernel.cascade_work(sat_l, tables, STEP, dims)[0] == (
+        sum(counts) * windows * tkernel.FEATURE_FLOP)
+
+
 def test_wrapper_rejects_bad_input():
     tables = _tables(_synth_cascade(np.random.default_rng(1)))
     good = torch.zeros((1, 8, 40, 40))

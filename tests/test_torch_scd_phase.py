@@ -163,7 +163,8 @@ def test_plain_phase_a_matches_jax_xla(counts, dims):
 def crop180_level0():
     """crop180's level-0 SAT through ccv_tpu, and the face cascade with its
     phase-A thresholds in gaps between that level's stage sums."""
-    img = tio.read(os.path.join(DATA, "crop180.png"), tio.IO_RGB_COLOR)
+    img = tio.read(os.path.join(DATA, "crop180.png"), tio.IO_RGB_COLOR,
+                   device="cpu")
     jc = jscd.load_cascade(os.path.join(DATA, "face_low.sqlite3"))
     (_o, _k, _r, _c, ny, nx, _s) = jscd._level_specs(180, 180, jc,
                                                      jscd.ScdParams())[0][0]
@@ -286,3 +287,16 @@ def test_cuda_kernel_matches_plain(counts, dims):
                       got[0][li, :ny, :nx].cpu().numpy(),
                       got[1][li, :ny, :nx].cpu().numpy())
         assert not got[1][li, ny:].any() and not got[1][li, :, nx:].any()
+
+
+def test_phase_a_work_counts_every_feature_at_every_window():
+    """K3 has no early exit: its bound counts every phase-A feature at
+    every window of every level's grid, whatever the thresholds."""
+    rng = np.random.default_rng(12)
+    tables = tscd.cascade_tables(_port(_synth_cascade(rng, (2, 3, 4))))
+    dims = np.array([[6, 9], [4, 5]])
+    sat_l = torch.from_numpy(rng.normal(0, 10, (2, 8, 40, 52))
+                             .astype(np.float32))
+    flop, nbytes = tphase.phase_a_work(sat_l, tables, STEP, dims)
+    assert flop == (6 * 9 + 4 * 5) * 9 * tkernel.FEATURE_FLOP
+    assert nbytes == tkernel.io_bytes(sat_l, tables, dims)

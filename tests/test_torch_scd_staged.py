@@ -91,7 +91,8 @@ def _assert_same_detections(got, want, tol=6e-3):
 
 @pytest.fixture(scope="module")
 def crop():
-    return tio.read(os.path.join(DATA, "crop180.png"), tio.IO_RGB_COLOR)
+    return tio.read(os.path.join(DATA, "crop180.png"), tio.IO_RGB_COLOR,
+                    device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -325,10 +326,11 @@ def test_forms_and_shapes_are_checked(crop, face):
         tscd.level_rows(tscd.detect_async(crop, face, tscd.ScdParams(
             interval=0)))
     with pytest.raises(ValueError):
-        tscd.detect_batch(np.zeros((2, 3, 60, 60, 1), np.uint8), face)
+        tscd.detect_batch(np.zeros((2, 3, 60, 60, 1), np.uint8), face,
+                          device="cpu")
     with pytest.raises(NotImplementedError):
         tscd.detect_batch(np.zeros((2, 60, 60), np.uint8), face,
-                          tscd.ScdParams(size=(24, 24)))
+                          tscd.ScdParams(size=(24, 24)), device="cpu")
 
 
 # -- detect_batch ------------------------------------------------------------
@@ -351,7 +353,7 @@ def jax_batch(batch_imgs):
 def test_detect_batch_matches_single_and_jax(batch_imgs, face, jax_batch,
                                              form):
     params = tscd.ScdParams(min_neighbors=0, interval=0)
-    got = tscd.detect_batch(batch_imgs, face, params, form=form)
+    got = tscd.detect_batch(batch_imgs, face, params, form=form, device="cpu")
     single = [tscd.detect(torch.from_numpy(im), face, params, form=form)
               for im in batch_imgs]
     assert got == single

@@ -49,7 +49,7 @@ def _cfgs(dtype: str, **kw):
 def _params(jcfg):
     jparams = jtf.init_lm(jax.random.PRNGKey(0), jcfg)
     return jparams, ttf.params_from_jax(
-        jax.tree_util.tree_map(np.asarray, jparams))
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
 
 
 def _ids(seed=1, t=T):
@@ -69,6 +69,16 @@ def test_params_from_jax_is_a_copy_of_the_tree():
     # the port's own init gives the same structure and shapes
     mine = topt.leaves(ttf.init_lm(torch.Generator().manual_seed(0), tcfg))
     assert [tuple(p.shape) for p in mine] == [tuple(p.shape) for p in tl]
+
+
+def test_params_from_jax_with_no_device_needs_a_card(monkeypatch):
+    """No device and no card raises rather than copying to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.ones((2, 3), np.float32), "b": [np.zeros(3, np.float32)]}
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        ttf.params_from_jax(tree)
+    got = ttf.params_from_jax(tree, device="cpu")
+    assert got["w"].device.type == "cpu" and got["b"][0].requires_grad
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
