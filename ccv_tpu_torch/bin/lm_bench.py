@@ -155,9 +155,9 @@ def measure(layers=24, dim=1024, heads=16, ff=4096, batch=8, seq=1024,
 
 
 # the flash kernels by the names the profiler gives them: the "wgmma-tma"
-# K2a and K2c, and the "wmma-smem" kernels (K2b; K2a and K2c at f32 or D 32)
+# kernels (bf16, D 64) and the "wmma-smem" ones (f32 or D 32)
 FLASH_KERNELS = {"fwd": ("fwd_sm90_kernel", "::fwd_kernel<"),
-                 "dq": ("::dq_kernel<",),
+                 "dq": ("dq_sm90_kernel", "::dq_kernel<"),
                  "dkv": ("dkv_sm90_kernel", "::dkv_kernel<")}
 
 

@@ -1,9 +1,8 @@
-// Flash attention for Hopper (sm_90a), the "wmma-smem" design: the dq
-// backward (K2b) for every input, and the forward (K2a) and dk/dv backward
-// (K2c) for f32 and for head dim 32, which the parity tests use. K2a and
-// K2c at bf16 and head dim 64, the LM's, run the "wgmma-tma" design of
-// flash_attention_sm90.cu. Port of the Pallas TPU kernels in
-// ccv_tpu/ops/pallas/flash_attention.py:
+// Flash attention for Hopper (sm_90a), the "wmma-smem" design: the forward
+// (K2a), dq backward (K2b) and dk/dv backward (K2c) for f32 and for head
+// dim 32, which the parity tests use. At bf16 and head dim 64, the LM's,
+// all three run the "wgmma-tma" design of flash_attention_sm90.cu. Port of
+// the Pallas TPU kernels in ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (via _flash_bwd_bthd)
@@ -37,14 +36,15 @@
 // kernel and a dk/dv kernel needs no atomics, so the gradients are
 // deterministic.
 //
-// Bound on this card. At the LM's shape (BH 128, T 1024, D 64, causal) K2b
-// does 25.8 GFLOP on 84.9 MB: 0.026 ms at the H100's 989 TFLOP/s bf16
-// (operations bound). wmma's mma.sync path reaches a fraction of the card's
+// Bound on this card. The backward is bound by its operations (K2b at the
+// LM's shape, BH 128, T 1024, D 64, causal, would be 25.8 GFLOP on 84.9 MB:
+// 0.026 ms at 989 TFLOP/s bf16); f32 runs on the 67 TFLOP/s FMA units.
+// wmma's mma.sync path reaches a fraction of the card's
 // bf16 rate (wgmma is the only path to all of it), and every product here
 // round-trips its f32 result through shared memory, so shared-memory
 // bandwidth and the block barriers between the phases bound the kernels
 // before the tensor cores do; flash_attention_sm90.cu is the redesign that
-// removes both, for K2a and K2c so far.
+// removes both, for all three kernels at bf16 and head dim 64.
 //
 // A query row with no valid key (causal with Tq > Tk) is refused by the
 // wrapper: the Pallas kernel gives such rows the mean of v over the keys of
@@ -446,8 +446,8 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 inline int n_tiles(int t) { return (t + kTile - 1) / kTile; }
 
-// K2a and K2c at bf16 and head dim 64 run flash_attention_sm90.cu: this
-// file builds no instance of them and refuses the pair.
+// K2a, K2b and K2c at bf16 and head dim 64 run flash_attention_sm90.cu:
+// this file builds no instance of them and refuses the pair.
 template <typename T, int D>
 constexpr bool kSm90Serves = std::is_same<T, bf16>::value && D == 64;
 
@@ -473,14 +473,18 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int tq,
               int tk, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = dq_smem<T, D>();
-  cudaError_t err = set_smem(dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dq_kernel<T, D><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), tq, tk, scale, causal);
-  return (int)cudaGetLastError();
+  if constexpr (kSm90Serves<T, D>) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const size_t smem = dq_smem<T, D>();
+    cudaError_t err = set_smem(dq_kernel<T, D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    dq_kernel<T, D><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), tq, tk, scale, causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

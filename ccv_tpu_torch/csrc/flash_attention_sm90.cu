@@ -1,10 +1,11 @@
 // Flash attention for Hopper (sm_90a) at bf16, head dim 64: the forward
-// (K2a) and the dk/dv backward (K2c) redesigned around wgmma, TMA and
-// register-resident accumulators. They replace the bf16, D 64 path of
-// flash_attention.cu's fwd_kernel and dkv_kernel (that file keeps K2b, and
-// the f32 and D 32 kernels that the parity tests use). Ports of the Pallas
-// TPU kernels in ccv_tpu/ops/pallas/flash_attention.py:
+// (K2a), the dq backward (K2b) and the dk/dv backward (K2c) redesigned
+// around wgmma, TMA and register-resident accumulators. They replace the
+// bf16, D 64 path of flash_attention.cu's kernels (that file keeps the f32
+// and D 32 kernels that the parity tests use). Ports of the Pallas TPU
+// kernels in ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
+//   K2b  _dq_kernel     (via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (via _flash_bwd_bthd)
 //
 // What they compute, on (BH, T, 64) row-major bf16 tensors (lse and delta
@@ -14,16 +15,18 @@
 //   K2a: online softmax over 64-key tiles; p is rounded to bf16 before
 //        p @ v; o = acc / max(l, 1e-30); lse = m + log(l) (natural log: the
 //        kernel keeps m in base 2 and converts before the store).
-//   K2c: p = exp(s - lse) (0 where masked), dp = do . v,
-//        ds = p * (dp - delta) * scale; dv = sum_q p^T do, dk = sum_q ds^T q;
-//        p and ds are rounded to bf16 before their products, which
-//        accumulate in f32.
+//   K2b: p = exp(s - lse) (0 where masked), dp = do . v,
+//        ds = p * (dp - delta) * scale, rounded to bf16; dq = sum_k ds k.
+//   K2c: the same p and ds; dv = sum_q p^T do, dk = sum_q ds^T q.
+//   p and ds are rounded to bf16 before their products, which accumulate
+//   in f32.
 //
 // Bound on this card. At the LM's shape (BH 128, T 1024, D 64, causal) K2a
-// does 17.2 GFLOP on 67.6 MB and K2c 34.4 GFLOP on 101.7 MB: at the H100's
-// 989 TFLOP/s bf16 and 3.35 TB/s the bounds are 0.020 ms (bytes) and
-// 0.035 ms (operations). The tile products are what the tensor cores must
-// do fast, and on Hopper only wgmma reaches their full rate.
+// does 17.2 GFLOP on 67.6 MB, K2b 25.8 GFLOP on 84.9 MB and K2c 34.4 GFLOP
+// on 101.7 MB: at the H100's 989 TFLOP/s bf16 and 3.35 TB/s the bounds are
+// 0.020 ms (bytes), 0.026 ms and 0.035 ms (operations). The tile products
+// are what the tensor cores must do fast, and on Hopper only wgmma reaches
+// their full rate.
 //
 // Design (FlashAttention-3's layout, without its pingpong and intra-
 // warpgroup overlap):
@@ -48,7 +51,19 @@
 //   they are the A operands of dV += P^T dO and dK += dS^T Q (register-A
 //   wgmmas, dO and Q MN-major). dK and dV stay in registers; no atomics, so
 //   the gradients are deterministic.
-//   Neither loop has a block barrier: only mbarrier waits and wgmma
+//   K2b: K2a's loop with K2c's arithmetic. One block per (bh, 64-query
+//   tile): one consumer warpgroup and a producer warp (three 32-register
+//   accumulators, S, dP and dQ, and the dS fragments leave no room for a
+//   second warpgroup at two blocks a SM). The producer TMA-loads q and do
+//   once and streams 64-key k and v tiles through the 2-stage ring.
+//   S = Q K^T and dP = dO V^T are shared-memory wgmmas (all four operands
+//   K-major); each thread owns query rows r0 and r0 + 8 for the whole
+//   block, so their lse and delta are loaded once into registers; dS is
+//   packed to bf16 in registers, already the A-operand layout of
+//   dQ += dS K (a register-A wgmma, K MN-major). dQ stays in registers
+//   until the epilogue; no atomics. It asks for 3 blocks a SM (the register
+//   cap that follows), which measured faster than 2 (PERF.md).
+//   No loop has a block barrier: only mbarrier waits and wgmma
 //   fence/commit/wait. The longest causal tiles are scheduled first.
 //
 // The tensor maps are encoded on the host in the launch function through
@@ -74,6 +89,7 @@ constexpr int kTileBytes = kRows * kD * 2;  // 8 KB
 constexpr int kStages = 2;
 constexpr int kFwdBlocksPerSm = 2;
 constexpr int kDkvBlocksPerSm = 2;
+constexpr int kDqBlocksPerSm = 3;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -550,6 +566,142 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm)
   }
 }
 
+// ---- K2b ---------------------------------------------------------------
+
+constexpr int kDqThreads = 128 + 32;  // 1 warpgroup + producer
+
+struct DqSmem {
+  bf16 q[kRows * kD];
+  bf16 dout[kRows * kD];
+  bf16 k[kStages][kRows * kD];
+  bf16 v[kStages][kRows * kD];
+  uint64_t qd_full, full[kStages], empty[kStages];
+};
+
+__global__ void __launch_bounds__(kDqThreads, kDqBlocksPerSm)
+    dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap do_map,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int tq, int tk, float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem& sm = *align1024<DqSmem>(smem_raw);
+  const int n_qt = (tq + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * kRows;  // long first
+  const int diag = tk - tq;
+  const int n_kt = key_tiles(q0, kRows, tk, diag, causal);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4) {
+    // producer: q and do once, then k and v tiles through the ring
+    if (lane == 0) {
+      mbar_expect_tx(&sm.qd_full, 2 * kTileBytes);
+      tma_load_3d(sm.q, &q_map, &sm.qd_full, 0, q0, bh);
+      tma_load_3d(sm.dout, &do_map, &sm.qd_full, 0, q0, bh);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+        tma_load_3d(sm.k[s], &k_map, &sm.full[s], 0, j * kRows, bh);
+        tma_load_3d(sm.v[s], &v_map, &sm.full[s], 0, j * kRows, bh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: query rows q0 + r0 and q0 + r0 + 8 of every tile,
+  // so this thread's lse (in base 2) and delta are two registers each
+  const int r0 = 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);  // key columns 8j + cq + {0, 1}
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = q0 + r0 + 8 * h;
+    const size_t at = (size_t)bh * tq + qp;
+    lse2[h] = qp < tq ? lse[at] * kLog2e : 0.f;
+    dl[h] = qp < tq ? delta[at] : 0.f;
+  }
+  float dq_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+  const uint64_t q_desc = desc_sw128(sm.q), do_desc = desc_sw128(sm.dout);
+
+  mbar_wait(&sm.qd_full, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % kStages;
+    mbar_wait(&sm.full[s], (j / kStages) & 1);
+    const uint64_t k_desc = desc_sw128(sm.k[s]);
+    const uint64_t v_desc = desc_sw128(sm.v[s]);
+    float sc[32], dp[32];  // S = Q K^T and dP = dO V^T: rows queries
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(sc, q_desc + kk * kStepKMajor, k_desc + kk * kStepKMajor, kk);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(dp, do_desc + kk * kStepKMajor, v_desc + kk * kStepKMajor,
+               kk);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const int k0 = j * kRows;
+    const bool edge =
+        k0 + kRows > tk || (causal && k0 + kRows - 1 > q0 + diag);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = exp2f(sc[i] * scale_log2 - lse2[h]);
+      if (edge) {
+        const int kp = k0 + acc_col(i) + cq, qp = q0 + r0 + acc_row(i);
+        if (!(kp < tk && (!causal || kp <= qp + diag))) p = 0.f;
+      }
+      sc[i] = p * (dp[i] - dl[h]) * scale;  // ds
+    }
+    uint32_t dsf[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) dsf[t] = pack_bf16(sc[2 * t], sc[2 * t + 1]);
+
+    fence_regs(dq_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      wgmma_rs(dq_acc, dsf + 4 * kk, k_desc + kk * kStepMNMajor);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(dq_acc);
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = q0 + r0 + 8 * h;
+    if (qp >= tq) continue;
+    bf16* row = dq + ((size_t)bh * tq + qp) * kD + cq;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * jj) =
+          __floats2bfloat162_rn(dq_acc[4 * jj + 2 * h],
+                                dq_acc[4 * jj + 2 * h + 1]);
+    }
+  }
+}
+
 // ---- host: tensor maps and launches -------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -626,8 +778,34 @@ extern "C" int flash_attention_fwd_sm90(int device, const void* q,
   return (int)cudaGetLastError();
 }
 
-// K2c. The same inputs as K2b, dout (bh, tq, 64), lse and delta (bh, tq)
-// -> dk, dv (bh, tk, 64).
+// K2b. q, dout (bh, tq, 64), k, v (bh, tk, 64), bf16, lse and delta
+// (bh, tq) f32 -> dq (bh, tq, 64).
+extern "C" int flash_attention_dq_sm90(int device, const void* q,
+                                       const void* k, const void* v,
+                                       const void* dout, const float* lse,
+                                       const float* delta, void* dq, int bh,
+                                       int tq, int tk, float scale,
+                                       int causal, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if (!map_rows(&q_map, q, bh, tq, kRows) ||
+      !map_rows(&k_map, k, bh, tk, kRows) ||
+      !map_rows(&v_map, v, bh, tk, kRows) ||
+      !map_rows(&do_map, dout, bh, tq, kRows))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(DqSmem) + 1024;
+  err = set_smem(dq_sm90_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = bh * ((tq + kRows - 1) / kRows);
+  dq_sm90_kernel<<<blocks, kDqThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dq), tq,
+      tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// K2c. The same inputs as K2b -> dk, dv (bh, tk, 64).
 extern "C" int flash_attention_dkv_sm90(int device, const void* q,
                                         const void* k, const void* v,
                                         const void* dout, const float* lse,

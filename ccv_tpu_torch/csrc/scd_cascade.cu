@@ -12,33 +12,48 @@
 //   it fails. conf = the sum of the last stage evaluated, passed = all
 //   stages passed.
 //
-// Layout: sat is the (L, 8, H1, W1) float32 stack of one octave's SATs,
-// zero-padded to the octave's largest level; window (wy, wx), corner
-// (oy, ox) reads sat[l, c, wy*step + oy, wx*step + ox]. The TPU kernel's
-// (step*step) phase planes were a lane layout for the TPU and are gone.
+// Layout: the octave's SAT as step x step phase planes, (L, step*step, 8,
+// hs, ws) float32, planes[l, py*step + px, c, h, w] = sat[l, c, h*step + py,
+// w*step + px] (ccv_tpu's _planes_cf; the wrapper makes them with one copy,
+// hs and ws the rows and columns the windows read). Window (wy, wx), corner
+// (oy, ox) reads plane (oy % step)*step + ox % step at row wy + oy / step,
+// column wx + ox / step: the same corner of neighbouring windows is
+// neighbouring floats.
 //
-// Design: one thread per window, blocks of 32 x 4 windows, blockIdx.z is
-// the level and each level's real (ny, nx) comes from a small device
-// array, so one launch serves the whole octave. The per-thread stage loop
-// breaks when the window dies; a warp retires once all 32 of its windows
-// are dead, which takes the place of the TPU's per-(8, 128)-block skip.
-// The cascade tables (318 features x (16 corner ints + 33 floats) = 62 KB
-// for the face cascade) live in device buffers read with warp-uniform
-// __ldg loads: every thread of a warp reads the same address. Unlike
-// __constant__ memory they have no 64 KB limit and no per-module state, so
-// two cascades can be in flight at once.
-//
-// Bound on the card: the SAT bytes read. Each feature reads 16 corners x
-// 8 channels x 4 B = 512 B per window. Neighbouring threads read addresses
-// step * 4 = 16 B apart, so a warp's load touches 512 B of which it uses
-// 128 B: poorly coalesced, and it leans on L1/L2 reuse, since windows 4
-// pixels apart overlap in 44 of their 48 columns. A level-0 SAT at 1080p
-// is 8 x 1081 x 1921 x 4 B = 66 MB, more than the 50 MB L2. The early exit
-// keeps most windows to the first stages (12 features); shared-memory SAT
-// tiles (TMA) are the next step.
-//
-// The per-feature math and its numerics are in scd_feature.cuh, shared
-// with the phase-A kernel (scd_phase.cu).
+// Bound on this card: the SAT bytes, read once (66.5 MB for the 1080p
+// level 0: 0.020 ms at 3.35 TB/s; at open thresholds the FP32 operations,
+// 0.24 ms). The thread-per-window kernel this replaces read the SAT
+// channels-first at stride 4, so a warp load of one corner touched 16
+// sectors and used a quarter of each; it read all 16 corners of a feature
+// where 9 or 10 are distinct; and a warp ran a stage while any of its 32
+// windows lived, so the late stages (49, 89 and 168 of the 318 features)
+// ran on mostly masked warps. What this design does:
+//   - phase planes: a warp's 32 windows of one tile row read each corner
+//     channel as 32 consecutive floats, one 128-byte line;
+//   - each distinct corner of a feature once, in registers, for the three
+//     box layouts that SCD's feature generator makes (Layout below; 11-13%
+//     faster than reading the 16 box corners, PERF.md);
+//   - survivor compaction: a block of 4 warps owns a 32 x 4 tile of
+//     windows of one level. After every stage it packs the live windows
+//     into a shared list with a block prefix sum over their flags, and its
+//     threads take the list in order, so each stage runs on as few warps
+//     as its live windows fill; the block stops when the list is empty.
+//     Each window keeps its last stage sum in shared memory and the block
+//     writes conf and passed for its tile at the end. Grid entries outside
+//     a level's (ny, nx) get conf 0, not passed.
+//   - the late stages are a chain of dependent loads for the few windows
+//     left: each block first copies the corner records (17 ints a feature,
+//     21.6 KB for the face cascade; a cascade of more than 512 features in
+//     runs of 512, so any size runs) into shared memory, so a feature's
+//     layout and offsets come from there and only its corner loads go to
+//     L2; 5 blocks a SM (96 registers) keep more such chains in flight.
+//     Tile, block and blocks a SM were chosen on the card (PERF.md).
+// The weights and biases (33 floats a feature) stay in a device buffer
+// read with warp-uniform __ldg loads. What is left: a block's SAT strip in
+// shared memory (as the TPU kernel's VMEM strip) does not fit here: a
+// 32 x 4 tile with its 48-pixel corner extent needs 16 planes x 8 channels
+// x 16 x 44 floats = 360 KB, past the 227 KB a block may have; and a
+// window that passes deep runs its 318 features one after another.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,72 +62,249 @@
 
 namespace {
 
-using scd::kBoxInts;
 using scd::kChannels;
 using scd::kFeatFloats;
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 4;
+constexpr int kTileX = 32;  // windows along a tile row: one warp
+constexpr int kTileY = 4;
+constexpr int kTile = kTileX * kTileY;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRounds = kTile / kThreads;  // list entries per thread
+constexpr int kBlocksPerSm = 5;
+constexpr int kRecInts = 17;  // per feature: layout, 16 corner offsets
+// features whose records a block holds in shared memory at once (34.8 KB,
+// so 5 blocks fit a SM); a longer cascade is staged in runs of this many
+constexpr int kChunk = 512;
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-scd_cascade_kernel(const float* __restrict__ sat, int H1, int W1,
-                   const int* __restrict__ dims,
+// Box layouts. A layout gives, for the 16 box corners in box order and in
+// each box the order (sy,sx), (sy,dx), (dy,sx), (dy,dx), the index of the
+// corner in the feature's corner list, 4 bits each, corner 0 lowest. Layout
+// 0 reads the 16 box corners as they come (any feature); layouts 1.. are
+// SCD's generator layouts with their distinct corners, defined once, in
+// ops/kernels/scd_cascade.py LAYOUTS, which the build passes in as
+// SCD_LAYOUT_SLOTS (SCD_SLOT(code) for each, no commas: nvcc splits a -D
+// value at them). Compiled in, so a feature's corners stay in registers.
+#ifndef SCD_LAYOUT_SLOTS
+#error "SCD_LAYOUT_SLOTS is set by the build (ops/kernels/scd_cascade.py)"
+#endif
+#define SCD_SLOT(code) code,
+__host__ __device__ constexpr unsigned long long layout_code(int l) {
+  const unsigned long long codes[] = {0xfedcba9876543210ull,
+                                      SCD_LAYOUT_SLOTS};
+  return codes[l];
+}
+__host__ __device__ constexpr int n_layouts() {
+  const unsigned long long codes[] = {0, SCD_LAYOUT_SLOTS};
+  return sizeof(codes) / sizeof(codes[0]);
+}
+
+__host__ __device__ constexpr int layout_slot(unsigned long long code, int i) {
+  return (int)((code >> (4 * i)) & 15ull);
+}
+__host__ __device__ constexpr int layout_corners(unsigned long long code) {
+  int n = 0;
+  for (int i = 0; i < 16; ++i)
+    n = layout_slot(code, i) + 1 > n ? layout_slot(code, i) + 1 : n;
+  return n;
+}
+
+template <int L>
+struct Layout {
+  static constexpr unsigned long long kSlots = layout_code(L);
+  static constexpr int kCorners = layout_corners(kSlots);
+};
+
+// The response of a feature of layout L at one window, off phase planes:
+// the window's float in a plane is lvl[at], channel c of the same plane
+// lies c * chan floats further, and the feature's corners lie
+// offs[0 .. kCorners-1] floats from there (plane, row and column folded in
+// by the wrapper). Weights and bias `wf` as for scd::feature_response.
+template <int L>
+__device__ __forceinline__ float feature_response_planes(
+    const float* __restrict__ lvl, int at, int chan, const int* offs,
+    const float* wf) {
+  constexpr int kN = Layout<L>::kCorners;
+  constexpr unsigned long long kS = Layout<L>::kSlots;
+  int off[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) off[k] = at + offs[k];
+  float val[4][kChannels];
+#pragma unroll
+  for (int c = 0; c < kChannels; ++c) {
+    float cv[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) cv[k] = __ldg(lvl + off[k] + c * chan);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      val[b][c] = ((cv[layout_slot(kS, 4 * b)] - cv[layout_slot(kS, 4 * b + 1)]) -
+                   cv[layout_slot(kS, 4 * b + 2)]) +
+                  cv[layout_slot(kS, 4 * b + 3)];
+  }
+  return scd::box_response<true>(val, wf);
+}
+
+// The response of feature `rec` (its layout, then its corner offsets, in
+// shared memory) at the window whose float in a plane is lvl[at]: layout L,
+// or one below it. The same feature across the warp: no divergence.
+template <int L>
+__device__ __forceinline__ float feature_at(const float* __restrict__ lvl,
+                                            int at, int chan, const int* rec,
+                                            const float* wf) {
+  if constexpr (L == 0) {
+    return feature_response_planes<0>(lvl, at, chan, rec + 1, wf);
+  } else {
+    if (rec[0] == L)
+      return feature_response_planes<L>(lvl, at, chan, rec + 1, wf);
+    return feature_at<L - 1>(lvl, at, chan, rec, wf);
+  }
+}
+
+// Packs the windows wv[r] whose keep[r] is set (entry r * kThreads + tid of
+// the list of n) into list[0 ..], in list order; returns how many. Every
+// thread of the block calls it; the list is read before the first barrier.
+__device__ __forceinline__ int compact(const bool (&keep)[kRounds],
+                                       const int (&wv)[kRounds], int n,
+                                       uint16_t* list, int* warp_n) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int total = 0;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    if (r * kThreads >= n) break;  // the same for every thread
+    const unsigned m = __ballot_sync(0xffffffffu, keep[r]);
+    if (lane == 0) warp_n[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, sum = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = warp_n[w];
+      before += w < warp ? c : 0;
+      sum += c;
+    }
+    if (keep[r])
+      list[total + before + __popc(m & ((1u << lane) - 1u))] =
+          (uint16_t)wv[r];
+    total += sum;
+    __syncthreads();
+  }
+  return total;
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+scd_cascade_kernel(const float* __restrict__ planes, int n_planes, int hs,
+                   int ws, const int* __restrict__ dims,
                    const int* __restrict__ stage_end,
                    const float* __restrict__ thresholds, int n_stages,
-                   const int* __restrict__ boxes,
-                   const float* __restrict__ feats, int step, int NY,
-                   int NX, float* __restrict__ conf,
-                   uint8_t* __restrict__ passed) {
+                   const int* __restrict__ recs, int n_features,
+                   const float* __restrict__ feats, int NY, int NX,
+                   float* __restrict__ conf, uint8_t* __restrict__ passed) {
+  extern __shared__ int s_recs[];     // records of features [res0, res1)
+  __shared__ float s_conf[kTile];     // each window's last stage sum
+  __shared__ uint16_t s_list[kTile];  // the live windows, in tile order
+  __shared__ uint8_t s_pass[kTile];
+  __shared__ int s_warp_n[kWarps];
   const int l = blockIdx.z;
-  const int wx = blockIdx.x * kBlockX + threadIdx.x;
-  const int wy = blockIdx.y * kBlockY + threadIdx.y;
-  if (wx >= NX || wy >= NY) return;
-  const size_t out = ((size_t)l * NY + wy) * NX + wx;
-  const int ny = __ldg(dims + 2 * l);
-  const int nx = __ldg(dims + 2 * l + 1);
-  if (wy >= ny || wx >= nx) {
-    conf[out] = 0.f;
-    passed[out] = 0;
-    return;
+  const int x0 = blockIdx.x * kTileX, y0 = blockIdx.y * kTileY;
+  const int ny = __ldg(dims + 2 * l), nx = __ldg(dims + 2 * l + 1);
+  const int chan = hs * ws;
+  const float* lvl = planes + (size_t)l * n_planes * kChannels * chan;
+
+  // the tile's windows inside the level's grid
+  int wv[kRounds];
+  bool keep[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int w = r * kThreads + threadIdx.x;
+    wv[r] = w;
+    keep[r] = y0 + w / kTileX < ny && x0 + w % kTileX < nx;
+    s_conf[w] = 0.f;
+    s_pass[w] = 0;
   }
-  const size_t plane = (size_t)H1 * W1;
-  const float* base = sat + (size_t)l * kChannels * plane +
-                      (size_t)wy * step * W1 + (size_t)wx * step;
-  float vs = 0.f;
-  bool alive = true;
-  int f = 0;
-  for (int s = 0; s < n_stages && alive; ++s) {
+  int n = compact(keep, wv, kTile, s_list, s_warp_n);
+
+  int f = 0, res0 = 0, res1 = 0;  // all block-uniform
+  for (int s = 0; s < n_stages && n > 0; ++s) {
     const int f1 = __ldg(stage_end + s);
-    vs = 0.f;
-    for (; f < f1; ++f) {
-      vs = vs + scd::feature_response<true>(base, plane, W1,
-                                            boxes + f * kBoxInts,
-                                            feats + f * kFeatFloats);
+    const float th = __ldg(thresholds + s);
+    float vs[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) vs[r] = 0.f;
+    for (int g0 = f; g0 < f1;) {
+      if (g0 >= res1) {  // stage the next run of records
+        __syncthreads();
+        res0 = g0;
+        res1 = min(n_features, g0 + kChunk);
+        for (int i = threadIdx.x; i < (res1 - res0) * kRecInts; i += kThreads)
+          s_recs[i] = __ldg(recs + res0 * kRecInts + i);
+        __syncthreads();
+      }
+      const int g1 = min(f1, res1);
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) {
+        const int i = r * kThreads + threadIdx.x;
+        if (i < n) {
+          const int w = s_list[i];
+          const int at = (y0 + w / kTileX) * ws + x0 + w % kTileX;
+          for (int g = g0; g < g1; ++g)
+            vs[r] = vs[r] + feature_at<n_layouts() - 1>(
+                                lvl, at, chan, s_recs + (g - res0) * kRecInts,
+                                feats + g * kFeatFloats);
+        }
+      }
+      g0 = g1;
     }
-    alive = vs > __ldg(thresholds + s);
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int i = r * kThreads + threadIdx.x;
+      keep[r] = false;
+      if (i < n) {
+        const int w = s_list[i];
+        wv[r] = w;
+        s_conf[w] = vs[r];
+        keep[r] = vs[r] > th;
+      }
+    }
+    f = f1;
+    n = compact(keep, wv, n, s_list, s_warp_n);
   }
-  conf[out] = vs;
-  passed[out] = alive ? 1 : 0;
+  // n > 0 only if the last stage ran: the list holds the windows that
+  // passed every stage
+  for (int i = threadIdx.x; i < n; i += kThreads) s_pass[s_list[i]] = 1;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int w = r * kThreads + threadIdx.x;
+    const int gy = y0 + w / kTileX, gx = x0 + w % kTileX;
+    if (gy < NY && gx < NX) {
+      const size_t out = ((size_t)l * NY + gy) * NX + gx;
+      conf[out] = s_conf[w];
+      passed[out] = s_pass[w];
+    }
+  }
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` (a cudaStream_t) of CUDA device
-// `device` and returns cudaGetLastError() as an int (0 = launched).
-extern "C" int scd_cascade_levels(int device, const float* sat, int L, int H1,
-                                  int W1, const int* dims, int NY, int NX,
+// planes (L, n_planes, 8, hs, ws) float32; recs (F, 17) int32; feats
+// (F, 33) float32. Launches the kernel on `stream` (a cudaStream_t) of CUDA
+// device `device` and returns the first CUDA error as an int (0 =
+// launched).
+extern "C" int scd_cascade_levels(int device, const float* planes, int L,
+                                  int n_planes, int hs, int ws,
+                                  const int* dims, int NY, int NX,
                                   const int* stage_end,
                                   const float* thresholds, int n_stages,
-                                  const int* boxes, const float* feats,
-                                  int step, float* conf, uint8_t* passed,
-                                  void* stream) {
+                                  const int* recs, int n_features,
+                                  const float* feats, float* conf,
+                                  uint8_t* passed, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kBlockX, kBlockY, 1);
-  const dim3 grid((NX + kBlockX - 1) / kBlockX, (NY + kBlockY - 1) / kBlockY,
-                  L);
-  scd_cascade_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      sat, H1, W1, dims, stage_end, thresholds, n_stages, boxes, feats, step,
-      NY, NX, conf, passed);
+  const size_t smem =
+      (size_t)(n_features < kChunk ? n_features : kChunk) * kRecInts *
+      sizeof(int);
+  const dim3 grid((NX + kTileX - 1) / kTileX, (NY + kTileY - 1) / kTileY, L);
+  scd_cascade_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      planes, n_planes, hs, ws, dims, stage_end, thresholds, n_stages, recs,
+      n_features, feats, NY, NX, conf, passed);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,28 @@
 // One SURF feature's response at one window: the per-feature math shared by
-// the SCD kernels, K1 (scd_cascade.cu, the whole cascade with early exit)
-// and K3 (scd_phase.cu, phase A of the staged cascade, no early exit).
+// the SCD kernels, K1 (scd_cascade.cu, the whole cascade with early exit,
+// port of ccv_tpu/ops/pallas/scd_cascade.py _get_cascade_call) and K3
+// (scd_phase.cu, phase A of the staged cascade, no early exit, port of
+// ccv_tpu/ops/pallas/scd_phase.py _get_phase_a_call).
 //
 // 4 SURF boxes x 8 channels, each read off the zero-padded SAT as
 // c0 - c1 - c2 + c3; L2Hys (norm + 1e-6, clip to +-2/sqrt(32), renorm); dot
 // with 32 weights + bias; tanh(0.5 * logit).
 //
-// Numerics follow the JAX op order: squares summed over boxes then
-// channels, IEEE sqrt and division (no fast math), and __fmul_rn wherever
-// the reference multiplies and then adds, so no FMA contraction changes the
-// rounding. tanhf is CUDA's (2 ulp). Both kernels give the same stage sums.
+// Two ways to fetch the corners, one response (box_response):
+//   feature_response (K3, here): 16 corners, straight off the channels-first
+//     SAT (L, 8, H1, W1) at stride `step`; each box reads its own 4.
+//   K1's feature_response_planes (scd_cascade.cu): off the SAT's step x step
+//     phase planes, where the same corner of 32 neighbouring windows is 32
+//     neighbouring floats, and each distinct corner of a feature once.
+// Bound: both kernels are bound by the SAT bytes they must read (66.5 MB
+// for a 1080p level 0 against 0.02 ms at 3.35 TB/s), K1 at open thresholds
+// by its FP32 operations.
+//
+// Numerics follow the JAX op order: each box ((c0 - c1) - c2) + c3, squares
+// summed over boxes then channels, IEEE sqrt and division (no fast math),
+// and __fmul_rn wherever the reference multiplies and then adds, so no FMA
+// contraction changes the rounding. tanhf is CUDA's (2 ulp). Both fetches
+// give the same box values, so K1 and K3 give the same stage sums.
 
 #pragma once
 
@@ -36,6 +49,38 @@ __device__ __forceinline__ T table_word(const T* p) {
 
 __device__ __forceinline__ float clip_theta(float v) {
   return fminf(fmaxf(v, -kTheta), kTheta);
+}
+
+// The response of a feature from its box values val[box][channel] and its
+// weights and bias `wf` (kFeatFloats floats).
+template <bool kLdg>
+__device__ __forceinline__ float box_response(const float (&val)[4][kChannels],
+                                              const float* wf) {
+  float ss = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChannels; ++c) {
+    float q = __fmul_rn(val[0][c], val[0][c]);
+#pragma unroll
+    for (int b = 1; b < 4; ++b) q = q + __fmul_rn(val[b][c], val[b][c]);
+    ss = ss + q;
+  }
+  const float inv = 1.0f / (sqrtf(ss) + 1e-6f);
+  float ss2 = 0.f, dot = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChannels; ++c) {
+    float q2 = 0.f, acc = 0.f;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const float u = clip_theta(__fmul_rn(val[b][c], inv));
+      q2 = q2 + __fmul_rn(u, u);
+      acc = acc + __fmul_rn(u, table_word<kLdg>(wf + b * kChannels + c));
+    }
+    ss2 = ss2 + q2;
+    dot = dot + acc;
+  }
+  const float inv2 = 1.0f / (sqrtf(ss2) + 1e-6f);
+  const float logit = __fmul_rn(dot, inv2) + table_word<kLdg>(wf + 32);
+  return tanhf(0.5f * logit);
 }
 
 // The response of the feature whose corners are `bx` (kBoxInts ints) and
@@ -65,31 +110,7 @@ __device__ __forceinline__ float feature_response(const float* base,
                   __ldg(p3 + o);
     }
   }
-  float ss = 0.f;
-#pragma unroll
-  for (int c = 0; c < kChannels; ++c) {
-    float q = __fmul_rn(val[0][c], val[0][c]);
-#pragma unroll
-    for (int b = 1; b < 4; ++b) q = q + __fmul_rn(val[b][c], val[b][c]);
-    ss = ss + q;
-  }
-  const float inv = 1.0f / (sqrtf(ss) + 1e-6f);
-  float ss2 = 0.f, dot = 0.f;
-#pragma unroll
-  for (int c = 0; c < kChannels; ++c) {
-    float q2 = 0.f, acc = 0.f;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const float u = clip_theta(__fmul_rn(val[b][c], inv));
-      q2 = q2 + __fmul_rn(u, u);
-      acc = acc + __fmul_rn(u, table_word<kLdg>(wf + b * kChannels + c));
-    }
-    ss2 = ss2 + q2;
-    dot = dot + acc;
-  }
-  const float inv2 = 1.0f / (sqrtf(ss2) + 1e-6f);
-  const float logit = __fmul_rn(dot, inv2) + table_word<kLdg>(wf + 32);
-  return tanhf(0.5f * logit);
+  return box_response<kLdg>(val, wf);
 }
 
 }  // namespace scd

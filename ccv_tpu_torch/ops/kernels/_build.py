@@ -3,7 +3,8 @@
 Each library is compiled with nvcc for Hopper (``sm_90a``) from the sources
 in ``ccv_tpu_torch/csrc`` into ``ccv_tpu_torch/_build`` (not committed) and
 loaded with ctypes. The file name carries a hash of the sources, the
-shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+shared headers (``csrc/*.cuh``) and the flags (a library's own flags
+too), so an edited source is
 rebuilt and a fresh checkout builds
 everything it calls. Nothing here runs at import time: the CPU tests import
 every module on machines with no nvcc.
@@ -46,17 +47,19 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _key(sources: Sequence[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _key(sources: Sequence[Path], flags: Sequence[str]) -> str:
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
     for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """The ctypes handle of lib<name>, built from ``csrc/<sources>``.
-    Different libraries may be built from different threads at once."""
+def load_library(name: str, sources: Sequence[str],
+                 flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The ctypes handle of lib<name>, built from ``csrc/<sources>`` with
+    ``flags`` (such as ``-D`` definitions) after NVCC_FLAGS. Different
+    libraries may be built from different threads at once."""
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
@@ -64,11 +67,11 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         if lib is not None:
             return lib
         paths = [CSRC / s for s in sources]
-        so = BUILD_DIR / f"lib{name}-{_key(paths)}.so"
+        so = BUILD_DIR / f"lib{name}-{_key(paths, flags)}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
                    *(str(p) for p in paths)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:

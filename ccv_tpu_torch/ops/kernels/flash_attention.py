@@ -10,10 +10,9 @@ kernels' op order:
   kernel or raises. ``LAUNCHES`` counts kernel launches per kernel,
   ``DESIGN_LAUNCHES`` per kernel and design. ``_design`` picks the design:
   "wgmma-tma" (csrc/flash_attention_sm90.cu: wgmma, TMA, register-resident
-  softmax and accumulators) for K2a and K2c at bf16 and head dim 64, the
+  softmax and accumulators) for all three at bf16 and head dim 64, the
   LM's; "wmma-smem" (csrc/flash_attention.cu: wmma tiles and accumulators in
-  shared memory) for K2b, and for f32 and head dim 32, which the parity
-  tests use;
+  shared memory) for f32 and head dim 32, which the parity tests use;
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
@@ -43,9 +42,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches made by the wrappers (CUDA tensors only), per kernel and
 # per kernel and design
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
-DESIGN_LAUNCHES = {"fwd": {"wgmma-tma": 0, "wmma-smem": 0},
-                   "dq": {"wmma-smem": 0},
-                   "dkv": {"wgmma-tma": 0, "wmma-smem": 0}}
+DESIGN_LAUNCHES = {name: {"wgmma-tma": 0, "wmma-smem": 0}
+                   for name in LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -59,9 +57,7 @@ def reset_launches() -> None:
 def _design(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The kernel design that serves ``kernel`` ("fwd", "dq" or "dkv") for
     inputs of type ``dtype`` and head dim ``d``."""
-    if kernel != "dq" and dtype == torch.bfloat16 and d == 64:
-        return "wgmma-tma"
-    return "wmma-smem"
+    return "wgmma-tma" if dtype == torch.bfloat16 and d == 64 else "wmma-smem"
 
 
 def causal_pairs(t_q: int, t_k: int, causal: bool) -> int:
@@ -228,9 +224,11 @@ def _sm90_library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_fwd_sm90.argtypes = [i, p, p, p, p, p, i, i, i,
                                                  f, i, p]
+        lib.flash_attention_dq_sm90.argtypes = [i, p, p, p, p, p, p, p, i,
+                                                i, i, f, i, p]
         lib.flash_attention_dkv_sm90.argtypes = [i, p, p, p, p, p, p, p, p,
                                                  i, i, i, f, i, p]
-        for fn in (lib.flash_attention_fwd_sm90,
+        for fn in (lib.flash_attention_fwd_sm90, lib.flash_attention_dq_sm90,
                    lib.flash_attention_dkv_sm90):
             fn.restype = ctypes.c_int
     return lib
@@ -306,10 +304,17 @@ def flash_dq(q, k, v, do, lse, delta, scale: float,
         return flash_dq_ref(q, k, v, do, lse, delta, scale, causal)
     dev, code, d, bh, t_q, stream = _head(q)
     dq = torch.empty_like(q)
-    _launched("dq", "wmma-smem", _library().flash_attention_dq(
-        dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh,
-        t_q, k.shape[1], scale, int(causal), stream))
+    design = _design("dq", q.dtype, d)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    if design == "wgmma-tma":
+        err = _sm90_library().flash_attention_dq_sm90(
+            dev, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
+    else:
+        err = _library().flash_attention_dq(
+            dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
+            stream)
+    _launched("dq", design, err)
     return dq
 
 

@@ -1,15 +1,19 @@
 """Kernel K1: the full SCD cascade over every window of an octave.
 
-Counterpart of ccv_tpu/ops/pallas/scd_cascade.py. Three pieces:
+Counterpart of ccv_tpu/ops/pallas/scd_cascade.py. Four pieces:
 
 - ``build_tables``: the whole cascade (every feature, stage-ordered) as
-  host arrays, with device copies made once per device;
+  host arrays, with each feature's distinct box corners and its layout
+  (``LAYOUTS``), and device copies made once per device;
 - ``cascade_eval_levels_ref``: the plain PyTorch version, vectorised over
   windows, in the op order of the kernel (the twin of the NumPy oracle in
   tests/test_scd_kernel.py);
+- ``phase_planes``: the SAT stack as step x step phase planes, the layout
+  the kernel reads (ccv_tpu's ``_planes_cf``);
 - ``cascade_eval_levels``: the wrapper. On a CPU tensor it runs the plain
-  version; on a CUDA tensor it launches the hand-written kernel
-  (csrc/scd_cascade.cu) or raises. ``LAUNCHES`` counts its launches.
+  version; on a CUDA tensor it makes the phase planes and launches the
+  hand-written kernel (csrc/scd_cascade.cu) or raises. ``LAUNCHES`` counts
+  its launches.
 
 Input is the channels-first SAT stack of one octave, ``(L, 8, H1, W1)``
 float32, zero-padded to the octave's largest level; ``dims`` holds each
@@ -37,6 +41,27 @@ from ccv_tpu_torch.ops.kernels import _build
 THETA = 2.0 / math.sqrt(32.0)  # L2Hys clip
 CHANNELS = 8
 
+# Box layouts, compiled into the kernel from here (layout_flags): for the 4
+# boxes in order, and in each the corners (sy,sx), (sy,dx), (dy,sx),
+# (dy,dx), the index of the corner among the feature's distinct corners in
+# order of first appearance. They are the three layouts of SCD's feature
+# generator. A feature of any other layout is layout 0: the kernel reads its
+# 16 box corners one by one.
+LAYOUTS = {1: (0, 1, 2, 3, 2, 3, 4, 5, 4, 5, 6, 7, 6, 7, 8, 9),   # 1x4
+           2: (0, 1, 2, 3, 1, 4, 3, 5, 4, 6, 5, 7, 6, 8, 7, 9),   # 4x1
+           3: (0, 1, 2, 3, 2, 3, 4, 5, 1, 6, 3, 7, 3, 7, 5, 8)}   # 2x2
+BOX_ORDER = tuple(range(16))  # layout 0
+
+
+def layout_flags() -> Tuple[str, ...]:
+    """The nvcc flag that compiles LAYOUTS into csrc/scd_cascade.cu:
+    SCD_LAYOUT_SLOTS, SCD_SLOT(code) for each layout of 1.. in order, the
+    code its 16 slots of 4 bits, slot 0 lowest."""
+    codes = [sum(s << (4 * i) for i, s in enumerate(LAYOUTS[k]))
+             for k in range(1, len(LAYOUTS) + 1)]
+    return ("-DSCD_LAYOUT_SLOTS="
+            + "".join(f"SCD_SLOT({c:#018x}ull)" for c in codes),)
+
 # kernel launches made by cascade_eval_levels (CUDA tensors only)
 LAUNCHES = 0
 
@@ -46,13 +71,21 @@ class CascadeTables:
     """A whole cascade, features in stage order.
 
     boxes[f, b] = (sy, sx, dy, dx) of box b of feature f; w[f, b*8 + c] is
-    the weight of box b, channel c."""
+    the weight of box b, channel c. corners[f, :n_corners[f]] are the
+    distinct (oy, ox) corners of feature f, in order of first appearance
+    over its boxes' corners (sy,sx), (sy,dx), (dy,sx), (dy,dx); cidx[f, b]
+    are box b's four corners in that order as indices into them; layout[f]
+    is the feature's key in LAYOUTS, or 0."""
 
     stage_ranges: Tuple[Tuple[int, int], ...]  # (f0, f1) per stage
     thresholds: np.ndarray                     # (S,) float32
     boxes: np.ndarray                          # (F, 4, 4) int32
     w: np.ndarray                              # (F, 32) float32
     bias: np.ndarray                           # (F,) float32
+    corners: np.ndarray                        # (F, 16, 2) int32
+    n_corners: np.ndarray                      # (F,) int32
+    cidx: np.ndarray                           # (F, 4, 4) int32
+    layout: np.ndarray                         # (F,) int32
     _on: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
 
@@ -88,6 +121,44 @@ class CascadeTables:
             self._on[key] = got
         return got
 
+    def corner_planes(self, step: int) -> np.ndarray:
+        """(F, 16, 3) int32: each distinct corner as (phase plane
+        (oy % step) * step + ox % step, row offset oy // step, column
+        offset ox // step); rows past n_corners are 0."""
+        oy, ox = self.corners[..., 0], self.corners[..., 1]
+        return np.stack([(oy % step) * step + ox % step, oy // step,
+                         ox // step], axis=-1).astype(np.int32)
+
+    def records(self, step: int, hs: int, ws: int) -> np.ndarray:
+        """(F, 17) int32, the kernel's per-feature corner records for
+        phase planes of (hs, ws): the layout, then the float offset in a
+        level's planes (plane * 8 * hs * ws + row * ws + column) of each
+        corner the layout's slots name, corner k being the box corner of
+        the first slot k (layouts 1..: the distinct corners; layout 0: the
+        16 box corners in box order); unused entries 0."""
+        cp = self.corner_planes(step).astype(np.int64)
+        off = cp[..., 0] * (CHANNELS * hs * ws) + cp[..., 1] * ws + cp[..., 2]
+        box = np.take_along_axis(off, self.cidx.reshape(-1, 16), axis=1)
+        first = np.full((len(LAYOUTS) + 1, 16), -1)
+        for key, slots in {0: BOX_ORDER, **LAYOUTS}.items():
+            first[key, :max(slots) + 1] = [slots.index(k)
+                                           for k in range(max(slots) + 1)]
+        pick = first[self.layout]
+        rec = np.where(pick >= 0, np.take_along_axis(
+            box, np.maximum(pick, 0), axis=1), 0)
+        return np.concatenate([self.layout[:, None], rec],
+                              axis=1).astype(np.int32)
+
+    def records_on(self, device: torch.device, step: int, hs: int,
+                   ws: int) -> torch.Tensor:
+        """``records`` on ``device``, made once per device and shape."""
+        key = f"records {device} {step} {hs} {ws}"
+        got = self._on.get(key)
+        if got is None:
+            got = to_device(self.records(step, hs, ws), device)
+            self._on[key] = got
+        return got
+
 
 def build_tables(thresholds, sx, sy, dx, dy, bias, w,
                  stage_of) -> CascadeTables:
@@ -118,7 +189,32 @@ def build_tables(thresholds, sx, sy, dx, dy, bias, w,
         thresholds=np.asarray(thresholds, np.float32).copy(),
         boxes=boxes,
         w=np.asarray(w, np.float32).reshape(n_features, 32).copy(),
-        bias=np.asarray(bias, np.float32).copy())
+        bias=np.asarray(bias, np.float32).copy(),
+        **_corner_tables(boxes))
+
+
+def _corner_tables(boxes: np.ndarray) -> Dict[str, np.ndarray]:
+    """corners, n_corners, cidx and layout (CascadeTables) of (F, 4, 4)
+    (sy, sx, dy, dx) boxes."""
+    n_features = boxes.shape[0]
+    sy, sx, dy, dx = (boxes[..., i] for i in range(4))
+    slots = np.stack([np.stack([sy, sx], -1), np.stack([sy, dx], -1),
+                      np.stack([dy, sx], -1), np.stack([dy, dx], -1)],
+                     axis=2).reshape(n_features, 16, 2)
+    corners = np.zeros((n_features, 16, 2), np.int32)
+    n_corners = np.zeros(n_features, np.int32)
+    cidx = np.zeros((n_features, 16), np.int32)
+    layout = np.zeros(n_features, np.int32)
+    by_slots = {v: k for k, v in LAYOUTS.items()}
+    for f in range(n_features):
+        seen: Dict[Tuple[int, int], int] = {}
+        for j, (y, x) in enumerate(slots[f].tolist()):
+            cidx[f, j] = seen.setdefault((y, x), len(seen))
+        corners[f, :len(seen)] = list(seen)
+        n_corners[f] = len(seen)
+        layout[f] = by_slots.get(tuple(cidx[f].tolist()), 0)
+    return dict(corners=corners, n_corners=n_corners,
+                cidx=cidx.reshape(n_features, 4, 4), layout=layout)
 
 
 def _check(sat_l: torch.Tensor, tables: CascadeTables, step: int,
@@ -258,12 +354,44 @@ def cascade_work(sat_l: torch.Tensor, tables: CascadeTables, step: int,
     return n * FEATURE_FLOP, io_bytes(sat_l, tables, dims)
 
 
+def phase_planes(sat_l: torch.Tensor, step: int, rows: Optional[int] = None,
+                 cols: Optional[int] = None) -> torch.Tensor:
+    """The (L, 8, H1, W1) SAT stack as (L, step*step, 8, rows, cols) phase
+    planes: planes[l, py*step + px, c, h, w] = sat[l, c, h*step + py,
+    w*step + px], zero past the SAT (ccv_tpu.detectors.scd._planes_cf per
+    level, with hs_pad = rows, ws_pad = cols). rows and cols default to
+    ceil(H1 / step) and ceil(W1 / step). One copy, or two where the planes
+    reach past the SAT."""
+    L, C, H1, W1 = sat_l.shape
+    rows = -(-H1 // step) if rows is None else rows
+    cols = -(-W1 // step) if cols is None else cols
+    hp, wp = rows * step, cols * step
+    if hp > H1 or wp > W1:
+        sat_l = torch.nn.functional.pad(
+            sat_l, (0, max(0, wp - W1), 0, max(0, hp - H1)))
+    return (sat_l[:, :, :hp, :wp].reshape(L, C, rows, step, cols, step)
+            .permute(0, 3, 5, 1, 2, 4).contiguous()
+            .view(L, step * step, C, rows, cols))
+
+
+def kernel_planes(sat_l: torch.Tensor, tables: CascadeTables, step: int,
+                  dims: np.ndarray) -> torch.Tensor:
+    """The phase planes the kernel reads for these windows: the rows and
+    columns that the window grid's corners reach (no padding where the SAT
+    covers them)."""
+    NY, NX = (int(v) for v in dims.max(axis=0))
+    ey, ex = tables.extent
+    return phase_planes(sat_l, step, NY + ey // step, NX + ex // step)
+
+
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("scd_cascade", ["scd_cascade.cu"])
+    lib = _build.load_library("scd_cascade", ["scd_cascade.cu"],
+                              layout_flags())
     fn = lib.scd_cascade_levels
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, i, i, i, p, i, i, p, p, i, p, p, i, p, p, p]
+        fn.argtypes = [i, p, i, i, i, i, p, i, i, p, p, i, p, i, p, p, p,
+                       p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -277,7 +405,8 @@ def cascade_eval_levels(sat_l: torch.Tensor, tables: CascadeTables,
                         step: int, dims: Sequence):
     """(conf, passed), each (L, NY, NX), for every window of every level.
 
-    A CPU tensor goes through the plain PyTorch version; a CUDA tensor
+    A CPU tensor goes through the plain PyTorch version; a CUDA tensor is
+    made into phase planes (the rows and columns the windows read) and
     launches the CUDA kernel once for the whole stack, on the current
     stream, without synchronising."""
     global LAUNCHES
@@ -288,16 +417,21 @@ def cascade_eval_levels(sat_l: torch.Tensor, tables: CascadeTables,
         raise ValueError(f"no cascade kernel for device {sat_l.device}")
     fn = _library().scd_cascade_levels
     dev = sat_l.device
-    L, _, H1, W1 = sat_l.shape
     NY, NX = (int(v) for v in dims.max(axis=0))
+    planes = kernel_planes(sat_l, tables, step, dims)
+    L, n_planes, _, hs, ws = planes.shape
+    if n_planes * CHANNELS * hs * ws >= 2 ** 31:
+        raise ValueError(f"a level's phase planes {tuple(planes.shape[1:])} "
+                         f"are past the kernel's 32-bit offsets")
     tab = tables.on(dev)
+    recs = tables.records_on(dev, step, hs, ws)
     dims_d = to_device(dims.astype(np.int32), dev)
     conf = torch.empty((L, NY, NX), dtype=torch.float32, device=dev)
     passed = torch.empty((L, NY, NX), dtype=torch.uint8, device=dev)
-    err = fn(sat_l.get_device(), sat_l.data_ptr(), L, H1, W1,
+    err = fn(sat_l.get_device(), planes.data_ptr(), L, n_planes, hs, ws,
              dims_d.data_ptr(), NY, NX, tab["stage_end"].data_ptr(),
              tab["thresholds"].data_ptr(), tables.n_stages,
-             tab["boxes"].data_ptr(), tab["feats"].data_ptr(), step,
+             recs.data_ptr(), tables.n_features, tab["feats"].data_ptr(),
              conf.data_ptr(), passed.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -6,18 +6,19 @@
 Builds every kernel from ccv_tpu_torch/csrc with nvcc (one nvcc per source,
 started together) and drives the port's two main paths:
 
-- SCD face detection (phases 3-5): the cascade kernel K1 against its plain
-  PyTorch version, then ``ccv_tpu_torch.detectors.scd.detect`` with the
+- SCD face detection (phases 3-5): the cascade kernel K1 (phase planes,
+  distinct corners, survivor compaction) against its plain PyTorch version,
+  then ``ccv_tpu_torch.detectors.scd.detect`` with the
   repository's face cascade (tests/data/face_low.sqlite3): the crop180
   window sets against the C goldens, and a 640x480 and a 1920x1080 frame
   against the same path with the plain evaluator;
 - transformer-LM training (phases 6-7): the flash-attention kernels K2a
   (forward), K2b (dq) and K2c (dk, dv) against their plain versions at the
   parity tests' shapes and the LM's, each launch checked for its design
-  ("wgmma-tma" for K2a and K2c at bf16 and head dim 64, else "wmma-smem"),
-  timed at the LM shape in turns with the PyTorch calls that compute the
-  same functions (yardsticks only: SDPA's flash forward, the flash
-  backward op); a 2-layer step at the LM's widths with the kernels against
+  ("wgmma-tma" at bf16 and head dim 64, else "wmma-smem"), timed at the LM
+  shape in turns with the PyTorch calls that compute the same functions
+  (yardsticks only: SDPA's flash forward, the flash backward op); a 2-layer
+  step at the LM's widths with the kernels against
   one with plain attention, then ``ccv_tpu_torch.bin.lm_bench.measure`` at
   its defaults (GPT-2-medium shape, 24 layers) for a warm-up step and a few
   timed steps;
@@ -27,7 +28,9 @@ started together) and drives the port's two main paths:
   ``detect(form="pallas")`` on crop180 against the C goldens with its
   overflow reruns counted, at 640x480 and 1920x1080 against
   ``form="pallas_full"`` with both timed in turns, and ``detect_batch`` of
-  four 1080p frames in both forms against per-image ``detect``.
+  four 1080p frames in both forms against per-image ``detect``;
+- phase 10: the 1080p ``detect`` under torch.profiler, for the card's busy
+  time per image and K1's share of it.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -180,6 +183,28 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, n):
+    """(device-busy ms per call, {kernel name: device ms per call}, wall ms
+    per call) over the same ``n`` calls of ``fn`` under torch.profiler:
+    busy is the sum of the device-side events (the host-side ops carry
+    their kernels' time too); wall is the host clock around the calls,
+    ending in a synchronize, profiler overhead included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000 / n
+    by_name = {e.key: e.self_device_time_total / 1e3 / n
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    return sum(by_name.values()), by_name, wall
+
+
 def k2_inputs(shape, dtype, dev, rng):
     bh, tq, tk, d, _causal = shape
     q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, t, d),
@@ -204,13 +229,13 @@ def k2_compare(k2, shape, dtype, dev, rng):
     """K2a/b/c and their plain versions on the same inputs. Returns the max
     abs error of each kernel's outputs (fwd: o and lse; dkv: dk and dv) and
     the largest tile-relative error of each (o; dq; dk and dv).
-    Checks that K2a and K2c ran the "wgmma-tma" design at bf16 and head dim
-    64 and the "wmma-smem" one otherwise, and that K2b ran "wmma-smem"."""
+    Checks that each kernel ran the "wgmma-tma" design at bf16 and head dim
+    64 and the "wmma-smem" one otherwise."""
     q, k, v, do = k2_inputs(shape, dtype, dev, rng)
     causal, scale = shape[4], 1.0 / np.sqrt(shape[3])
     new = dtype == torch.bfloat16 and shape[3] == 64
-    want = {"fwd": "wgmma-tma" if new else "wmma-smem", "dq": "wmma-smem",
-            "dkv": "wgmma-tma" if new else "wmma-smem"}
+    want = dict.fromkeys(("fwd", "dq", "dkv"),
+                         "wgmma-tma" if new else "wmma-smem")
     before = {key: dict(c) for key, c in k2.DESIGN_LAUNCHES.items()}
     o0, lse0 = k2.flash_fwd_ref(q, k, v, scale, causal)
     delta = (do.float() * o0.float()).sum(-1)
@@ -287,8 +312,8 @@ def k2_vs_plain(k2, roofline, dev, card):
                f"{ {k: f'{e:.3g}' for k, e in worst_rel.items()} }; designs "
                f"checked per shape")
     errs, rels = k2_compare(k2, K2_LM, torch.bfloat16, dev, rng)
-    log(6, f"K2 vs plain at the LM shape {K2_LM} bf16 (K2a and K2c "
-           f"wgmma-tma, K2b wmma-smem): max abs error "
+    log(6, f"K2 vs plain at the LM shape {K2_LM} bf16 (K2a, K2b and K2c "
+           f"wgmma-tma): max abs error "
            f"{ {k: f'{e:.3g}' for k, e in errs.items()} }; worst 64-row "
            f"tile error / tile norm "
            f"{ {k: f'{e:.3g}' for k, e in rels.items()} }")
@@ -643,10 +668,14 @@ def main():
     # -- 3: K1 against its plain version on the card ------------------------
     max_err = 0.0
     rng = np.random.default_rng(7)
-    for dims in ([[11, 21]], [[8, 128]], [[17, 140]],
-                 [[13, 140], [9, 100], [5, 60]]):
+    # the last: 1,100 features, past the 512 whose records a block holds at
+    # once, so the kernel stages them in runs
+    for dims, counts in (([[11, 21]], (2, 3, 4, 5)), ([[8, 128]], (2, 3, 4, 5)),
+                         ([[17, 140]], (2, 3, 4, 5)),
+                         ([[13, 140], [9, 100], [5, 60]], (2, 3, 4, 5)),
+                         ([[9, 37], [6, 20]], (100, 700, 300))):
         dims = np.asarray(dims)
-        cascade = synth_cascade(scd, rng)
+        cascade = synth_cascade(scd, rng, counts)
         H1 = (dims[:, 0].max() - 1) * STEP + cascade.height + 1
         W1 = (dims[:, 1].max() - 1) * STEP + cascade.width + 1
         sat_l = torch.from_numpy(rng.normal(0, 10, (len(dims), 8, H1, W1))
@@ -654,8 +683,8 @@ def main():
         cascade = with_median_thresholds(scd, k1, cascade, sat_l, dims)
         err, n, near = kernel_vs_plain(scd, k1, cascade, sat_l, dims)
         max_err = max(max_err, err)
-        log(3, f"synthetic dims {dims.tolist()}: {n} passed, {near} in the "
-               f"margin, max conf diff {err:.3g}")
+        log(3, f"synthetic, stages {counts}, dims {dims.tolist()}: {n} "
+               f"passed, {near} in the margin, max conf diff {err:.3g}")
     face = scd.load_cascade(os.path.join(DATA, "face_low.sqlite3"))
     frame = frame_1080p(read)
     frame_t = torch.from_numpy(frame).to(dev)[..., None]
@@ -675,6 +704,8 @@ def main():
     tabs_med, tabs_open = scd.cascade_tables(face_med), scd.cascade_tables(face)
     ms = time_cuda(lambda: k1.cascade_eval_levels(sat0, tabs_med, STEP, dims0),
                    20)
+    planes_ms = time_cuda(
+        lambda: k1.kernel_planes(sat0, tabs_med, STEP, dims0), 20)
     plain_ms = time_cuda(
         lambda: k1.cascade_eval_levels_ref(sat0, tabs_med, STEP, dims0), 3)
     ms_open = time_cuda(
@@ -689,7 +720,8 @@ def main():
     log(3, f"K1 at the 1080p level-0 shape on {card}: median thresholds "
            f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {k1_bound:.4f} ms "
            f"by {k1_by}); open thresholds {ms_open:.3f} ms (plain "
-           f"{plain_open:.3f} ms, bound {open_bound:.4f} ms by {open_by})")
+           f"{plain_open:.3f} ms, bound {open_bound:.4f} ms by {open_by}); "
+           f"of each, the phase-plane copy {planes_ms:.4f} ms")
 
     # -- the prolog on the card against the CPU ----------------------------
     tt = read(os.path.join(DATA, "text_test.png"), device="cpu")
@@ -777,6 +809,7 @@ def main():
                f"(max {worst:.2f}, n={reps}) = {H * W / 1e3 / med:.3f} MP/s; "
                f"with the plain evaluator: median "
                f"{float(np.median(timings[1])):.2f} ms/image (n=3); {card}")
+    profiled = (img, cascade, params)  # the 1080p frame, phase 10
     launches = k1.LAUNCHES
     check(launches > 0, "the main path launched K1 no time")
     kernels = [{
@@ -785,8 +818,9 @@ def main():
         "replaces": "ccv_tpu/ops/pallas/scd_cascade.py:58",
         "launches": launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound,
-        "bound_by": k1_by, "library_ms": None, "design": "thread-per-window",
-        "open_ms": ms_open, "open_bound_ms": open_bound}]
+        "bound_by": k1_by, "library_ms": None, "design": "planes-compact",
+        "open_ms": ms_open, "open_bound_ms": open_bound,
+        "planes_ms": planes_ms}]
 
     # -- 6: K2 against its plain version on the card -----------------------
     k2_err, k2_res = k2_vs_plain(k2, roofline, dev, card)
@@ -805,7 +839,7 @@ def main():
                                f"expected {want}")
     check(k2_designs == {
         "fwd": {"wgmma-tma": want["fwd"], "wmma-smem": 0},
-        "dq": {"wmma-smem": want["dq"]},
+        "dq": {"wgmma-tma": want["dq"], "wmma-smem": 0},
         "dkv": {"wgmma-tma": want["dkv"], "wmma-smem": 0}},
         f"lm_bench ran the K2 designs {k2_designs}")
     losses = res["losses"]
@@ -825,7 +859,7 @@ def main():
     sources = {"fwd": ("flash_attention_fwd", "flash_attention.py:36",
                        "flash_attention_sm90.cu", "wgmma-tma"),
                "dq": ("flash_attention_dq", "flash_attention.py:173",
-                      "flash_attention.cu", "wmma-smem"),
+                      "flash_attention_sm90.cu", "wgmma-tma"),
                "dkv": ("flash_attention_dkv", "flash_attention.py:210",
                        "flash_attention_sm90.cu", "wgmma-tma")}
     for key, (name, line, src, design) in sources.items():
@@ -849,6 +883,18 @@ def main():
     k3_launches = staged_path(scd, k1, k3, dev, card, crop, tt, frame, face,
                               face_med)
     check(k3_launches > 0, "the staged path launched K3 no time")
+
+    # -- 10: the card's busy time in a 1080p detect (last: the profiler
+    # may leave the host slower for what follows) --------------------------
+    img, cascade, params = profiled
+    busy, by_name, wall = device_ms(lambda: scd.detect(img, cascade, params),
+                                    3)
+    k1_dev = sum(v for key, v in by_name.items()
+                 if "scd_cascade_kernel" in key)
+    log(10, f"1920x1080 detect under torch.profiler (3 images): device busy "
+            f"{busy:.2f} ms per image over a wall of {wall:.2f} ms per image "
+            f"in the same window (profiler overhead included): idle share "
+            f"{1 - busy / wall:.3f}; K1 {k1_dev:.3f} ms of it; {card}")
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",
         "source": "ccv_tpu_torch/csrc/scd_phase.cu",

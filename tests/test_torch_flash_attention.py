@@ -215,11 +215,11 @@ def test_wrapper_rejects_bad_input():
 
 
 def test_design_choice():
-    """bf16 at head dim 64 (the LM's) takes the wgmma-tma K2a and K2c;
-    everything else, and K2b always, the wmma-smem kernels."""
-    for kernel in ("fwd", "dkv"):
+    """bf16 at head dim 64 (the LM's) takes the wgmma-tma K2a, K2b and K2c;
+    everything else the wmma-smem kernels."""
+    for kernel in ("fwd", "dq", "dkv"):
         assert tfa._design(kernel, torch.bfloat16, 64) == "wgmma-tma"
-    assert tfa._design("dq", torch.bfloat16, 64) == "wmma-smem"
+        assert "wgmma-tma" in tfa.DESIGN_LAUNCHES[kernel]
     for kernel in ("fwd", "dq", "dkv"):
         for dtype, d in ((torch.float32, 64), (torch.float32, 32),
                          (torch.bfloat16, 32)):
@@ -300,13 +300,37 @@ def test_cuda_kernels_match_plain(dtype):
             "wmma-smem")
         ran = {n: [x for x, c in counts.items() if c > by_design[n][x]]
                for n, counts in tfa.DESIGN_LAUNCHES.items()}
-        assert ran == {"fwd": [new], "dq": ["wmma-smem"], "dkv": [new]}
+        assert ran == {"fwd": [new], "dq": [new], "dkv": [new]}
         for a, b in zip(got, ref):
             err = float((a.float() - b.float()).abs().max())
             if dtype == torch.float32 or b.dtype == torch.float32:
                 assert err <= 1e-4 + 1e-4 * float(b.abs().max()), err
             else:
                 assert err <= BF16_REL * float(b.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_dq_matches_plain():
+    """K2b's wgmma-tma kernel against flash_dq_ref at the parity tests' bf16
+    D 64 shapes (ragged T, causal with Tq != Tk) and the LM's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    cases = [c for c in FWD_CASES.values() if c[3] == 64]
+    for bh, tq, tk, d, causal in cases + [(128, 1024, 1024, 64, True)]:
+        q, k, v, do = (torch.from_numpy(_rand(rng, bh, t, d))
+                       .to(dev, torch.bfloat16) for t in (tq, tk, tk, tq))
+        o0, lse0 = tfa.flash_fwd_ref(q, k, v, 0.125, causal)
+        delta = (do.float() * o0.float()).sum(-1)
+        ref = tfa.flash_dq_ref(q, k, v, do, lse0, delta, 0.125, causal)
+        before = tfa.DESIGN_LAUNCHES["dq"]["wgmma-tma"]
+        got = tfa.flash_dq(q, k, v, do, lse0, delta, 0.125, causal)
+        torch.cuda.synchronize()
+        assert tfa.DESIGN_LAUNCHES["dq"]["wgmma-tma"] == before + 1
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= BF16_REL * float(ref.float().abs().max()), (
+            (bh, tq, tk, causal), err)
 
 
 @pytest.mark.cuda
