@@ -12,13 +12,9 @@
 //   it fails. conf = the sum of the last stage evaluated, passed = all
 //   stages passed.
 //
-// Layout: the octave's SAT as step x step phase planes, (L, step*step, 8,
-// hs, ws) float32, planes[l, py*step + px, c, h, w] = sat[l, c, h*step + py,
-// w*step + px] (ccv_tpu's _planes_cf; the wrapper makes them with one copy,
-// hs and ws the rows and columns the windows read). Window (wy, wx), corner
-// (oy, ox) reads plane (oy % step)*step + ox % step at row wy + oy / step,
-// column wx + ox / step: the same corner of neighbouring windows is
-// neighbouring floats.
+// Layout: the octave's SAT as step x step phase planes, read as
+// scd_planes.cuh says (shared with K3, scd_phase.cu); the wrapper makes them
+// with one copy, hs and ws the rows and columns the windows read.
 //
 // Bound on this card: the SAT bytes, read once (66.5 MB for the 1080p
 // level 0: 0.020 ms at 3.35 TB/s; at open thresholds the FP32 operations,
@@ -31,7 +27,7 @@
 //   - phase planes: a warp's 32 windows of one tile row read each corner
 //     channel as 32 consecutive floats, one 128-byte line;
 //   - each distinct corner of a feature once, in registers, for the three
-//     box layouts that SCD's feature generator makes (Layout below; 11-13%
+//     box layouts that SCD's feature generator makes (scd_planes.cuh; 11-13%
 //     faster than reading the 16 box corners, PERF.md);
 //   - survivor compaction: a block of 4 warps owns a 32 x 4 tile of
 //     windows of one level. After every stage it packs the live windows
@@ -59,11 +55,13 @@
 #include <stdint.h>
 
 #include "scd_feature.cuh"
+#include "scd_planes.cuh"
 
 namespace {
 
 using scd::kChannels;
 using scd::kFeatFloats;
+using scd::kRecInts;
 
 constexpr int kTileX = 32;  // windows along a tile row: one warp
 constexpr int kTileY = 4;
@@ -72,93 +70,9 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRounds = kTile / kThreads;  // list entries per thread
 constexpr int kBlocksPerSm = 5;
-constexpr int kRecInts = 17;  // per feature: layout, 16 corner offsets
 // features whose records a block holds in shared memory at once (34.8 KB,
 // so 5 blocks fit a SM); a longer cascade is staged in runs of this many
 constexpr int kChunk = 512;
-
-// Box layouts. A layout gives, for the 16 box corners in box order and in
-// each box the order (sy,sx), (sy,dx), (dy,sx), (dy,dx), the index of the
-// corner in the feature's corner list, 4 bits each, corner 0 lowest. Layout
-// 0 reads the 16 box corners as they come (any feature); layouts 1.. are
-// SCD's generator layouts with their distinct corners, defined once, in
-// ops/kernels/scd_cascade.py LAYOUTS, which the build passes in as
-// SCD_LAYOUT_SLOTS (SCD_SLOT(code) for each, no commas: nvcc splits a -D
-// value at them). Compiled in, so a feature's corners stay in registers.
-#ifndef SCD_LAYOUT_SLOTS
-#error "SCD_LAYOUT_SLOTS is set by the build (ops/kernels/scd_cascade.py)"
-#endif
-#define SCD_SLOT(code) code,
-__host__ __device__ constexpr unsigned long long layout_code(int l) {
-  const unsigned long long codes[] = {0xfedcba9876543210ull,
-                                      SCD_LAYOUT_SLOTS};
-  return codes[l];
-}
-__host__ __device__ constexpr int n_layouts() {
-  const unsigned long long codes[] = {0, SCD_LAYOUT_SLOTS};
-  return sizeof(codes) / sizeof(codes[0]);
-}
-
-__host__ __device__ constexpr int layout_slot(unsigned long long code, int i) {
-  return (int)((code >> (4 * i)) & 15ull);
-}
-__host__ __device__ constexpr int layout_corners(unsigned long long code) {
-  int n = 0;
-  for (int i = 0; i < 16; ++i)
-    n = layout_slot(code, i) + 1 > n ? layout_slot(code, i) + 1 : n;
-  return n;
-}
-
-template <int L>
-struct Layout {
-  static constexpr unsigned long long kSlots = layout_code(L);
-  static constexpr int kCorners = layout_corners(kSlots);
-};
-
-// The response of a feature of layout L at one window, off phase planes:
-// the window's float in a plane is lvl[at], channel c of the same plane
-// lies c * chan floats further, and the feature's corners lie
-// offs[0 .. kCorners-1] floats from there (plane, row and column folded in
-// by the wrapper). Weights and bias `wf` as for scd::feature_response.
-template <int L>
-__device__ __forceinline__ float feature_response_planes(
-    const float* __restrict__ lvl, int at, int chan, const int* offs,
-    const float* wf) {
-  constexpr int kN = Layout<L>::kCorners;
-  constexpr unsigned long long kS = Layout<L>::kSlots;
-  int off[kN];
-#pragma unroll
-  for (int k = 0; k < kN; ++k) off[k] = at + offs[k];
-  float val[4][kChannels];
-#pragma unroll
-  for (int c = 0; c < kChannels; ++c) {
-    float cv[kN];
-#pragma unroll
-    for (int k = 0; k < kN; ++k) cv[k] = __ldg(lvl + off[k] + c * chan);
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      val[b][c] = ((cv[layout_slot(kS, 4 * b)] - cv[layout_slot(kS, 4 * b + 1)]) -
-                   cv[layout_slot(kS, 4 * b + 2)]) +
-                  cv[layout_slot(kS, 4 * b + 3)];
-  }
-  return scd::box_response<true>(val, wf);
-}
-
-// The response of feature `rec` (its layout, then its corner offsets, in
-// shared memory) at the window whose float in a plane is lvl[at]: layout L,
-// or one below it. The same feature across the warp: no divergence.
-template <int L>
-__device__ __forceinline__ float feature_at(const float* __restrict__ lvl,
-                                            int at, int chan, const int* rec,
-                                            const float* wf) {
-  if constexpr (L == 0) {
-    return feature_response_planes<0>(lvl, at, chan, rec + 1, wf);
-  } else {
-    if (rec[0] == L)
-      return feature_response_planes<L>(lvl, at, chan, rec + 1, wf);
-    return feature_at<L - 1>(lvl, at, chan, rec, wf);
-  }
-}
 
 // Packs the windows wv[r] whose keep[r] is set (entry r * kThreads + tid of
 // the list of n) into list[0 ..], in list order; returns how many. Every
@@ -244,11 +158,14 @@ scd_cascade_kernel(const float* __restrict__ planes, int n_planes, int hs,
         const int i = r * kThreads + threadIdx.x;
         if (i < n) {
           const int w = s_list[i];
-          const int at = (y0 + w / kTileX) * ws + x0 + w % kTileX;
-          for (int g = g0; g < g1; ++g)
-            vs[r] = vs[r] + feature_at<n_layouts() - 1>(
-                                lvl, at, chan, s_recs + (g - res0) * kRecInts,
-                                feats + g * kFeatFloats);
+          const int at[1] = {(y0 + w / kTileX) * ws + x0 + w % kTileX};
+          for (int g = g0; g < g1; ++g) {
+            float rsp[1];
+            scd::feature_at<scd::n_layouts() - 1, 1>(
+                lvl, at, chan, s_recs + (g - res0) * kRecInts,
+                feats + g * kFeatFloats, rsp);
+            vs[r] = vs[r] + rsp[0];
+          }
         }
       }
       g0 = g1;

@@ -1,137 +1,173 @@
-// Phase A of the staged SCD cascade: the leading stages over every
-// stride-`step` window of every pyramid level of one octave, in one launch,
-// with no early exit. Hopper (sm_90a) port of the Pallas TPU kernel built in
-// ccv_tpu/ops/pallas/scd_phase.py (_get_phase_a_call, entry phase_a);
-// reference hot loop ccv_scd.c:1719-1768.
+// A run of stages of the SCD cascade over every stride-`step` window of
+// every pyramid level of one octave, in one launch, with no early exit: the
+// staged cascade's phase A (its leading stages) and, on the same kernel,
+// its phase B1 (the next block of stages). Hopper (sm_90a) port of the
+// Pallas TPU kernel built in ccv_tpu/ops/pallas/scd_phase.py
+// (_get_phase_a_call, entry phase_a); reference hot loop
+// ccv_scd.c:1719-1768.
 //
 // What it computes, per window (wy, wx) of level l: every feature of every
-// phase-A stage (scd_feature.cuh, the math K1 runs), summed per stage.
-// Unlike the full-cascade kernel (scd_cascade.cu) a window never stops
-// early:
+// stage of the run (scd_feature.cuh, the math K1 runs), summed per stage in
+// feature order. Unlike the full-cascade kernel (scd_cascade.cu) a window
+// never stops early:
 //   conf   = the LAST stage's sum, for every window;
 //   passed = AND over the stages of (sum > threshold).
 // Windows outside the level's (ny, nx) grid get conf 0, passed 0.
 //
-// Layout: as scd_cascade.cu. sat is the (L, 8, H1, W1) float32 stack of one
-// octave's SATs, zero-padded to the largest level; window (wy, wx), corner
-// (oy, ox) reads sat[l, c, wy*step + oy, wx*step + ox]. The TPU kernel's
-// phase planes and static corner slices were a lane layout for the TPU.
+// Layout: the octave's SAT as step x step phase planes with the corner
+// records and box layouts of scd_planes.cuh, the input K1 reads. The
+// staged cascade makes the planes once per octave and passes them to both
+// of its launches (phase A and B1), so their copy is paid once.
 //
-// Design: one thread per window, blocks of 32 x 4 windows, blockIdx.z the
-// level, each level's real (ny, nx) from a small device array. The Pallas
-// kernel unrolled the phase's features at trace time with the weights as
-// constants; here no feature count is compiled in: each block first copies
-// the phase's tables (per feature 16 corner ints + 32 weights + bias, per
-// stage its end and threshold: 196 B a feature, 2.4 KB for the face
-// cascade's 12) into dynamic shared memory, and every thread of a warp then
-// reads the same word, a broadcast.
-//
-// Bound on the card: the SAT bytes read, as for K1. Each feature reads 16
-// corners x 8 channels x 4 B = 512 B per window; neighbouring threads read
-// addresses step * 4 = 16 B apart, so a warp's load touches 512 B of which
-// it uses 128 B and leans on L1/L2 reuse between overlapping windows (44 of
-// 48 columns shared at step 4). With no early exit every window pays every
-// phase-A feature. A later PR would stage each block's SAT tile (its 32 x 4
-// windows plus the 48-pixel corner extent, 8 channels) in shared memory with
-// TMA and share a feature's corners across its boxes.
+// Bound on this card, for the face cascade at the 1080p level 0: phase A
+// (12 features) by its bytes, the SAT read once (66.5 MB: 0.020 ms at 3.35
+// TB/s); phase B1 (49 features) by its FP32 operations (2.43 GFLOP: 0.036
+// ms at 67 TFLOP/s). The thread-per-window kernel this replaces read the
+// channels-first SAT with 16 bytes between neighbouring threads, so a warp
+// load of one corner used a quarter of each sector it touched, and it read
+// all 16 box corners of a feature where 9 or 10 are distinct. What this
+// design does:
+//   - bytes: a warp's 32 windows of one tile row read each corner channel
+//     off the phase planes as one 128-byte line, and each feature of SCD's
+//     three box layouts reads its distinct corners once;
+//   - operations: every thread stays busy (no window leaves early, so there
+//     is nothing to compact), on kRows windows of neighbouring tile rows (a
+//     feature's record, layout branch and weights serve all of them, and
+//     their corner loads are in flight together). On the card one window a
+//     thread (80 registers, no spills; 8 warps a block, 3 blocks a SM) beat
+//     2 and 4 windows: their registers cost more occupancy, or spills, than
+//     their shared loads saved (PERF.md);
+//   - tables: each block copies the corner records (17 ints a feature) into
+//     shared memory in runs of kChunk features, so any number of features
+//     runs and a stage may straddle two runs; weights and biases stay in
+//     device memory, read with warp-uniform __ldg.
+// Tile, windows a thread and blocks a SM were chosen on the card
+// (python -m ccv_tpu_torch.bin.k3_tile_trial, PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "scd_feature.cuh"
+#include "scd_planes.cuh"
 
 namespace {
 
-using scd::kBoxInts;
 using scd::kChannels;
 using scd::kFeatFloats;
+using scd::kRecInts;
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 4;
-constexpr int kThreads = kBlockX * kBlockY;
+constexpr int kTileX = 32;  // windows along a tile row: one warp
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 1;    // windows a thread, in neighbouring tile rows
+constexpr int kTileY = kWarps * kRows;
+constexpr int kBlocksPerSm = 3;
+// features whose records a block holds in shared memory at once (34.8 KB;
+// 3 blocks a SM take 104 KB); a longer run of stages is staged in runs of
+// this many
+constexpr int kChunk = 512;
 
-__global__ void __launch_bounds__(kThreads)
-scd_phase_a_kernel(const float* __restrict__ sat, int H1, int W1,
-                   const int* __restrict__ dims,
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+scd_phase_a_kernel(const float* __restrict__ planes, int n_planes, int hs,
+                   int ws, const int* __restrict__ dims,
                    const int* __restrict__ stage_end,
                    const float* __restrict__ thresholds, int n_stages,
-                   const int* __restrict__ boxes,
-                   const float* __restrict__ feats, int n_features, int step,
-                   int NY, int NX, float* __restrict__ conf,
-                   uint8_t* __restrict__ passed) {
-  // shared tables: feats | thresholds | boxes | stage_end (4-byte words)
-  extern __shared__ float smem[];
-  float* s_feats = smem;
-  float* s_th = s_feats + n_features * kFeatFloats;
-  int* s_boxes = reinterpret_cast<int*>(s_th + n_stages);
-  int* s_end = s_boxes + n_features * kBoxInts;
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  for (int i = tid; i < n_features * kFeatFloats; i += kThreads)
-    s_feats[i] = __ldg(feats + i);
-  for (int i = tid; i < n_features * kBoxInts; i += kThreads)
-    s_boxes[i] = __ldg(boxes + i);
-  for (int i = tid; i < n_stages; i += kThreads) {
-    s_th[i] = __ldg(thresholds + i);
-    s_end[i] = __ldg(stage_end + i);
-  }
-  __syncthreads();
-
+                   const int* __restrict__ recs, int n_features,
+                   const float* __restrict__ feats, int NY, int NX,
+                   float* __restrict__ conf, uint8_t* __restrict__ passed) {
+  extern __shared__ int s_recs[];  // records of features [res0, res1)
   const int l = blockIdx.z;
-  const int wx = blockIdx.x * kBlockX + threadIdx.x;
-  const int wy = blockIdx.y * kBlockY + threadIdx.y;
-  if (wx >= NX || wy >= NY) return;
-  const size_t out = ((size_t)l * NY + wy) * NX + wx;
-  if (wy >= __ldg(dims + 2 * l) || wx >= __ldg(dims + 2 * l + 1)) {
-    conf[out] = 0.f;
-    passed[out] = 0;
-    return;
+  const int x0 = blockIdx.x * kTileX, y0 = blockIdx.y * kTileY;
+  const int gx = x0 + threadIdx.x % 32;
+  const int gy = y0 + threadIdx.x / 32 * kRows;  // the thread's first row
+  const int ny = __ldg(dims + 2 * l), nx = __ldg(dims + 2 * l + 1);
+  const int chan = hs * ws;
+  const float* lvl = planes + (size_t)l * n_planes * kChannels * chan;
+
+  // a window outside the level's grid reads window (0, 0) and is dropped
+  int at[kRows];
+  bool live[kRows], any = false;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    live[r] = gy + r < ny && gx < nx;
+    any = any || live[r];
+    at[r] = live[r] ? (gy + r) * ws + gx : 0;
   }
-  const size_t plane = (size_t)H1 * W1;
-  const float* base = sat + (size_t)l * kChannels * plane +
-                      (size_t)wy * step * W1 + (size_t)wx * step;
-  float vs = 0.f;
-  bool alive = true;
-  int f = 0;
-  for (int s = 0; s < n_stages; ++s) {
-    const int f1 = s_end[s];
-    vs = 0.f;
-    for (; f < f1; ++f) {
-      vs = vs + scd::feature_response<false>(base, plane, W1,
-                                             s_boxes + f * kBoxInts,
-                                             s_feats + f * kFeatFloats);
+  const bool warp_live = __any_sync(0xffffffffu, any);
+  float vs[kRows];
+  bool ok[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    vs[r] = 0.f;
+    ok[r] = true;
+  }
+  if (y0 < ny && x0 < nx) {  // block-uniform: the tile holds a window
+    int f = 0, res0 = 0, res1 = 0;  // all block-uniform
+    for (int s = 0; s < n_stages; ++s) {
+      const int f1 = __ldg(stage_end + s);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) vs[r] = 0.f;
+      for (int g0 = f; g0 < f1;) {
+        if (g0 >= res1) {  // stage the next run of records
+          __syncthreads();
+          res0 = g0;
+          res1 = min(n_features, g0 + kChunk);
+          for (int i = threadIdx.x; i < (res1 - res0) * kRecInts;
+               i += kThreads)
+            s_recs[i] = __ldg(recs + res0 * kRecInts + i);
+          __syncthreads();
+        }
+        const int g1 = min(f1, res1);
+        if (warp_live) {
+          for (int g = g0; g < g1; ++g) {
+            float rsp[kRows];
+            scd::feature_at<scd::n_layouts() - 1, kRows>(
+                lvl, at, chan, s_recs + (g - res0) * kRecInts,
+                feats + g * kFeatFloats, rsp);
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) vs[r] = vs[r] + rsp[r];
+          }
+        }
+        g0 = g1;
+      }
+      const float th = __ldg(thresholds + s);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) ok[r] = ok[r] && vs[r] > th;
+      f = f1;
     }
-    alive = alive && (vs > s_th[s]);
   }
-  conf[out] = vs;
-  passed[out] = alive ? 1 : 0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (gy + r < NY && gx < NX) {
+      const size_t out = ((size_t)l * NY + gy + r) * NX + gx;
+      conf[out] = live[r] ? vs[r] : 0.f;
+      passed[out] = live[r] && ok[r] ? 1 : 0;
+    }
+  }
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` (a cudaStream_t) of CUDA device `device`
-// and returns the first CUDA error as an int (0 = launched).
-extern "C" int scd_phase_a_levels(int device, const float* sat, int L, int H1,
-                                  int W1, const int* dims, int NY, int NX,
+// planes (L, n_planes, 8, hs, ws) float32; recs (F, 17) int32; feats
+// (F, 33) float32 (K1's interface). Launches the kernel on `stream` (a
+// cudaStream_t) of CUDA device `device` and returns the first CUDA error as
+// an int (0 = launched).
+extern "C" int scd_phase_a_levels(int device, const float* planes, int L,
+                                  int n_planes, int hs, int ws,
+                                  const int* dims, int NY, int NX,
                                   const int* stage_end,
                                   const float* thresholds, int n_stages,
-                                  const int* boxes, const float* feats,
-                                  int n_features, int step, float* conf,
+                                  const int* recs, int n_features,
+                                  const float* feats, float* conf,
                                   uint8_t* passed, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
-      (size_t)n_features * (kFeatFloats + kBoxInts) * 4 + (size_t)n_stages * 8;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(scd_phase_a_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 block(kBlockX, kBlockY, 1);
-  const dim3 grid((NX + kBlockX - 1) / kBlockX, (NY + kBlockY - 1) / kBlockY,
-                  L);
-  scd_phase_a_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      sat, H1, W1, dims, stage_end, thresholds, n_stages, boxes, feats,
-      n_features, step, NY, NX, conf, passed);
+      (size_t)(n_features < kChunk ? n_features : kChunk) * kRecInts *
+      sizeof(int);
+  const dim3 grid((NX + kTileX - 1) / kTileX, (NY + kTileY - 1) / kTileY, L);
+  scd_phase_a_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      planes, n_planes, hs, ws, dims, stage_end, thresholds, n_stages, recs,
+      n_features, feats, NY, NX, conf, passed);
   return (int)cudaGetLastError();
 }

@@ -13,10 +13,11 @@ The main path, per image or per batch of same-shape images:
    - ``"pallas_full"`` (the default): one launch of the full-cascade kernel
      K1 (ops/kernels/scd_cascade.py);
    - ``"pallas"``: the staged cascade (``_staged_eval``, ccv_tpu's
-     ``_eval_level``): phase A, the leading stages, over every window in one
-     launch of kernel K3 (ops/kernels/scd_phase.py); phase B1, the next
-     block of stages, densely as torch ops; one compaction to the first K2
-     survivors in window order; phase B2, the rest, on them;
+     ``_eval_level``): phase A, the leading stages, and phase B1, the next
+     block of stages, each over every window in one launch of kernel K3
+     (ops/kernels/scd_phase.py) off one copy of the octave's phase planes;
+     one compaction to the first K2 survivors in window order; phase B2,
+     the rest, on them as torch ops;
 4. ``sample_down`` to the next octave;
 5. host: one device->host copy for the image or batch, windows -> rects in
    window order (``_comps_from_levels``), then ``merge_detections``. In the
@@ -443,8 +444,9 @@ def _dense_rows(passed: torch.Tensor, conf: torch.Tensor, dims):
 def _staged_eval(sat_l: torch.Tensor, dims, tabs: StagedTables, step: int,
                  caps, phase_a: Callable):
     """The staged cascade over every window of every level of ``sat_l``:
-    phase A over every window (``phase_a``, kernel K3 on the card), phase B1
-    densely, then ONE compaction of the A&B1 survivors to the first
+    phases A and B1 over every window (``phase_a`` on each phase's tables,
+    kernel K3 on the card, both launches reading one copy of the phase
+    planes), then ONE compaction of the A&B1 survivors to the first
     ``caps[l]`` in window order (a stable sort: ``argsort(~alive)``) and
     phase B2 on them. No step waits for the device.
 
@@ -454,7 +456,11 @@ def _staged_eval(sat_l: torch.Tensor, dims, tabs: StagedTables, step: int,
     dev = sat_l.device
     Lb = sat_l.shape[0]
     NX = int(dims[:, 1].max())
-    conf_a, alive = phase_a(sat_l, tabs.phase_a, step, dims)
+    planes = None
+    if dev.type == "cuda":  # one copy for phase A's and B1's launch
+        planes = scd_cascade.kernel_planes(sat_l, tabs.phase_a, step, dims,
+                                           tabs.phase_b1 or tabs.phase_a)
+    conf_a, alive = phase_a(sat_l, tabs.phase_a, step, dims, planes=planes)
     count_a = alive.sum(dim=(1, 2))
     zero = torch.zeros_like(count_a)
 
@@ -464,12 +470,11 @@ def _staged_eval(sat_l: torch.Tensor, dims, tabs: StagedTables, step: int,
     if tabs.phase_b1 is None:
         return (_dense_rows(alive, norm(conf_a), dims),
                 torch.stack([count_a, zero], 1).to(torch.float32))
-    vs1 = scd_cascade.cascade_stage_sums_ref(sat_l, tabs.phase_b1, step,
-                                             dims)
-    th1 = tabs.phase_b1.on(dev)["thresholds"]
-    alive = alive & (vs1 > th1[None, :, None, None]).all(dim=1)
+    conf_b1, pass_b1 = phase_a(sat_l, tabs.phase_b1, step, dims,
+                               planes=planes)
+    alive = alive & pass_b1
     if tabs.phase_b2 is None:
-        return (_dense_rows(alive, norm(vs1[:, -1]), dims),
+        return (_dense_rows(alive, norm(conf_b1), dims),
                 torch.stack([count_a, zero], 1).to(torch.float32))
     count_b1 = alive.sum(dim=(1, 2))
     K = max(caps)
@@ -598,10 +603,10 @@ def detect_async(img, cascade: ScdClassifierCascade,
     for the device; returns a handle for detect_collect. ``img`` is
     (H, W[, C]) on ``device`` (default: where a tensor is, else the default
     device). ``form`` is "pallas_full" (kernel K1, the whole cascade) or
-    "pallas" (the staged cascade, kernel K3 for phase A). ``evaluate``
-    replaces the form's kernel (same signature as
-    ``scd_cascade.cascade_eval_levels`` or ``scd_phase.phase_a``) to compare
-    it with another."""
+    "pallas" (the staged cascade, kernel K3 for phases A and B1).
+    ``evaluate`` replaces the form's kernel (same signature as
+    ``scd_cascade.cascade_eval_levels`` or ``scd_phase.phase_a``, which the
+    staged form calls with ``planes=``) to compare it with another."""
     params = params or ScdParams()
     return _dispatch(_image(img, cascade, params, device)[None], cascade,
                      params, form, evaluate)

@@ -8,8 +8,9 @@ Counterpart of ccv_tpu/ops/pallas/scd_cascade.py. Four pieces:
 - ``cascade_eval_levels_ref``: the plain PyTorch version, vectorised over
   windows, in the op order of the kernel (the twin of the NumPy oracle in
   tests/test_scd_kernel.py);
-- ``phase_planes``: the SAT stack as step x step phase planes, the layout
-  the kernel reads (ccv_tpu's ``_planes_cf``);
+- ``phase_planes`` / ``kernel_planes``: the SAT stack as step x step phase
+  planes, the layout the kernel reads (ccv_tpu's ``_planes_cf``), and with
+  it K3 (ops/kernels/scd_phase.py);
 - ``cascade_eval_levels``: the wrapper. On a CPU tensor it runs the plain
   version; on a CUDA tensor it makes the phase planes and launches the
   hand-written kernel (csrc/scd_cascade.cu) or raises. ``LAUNCHES`` counts
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -54,9 +56,10 @@ BOX_ORDER = tuple(range(16))  # layout 0
 
 
 def layout_flags() -> Tuple[str, ...]:
-    """The nvcc flag that compiles LAYOUTS into csrc/scd_cascade.cu:
-    SCD_LAYOUT_SLOTS, SCD_SLOT(code) for each layout of 1.. in order, the
-    code its 16 slots of 4 bits, slot 0 lowest."""
+    """The nvcc flag that compiles LAYOUTS into csrc/scd_planes.cuh, the
+    header of both SCD kernels (K1 and K3): SCD_LAYOUT_SLOTS, SCD_SLOT(code)
+    for each layout of 1.. in order, the code its 16 slots of 4 bits, slot 0
+    lowest."""
     codes = [sum(s << (4 * i) for i, s in enumerate(LAYOUTS[k]))
              for k in range(1, len(LAYOUTS) + 1)]
     return ("-DSCD_LAYOUT_SLOTS="
@@ -115,8 +118,6 @@ class CascadeTables:
                 stage_end=to_device(ends, device),
                 thresholds=to_device(self.thresholds.astype(np.float32),
                                      device),
-                boxes=to_device(self.boxes.reshape(-1, 16).astype(np.int32),
-                                device),
                 feats=to_device(feats.astype(np.float32), device))
             self._on[key] = got
         return got
@@ -374,14 +375,87 @@ def phase_planes(sat_l: torch.Tensor, step: int, rows: Optional[int] = None,
             .view(L, step * step, C, rows, cols))
 
 
+def planes_extent(tables: Sequence[CascadeTables], step: int,
+                  dims) -> Tuple[int, int]:
+    """(rows, cols) of the phase planes that the windows of ``dims`` read
+    under each of ``tables``: window (wy, wx) reads row wy + oy // step and
+    column wx + ox // step for its corners (oy, ox)."""
+    NY, NX = (int(v) for v in np.asarray(dims).reshape(-1, 2).max(axis=0))
+    ey = max(t.extent[0] for t in tables)
+    ex = max(t.extent[1] for t in tables)
+    return NY + ey // step, NX + ex // step
+
+
 def kernel_planes(sat_l: torch.Tensor, tables: CascadeTables, step: int,
-                  dims: np.ndarray) -> torch.Tensor:
-    """The phase planes the kernel reads for these windows: the rows and
-    columns that the window grid's corners reach (no padding where the SAT
-    covers them)."""
+                  dims, *more: CascadeTables) -> torch.Tensor:
+    """The phase planes K1 or K3 reads for these windows: the rows and
+    columns that the window grid's corners reach under ``tables`` and any
+    ``more`` tables, so one copy serves a launch for each (no padding where
+    the SAT covers them)."""
+    return phase_planes(sat_l, step, *planes_extent((tables, *more), step,
+                                                    dims))
+
+
+def check_planes(planes: torch.Tensor, sat_l: torch.Tensor,
+                 tables: CascadeTables, step: int, dims) -> None:
+    """Raises ValueError unless ``planes`` can stand for ``sat_l``'s phase
+    planes in a launch over the windows of ``dims`` with ``tables``: float32,
+    contiguous, on sat_l's device, (L, step*step, 8, rows, cols) with at
+    least the rows and columns the windows' corners reach. That they hold
+    sat_l's values is the caller's word."""
+    rows, cols = planes_extent((tables,), step, dims)
+    want = (sat_l.shape[0], step * step, CHANNELS)
+    if (planes.dtype != torch.float32 or planes.device != sat_l.device
+            or not planes.is_contiguous() or planes.dim() != 5
+            or tuple(planes.shape[:3]) != want or planes.shape[3] < rows
+            or planes.shape[4] < cols):
+        raise ValueError(
+            f"planes {planes.dtype} {tuple(planes.shape)} on {planes.device} "
+            f"are not contiguous float32 phase planes {want} + (>= {rows}, "
+            f">= {cols}) on {sat_l.device}")
+
+
+@functools.lru_cache(maxsize=256)
+def _dims_on(device: str, shape: Tuple[int, ...], raw: bytes) -> torch.Tensor:
+    arr = np.frombuffer(raw, np.int32).reshape(shape).copy()
+    return to_device(arr, torch.device(device))
+
+
+def dims_on(dims: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``dims`` as int32 on ``device``, copied there once per device and
+    value, so a launch makes no host copy."""
+    arr = np.ascontiguousarray(dims, np.int32)
+    return _dims_on(str(device), arr.shape, arr.tobytes())
+
+
+def _launch(fn, what: str, sat_l: torch.Tensor, planes: torch.Tensor,
+            tables: CascadeTables, step: int, dims: np.ndarray):
+    """(launch, conf, passed): ``launch()`` runs ``fn``, the C entry of K1
+    or K3 (one interface), over ``planes`` on the current stream into the
+    new (L, NY, NX) conf and passed, and raises if the launch fails."""
+    dev = sat_l.device
     NY, NX = (int(v) for v in dims.max(axis=0))
-    ey, ex = tables.extent
-    return phase_planes(sat_l, step, NY + ey // step, NX + ex // step)
+    L, n_planes, _, hs, ws = planes.shape
+    if n_planes * CHANNELS * hs * ws >= 2 ** 31:
+        raise ValueError(f"a level's phase planes {tuple(planes.shape[1:])} "
+                         f"are past the kernel's 32-bit offsets")
+    tab = tables.on(dev)
+    recs = tables.records_on(dev, step, hs, ws)
+    conf = torch.empty((L, NY, NX), dtype=torch.float32, device=dev)
+    passed = torch.empty((L, NY, NX), dtype=torch.uint8, device=dev)
+    args = (sat_l.get_device(), planes.data_ptr(), L, n_planes, hs, ws,
+            dims_on(dims, dev).data_ptr(), NY, NX,
+            tab["stage_end"].data_ptr(), tab["thresholds"].data_ptr(),
+            tables.n_stages, recs.data_ptr(), tables.n_features,
+            tab["feats"].data_ptr(), conf.data_ptr(), passed.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{what} kernel launch failed: CUDA error "
+                               f"{err}")
+    return launch, conf, passed.view(torch.bool)
 
 
 def _library() -> ctypes.CDLL:
@@ -415,27 +489,9 @@ def cascade_eval_levels(sat_l: torch.Tensor, tables: CascadeTables,
         return cascade_eval_levels_ref(sat_l, tables, step, dims)
     if sat_l.device.type != "cuda":
         raise ValueError(f"no cascade kernel for device {sat_l.device}")
-    fn = _library().scd_cascade_levels
-    dev = sat_l.device
-    NY, NX = (int(v) for v in dims.max(axis=0))
-    planes = kernel_planes(sat_l, tables, step, dims)
-    L, n_planes, _, hs, ws = planes.shape
-    if n_planes * CHANNELS * hs * ws >= 2 ** 31:
-        raise ValueError(f"a level's phase planes {tuple(planes.shape[1:])} "
-                         f"are past the kernel's 32-bit offsets")
-    tab = tables.on(dev)
-    recs = tables.records_on(dev, step, hs, ws)
-    dims_d = to_device(dims.astype(np.int32), dev)
-    conf = torch.empty((L, NY, NX), dtype=torch.float32, device=dev)
-    passed = torch.empty((L, NY, NX), dtype=torch.uint8, device=dev)
-    err = fn(sat_l.get_device(), planes.data_ptr(), L, n_planes, hs, ws,
-             dims_d.data_ptr(), NY, NX, tab["stage_end"].data_ptr(),
-             tab["thresholds"].data_ptr(), tables.n_stages,
-             recs.data_ptr(), tables.n_features, tab["feats"].data_ptr(),
-             conf.data_ptr(), passed.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"scd_cascade kernel launch failed: CUDA error "
-                           f"{err}")
+    launch, conf, passed = _launch(
+        _library().scd_cascade_levels, "scd_cascade", sat_l,
+        kernel_planes(sat_l, tables, step, dims), tables, step, dims)
+    launch()
     LAUNCHES += 1
-    return conf, passed.view(torch.bool)
+    return conf, passed

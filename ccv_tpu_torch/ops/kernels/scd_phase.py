@@ -1,33 +1,39 @@
-"""Kernel K3: the leading stages of the SCD cascade (phase A) over every
-window of an octave, with no early exit.
+"""Kernel K3: a run of stages of the SCD cascade over every window of an
+octave, with no early exit: the staged cascade's phase A and its phase B1.
 
 Counterpart of ccv_tpu/ops/pallas/scd_phase.py (``_get_phase_a_call``,
 entry ``phase_a``), which the staged cascade of detectors/scd.py runs as its
-phase A. Three pieces:
+phase A; ccv_tpu's dense phase B1 is the same computation on the next block
+of stages (ccv_tpu/detectors/scd.py ``_eval_level``), and the port runs it
+through the same kernel. Four pieces:
 
 - ``phase_tables``: the tables of a run of stages (their features, boxes,
   weights, biases and thresholds) as a ``scd_cascade.CascadeTables``;
 - ``phase_a_ref``: the plain PyTorch version, K1's stage sums
   (``scd_cascade.cascade_stage_sums_ref``, the kernel's op order) reduced
-  to phase A's outputs;
+  to the phase's outputs;
+- ``launcher``: K3's launch over given inputs on the card, for the wrapper
+  and for timing the kernel alone;
 - ``phase_a``: the wrapper. On a CPU tensor it runs the plain version; on a
   CUDA tensor it launches the hand-written kernel (csrc/scd_phase.cu) or
   raises. ``LAUNCHES`` counts its launches.
 
 Input is K1's: the channels-first SAT stack of one octave ``(L, 8, H1,
-W1)``, read at stride ``step``, and each level's ``(ny, nx)`` grid. The TPU
-kernel's phase planes (``_phase_planes``, ``_planes_cf``), its corner
-slices (``_grid_corner_slices(_T)``) and its tile selector were lane
-layouts for the TPU and have no counterpart here. Outputs, ``(L, NY, NX)``:
-``conf``, the LAST phase-A stage's sum for every window (K1's conf is the
-sum of the first failing stage), 0 outside a level's grid; ``passed``, the
-AND of ``sum > threshold`` over the phase's stages, false outside the grid.
+W1)``, read at stride ``step``, and each level's ``(ny, nx)`` grid. The
+kernel reads the SAT as K1 does, as step x step phase planes (ccv_tpu's
+``_phase_planes`` / ``_planes_cf``, ``scd_cascade.kernel_planes``) through
+each feature's distinct corners; a caller running several phases over the
+same SAT makes the planes once, for the largest corner extent, and passes
+them as ``planes``. Outputs, ``(L, NY, NX)``: ``conf``, the LAST stage's
+sum for every window (K1's conf is the sum of the first failing stage), 0
+outside a level's grid; ``passed``, the AND of ``sum > threshold`` over the
+phase's stages, false outside the grid.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,12 +43,8 @@ from ccv_tpu_torch.ops.kernels import _build
 from ccv_tpu_torch.ops.kernels import scd_cascade
 from ccv_tpu_torch.ops.kernels.scd_cascade import CascadeTables
 
-# kernel launches made by phase_a (CUDA tensors only)
+# kernel launches made by phase_a and launcher (CUDA tensors only)
 LAUNCHES = 0
-
-# the kernel stages the whole phase in shared memory: 16 ints + 33 floats
-# per feature, 8 bytes per stage, within the 227 KB a block may have
-MAX_FEATURES = 1024
 
 
 def phase_tables(thresholds, sx, sy, dx, dy, bias, w, stage_of, s0: int,
@@ -67,8 +69,10 @@ def phase_tables(thresholds, sx, sy, dx, dy, bias, w, stage_of, s0: int,
 
 
 def phase_a_ref(sat_l: torch.Tensor, tables: CascadeTables, step: int,
-                dims):
-    """Plain PyTorch version of the kernel: (conf, passed), (L, NY, NX)."""
+                dims, planes: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the kernel: (conf, passed), (L, NY, NX).
+    Reads ``sat_l`` itself; ``planes`` is taken, and ignored, so that it
+    has ``phase_a``'s signature."""
     vs = scd_cascade.cascade_stage_sums_ref(sat_l, tables, step, dims)
     L, _S, NY, NX = vs.shape
     valid = scd_cascade.valid_windows(
@@ -91,11 +95,13 @@ def phase_a_work(sat_l: torch.Tensor, tables: CascadeTables, step: int,
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("scd_phase", ["scd_phase.cu"])
+    lib = _build.load_library("scd_phase", ["scd_phase.cu"],
+                              scd_cascade.layout_flags())
     fn = lib.scd_phase_a_levels
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, i, i, i, p, i, i, p, p, i, p, p, i, i, p, p, p]
+        fn.argtypes = [i, p, i, i, i, i, p, i, i, p, p, i, p, i, p, p, p,
+                       p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -105,38 +111,47 @@ def build() -> None:
     _library()
 
 
+def launcher(sat_l: torch.Tensor, tables: CascadeTables, step: int,
+             dims: Sequence, planes: Optional[torch.Tensor] = None):
+    """(launch, conf, passed) for a CUDA ``sat_l``: ``launch()`` runs K3
+    once over ``planes`` (made here when not given) into the (L, NY, NX)
+    conf and passed, on the current stream, without synchronising, and adds
+    one to LAUNCHES. Every input is on the card before the first call, so a
+    run of calls times the kernel alone."""
+    dims = scd_cascade._check(sat_l, tables, step, dims)
+    if sat_l.device.type != "cuda":
+        raise ValueError(f"no phase kernel for device {sat_l.device}")
+    if planes is None:
+        planes = scd_cascade.kernel_planes(sat_l, tables, step, dims)
+    else:
+        scd_cascade.check_planes(planes, sat_l, tables, step, dims)
+    run, conf, passed = scd_cascade._launch(
+        _library().scd_phase_a_levels, "scd_phase", sat_l, planes, tables,
+        step, dims)
+
+    def launch():
+        global LAUNCHES
+        run()
+        LAUNCHES += 1
+    return launch, conf, passed
+
+
 def phase_a(sat_l: torch.Tensor, tables: CascadeTables, step: int,
-            dims: Sequence):
+            dims: Sequence, planes: Optional[torch.Tensor] = None):
     """(conf, passed), each (L, NY, NX), for every window of every level.
 
     A CPU tensor goes through the plain PyTorch version; a CUDA tensor
     launches the CUDA kernel once for the whole stack, on the current
-    stream, without synchronising."""
-    global LAUNCHES
-    dims = scd_cascade._check(sat_l, tables, step, dims)
+    stream, without synchronising. ``planes``: ``sat_l``'s phase planes
+    covering at least ``tables``' corner extent
+    (``scd_cascade.kernel_planes``), made once by a caller that runs several
+    phases over the same SAT; checked on either device (ValueError), made
+    here when not given."""
     if sat_l.device.type == "cpu":
+        dims = scd_cascade._check(sat_l, tables, step, dims)
+        if planes is not None:
+            scd_cascade.check_planes(planes, sat_l, tables, step, dims)
         return phase_a_ref(sat_l, tables, step, dims)
-    if sat_l.device.type != "cuda":
-        raise ValueError(f"no phase-A kernel for device {sat_l.device}")
-    if tables.n_features > MAX_FEATURES:
-        raise ValueError(f"phase A has {tables.n_features} features; the "
-                         f"kernel takes at most {MAX_FEATURES}")
-    fn = _library().scd_phase_a_levels
-    dev = sat_l.device
-    L, _, H1, W1 = sat_l.shape
-    NY, NX = (int(v) for v in dims.max(axis=0))
-    tab = tables.on(dev)
-    dims_d = to_device(dims.astype(np.int32), dev)
-    conf = torch.empty((L, NY, NX), dtype=torch.float32, device=dev)
-    passed = torch.empty((L, NY, NX), dtype=torch.uint8, device=dev)
-    err = fn(sat_l.get_device(), sat_l.data_ptr(), L, H1, W1,
-             dims_d.data_ptr(), NY, NX, tab["stage_end"].data_ptr(),
-             tab["thresholds"].data_ptr(), tables.n_stages,
-             tab["boxes"].data_ptr(), tab["feats"].data_ptr(),
-             tables.n_features, step, conf.data_ptr(), passed.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"scd_phase kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES += 1
-    return conf, passed.view(torch.bool)
+    launch, conf, passed = launcher(sat_l, tables, step, dims, planes)
+    launch()
+    return conf, passed

@@ -22,15 +22,20 @@ started together) and drives the port's two main paths:
   one with plain attention, then ``ccv_tpu_torch.bin.lm_bench.measure`` at
   its defaults (GPT-2-medium shape, 24 layers) for a warm-up step and a few
   timed steps;
-- the staged SCD cascade (phases 8-9): the phase-A kernel K3 against its
-  plain version (synthetic cascades, one whose stage 0 holds 20 features,
-  the face cascade's phase A at the 1080p level-0 SAT), then
-  ``detect(form="pallas")`` on crop180 against the C goldens with its
-  overflow reruns counted, at 640x480 and 1920x1080 against
-  ``form="pallas_full"`` with both timed in turns, and ``detect_batch`` of
-  four 1080p frames in both forms against per-image ``detect``;
-- phase 10: the 1080p ``detect`` under torch.profiler, for the card's busy
-  time per image and K1's share of it.
+- the staged SCD cascade (phases 8-9): the phase kernel K3 against its
+  plain version on the phase-A and phase-B1 tables of synthetic cascades
+  (one of SCD's three box layouts, one whose stage 0 holds 20 features and
+  one of 1,100, past a 512-feature run of records) and of the face cascade
+  at the 1080p level-0 SAT, then K3 timed alone on both face tables off
+  one plane copy, the copy alone and the plain version; then
+  ``detect(form="pallas")`` on crop180 against the C goldens with K3's
+  launches (phases A and B1 of every octave and overflow rerun) counted,
+  at 640x480 and 1920x1080 against ``form="pallas_full"`` with both timed
+  in turns, and ``detect_batch`` of four 1080p frames in both forms
+  against per-image ``detect``;
+- phase 10: the 1080p ``detect`` in both forms under torch.profiler, for
+  the card's busy time per image, K1's share of the default form's and
+  K3's and the B2 gathers' share of the staged form's.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -110,16 +115,35 @@ def frame_1080p(read):
     return np.ascontiguousarray(np.tile(tt, (3, 3))[:1080, :1920])
 
 
-def synth_cascade(scd, rng, feats_per_stage=(2, 3, 4, 5), wh=16):
+def synth_cascade(scd, rng, feats_per_stage=(2, 3, 4, 5), wh=16,
+                  layouts=False):
+    """A random cascade for the kernel checks; with ``layouts``, every
+    feature has one of the box layouts of SCD's feature generator (4 boxes
+    in a column, in a row or in a 2 x 2 grid, in the generator's box
+    order), the kernels' distinct-corner paths."""
     F = sum(feats_per_stage)
     sx = rng.integers(0, wh - 4, (F, 4))
     sy = rng.integers(0, wh - 4, (F, 4))
+    dx, dy = sx + rng.integers(2, 5, (F, 4)), sy + rng.integers(2, 5, (F, 4))
+    for f in range(F if layouts else 0):
+        q, a, b = (int(v) for v in rng.integers(1, 4, 3))
+        x, y = (int(v) for v in rng.integers(0, wh - 12, 2))
+        if f % 3 == 0:    # 1x4: a column of boxes q high, a + 1 wide
+            boxes = [(x, y + i * q, x + a + 1, y + (i + 1) * q)
+                     for i in range(4)]
+        elif f % 3 == 1:  # 4x1: a row of boxes q wide, a + 1 high
+            boxes = [(x + i * q, y, x + (i + 1) * q, y + a + 1)
+                     for i in range(4)]
+        else:             # 2x2 of a x b boxes
+            boxes = [(x, y, x + a, y + b), (x, y + b, x + a, y + 2 * b),
+                     (x + a, y, x + 2 * a, y + b),
+                     (x + a, y + b, x + 2 * a, y + 2 * b)]
+        sx[f], sy[f], dx[f], dy[f] = (np.array(v) for v in zip(*boxes))
     return scd.cascade_from_numpy(dict(
         width=wh, height=wh, margin=(0, 0, 0, 0),
         stage_counts=feats_per_stage,
         thresholds=np.zeros(len(feats_per_stage)),
-        sx=sx, sy=sy, dx=sx + rng.integers(2, 5, (F, 4)),
-        dy=sy + rng.integers(2, 5, (F, 4)),
+        sx=sx, sy=sy, dx=dx, dy=dy,
         bias=rng.normal(0, 0.5, F), w=rng.normal(0, 1, (F, 32)),
         stage_of=np.repeat(np.arange(len(feats_per_stage)), feats_per_stage)))
 
@@ -456,10 +480,10 @@ def margin_rects(scd, k1, img, cascade, params, dev):
 
 
 def phase_a_vs_plain(k1, k3, tables, sat_l, dims):
-    """K3 and its plain version on the same SAT stack. Returns (max |conf
-    difference| over every window, windows passed, windows in the margin).
-    K3's conf is the last phase-A stage's sum for every window, so it is
-    compared everywhere, passed or not."""
+    """K3 and its plain version on the same SAT stack, for a phase's tables
+    (A or B1). Returns (max |conf difference| over every window, windows
+    passed, windows in the margin). K3's conf is the phase's last stage's
+    sum for every window, so it is compared everywhere, passed or not."""
     vs = k1.cascade_stage_sums_ref(sat_l, tables, STEP, dims)
     conf0, pass0 = k3.phase_a_ref(sat_l, tables, STEP, dims)
     conf1, pass1 = k3.phase_a(sat_l, tables, STEP, dims)
@@ -478,46 +502,85 @@ def phase_a_vs_plain(k1, k3, tables, sat_l, dims):
 
 def k3_vs_plain(scd, k1, k3, roofline, dev, card, sat0, dims0, face,
                 face_med):
-    """Phase 8: K3 against its plain version on the synthetic dims K1 is
-    checked on, on a cascade whose stage 0 holds 20 features (phase A takes
-    it past the 16), and on the face cascade's phase A at the 1080p level-0
-    SAT with near-median and open thresholds; then both timed there."""
+    """Phase 8: K3 against its plain version on the phase-A and phase-B1
+    tables of synthetic cascades at the dims K1 is checked on (random boxes;
+    SCD's three box layouts; a stage 0 of 20 features, which phase A takes
+    past its 16; a stage 0 of 1,100, past a 512-feature run of records) and
+    of the face cascade at the 1080p level-0 SAT with near-median and open
+    thresholds. Then, there, K3 timed alone on the face's A and B1 tables
+    (planes, tables and dims already on the card, in turns), the plane copy
+    that serves both, and the plain version on both (in turns)."""
     max_err = 0.0
     rng = np.random.default_rng(8)
-    for counts, dims in (((2, 3, 4, 5, 6), [[11, 21]]),
-                         ((2, 3, 4, 5, 6), [[8, 128]]),
-                         ((2, 3, 4, 5, 6), [[17, 140]]),
-                         ((2, 3, 4, 5, 6), [[13, 140], [9, 100], [5, 60]]),
-                         ((20, 3, 4), [[17, 140]])):
+    for counts, dims, layouts in (
+            ((2, 3, 4, 5, 6), [[11, 21]], False),
+            ((2, 3, 4, 5, 6), [[8, 128]], False),
+            ((2, 3, 4, 5, 6), [[17, 140]], False),
+            ((2, 3, 4, 5, 6), [[13, 140], [9, 100], [5, 60]], False),
+            ((20, 3, 4), [[17, 140]], False),
+            ((4, 4, 4, 30), [[13, 140], [9, 100]], True),
+            ((1100, 3, 4), [[9, 37], [6, 20]], False)):
         dims = np.asarray(dims)
-        cascade = synth_cascade(scd, rng, counts)
+        cascade = synth_cascade(scd, rng, counts, 24 if layouts else 16,
+                                layouts)
         H1 = (dims[:, 0].max() - 1) * STEP + cascade.height + 1
         W1 = (dims[:, 1].max() - 1) * STEP + cascade.width + 1
         sat_l = torch.from_numpy(rng.normal(0, 10, (len(dims), 8, H1, W1))
                                  .astype(np.float32)).to(dev)
         cascade = with_median_thresholds(scd, k1, cascade, sat_l, dims)
-        tables = scd.staged_tables(cascade).phase_a
-        err, n, near = phase_a_vs_plain(k1, k3, tables, sat_l, dims)
-        max_err = max(max_err, err)
-        log(8, f"stages {counts}, phase A {tables.n_stages} stages / "
-               f"{tables.n_features} features, dims {dims.tolist()}: {n} "
-               f"passed, {near} in the margin, max conf diff {err:.3g}")
+        staged = scd.staged_tables(cascade)
+        for phase in ("phase_a", "phase_b1"):
+            tables = getattr(staged, phase)
+            err, n, near = phase_a_vs_plain(k1, k3, tables, sat_l, dims)
+            max_err = max(max_err, err)
+            log(8, f"stages {counts}{' (SCD box layouts)' if layouts else ''}"
+                   f", {phase} {tables.n_stages} stages / "
+                   f"{tables.n_features} features, dims {dims.tolist()}: {n} "
+                   f"passed, {near} in the margin, max conf diff {err:.3g}")
     for name, cascade in (("near-median", face_med), ("open", face)):
-        tables = scd.staged_tables(cascade).phase_a
-        err, n, near = phase_a_vs_plain(k1, k3, tables, sat0, dims0)
-        max_err = max(max_err, err)
-        log(8, f"face cascade phase A ({tables.n_stages} stages, "
-               f"{tables.n_features} features), {name} thresholds, 1080p "
-               f"level-0 SAT {tuple(sat0.shape)} dims {dims0.tolist()}: {n} "
-               f"passed, {near} in the margin, max conf diff {err:.3g}")
-    tables = scd.staged_tables(face_med).phase_a
-    ms = time_cuda(lambda: k3.phase_a(sat0, tables, STEP, dims0), 20)
-    plain_ms = time_cuda(lambda: k3.phase_a_ref(sat0, tables, STEP, dims0), 3)
-    bound, by = roofline.bound_ms(
-        *k3.phase_a_work(sat0, tables, STEP, dims0), "f32")
-    log(8, f"K3 at the 1080p level-0 shape on {card}: {ms:.3f} ms (plain "
-           f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by})")
-    return max_err, ms, plain_ms, bound, by
+        staged = scd.staged_tables(cascade)
+        for phase in ("phase_a", "phase_b1"):
+            tables = getattr(staged, phase)
+            err, n, near = phase_a_vs_plain(k1, k3, tables, sat0, dims0)
+            max_err = max(max_err, err)
+            log(8, f"face cascade {phase} ({tables.n_stages} stages, "
+                   f"{tables.n_features} features), {name} thresholds, 1080p "
+                   f"level-0 SAT {tuple(sat0.shape)} dims {dims0.tolist()}: "
+                   f"{n} passed, {near} in the margin, max conf diff "
+                   f"{err:.3g}")
+    staged = scd.staged_tables(face_med)
+    tabs = {"a": staged.phase_a, "b1": staged.phase_b1}
+    planes = k1.kernel_planes(sat0, tabs["a"], STEP, dims0, tabs["b1"])
+    runs = {key: k3.launcher(sat0, t, STEP, dims0, planes)[0]
+            for key, t in tabs.items()}
+    ms = {key: [] for key in tabs}
+    plain = {key: [] for key in tabs}
+    for key in ("a", "b1", "b1", "a"):
+        ms[key].append(time_cuda(runs[key], 50))
+    for key in ("a", "b1", "b1", "a"):
+        plain[key].append(time_cuda(
+            lambda t=tabs[key]: k3.phase_a_ref(sat0, t, STEP, dims0), 2))
+    copy_ms = time_cuda(
+        lambda: k1.kernel_planes(sat0, tabs["a"], STEP, dims0, tabs["b1"]),
+        20)
+    out = dict(max_err=max_err, plane_copy_ms=copy_ms)
+    for key, t in tabs.items():
+        bound, by = roofline.bound_ms(
+            *k3.phase_a_work(sat0, t, STEP, dims0), "f32")
+        out[key] = dict(ms=float(np.mean(ms[key])),
+                        plain_ms=float(np.mean(plain[key])), bound_ms=bound,
+                        bound_by=by)
+    log(8, f"K3 alone at the 1080p level-0 shape, near-median thresholds "
+           f"(CUDA events, 2 x 50 launches in turns; planes {tuple(planes.shape)}"
+           f" made once for both): " + "; ".join(
+               f"phase {key.upper()} ({tabs[key].n_features} features) "
+               f"{r['ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in ms[key])}),"
+               f" bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+               f"{r['bound_ms'] / r['ms']:.3f} of it; plain "
+               f"{r['plain_ms']:.3f} ms"
+               for key, r in ((k, out[k]) for k in tabs))
+           + f"; the plane copy {copy_ms:.4f} ms; {card}")
+    return out
 
 
 def detect_ms(scd, img, cascade, params, form, n):
@@ -534,12 +597,15 @@ def detect_ms(scd, img, cascade, params, form, n):
 
 
 def staged_path(scd, k1, k3, dev, card, crop, tt, frame, face, face_med):
-    """Phase 9, the staged form's main path (K3 for phase A, B1 dense, B2
-    on the first K2 survivors, the overflow rerun) and detect_batch in both
+    """Phase 9, the staged form's main path (K3 for phases A and B1, B2 on
+    the first K2 survivors, the overflow rerun) and detect_batch in both
     forms. Returns K3's launches in it."""
     def levels(H, W, cascade, params):
         specs = scd._level_specs(H, W, cascade, params)[0]
         return specs, len({s[0] for s in specs})
+
+    # K3 launches of one staged octave or rerun: phase A, and B1 if any
+    per = 1 + (scd.staged_tables(face).phase_b1 is not None)
 
     k3.LAUNCHES = 0
     # crop180 against the C goldens. face_low's thresholds are open: every
@@ -555,9 +621,9 @@ def staged_path(scd, k1, k3, dev, card, crop, tt, frame, face, face_med):
         launched, reruns = k3.LAUNCHES - before, scd.RERUNS - reruns
         check(reruns == want_reruns > 0, f"crop180 interval={interval}: "
               f"{reruns} levels rerun, {want_reruns} overflow K2")
-        check(launched == n_oct + reruns, f"crop180 interval={interval}: K3 "
-              f"launched {launched} times for {n_oct} octaves and {reruns} "
-              f"reruns")
+        check(launched == per * (n_oct + reruns), f"crop180 interval="
+              f"{interval}: K3 launched {launched} times for {n_oct} octaves "
+              f"and {reruns} reruns, {per} a dispatch")
         ref = golden_rects(golden)
         mine = {(c.x, c.y, c.width, c.height): c.confidence for c in out}
         check(set(mine) == set(ref), f"crop180 interval={interval}, staged: "
@@ -567,7 +633,8 @@ def staged_path(scd, k1, k3, dev, card, crop, tt, frame, face, face_med):
                           f"{diff}")
         log(9, f"crop180 interval={interval}, form pallas: {len(mine)} "
                f"windows = {golden}, max conf diff {diff:.3g} (< {tol}); K3 "
-               f"{launched} launches = {n_oct} octaves + {reruns} reruns")
+               f"{launched} launches = {per} x ({n_oct} octaves + {reruns} "
+               f"reruns)")
 
     # real sizes: the staged form against the full-cascade form
     params = scd.ScdParams(min_neighbors=0)
@@ -579,8 +646,9 @@ def staged_path(scd, k1, k3, dev, card, crop, tt, frame, face, face_med):
         before, reruns = k3.LAUNCHES, scd.RERUNS
         got = rect_set(scd.detect(img, cascade, params, form="pallas"))
         launched, reruns = k3.LAUNCHES - before, scd.RERUNS - reruns
-        check(launched == n_oct + reruns, f"{name}: K3 launched {launched} "
-              f"times for {n_oct} octaves and {reruns} reruns")
+        check(launched == per * (n_oct + reruns), f"{name}: K3 launched "
+              f"{launched} times for {n_oct} octaves and {reruns} reruns, "
+              f"{per} a dispatch")
         want = rect_set(scd.detect(img, cascade, params))
         check(len(want) > 0, f"{name}: no windows passed")
         odd = got ^ want
@@ -593,8 +661,8 @@ def staged_path(scd, k1, k3, dev, card, crop, tt, frame, face, face_med):
             full += detect_ms(scd, img, cascade, params, "pallas_full", 1)
             staged += detect_ms(scd, img, cascade, params, "pallas", 1)
         log(9, f"{name}: {len(got)} windows, form pallas = pallas_full "
-               f"({len(odd)} in the margin); K3 {launched} launches = {n_oct} "
-               f"octaves + {reruns} reruns; median ms/image (n={reps}, in "
+               f"({len(odd)} in the margin); K3 {launched} launches = {per} x "
+               f"({n_oct} octaves + {reruns} reruns); median ms/image (n={reps}, in "
                f"turns): pallas {float(np.median(staged)):.2f}, pallas_full "
                f"{float(np.median(full)):.2f}; {card}")
 
@@ -607,7 +675,8 @@ def staged_path(scd, k1, k3, dev, card, crop, tt, frame, face, face_med):
         before, reruns = kern.LAUNCHES, scd.RERUNS
         got = scd.detect_batch(batch, face_med, params, form=form)
         launched, reruns = kern.LAUNCHES - before, scd.RERUNS - reruns
-        check(launched == n_oct + (reruns if form == "pallas" else 0),
+        check(launched == (per * (n_oct + reruns) if form == "pallas"
+                           else n_oct),
               f"detect_batch {form}: {launched} launches for {n_oct} "
               f"octaves and {reruns} reruns")
         single = [scd.detect(batch[b], face_med, params, form=form)
@@ -827,7 +896,7 @@ def main():
 
     # -- 7: the LM training step -------------------------------------------
     lm_two_layers(k2, dev)
-    from ccv_tpu_torch.bin import lm_bench
+    from ccv_tpu_torch.bin import lm_bench, staged_profile
     k2.reset_launches()
     res = lm_bench.measure(steps=LM_STEPS)
     k2_launches = dict(k2.LAUNCHES)
@@ -876,16 +945,16 @@ def main():
                 "library_note": "one flash backward call: dq, dk and dv"})})
 
     # -- 8: K3 against its plain version on the card -----------------------
-    k3_err, k3_ms, k3_plain_ms, k3_bound, k3_by = k3_vs_plain(
-        scd, k1, k3, roofline, dev, card, sat0, dims0, face, face_med)
+    k3_res = k3_vs_plain(scd, k1, k3, roofline, dev, card, sat0, dims0, face,
+                         face_med)
 
     # -- 9: the staged cascade and detect_batch -----------------------------
     k3_launches = staged_path(scd, k1, k3, dev, card, crop, tt, frame, face,
                               face_med)
     check(k3_launches > 0, "the staged path launched K3 no time")
 
-    # -- 10: the card's busy time in a 1080p detect (last: the profiler
-    # may leave the host slower for what follows) --------------------------
+    # -- 10: the card's busy time in a 1080p detect, both forms (last: the
+    # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
     busy, by_name, wall = device_ms(lambda: scd.detect(img, cascade, params),
                                     3)
@@ -895,13 +964,29 @@ def main():
             f"{busy:.2f} ms per image over a wall of {wall:.2f} ms per image "
             f"in the same window (profiler overhead included): idle share "
             f"{1 - busy / wall:.3f}; K1 {k1_dev:.3f} ms of it; {card}")
+    busy, by_name, wall = device_ms(
+        lambda: scd.detect(img, cascade, params, form="pallas"), 3)
+    part = staged_profile.split(by_name)
+    log(10, f"1920x1080 detect(form='pallas') under torch.profiler (3 "
+            f"images): device busy {busy:.2f} ms per image over a wall of "
+            f"{wall:.2f} ms per image: idle share {1 - busy / wall:.3f}; K3 "
+            f"{part['k3_ms']:.3f} ms of it, the B2 gathers "
+            f"{part['gather_ms']:.3f} ms; the largest device ms per image: "
+            + "; ".join(f"{key} {v:.3f}" for key, v in part["top"])
+            + f"; {card}")
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",
         "source": "ccv_tpu_torch/csrc/scd_phase.cu",
         "replaces": "ccv_tpu/ops/pallas/scd_phase.py:44",
-        "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
-        "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-        "library_ms": None, "design": "thread-per-window"})
+        "launches": k3_launches, "max_abs_err": k3_res["max_err"],
+        "ms": k3_res["a"]["ms"], "plain_ms": k3_res["a"]["plain_ms"],
+        "bound_ms": k3_res["a"]["bound_ms"],
+        "bound_by": k3_res["a"]["bound_by"], "library_ms": None,
+        "design": "planes-dense", "ms_b1": k3_res["b1"]["ms"],
+        "plain_ms_b1": k3_res["b1"]["plain_ms"],
+        "bound_ms_b1": k3_res["b1"]["bound_ms"],
+        "bound_by_b1": k3_res["b1"]["bound_by"],
+        "plane_copy_ms": k3_res["plane_copy_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Port parity: kernel K3 (phase A of the staged SCD cascade), its plain
-PyTorch version against ccv_tpu's Pallas kernel in TPU interpret mode and
-against the XLA formulation of tests/test_scd_pallas.py, and its tables.
+"""Port parity: kernel K3 (phases A and B1 of the staged SCD cascade), its
+plain PyTorch version against ccv_tpu's Pallas kernel in TPU interpret mode
+and against the XLA formulation of tests/test_scd_pallas.py (ccv_tpu's dense
+phase B1 too), its tables, records and shared phase planes.
 
 Survivor sets must agree wherever every stage sum is more than 1e-4 from
 its threshold (float noise near a threshold may flip a window); last-stage
@@ -91,11 +92,12 @@ def _gap_thresholds(vs, dims):
     return np.asarray(th, np.float32)
 
 
-def _jax_phase_a_xla(jcascade, sat, ny, nx):
-    """ccv_tpu's XLA formulation of phase A (tests/test_scd_pallas.py:44-52)
-    on one level's (8, H1, W1) SAT: (last-stage sum, passed), (ny, nx)."""
+def _jax_phase_a_xla(jcascade, sat, ny, nx, phase="phase_a"):
+    """ccv_tpu's XLA formulation of a dense phase (tests/test_scd_pallas.py:
+    44-52 for phase A; ccv_tpu's dense B1 slices the planes the same way) on
+    one level's (8, H1, W1) SAT: (last-stage sum, passed), (ny, nx)."""
     tabs = jscd._cascade_tables(jcascade)
-    phase = tabs["phase_a"]
+    phase = tabs[phase]
     sat8 = jnp.asarray(np.ascontiguousarray(sat.transpose(1, 2, 0)))
     planes, _th, _tw = jscd._phase_planes(
         sat8, ny, nx, int(tabs["all_off"][:, 0].max()),
@@ -204,6 +206,128 @@ def test_plain_phase_a_matches_pallas_interpret(crop180_level0, monkeypatch):
     np.testing.assert_allclose(conf, want_conf, atol=1e-4, rtol=0)
 
 
+B1_CASES = {
+    # stages 0-3 are phase A; stage 4 (6 features) is B1
+    "median": ((2, 3, 4, 5, 6), [[17, 140]]),
+    # B1 is stages 4 and 5 (6 + 9 features): passed is the AND of both
+    "two_stages": ((2, 3, 4, 5, 6, 9), [[13, 140], [9, 100], [5, 60]]),
+    # face_low: B1 is stage 3, 49 features
+    "face_low": (None, [[9, 12], [6, 8]]),
+}
+
+
+@pytest.mark.parametrize("counts,dims", list(B1_CASES.values()),
+                         ids=list(B1_CASES))
+def test_plain_phase_b1_matches_jax_xla(counts, dims):
+    """The staged cascade runs phase B1 through K3's wrapper: its plain
+    version on the B1 tables matches ccv_tpu's dense B1, the XLA corner
+    slices of the phase planes (random SATs; thresholds in gaps)."""
+    rng = np.random.default_rng(14)
+    jcascade = (_synth_cascade(rng, counts) if counts else jscd.load_cascade(
+        os.path.join(DATA, "face_low.sqlite3")))
+    dims = np.asarray(dims)
+    ey, ex = tscd.cascade_tables(_port(jcascade)).extent
+    sat_levels = [rng.normal(0, 10, (8, (ny - 1) * STEP + ey + 1,
+                                     (nx - 1) * STEP + ex + 1))
+                  .astype(np.float32) for ny, nx in dims]
+    sat_l = _stack(sat_levels)
+    split, split2 = tscd.phase_split(jcascade.stage_counts)
+    tabs_b1 = tscd.staged_tables(_port(jcascade)).phase_b1
+    assert tabs_b1.n_stages == split2 - split
+    vs = tkernel.cascade_stage_sums_ref(sat_l, tabs_b1, STEP, dims)
+    jcascade.thresholds[split:split2] = _gap_thresholds(vs, dims)
+    tabs_b1 = tscd.staged_tables(_port(jcascade)).phase_b1
+    conf, passed = tphase.phase_a_ref(sat_l, tabs_b1, STEP, dims)
+    conf, passed, vs = conf.numpy(), passed.numpy(), vs.numpy()
+    for li, (ny, nx) in enumerate(dims):
+        want_conf, want_passed = _jax_phase_a_xla(
+            jcascade, sat_levels[li], ny, nx, "phase_b1")
+        _assert_agree(vs[li, :, :ny, :nx], tabs_b1.thresholds,
+                      conf[li, :ny, :nx], passed[li, :ny, :nx], want_conf,
+                      want_passed)
+        np.testing.assert_array_equal(conf[li, :ny, :nx],
+                                      vs[li, -1, :ny, :nx])
+
+
+def test_shared_planes_cover_both_phases():
+    """The staged form makes one copy of the phase planes for phase A's and
+    B1's launches, as far as the larger of their corner extents reaches;
+    phase_a takes them for either phase (the plain version ignores them)
+    and refuses planes that do not cover a phase's windows."""
+    staged = tscd.staged_tables(tscd.load_cascade(
+        os.path.join(DATA, "face_low.sqlite3")))
+    a, b1 = staged.phase_a, staged.phase_b1
+    assert a.extent == (44, 48) and b1.extent == (48, 48)
+    dims = np.array([[5, 7], [3, 4]])
+    H1, W1 = 4 * STEP + 48 + 2, 6 * STEP + 48 + 3
+    sat = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 10, (2, 8, H1, W1)).astype(np.float32))
+    planes = tkernel.kernel_planes(sat, a, STEP, dims, b1)
+    assert planes.shape == (2, STEP * STEP, 8, 5 + 48 // STEP,
+                            7 + 48 // STEP)
+    for tables in (a, b1):
+        got = tphase.phase_a(sat, tables, STEP, dims, planes=planes)
+        want = tphase.phase_a(sat, tables, STEP, dims)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # phase A's own planes stop a row short of B1's corners
+    own = tkernel.kernel_planes(sat, a, STEP, dims)
+    assert own.shape[3:] == (5 + 44 // STEP, 7 + 48 // STEP)
+    tphase.phase_a(sat, a, STEP, dims, planes=own)
+    bad = {"A's planes for B1": own,
+           "a column short": tkernel.phase_planes(sat, STEP, 17, 18),
+           "one level": planes[:1], "float64": planes.double(),
+           "not contiguous": planes.transpose(3, 4)}
+    for p in bad.values():
+        with pytest.raises(ValueError, match="phase planes"):
+            tphase.phase_a(sat, b1, STEP, dims, planes=p)
+
+
+def test_records_of_a_1100_feature_phase():
+    """A phase of 1,100 features (K3 stages its records in runs of 512):
+    through ``records``, every box corner of every feature lands on the SAT
+    corner it names, at every window of a small grid."""
+    rng = np.random.default_rng(10)
+    tables = tscd.staged_tables(_port(_synth_cascade(
+        rng, (1100, 3, 4)))).phase_a
+    assert tables.n_features == 1100 and tables.n_stages == 1
+    ey, ex = tables.extent
+    dims = np.array([[4, 6]])
+    sat = torch.from_numpy(rng.normal(0, 10, (1, 8, 3 * STEP + ey + 1,
+                                              5 * STEP + ex + 1))
+                           .astype(np.float32))
+    planes = tkernel.kernel_planes(sat, tables, STEP, dims)
+    _L, _P, _C, hs, ws = planes.shape
+    recs = tables.records(STEP, hs, ws)
+    assert recs.shape == (1100, 17) and recs.dtype == np.int32
+    np.testing.assert_array_equal(recs[:, 0], tables.layout)
+    slots = np.array([tkernel.BOX_ORDER] + [tkernel.LAYOUTS[k] for k in
+                                            sorted(tkernel.LAYOUTS)])
+    off = np.take_along_axis(recs[:, 1:], slots[tables.layout], axis=1)
+    oyx = np.take_along_axis(tables.corners, tables.cidx.reshape(
+        -1, 16)[..., None], axis=1)                      # (F, 16, 2)
+    wy, wx = np.meshgrid(np.arange(4), np.arange(6), indexing="ij")
+    at = (wy * ws + wx).reshape(-1)
+    chan = np.arange(8)[:, None, None, None] * (hs * ws)
+    got = planes.reshape(-1)[torch.from_numpy(
+        chan + at[None, :, None, None] + off[None, None])]
+    want = sat[0][:, torch.from_numpy(
+        wy.reshape(-1)[:, None, None] * STEP + oyx[None, ..., 0]),
+        torch.from_numpy(wx.reshape(-1)[:, None, None] * STEP
+                         + oyx[None, ..., 1])]
+    assert torch.equal(got, want)
+
+
+def test_dims_live_on_the_device_once():
+    """The wrappers take each level grid's device copy from a cache keyed
+    by device and value, so a launch makes no host copy."""
+    a = tkernel.dims_on(np.array([[33, 33], [28, 28]]), torch.device("cpu"))
+    b = tkernel.dims_on(np.array([[33, 33], [28, 28]], np.int64),
+                        torch.device("cpu"))
+    c = tkernel.dims_on(np.array([[33, 33]]), torch.device("cpu"))
+    assert a is b and a.dtype == torch.int32
+    assert a.tolist() == [[33, 33], [28, 28]] and c.tolist() == [[33, 33]]
+
+
 def _tables(counts=(2, 3, 4, 5, 6), seed=5):
     return tscd.staged_tables(_port(_synth_cascade(
         np.random.default_rng(seed), counts))).phase_a
@@ -286,6 +410,86 @@ def test_cuda_kernel_matches_plain(counts, dims):
                       ref[1][li, :ny, :nx].cpu().numpy(),
                       got[0][li, :ny, :nx].cpu().numpy(),
                       got[1][li, :ny, :nx].cpu().numpy())
+        assert not got[1][li, ny:].any() and not got[1][li, :, nx:].any()
+
+
+def _layout_cascade(rng, feats_per_stage, wh=24):
+    """A synthetic cascade whose features have the box layouts of SCD's
+    feature generator (4 boxes in a column, in a row, or in a 2 x 2 grid,
+    in the generator's box order): K3's distinct-corner paths."""
+    c = _synth_cascade(rng, feats_per_stage, wh)
+    for f in range(len(c.bias)):
+        q, a, b = (int(v) for v in rng.integers(1, 4, 3))
+        x, y = (int(v) for v in rng.integers(0, wh - 12, 2))
+        if f % 3 == 0:    # 1x4
+            boxes = [(x, y + i * q, x + a + 1, y + (i + 1) * q)
+                     for i in range(4)]
+        elif f % 3 == 1:  # 4x1
+            boxes = [(x + i * q, y, x + (i + 1) * q, y + a + 1)
+                     for i in range(4)]
+        else:             # 2x2
+            boxes = [(x, y, x + a, y + b), (x, y + b, x + a, y + 2 * b),
+                     (x + a, y, x + 2 * a, y + b),
+                     (x + a, y + b, x + 2 * a, y + 2 * b)]
+        c.sx[f], c.sy[f], c.dx[f], c.dy[f] = (np.array(v) for v in
+                                              zip(*boxes))
+    return c
+
+
+# (cascade maker, phase, dims): SCD's box layouts in phases A and B1; a
+# phase A of 1,100 features, past a 512-feature run of records (a stage
+# straddles two runs); face_low's B1 (49 features)
+CUDA_PHASES = {
+    "layouts_a": (lambda rng: _layout_cascade(rng, (4, 4, 4, 30)),
+                  "phase_a", [[13, 140], [9, 100]]),
+    "layouts_b1": (lambda rng: _layout_cascade(rng, (4, 4, 4, 30)),
+                   "phase_b1", [[13, 140], [9, 100]]),
+    "1100_features": (lambda rng: _synth_cascade(rng, (1100, 3, 4)),
+                      "phase_a", [[9, 37], [6, 20]]),
+    "face_b1": (lambda rng: jscd.load_cascade(
+        os.path.join(DATA, "face_low.sqlite3")), "phase_b1", [[17, 60]]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,phase,dims", list(CUDA_PHASES.values()),
+                         ids=list(CUDA_PHASES))
+def test_cuda_kernel_matches_plain_on_phases(make, phase, dims):
+    """K3 against its plain version on the card, on the phases the staged
+    form runs through it, off phase planes shared with phase A."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(15)
+    jcascade = make(rng)
+    dims = np.asarray(dims)
+    ey, ex = tscd.cascade_tables(_port(jcascade)).extent
+    sat_l = torch.from_numpy(rng.normal(0, 10, (
+        len(dims), 8, (dims[:, 0].max() - 1) * STEP + ey + 1,
+        (dims[:, 1].max() - 1) * STEP + ex + 1)).astype(np.float32)).cuda()
+    split, split2 = tscd.phase_split(jcascade.stage_counts)
+    s0, s1 = (0, split) if phase == "phase_a" else (split, split2)
+    tables = getattr(tscd.staged_tables(_port(jcascade)), phase)
+    vs = tkernel.cascade_stage_sums_ref(sat_l, tables, STEP, dims)
+    jcascade.thresholds[s0:s1] = _gap_thresholds(vs, dims)
+    staged = tscd.staged_tables(_port(jcascade))
+    tables = getattr(staged, phase)
+    ref = tphase.phase_a_ref(sat_l, tables, STEP, dims)
+    planes = tkernel.kernel_planes(sat_l, staged.phase_a, STEP, dims,
+                                   staged.phase_b1 or staged.phase_a)
+    before = tphase.LAUNCHES
+    got = tphase.phase_a(sat_l, tables, STEP, dims, planes=planes)
+    torch.cuda.synchronize()
+    assert tphase.LAUNCHES == before + 1
+    vs = vs.cpu().numpy()
+    for li, (ny, nx) in enumerate(dims):
+        _assert_agree(vs[li, :, :ny, :nx], tables.thresholds,
+                      ref[0][li, :ny, :nx].cpu().numpy(),
+                      ref[1][li, :ny, :nx].cpu().numpy(),
+                      got[0][li, :ny, :nx].cpu().numpy(),
+                      got[1][li, :ny, :nx].cpu().numpy())
+        np.testing.assert_allclose(got[0][li, :ny, :nx].cpu().numpy(),
+                                   ref[0][li, :ny, :nx].cpu().numpy(),
+                                   atol=2e-4, rtol=1e-5)
         assert not got[1][li, ny:].any() and not got[1][li, :, nx:].any()
 
 

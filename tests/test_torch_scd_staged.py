@@ -1,6 +1,6 @@
-"""Port parity: the staged SCD cascade (``form="pallas"``: phase A through
-kernel K3's wrapper, phase B1 dense, phase B2 on the first K2 survivors,
-the host's overflow rerun) and ``detect_batch`` in both forms, against
+"""Port parity: the staged SCD cascade (``form="pallas"``: phases A and B1
+through kernel K3's wrapper, phase B2 on the first K2 survivors, the host's
+overflow rerun) and ``detect_batch`` in both forms, against
 ccv_tpu on the same inputs and against the C goldens.
 
 Per level, survivor sets must agree wherever every stage sum is more than
@@ -146,6 +146,29 @@ def test_capacities_match_jax(nwin, counts, monkeypatch):
     # the port runs B1 densely, as ccv_tpu does on the accelerator
     monkeypatch.setattr(jscd.jax, "default_backend", lambda: "tpu")
     assert tscd._out_len(tabs, nwin, K2) == jscd._out_len(jtabs, nwin, K2)
+
+
+@pytest.mark.parametrize("counts", ["face_low", "a_only", "a_b1", "b1_b2"])
+def test_staged_eval_runs_each_dense_phase_through_phase_a(counts):
+    """Phases A and B1 both go through the ``phase_a`` callable (K3 on the
+    card), in that order, with the same planes (none on the CPU); a cascade
+    with no B1 calls it once."""
+    cascade = _port(_synth_cascade(np.random.default_rng(3), SPLITS[counts]))
+    tabs = tscd.staged_tables(cascade)
+    calls = []
+
+    def counting(sat_l, tables, step, dims, planes=None):
+        calls.append((tables, planes))
+        return tphase.phase_a(sat_l, tables, step, dims, planes=planes)
+
+    dims = np.array([[5, 7]])
+    sat = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 10, (1, 8, 4 * STEP + 25, 6 * STEP + 25)).astype(np.float32))
+    tscd._staged_eval(sat, dims, tabs, STEP, [35], counting)
+    want = [t for t in (tabs.phase_a, tabs.phase_b1) if t is not None]
+    assert len(calls) == len(want) == (1 if counts == "a_only" else 2)
+    assert all(got is w and planes is None
+               for (got, planes), w in zip(calls, want))
 
 
 # -- one level at full capacity against ccv_tpu's level program -------------
@@ -365,9 +388,10 @@ def test_detect_batch_matches_single_and_jax(batch_imgs, face, jax_batch,
 
 @pytest.mark.cuda
 def test_cuda_staged_detect_launches_k3(face):
-    """On the card the staged form runs phase A through K3, once per octave
-    and once per overflow rerun, and gives crop180's golden windows (run by
-    chip_smoke.py as well, at full sizes and with detect_batch)."""
+    """On the card the staged form runs phases A and B1 through K3, twice
+    per octave and twice per overflow rerun, and gives crop180's golden
+    windows (run by chip_smoke.py as well, at full sizes and with
+    detect_batch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     crop = tio.read(os.path.join(DATA, "crop180.png"), tio.IO_RGB_COLOR,
@@ -377,7 +401,8 @@ def test_cuda_staged_detect_launches_k3(face):
     launches, reruns = tphase.LAUNCHES, tscd.RERUNS
     out = tscd.detect(crop, face, params, form="pallas")
     reruns = tscd.RERUNS - reruns
-    assert reruns > 0 and tphase.LAUNCHES - launches == n_oct + reruns
+    assert tscd.staged_tables(face).phase_b1 is not None
+    assert reruns > 0 and tphase.LAUNCHES - launches == 2 * (n_oct + reruns)
     mine, ref = _by_rect(out), _golden("crop180.scd_i1.txt")
     assert set(mine) == set(ref)
     assert max(abs(mine[k] - ref[k]) for k in ref) < 6e-3
