@@ -48,17 +48,15 @@ def rgb_to_gray_u8(rgb: np.ndarray, libpng: bool = False) -> np.ndarray:
     return ((r * 6969 + g * 23434 + b * 2365) >> 15).astype(np.uint8)
 
 
-def _read_ccv_binary(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        magic = f.read(8)
-        if magic != b"CCVBINDM":
-            raise ValueError(f"{path}: not a CCVBINDM file")
-        type_tag, rows, cols = struct.unpack("<iii", f.read(12))
-        dt = ccv_type_to_dtype(type_tag)
-        ch = ccv_type_channels(type_tag)
-        # rows are stored with a 4-byte aligned row stride
-        step = (cols * ch * dt.itemsize + 3) & ~3
-        raw = f.read(step * rows)
+def _decode_ccv_binary(data: bytes) -> np.ndarray:
+    if data[:8] != b"CCVBINDM":
+        raise ValueError("not a CCVBINDM blob")
+    type_tag, rows, cols = struct.unpack("<iii", data[8:20])
+    dt = ccv_type_to_dtype(type_tag)
+    ch = ccv_type_channels(type_tag)
+    # rows are stored with a 4-byte aligned row stride
+    step = (cols * ch * dt.itemsize + 3) & ~3
+    raw = data[20:20 + step * rows]
     buf = np.frombuffer(raw, dtype=np.uint8).reshape(rows, step)
     row_bytes = cols * ch * dt.itemsize
     arr = buf[:, :row_bytes].copy().view(dt).reshape(rows, cols, ch)
@@ -142,18 +140,15 @@ def decode_png(data: bytes) -> np.ndarray:
     return img
 
 
-def read(path: str, flags: int = 0,
-         device: _device.DeviceLike = None) -> DenseMatrix:
-    """ccv_read twin: decode a PNG (or CCVBINDM blob) into a DenseMatrix on
-    ``device`` (default: the card; raises without one, so pass
-    ``device="cpu"`` to keep the image on the host)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode(data: bytes, flags: int = 0) -> np.ndarray:
+    """ccv_read of an image held in memory (PNG or a CCVBINDM blob) into a
+    host array; raises NotImplementedError for other formats and
+    ValueError (or zlib.error, struct.error) for a damaged one."""
     if data[:8] == b"CCVBINDM":
-        return from_numpy(_read_ccv_binary(path), device)
+        return _decode_ccv_binary(data)
     if data[:8] != _PNG_MAGIC:
         raise NotImplementedError(
-            f"{path}: only PNG and CCVBINDM are decoded by the port so far")
+            "only PNG and CCVBINDM are decoded by the port so far")
     arr = decode_png(data)
     want_gray = ((flags & IO_GRAY) == IO_GRAY
                  and (flags & IO_RGB_COLOR) != IO_RGB_COLOR)
@@ -164,4 +159,18 @@ def read(path: str, flags: int = 0,
             arr = rgb_to_gray_u8(arr, libpng=True)
     elif arr.ndim == 2 and want_rgb:
         arr = np.stack([arr] * 3, axis=-1)
+    return arr
+
+
+def read(path: str, flags: int = 0,
+         device: _device.DeviceLike = None) -> DenseMatrix:
+    """ccv_read twin: decode a PNG (or CCVBINDM blob) into a DenseMatrix on
+    ``device`` (default: the card; raises without one, so pass
+    ``device="cpu"`` to keep the image on the host)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        arr = decode(data, flags)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{path}: {e}") from None
     return from_numpy(arr, device)

@@ -3,7 +3,9 @@ reference: lib/ccv_scd.c).
 
 The main path, per image or per batch of same-shape images:
 
-1. host: plan the pyramid levels (``_level_specs``);
+1. where the cascade is larger than ``params.size``, an INTER_CUBIC
+   up-scale of the image on the device (``_image``, not for a batch); host:
+   plan the pyramid levels (``_level_specs``);
 2. per octave, on the device, per level: INTER_AREA resample, margin pad,
    the 8-channel gradient map (``scd_map_cf8``) and its zero-padded SAT
    (``_sat_cf8``), stacked into one ``(B*L, 8, H1, W1)`` tensor: a batch's
@@ -240,12 +242,10 @@ def _out_len(tabs: StagedTables, nwin: int, K2: int) -> int:
 # feature map and SAT
 # ---------------------------------------------------------------------------
 
-def scd_map_cf8(img: torch.Tensor) -> torch.Tensor:
-    """Channels-first (8, H, W) float32 gradient map: the first 8 scd_map
-    channels [dx, dy, du, dv, |dx|, |dy|, |du|, |dv|], the only ones the
-    cascade features read (ccv_scd.c:325, :445). blur(0.5) -> four 3-tap
-    sobels -> per-pixel strongest channel for color images. ``img`` is
-    (H, W), (H, W, C), or a batch (B, H, W, C) -> (B, 8, H, W)."""
+def _gradient_channels(img: torch.Tensor) -> List[torch.Tensor]:
+    """The 8 gradient channels of scd_map, each (..., H, W) float32:
+    [dx, dy, du, dv, |dx|, |dy|, |du|, |dv|] (ccv_scd.c:325). blur(0.5) ->
+    four 3-tap sobels -> per-pixel strongest channel for color images."""
     blurred = basic.blur(img, sigma=0.5)
     grads = [basic.sobel(blurred, 1, 0), basic.sobel(blurred, 0, 1),
              basic.sobel(blurred, 1, 1), basic.sobel(blurred, -1, 1)]
@@ -263,7 +263,56 @@ def scd_map_cf8(img: torch.Tensor) -> torch.Tensor:
         elif gf.dim() >= 3:
             gf = gf[..., 0]
         chans.append(gf)
-    return torch.stack(chans + [c.abs() for c in chans], dim=-3)
+    return chans + [c.abs() for c in chans]
+
+
+def scd_map_cf8(img: torch.Tensor) -> torch.Tensor:
+    """Channels-first (8, H, W) float32 gradient map: the first 8 scd_map
+    channels, the only ones the cascade features read (ccv_scd.c:445).
+    ``img`` is (H, W), (H, W, C), or a batch (B, H, W, C) -> (B, 8, H, W)."""
+    return torch.stack(_gradient_channels(img), dim=-3)
+
+
+# cube_root[i] = cbrt(i / 2047): the reference's 2048-entry LUT
+_CBRT_LUT = np.cbrt(np.arange(2048) / 2047.0).astype(np.float32)
+
+
+def _luv(rgb01: torch.Tensor):
+    """RGB in [0, 1] (..., 3) float32 -> the scaled (L, U, V) channels of
+    _ccv_rgb_to_luv (ccv_scd.c:298), with its cube-root LUT quantization."""
+    r, g, b = rgb01[..., 0], rgb01[..., 1], rgb01[..., 2]
+    x = 0.412453 * r + 0.35758 * g + 0.180423 * b
+    y = 0.212671 * r + 0.71516 * g + 0.072169 * b
+    z = 0.019334 * r + 0.119193 * g + 0.950227 * b
+    x_n, y_n = 0.312713, 0.329016
+    uv_n_div = -2.0 * x_n + 12.0 * y_n + 3.0
+    u_n = 4.0 * x_n / uv_n_div
+    v_n = 9.0 * y_n / uv_n_div
+    uv_div = torch.clamp(x + 15.0 * y + 3.0 * z, min=1.1920929e-07)
+    u = 4.0 * x / uv_div
+    v = 9.0 * y / uv_div
+    yi = torch.floor(y * 2047.0).clamp(0, 2047).to(torch.int64)
+    y_cbrt = to_device(_CBRT_LUT, rgb01.device)[yi]
+    l = torch.clamp(116.0 * y_cbrt - 16.0, min=0.0)
+    uu = 13.0 * l * (u - u_n)
+    vv = 13.0 * l * (v - v_n)
+    return (l * (255.0 / 100.0),
+            (uu + 134.0) * (255.0 / (220.0 + 134.0)),
+            (vv + 140.0) * (255.0 / (122.0 + 140.0)))
+
+
+def scd_map(img: torch.Tensor) -> torch.Tensor:
+    """ccv_scd twin (ccv_scd.c:325): the (H, W, 11) float32 feature map,
+    [dx, dy, du, dv, |dx|, |dy|, |du|, |dv|, L, U, V]; a gray image gives
+    [gray / 255, 0, 0] in the last three."""
+    out = _gradient_channels(img)
+    if img.dim() == 3 and img.shape[-1] == 3:
+        out += list(_luv(img.to(torch.float32) / 255.0))
+    else:
+        gray = (img[..., 0] if img.dim() == 3 else img).to(
+            torch.float32) / 255.0
+        out += [gray, torch.zeros_like(gray), torch.zeros_like(gray)]
+    return torch.stack(out, dim=-1)
 
 
 def _sat_cf8(x: torch.Tensor) -> torch.Tensor:
@@ -362,23 +411,37 @@ def _octaves(src: torch.Tensor, specs, scale_upto: int, margin):
             src = resample.sample_down(src)
 
 
+def up_ratio(cascade: ScdClassifierCascade, params: ScdParams) -> float:
+    """How far ``detect`` scales an image up so the cascade finds objects
+    down to ``params.size`` (1.0: not at all)."""
+    size_w, size_h = params.size
+    return max(1.0, cascade.width / size_w, cascade.height / size_h)
+
+
 def _image(img, cascade: ScdClassifierCascade, params: ScdParams,
            device: _device.DeviceLike, batch: bool = False) -> torch.Tensor:
-    """(H, W, C), or (B, H, W, C) with ``batch``, on the device."""
+    """(H, W, C), or (B, H, W, C) with ``batch``, on the device; a single
+    image scaled up by ``up_ratio`` with INTER_CUBIC where that is more than
+    1 + 1e-4 (ccv_tpu's detect_async), which ``detect_batch`` refuses, as
+    ccv_tpu's does."""
     a = as_array(img, device)
     if a.dim() == (3 if batch else 2):
         a = a[..., None]
     if a.dim() != (4 if batch else 3):
         want = "(B, H, W[, C])" if batch else "(H, W[, C])"
         raise ValueError(f"expected {want} images, got {tuple(a.shape)}")
-    size_w, size_h = params.size
-    up_ratio = max(1.0, cascade.width / size_w, cascade.height / size_h)
-    if up_ratio - 1.0 > 1e-4:
+    ratio = up_ratio(cascade, params)
+    if ratio - 1.0 <= 1e-4:
+        return a
+    if batch:
         raise NotImplementedError(
-            f"up-scaling by {up_ratio} (INTER_CUBIC) is not ported yet: "
-            f"use params.size >= the cascade's {cascade.width}x"
-            f"{cascade.height}")
-    return a
+            f"detect_batch does not scale up (by {ratio}): use "
+            f"params.size >= the cascade's {cascade.width}x{cascade.height}"
+            f", or detect")
+    H, W = a.shape[:2]
+    return resample.resample(a, rows=int(H * ratio + 0.5),
+                             cols=int(W * ratio + 0.5), rows_scale=ratio,
+                             cols_scale=ratio, interp=resample.INTER_CUBIC)
 
 
 # ---------------------------------------------------------------------------
@@ -612,16 +675,17 @@ def detect_async(img, cascade: ScdClassifierCascade,
                      params, form, evaluate)
 
 
-def _comps_from_levels(outs, specs, eff_w: int, eff_h: int,
+def _comps_from_levels(outs, specs, ratio: float, eff_w: int, eff_h: int,
                        step: int) -> List[Comp]:
     """Host edge: per level in ``specs`` order, (idx, conf) of its passed
-    windows in window order (idx = wy * nx + wx) -> Comp list. The rect
+    windows in window order (idx = wy * nx + wx) -> Comp list, in the
+    coordinates of the image before its up-scale by ``ratio``. The rect
     arithmetic is ccv_tpu's, vectorised: float64 then truncation toward
     zero, as Python's int() does."""
     comps: List[Comp] = []
     for spec, (idx, conf) in zip(specs, outs):
         (octave, _k, _rows, _cols, _ny, nx, scale) = spec
-        sc = scale * (1 << octave)
+        sc = (scale / ratio) * (1 << octave)
         wy, wx = np.divmod(np.asarray(idx, np.int64), nx)
         xs = ((wx * step + 0.5) * sc - 0.5).astype(np.int64).tolist()
         ys = ((wy * step + 0.5) * sc - 0.5).astype(np.int64).tolist()
@@ -696,7 +760,8 @@ def _collect(handle: _Pending, b: int) -> List[Comp]:
             outs.append((idx[passed], conf[passed]))
     eff_h = cascade.height - cascade.margin[1] - cascade.margin[3]
     eff_w = cascade.width - cascade.margin[0] - cascade.margin[2]
-    comps = _comps_from_levels(outs, handle.specs, eff_w, eff_h,
+    comps = _comps_from_levels(outs, handle.specs,
+                               up_ratio(cascade, params), eff_w, eff_h,
                                params.step_through)
     return merge_detections(comps, params.min_neighbors)
 

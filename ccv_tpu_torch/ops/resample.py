@@ -1,11 +1,20 @@
-"""Resampling on the SCD path (counterpart of ccv_tpu/ops/resample.py).
+"""Resampling (counterpart of ccv_tpu/ops/resample.py; reference
+lib/ccv_resample.c).
 
-INTER_AREA is a separable linear map, ``out = Wy @ img @ Wx^T``, with the
-weight matrices built on the host from the reference's coefficient rules
-(_ccv_resample_area, lib/ccv_resample.c:135), including the 8U fast path's
-/256 quantized weights. ``sample_down`` is the exact-2x 5-tap pyramid step
-with symmetric borders and integer arithmetic (lib/ccv_resample.c:480).
-INTER_CUBIC and ``sample_up`` are not ported yet.
+Area and cubic interpolation are separable linear maps, ``out = Wy @ img @
+Wx^T``, with the weight matrices built on the host from the reference's
+coefficient rules:
+
+- area (_ccv_resample_area, lib/ccv_resample.c:135), including the 8U fast
+  path's /256 quantized weights;
+- cubic (_ccv_init_cubic_coeffs, lib/ccv_resample.c:280): A = -0.75 taps at
+  (i + 0.5) * scale - 0.5, clamped indices; integer images take the x64
+  fixed-point taps and the descale by 12 bits. INTER_LINEAR and
+  INTER_LANCZOS go through the same cubic weights, as in ccv_tpu.
+
+``sample_down`` / ``sample_up`` (lib/ccv_resample.c:480 / :559) are the
+exact-2x 5-tap and 3-tap pyramid steps with symmetric borders, in integer
+arithmetic for integer inputs (the /256 and /1024 truncating divisions).
 """
 
 from __future__ import annotations
@@ -18,7 +27,9 @@ from ccv_tpu_torch.ops import filters
 from ccv_tpu_torch.ops.filters import from_hwc, to_hwc
 
 INTER_AREA = 0x01
+INTER_LINEAR = 0x02
 INTER_CUBIC = 0x04
+INTER_LANCZOS = 0x08
 
 
 def area_weights(n_out: int, n_in: int, scale: float, quantize: bool,
@@ -89,6 +100,34 @@ def area_weights(n_out: int, n_in: int, scale: float, quantize: bool,
     return (w / inv).astype(np.float64)
 
 
+def cubic_weights(n_out: int, n_in: int, scale: float,
+                  quantize: bool) -> np.ndarray:
+    """(n_out, n_in) cubic-convolution weights (A=-0.75), clamped indices.
+    The source position goes through float32 and truncates toward zero
+    (``int``), as ccv_tpu does: the first rows of an up-scale, where it lies
+    in (-1, 0), take tap 0 there, not -1."""
+    A = -0.75
+    inv = 1.0 / scale
+    w = np.zeros((n_out, n_in), dtype=np.float64)
+    for d in range(n_out):
+        s = np.float32((d + 0.5) * inv - 0.5)
+        si = int(s)
+        x = float(s) - si
+        c0 = ((A * (x + 1) - 5 * A) * (x + 1) + 8 * A) * (x + 1) - 4 * A
+        c1 = ((A + 2) * x - (A + 3)) * x * x + 1
+        c2 = ((A + 2) * (1 - x) - (A + 3)) * (1 - x) * (1 - x) + 1
+        if quantize:  # x64 fixed point (_ccv_init_cubic_integer_coeffs)
+            q0 = int(c0 * 64 + 0.5)
+            q1 = int(c1 * 64 + 0.5)
+            q2 = int(c2 * 64 + 0.5)
+            coeffs = (q0, q1, q2, 64 - q0 - q1 - q2)
+        else:
+            coeffs = (c0, c1, c2, 1.0 - c0 - c1 - c2)
+        for t, c in enumerate(coeffs):
+            w[d, min(max(si - 1 + t, 0), n_in - 1)] += c
+    return w
+
+
 def _apply_separable(img: torch.Tensor, wy: np.ndarray, wx: np.ndarray,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """out[..., i, j, c] = sum_{y,x} wy[i,y] * wx[j,x] * img[..., y, x, c],
@@ -104,8 +143,9 @@ def _apply_separable(img: torch.Tensor, wy: np.ndarray, wx: np.ndarray,
 def resample(a: torch.Tensor, rows: int = 0, cols: int = 0,
              rows_scale: float = 0.0, cols_scale: float = 0.0,
              interp: int = INTER_AREA) -> torch.Tensor:
-    """ccv_resample twin for INTER_AREA downscaling. Output size =
-    round(in * scale) unless given."""
+    """ccv_resample twin. Output size = round(in * scale) unless given.
+    INTER_AREA shrinks; INTER_CUBIC (or LINEAR or LANCZOS, through the same
+    weights) scales either way; INTER_AREA alone on an up-scale raises."""
     a, had = to_hwc(a)
     H, W = a.shape[-3], a.shape[-2]
     if not rows:
@@ -116,11 +156,30 @@ def resample(a: torch.Tensor, rows: int = 0, cols: int = 0,
         cols_scale = cols / W
     if rows == H and cols == W:
         return from_hwc(a, had)
-    if not (interp & INTER_AREA) or H < rows or W < cols:
-        raise NotImplementedError(
-            f"interp {interp:#x} from {H}x{W} to {rows}x{cols}: only "
-            f"INTER_AREA downscaling is ported")
     is_int = filters.is_int(a)
+    if (interp & INTER_AREA) and H >= rows and W >= cols:
+        return from_hwc(_area(a, H, W, rows, cols, rows_scale, cols_scale,
+                              is_int), had)
+    if not interp & (INTER_CUBIC | INTER_LINEAR | INTER_LANCZOS):
+        raise NotImplementedError(
+            f"interp {interp:#x} from {H}x{W} to {rows}x{cols}")
+    wy = cubic_weights(rows, H, rows_scale, quantize=is_int)
+    wx = cubic_weights(cols, W, cols_scale, quantize=is_int)
+    if not is_int:
+        return from_hwc(_apply_separable(a, wy, wx), had)
+    # every term is an integer (x64 taps on both axes times a pixel) whose
+    # partial sums stay far below 2^53, so float64 sums them exactly in any
+    # order and the card gives the CPU's bytes; then ccv_descale(sum, 12),
+    # (sum + 2048) >> 12, as a floor of an exact quotient
+    out = _apply_separable(a, wy, wx, torch.float64)
+    out = torch.floor((out + 2048.0) / 4096.0)
+    hi = 255 if a.dtype == torch.uint8 else None
+    return from_hwc(out.clamp(0, hi).to(a.dtype), had)
+
+
+def _area(a: torch.Tensor, H: int, W: int, rows: int, cols: int,
+          rows_scale: float, cols_scale: float, is_int: bool) -> torch.Tensor:
+    """INTER_AREA shrink of a (..., H, W, C) tensor."""
     if a.dtype == torch.uint8 and (H * W) // (rows * cols) < 0x100:
         # 8U fast path (_ccv_resample_area_8u): quantized weights and a
         # truncating division by inv_scale_256 = int(sx*sy*65536). Every
@@ -134,8 +193,7 @@ def resample(a: torch.Tensor, rows: int = 0, cols: int = 0,
                           normalize=False)
         out = _apply_separable(a, wy, wx, torch.float64).to(torch.float32)
         out = out * (65536.0 / inv_scale_256)
-        out = torch.floor(out).clamp(0, 255).to(a.dtype)
-        return from_hwc(out, had)
+        return torch.floor(out).clamp(0, 255).to(a.dtype)
     wy = area_weights(rows, H, rows_scale, quantize=False)
     wx = area_weights(cols, W, cols_scale, quantize=False)
     # integer images: float64, so the rounding below sees the same value on
@@ -146,7 +204,7 @@ def resample(a: torch.Tensor, rows: int = 0, cols: int = 0,
     if is_int:
         hi = 255 if a.dtype == torch.uint8 else None
         out = torch.floor(out + 0.5).clamp(0, hi).to(a.dtype)
-    return from_hwc(out, had)
+    return out
 
 
 def _sym_index(n: int, before: int, after: int,
@@ -157,12 +215,13 @@ def _sym_index(n: int, before: int, after: int,
     return torch.where(i >= n, 2 * n - 1 - i, i)
 
 
-def sample_down(a: torch.Tensor) -> torch.Tensor:
-    """ccv_sample_down twin (source offset 0): exact 2x downsample, 5-tap
-    [1,4,6,4,1] Gaussian.
+def sample_down(a: torch.Tensor, src_x: int = 0,
+                src_y: int = 0) -> torch.Tensor:
+    """ccv_sample_down twin: exact 2x downsample, 5-tap [1,4,6,4,1] Gaussian.
 
-    Output (i, j) pulls from source centers (2i, 2j), symmetric borders;
-    integer inputs use exact int arithmetic with truncating /256.
+    Output (i, j) pulls from source centers (2i + src_y, 2j + src_x),
+    symmetric borders; integer inputs use exact int arithmetic with
+    truncating /256.
     """
     a, had = to_hwc(a)
     H, W = a.shape[-3], a.shape[-2]
@@ -171,25 +230,29 @@ def sample_down(a: torch.Tensor) -> torch.Tensor:
     work = a.to(torch.int32 if is_int else torch.float32)
     taps = (1, 4, 6, 4, 1)
 
-    def pass1d(x: torch.Tensor, axis: int, n_out: int):
+    def pass1d(x: torch.Tensor, axis: int, n_out: int, src: int):
+        # pad so window centers 2*i + src with +/-2 reach are valid
         n = x.shape[axis]
-        after = max(0, 2 * (n_out - 1) + 2 - (n - 1))
+        after = max(0, 2 * (n_out - 1) + src + 2 - (n - 1))
         xp = x.index_select(axis, _sym_index(n, 2, after, x.device))
         acc = None
         for t, wgt in enumerate(taps):
-            idx = torch.arange(t, t + 2 * n_out, 2, device=x.device)
+            idx = torch.arange(src + t, src + t + 2 * n_out, 2,
+                               device=x.device)
             term = xp.index_select(axis, idx) * wgt
             acc = term if acc is None else acc + term
         return acc
 
-    out = pass1d(work, -2, ow)
+    out = pass1d(work, -2, ow, src_x)
     # the reference hard-codes asymmetric first/last-column taps
-    # (lib/ccv_resample.c:524-556): first col = 10*a[0] + 5*a[1] + a[2];
-    # last col = 10*a[W-1] + 5*a[W-2] + a[W-3].
-    out[..., 0, :] = work[..., 0, :] * 10 + work[..., 1, :] * 5 + work[..., 2, :]
-    out[..., ow - 1, :] = (work[..., W - 1, :] * 10 + work[..., W - 2, :] * 5
-                           + work[..., W - 3, :])
-    out = pass1d(out, -3, oh)
+    # (lib/ccv_resample.c:524-556): first col = 10*a[sx] + 5*a[sx+1] +
+    # a[sx+2]; last col (src_x == 0 only) = 10*a[W-1] + 5*a[W-2] + a[W-3].
+    out[..., 0, :] = (work[..., src_x, :] * 10 + work[..., src_x + 1, :] * 5
+                      + work[..., src_x + 2, :])
+    if src_x == 0:
+        out[..., ow - 1, :] = (work[..., W - 1, :] * 10
+                               + work[..., W - 2, :] * 5 + work[..., W - 3, :])
+    out = pass1d(out, -3, oh, src_y)
     if is_int:
         out = out // 256  # C's truncating division: the values are >= 0
         if a.dtype == torch.uint8:
@@ -197,4 +260,46 @@ def sample_down(a: torch.Tensor) -> torch.Tensor:
         out = out.to(a.dtype)
     else:
         out = out / 256.0
+    return from_hwc(out, had)
+
+
+# sample_up 3-tap weights at distances 0.25 / 0.75 / 1.25 (lib/ccv_resample.c)
+_UP_INT = (23, 8, 1)      # G025, G075, G125 quantized; GALL = 1024
+_UP_FLT = (0.705385, 0.259496, 0.035119)
+
+
+def sample_up(a: torch.Tensor, src_x: int = 0,
+              src_y: int = 0) -> torch.Tensor:
+    """ccv_sample_up twin: exact 2x upsample.
+
+    even out[2i] = G075*a[i-1] + G025*a[i] + G125*a[i+1]
+    odd  out[2i+1] = G125*a[i-1] + G025*a[i] + G075*a[i+1]
+    with the source window shifted by ``src``; symmetric borders; the
+    integer path divides by 1024 truncating.
+    """
+    a, had = to_hwc(a)
+    is_int = filters.is_int(a)
+    g025, g075, g125 = _UP_INT if is_int else _UP_FLT
+    work = a.to(torch.int32 if is_int else torch.float32)
+
+    def pass1d(x: torch.Tensor, axis: int, src: int):
+        n = x.shape[axis]
+        # the window of output pair i covers source i+src-1 .. i+src+1; the
+        # reference mirrors indices past either end (its tab[])
+        xp = x.index_select(axis, _sym_index(n, 1, src + 1, x.device))
+        prev, cur, nxt = (xp.narrow(axis, src + t, n) for t in range(3))
+        even = prev * g075 + cur * g025 + nxt * g125
+        odd = prev * g125 + cur * g025 + nxt * g075
+        # interleave along axis: stack right after it, then merge the two
+        shape = list(x.shape)
+        shape[axis] = 2 * n
+        return torch.stack([even, odd], dim=axis).reshape(shape)
+
+    out = pass1d(work, -2, src_x)
+    out = pass1d(out, -3, src_y)
+    if is_int:
+        out = out // 1024  # the values are >= 0 for unsigned images
+        if a.dtype == torch.uint8:
+            out = out.clamp(0, 255)
+        out = out.to(a.dtype)
     return from_hwc(out, had)

@@ -35,7 +35,15 @@ started together) and drives the port's two main paths:
   against per-image ``detect``;
 - phase 10: the 1080p ``detect`` in both forms under torch.profiler, for
   the card's busy time per image, K1's share of the default form's and
-  K3's and the B2 gathers' share of the staged form's.
+  K3's and the B2 gathers' share of the staged form's;
+- phase 11: the up-scaled ``detect`` (``ScdParams(size=(24, 24))``, so the
+  1080p frame becomes 3840x2160 by INTER_CUBIC before the pyramid) in both
+  forms, with K1's and K3's launches counted, against K1's plain version
+  and each other, the up-scale on the card against the CPU's;
+- phase 12: ``ccv_tpu_torch.serve.server`` on the card in a thread, its
+  ``/scd/detect.objects`` answers (1080p frame as PNG, raw and multipart,
+  and crop180) against direct ``detect`` calls, its error paths, and its
+  request latency at 1080p.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -47,9 +55,17 @@ device; imports no JAX.
 import dataclasses
 import json
 import os
+import shutil
+import sqlite3
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -476,7 +492,8 @@ def margin_rects(scd, k1, img, cascade, params, dev):
                  for li, (ny, nx) in enumerate(dims)]
     eff_w = cascade.width - cascade.margin[0] - cascade.margin[2]
     eff_h = cascade.height - cascade.margin[1] - cascade.margin[3]
-    return rect_set(scd._comps_from_levels(outs, specs, eff_w, eff_h, STEP))
+    return rect_set(scd._comps_from_levels(
+        outs, specs, scd.up_ratio(cascade, params), eff_w, eff_h, STEP))
 
 
 def phase_a_vs_plain(k1, k3, tables, sat_l, dims):
@@ -708,6 +725,222 @@ def staged_path(scd, k1, k3, dev, card, crop, tt, frame, face, face_med):
     return k3.LAUNCHES
 
 
+def upscaled_path(scd, k1, k3, dev, card, frame, face):
+    """Phase 11: detect with ScdParams(size=(24, 24)) on the 1080p frame,
+    which the 48x48 cascade scales up 2x (INTER_CUBIC, 3840x2160) before
+    its pyramid, with thresholds near the median of the up-scaled level 0's
+    stage sums. Returns (K1 launches, K3 launches, params)."""
+    params = scd.ScdParams(size=(24, 24), min_neighbors=0)
+    ratio = scd.up_ratio(face, params)
+    frame_t = torch.from_numpy(frame).to(dev)
+    up = scd._image(frame_t, face, params, dev)
+    cpu = scd._image(torch.from_numpy(frame), face, params, "cpu")
+    check(up.dtype == torch.uint8 and torch.equal(up.cpu(), cpu),
+          "the up-scaled frame differs between the card and the CPU")
+    H, W = up.shape[:2]
+    specs = scd._level_specs(H, W, face, params)[0]
+    n_oct = len({s[0] for s in specs})
+    dims0 = np.array([specs[0][4:6]])
+    sat0 = scd._sat_cf8(scd.scd_map_cf8(up))[None].contiguous()
+    face_up = with_median_thresholds(scd, k1, face, sat0, dims0)
+    del sat0
+    per = 1 + (scd.staged_tables(face_up).phase_b1 is not None)
+    log(11, f"1080p frame up-scaled {ratio}x by INTER_CUBIC to {W}x{H}: "
+            f"bit-equal on the card and the CPU (whole frame); {len(specs)} "
+            f"levels in {n_oct} octaves; thresholds near the median of the "
+            f"up-scaled level 0 ({dims0.tolist()} windows): "
+            f"{face_up.thresholds.tolist()}")
+
+    # the main path: the counts set to 0 just before, read just after
+    k1.LAUNCHES, k3.LAUNCHES = 0, 0
+    reruns = scd.RERUNS
+    full = rect_set(scd.detect(frame_t, face_up, params))
+    k1_n = k1.LAUNCHES
+    staged = rect_set(scd.detect(frame_t, face_up, params, form="pallas"))
+    k3_n, reruns = k3.LAUNCHES, scd.RERUNS - reruns
+    check(k1_n == n_oct, f"up-scaled detect launched K1 {k1_n} times for "
+                         f"{n_oct} octaves")
+    check(k3_n == per * (n_oct + reruns), f"up-scaled staged detect "
+          f"launched K3 {k3_n} times for {n_oct} octaves and {reruns} "
+          f"reruns, {per} a dispatch")
+    check(len(full) > 0, "up-scaled: no windows passed")
+    plain = rect_set(scd.detect(frame_t, face_up, params,
+                                evaluate=k1.cascade_eval_levels_ref))
+    odd_plain, odd_forms = full ^ plain, full ^ staged
+    if odd_plain or odd_forms:
+        near = margin_rects(scd, k1, frame_t, face_up, params, dev)
+        check(odd_plain <= near, f"up-scaled: K1 and its plain version "
+              f"differ on {len(odd_plain - near)} windows outside the margin")
+        check(odd_forms <= near, f"up-scaled: the forms differ on "
+              f"{len(odd_forms - near)} windows outside the margin")
+    check(min(r[2] for r in full) < face.width,
+          "up-scaled: no window finer than the cascade")
+    ms_full = detect_ms(scd, frame_t, face_up, params, "pallas_full", 5)
+    ms_staged = detect_ms(scd, frame_t, face_up, params, "pallas", 3)
+    log(11, f"up-scaled 1080p detect: {len(full)} windows out, smallest "
+            f"{min(r[2] for r in full)} px; pallas_full = K1's plain version"
+            f" ({len(odd_plain)} in the margin), pallas = pallas_full "
+            f"({len(odd_forms)} in the margin); K1 {k1_n} launches = "
+            f"{n_oct} octaves; K3 {k3_n} = {per} x ({n_oct} octaves + "
+            f"{reruns} reruns); median ms/image: pallas_full "
+            f"{float(np.median(ms_full)):.2f} (n=5: "
+            f"{', '.join(f'{x:.2f}' for x in ms_full)}), pallas "
+            f"{float(np.median(ms_staged)):.2f} (n=3: "
+            f"{', '.join(f'{x:.2f}' for x in ms_staged)}); {card}")
+    return k1_n, k3_n, params
+
+
+def cubic_device_ms(scd, dev, card, frame, face, params):
+    """Phase 11's INTER_CUBIC step (1080p -> 3840x2160, uint8, float64
+    sums) under torch.profiler: the card's busy ms per call, its kernels,
+    and the wall of the same calls (the host builds the weight matrices)."""
+    frame_t = torch.from_numpy(frame).to(dev)
+    scd._image(frame_t, face, params, dev)  # warm-up
+    busy, by_name, wall = device_ms(
+        lambda: scd._image(frame_t, face, params, dev), 5)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    log(11, f"INTER_CUBIC up-scale of the 1080p frame under torch.profiler "
+            f"(5 calls): device busy {busy:.3f} ms per call over a wall of "
+            f"{wall:.2f} ms (host weight matrices included); largest: "
+            + "; ".join(f"{k} {v:.3f}" for k, v in top) + f"; {card}")
+    return busy
+
+
+def png_bytes(img):
+    """An 8-bit gray or RGB PNG of ``img`` (filter 0 on every row), made
+    with the standard library."""
+    h, w = img.shape[:2]
+    color = 0 if img.ndim == 2 else 2
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    rows = b"".join(b"\x00" + row.tobytes()
+                    for row in np.ascontiguousarray(img).reshape(h, -1))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows, 6)) + chunk(b"IEND", b""))
+
+
+def http(url, data=None, headers=None):
+    """(status, JSON body) of a GET (no data) or POST to ``url``."""
+    req = urllib.request.Request(url, data=data, headers=headers or {},
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def served_path(scd, k1, dev, card, frame, face_med):
+    """Phase 12: ccv_tpu_torch.serve.server on the card, in a thread, with a
+    models directory whose face.sqlite3 holds face_med's thresholds and a
+    last stage raised so that a few hundred 1080p windows pass before the
+    merge (an O(n^2) Python loop). Its answers against direct detect calls,
+    its error paths, its request ms at 1080p. Returns K1's launches."""
+    from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
+    from ccv_tpu_torch.serve import server
+
+    frame_t = torch.from_numpy(frame).to(dev)
+    params = scd.ScdParams(min_neighbors=0)
+    confs = np.sort([c.confidence for c in
+                     scd.detect(frame_t, face_med, params)])[::-1]
+    sums = (confs - (face_med.n_stages - 1)) * float(face_med.stage_counts[-1])
+    lo = 150  # the widest gap between the 150th and 400th largest sums
+    i = lo + int(np.argmax(sums[lo:400] - sums[lo + 1:401]))
+    last = float((sums[i] + sums[i + 1]) / 2)
+    thresholds = list(face_med.thresholds[:-1]) + [last]
+    tmp = tempfile.mkdtemp(prefix="ccv_serve_")
+    srv = None
+    try:
+        path = os.path.join(tmp, "face.sqlite3")
+        shutil.copy(os.path.join(DATA, "face_low.sqlite3"), path)
+        con = sqlite3.connect(path)
+        con.executemany("UPDATE classifier_params SET threshold = ? WHERE "
+                        "classifier = ?",
+                        [(float(t), s) for s, t in enumerate(thresholds)])
+        con.commit()
+        con.close()
+        cascade = scd.load_cascade(path)
+        n_pass = len(scd.detect(frame_t, cascade, params))
+        check(50 <= n_pass <= 2000, f"the served cascade passes {n_pass} "
+                                    f"1080p windows before the merge")
+        srv = server.Server(("127.0.0.1", 0), tmp)  # the card by default
+        check(srv.device.type == "cuda", f"the server runs on {srv.device}")
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        rgb = np.repeat(frame[..., None], 3, axis=-1)  # decoded as RGB
+        crop = read(os.path.join(DATA, "crop180.png"), IO_RGB_COLOR,
+                    device=dev)
+        with open(os.path.join(DATA, "crop180.png"), "rb") as f:
+            crop_png = f.read()
+        frame_png = png_bytes(frame)
+        boundary = "chipsmoke"
+        form = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f"name=\"source\"; filename=\"f.png\"\r\n\r\n").encode() \
+            + frame_png + f"\r\n--{boundary}--\r\n".encode()
+        k1.LAUNCHES = 0  # the served main path: set just before, read after
+        answers = {
+            "1080p raw": http(url + "/scd/detect.objects", frame_png),
+            "1080p multipart": http(url + "/scd/detect.objects", form, {
+                "Content-Type": f"multipart/form-data; boundary={boundary}"}),
+            "crop180": http(url + "/scd/detect.objects", crop_png)}
+        launches = k1.LAUNCHES
+        n_oct = sum(len({s[0] for s in scd._level_specs(
+            h, w, cascade, scd.ScdParams())[0]})
+            for h, w in (frame.shape, frame.shape, (180, 180)))
+        check(launches == n_oct, f"3 requests launched K1 {launches} times "
+                                 f"for {n_oct} octaves")
+        for name, img in (("1080p raw", rgb), ("1080p multipart", rgb),
+                          ("crop180", crop.tensor)):
+            code, out = answers[name]
+            want = server._rects(scd.detect(
+                torch.as_tensor(img).to(dev), cascade))
+            check(code == 200 and out == want, f"/scd {name}: {code}, "
+                  f"{len(out)} rects against {len(want)} from detect")
+        check(len(answers["1080p raw"][1]) > 0, "/scd found nothing at 1080p")
+        errors = {
+            "get /": (http(url + "/"), 200),
+            "unknown": (http(url + "/nope"), 404),
+            "junk": (http(url + "/scd/detect.objects", b"junk"), 400),
+            "empty": (http(url + "/scd/detect.objects", b""), 400),
+            "jpeg": (http(url + "/scd/detect.objects",
+                          b"\xff\xd8\xff\xe0" + b"\x00" * 64), 400),
+            "too large": (http(url + "/scd/detect.objects", b"x", {
+                "Content-Length": str(server.MAX_BODY_BYTES + 1)}), 413)}
+        for name, ((code, out), want_code) in errors.items():
+            check(code == want_code, f"/scd {name}: {code}, not {want_code}")
+        check(errors["get /"][0][1] == ["/scd/detect.objects"],
+              f"GET / lists {errors['get /'][0][1]}")
+        check("JPEG" in errors["jpeg"][0][1]["error"], "JPEG refusal unnamed")
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            code, _out = http(url + "/scd/detect.objects", frame_png)
+            ms.append((time.perf_counter() - t0) * 1000)
+            check(code == 200, f"/scd 1080p: {code}")
+        log(12, f"/scd/detect.objects on {srv.device}: 1080p PNG "
+                f"({len(frame_png)} bytes) raw and multipart and crop180 "
+                f"equal direct detect ({len(answers['1080p raw'][1])}, "
+                f"{len(answers['1080p multipart'][1])} and "
+                f"{len(answers['crop180'][1])} rects; {n_pass} windows "
+                f"before the merge at 1080p, last-stage threshold {last:.4f});"
+                f" K1 {launches} launches = {n_oct} octaves over the 3 "
+                f"requests; 404, 400 (junk, empty, JPEG) and 413 answered; "
+                f"request ms at 1080p, median of 5: "
+                f"{float(np.median(ms)):.2f} "
+                f"({', '.join(f'{x:.2f}' for x in ms)}); {card}")
+        return launches
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     sys.path.insert(0, ROOT)
     from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
@@ -879,6 +1112,22 @@ def main():
                f"with the plain evaluator: median "
                f"{float(np.median(timings[1])):.2f} ms/image (n=3); {card}")
     profiled = (img, cascade, params)  # the 1080p frame, phase 10
+    # the crop180 open-threshold windows against the C golden, scored by
+    # the ported vldtr scorer (Pascal VOC, IoU >= 0.5)
+    from ccv_tpu_torch.utils import deteval
+    est = [dict(x=float(c.x), y=float(c.y), width=float(c.width),
+                height=float(c.height)) for c in scd.detect(crop, face,
+                                                            params)]
+    truth = [dict(x=float(x), y=float(y), width=float(w), height=float(h))
+             for (x, y, w, h) in golden_rects("crop180.scd_open.txt")]
+    precision, recall = deteval.pascal_score({"crop180": truth},
+                                             {"crop180": est})
+    check(precision == recall == 1.0, f"crop180 against its golden: "
+          f"precision {precision}, recall {recall}")
+    log(5, f"crop180 open thresholds (interval 5) against "
+           f"crop180.scd_open.txt, utils.deteval.pascal_score: precision "
+           f"{precision:.4f}, recall {recall:.4f} ({len(est)} windows, "
+           f"{len(truth)} in the golden)")
     launches = k1.LAUNCHES
     check(launches > 0, "the main path launched K1 no time")
     kernels = [{
@@ -953,6 +1202,12 @@ def main():
                               face_med)
     check(k3_launches > 0, "the staged path launched K3 no time")
 
+    # -- 11: the up-scaled detect, both forms; 12: the server on the card
+    # (before 10, whose profiler may slow the host for what follows) -------
+    k1_up, k3_up, up_params = upscaled_path(
+        scd, k1, k3, dev, card, frame, face)
+    k1_served = served_path(scd, k1, dev, card, frame, face_med)
+
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
@@ -974,6 +1229,8 @@ def main():
             f"{part['gather_ms']:.3f} ms; the largest device ms per image: "
             + "; ".join(f"{key} {v:.3f}" for key, v in part["top"])
             + f"; {card}")
+    cubic_device_ms(scd, dev, card, frame, face, up_params)
+    kernels[0].update(launches_upscaled=k1_up, launches_served=k1_served)
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",
         "source": "ccv_tpu_torch/csrc/scd_phase.cu",
@@ -986,7 +1243,8 @@ def main():
         "plain_ms_b1": k3_res["b1"]["plain_ms"],
         "bound_ms_b1": k3_res["b1"]["bound_ms"],
         "bound_by_b1": k3_res["b1"]["bound_by"],
-        "plane_copy_ms": k3_res["plane_copy_ms"]})
+        "plane_copy_ms": k3_res["plane_copy_ms"],
+        "launches_upscaled": k3_up})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -209,5 +209,3 @@ def test_unported_windows_raise():
     a = torch.zeros((8, 8), dtype=torch.uint8)
     with pytest.raises(NotImplementedError):
         tbasic.sobel(a, 3, 0)
-    with pytest.raises(NotImplementedError):
-        tresample.resample(a, rows=16, cols=16, interp=tresample.INTER_CUBIC)

@@ -28,8 +28,11 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     counts, names = out.stdout.splitlines()
     n, leaked = counts.split(" ", 1)
-    assert int(n) >= 24, out.stdout  # every module was found and imported
+    assert int(n) >= 29, out.stdout  # every module was found and imported
     assert leaked.strip() == "[]", leaked
-    # the staged SCD path's modules among them
+    # the staged SCD path's modules, the pyramids, the scorers and the
+    # server among them
     assert {"ccv_tpu_torch.detectors.scd",
-            "ccv_tpu_torch.ops.kernels.scd_phase"} <= set(names.split())
+            "ccv_tpu_torch.ops.kernels.scd_phase",
+            "ccv_tpu_torch.ops.pyramid", "ccv_tpu_torch.utils.deteval",
+            "ccv_tpu_torch.serve.server"} <= set(names.split())

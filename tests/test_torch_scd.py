@@ -9,6 +9,8 @@ held against ccv_tpu's own functions on the same inputs.
 
 import dataclasses
 import os
+import shutil
+import sqlite3
 import subprocess
 import sys
 
@@ -20,6 +22,7 @@ import torch
 from ccv_tpu.core import io as jio
 from ccv_tpu.detectors import common as jcommon
 from ccv_tpu.detectors import scd as jscd
+from ccv_tpu.ops import resample as jresample
 from ccv_tpu_torch import device as tdevice
 from ccv_tpu_torch.bin import scddetect
 from ccv_tpu_torch.core import io as tio
@@ -30,6 +33,7 @@ from ccv_tpu_torch.ops.kernels import scd_cascade as tkernel
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASCADE = os.path.join(DATA, "face_low.sqlite3")
+THREADS = torch.get_num_threads()
 
 
 @pytest.fixture(scope="module")
@@ -171,9 +175,128 @@ def test_detect_accepts_numpy_gray_and_small_images(cascade):
                        tscd.ScdParams(min_neighbors=0, interval=1))
     assert got == want and len(got) > 0
     assert tscd.detect(gray[:40, :40], cascade, device="cpu") == []
-    with pytest.raises(NotImplementedError):
-        tscd.detect(gray, cascade, tscd.ScdParams(size=(24, 24)),
-                    device="cpu")
+    # a cascade wider than params.size scales the image up (INTER_CUBIC):
+    # the 48x48 cascade then finds objects down to 24x24
+    up = tscd.ScdParams(size=(24, 24), min_neighbors=0, interval=1)
+    got = tscd.detect(gray, cascade, up, device="cpu")
+    assert got == tscd.detect(torch.from_numpy(gray), cascade, up)
+    assert min(c.width for c in got) == min(c.height for c in got) == 24
+    assert len(got) > len(want)
+
+
+def test_scd_map_matches_golden(crop):
+    """The 11-channel map against the C golden, with tests/test_scd.py's
+    gate: the gradient channels exact, L, U and V within 1e-4 (the
+    cube-root LUT)."""
+    golden = tio.read(os.path.join(DATA, "crop180.scdmap.bin"),
+                      device="cpu").numpy()
+    got = tscd.scd_map(crop.tensor).numpy()
+    assert got.shape == golden.shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got[..., :8], golden[..., :8])
+    np.testing.assert_allclose(got[..., 8:], golden[..., 8:], atol=1e-4)
+
+
+@pytest.mark.parametrize("name,flags", [("crop180.png", jio.IO_RGB_COLOR),
+                                        ("crop120.png", jio.IO_GRAY),
+                                        ("text_test.png", 0)])
+def test_scd_map_matches_jax(name, flags):
+    img = np.array(jio.read(os.path.join(DATA, name), flags).numpy())
+    want = np.asarray(jscd.scd_map(jnp.asarray(img)))
+    got = tscd.scd_map(torch.from_numpy(img)).numpy()
+    assert got.shape == want.shape == img.shape[:2] + (11,)
+    np.testing.assert_array_equal(got[..., :8], want[..., :8])
+    np.testing.assert_allclose(got[..., 8:], want[..., 8:], atol=1e-4)
+    if img.ndim == 2:  # gray: [gray / 255, 0, 0]
+        np.testing.assert_array_equal(got[..., 8], img / np.float32(255))
+        assert not got[..., 9:].any()
+
+
+def test_luv_matches_jax():
+    rgb = np.random.default_rng(4).random((37, 29, 3)).astype(np.float32)
+    rgb[0, :3] = 0.0  # black: the denominator's floor
+    rgb[1, :3] = 1.0
+    want = jscd._luv(jnp.asarray(rgb))
+    got = tscd._luv(torch.from_numpy(rgb))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+
+
+# The up-scaled detect (ScdParams(size=(24, 24)) with the 48x48 cascade:
+# crop180 becomes 360x360) at interval 1, with face_low's last stage
+# threshold raised to UP_LAST_THRESHOLD so that 151 of its 10,414 windows
+# pass (the threshold sits in a gap 0.019 wide between two windows' sums),
+# which keeps the O(n^2) merge of min_neighbors=1 small in both packages.
+UP_PARAMS = dict(size=(24, 24), interval=1)
+UP_LAST_THRESHOLD = -4.0586
+
+
+def raised_cascade(path, last_threshold):
+    """A copy of face_low.sqlite3 at ``path`` with its last stage's
+    threshold set to ``last_threshold``."""
+    shutil.copy(CASCADE, path)
+    con = sqlite3.connect(path)
+    try:
+        n = con.execute("SELECT MAX(classifier) FROM classifier_params"
+                        ).fetchone()[0]
+        con.execute("UPDATE classifier_params SET threshold = ? WHERE "
+                    "classifier = ?", (last_threshold, n))
+        con.commit()
+    finally:
+        con.close()
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def up_cascade(tmp_path_factory):
+    return raised_cascade(tmp_path_factory.mktemp("up") / "face.sqlite3",
+                          UP_LAST_THRESHOLD)
+
+
+@pytest.fixture(scope="module")
+def jax_upscaled(up_cascade):
+    img = jio.read(os.path.join(DATA, "crop180.png"), jio.IO_RGB_COLOR)
+    jc = jscd.load_cascade(up_cascade)
+    return {mn: jscd.detect(img.array, jc, jscd.ScdParams(
+        min_neighbors=mn, **UP_PARAMS)) for mn in (0, 1)}
+
+
+@pytest.mark.parametrize("form", tscd.FORMS)
+@pytest.mark.parametrize("min_neighbors", [0, 1])
+def test_upscaled_detect_matches_jax(crop, up_cascade, jax_upscaled, form,
+                                     min_neighbors):
+    """Both forms on the up-scaled image: the same rects (in the original
+    image's coordinates) and neighbors as ccv_tpu, conf within 2e-4 +
+    1e-5 |conf|."""
+    params = tscd.ScdParams(min_neighbors=min_neighbors, **UP_PARAMS)
+    torch.set_num_threads(1)
+    try:
+        got = tscd.detect(crop, tscd.load_cascade(up_cascade), params,
+                          form=form)
+    finally:
+        torch.set_num_threads(THREADS)
+    want = {(c.x, c.y, c.width, c.height): c
+            for c in jax_upscaled[min_neighbors]}
+    mine = {(c.x, c.y, c.width, c.height): c for c in got}
+    assert len(mine) == len(got) and set(mine) == set(want)
+    assert 10 <= len(jax_upscaled[0]) <= 200
+    assert min(r[2] for r in mine) < 48  # windows finer than the cascade
+    for r, w in want.items():
+        assert mine[r].neighbors == w.neighbors
+        assert abs(mine[r].confidence - w.confidence) <= \
+            2e-4 + 1e-5 * abs(w.confidence)
+
+
+def test_upscaled_image_matches_jax(crop, cascade):
+    """detect's up-scale of crop180 (180 -> 360, INTER_CUBIC on uint8)
+    equals ccv_tpu's resample bit for bit."""
+    params = tscd.ScdParams(**UP_PARAMS)
+    assert tscd.up_ratio(cascade, params) == 2.0
+    got = tscd._image(crop, cascade, params, None).numpy()
+    want = np.asarray(jresample.resample(
+        jnp.asarray(crop.numpy()), rows=360, cols=360, rows_scale=2.0,
+        cols_scale=2.0, interp=jresample.INTER_CUBIC))
+    assert got.dtype == np.uint8 and got.shape == (360, 360, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_detect_launches_no_kernel_on_cpu(crop, cascade):
