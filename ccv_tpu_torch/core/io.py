@@ -2,9 +2,10 @@
 
 PNG is decoded here with the standard library's zlib and a small filter
 reconstruction, so the port needs neither PIL nor libpng: 8-bit,
-non-interlaced gray, gray+alpha, RGB, RGBA and palette images. JPEG and the
-native ctypes decoder are not ported yet. The reference's ``CCVBINDM``
-binary matrices are read as in ``ccv_tpu``.
+non-interlaced gray, gray+alpha, RGB, RGBA and palette images. JPEG (files
+and bytes that start with ``\xff\xd8``) goes through libjpeg in the port's
+native decoder (``core/native.py``), from memory. The reference's
+``CCVBINDM`` binary matrices are read as in ``ccv_tpu``.
 
 Grayscale conversion matches the reference bit-exactly: libpng's
 ``png_set_rgb_to_gray`` for PNG, ``(r*6969 + g*23434 + b*2365) >> 15`` for
@@ -19,6 +20,7 @@ import zlib
 import numpy as np
 
 from ccv_tpu_torch import device as _device
+from ccv_tpu_torch.core import native
 from ccv_tpu_torch.core.dense_matrix import (
     DenseMatrix,
     ccv_type_channels,
@@ -31,6 +33,7 @@ IO_GRAY = 0x100
 IO_RGB_COLOR = 0x300
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_JPEG_MAGIC = b"\xff\xd8"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
@@ -141,22 +144,29 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def decode(data: bytes, flags: int = 0) -> np.ndarray:
-    """ccv_read of an image held in memory (PNG or a CCVBINDM blob) into a
-    host array; raises NotImplementedError for other formats and
-    ValueError (or zlib.error, struct.error) for a damaged one."""
+    """ccv_read of an image held in memory (PNG, JPEG or a CCVBINDM blob)
+    into a host array; raises NotImplementedError for other formats and
+    ValueError (or zlib.error, struct.error) for a damaged one.
+
+    ``IO_RGB_COLOR`` stacks a one-channel image to RGB; ``IO_GRAY`` turns an
+    RGB image to gray with libpng's coefficients for a PNG and libjpeg's
+    reader's (6969/23434/2365, truncating) for a JPEG, as ``ccv_tpu`` does."""
     if data[:8] == b"CCVBINDM":
         return _decode_ccv_binary(data)
-    if data[:8] != _PNG_MAGIC:
+    if data[:8] == _PNG_MAGIC:
+        arr, png = decode_png(data), True
+    elif data[:2] == _JPEG_MAGIC:
+        arr, png = native.decode_jpeg(data), False
+    else:
         raise NotImplementedError(
-            "only PNG and CCVBINDM are decoded by the port so far")
-    arr = decode_png(data)
+            "only PNG, JPEG and CCVBINDM are decoded by the port so far")
     want_gray = ((flags & IO_GRAY) == IO_GRAY
                  and (flags & IO_RGB_COLOR) != IO_RGB_COLOR)
     want_rgb = (flags & IO_RGB_COLOR) == IO_RGB_COLOR
     if arr.ndim == 3 and arr.shape[2] >= 3:
         arr = arr[..., :3]
         if want_gray:
-            arr = rgb_to_gray_u8(arr, libpng=True)
+            arr = rgb_to_gray_u8(arr, libpng=png)
     elif arr.ndim == 2 and want_rgb:
         arr = np.stack([arr] * 3, axis=-1)
     return arr
@@ -164,9 +174,9 @@ def decode(data: bytes, flags: int = 0) -> np.ndarray:
 
 def read(path: str, flags: int = 0,
          device: _device.DeviceLike = None) -> DenseMatrix:
-    """ccv_read twin: decode a PNG (or CCVBINDM blob) into a DenseMatrix on
-    ``device`` (default: the card; raises without one, so pass
-    ``device="cpu"`` to keep the image on the host)."""
+    """ccv_read twin: decode a PNG or JPEG (or CCVBINDM blob) into a
+    DenseMatrix on ``device`` (default: the card; raises without one, so
+    pass ``device="cpu"`` to keep the image on the host)."""
     with open(path, "rb") as f:
         data = f.read()
     try:

@@ -12,7 +12,7 @@ directory; the others come with their detectors.
 Detection runs on the card unless ``--device cpu`` is given: the device is
 resolved when the server starts, so a machine without a card fails then,
 not on each request. Images are decoded in memory by the port's
-``core.io`` (PNG and CCVBINDM; a JPEG body is refused with 400). One lock
+``core.io`` (PNG, JPEG and CCVBINDM; a damaged one answers 400). One lock
 serialises detection; the first request builds the cascade kernel.
 """
 
@@ -53,9 +53,6 @@ def _decode_image(data: bytes) -> torch.Tensor:
     """The body as an RGB uint8 (H, W, 3) host tensor."""
     if not data:
         raise RequestError(400, "empty image body")
-    if data[:2] == b"\xff\xd8":
-        raise RequestError(400, "JPEG bodies are not decoded yet: send PNG "
-                                "or CCVBINDM")
     try:
         arr = io.decode(data, io.IO_RGB_COLOR)
     except (ValueError, NotImplementedError, KeyError, IndexError,

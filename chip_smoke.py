@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel from ccv_tpu_torch/csrc with nvcc (one nvcc per source,
-started together) and drives the port's two main paths:
+started together) and drives the port's main paths:
 
 - SCD face detection (phases 3-5): the cascade kernel K1 (phase planes,
   distinct corners, survivor compaction) against its plain PyTorch version,
@@ -42,8 +42,20 @@ started together) and drives the port's two main paths:
   and each other, the up-scale on the card against the CPU's;
 - phase 12: ``ccv_tpu_torch.serve.server`` on the card in a thread, its
   ``/scd/detect.objects`` answers (1080p frame as PNG, raw and multipart,
-  and crop180) against direct ``detect`` calls, its error paths, and its
-  request latency at 1080p.
+  and crop180) against direct ``detect`` calls, its error paths, JPEG
+  bodies (decoded where libjpeg's header is found, else a 500 naming it),
+  and its request latency at 1080p;
+- phase 13: image classification (no kernel of its own: cuDNN's
+  convolutions and cuBLAS's matmuls): a narrow ``Sequential`` and VGG-D
+  (10 classes, 64 x 64) on the card against the CPU in float32 and bf16,
+  the reference-written tiny convnets (float32 and half-precision files)
+  classifying text_test.png on the card as on the CPU, the cnnclassify CLI
+  on the card, ``ccv_tpu_torch.bin.vgg_bench.measure`` at bench.py's size
+  (VGG-D, B 32, 224 x 224, bf16: images/s, ms a batch, MFU; two images
+  of that batch against the CPU, and the logits' distance from a forward
+  that rounds each convolution once, as ccv_tpu does), and last, 3
+  batches under torch.profiler (busy, idle share, the convolutions' and
+  the dtype casts' shares). No JPEG is decoded here.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -107,6 +119,13 @@ K2_LM = (128, 1024, 1024, 64, True)
 # same sign of update; gradients near 0 may take either sign)
 LM_LOSS_REL, LM_GRAD_REL, LM_SAME_SIGN = 1e-3, 1e-1, 0.98
 LM_STEPS = 4  # timed steps of the full-depth run, after one warm-up
+# phase 13, the image-classification path, card against the CPU on the same
+# weights and inputs: float32 logits within CLS_F32 of their largest
+# magnitude (TF32 off on both; the same sums in another order), bf16 within
+# CLS_BF16 (the parity tests' fraction: every layer rounds to bf16, and
+# cuDNN and the CPU may round a sum either way); the legacy convnet's
+# confidences within CLS_CONF, its top-5 ids equal
+CLS_F32, CLS_BF16, CLS_CONF = 1e-4, 3e-2, 1e-5
 
 
 def log(phase, msg):
@@ -907,15 +926,13 @@ def served_path(scd, k1, dev, card, frame, face_med):
             "unknown": (http(url + "/nope"), 404),
             "junk": (http(url + "/scd/detect.objects", b"junk"), 400),
             "empty": (http(url + "/scd/detect.objects", b""), 400),
-            "jpeg": (http(url + "/scd/detect.objects",
-                          b"\xff\xd8\xff\xe0" + b"\x00" * 64), 400),
             "too large": (http(url + "/scd/detect.objects", b"x", {
                 "Content-Length": str(server.MAX_BODY_BYTES + 1)}), 413)}
         for name, ((code, out), want_code) in errors.items():
             check(code == want_code, f"/scd {name}: {code}, not {want_code}")
         check(errors["get /"][0][1] == ["/scd/detect.objects"],
               f"GET / lists {errors['get /'][0][1]}")
-        check("JPEG" in errors["jpeg"][0][1]["error"], "JPEG refusal unnamed")
+        jpeg_note = served_jpeg(scd, server, url, dev, frame, cascade)
         ms = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -929,7 +946,8 @@ def served_path(scd, k1, dev, card, frame, face_med):
                 f"{len(answers['crop180'][1])} rects; {n_pass} windows "
                 f"before the merge at 1080p, last-stage threshold {last:.4f});"
                 f" K1 {launches} launches = {n_oct} octaves over the 3 "
-                f"requests; 404, 400 (junk, empty, JPEG) and 413 answered; "
+                f"requests; 404, 400 (junk, empty) and 413 answered; "
+                f"{jpeg_note}; "
                 f"request ms at 1080p, median of 5: "
                 f"{float(np.median(ms)):.2f} "
                 f"({', '.join(f'{x:.2f}' for x in ms)}); {card}")
@@ -939,6 +957,255 @@ def served_path(scd, k1, dev, card, frame, face_med):
             srv.shutdown()
             srv.server_close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def served_jpeg(scd, server, url, dev, frame, cascade):
+    """Phase 12's JPEG bodies. The port decodes JPEG with libjpeg, built
+    at the first JPEG body; a machine without jpeglib.h answers 500 naming
+    the header, again on the next body without a second build. With the
+    header, a truncated JPEG answers 400, and the 1080p frame as a JPEG
+    (PIL, quality 90) gets a direct detect's rects of its decode."""
+    from ccv_tpu_torch import _native_build
+    from ccv_tpu_torch.core.io import IO_RGB_COLOR, decode
+    head = b"\xff\xd8\xff\xe0" + bytes(64)  # a JPEG's first bytes only
+    code, out = http(url + "/scd/detect.objects", head)
+    if code == 500:
+        check("jpeglib.h" in out["error"], f"/scd JPEG: 500 {out}")
+        again = http(url + "/scd/detect.objects", head)
+        check(again == (code, out) and "image_decode" in _native_build._failed,
+              f"/scd JPEG again: {again}, failed builds "
+              f"{list(_native_build._failed)}")
+        return "jpeglib.h absent: a JPEG body answers 500 naming it, twice, " \
+               "one build tried"
+    check(code == 400 and "JPEG" in out["error"],
+          f"/scd truncated JPEG: {code} {out}")
+    import io as _io
+    from PIL import Image
+    buf = _io.BytesIO()
+    Image.fromarray(frame).save(buf, format="JPEG", quality=90)
+    data = buf.getvalue()
+    code, out = http(url + "/scd/detect.objects", data)
+    want = server._rects(scd.detect(
+        torch.from_numpy(decode(data, IO_RGB_COLOR)).to(dev), cascade))
+    check(code == 200 and out == want, f"/scd 1080p JPEG: {code}, "
+          f"{len(out)} rects against {len(want)} from detect")
+    return f"1080p JPEG ({len(data)} bytes) = direct detect ({len(out)} " \
+           f"rects), truncated JPEG 400"
+
+
+def narrow_layers(L):
+    """conv, ReLU, 3x3 max-pool "SAME" at stride 2 (uneven pads), a stride-2
+    conv, BatchNorm, 2x2 average pool "SAME", flatten at 2 x 2 x 16,
+    dense."""
+    return [L.Convolution(8, (3, 3), padding="SAME", name="c0"), L.ReLU(),
+            L.MaxPool((3, 3), (2, 2), "SAME"),
+            L.Convolution(16, (3, 3), stride=(2, 2), padding="SAME",
+                          name="c1"),
+            L.BatchNorm(name="bn"), L.AvgPool((2, 2), (2, 2), "SAME"),
+            L.Flatten(), L.Dense(10, name="fc")]
+
+
+def model_card_vs_cpu(name, layers, shape, dev, card):
+    """A Sequential built from seed 0 with seeded biases and BN statistics,
+    as numpy arrays copied to the CPU and to the card by params_from_jax;
+    the card's float32 and bf16 logits against the CPU's. Returns the
+    errors over the largest logit."""
+    from ccv_tpu_torch.nn.model import Sequential, params_from_jax
+    cpu = Sequential(layers)
+    cpu.build(shape, device="cpu")
+    rng = np.random.default_rng(13)
+    params = [{k: (rng.normal(0, 0.5, tuple(v.shape)).astype(np.float32)
+                   if k in ("b", "bias") else v.numpy())
+               for k, v in p.items()} for p in cpu.params]
+    state = [{"mean": rng.normal(0, 0.5, tuple(s["mean"].shape)).astype(
+                  np.float32),
+              "var": rng.uniform(0.5, 1.5, tuple(s["var"].shape)).astype(
+                  np.float32)} if s else {} for s in cpu.state]
+    gpu = Sequential(layers)
+    gpu.build(shape, device=dev)
+    for m, d in ((cpu, "cpu"), (gpu, dev)):
+        m.set_parameters(params_from_jax(params, d))
+        m.state = params_from_jax(state, d)
+    x = rng.normal(0, 50, shape).astype(np.float32)
+    errs = {}
+    for dtype, frac in ((torch.float32, CLS_F32), (torch.bfloat16, CLS_BF16)):
+        want = cpu.evaluate(torch.from_numpy(x).to(dtype)).float()
+        got = gpu.evaluate(torch.from_numpy(x).to(dev, dtype))
+        check(got.is_cuda and got.dtype == dtype, f"{name}: {got.device}, "
+                                                  f"{got.dtype}")
+        got = got.float().cpu()
+        check(bool(torch.isfinite(got).all()), f"{name}: logits not finite")
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(rel <= frac, f"{name} {dtype}: card - CPU {rel:.3g} of the "
+                           f"largest logit (limit {frac})")
+        errs[str(dtype).split(".")[1]] = rel
+    log(13, f"{name} {tuple(shape)} -> {tuple(got.shape)}: card against "
+            f"CPU, max |diff| over the largest logit: float32 "
+            f"{errs['float32']:.3g} (limit {CLS_F32}), bfloat16 "
+            f"{errs['bfloat16']:.3g} (limit {CLS_BF16}); {card}")
+    return errs
+
+
+def classification_path(dev, card):
+    """Phase 13: the image-classification path on the card. The narrow
+    model and VGG-D (10 classes, 64 x 64, B 2) against the CPU; the
+    reference-written tiny convnets classify text_test.png on the card as
+    on the CPU, and through the cnnclassify CLI; then bench_vgg's twin at
+    full size (VGG-D, B 32, 224 x 224, bf16). Returns the VGG-D model, its
+    batch and the measurement."""
+    import contextlib
+    import io as _io
+    from ccv_tpu_torch.bin import cnnclassify, vgg_bench
+    from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
+    from ccv_tpu_torch.models import vgg
+    from ccv_tpu_torch.models.convnet import Convnet
+    from ccv_tpu_torch.nn import layers as L
+
+    model_card_vs_cpu("narrow model", narrow_layers(L), (2, 15, 13, 3), dev,
+                      card)
+    model_card_vs_cpu("VGG-D (10 classes)", vgg.vgg_d(num_classes=10).layers,
+                      (2, 64, 64, 3), dev, card)
+
+    png = os.path.join(DATA, "text_test.png")
+    img = read(png, IO_RGB_COLOR, device="cpu").tensor
+    for kind in ("f32", "f16"):
+        path = os.path.join(DATA, f"tiny_convnet_{kind}.sqlite3")
+        want = Convnet.read(path, device="cpu").classify(img, tops=5)
+        net = Convnet.read(path, device=dev)
+        check(net.layers[0].w.is_cuda, "the convnet's weights are not on "
+                                       "the card")
+        t0 = time.perf_counter()
+        got = net.classify(img.to(dev), tops=5)
+        ms = (time.perf_counter() - t0) * 1000
+        err = max(abs(c - w) for (_, c), (_, w) in zip(got, want))
+        check([i for i, _ in got] == [i for i, _ in want],
+              f"tiny convnet {kind}: card top 5 {got}, CPU {want}")
+        check(err <= CLS_CONF, f"tiny convnet {kind}: confidences differ by "
+                               f"{err:.3g}")
+        log(13, f"tiny_convnet_{kind}.sqlite3 on text_test.png (10 patches, "
+                f"a 2-partition convolution): top 5 {got} on the card = the "
+                f"CPU's ids, confidences within {err:.3g}; {ms:.2f} ms")
+        if kind == "f32":
+            ids = [i for i, _ in want]
+    out = _io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cnnclassify.main([png, os.path.join(DATA, "tiny_convnet_f32.sqlite3")])
+    line = out.getvalue().strip()
+    cli_ids = [int(p.split()[0]) - 1 for p in line.split(" | ")[:-1]]
+    check(cli_ids == ids, f"cnnclassify printed {line!r}, the CPU's ids are "
+                          f"{ids}")
+    log(13, f"python -m ccv_tpu_torch.bin.cnnclassify text_test.png "
+            f"tiny_convnet_f32.sqlite3 (default device, the card): {line}")
+
+    model, x = vgg_bench.build()
+    res = vgg_bench.measure(model, x)
+    check(res["logits_finite"], "VGG-D logits not finite")
+    check(round(res["gflops_per_image"], 2) == 30.94,
+          f"VGG-D GFLOP per image {res['gflops_per_image']}")
+    log(13, f"vgg_bench: VGG-D ({res['params_m']:.1f} M parameters, float32,"
+            f" cast to bf16 in each op), batch {res['batch']} x "
+            f"{res['res']}x{res['res']}x3 bf16: {res['ms_per_batch']:.3f} ms "
+            f"a batch (mean of {vgg_bench.STEPS} after a warm-up of "
+            f"{res['warmup_s']:.2f} s), {res['images_per_s']:.1f} images/s, "
+            f"{res['gflops_per_image']:.2f} GFLOP an image, MFU "
+            f"{res['mfu']:.4f} of {res['peak_tflops']:.0f} TFLOP/s; {card}")
+    vgg_timed_vs_cpu(model, x, card)
+    return model, x, res
+
+
+def single_rounding_logits(model, x):
+    """The model's forward in x's type with every convolution rounded once,
+    as ccv_tpu rounds it: x and the weights rounded to x's type, convolved
+    in float32 (TF32 off: exact products, float32 sums), the float32 bias
+    added, one rounding. The other layers run as in the port."""
+    from ccv_tpu_torch.nn import layers as L
+    from ccv_tpu_torch.nn import ops
+    with torch.no_grad():
+        for layer, p, s in zip(model.layers, model.params, model.state):
+            if isinstance(layer, L.Convolution):
+                x = ops.conv2d(x.float(), p["w"].to(x.dtype).float(),
+                               p.get("b"), layer.stride, layer.padding,
+                               layer.dilation, layer.groups).to(x.dtype)
+            else:
+                x, _ = layer.apply(p, s, x)
+    return x
+
+
+def vgg_timed_vs_cpu(model, x, card):
+    """The timed configuration held against the CPU: the card's logits of
+    the first two images of the B 32 x 224 bf16 batch (computed at B 32,
+    as measured) against the CPU's forward of those two images on the same
+    weights, within CLS_BF16 of the largest logit; once with vgg_bench's
+    weights (zero biases, as initialised), once with seeded biases. Beside
+    it, how far the card's two roundings of each convolution's bias move
+    the logits: the card's and the CPU's logits against
+    ``single_rounding_logits`` on the card, the largest and the mean
+    |difference| over the largest logit."""
+    from ccv_tpu_torch.models import vgg
+    from ccv_tpu_torch.nn.model import Sequential
+    rng = np.random.default_rng(17)
+    biased = [{k: (torch.from_numpy(rng.normal(0, 0.5, tuple(v.shape)).astype(
+        np.float32)).to(v.device) if k == "b" else v) for k, v in p.items()}
+        for p in model.params]
+    cpu = vgg.vgg_d()
+    cpu.build((2, *x.shape[1:]), device="cpu")
+    notes = []
+    for name, params in (("vgg_bench's weights (zero biases)", model.params),
+                         ("seeded biases N(0, 0.5)", biased)):
+        card_m = Sequential(model.layers)
+        card_m.set_parameters(params)
+        card_m.state = model.state
+        with torch.no_grad():
+            got = card_m.evaluate(x)[:2].float().cpu()
+        cpu.set_parameters([{k: v.cpu() for k, v in p.items()}
+                            for p in params])
+        t0 = time.perf_counter()
+        want = cpu.evaluate(x[:2].cpu()).float()
+        cpu_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              f"VGG-D {name}: logits not finite")
+        once = single_rounding_logits(card_m, x[:2]).float().cpu()
+        top = float(once.abs().max())
+
+        def gap(a, b):
+            d = (a - b).abs()
+            return float(d.max()) / top, float(d.mean()) / top
+
+        rel = gap(got, want)
+        check(rel[0] <= CLS_BF16, f"VGG-D B {x.shape[0]} bf16, {name}: card "
+                                  f"- CPU {rel[0]:.3g} of the largest logit "
+                                  f"(limit {CLS_BF16})")
+        g_card, g_cpu = gap(got, once), gap(want, once)
+        notes.append(f"{name}: card - CPU {rel[0]:.3g} (mean {rel[1]:.3g}; "
+                     f"CPU forward {cpu_s:.1f} s); against one rounding, "
+                     f"the card {g_card[0]:.3g} (mean {g_card[1]:.3g}), the "
+                     f"CPU {g_cpu[0]:.3g} (mean {g_cpu[1]:.3g})")
+    log(13, f"VGG-D at the timed size (B {x.shape[0]} x {x.shape[1]}^2 "
+            f"bf16, images 0-1), max |diff| over the largest logit (limit "
+            f"{CLS_BF16}), and against one rounding of each convolution on "
+            f"the card (float32 sums, float32 bias, as ccv_tpu): "
+            + "; ".join(notes) + f"; {card}")
+
+
+def vgg_profiled(model, x, card):
+    """Phase 13's profile, last: three VGG-D batches under torch.profiler."""
+    from ccv_tpu_torch.bin import vgg_bench
+    prof = vgg_bench.profile(model, x, 3)
+    busy = prof["device_busy_ms"]
+    check(busy > 0, "the profiler saw no device time in VGG-D's forwards")
+    log(13, f"VGG-D B {x.shape[0]} bf16 under torch.profiler (3 batches): "
+            f"device busy {busy:.3f} ms a batch over a wall of "
+            f"{prof['wall_ms']:.3f} ms (profiler overhead included): idle "
+            f"share {prof['idle_share']:.3f}; convolutions "
+            f"{prof['conv_ms']:.3f} ms ({prof['conv_ms'] / busy:.3f}), "
+            f"matmuls {prof['gemm_ms']:.3f} ({prof['gemm_ms'] / busy:.3f}), "
+            f"dtype-cast copies {prof['cast_ms']:.3f} "
+            f"({prof['cast_ms'] / busy:.3f}), the rest "
+            f"{prof['other_ms']:.3f}; the largest kernels: "
+            + "; ".join(f"{k} {v:.3f}" for k, v in prof["top"])
+            + "; by torch op: "
+            + "; ".join(f"{k} {v:.3f}" for k, v in prof["top_ops"])
+            + f"; {card}")
 
 
 def main():
@@ -1208,6 +1475,9 @@ def main():
         scd, k1, k3, dev, card, frame, face)
     k1_served = served_path(scd, k1, dev, card, frame, face_med)
 
+    # -- 13: image classification on the card (its profile comes last) ----
+    vgg_model, vgg_x, _ = classification_path(dev, card)
+
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
@@ -1230,6 +1500,7 @@ def main():
             + "; ".join(f"{key} {v:.3f}" for key, v in part["top"])
             + f"; {card}")
     cubic_device_ms(scd, dev, card, frame, face, up_params)
+    vgg_profiled(vgg_model, vgg_x, card)
     kernels[0].update(launches_upscaled=k1_up, launches_served=k1_served)
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",

@@ -28,11 +28,17 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     counts, names = out.stdout.splitlines()
     n, leaked = counts.split(" ", 1)
-    assert int(n) >= 29, out.stdout  # every module was found and imported
+    assert int(n) >= 38, out.stdout  # every module was found and imported
     assert leaked.strip() == "[]", leaked
-    # the staged SCD path's modules, the pyramids, the scorers and the
-    # server among them
+    # the staged SCD path's modules, the pyramids, the scorers, the
+    # server, the JPEG decoder's binding and build, and the classification
+    # path among them
     assert {"ccv_tpu_torch.detectors.scd",
             "ccv_tpu_torch.ops.kernels.scd_phase",
             "ccv_tpu_torch.ops.pyramid", "ccv_tpu_torch.utils.deteval",
-            "ccv_tpu_torch.serve.server"} <= set(names.split())
+            "ccv_tpu_torch.serve.server", "ccv_tpu_torch.core.native",
+            "ccv_tpu_torch._native_build", "ccv_tpu_torch.nn.layers",
+            "ccv_tpu_torch.nn.model", "ccv_tpu_torch.nn.tensor_io",
+            "ccv_tpu_torch.models.vgg", "ccv_tpu_torch.models.convnet",
+            "ccv_tpu_torch.bin.cnnclassify",
+            "ccv_tpu_torch.bin.vgg_bench"} <= set(names.split())
