@@ -1,15 +1,19 @@
-"""Decoder-only transformer LM of the port (counterpart of the LM part of
-ccv_tpu/models/transformer.py, with the same names).
+"""Transformer family of the port (counterpart of
+ccv_tpu/models/transformer.py, with the same names): the decoder-only LM,
+wmt.c's encoder-decoder and imdb.c's encoder classifier.
 
 Parameters are a nested dict of float32 tensors laid out as ``ccv_tpu``'s:
 dense weights are ``(d_in, d_out)`` and a layer computes ``x @ w + b``, so
 ``params_from_jax`` is a copy. Compute runs in ``cfg.dtype`` (bf16 in the
 LM) with casts at the edges, as in ``ccv_tpu``:
 
-* self-attention goes through the flash kernels
+* attention goes through the flash kernels
   (``ccv_tpu_torch.ops.kernels.flash_attention``) on a CUDA tensor when
-  there is no key mask and no attention dropout, and through the plain
-  SDPA otherwise (the kernels take neither);
+  there is no key mask, no attention dropout and Tq == Tk, and through the
+  plain SDPA otherwise, as ``ccv_tpu``'s ``_use_flash`` and ``_attend``
+  route it. In the encoder-decoder with a source mask (the wmt / iwslt
+  step, greedy decoding) only the decoder's causal self-attention takes
+  the kernels; the encoder and the cross-attention are masked;
 * blocks are post-layer-norm inside the residual branch
   (``x + LN(attn(x))``), ReLU feed-forward, as wmt.c;
 * ``cfg.remat`` checkpoints each block; ``remat_policy="dots"`` saves the
@@ -19,8 +23,9 @@ Dropout draws its masks from integer seeds split off the caller's
 ``torch.Generator`` before the layers run (JAX's keys split per block), so
 a recomputed block draws the same masks. The numbers differ from JAX's.
 
-Not ported: ``RingSpec`` (sequence-parallel attention), ``shardings()``,
-the encoder-decoder and the encoder classifier.
+Not ported: ``RingSpec`` (sequence-parallel attention), ``shardings()``
+and the measured Pallas-or-XLA choice in ``_attend`` (``nn/autotune``): the
+port takes the kernels wherever ``ccv_tpu``'s default does.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ class TransformerConfig:
     """Hyper-parameters (defaults = wmt.c main(): k=64 h=8 layers=6
     ff=2048, dropout 0.1, max_length 128)."""
     vocab_size: int
+    tgt_vocab_size: Optional[int] = None   # encoder-decoder only
     layers: int = 6
     heads: int = 8
     head_dim: int = 64
@@ -76,9 +82,10 @@ def _dense_init(generator: torch.Generator, d_in: int,
     return w.uniform_(-bound, bound, generator=generator)
 
 
-def _block_init(generator: torch.Generator,
-                cfg: TransformerConfig) -> Dict[str, Any]:
-    """One self-attention block (``ccv_tpu``'s ``cross=False``)."""
+def _block_init(generator: torch.Generator, cfg: TransformerConfig,
+                cross: bool = False) -> Dict[str, Any]:
+    """One block: self-attention and feed-forward, and with ``cross`` the
+    decoder's cross-attention (``x``-prefixed weights and ``ln_x``)."""
     d, ff, dev = cfg.dim, cfg.ff, generator.device
 
     def zeros(n):
@@ -87,13 +94,19 @@ def _block_init(generator: torch.Generator,
     def norm():
         return {"g": torch.ones((d,), device=dev), "b": zeros(d)}
 
-    return {
+    p = {
         "wq": _dense_init(generator, d, d), "wk": _dense_init(generator, d, d),
         "wv": _dense_init(generator, d, d), "wo": _dense_init(generator, d, d),
         "bq": zeros(d), "bk": zeros(d), "bv": zeros(d), "ln1": norm(),
         "w1": _dense_init(generator, d, ff), "b1": zeros(ff),
         "w2": _dense_init(generator, ff, d), "b2": zeros(d), "ln2": norm(),
     }
+    if cross:
+        p.update({f"x{n}": _dense_init(generator, d, d)
+                  for n in ("wq", "wk", "wv", "wo")})
+        p.update({f"x{n}": zeros(d) for n in ("bq", "bk", "bv")})
+        p["ln_x"] = norm()
+    return p
 
 
 def _requires_grad(tree):
@@ -104,14 +117,44 @@ def _requires_grad(tree):
     return tree.requires_grad_(True)
 
 
+def _embedding(generator: torch.Generator, n: int,
+               cfg: TransformerConfig) -> torch.Tensor:
+    return torch.randn((n, cfg.dim), generator=generator,
+                       device=generator.device) * 0.02
+
+
+def init_encoder_decoder(generator: torch.Generator,
+                         cfg: TransformerConfig) -> Dict[str, Any]:
+    """Parameters of wmt.c's ``_encoder_decoder_new`` twin on the
+    generator's device, float32 leaf tensors that require grad."""
+    tgt_vocab = cfg.tgt_vocab_size or cfg.vocab_size
+    return _requires_grad({
+        "src_embed": _embedding(generator, cfg.vocab_size, cfg),
+        "tgt_embed": _embedding(generator, tgt_vocab, cfg),
+        "encoder": [_block_init(generator, cfg) for _ in range(cfg.layers)],
+        "decoder": [_block_init(generator, cfg, cross=True)
+                    for _ in range(cfg.layers)],
+        "out": _dense_init(generator, cfg.dim, tgt_vocab),
+    })
+
+
+def init_encoder_classifier(generator: torch.Generator,
+                            cfg: TransformerConfig,
+                            num_classes: int) -> Dict[str, Any]:
+    """Parameters of imdb.c's encoder-only classifier twin."""
+    return _requires_grad({
+        "src_embed": _embedding(generator, cfg.vocab_size, cfg),
+        "encoder": [_block_init(generator, cfg) for _ in range(cfg.layers)],
+        "out": _dense_init(generator, cfg.dim, num_classes),
+    })
+
+
 def init_lm(generator: torch.Generator,
             cfg: TransformerConfig) -> Dict[str, Any]:
     """Decoder-only LM parameters on the generator's device, float32 leaf
     tensors that require grad."""
-    embed = torch.randn((cfg.vocab_size, cfg.dim), generator=generator,
-                        device=generator.device) * 0.02
     return _requires_grad({
-        "src_embed": embed,
+        "src_embed": _embedding(generator, cfg.vocab_size, cfg),
         "encoder": [_block_init(generator, cfg) for _ in range(cfg.layers)],
         "out": _dense_init(generator, cfg.dim, cfg.vocab_size),
     })
@@ -119,10 +162,10 @@ def init_lm(generator: torch.Generator,
 
 def params_from_jax(tree, device=None) -> Dict[str, Any]:
     """The port's parameters from ``ccv_tpu``'s: ``tree`` is the nested dict
-    (and lists) of numpy arrays that
-    ``jax.tree_util.tree_map(np.asarray, init_lm(...))`` gives. Same
-    layout, so this is a copy, on ``device`` (default: the card; raises
-    without one)."""
+    (and lists) of numpy arrays that ``jax.tree_util.tree_map(np.asarray,
+    init_lm(...))`` gives, or the same of ``init_encoder_decoder`` or
+    ``init_encoder_classifier``. Same layout, so this is a copy, on
+    ``device`` (default: the card; raises without one)."""
     device = _device.resolve(device)
     def conv(x):
         if isinstance(x, dict):
@@ -220,14 +263,17 @@ def _sdpa_plain(qh, kh, vh, scale: float, causal: bool, mask,
     return torch.einsum("bhqk,bkhd->bqhd", w.to(vh.dtype), vh)
 
 
-def _mha(p, x, cfg: TransformerConfig, causal: bool, mask,
-         seed: Optional[int], train: bool) -> torch.Tensor:
+def _mha(p, x, mem, cfg: TransformerConfig, causal: bool, mask,
+         seed: Optional[int], train: bool, prefix: str = "") -> torch.Tensor:
+    """Attention of x over itself, or with ``mem`` over mem (k and v from
+    mem: the decoder's cross-attention, weights ``prefix``-named)."""
     dt = cfg.dtype
-    wq, wk, wv, wo = (p[n].to(dt) for n in ("wq", "wk", "wv", "wo"))
-    bq, bk, bv = (p[n].to(dt) for n in ("bq", "bk", "bv"))
+    wq, wk, wv, wo = (p[prefix + n].to(dt) for n in ("wq", "wk", "wv", "wo"))
+    bq, bk, bv = (p[prefix + n].to(dt) for n in ("bq", "bk", "bv"))
+    src = x if mem is None else mem
     q = x @ wq + bq
-    k = x @ wk + bk
-    v = x @ wv + bv
+    k = src @ wk + bk
+    v = src @ wv + bv
     o = _attend(q, k, v, cfg.heads, causal, mask, cfg.dropout, seed, train)
     return o @ wo
 
@@ -243,12 +289,28 @@ def _encoder_block(p, x, cfg: TransformerConfig, mask, seed: Optional[int],
     """wmt.c:181-199 `_encoder_block_new`: x + LN(attn(x)), then
     first + LN(ffn(.)) — layer norm inside the residual branch."""
     s1, s2, s3 = _split(seed, 3)
-    a = _mha(p, x, cfg, causal, mask, s1, train)
+    a = _mha(p, x, None, cfg, causal, mask, s1, train)
     first = x + _layer_norm(a, p["ln1"])
     out = _dropout(first, cfg.dropout, s2, train)
     out = _ffn(p, out, cfg)
     out = first + _layer_norm(out, p["ln2"])
     return _dropout(out, cfg.dropout, s3, train)
+
+
+def _decoder_block(p, x, mem, cfg: TransformerConfig, src_mask, tgt_mask,
+                   seed: Optional[int], train: bool) -> torch.Tensor:
+    """wmt.c:203-233 `_decoder_block_new`: causal self-attention,
+    cross-attention over mem, ffn, each as first + LN(branch); no dropout
+    after the last residual (unlike the encoder block), as ccv_tpu."""
+    s1, s2, s3, s4 = _split(seed, 4)
+    a = _mha(p, x, None, cfg, True, tgt_mask, s1, train)
+    first = x + _layer_norm(a, p["ln1"])
+    out = _dropout(first, cfg.dropout, s2, train)
+    xa = _mha(p, out, mem, cfg, False, src_mask, s3, train, prefix="x")
+    first = first + _layer_norm(xa, p["ln_x"])
+    out = _dropout(first, cfg.dropout, s4, train)
+    out = _ffn(p, out, cfg)
+    return first + _layer_norm(out, p["ln2"])
 
 
 def _embed(table, ids, cfg: TransformerConfig, dt) -> torch.Tensor:
@@ -277,6 +339,58 @@ def _remat(block, policy: str):
                              context_fn=contexts[policy])
 
 
+def _seeds(key: Optional[torch.Generator], n: int) -> List[Optional[int]]:
+    """n dropout seeds drawn from ``key`` (None: no dropout)."""
+    if key is None:
+        return [None] * n
+    return torch.randint(0, 2**62, (n,), generator=key,
+                         device=key.device).tolist()
+
+
+def encoder_decoder_forward(params, cfg: TransformerConfig,
+                            src: torch.Tensor, tgt: torch.Tensor,
+                            src_mask=None, tgt_mask=None,
+                            train: bool = False,
+                            key: Optional[torch.Generator] = None
+                            ) -> torch.Tensor:
+    """wmt.c `_encoder_decoder_new` twin: (B, Ts) src and (B, Tt) tgt token
+    ids -> (B, Tt, tgt_vocab) float32 logits. Masks are (B, T) booleans
+    (True = valid token); key: a torch.Generator for dropout."""
+    dt = cfg.dtype
+    seeds = _seeds(key, 2 * cfg.layers + 1)
+    x = _embed(params["src_embed"], src, cfg, dt)
+    x = _dropout(x, cfg.dropout, seeds[-1], train)
+    for i, blk in enumerate(params["encoder"]):
+        x = _encoder_block(blk, x, cfg, src_mask, seeds[i], train)
+    y = _embed(params["tgt_embed"], tgt, cfg, dt)
+    for i, blk in enumerate(params["decoder"]):
+        y = _decoder_block(blk, y, x, cfg, src_mask, tgt_mask,
+                           seeds[cfg.layers + i], train)
+    return (y @ params["out"].to(dt)).float()
+
+
+def encoder_classifier_forward(params, cfg: TransformerConfig,
+                               src: torch.Tensor, src_mask=None,
+                               train: bool = False,
+                               key: Optional[torch.Generator] = None
+                               ) -> torch.Tensor:
+    """imdb.c twin: encoder stack, mean-pool over the valid tokens (in
+    float32), linear head -> (B, num_classes) logits in ``cfg.dtype``
+    (not float32, as ccv_tpu)."""
+    dt = cfg.dtype
+    seeds = _seeds(key, cfg.layers + 1)
+    x = _embed(params["src_embed"], src, cfg, dt)
+    x = _dropout(x, cfg.dropout, seeds[-1], train)
+    for i, blk in enumerate(params["encoder"]):
+        x = _encoder_block(blk, x, cfg, src_mask, seeds[i], train)
+    if src_mask is not None:
+        m = src_mask[..., None].float()
+        pooled = (x.float() * m).sum(1) / m.sum(1).clamp_min(1.0)
+    else:
+        pooled = x.float().mean(1)
+    return pooled.to(dt) @ params["out"].to(dt)
+
+
 def lm_forward(params, cfg: TransformerConfig, ids: torch.Tensor,
                train: bool = False,
                key: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -284,11 +398,7 @@ def lm_forward(params, cfg: TransformerConfig, ids: torch.Tensor,
 
     key: a torch.Generator for dropout (None = no dropout)."""
     dt = cfg.dtype
-    nk = cfg.layers + 1
-    seeds: List[Optional[int]] = (
-        [int(s) for s in torch.randint(0, 2**62, (nk,), generator=key,
-                                       device=key.device)]
-        if key is not None else [None] * nk)
+    seeds = _seeds(key, cfg.layers + 1)
     x = _embed(params["src_embed"], ids, cfg, dt)
     x = _dropout(x, cfg.dropout, seeds[-1], train)
     block = _remat(_encoder_block, cfg.remat_policy) if cfg.remat \

@@ -16,11 +16,18 @@ kernels' op order:
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
+  It takes any head dim up to 64: q, k and v are zero-padded along D to the
+  smallest of ``HEAD_DIMS`` that holds it, and the padded columns of o, dq,
+  dk and dv are dropped before they are returned. Zero columns add nothing
+  to q.k and the caller's scale is passed on unchanged, so this is exact,
+  and it is the same kernel on padded operands (ccv_tpu pads D to 128
+  lanes the same way). The ``(BH, T, D)`` entry points take only
+  ``HEAD_DIMS``.
 
-The TPU layout is gone: D is not padded to 128, and lse and delta are
-``(BH, Tq)`` float32 rather than broadcast over 128 lanes. The causal mask
-is aligned bottom-right: key ``k`` counts for query ``q`` when
-``k <= q + (Tk - Tq)``. Causal attention with ``Tq > Tk`` (query rows with
+The TPU layout is gone: D is padded only as far as the next built head
+dim, and lse and delta are ``(BH, Tq)`` float32 rather than broadcast over
+128 lanes. The causal mask is aligned bottom-right: key ``k`` counts for
+query ``q`` when ``k <= q + (Tk - Tq)``. Causal attention with ``Tq > Tk`` (query rows with
 no key) is refused.
 """
 
@@ -340,20 +347,33 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float,
     return dk, dv
 
 
-def _to_bthd(x: torch.Tensor) -> torch.Tensor:
-    """(B, T, H, D) -> contiguous (B*H, T, D)."""
+def padded_dim(d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at: the smallest of
+    ``HEAD_DIMS`` that holds it. Raises above the largest."""
+    for built in HEAD_DIMS:
+        if d <= built:
+            return built
+    raise ValueError(f"head dim {d}: the kernels take up to "
+                     f"{HEAD_DIMS[-1]} (zero-padded to one of {HEAD_DIMS})")
+
+
+def _to_bthd(x: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """(B, T, H, D) -> contiguous (B*H, T, d_pad), zero-padded along D."""
     b, t, h, d = x.shape
-    return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+    if d_pad != d:
+        x = torch.nn.functional.pad(x, (0, d_pad - d))
+    return x.transpose(1, 2).reshape(b * h, t, d_pad).contiguous()
 
 
-def _from_bthd(x: torch.Tensor, b: int) -> torch.Tensor:
-    """(B*H, T, D) -> (B, T, H, D) view."""
-    bh, t, d = x.shape
-    return x.view(b, bh // b, t, d).transpose(1, 2)
+def _from_bthd(x: torch.Tensor, b: int, d: int) -> torch.Tensor:
+    """(B*H, T, d_pad) -> (B, T, H, d) view, the padded columns dropped."""
+    bh, t, d_pad = x.shape
+    return x.view(b, bh // b, t, d_pad).transpose(1, 2)[..., :d]
 
 
 class FlashAttention(torch.autograd.Function):
-    """Fused attention on (B, T, H, D): K2a forward, K2b and K2c backward.
+    """Fused attention on (B, T, H, D): K2a forward, K2b and K2c backward,
+    at any D up to 64 (zero-padded to ``padded_dim(D)``).
 
     Forward saves (q, k, v, o, lse), as ccv_tpu's custom_vjp does; the
     backward forms delta = rowsum(dO * O) in plain torch (ccv_tpu forms it
@@ -361,32 +381,36 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, is_causal: bool):
-        o, lse = flash_fwd(_to_bthd(q), _to_bthd(k), _to_bthd(v), scale,
-                           is_causal)
-        o = _from_bthd(o, q.shape[0])
+        d = q.shape[-1]
+        d_pad = padded_dim(d)
+        o, lse = flash_fwd(_to_bthd(q, d_pad), _to_bthd(k, d_pad),
+                           _to_bthd(v, d_pad), scale, is_causal)
+        o = _from_bthd(o, q.shape[0], d)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.causal = scale, is_causal
+        ctx.scale, ctx.causal, ctx.d_pad = scale, is_causal, d_pad
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        b = q.shape[0]
-        delta = _to_bthd((g.float() * o.float()).sum(-1, keepdim=True))
-        args = (_to_bthd(q), _to_bthd(k), _to_bthd(v),
-                _to_bthd(g.to(q.dtype)), lse, delta[..., 0].contiguous(),
+        b, d, d_pad = q.shape[0], q.shape[-1], ctx.d_pad
+        delta = (g.float() * o.float()).sum(-1)          # (B, T, H)
+        args = (_to_bthd(q, d_pad), _to_bthd(k, d_pad), _to_bthd(v, d_pad),
+                _to_bthd(g.to(q.dtype), d_pad), lse,
+                delta.transpose(1, 2).reshape(lse.shape).contiguous(),
                 ctx.scale, ctx.causal)
         dq = flash_dq(*args)
         dk, dv = flash_dkv(*args)
-        return (_from_bthd(dq, b), _from_bthd(dk, b), _from_bthd(dv, b),
-                None, None)
+        return (_from_bthd(dq, b, d), _from_bthd(dk, b, d),
+                _from_bthd(dv, b, d), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None,
                     is_causal: bool = False) -> torch.Tensor:
-    """Fused scaled-dot-product attention, (B, T, H, D) layout; the scale
-    defaults to 1/sqrt(D). Differentiable in q, k and v."""
+    """Fused scaled-dot-product attention, (B, T, H, D) layout, any D up to
+    64; the scale defaults to 1/sqrt(D) of the unpadded D. Differentiable
+    in q, k and v."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttention.apply(q, k, v, float(scale), bool(is_causal))

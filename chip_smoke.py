@@ -55,7 +55,21 @@ started together) and drives the port's main paths:
   of that batch against the CPU, and the logits' distance from a forward
   that rounds each convolution once, as ccv_tpu does), and last, 3
   batches under torch.profiler (busy, idle share, the convolutions' and
-  the dtype casts' shares). No JPEG is decoded here.
+  the dtype casts' shares). No JPEG is decoded here;
+- phases 14-18, the encoder-decoder at wmt.c's widths (6 + 6 layers, d
+  512, 8 heads of 64, ff 2048, max_len 128, vocab 32,768 a side) and the
+  encoder classifier: K2 at head dim 16 (the demos', zero-padded to 32
+  inside ``flash_attention``) and at the decode's and the wmt step's
+  shapes against its plain versions, K2a timed at the decode shape beside
+  SDPA's flash forward (CUDA events, and the profiler's device time); both
+  forwards at 2 layers on the card against the CPU; ``greedy_decode`` on
+  32 source rows of 128 (6 K2a launches a step, no K2b or K2c; each
+  chosen token held to a teacher-forced pass with plain attention); the
+  wmt step at B 16 x 128 at dropout 0 (6 K2a, K2b and K2c a step) and 0.1
+  (none), and its gate against plain attention in float32 and bf16; the
+  imdb demo at its CLI defaults and its classifier through K2 against
+  plain attention; last, their profiles (busy, idle share, device ms by
+  kind of kernel).
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -118,6 +132,10 @@ K2_LM = (128, 1024, 1024, 64, True)
 # parameter within 2 * rate, and at least 98% of them equal to 1e-6 (the
 # same sign of update; gradients near 0 may take either sign)
 LM_LOSS_REL, LM_GRAD_REL, LM_SAME_SIGN = 1e-3, 1e-1, 0.98
+# the wmt step at 6 + 6 layers in bf16: the kernel step's gradients against
+# a float32 step, at most this many times the bf16 plain step's worst
+# distance from it (or LM_GRAD_REL); see wmt_gate
+BF16_GRAD_RATIO = 1.5
 LM_STEPS = 4  # timed steps of the full-depth run, after one warm-up
 # phase 13, the image-classification path, card against the CPU on the same
 # weights and inputs: float32 logits within CLS_F32 of their largest
@@ -126,6 +144,30 @@ LM_STEPS = 4  # timed steps of the full-depth run, after one warm-up
 # cuDNN and the CPU may round a sum either way); the legacy convnet's
 # confidences within CLS_CONF, its top-5 ids equal
 CLS_F32, CLS_BF16, CLS_CONF = 1e-4, 3e-2, 1e-5
+# phases 14-18, the encoder-decoder at wmt.c's widths (Transformer-base: 6 +
+# 6 layers, d 512 = 8 heads of 64, ff 2048, max_len 128) with a usual WMT
+# BPE vocabulary on each side, and the encoder classifier at bin/imdb.py's
+# defaults. Synthetic tokens from seeded generators
+# (wmt_grad_trial.synthetic_batch: 8-120 pads a row)
+S2S = dict(vocab_size=32768, tgt_vocab_size=32768, layers=6, heads=8,
+           head_dim=64, ff=2048, max_len=128)
+DECODE_B = 32             # iwslt.py decodes at most 32 lines of a test file
+WMT_B, WMT_STEPS = 16, 8  # the wmt step: batch, timed steps after a warm-up
+IMDB_ARGS = ["--demo", "--epochs", "3"]  # 8 batches of 32 an epoch: 24 steps
+# card against CPU at 2 layers of the full widths: (B, Ts, Tt)
+S2S_CPU = (2, 40, 33)
+# greedy decoding, teacher-forced through plain attention: the token the
+# kernel path chose has a plain logit within DECODE_TOL of the row's
+# largest logit, as a fraction of that row's largest magnitude (the bf16
+# tolerance of the card-against-CPU gates)
+DECODE_TOL = 3e-2
+# K2 at this slice's shapes (BH, Tq, Tk, D, causal): the decode's decoder
+# self-attention (B 32 x H 8, T 128), the wmt step's (B 16 x H 8); and the
+# demos' head dim 16 (dim 128 over 8 heads), zero-padded to 32, as (B, T,
+# H, D, causal) through flash_attention
+K2_DECODE = (256, 128, 128, 64, True)
+K2_WMT = (128, 128, 128, 64, True)
+K2_PADDED = [(2, t, 8, 16, c) for t in (16, 128) for c in (False, True)]
 
 
 def log(phase, msg):
@@ -328,14 +370,14 @@ def k2_compare(k2, shape, dtype, dev, rng):
     return errs, rels
 
 
-def k2_library(q, k, v, do, scale):
-    """The PyTorch calls that compute K2's functions at the LM shape, used
-    only here as yardsticks: SDPA's flash forward (the flash backend forced,
-    so a missing one raises instead of timing another), and the flash
-    backward op, which gives dq, dk and dv in one call, fed from the flash
-    forward op's outputs. Inputs are (BH, T, D) with BH = 8 x 16."""
+def k2_library(q, k, v, do, scale, b=8):
+    """The PyTorch calls that compute K2's functions, used only here as
+    yardsticks: SDPA's flash forward (the flash backend forced, so a
+    missing one raises instead of timing another), and the flash backward
+    op, which gives dq, dk and dv in one call, fed from the flash forward
+    op's outputs. Inputs are causal (BH, T, D) with BH = b x heads."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    b, h = 8, K2_LM[0] // 8
+    h = q.shape[0] // b
     q4, k4, v4, do4 = (x.view(b, h, *x.shape[1:]) for x in (q, k, v, do))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         out = torch.ops.aten._scaled_dot_product_flash_attention(
@@ -1208,6 +1250,511 @@ def vgg_profiled(model, x, card):
             + f"; {card}")
 
 
+def to_device(tree, dev):
+    """A copy of a nested dict/list of parameters on ``dev``, leaf tensors
+    that require grad."""
+    if isinstance(tree, dict):
+        return {key: to_device(val, dev) for key, val in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(val, dev) for val in tree]
+    return tree.detach().to(dev).requires_grad_(True)
+
+
+def s2s_config(layers=None, dtype=torch.bfloat16, dropout=0.0):
+    from ccv_tpu_torch.models import transformer as tfm
+    return tfm.TransformerConfig(**{**S2S, "layers": layers or S2S["layers"]},
+                                 dtype=dtype, dropout=dropout)
+
+
+def s2s_name(cfg):
+    return (f"{cfg.layers} + {cfg.layers} layers, d {cfg.dim} = "
+            f"{cfg.heads} heads of {cfg.head_dim}, ff {cfg.ff}, vocab "
+            f"{cfg.vocab_size} / {cfg.tgt_vocab_size}")
+
+
+def k2_padded_compare(k2, shape, dtype, dev, rng):
+    """flash_attention at a head dim the kernels are not built for (zero-
+    padded inside, the "wmma-smem" design at D 32) against the plain
+    versions on the same padded operands: o from the forward, dq, dk and dv
+    from autograd's backward, with the K2 gates."""
+    b, t, h, d, causal = shape
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, t, h, d),
+                                                        np.float32))
+                   .to(dev, dtype) for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    before = {key: dict(c) for key, c in k2.DESIGN_LAUNCHES.items()}
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = k2.flash_attention(*leaves, scale=scale, is_causal=causal)
+    o.backward(do)
+    torch.cuda.synchronize()
+    ran = {key: {n: c - before[key][n] for n, c in cs.items()
+                 if c > before[key][n]}
+           for key, cs in k2.DESIGN_LAUNCHES.items()}
+    check(ran == {key: {"wmma-smem": 1} for key in ran},
+          f"flash_attention at {shape} {dtype} ran the designs {ran}")
+    pad = k2.padded_dim(d)
+    qp, kp, vp, dop = (k2._to_bthd(x, pad) for x in (q, k, v, do))
+    o0, lse0 = k2.flash_fwd_ref(qp, kp, vp, scale, causal)
+    delta = (dop.float() * o0.float()).sum(-1)
+    dq0 = k2.flash_dq_ref(qp, kp, vp, dop, lse0, delta, scale, causal)
+    dk0, dv0 = k2.flash_dkv_ref(qp, kp, vp, dop, lse0, delta, scale, causal)
+    errs, rels = {}, {}
+    for key, name, got, ref in (("fwd", "o", o, o0),
+                                ("dq", "dq", leaves[0].grad, dq0),
+                                ("dkv", "dk", leaves[1].grad, dk0),
+                                ("dkv", "dv", leaves[2].grad, dv0)):
+        got, ref = k2._to_bthd(got.detach(), d), ref[..., :d]
+        err = float((got.float() - ref.float()).abs().max())
+        top = float(ref.float().abs().max())
+        bound = (K2_F32 + K2_F32 * top if dtype == torch.float32
+                 else K2_BF16 * top)
+        check(bool(torch.isfinite(got).all()) and err <= bound,
+              f"padded K2 {name} at {shape} {dtype}: max error {err:.3g} > "
+              f"{bound:.3g}")
+        rel = tile_rel_err(got, ref)
+        check(rel <= K2_TILE_REL, f"padded K2 {name} at {shape} {dtype}: a "
+              f"64-row tile is off by {rel:.3g} of its norm")
+        errs[key] = max(errs.get(key, 0.0), err)
+        rels[key] = max(rels.get(key, 0.0), rel)
+    return errs, rels
+
+
+def k2_slice_shapes(k2, roofline, dev, card):
+    """Phase 14: K2 at this slice's shapes against its plain versions, and
+    K2a timed at the decode shape beside SDPA's flash forward."""
+    rng = np.random.default_rng(19)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in K2_PADDED:
+            errs, rels = k2_padded_compare(k2, shape, dtype, dev, rng)
+            for key in errs:
+                worst[key] = max(worst.get(key, 0.0), errs[key])
+            log(14, f"flash_attention at (B, T, H, D, causal) {shape} "
+                    f"{dtype}, D padded to {k2.padded_dim(shape[3])} "
+                    f"(wmma-smem): max abs error "
+                    f"{ {k: f'{e:.3g}' for k, e in errs.items()} }; worst "
+                    f"64-row tile error / tile norm "
+                    f"{ {k: f'{e:.3g}' for k, e in rels.items()} }")
+    for shape in (K2_DECODE, K2_WMT):
+        errs, rels = k2_compare(k2, shape, torch.bfloat16, dev, rng)
+        for key in errs:
+            worst[key] = max(worst.get(key, 0.0), errs[key])
+        log(14, f"K2 vs plain at {shape} bf16 (wgmma-tma): max abs error "
+                f"{ {k: f'{e:.3g}' for k, e in errs.items()} }; worst 64-row "
+                f"tile error / tile norm "
+                f"{ {k: f'{e:.3g}' for k, e in rels.items()} }")
+    q, k, v, do = k2_inputs(K2_DECODE, torch.bfloat16, dev, rng)
+    scale = 1.0 / np.sqrt(K2_DECODE[3])
+    lib_fwd, _ = k2_library(q, k, v, do, scale, b=DECODE_B)
+    kern = lambda: k2.flash_fwd(q, k, v, scale, True)  # noqa: E731
+    # in turns: kernel, library, library, kernel (50 calls each)
+    ms = [time_cuda(kern, 50), time_cuda(lib_fwd, 50), time_cuda(lib_fwd, 50),
+          time_cuda(kern, 50)]
+    flop, nbytes = k2.flash_work("fwd", *K2_DECODE, torch.bfloat16)
+    bound, by = roofline.bound_ms(flop, nbytes, "bf16")
+    # the kernels' own device time (the profiler's), beside the event
+    # times above, which a few microseconds of work leaves to the host's
+    # launch rate
+    dev_k = device_ms(kern, 50)[0]
+    dev_lib = device_ms(lib_fwd, 50)[0]
+    res = dict(ms=(ms[0] + ms[3]) / 2, library_ms=(ms[1] + ms[2]) / 2,
+               plain_ms=time_cuda(lambda: k2.flash_fwd_ref(q, k, v, scale,
+                                                           True), 5),
+               bound_ms=bound, bound_by=by, device_ms=dev_k,
+               library_device_ms=dev_lib)
+    log(14, f"K2a at the decode shape {K2_DECODE} bf16 (CUDA events, 2 x 50 "
+            f"launches in turns with SDPA's flash forward): "
+            f"{res['ms']:.4f} ms (runs {[round(x, 4) for x in ms]}), "
+            f"library {res['library_ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.3f} ms, bound {bound:.4f} ms ({by}: "
+            f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+            f"{bound / res['ms']:.3f} of it; device time per launch "
+            f"(torch.profiler, 50 launches): kernel {dev_k:.4f} ms, library "
+            f"{dev_lib:.4f} ms; {card}")
+    return worst, res
+
+
+def seq2seq_card_vs_cpu(dev, card):
+    """Phase 15: encoder_decoder_forward and encoder_classifier_forward at 2
+    layers of the full widths on the card against the CPU, from the same
+    parameters, masked and unmasked, in float32 and bf16."""
+    from ccv_tpu_torch.bin.wmt_grad_trial import synthetic_batch
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.ops.kernels import flash_attention as k2
+    b, ts, tt = S2S_CPU
+    rng = np.random.default_rng(23)
+    src, tgt, _ = synthetic_batch(rng, b, max(ts, tt), S2S["vocab_size"],
+                                S2S["tgt_vocab_size"])
+    src, tgt = torch.from_numpy(src[:, :ts]), torch.from_numpy(tgt[:, :tt])
+    smask = src != S2S["vocab_size"] - 1
+    tmask = tgt != S2S["tgt_vocab_size"] - 1
+    out = {}
+    for dtype, frac in ((torch.float32, CLS_F32), (torch.bfloat16, CLS_BF16)):
+        cfg = s2s_config(layers=2, dtype=dtype)
+        gen = torch.Generator().manual_seed(8)
+        cpu_models = {"seq2seq": tfm.init_encoder_decoder(gen, cfg),
+                      "classifier": tfm.init_encoder_classifier(gen, cfg, 2)}
+        for masked in (False, True):
+            for name, params in cpu_models.items():
+                if name == "seq2seq":
+                    def fwd(p, d, masked=masked):
+                        return tfm.encoder_decoder_forward(
+                            p, cfg, src.to(d), tgt.to(d),
+                            *((smask.to(d), tmask.to(d)) if masked
+                              else (None, None)))
+                    # unmasked: the encoder's (Ts x Ts) and the decoder's
+                    # causal (Tt x Tt) self-attention take K2; Ts != Tt
+                    # keeps the cross-attention on the plain SDPA
+                    launches = 0 if masked else 4
+                else:
+                    def fwd(p, d, masked=masked):
+                        return tfm.encoder_classifier_forward(
+                            p, cfg, src.to(d), smask.to(d) if masked
+                            else None)
+                    launches = 0 if masked else 2
+                with torch.no_grad():
+                    want = fwd(params, "cpu").float()
+                    k2.reset_launches()
+                    got = fwd(to_device(params, dev), dev)
+                    torch.cuda.synchronize()
+                check(k2.LAUNCHES == {"fwd": launches, "dq": 0, "dkv": 0},
+                      f"{name} masked={masked}: K2 launches {k2.LAUNCHES}")
+                check(got.is_cuda and got.dtype == (
+                    torch.float32 if name == "seq2seq" else dtype),
+                      f"{name}: {got.device} {got.dtype}")
+                got = got.float().cpu()
+                rel = float((got - want).abs().max() / want.abs().max())
+                check(bool(torch.isfinite(got).all()) and rel <= frac,
+                      f"{name} {dtype} masked={masked}: card - CPU {rel:.3g} "
+                      f"of the largest logit (limit {frac})")
+                out[(name, str(dtype).split(".")[1], masked)] = rel
+    log(15, f"encoder-decoder and classifier, 2 layers of the full widths, "
+            f"B {b}, Ts {ts}, Tt {tt}: card against CPU, max |diff| over "
+            f"the largest logit: "
+            + "; ".join(f"{n} {dt} {'masked' if m else 'unmasked'} {e:.3g}"
+                        for (n, dt, m), e in out.items())
+            + f" (limits {CLS_F32} f32, {CLS_BF16} bf16); {card}")
+
+
+def decode_steps(dec, end):
+    """(steps the greedy loop ran, (B, T) bool: position t holds a token the
+    model chose) from greedy_decode's output."""
+    is_end = dec[:, 1:] == end
+    ended = is_end.any(1)
+    steps = (int(is_end.argmax(1).max()) + 1 if ended.all()
+             else dec.shape[1] - 1)
+    chosen = np.zeros(dec.shape, bool)
+    # a row's position t >= 1 was chosen unless an end came before it
+    before = np.concatenate([np.zeros((dec.shape[0], 1), bool),
+                             np.cumsum(is_end, 1)[:, :-1] > 0], 1)
+    chosen[:, 1:steps + 1] = ~before[:, :steps]
+    return steps, chosen
+
+
+def decode_path(dev, card):
+    """Phase 16: greedy_decode, the serving path, at the full widths: B 32
+    source rows of 128, max_len 128, bf16. K2a launches once per decoder
+    layer per step; the decoded rows are then teacher-forced through the
+    same model with plain attention."""
+    from ccv_tpu_torch.bin.wmt_grad_trial import synthetic_batch
+    from ccv_tpu_torch.bin import iwslt, lm_bench
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.ops.kernels import flash_attention as k2
+    cfg = s2s_config()
+    params = tfm.init_encoder_decoder(
+        torch.Generator(device=dev).manual_seed(5), cfg)
+    T, tv = S2S["max_len"], S2S["tgt_vocab_size"]
+    src, _, _ = synthetic_batch(np.random.default_rng(29), DECODE_B, T,
+                              S2S["vocab_size"], tv)
+    src = torch.from_numpy(src).to(dev)
+    spad, tpad = S2S["vocab_size"] - 1, tv - 1
+    iwslt.greedy_decode(params, cfg, src, spad, tpad, 4)  # warm-up
+    torch.cuda.synchronize()
+    k2.reset_launches()
+    t0 = time.perf_counter()
+    dec = iwslt.greedy_decode(params, cfg, src, spad, tpad, T)
+    wall = (time.perf_counter() - t0) * 1000
+    launches = dict(k2.LAUNCHES)
+    steps, chosen = decode_steps(dec, tv - 2)
+    check(launches == {"fwd": cfg.layers * steps, "dq": 0, "dkv": 0},
+          f"greedy_decode ran {steps} steps and launched K2 {launches}; "
+          f"expected {cfg.layers} K2a a step and no K2b or K2c")
+    with torch.no_grad(), lm_bench.plain_attention():
+        logits = tfm.encoder_decoder_forward(
+            params, cfg, src, torch.from_numpy(dec).to(dev),
+            src_mask=src != spad)
+    check(bool(torch.isfinite(logits).all()),
+          "teacher-forced logits not finite")
+    rows, ts = np.nonzero(chosen)
+    # the logits of the step that chose dec[r, t]
+    at = logits[torch.from_numpy(rows).to(dev),
+                torch.from_numpy(ts - 1).to(dev)].float().cpu().numpy()
+    picked = at[np.arange(len(rows)), dec[rows, ts]]
+    gap = (at.max(1) - picked) / np.abs(at).max(1)
+    same = float((at.argmax(1) == dec[rows, ts]).mean())
+    check(float(gap.max()) <= DECODE_TOL, f"greedy_decode chose a token "
+          f"{float(gap.max()):.3g} of the row's largest logit below the "
+          f"plain path's best (limit {DECODE_TOL})")
+    tokens = len(rows)
+    res = dict(steps=steps, tokens=tokens, ms=wall, launches=launches["fwd"],
+               ms_per_step=wall / steps, ms_per_token=wall / tokens)
+    log(16, f"greedy_decode (iwslt), {s2s_name(cfg)}, B {DECODE_B} x Ts "
+            f"{T}, max_len "
+            f"{T}, bf16, random weights (seed 5): {steps} steps, {tokens} "
+            f"tokens chosen, {wall:.1f} ms a batch = {wall / steps:.3f} ms a "
+            f"step = {wall / tokens:.4f} ms a decoded token (host clock, "
+            f"one run after a 3-step warm-up); K2 launches {launches} = "
+            f"{cfg.layers} K2a a step; teacher-forced through plain "
+            f"attention: the chosen token's logit within "
+            f"{float(gap.max()):.3g} of the row's best (limit {DECODE_TOL}, "
+            f"as a fraction of its largest magnitude), argmax equal at "
+            f"{same:.4f} of {tokens} steps; {card}")
+    tgt = torch.from_numpy(dec).to(dev)
+    src_mask = src != spad
+
+    def one_step(t=T // 2):
+        # one pass of greedy_decode's loop at its shapes: the whole model
+        # on (B, max_len) source and target rows, the argmax of step t
+        with torch.no_grad():
+            logits = tfm.encoder_decoder_forward(params, cfg, src, tgt,
+                                                 src_mask=src_mask)
+            return logits[:, t - 1].argmax(-1)
+    return res, one_step
+
+
+def wmt_step_path(dev, card):
+    """Phase 17: the wmt training step at the full widths, B 16 x T 128,
+    bf16, with the source mask: at dropout 0.0 (K2a, K2b and K2c in each
+    decoder layer's self-attention) and 0.1 (wmt's real mode: attention
+    dropout keeps every attention on the plain SDPA). Then the gate: one
+    step at dropout 0 with the kernels against one with plain attention
+    from the same parameters and batch."""
+    from ccv_tpu_torch.bin.wmt_grad_trial import synthetic_batch
+    from ccv_tpu_torch.bin import lm_bench, wmt
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.nn import optimizers
+    from ccv_tpu_torch.ops.kernels import flash_attention as k2
+    T, sv, tv = S2S["max_len"], S2S["vocab_size"], S2S["tgt_vocab_size"]
+    batch = tuple(torch.from_numpy(x).to(dev) for x in synthetic_batch(
+        np.random.default_rng(31), WMT_B, T, sv, tv))
+    spad, tpad = sv - 1, tv - 1
+    res, profiled = {}, {}
+    for dropout in (0.0, 0.1):
+        cfg = s2s_config(dropout=dropout)
+        params = tfm.init_encoder_decoder(
+            torch.Generator(device=dev).manual_seed(6), cfg)
+        n_params = sum(p.numel() for p in optimizers.leaves(params))
+        opt = optimizers.adam(rate=1e-4)
+        state = opt.init(params)
+        key = torch.Generator(device=dev).manual_seed(7)
+
+        def step(params=params, opt=opt, state=state, cfg=cfg, key=key):
+            return wmt.train_step(params, opt, state, cfg, batch, spad,
+                                  tpad, key)
+        losses = [float(step())]
+        torch.cuda.synchronize()
+        k2.reset_launches()
+        t0 = time.perf_counter()
+        losses += [step() for _ in range(WMT_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000 / WMT_STEPS
+        losses = [float(x) for x in losses]
+        n = cfg.layers * WMT_STEPS if dropout == 0.0 else 0
+        check(k2.LAUNCHES == {"fwd": n, "dq": n, "dkv": n},
+              f"wmt step at dropout {dropout}: K2 launches {k2.LAUNCHES} "
+              f"over {WMT_STEPS} steps, expected {n} each")
+        check(all(np.isfinite(losses)), f"wmt losses {losses}")
+        res[dropout] = dict(ms=ms, tokens_per_s=WMT_B * T / ms * 1000,
+                            launches=dict(k2.LAUNCHES), losses=losses)
+        profiled[dropout] = step
+        log(17, f"wmt step, {s2s_name(cfg)}, "
+                f"{n_params / 1e6:.1f} M params, B {WMT_B} x T {T}, bf16, "
+                f"source mask, dropout {dropout}: {ms:.2f} ms a step (host "
+                f"clock, mean of {WMT_STEPS} after a warm-up), "
+                f"{WMT_B * T / ms * 1000:.0f} target tokens/s; K2 launches "
+                f"{k2.LAUNCHES} ({n // WMT_STEPS} each a step); losses "
+                f"{[round(x, 4) for x in losses]}; {card}")
+
+    gate = wmt_gate(batch, spad, tpad, dev)
+    return res, profiled, gate
+
+
+def wmt_gate_step(batch, spad, tpad, dev, dtype, plain):
+    """One wmt step at dropout 0 from the parameters of seed 9, with the
+    kernels or with plain attention: (loss, {name: parameter after Adam},
+    {name: the step's gradient})."""
+    from ccv_tpu_torch.bin import lm_bench, wmt, wmt_grad_trial
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.nn import optimizers
+    from ccv_tpu_torch.ops.kernels import flash_attention as k2
+    cfg = s2s_config(dtype=dtype)
+    params = tfm.init_encoder_decoder(
+        torch.Generator(device=dev).manual_seed(9), cfg)
+    opt = optimizers.adam(rate=1e-4)
+    state = opt.init(params)
+    k2.reset_launches()
+    with lm_bench.plain_attention(plain):
+        loss = float(wmt.train_step(params, opt, state, cfg, batch, spad,
+                                    tpad, None))
+    n = 0 if plain else cfg.layers
+    check(k2.LAUNCHES == {"fwd": n, "dq": n, "dkv": n},
+          f"wmt gate step ({dtype}, plain={plain}) launched K2 "
+          f"{k2.LAUNCHES}")
+    return loss, named_leaves(params), wmt_grad_trial.named_grads(params)
+
+
+def wmt_gate(batch, spad, tpad, dev):
+    """Phase 17's gate: one step at dropout 0 with the kernels against one
+    with plain attention, from the same parameters and batch, in float32
+    ("wmma-smem") and in bf16 ("wgmma-tma", the main path's).
+
+    Both: loss within LM_LOSS_REL, parameters after Adam as lm_two_layers
+    checks them. Gradients: in float32, every one within LM_GRAD_REL of its
+    largest magnitude. In bf16 the plain step is no yardstick for that
+    bound at this depth: the decoder's query and key weights' gradients
+    cancel the keys' (and queries') common component across a row, as
+    bk's does, and both bf16 steps land 0.1-0.15 of their largest magnitude
+    from the float32 step there, the plain one included. So the bf16
+    kernel step is held to the float32 step: no gradient farther from it
+    than LM_GRAD_REL or BF16_GRAD_RATIO times the bf16 plain step's worst
+    distance, the larger (``python -m ccv_tpu_torch.bin.wmt_grad_trial``
+    measures those distances over several seeds). The key biases bk and
+    xbk are left out of every gradient comparison: adding q.bk to every
+    score of a row leaves the softmax unchanged, so their true gradient is
+    0 and both sides give rounding noise."""
+    from ccv_tpu_torch.bin.wmt_grad_trial import grad_dist
+    f32 = wmt_gate_step(batch, spad, tpad, dev, torch.float32, True)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        loss_k, p_k, g_k = wmt_gate_step(batch, spad, tpad, dev, dtype,
+                                         False)
+        loss_p, p_p, g_p = (f32 if dtype == torch.float32 else
+                            wmt_gate_step(batch, spad, tpad, dev, dtype,
+                                          True))
+        name = str(dtype).split(".")[1]
+        kp = grad_dist(g_k, g_p)
+        worst = max(kp, key=kp.get)
+        diffs = torch.cat([(p_k[n].detach() - p_p[n].detach()).abs()
+                           .flatten() for n in p_k])
+        same = float((diffs <= 1e-6).float().mean())
+        msg = (f"wmt step at dropout 0, {name}, kernels against plain "
+               f"attention (same parameters and batch): loss {loss_k:.6f} "
+               f"/ {loss_p:.6f}; gradients within {kp[worst]:.3g} of their "
+               f"largest magnitude (worst {worst}); after Adam {same:.5f} "
+               f"of parameters equal, max diff {float(diffs.max()):.3g}")
+        check(np.isfinite(loss_k) and abs(loss_k - loss_p)
+              <= LM_LOSS_REL * abs(loss_p),
+              f"wmt {name} loss {loss_k} with the kernels, {loss_p} plain")
+        check(float(diffs.max()) <= 2e-4 and same >= LM_SAME_SIGN,
+              f"wmt {name} parameters after Adam: max diff "
+              f"{float(diffs.max()):.3g}, {same:.4f} equal")
+        if dtype == torch.float32:
+            check(kp[worst] <= LM_GRAD_REL, f"wmt float32 gradient {worst} "
+                  f"differs by {kp[worst]:.3g} of its largest magnitude")
+            log(17, msg)
+        else:
+            kf, pf = grad_dist(g_k, f32[2]), grad_dist(g_p, f32[2])
+            wk, wp = max(kf, key=kf.get), max(pf, key=pf.get)
+            bound = max(LM_GRAD_REL, BF16_GRAD_RATIO * pf[wp])
+            log(17, msg + f"; against the float32 plain step: kernels "
+                    f"{kf[wk]:.3g} (worst {wk}), plain {pf[wp]:.3g} (worst "
+                    f"{wp}), bound {bound:.3g}")
+            check(kf[wk] <= bound, f"wmt bf16 kernel step: gradient {wk} "
+                  f"{kf[wk]:.3g} of its largest magnitude from the float32 "
+                  f"step (bound {bound:.3g})")
+        out[name] = dict(loss=(loss_k, loss_p), grad=kp[worst],
+                         same=same)
+    return out
+
+
+def imdb_path(dev, card):
+    """Phase 18: bin/imdb.py's demo on the card at its CLI defaults (2
+    layers, d 128, 4 heads of 32, T 64, B 32; every step masked, so plain
+    SDPA), then one unmasked encoder_classifier_forward of the trained
+    model through K2 (non-causal, D 32: wmma-smem) against plain
+    attention."""
+    from ccv_tpu_torch.bin import bin_imdb_shared, imdb, lm_bench
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.ops.kernels import flash_attention as k2
+    args = imdb.parser().parse_args(IMDB_ARGS)
+    res = imdb.train(args)
+    check(np.isfinite(res["loss"]) and res["acc"] >= 0.9,
+          f"imdb demo: loss {res['loss']}, accuracy {res['acc']}")
+    xs, _, _, _ = bin_imdb_shared.load_corpus(args)
+    ids = torch.from_numpy(xs[:args.batch].astype(np.int64)).to(dev)
+    cfg, params = res["cfg"], res["params"]
+    with torch.no_grad():
+        k2.reset_launches()
+        got = tfm.encoder_classifier_forward(params, cfg, ids)
+        with lm_bench.plain_attention():
+            want = tfm.encoder_classifier_forward(params, cfg, ids)
+    check(k2.LAUNCHES == {"fwd": cfg.layers, "dq": 0, "dkv": 0},
+          f"unmasked classifier forward launched K2 {k2.LAUNCHES}")
+    got, want = got.float(), want.float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    check(bool(torch.isfinite(got).all()) and rel <= CLS_BF16,
+          f"classifier through K2 - plain {rel:.3g} of the largest logit")
+    log(18, f"imdb demo on the card (2 layers, d 128, 4 heads, T 64, B 32, "
+            f"bf16, dropout 0.1): {res['iters']} steps, "
+            f"{res['ms_per_iter']:.2f} ms a step (host clock, first step "
+            f"included), final loss {res['loss']:.4f}, accuracy "
+            f"{res['acc']:.3f}; unmasked forward through K2 ({cfg.layers} "
+            f"launches) against plain attention: {rel:.3g} of the largest "
+            f"logit (limit {CLS_BF16}); {card}")
+    return res
+
+
+# device kernels by kind, for the seq2seq profiles: the first pattern a
+# kernel's name holds names its kind
+KERNEL_KINDS = (("K2", ("sm90_kernel", "::fwd_kernel<", "::dq_kernel<",
+                        "::dkv_kernel<")),
+                ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
+                ("adam", ("multi_tensor_apply",)),
+                ("softmax", ("softmax",)),
+                ("reduce", ("reduce_kernel",)),
+                ("index", ("index", "gather", "scatter", "embedding")),
+                ("elementwise", ("elementwise",)))
+
+
+def by_kind(by_name):
+    """{kind: device ms} of a profile's {kernel name: device ms}."""
+    out = {}
+    for name, ms in by_name.items():
+        kind = next((k for k, pats in KERNEL_KINDS
+                     if any(p in name for p in pats)), "other")
+        out[kind] = out.get(kind, 0.0) + ms
+    return out
+
+
+def seq2seq_profiled(decode_step, decode_ms_step, wmt_steps, card):
+    """Phases 16 and 17 under torch.profiler, last: 5 decode steps (one
+    pass of greedy_decode's loop each) and 3 wmt steps at each dropout;
+    device busy, idle share, device ms by kind of kernel."""
+    out = {}
+    for name, fn, n in [("decode", decode_step, 5)] + [
+            (f"wmt dropout {d}", step, 3) for d, step in wmt_steps.items()]:
+        busy, by_name, wall = device_ms(fn, n)
+        check(busy > 0, f"the profiler saw no device time in the {name} "
+                        f"step")
+        kinds = by_kind(by_name)
+        extra = (f"; against the unprofiled decode's {decode_ms_step:.3f} ms "
+                 f"a step: idle share {1 - busy / decode_ms_step:.3f}"
+                 if name == "decode" else "")
+        log(16 if name == "decode" else 17,
+            f"{name} under torch.profiler ({n} steps): device busy "
+            f"{busy:.3f} ms a step over a wall of {wall:.3f} ms (profiler "
+            f"overhead included): idle share {1 - busy / wall:.3f}{extra}; "
+            f"device ms a step by kind: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                kinds.items(), key=lambda kv: -kv[1]))
+            + "; the largest kernels: "
+            + "; ".join(f"{key[:50]} {v:.3f}" for key, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:4])
+            + f"; {card}")
+        out[name] = dict(busy_ms=busy, wall_ms=wall, kinds=kinds)
+    return out
+
+
 def main():
     sys.path.insert(0, ROOT)
     from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
@@ -1478,6 +2025,14 @@ def main():
     # -- 13: image classification on the card (its profile comes last) ----
     vgg_model, vgg_x, _ = classification_path(dev, card)
 
+    # -- 14-18: the encoder-decoder and the encoder classifier (their
+    # profiles come last) ---------------------------------------------------
+    k2_slice_err, k2_decode = k2_slice_shapes(k2, roofline, dev, card)
+    seq2seq_card_vs_cpu(dev, card)
+    decode_res, decode_step = decode_path(dev, card)
+    wmt_res, wmt_steps, _ = wmt_step_path(dev, card)
+    imdb_path(dev, card)
+
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
@@ -1501,6 +2056,17 @@ def main():
             + f"; {card}")
     cubic_device_ms(scd, dev, card, frame, face, up_params)
     vgg_profiled(vgg_model, vgg_x, card)
+    seq2seq_profiled(decode_step, decode_res["ms_per_step"], wmt_steps, card)
+    for entry, key in zip(kernels[1:4], ("fwd", "dq", "dkv")):
+        # launches on the wmt step (dropout 0) over its timed steps, and
+        # errors at this slice's shapes
+        entry.update(launches_wmt=wmt_res[0.0]["launches"][key],
+                     wmt_steps=WMT_STEPS,
+                     max_abs_err_seq2seq=k2_slice_err[key])
+    kernels[1].update(
+        launches_decode=decode_res["launches"],
+        decode_steps=decode_res["steps"], decode_shape=list(K2_DECODE),
+        **{f"decode_{k}": v for k, v in k2_decode.items()})
     kernels[0].update(launches_upscaled=k1_up, launches_served=k1_served)
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",

@@ -28,11 +28,11 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     counts, names = out.stdout.splitlines()
     n, leaked = counts.split(" ", 1)
-    assert int(n) >= 38, out.stdout  # every module was found and imported
+    assert int(n) >= 42, out.stdout  # every module was found and imported
     assert leaked.strip() == "[]", leaked
     # the staged SCD path's modules, the pyramids, the scorers, the
-    # server, the JPEG decoder's binding and build, and the classification
-    # path among them
+    # server, the JPEG decoder's binding and build, the classification
+    # path and the NLP CLIs among them
     assert {"ccv_tpu_torch.detectors.scd",
             "ccv_tpu_torch.ops.kernels.scd_phase",
             "ccv_tpu_torch.ops.pyramid", "ccv_tpu_torch.utils.deteval",
@@ -41,4 +41,7 @@ def test_port_imports_no_jax():
             "ccv_tpu_torch.nn.model", "ccv_tpu_torch.nn.tensor_io",
             "ccv_tpu_torch.models.vgg", "ccv_tpu_torch.models.convnet",
             "ccv_tpu_torch.bin.cnnclassify",
-            "ccv_tpu_torch.bin.vgg_bench"} <= set(names.split())
+            "ccv_tpu_torch.bin.vgg_bench", "ccv_tpu_torch.bin.wmt",
+            "ccv_tpu_torch.bin.iwslt", "ccv_tpu_torch.bin.imdb",
+            "ccv_tpu_torch.bin.bin_imdb_shared",
+            "ccv_tpu_torch.bin.wmt_grad_trial"} <= set(names.split())
