@@ -2,9 +2,17 @@
 serve/, the libev + libebb server of doc/http.rst).
 
 POST an image (the raw body, or the multipart field "source") to an
-endpoint and get its detections as JSON; GET / lists the endpoints. So far
-one endpoint, SCD face detection with ``face.sqlite3`` from the models
-directory; the others come with their detectors.
+endpoint and get its detections as JSON; GET / lists the endpoints:
+
+- ``/scd/detect.objects``: SCD faces, ``face.sqlite3`` of the models
+  directory;
+- ``/icf/detect.objects``: ICF pedestrians, ``pedestrian.icf`` of the
+  models directory;
+- ``/swt/detect.words``: SWT words of the image read as gray;
+- ``/sift``: SIFT keypoints (x, y, scale, angle) of the image read as gray.
+
+A model file loads at the first request that needs it; a missing one
+answers 500 naming it.
 
     python -m ccv_tpu_torch.serve.server --port 3350 --models-dir DIR
     curl -F source=@photo.png localhost:3350/scd/detect.objects
@@ -13,7 +21,8 @@ Detection runs on the card unless ``--device cpu`` is given: the device is
 resolved when the server starts, so a machine without a card fails then,
 not on each request. Images are decoded in memory by the port's
 ``core.io`` (PNG, JPEG and CCVBINDM; a damaged one answers 400). One lock
-serialises detection; the first request builds the cascade kernel.
+serialises detection; the first request builds the cascade kernel. The
+reference's other endpoints (bbf, dpm, mser, convnet, tld) are not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import torch
 
 from ccv_tpu_torch import device as _device
 from ccv_tpu_torch.core import io
-from ccv_tpu_torch.detectors import scd
+from ccv_tpu_torch.detectors import icf, scd, sift, swt
 
 # request bodies are image uploads; the reference's libev server caps the
 # request buffer similarly (serve/serve.c): 64 MB covers any sane image
@@ -49,12 +58,12 @@ class RequestError(Exception):
         self.code = code
 
 
-def _decode_image(data: bytes) -> torch.Tensor:
-    """The body as an RGB uint8 (H, W, 3) host tensor."""
+def _decode_image(data: bytes, gray: bool = False) -> torch.Tensor:
+    """The body as an RGB uint8 (H, W, 3) host tensor, or gray (H, W)."""
     if not data:
         raise RequestError(400, "empty image body")
     try:
-        arr = io.decode(data, io.IO_RGB_COLOR)
+        arr = io.decode(data, io.IO_GRAY if gray else io.IO_RGB_COLOR)
     except (ValueError, NotImplementedError, KeyError, IndexError,
             struct.error, zlib.error) as e:
         raise RequestError(400, f"undecodable image: {e}") from None
@@ -123,8 +132,31 @@ def _scd(server: "Server", img: torch.Tensor) -> List[dict]:
                              device=server.device))
 
 
+def _icf(server: "Server", img: torch.Tensor) -> List[dict]:
+    return _rects(icf.detect_objects(img.to(server.device),
+                                     server.pedestrian_cascade(),
+                                     device=server.device))
+
+
+def _swt(server: "Server", img: torch.Tensor) -> List[dict]:
+    return _rects(swt.detect_words(img.to(server.device),
+                                   device=server.device))
+
+
+def _sift(server: "Server", img: torch.Tensor) -> List[dict]:
+    kps, _ = sift.sift(img.to(server.device), want_desc=False,
+                       device=server.device)
+    return [{"x": float(k["x"]), "y": float(k["y"]),
+             "scale": float(k["scale"]), "angle": float(k["angle"])}
+            for k in kps]
+
+
+# path -> (handler, whether the image is read as gray)
 ENDPOINTS = {
-    "/scd/detect.objects": _scd,
+    "/scd/detect.objects": (_scd, False),
+    "/icf/detect.objects": (_icf, False),
+    "/swt/detect.words": (_swt, True),
+    "/sift": (_sift, True),
 }
 
 
@@ -152,9 +184,10 @@ class Handler(BaseHTTPRequestHandler):
             self._unknown()
             return
         try:
-            img = _decode_image(_extract_body(self))
+            handler, gray = ENDPOINTS[self.path]
+            img = _decode_image(_extract_body(self), gray)
             with self.server.lock:
-                out = ENDPOINTS[self.path](self.server, img)
+                out = handler(self.server, img)
             self._json(200, out)
         except RequestError as e:
             self._json(e.code, {"error": str(e)})
@@ -170,7 +203,7 @@ class Server(ThreadingHTTPServer):
     """Threaded server with a deep accept backlog (the default 5 drops
     connections under concurrent load) and bounded per-request lifetime.
     Holds what the requests share: the models directory, the device, the
-    lock that serialises detection and the cascade, loaded once."""
+    lock that serialises detection and the cascades, each loaded once."""
 
     request_queue_size = 128
     daemon_threads = True
@@ -181,25 +214,31 @@ class Server(ThreadingHTTPServer):
         self.models_dir = models_dir
         self.device = _device.resolve(device)  # raises without a card
         self.lock = threading.Lock()
-        self._face: Optional[scd.ScdClassifierCascade] = None
+        self._models: dict = {}
         super().__init__(address, Handler)
 
-    def face_cascade(self) -> scd.ScdClassifierCascade:
-        """face.sqlite3 of the models directory, loaded by the first request
-        that needs it (under the lock) and kept."""
-        if self._face is None:
-            path = os.path.join(self.models_dir, "face.sqlite3")
+    def _model(self, name: str, load):
+        """``load(path)`` of the models directory's ``name``, run by the first
+        request that needs it (under the lock) and kept."""
+        if name not in self._models:
+            path = os.path.join(self.models_dir, name)
             if not os.path.isfile(path):
                 raise FileNotFoundError(f"model not found: {path}")
-            self._face = scd.load_cascade(path)
-        return self._face
+            self._models[name] = load(path)
+        return self._models[name]
+
+    def face_cascade(self) -> scd.ScdClassifierCascade:
+        return self._model("face.sqlite3", scd.load_cascade)
+
+    def pedestrian_cascade(self) -> icf.IcfCascade:
+        return self._model("pedestrian.icf", icf.load_cascade)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--port", type=int, default=3350)
     ap.add_argument("--models-dir", required=True,
-                    help="directory holding face.sqlite3")
+                    help="directory holding face.sqlite3 and pedestrian.icf")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA device)")
     args = ap.parse_args(argv)

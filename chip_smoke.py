@@ -69,7 +69,23 @@ started together) and drives the port's main paths:
   (none), and its gate against plain attention in float32 and bf16; the
   imdb demo at its CLI defaults and its classifier through K2 against
   plain attention; last, their profiles (busy, idle share, device ms by
-  kind of kernel).
+  kind of kernel);
+- phases 19-21, ICF, SWT and SIFT (torch ops, no kernel of their own, as
+  ``ccv_tpu`` runs XLA ops): ICF at 1080p with a seeded synthetic cascade
+  of 2,000 depth-2 trees (pedestrian.icf's count; 10 channels on an RGB
+  frame tiled from crop180.png, and an 8-channel one on the gray frame),
+  written with ``write_cascade`` and read back, thresholds near the
+  running sums' quantiles so that windows end in phases A, B1 and B2, the
+  card's windows against the port's CPU path (margin as SCD's), ms per
+  image at default ``IcfParams``, ``bin/icfdetect`` and
+  ``/icf/detect.objects``; SWT on text_test.png (edges, sobels and stroke
+  maps bit for bit the CPU's, words against text_test.swt.txt at IoU >=
+  0.7) and the 1080p frame (words equal the CPU's, ms per image, the stage
+  breakdown), ``bin/swtdetect`` and ``/swt/detect.words``; SIFT's
+  siftmatch (a 480x360 object in the 1080p scene: >= 97% of keypoints
+  card = CPU within 0.5 px, 5% of scale and 0.05 rad both ways, their
+  descriptors within 1e-3; ``match_pair`` = ``sift`` + ``match``; ms per
+  pair), ``bin/siftmatch`` and ``/sift``; their profiles last.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -972,7 +988,7 @@ def served_path(scd, k1, dev, card, frame, face_med):
                 "Content-Length": str(server.MAX_BODY_BYTES + 1)}), 413)}
         for name, ((code, out), want_code) in errors.items():
             check(code == want_code, f"/scd {name}: {code}, not {want_code}")
-        check(errors["get /"][0][1] == ["/scd/detect.objects"],
+        check(errors["get /"][0][1] == sorted(server.ENDPOINTS),
               f"GET / lists {errors['get /'][0][1]}")
         jpeg_note = served_jpeg(scd, server, url, dev, frame, cascade)
         ms = []
@@ -1755,6 +1771,537 @@ def seq2seq_profiled(decode_step, decode_ms_step, wmt_steps, card):
     return out
 
 
+# -- phases 19-21: ICF, SWT and SIFT (torch ops, no kernel of the port's) ----
+
+ICF_TREES = 2000  # the trained pedestrian.icf's count (ccv_tpu icf.py:142)
+SIFT_FRACTION = 0.97
+
+
+def median_ms(fn, reps):
+    """(median, all) host ms of ``reps`` synchronised calls after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000)
+    return float(np.median(ms)), ms
+
+
+def short_kernel(name):
+    """A readable key for a profiler kernel name: its function and the
+    functor it applies."""
+    import re
+    base = re.sub(r"^void\s+", "", name).split("<")[0].split("(")[0]
+    op = re.search(r"(\w*Functor\w*|direct_copy\w*)(<[\w:]+>)?", name)
+    return base.split("::")[-1] + (f"[{op.group(1)}{op.group(2) or ''}]"
+                                   if op else "")
+
+
+def top_kernels(by_name, n=4):
+    """The n largest device ms per call, by short_kernel (names merged)."""
+    merged = {}
+    for k, v in by_name.items():
+        merged[short_kernel(k)] = merged.get(short_kernel(k), 0.0) + v
+    return "; ".join(f"{k} {v:.2f}" for k, v in sorted(
+        merged.items(), key=lambda kv: -kv[1])[:n])
+
+
+def captured(main, argv):
+    """(exit code, stdout lines) of a CLI's main(argv)."""
+    import contextlib
+    import io as _io
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    return code, buf.getvalue().strip().splitlines()
+
+
+def serving(models_dir):
+    """A server on the card in a thread: (server, url)."""
+    from ccv_tpu_torch.serve import server
+    srv = server.Server(("127.0.0.1", 0), models_dir)
+    check(srv.device.type == "cuda", f"the server runs on {srv.device}")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def rgb_frame_1080p(read):
+    """A 1920x1080 RGB frame: crop180.png (the repository's colour image)
+    tiled 6 x 11, cropped."""
+    from ccv_tpu_torch.core.io import IO_RGB_COLOR
+    crop = read(os.path.join(DATA, "crop180.png"), IO_RGB_COLOR, device="cpu")
+    return np.ascontiguousarray(np.tile(crop.numpy(), (6, 11, 1))[:1080,
+                                                                   :1920])
+
+
+def icf_synth(icf, rng, n, gray, w=32, h=80, margin=(3, 2, 4, 2)):
+    """n random depth-2 trees over a 32 x 80 window (an effective 25 x 76,
+    pedestrian.icf's size), 10 channels (8 gray), thresholds open."""
+    nch = 8 if gray else 10
+    x0, y0 = rng.integers(0, w - 4, (n, 3, 2)), rng.integers(0, h - 4,
+                                                             (n, 3, 2))
+    x1 = np.minimum(x0 + rng.integers(1, 12, (n, 3, 2)), w - 1)
+    y1 = np.minimum(y0 + rng.integers(1, 24, (n, 3, 2)), h - 1)
+    pass_bits = rng.integers(0, 4, n).astype(np.uint32)
+    alpha = rng.normal(0, 1, (n, 3, 2)) / ((x1 - x0 + 1) * (y1 - y0 + 1))
+    alpha[:, :, 1] *= rng.integers(0, 2, (n, 3))
+    # as the file format reads them back: node 1 only with bit 1, node 2
+    # only with bit 0, and a node of one box has a second box of zeros
+    node = np.stack([np.ones(n, bool), (pass_bits & 2) != 0,
+                     (pass_bits & 1) != 0], 1)
+    alpha *= node[..., None]
+    x0, y0, x1, y1 = (np.where(alpha != 0, v, 0) for v in (x0, y0, x1, y1))
+    return icf.IcfCascade(
+        width=w, height=h, grayscale=int(gray), margin=margin, n_weak=n,
+        pass_bits=pass_bits,
+        weigh=rng.normal(0, 1, (n, 2)).astype(np.float32),
+        thresholds=np.full(n, -1e9, np.float32),
+        channel=np.where(alpha != 0, rng.integers(0, nch, (n, 3, 2)),
+                         0).astype(np.int32),
+        alpha=alpha.astype(np.float32),
+        beta=(rng.normal(0, 0.5, (n, 3)) * node).astype(np.float32),
+        sat0=np.stack([x0, y0], -1).astype(np.int32),
+        sat1=np.stack([x1, y1], -1).astype(np.int32))
+
+
+def icf_sums(icf, casc, img, params, every=1, wins=None):
+    """(running sums (windows, trees), octave of each window) by the port's
+    SAT and trees on img's device: of every ``every``-th window of every
+    level of every octave, or of the windows ``wins`` given as (octave,
+    level, wy, wx)."""
+    from ccv_tpu_torch.ops import resample
+    full = icf._tables(casc, img.device)["full"]
+    img = img if img.dim() == 3 else img[..., None]
+    groups = {}
+    for (octave, li, wy, wx) in (wins or []):
+        groups.setdefault(octave, []).append((li, wy, wx))
+    pyr, out, octs = [img], [], []
+    for octave in range(8):
+        if octave:
+            pyr.append(resample.sample_down(pyr[-1]))
+        lvls = icf._octave_levels(pyr[octave].shape, casc, params)
+        if not lvls or (wins and octave not in groups):
+            continue
+        flat, base, W1, C = icf._octave_windows(pyr[octave], casc, lvls,
+                                                params.step_through)
+        if wins:
+            start = np.cumsum([0] + [ny * nx for (*_r, ny, nx) in lvls])
+            base = base[torch.tensor([int(start[li]) + wy * lvls[li][5] + wx
+                                      for li, wy, wx in groups[octave]],
+                                     device=img.device)]
+        else:
+            base = base[::every]
+        octs.append(np.full(base.numel(), octave))
+        for s in range(0, base.numel(), 256):
+            out.append(torch.cumsum(icf._node_votes(icf._gather(
+                flat, base[s:s + 256], full, W1, C), full), 1).cpu())
+    return torch.cat(out).numpy(), np.concatenate(octs)
+
+
+def graded_thresholds(cs, survive):
+    """Per-tree thresholds near the running sums' quantiles, each in the
+    middle of a gap of the alive windows' sums at least 8 x MARGIN wide,
+    so that the alive share falls geometrically to ``survive`` (the share
+    alive at the end of phases A, B1 and the cascade); each tree aims at
+    what its phase still has to kill (early sums take few values)."""
+    n, T = cs.shape
+    alive = np.ones(n, bool)
+    th = np.full(T, -1e9, np.float32)
+    lo = 0
+    for hi, frac in survive:
+        hi = T if hi is None else hi
+        for t in range(lo, hi):
+            v = np.sort(cs[alive, t])
+            if len(v) < 4 or alive.mean() <= frac:
+                continue
+            kill = 1 - (frac / alive.mean()) ** (1 / (hi - t))
+            u = np.unique(v)
+            mids = (u[1:] + u[:-1]) / 2
+            wide = (u[1:] - u[:-1]) > 8 * MARGIN * np.maximum(1, np.abs(mids))
+            if not wide.any():
+                continue
+            share = np.searchsorted(v, mids) / len(v)
+            i = int(np.argmin(np.where(wide, np.abs(share - kill), np.inf)))
+            if share[i] <= max(3 * kill, 0.5):
+                th[t] = mids[i]
+                alive &= cs[:, t] >= th[t]
+        lo = hi
+    return th
+
+
+def icf_windows(comps):
+    return {(c.x, c.y, c.width, c.height): c.confidence for c in comps}
+
+
+def icf_card_vs_cpu(icf, casc, img_cpu, dev, name):
+    """Phase 19's gate: the card's windows (min_neighbors 0) against the
+    port's CPU path on the same image. Windows may differ only where a
+    running sum lies within MARGIN * max(1, |sum|) of its threshold;
+    confidences where both pass within ATOL. Returns (windows, differing,
+    max conf diff, cpu s)."""
+    params = icf.IcfParams(min_neighbors=0)
+    card = icf_windows(icf.detect_objects(img_cpu.to(dev), casc, params))
+    t0 = time.perf_counter()
+    cpu = icf_windows(icf.detect_objects(img_cpu, casc, params))
+    cpu_s = time.perf_counter() - t0
+    odd = set(card) ^ set(cpu)
+    if odd:  # where each odd window lies: (octave, level, wy, wx)
+        lvl_of = {}
+        src_shape = img_cpu.shape if img_cpu.dim() == 3 else \
+            img_cpu.shape + (1,)
+        shape = src_shape
+        eff_w = casc.width - casc.margin[0] - casc.margin[2]
+        eff_h = casc.height - casc.margin[1] - casc.margin[3]
+        for octave in range(8):
+            for li, (_k, sc, _r, _c, ny, nx) in enumerate(
+                    icf._octave_levels(shape, casc, params)):
+                s = sc * (1 << octave)
+                for wy in range(ny):
+                    for wx in range(nx):
+                        r = (int((wx * 2 + 0.5) * s - 0.5),
+                             int((wy * 2 + 0.5) * s - 0.5),
+                             int(eff_w * s), int(eff_h * s))
+                        if r in odd:
+                            lvl_of[r] = (octave, li, wy, wx)
+            shape = (shape[0] // 2, shape[1] // 2) + shape[2:]
+        wins = [lvl_of[r] for r in sorted(odd)]
+        sums, _ = icf_sums(icf, casc, img_cpu, params, wins=wins)
+        th = casc.thresholds
+        near = (np.abs(sums - th) <= MARGIN * np.maximum(1, np.abs(sums))
+                ).any(1)
+        check(bool(near.all()), f"ICF {name}: {int((~near).sum())} windows "
+                                f"differ card vs CPU outside the margin")
+    both = set(card) & set(cpu)
+    check(len(both) > 0, f"ICF {name}: no window passed")
+    diff = max(abs(card[r] - cpu[r]) for r in both)
+    check(diff <= ATOL, f"ICF {name}: conf differs by {diff}")
+    return len(both), len(odd), diff, cpu_s
+
+
+def icf_path(dev, card, read):
+    """Phase 19, ICF at 1080p: a seeded synthetic cascade of 2,000 trees
+    (10 channels) on an RGB frame tiled from crop180.png and a gray one (8
+    channels) on frame_1080p, both written with write_cascade and read back,
+    thresholds near the running sums' quantiles so that windows end in
+    phases A, B1 and B2; card against the port's CPU path; ms per image at
+    default IcfParams (thresholds from every 29th window of every level);
+    bin/icfdetect and /icf/detect.objects on the card (the gray cascade:
+    it finds objects at default params).
+    Returns the profile to run last."""
+    from ccv_tpu_torch.bin import icfdetect
+    from ccv_tpu_torch.detectors import icf
+    from ccv_tpu_torch.serve import server
+    rgb = torch.from_numpy(rgb_frame_1080p(read))
+    gray = torch.from_numpy(frame_1080p(read))
+    tmp = tempfile.mkdtemp(prefix="ccv_icf_")
+    srv = None
+    out = {}
+    try:
+        rng = np.random.default_rng(19)
+        params = icf.IcfParams()
+        cascades = {}
+        for name, img, is_gray in (("colour", rgb, False),
+                                   ("gray", gray, True)):
+            casc = icf_synth(icf, rng, ICF_TREES, is_gray)
+            t0 = time.perf_counter()
+            cs, octs = icf_sums(icf, casc, img.to(dev), params, every=29)
+            # survivors after A and B1 as ccv_tpu's pedestrian.png run saw
+            # them, halved until every octave's sample keeps under half of
+            # K1's and K2's shares (1/5 and 1/32): no overflow rerun
+            survive = np.array([0.064, 0.002, 0.0001])
+            for _ in range(6):
+                casc.thresholds[:] = graded_thresholds(
+                    cs, tuple(zip((64, 320, None), survive)))
+                alive = np.minimum.accumulate(cs >= casc.thresholds, axis=1)
+                worst = [max(alive[octs == o, t].mean() for o in set(octs))
+                         for t in (63, 319)]
+                if worst[0] <= 0.1 and worst[1] <= 0.5 / 32:
+                    break
+                survive /= 2
+            th_s = time.perf_counter() - t0
+            path = os.path.join(tmp, f"{name}.icf")
+            icf.write_cascade(casc, path)
+            back = icf.load_cascade(path)
+            for f in ("pass_bits", "weigh", "thresholds", "channel", "alpha",
+                      "beta", "sat0", "sat1"):
+                check(np.array_equal(getattr(back, f), getattr(casc, f)),
+                      f"ICF {name}: {f} changed in write_cascade/load")
+            ends = [int(len(cs) - alive[:, 63].sum()),
+                    int(alive[:, 63].sum() - alive[:, 319].sum()),
+                    int(alive[:, 319].sum() - alive[:, -1].sum()),
+                    int(alive[:, -1].sum())]
+            check(min(ends) > 0, f"ICF {name}: sampled windows ending in A, "
+                                 f"B1, B2 and passing: {ends}")
+            cascades[name] = (back, img, path)
+            n, odd, diff, cpu_s = icf_card_vs_cpu(icf, back, img, dev, name)
+            img_d = img.to(dev)
+            before = icf.RERUNS
+            med, ms = median_ms(lambda: icf.detect_objects(img_d, back), 5)
+            reruns = icf.RERUNS - before
+            found = icf.detect_objects(img_d, back)
+            out[name] = dict(ms=med, found=len(found), windows=n)
+            log(19, f"ICF {name} {tuple(img.shape)}, {ICF_TREES} trees "
+                    f"(thresholds from {len(cs)} sampled windows in "
+                    f"{th_s:.1f} s: they end in A / B1 / B2 / pass {ends}; "
+                    f"the most alive octave keeps {worst[0]:.4f} after A, "
+                    f"{worst[1]:.5f} after B1); "
+                    f"write_cascade + load_cascade round trip equal; "
+                    f"min_neighbors 0: card = CPU on {n} windows ({odd} "
+                    f"differ, all in the margin), max conf diff {diff:.3g} "
+                    f"(CPU path {cpu_s:.1f} s); default IcfParams: "
+                    f"{len(found)} detections, median {med:.2f} ms/image "
+                    f"({', '.join(f'{x:.2f}' for x in ms)}; {reruns} "
+                    f"overflow reruns in {len(ms) + 1} calls); {card}")
+        # the CLI and the server read the PNG as RGB; the gray cascade
+        # takes its gray conversion, which gives back the gray frame
+        casc, img, path = cascades["gray"]
+        png = os.path.join(tmp, "frame.png")
+        with open(png, "wb") as f:
+            f.write(png_bytes(img.numpy()))
+        want = icf.detect_objects(img.to(dev), casc)
+        check(len(want) > 0, "ICF gray: no detection at default params")
+        code, lines = captured(icfdetect.main, [png, path])
+        check(code == 0 and lines[:-1] == [
+            f"{int(c.x)} {int(c.y)} {int(c.width)} {int(c.height)} "
+            f"{c.confidence:f}" for c in want]
+            and lines[-1].startswith(f"total : {len(want)} in time "),
+            f"bin/icfdetect printed {lines[-1:]} for {len(want)} rects")
+        models = os.path.join(tmp, "models")
+        os.makedirs(models)
+        srv, url = serving(models)
+        with open(png, "rb") as f:
+            body = f.read()
+        code, missing = http(url + "/icf/detect.objects", body)
+        check(code == 500 and "pedestrian.icf" in missing["error"],
+              f"/icf without pedestrian.icf: {code} {missing}")
+        shutil.copy(path, os.path.join(models, "pedestrian.icf"))
+        code, got = http(url + "/icf/detect.objects", body)
+        check(code == 200 and got == server._rects(want),
+              f"/icf: {code}, {len(got)} rects against {len(want)}")
+        log(19, f"bin/icfdetect on the card, the gray cascade on the "
+                f"gray frame's PNG: {len(want)} lines = direct detect_objects"
+                f" ({lines[-1]}); /icf/detect.objects: 500 naming "
+                f"pedestrian.icf before it is there, then the same PNG = "
+                f"direct detect_objects ({len(got)} rects); {card}")
+        on_card = {name: (c, im.to(dev)) for name, (c, im, _p) in
+                   cascades.items()}
+
+        def profile():
+            for name, (c, im) in on_card.items():
+                busy, by_name, wall = device_ms(
+                    lambda: icf.detect_objects(im, c), 1)
+                log(19, f"ICF {name} 1080p under torch.profiler (1 image): "
+                        f"device busy {busy:.2f} ms per image over a wall of "
+                        f"{wall:.2f} ms: idle share {1 - busy / wall:.3f}; "
+                        f"largest: {top_kernels(by_name)}; {card}")
+        return out, profile
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def iou(a, b):
+    ix = max(0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
+    iy = max(0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = a[2] * a[3] + b[2] * b[3] - inter
+    return inter / union if union else 0.0
+
+
+def word_rects(words):
+    return [(int(w.x), int(w.y), int(w.width), int(w.height)) for w in words]
+
+
+def swt_path(dev, card, read):
+    """Phase 20, SWT: text_test.png on the card (its stroke maps and words
+    equal the CPU's, the words the C golden's by tests/test_swt.py's rule),
+    the 1080p frame in gray (words equal the CPU's, ms per image, the stage
+    breakdown), bin/swtdetect and /swt/detect.words on the card. Returns
+    the profile to run last."""
+    from ccv_tpu_torch.bin import swtdetect
+    from ccv_tpu_torch.detectors import swt
+    from ccv_tpu_torch.serve import server
+    tt_path = os.path.join(DATA, "text_test.png")
+    from ccv_tpu_torch.core.io import IO_GRAY
+    tt = read(tt_path, IO_GRAY, device="cpu").tensor
+    maps = []
+    for d in ("cpu", dev):
+        c, dx, dy, g = swt._frontend(tt.to(d), 3, 124, 204)
+        maps.append((c.cpu(), dx.cpu(), dy.cpu(), swt._rays(c, dx, dy).cpu()))
+    for name, a, b in zip(("edges", "dx", "dy", "stroke maps"), *maps):
+        check(torch.equal(a, b), f"SWT text_test.png {name}: card != CPU")
+    words = word_rects(swt.detect_words(tt.to(dev)))
+    check(words == word_rects(swt.detect_words(tt)),
+          f"SWT text_test.png words card {words} != CPU")
+    with open(os.path.join(DATA, "text_test.swt.txt")) as f:
+        ref = [tuple(int(v) for v in line.split()) for line in f]
+    check(len(words) == len(ref) and all(
+        max(iou(r, m) for m in words) >= 0.7 for r in ref),
+        f"SWT text_test.png {words} against the golden {ref}")
+    tt_d = tt.to(dev)
+    tt_ms, _ = median_ms(lambda: swt.detect_words(tt_d), 10)
+    frame = torch.from_numpy(frame_1080p(read))
+    frame_d = frame.to(dev)
+    t0 = time.perf_counter()
+    cpu_words = word_rects(swt.detect_words(frame))
+    cpu_s = time.perf_counter() - t0
+    card_words = word_rects(swt.detect_words(frame_d))
+    check(card_words == cpu_words and len(card_words) > 0,
+          f"SWT 1080p: card {len(card_words)} words, CPU {len(cpu_words)}")
+    med, ms = median_ms(lambda: swt.detect_words(frame_d), 5)
+    timings = {}
+    swt.detect_words(frame_d, timings=timings)
+    strokes = int((maps[1][3] > 0).sum())
+    log(20, f"SWT text_test.png (640x480) on the card: edges, sobels and "
+            f"both stroke maps ({strokes} stroke cells) = CPU bit for bit; "
+            f"words {words} = CPU, against text_test.swt.txt {ref} at IoU "
+            f">= 0.7; median {tt_ms:.2f} ms/image (n=10); 1080p gray: "
+            f"{len(card_words)} words = CPU ({cpu_s:.1f} s on the CPU), "
+            f"median {med:.2f} ms/image ({', '.join(f'{x:.2f}' for x in ms)})"
+            f"; one 1080p call by stage (each ends in a synchronize): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in timings.items())
+            + f"; {card}")
+    code, lines = captured(swtdetect.main, [tt_path])
+    check(code == 0 and lines[:-1] == [" ".join(map(str, w)) for w in words]
+          and lines[-1].startswith(f"total : {len(words)} in time "),
+          f"bin/swtdetect printed {lines}")
+    tmp = tempfile.mkdtemp(prefix="ccv_swt_")
+    srv = None
+    try:
+        srv, url = serving(tmp)
+        with open(tt_path, "rb") as f:
+            code, got = http(url + "/swt/detect.words", f.read())
+        check(code == 200 and got == server._rects(swt.detect_words(tt_d)),
+              f"/swt/detect.words: {code} {got}")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(20, f"bin/swtdetect on the card: {lines}; /swt/detect.words on "
+            f"text_test.png = direct detect_words; {card}")
+
+    def profile():
+        for name, img in (("text_test.png", tt_d), ("1080p", frame_d)):
+            busy, by_name, wall = device_ms(
+                lambda: swt.detect_words(img), 3)
+            log(20, f"SWT {name} under torch.profiler (3 images): device "
+                    f"busy {busy:.2f} ms per image over a wall of {wall:.2f}"
+                    f" ms: idle share {1 - busy / wall:.3f}; largest: "
+                    f"{top_kernels(by_name)}; {card}")
+    return dict(ms=med, text_ms=tt_ms, words=len(card_words)), profile
+
+
+def sift_pairs(ka, kb):
+    """(i, j) of ka's keypoints with a kb keypoint within 0.5 px, 5% of the
+    scale and 0.05 rad of the angle (a keypoint appears once per
+    orientation peak), the nearest such."""
+    if not ka or not kb:
+        return []
+    B = np.array([[k["x"], k["y"], k["scale"], k["angle"]] for k in kb])
+    out = []
+    for i, k in enumerate(ka):
+        da = np.abs((B[:, 3] - k["angle"] + np.pi) % (2 * np.pi) - np.pi)
+        ok = ((np.abs(B[:, 0] - k["x"]) <= 0.5)
+              & (np.abs(B[:, 1] - k["y"]) <= 0.5)
+              & (np.abs(B[:, 2] - k["scale"]) <= 0.05 * k["scale"])
+              & (da <= 0.05))
+        if ok.any():
+            d = np.hypot(B[:, 0] - k["x"], B[:, 1] - k["y"]) + da
+            out.append((i, int(np.argmin(np.where(ok, d, np.inf)))))
+    return out
+
+
+def sift_path(dev, card, read):
+    """Phase 21, bin/siftmatch at default SiftParams: the 1080p frame in
+    gray as the scene, a 480x360 crop of it as the object; card against
+    the port's CPU path (>= 97% of keypoints within 0.5 px, 5% of scale and
+    0.05 rad, both ways; matched descriptors within 1e-3, unit norm), match_pair
+    against sift + match, ms per pair, bin/siftmatch and /sift on the card.
+    Returns the profile to run last."""
+    from ccv_tpu_torch.bin import siftmatch
+    from ccv_tpu_torch.detectors import sift
+    scene = torch.from_numpy(frame_1080p(read))
+    obj = scene[360:720, 720:1200].contiguous()
+    t0 = time.perf_counter()
+    cpu = sift.sift_many([obj, scene], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card_res = sift.sift_many([obj, scene], device=dev)
+    notes = []
+    for name, (kc, dc), (kg, dg) in zip(("object", "scene"), cpu, card_res):
+        fwd, back = sift_pairs(kc, kg), sift_pairs(kg, kc)
+        check(len(fwd) >= SIFT_FRACTION * len(kc) and
+              len(back) >= SIFT_FRACTION * len(kg) and len(kc) > 20,
+              f"SIFT {name}: {len(fwd)} of {len(kc)} CPU keypoints and "
+              f"{len(back)} of {len(kg)} card keypoints matched")
+        i, j = np.array(fwd).T
+        err = float(np.abs(dg[j] - dc[i]).max())
+        check(err <= 1e-3, f"SIFT {name}: descriptors differ by {err}")
+        notes.append(f"{name} {len(kg)} keypoints (CPU {len(kc)}; "
+                     f"{len(fwd) / len(kc):.4f} / {len(back) / len(kg):.4f} "
+                     f"matched both ways, descriptors within {err:.2g})")
+    obj_d, scene_d = obj.to(dev), scene.to(dev)
+    k1, k2, pairs = sift.match_pair(obj_d, scene_d)
+    (kg1, dg1), (kg2, dg2) = card_res
+    idx, ok = sift.match(dg1, dg2, device=dev)
+    want = [(i, int(j)) for i, (j, m) in enumerate(zip(idx, ok)) if m]
+    check(k1 == kg1 and k2 == kg2 and pairs == want and len(pairs) > 20,
+          f"SIFT match_pair {len(pairs)} pairs against sift + match "
+          f"{len(want)}")
+    idx_c, ok_c = sift.match(cpu[0][1], cpu[1][1], device="cpu")
+    med, ms = median_ms(lambda: sift.match_pair(obj_d, scene_d), 5)
+    scene_ms, _ = median_ms(lambda: sift.sift(scene_d), 3)
+    log(21, f"SIFT siftmatch, object 480x360 in the 1080p scene: "
+            + "; ".join(notes) + f"; card = CPU by the gate (CPU path "
+            f"{cpu_s:.1f} s); {len(pairs)} of {len(k1)} object keypoints "
+            f"matched on the card ({int(ok_c.sum())} on the CPU), "
+            f"match_pair = sift + match; match_pair median {med:.2f} ms per "
+            f"pair ({', '.join(f'{x:.2f}' for x in ms)}), sift of the scene "
+            f"alone {scene_ms:.2f} ms; {card}")
+    tmp = tempfile.mkdtemp(prefix="ccv_sift_")
+    srv = None
+    try:
+        paths = [os.path.join(tmp, f"{n}.png") for n in ("object", "scene")]
+        for p, img in zip(paths, (obj, scene)):
+            with open(p, "wb") as f:
+                f.write(png_bytes(img.numpy()))
+        code, lines = captured(siftmatch.main, paths)
+        check(code == 0 and lines[-2] ==
+              f"{len(pairs)} keypoints out of {len(k1)} are matched"
+              and len(lines) == len(pairs) + 2,
+              f"bin/siftmatch printed {lines[-2:]}")
+        srv, url = serving(tmp)
+        with open(paths[0], "rb") as f:
+            code, got = http(url + "/sift", f.read())
+        kps, _ = sift.sift(obj_d, want_desc=False)
+        check(code == 200 and got == [
+            {k: float(kp[k]) for k in ("x", "y", "scale", "angle")}
+            for kp in kps], f"/sift: {code}, {len(got)} keypoints against "
+                            f"{len(kps)}")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(21, f"bin/siftmatch on the card: {lines[-2]}; /sift on the object "
+            f"PNG = direct sift ({len(got)} keypoints); {card}")
+
+    def profile():
+        busy, by_name, wall = device_ms(
+            lambda: sift.match_pair(obj_d, scene_d), 2)
+        log(21, f"SIFT match_pair under torch.profiler (2 pairs): device "
+                f"busy {busy:.2f} ms per pair over a wall of {wall:.2f} ms: "
+                f"idle share {1 - busy / wall:.3f}; largest: "
+                f"{top_kernels(by_name)}; {card}")
+    return dict(ms=med, scene_ms=scene_ms, pairs=len(pairs)), profile
+
+
 def main():
     sys.path.insert(0, ROOT)
     from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
@@ -2033,6 +2580,11 @@ def main():
     wmt_res, wmt_steps, _ = wmt_step_path(dev, card)
     imdb_path(dev, card)
 
+    # -- 19-21: ICF, SWT and SIFT (their profiles come last) ---------------
+    _icf_res, icf_profile = icf_path(dev, card, read)
+    _swt_res, swt_profile = swt_path(dev, card, read)
+    _sift_res, sift_profile = sift_path(dev, card, read)
+
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
@@ -2057,6 +2609,8 @@ def main():
     cubic_device_ms(scd, dev, card, frame, face, up_params)
     vgg_profiled(vgg_model, vgg_x, card)
     seq2seq_profiled(decode_step, decode_res["ms_per_step"], wmt_steps, card)
+    for profile in (icf_profile, swt_profile, sift_profile):
+        profile()
     for entry, key in zip(kernels[1:4], ("fwd", "dq", "dkv")):
         # launches on the wmt step (dropout 0) over its timed steps, and
         # errors at this slice's shapes

@@ -206,6 +206,9 @@ def test_sample_down_float_matches_jax():
 
 
 def test_unported_windows_raise():
+    """Every odd window is ported now (the 3x3 and Gaussian-derivative
+    windows are held to ccv_tpu in tests/test_torch_classic.py); an even
+    window, which ccv_sobel does not define, still raises."""
     a = torch.zeros((8, 8), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        tbasic.sobel(a, 3, 0)
+    with pytest.raises(ValueError, match="odd"):
+        tbasic.sobel(a, 4, 0)

@@ -28,11 +28,12 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     counts, names = out.stdout.splitlines()
     n, leaked = counts.split(" ", 1)
-    assert int(n) >= 42, out.stdout  # every module was found and imported
+    assert int(n) >= 50, out.stdout  # every module was found and imported
     assert leaked.strip() == "[]", leaked
     # the staged SCD path's modules, the pyramids, the scorers, the
     # server, the JPEG decoder's binding and build, the classification
-    # path and the NLP CLIs among them
+    # path, the NLP CLIs, and ICF, SWT and SIFT with their ops and CLIs
+    # among them
     assert {"ccv_tpu_torch.detectors.scd",
             "ccv_tpu_torch.ops.kernels.scd_phase",
             "ccv_tpu_torch.ops.pyramid", "ccv_tpu_torch.utils.deteval",
@@ -44,4 +45,9 @@ def test_port_imports_no_jax():
             "ccv_tpu_torch.bin.vgg_bench", "ccv_tpu_torch.bin.wmt",
             "ccv_tpu_torch.bin.iwslt", "ccv_tpu_torch.bin.imdb",
             "ccv_tpu_torch.bin.bin_imdb_shared",
-            "ccv_tpu_torch.bin.wmt_grad_trial"} <= set(names.split())
+            "ccv_tpu_torch.bin.wmt_grad_trial",
+            "ccv_tpu_torch.detectors.icf", "ccv_tpu_torch.detectors.swt",
+            "ccv_tpu_torch.detectors.sift", "ccv_tpu_torch.core.algebra",
+            "ccv_tpu_torch.ops.classic", "ccv_tpu_torch.bin.icfdetect",
+            "ccv_tpu_torch.bin.swtdetect",
+            "ccv_tpu_torch.bin.siftmatch"} <= set(names.split())

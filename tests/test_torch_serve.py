@@ -25,17 +25,39 @@ import torch
 
 from ccv_tpu.core import io as jio
 from ccv_tpu.detectors import scd as jscd
+from ccv_tpu_torch.core import io as tio
+from ccv_tpu_torch.detectors import icf, sift, swt
 from ccv_tpu_torch.serve import server
+from test_torch_icf import synth_cascade
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMAGE = os.path.join(DATA, "crop180.png")
 LAST_THRESHOLD = -4.6630
+ENDPOINTS = ["/icf/detect.objects", "/scd/detect.objects", "/sift",
+             "/swt/detect.words"]
+
+
+def pedestrian_cascade(path):
+    """test_torch_icf's seeded synthetic cascade (100 trees, colour) written
+    to ``path``: every threshold open but the last, which keeps about 3% of
+    crop180's windows at default IcfParams."""
+    import numpy as np
+
+    casc = icf.cascade_from_jax(synth_cascade(np.random.default_rng(11),
+                                              100, False))
+    img = tio.read(IMAGE, tio.IO_RGB_COLOR, device="cpu")
+    conf = np.sort([c.confidence for c in icf.detect_objects(
+        img, casc, icf.IcfParams(min_neighbors=0))])
+    i = int(0.97 * len(conf))
+    casc.thresholds[-1] = (conf[i] + conf[i + 1]) / 2
+    icf.write_cascade(casc, path)
 
 
 @pytest.fixture(scope="module")
 def models_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("models")
+    pedestrian_cascade(str(d / "pedestrian.icf"))
     path = str(d / "face.sqlite3")
     shutil.copy(os.path.join(DATA, "face_low.sqlite3"), path)
     con = sqlite3.connect(path)
@@ -119,7 +141,7 @@ def served(url):
 
 
 def test_get_lists_the_ported_endpoints(url):
-    assert request(url, "/") == (200, ["/scd/detect.objects"])
+    assert request(url, "/") == (200, ENDPOINTS)
 
 
 def test_scd_endpoint_matches_jax_detect(served, want):
@@ -157,7 +179,7 @@ def test_error_paths(url, path, body, headers, code, word):
     got, out = request(url, path, body, headers)
     assert got == code and word in out["error"], (got, out)
     if code == 404:
-        assert out["endpoints"] == ["/scd/detect.objects"]
+        assert out["endpoints"] == ENDPOINTS
 
 
 def test_missing_cascade_is_a_server_error(tmp_path):
@@ -172,6 +194,54 @@ def test_missing_cascade_is_a_server_error(tmp_path):
         srv.server_close()
         t.join(timeout=30)
     assert code == 500 and "face.sqlite3" in out["error"], (code, out)
+
+
+def test_missing_pedestrian_cascade_is_a_server_error(tmp_path):
+    """/icf without pedestrian.icf answers as /scd without face.sqlite3."""
+    srv = server.Server(("127.0.0.1", 0), str(tmp_path), device="cpu")
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        icf_code, icf_out = request(url, "/icf/detect.objects", _png())
+        scd_code, scd_out = request(url, "/scd/detect.objects", _png())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+    assert not t.is_alive()
+    assert icf_code == scd_code == 500
+    assert icf_out["error"] == scd_out["error"].replace("face.sqlite3",
+                                                        "pedestrian.icf")
+
+
+def test_icf_endpoint_matches_detect(url, models_dir):
+    code, out = request(url, "/icf/detect.objects", _png())
+    assert code == 200, out
+    img = tio.read(IMAGE, tio.IO_RGB_COLOR, device="cpu")
+    want = server._rects(icf.detect_objects(img, icf.load_cascade(
+        os.path.join(models_dir, "pedestrian.icf"))))
+    assert out == want and len(out) > 0
+
+
+def test_swt_endpoint_reads_gray_and_matches_detect(url):
+    path = os.path.join(DATA, "text_test.png")
+    with open(path, "rb") as f:
+        code, out = request(url, "/swt/detect.words", f.read())
+    assert code == 200, out
+    want = server._rects(swt.detect_words(tio.read(path, tio.IO_GRAY,
+                                                   device="cpu")))
+    assert out == want and len(out) == 2
+
+
+def test_sift_endpoint_reads_gray_and_matches_sift(url):
+    code, out = request(url, "/sift", _png())
+    assert code == 200, out
+    kps, _ = sift.sift(tio.read(IMAGE, tio.IO_GRAY, device="cpu"),
+                       want_desc=False)
+    assert out == [{k: float(kp[k]) for k in ("x", "y", "scale", "angle")}
+                   for kp in kps]
+    assert len(out) > 20
 
 
 def test_concurrent_clients_are_answered(url, served):
@@ -219,7 +289,7 @@ def test_module_runs_as_a_program(models_dir):
         assert line.startswith("serving on :"), (line, proc.stderr.read())
         port = int(line.split(":")[1].split()[0])
         assert request(f"http://127.0.0.1:{port}", "/") == (
-            200, ["/scd/detect.objects"])
+            200, ENDPOINTS)
     finally:
         proc.terminate()
         proc.wait(timeout=30)
