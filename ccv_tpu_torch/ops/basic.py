@@ -163,18 +163,20 @@ def blur_taps(sigma: float, as_int: bool) -> np.ndarray:
     return taps
 
 
-def blur(a: torch.Tensor, sigma: float) -> torch.Tensor:
+def blur(a: torch.Tensor, sigma: float, out_float: bool = False
+         ) -> torch.Tensor:
     """ccv_blur twin: separable Gaussian, replicate borders.
 
     8U path: x256 integer taps, >>8 after each of the two passes, clamp at
-    the final store (bit-exact vs the reference)."""
+    the final store (bit-exact vs the reference). ``out_float`` takes the
+    float path (normalised taps, float32 out) for integer input too."""
     a, had = to_hwc(a)
-    int_path = filters.is_int(a)
+    int_path = filters.is_int(a) and not out_float
     taps = blur_taps(sigma, as_int=int_path)
     work = a.to(torch.int32 if int_path else torch.float32)
     shift = 8 if int_path else 0
     out = correlate1d(work, taps, COLS, shift=shift)
     out = correlate1d(out, taps, ROWS, shift=shift)
-    if a.dtype == torch.uint8:
+    if int_path and a.dtype == torch.uint8:
         out = out.clamp(0, 255).to(torch.uint8)
     return from_hwc(out, had)

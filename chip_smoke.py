@@ -85,7 +85,25 @@ started together) and drives the port's main paths:
   siftmatch (a 480x360 object in the 1080p scene: >= 97% of keypoints
   card = CPU within 0.5 px, 5% of scale and 0.05 rad both ways, their
   descriptors within 1e-3; ``match_pair`` = ``sift`` + ``match``; ms per
-  pair), ``bin/siftmatch`` and ``/sift``; their profiles last.
+  pair), ``bin/siftmatch`` and ``/sift``; their profiles last;
+- phases 22-26, BBF, DPM with HOG, MSER / MSCR, DAISY and TLD (torch ops,
+  the host C++ of MSER / MSCR and numpy; no kernel of their own, as
+  ``ccv_tpu`` runs no Pallas kernel there): BBF on the 1080p gray frame
+  with a seeded 24x24 cascade of 16 stages (written with
+  ``write_cascade`` and read back, thresholds graded on the frame's stage
+  sums so that windows end at every stage), the card's windows against
+  the port's CPU path on a 480x270 crop (the CPU's dense gathers at 1080p
+  would take minutes), grouped rects equal, ms per 1080p image,
+  ``bin/bbfdetect`` and ``/bbf/detect.objects``; DPM on the 1080p RGB
+  frame with a seeded 2-root, 8-part model (12x5 cells) in the text
+  format, card against CPU at 1080p with interval 0 and at 640x480 with
+  the defaults, ms per image, ``bin/dpmdetect`` and
+  ``/dpm/detect.objects``; msermatch on the gray frame and MSCR on the RGB
+  one, card against CPU, ``bin/msermatch`` and ``/mser``; DAISY card
+  against CPU on a 256x256 crop and timed at 1080p; TLD over 8 frames of
+  1920x1080 (crop180.png pasted on the text at known shifts), IoU >= 0.7,
+  card against CPU, ms per frame, ``bin/tld``, ``/tld/track.object`` and
+  ``/convnet/classify``; their profiles last.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -988,7 +1006,8 @@ def served_path(scd, k1, dev, card, frame, face_med):
                 "Content-Length": str(server.MAX_BODY_BYTES + 1)}), 413)}
         for name, ((code, out), want_code) in errors.items():
             check(code == want_code, f"/scd {name}: {code}, not {want_code}")
-        check(errors["get /"][0][1] == sorted(server.ENDPOINTS),
+        check(errors["get /"][0][1] == server.endpoints()
+              and len(server.endpoints()) == 9,
               f"GET / lists {errors['get /'][0][1]}")
         jpeg_note = served_jpeg(scd, server, url, dev, frame, cascade)
         ms = []
@@ -2302,6 +2321,604 @@ def sift_path(dev, card, read):
     return dict(ms=med, scene_ms=scene_ms, pairs=len(pairs)), profile
 
 
+# -- phases 22-26: BBF, DPM, MSER / MSCR, DAISY, TLD ------------------------
+
+BBF_STAGES = 16
+BBF_FEATURES = (20, 41)   # features per stage, drawn from [20, 40]
+BBF_PASS = 600            # 1080p windows the graded thresholds let through
+BBF_CROP = (270, 480)     # the card-against-CPU crop of the 1080p frame
+DPM_ROOT = (12, 5)        # root filter cells (rows, cols), parts 6 x 6
+DPM_PARTS = 8
+DPM_PASS = 150            # 1080p windows (default params) above 0.6
+DAISY_CROP = 256
+DAISY_AT = (120, 200)
+TLD_BOX = (820, 420, 180, 180)
+TLD_SHIFTS = [(0, 0), (6, 4), (12, 8), (18, 13), (25, 17), (31, 21),
+              (37, 26), (43, 30)]
+TLD_CPU_FRAMES = 3        # frames of the CPU path held against the card's
+                          # (its host loops take ~15 s a 1080p frame)
+
+
+def multipart(fields):
+    """(body, headers) of a multipart form: bytes are file parts."""
+    boundary = "smokeboundary26"
+    out = []
+    for name, val in fields.items():
+        out.append(f"--{boundary}\r\n".encode())
+        if isinstance(val, bytes):
+            out.append(f'Content-Disposition: form-data; name="{name}"; '
+                       f'filename="{name}.png"\r\n\r\n'.encode() + val
+                       + b"\r\n")
+        else:
+            out.append(f'Content-Disposition: form-data; name="{name}"'
+                       f"\r\n\r\n{val}\r\n".encode())
+    out.append(f"--{boundary}--\r\n".encode())
+    return b"".join(out), {
+        "Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def bbf_synth(bbf, rng):
+    """A 24x24 cascade of BBF_STAGES stages of random features (1-3 point
+    pairs over the full, half and quarter levels), thresholds open."""
+    cols = {k: [] for k in ("px", "py", "pz", "nx", "ny", "nz")}
+    stage_of, alphas = [], []
+    for s in range(BBF_STAGES):
+        for _ in range(int(rng.integers(*BBF_FEATURES))):
+            size = int(rng.integers(1, 4))
+            for sign in "pn":
+                z = rng.integers(0, 3, 8)
+                side = np.array([24, 12, 6])[z]
+                x = rng.integers(0, 24, 8) % side
+                y = rng.integers(0, 24, 8) % side
+                x[size:], y[size:], z[size:] = -1, 0, -1
+                for k, v in zip("xyz", (x, y, z)):
+                    cols[sign + k].append(v)
+            alphas.append(rng.normal(0, 1, 2))
+            stage_of.append(s)
+    return bbf.BbfCascade(
+        24, 24, np.array(stage_of, np.int32), BBF_STAGES,
+        np.full(BBF_STAGES, -1e9, np.float32), np.array(alphas, np.float32),
+        **{k: np.array(v, np.int32) for k, v in cols.items()})
+
+
+def bbf_graded(sums, survive):
+    """Per-stage thresholds, each in the middle of a gap of the alive
+    windows' sums wider than 8 x MARGIN, near the quantile that keeps
+    ``survive`` ** (1 / stages) of them: windows end at every stage."""
+    keep = survive ** (1 / sums.shape[1])
+    alive = np.ones(len(sums), bool)
+    th = np.zeros(sums.shape[1], np.float32)
+    for s in range(sums.shape[1]):
+        u = np.unique(sums[alive, s])
+        mids = (u[1:] + u[:-1]) / 2
+        wide = (u[1:] - u[:-1]) > 8 * MARGIN * np.maximum(1, np.abs(mids))
+        kill = np.searchsorted(np.sort(sums[alive, s]), mids) / alive.sum()
+        i = int(np.argmin(np.where(wide, np.abs(kill - (1 - keep)), np.inf)))
+        th[s] = mids[i]
+        alive &= sums[:, s] >= th[s]
+    return th
+
+
+def rect_conf(comps):
+    return {(int(c.x), int(c.y), int(c.width), int(c.height)): c.confidence
+            for c in comps}
+
+
+def bbf_path(dev, card, read):
+    """Phase 22, BBF: a seeded 24x24 cascade (BBF_STAGES stages) written
+    with write_cascade and read back, thresholds graded on the 1080p gray
+    frame's stage sums; the card's windows (min_neighbors 0) against the
+    port's CPU path on a crop, equal outside MARGIN, grouped rects equal;
+    ms per 1080p image at default BbfParams (accurate, interval 5);
+    bin/bbfdetect and /bbf/detect.objects. Returns the profile."""
+    from ccv_tpu_torch.bin import bbfdetect
+    from ccv_tpu_torch.detectors import bbf
+    from ccv_tpu_torch.serve import server
+    gray = torch.from_numpy(frame_1080p(read))
+    g_d = gray.to(dev)
+    casc = bbf_synth(bbf, np.random.default_rng(22))
+    params = bbf.BbfParams()
+    t0 = time.perf_counter()
+    _, sums = bbf.window_sums(g_d, casc, params)
+    casc.thresholds[:] = bbf_graded(sums, BBF_PASS / len(sums))
+    alive = np.minimum.accumulate(sums >= casc.thresholds, axis=1)
+    ends = np.diff(np.concatenate([[len(sums)], alive.sum(0)]))
+    check(bool((ends < 0).all()), f"BBF: windows end at stages {-ends}")
+    th_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="ccv_bbf_")
+    srv = None
+    try:
+        face = os.path.join(tmp, "face")
+        bbf.write_cascade(casc, face)
+        back = bbf.load_cascade(face)
+        for f in ("stage_of", "thresholds", "alphas", "px", "py", "pz",
+                  "nx", "ny", "nz"):
+            check(np.array_equal(getattr(back, f), getattr(casc, f)),
+                  f"BBF: {f} changed in write_cascade/load_cascade")
+        # the crop of the frame (origin on the 8-pixel grid, so its level 0
+        # and half and quarter planes are the frame's) that holds the most
+        # of the frame's passing windows
+        raw = bbf.BbfParams(min_neighbors=0)
+        h, w = BBF_CROP
+        corners = np.array([(c.y, c.x) for c in bbf.detect_objects(
+            g_d, back, raw) if c.width == back.width]).reshape(-1, 2)
+        oy, ox = max(((y, x) for y in range(0, gray.shape[0] - h + 1, 8)
+                      for x in range(0, gray.shape[1] - w + 1, 8)),
+                     key=lambda o: int(((corners >= o) & (corners < (
+                         o[0] + h - 24, o[1] + w - 24))).all(1).sum()))
+        crop = gray[oy:oy + h, ox:ox + w].contiguous()
+        card_raw = bbf.detect_objects(crop.to(dev), back, raw)
+        t0 = time.perf_counter()
+        cpu_raw = bbf.detect_objects(crop, back, raw)
+        cpu_s = time.perf_counter() - t0
+        got, want = rect_conf(card_raw), rect_conf(cpu_raw)
+        odd = set(got) ^ set(want)
+        if odd:
+            rects, csums = bbf.window_sums(crop, back, raw)
+            near = (np.abs(csums - back.thresholds)
+                    <= MARGIN * np.maximum(1, np.abs(csums))).any(1)
+            at = {tuple(int(v) for v in r): n for r, n in zip(rects, near)}
+            check(all(at[r] for r in odd), f"BBF crop: {len(odd)} windows "
+                  f"differ card vs CPU, not all in the margin")
+        both = set(got) & set(want)
+        check(len(both) >= 10, f"BBF crop: {len(both)} windows passed")
+        diff = max(abs(got[r] - want[r]) for r in both)
+        check(diff <= ATOL, f"BBF crop: confidences differ by {diff}")
+        grouped_card = bbf.detect_objects(crop.to(dev), back)
+        grouped_cpu = bbf._group(cpu_raw, params.min_neighbors, 0)
+        check([(c.x, c.y, c.width, c.height, c.neighbors)
+               for c in grouped_card] ==
+              [(c.x, c.y, c.width, c.height, c.neighbors)
+               for c in grouped_cpu] and len(grouped_cpu) > 0,
+              f"BBF crop: grouped rects differ ({len(grouped_card)} on the "
+              f"card, {len(grouped_cpu)} on the CPU)")
+        med, ms = median_ms(lambda: bbf.detect_objects(g_d, back), 3)
+        found = bbf.detect_objects(g_d, back)
+        n_raw = len(bbf.detect_objects(g_d, back, raw))
+        log(22, f"BBF 1080p gray, {BBF_STAGES} stages, "
+                f"{len(back.stage_of)} features (thresholds graded on "
+                f"{len(sums)} windows' stage sums in {th_s:.1f} s; they end "
+                f"at each stage {(-ends).tolist()}, {int(alive[:, -1].sum())}"
+                f" pass); write_cascade + load_cascade equal; crop "
+                f"{w}x{h} at ({ox}, {oy}): card = CPU on {len(both)} "
+                f"windows ({len(odd)} differ, in the margin), conf diff "
+                f"{diff:.3g}, grouped {len(grouped_card)} rects equal (CPU path {cpu_s:.1f} s); "
+                f"default BbfParams at 1080p: {n_raw} windows, {len(found)} "
+                f"grouped, median {med:.2f} ms/image "
+                f"({', '.join(f'{x:.2f}' for x in ms)}); {card}")
+        png = os.path.join(tmp, "frame.png")
+        with open(png, "wb") as f:
+            f.write(png_bytes(gray.numpy()))
+        code, lines = captured(bbfdetect.main, [png, face])
+        check(code == 0 and lines[:-1] == [
+            f"{int(c.x)} {int(c.y)} {int(c.width)} {int(c.height)} "
+            f"{c.confidence:f}" for c in found]
+            and lines[-1].startswith(f"total : {len(found)} in time "),
+            f"bin/bbfdetect printed {lines[-1:]} for {len(found)} rects")
+        srv, url = serving(tmp)
+        with open(png, "rb") as f:
+            code, out = http(url + "/bbf/detect.objects", f.read())
+        check(code == 200 and out == server._rects(found),
+              f"/bbf: {code}, {len(out)} rects against {len(found)}")
+        log(22, f"bin/bbfdetect on the card: {lines[-1]}; "
+                f"/bbf/detect.objects on the 1080p PNG = direct "
+                f"detect_objects ({len(out)} rects); {card}")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def profile():
+        busy, by_name, wall = device_ms(lambda: bbf.detect_objects(g_d, back),
+                                        1)
+        log(22, f"BBF 1080p under torch.profiler (1 image): device busy "
+                f"{busy:.2f} ms per image over a wall of {wall:.2f} ms: idle "
+                f"share {1 - busy / wall:.3f}; largest: "
+                f"{top_kernels(by_name)}; {card}")
+    return dict(ms=med, found=len(found)), profile
+
+
+def dpm_synth(dpm, rng):
+    """DPM_PARTS 6x6 parts on each of two DPM_ROOT roots (the second the
+    first's mirror-sized twin), random filters, convex deformations."""
+    rows, cols = DPM_ROOT
+    roots = []
+    for _ in range(2):
+        parts = [dpm.DpmPartClassifier(
+            int(rng.integers(0, 2 * cols - 5)),
+            int(rng.integers(0, 2 * rows - 5)), 0,
+            float(rng.normal(0, 0.01)), float(rng.normal(0, 0.01)),
+            float(rng.uniform(0.02, 0.1)), float(rng.uniform(0.02, 0.1)),
+            rng.normal(0, 0.02, 6).astype(np.float32),
+            rng.normal(0, 0.03, (6, 6, 31)).astype(np.float32), 0)
+            for _ in range(DPM_PARTS)]
+        roots.append(dpm.DpmRootClassifier(
+            0.0, rng.normal(0, 0.02, 3).astype(np.float32),
+            rng.normal(0, 0.03, (rows, cols, 31)).astype(np.float32),
+            parts))
+    return dpm.DpmMixtureModel(roots)
+
+
+def dpm_scores(dpm, a, model, params):
+    """Every valid window's root score (before beta), per root, by the
+    port's level programs on ``a``'s device."""
+    H, W = a.shape[0], a.shape[1]
+    up = dpm._scale_upto(H, W, [model], params.interval)
+    pyr = dpm._feature_pyramid(a, up, params.interval)
+    nxt = params.interval + 1
+    out = [[] for _ in model.roots]
+    for i in range(nxt, up + nxt * 2):
+        for k, root in enumerate(model.roots):
+            s = dpm._level(root, pyr[i], pyr[i - nxt])[0].cpu().numpy()
+            rr, rc = root.w.shape[0], root.w.shape[1]
+            out[k].append(s[(rr - 1) // 2:s.shape[0] - rr // 2,
+                            (rc - 1) // 2:s.shape[1] - rc // 2].ravel())
+    return [np.concatenate(v) for v in out]
+
+
+def dpm_match(name, got, want, threshold):
+    """Phase 23's gate: the same detections outside a margin of 1e-3 of the
+    largest |confidence| around the threshold, confidences within it, part
+    rects equal. Returns (matched, differing, max conf diff)."""
+    tol = 1e-3 * max([1.0] + [abs(r.confidence) for r in want])
+
+    def key(r):
+        return (r.x, r.y, r.width, r.height)
+
+    g = sorted(got, key=lambda r: (key(r), r.confidence))
+    w = sorted(want, key=lambda r: (key(r), r.confidence))
+    gk, wk = [key(r) for r in g], [key(r) for r in w]
+    odd = [r for r in g + w if (key(r) in gk) != (key(r) in wk)]
+    check(all(abs(r.confidence - threshold) <= tol for r in odd),
+          f"DPM {name}: {len(odd)} detections differ outside the margin")
+    pairs = [(a, b) for a, b in zip(g, w)] if not odd else [
+        (a, w[wk.index(key(a))]) for a in g if key(a) in wk]
+    diff = 0.0
+    for a, b in pairs:
+        diff = max(diff, abs(a.confidence - b.confidence))
+        check([key(p) for p in a.parts] == [key(p) for p in b.parts],
+              f"DPM {name}: part rects differ at {key(a)}")
+    check(diff <= tol and len(pairs) > 0,
+          f"DPM {name}: {len(pairs)} matched, conf diff {diff}")
+    return len(pairs), len(odd), diff
+
+
+def dpm_path(dev, card, read):
+    """Phase 23, DPM: a seeded 2-root model (DPM_ROOT cells, DPM_PARTS
+    parts of 6x6) in the text format, beta set so that about DPM_PASS
+    windows of the 1080p RGB frame pass 0.6 at default DpmParams; card
+    against the port's CPU path at 1080p with interval 0 and at 640x480
+    with the defaults; ms per 1080p image (interval 8); bin/dpmdetect and
+    /dpm/detect.objects. Returns the profile."""
+    from ccv_tpu_torch.bin import dpmdetect
+    from ccv_tpu_torch.detectors import dpm
+    from ccv_tpu_torch.serve import server
+    rgb = torch.from_numpy(rgb_frame_1080p(read))
+    r_d = rgb.to(dev)
+    model = dpm_synth(dpm, np.random.default_rng(23))
+    params = dpm.DpmParams()
+    scores = np.concatenate(dpm_scores(dpm, r_d, model, params))
+    beta = params.threshold - float(np.sort(scores)[-DPM_PASS])
+    for root in model.roots:
+        root.beta = beta + 1e-4   # off any window's exact score
+    tmp = tempfile.mkdtemp(prefix="ccv_dpm_")
+    srv = None
+    try:
+        path = os.path.join(tmp, "pedestrian.m")
+        dpm.write_mixture_model(model, path)
+        back = dpm.read_mixture_model(path)
+        notes = []
+        for name, img, p in (
+                ("1080p interval 0", rgb,
+                 dpm.DpmParams(interval=0, min_neighbors=0)),
+                ("640x480 default", rgb[:480, :640].contiguous(),
+                 dpm.DpmParams())):
+            got = dpm.detect(img.to(dev), back, p)
+            t0 = time.perf_counter()
+            want = dpm.detect(img, back, p)
+            cpu_s = time.perf_counter() - t0
+            n, odd, diff = dpm_match(name, got, want, p.threshold)
+            notes.append(f"{name}: card = CPU on {n} detections ({odd} "
+                         f"differ, in the margin), conf diff {diff:.3g}, "
+                         f"part rects equal (CPU path {cpu_s:.1f} s)")
+        med, ms = median_ms(lambda: dpm.detect(r_d, back), 3)
+        found = dpm.detect(r_d, back)
+        n_raw = len(dpm.detect(r_d, back, dpm.DpmParams(min_neighbors=0)))
+        check(len(found) > 0, "DPM 1080p: nothing found at default params")
+        log(23, f"DPM 1080p RGB, 2 roots of {DPM_ROOT[0]}x{DPM_ROOT[1]} "
+                f"cells with {DPM_PARTS} parts of 6x6, beta {beta:.4f}; "
+                + "; ".join(notes) + f"; default DpmParams at 1080p: "
+                f"{n_raw} windows, {len(found)} grouped, median {med:.2f} "
+                f"ms/image ({', '.join(f'{x:.2f}' for x in ms)}); {card}")
+        png = os.path.join(tmp, "frame.png")
+        with open(png, "wb") as f:
+            f.write(png_bytes(rgb.numpy()))
+        code, lines = captured(dpmdetect.main, [png, path])
+        want_lines = []
+        for c in found:
+            want_lines.append(f"{c.x} {c.y} {c.width} {c.height} "
+                              f"{c.confidence:f}")
+            want_lines += [f"| {q.x} {q.y} {q.width} {q.height} "
+                           f"{q.confidence:f}" for q in c.parts]
+        check(code == 0 and lines[:-1] == want_lines
+              and lines[-1].startswith(f"total : {len(found)} in time "),
+              f"bin/dpmdetect printed {lines[-1:]} for {len(found)} rects")
+        srv, url = serving(tmp)
+        with open(png, "rb") as f:
+            code, out = http(url + "/dpm/detect.objects", f.read())
+        check(code == 200 and out == server._rects(found),
+              f"/dpm: {code}, {len(out)} rects against {len(found)}")
+        log(23, f"bin/dpmdetect on the card: {lines[-1]}; "
+                f"/dpm/detect.objects on the 1080p PNG = direct detect "
+                f"({len(out)} rects); {card}")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def profile():
+        busy, by_name, wall = device_ms(lambda: dpm.detect(r_d, back), 1)
+        log(23, f"DPM 1080p under torch.profiler (1 image): device busy "
+                f"{busy:.2f} ms per image over a wall of {wall:.2f} ms: idle "
+                f"share {1 - busy / wall:.3f}; largest: "
+                f"{top_kernels(by_name)}; {card}")
+    return dict(ms=med, found=len(found)), profile
+
+
+def mser_rows(kps):
+    return [(k.size, *k.keypoint, k.x, k.y, k.width, k.height) for k in kps]
+
+
+def mser_path(dev, card, read):
+    """Phase 24, MSER and MSCR: msermatch (canny and close_outline on the
+    card, the masked MSER's C++ on the host) on the 1080p gray frame, card
+    against CPU (keypoints and labels identical); MSCR with msermatch's
+    params on the 1080p RGB frame (chi maps on the card, the C++ on the
+    host) against the CPU; ms per image; bin/msermatch and /mser. Returns
+    the profile."""
+    import math
+    from ccv_tpu_torch.bin import msermatch
+    from ccv_tpu_torch.detectors import mser
+    gray = torch.from_numpy(frame_1080p(read))
+    g_d = gray.to(dev)
+    kc, lc = msermatch.msermatch(gray)
+    kg, lg = msermatch.msermatch(g_d)
+    check(mser_rows(kg) == mser_rows(kc) and np.array_equal(lg, lc)
+          and len(kc) > 0, f"msermatch 1080p: {len(kg)} regions on the "
+                           f"card, {len(kc)} on the CPU")
+    med, ms = median_ms(lambda: msermatch.msermatch(g_d), 3)
+    rgb = torch.from_numpy(rgb_frame_1080p(read))
+    r_d = rgb.to(dev)
+    mp = mser.MserParams(
+        min_area=60, max_area=int(rgb.shape[0] * rgb.shape[1] * 0.3 + 0.5),
+        min_diversity=0.2, area_threshold=1.01, min_margin=0.003,
+        max_evolution=200, edge_blur_sigma=math.sqrt(3.0))
+    chi_c = mser._chi_maps(rgb, mp.edge_blur_sigma)
+    chi_g = mser._chi_maps(r_d, mp.edge_blur_sigma)
+    chi_diff = max(float(np.abs(a - b).max()) for a, b in zip(chi_c, chi_g))
+    chi_odd = sum(int((a != b).sum()) for a, b in zip(chi_c, chi_g))
+    mc, mlc = mser.mscr(rgb, mp)
+    mg, mlg = mser.mscr(r_d, mp)
+    same = mser_rows(mg) == mser_rows(mc) and np.array_equal(mlg, mlc)
+    check(same or chi_odd > 0, "MSCR: keypoints differ on equal chi maps")
+    check(len(mc) > 0, "MSCR 1080p: no region")
+    mscr_med, mscr_ms = median_ms(lambda: mser.mscr(r_d, mp), 3)
+    log(24, f"msermatch 1080p gray: {len(kg)} regions, keypoints and label "
+            f"map card = CPU, median {med:.2f} ms/image "
+            f"({', '.join(f'{x:.2f}' for x in ms)}); MSCR 1080p RGB "
+            f"(msermatch's params): chi maps card vs CPU {chi_odd} values "
+            f"differ, by at most {chi_diff:.3g}; {len(mg)} regions on the "
+            f"card, {len(mc)} on the CPU, keypoints and labels "
+            f"{'identical' if same else 'differ (chi maps differ)'}; median "
+            f"{mscr_med:.2f} ms/image "
+            f"({', '.join(f'{x:.2f}' for x in mscr_ms)}); {card}")
+    tmp = tempfile.mkdtemp(prefix="ccv_mser_")
+    srv = None
+    try:
+        png = os.path.join(tmp, "frame.png")
+        with open(png, "wb") as f:
+            f.write(png_bytes(gray.numpy()))
+        code, lines = captured(msermatch.main, [png])
+        check(code == 0 and lines[-1].startswith(
+            f"total : {len(kg)} in time "), f"bin/msermatch: {lines}")
+        srv, url = serving(tmp)
+        with open(png, "rb") as f:
+            code, out = http(url + "/mser", f.read())
+        kps, _ = mser.mser(g_d)
+        check(code == 200 and out == [
+            {"x": k.x, "y": k.y, "width": k.width, "height": k.height,
+             "size": k.size} for k in kps], f"/mser: {code}, {len(out)} "
+                                            f"regions against {len(kps)}")
+        log(24, f"bin/msermatch on the card: {lines[-1]}; /mser on the 1080p "
+                f"PNG = direct mser ({len(out)} regions); {card}")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def profile():
+        busy, by_name, wall = device_ms(lambda: msermatch.msermatch(g_d), 1)
+        log(24, f"msermatch 1080p under torch.profiler (1 image): device "
+                f"busy {busy:.2f} ms over a wall of {wall:.2f} ms: idle share "
+                f"{1 - busy / wall:.3f}; largest: {top_kernels(by_name)}")
+        busy, by_name, wall = device_ms(lambda: mser.mscr(r_d, mp), 1)
+        log(24, f"MSCR 1080p under torch.profiler (1 image): device busy "
+                f"{busy:.2f} ms over a wall of {wall:.2f} ms: idle share "
+                f"{1 - busy / wall:.3f}; largest: {top_kernels(by_name)}; "
+                f"{card}")
+    return dict(ms=med, mscr_ms=mscr_med), profile
+
+
+def daisy_path(dev, card, read):
+    """Phase 25, DAISY at default DaisyParams: card against the port's CPU
+    path on a 256x256 crop (within 1e-4 of the largest value), the 1080p
+    gray frame on the card (finite, (H, W, 200)), ms per image. Returns
+    the profile."""
+    from ccv_tpu_torch.detectors import daisy
+    gray = torch.from_numpy(frame_1080p(read))
+    y0, x0 = DAISY_AT   # a 256x256 window of text, not the white margin
+    crop = gray[y0:y0 + DAISY_CROP, x0:x0 + DAISY_CROP].contiguous()
+    want = daisy.daisy(crop)
+    got = daisy.daisy(crop.to(dev)).cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(scale > 0 and err <= 1e-4 * scale,
+          f"DAISY crop: card vs CPU {err} of {scale}")
+    g_d = gray.to(dev)
+    out = daisy.daisy(g_d)
+    check(tuple(out.shape) == (*gray.shape, 200)
+          and bool(torch.isfinite(out).all()), "DAISY 1080p: bad output")
+    del out
+    med, ms = median_ms(lambda: daisy.daisy(g_d), 3)
+    log(25, f"DAISY {DAISY_CROP}x{DAISY_CROP} crop: card vs CPU max diff "
+            f"{err:.3g} (largest value {scale:.3g}); 1080p (1080, 1920, 200) "
+            f"finite; median {med:.2f} ms/image "
+            f"({', '.join(f'{x:.2f}' for x in ms)}); {card}")
+
+    def profile():
+        busy, by_name, wall = device_ms(lambda: daisy.daisy(g_d), 1)
+        log(25, f"DAISY 1080p under torch.profiler (1 image): device busy "
+                f"{busy:.2f} ms over a wall of {wall:.2f} ms: idle share "
+                f"{1 - busy / wall:.3f}; largest: {top_kernels(by_name)}; "
+                f"{card}")
+    return dict(ms=med), profile
+
+
+def tld_frames(read):
+    """TLD_SHIFTS frames of 1920x1080: frame_1080p's text as the
+    background, crop180.png in gray pasted as the target at TLD_BOX moved by
+    each shift (a target on self-similar texture cannot be told apart by
+    any detector)."""
+    from ccv_tpu_torch.core.io import IO_GRAY
+    bg = frame_1080p(read)
+    target = read(os.path.join(DATA, "crop180.png"), IO_GRAY,
+                  device="cpu").numpy()
+    x, y, w, h = TLD_BOX
+    frames = []
+    for dx, dy in TLD_SHIFTS:
+        f = bg.copy()
+        f[y + dy:y + dy + h, x + dx:x + dx + w] = target
+        frames.append(torch.from_numpy(f))
+    return frames
+
+
+def tld_track(tld, frames, dev, n):
+    """(boxes, confidences, ms per step) of a seeded tracker over the first
+    ``n`` frames on ``dev``."""
+    on = [f.to(dev) for f in frames[:n]]
+    t = tld.Tld(on[0], TLD_BOX, seed=26)
+    boxes, confs, ms = [], [], []
+    for i in range(1, n):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box, conf = t.track_object(on[i - 1], on[i])
+        ms.append((time.perf_counter() - t0) * 1000)
+        boxes.append(box)
+        confs.append(conf)
+    return boxes, confs, ms
+
+
+def tld_path(dev, card, read):
+    """Phase 26, TLD on 8 frames of 1920x1080 (tld_frames): track IoU >= 0.7
+    against the known boxes on the card, card against the port's CPU path
+    (boxes within 1 px, confidence within 1e-3), ms per frame; bin/tld,
+    /tld/track.object, and /convnet/classify with tiny_convnet_f32.sqlite3.
+    Returns the profile."""
+    from ccv_tpu_torch.bin import tld as tldcli
+    from ccv_tpu_torch.core.io import IO_RGB_COLOR
+    from ccv_tpu_torch.detectors import tld
+    from ccv_tpu_torch.models.convnet import Convnet
+    frames = tld_frames(read)
+    t0 = time.perf_counter()
+    boxes, confs, ms = tld_track(tld, frames, dev, len(frames))
+    card_s = time.perf_counter() - t0
+    x, y, w, h = TLD_BOX
+    ious = [iou(b, (x + dx, y + dy, w, h)) if b is not None else 0.0
+            for b, (dx, dy) in zip(boxes, TLD_SHIFTS[1:])]
+    check(min(ious) >= 0.7, f"TLD: IoU {ious}")
+    t0 = time.perf_counter()
+    cb, cc, cms = tld_track(tld, frames, torch.device("cpu"), TLD_CPU_FRAMES)
+    cpu_s = time.perf_counter() - t0
+    px = max(abs(a - b) for p, q in zip(boxes, cb) for a, b in zip(p, q))
+    cdiff = max(abs(a - b) for a, b in zip(confs, cc))
+    check(px <= 1 and cdiff <= 1e-3, f"TLD card vs CPU: {px} px, conf "
+                                     f"{cdiff}: {boxes} {cb}")
+    log(26, f"TLD {len(frames)} frames of 1920x1080, target {w}x{h}: IoU "
+            f"against the known boxes {[round(v, 3) for v in ious]}; "
+            f"card = CPU over {TLD_CPU_FRAMES} frames (boxes within {px} px, "
+            f"conf within {cdiff:.3g}; CPU path {cpu_s:.1f} s); per step "
+            f"on the card {', '.join(f'{v:.1f}' for v in ms)} ms (median "
+            f"{float(np.median(ms)):.1f}; init and all steps {card_s:.1f} "
+            f"s); {card}")
+    tmp = tempfile.mkdtemp(prefix="ccv_tld_")
+    srv = None
+    try:
+        pngs = []
+        for i, f in enumerate(frames[:3]):
+            pngs.append(os.path.join(tmp, f"{i}.png"))
+            with open(pngs[-1], "wb") as fh:
+                fh.write(png_bytes(f.numpy()))
+        code, lines = captured(tldcli.main, pngs + [str(v) for v in TLD_BOX])
+        on = [f.to(dev) for f in frames[:4]]
+        t = tld.Tld(on[0], TLD_BOX)
+        want = [f"00000: {x} {y} {w} {h} 1.000000"]
+        for i in (1, 2):
+            nb, conf = t.track_object(on[i - 1], on[i])
+            want.append(f"{i:05d}: {nb[0]} {nb[1]} {nb[2]} {nb[3]} "
+                        f"{conf:f}")
+        check(code == 0 and lines == want, f"bin/tld printed {lines}")
+        shutil.copy(os.path.join(DATA, "tiny_convnet_f32.sqlite3"),
+                    os.path.join(tmp, "tiny.sqlite3"))
+        srv, url = serving(tmp)
+        with open(pngs[0], "rb") as f0, open(pngs[1], "rb") as f1:
+            fields = {"previous": f0.read(), "source": f1.read(),
+                      "x": str(x), "y": str(y), "width": str(w),
+                      "height": str(h)}
+        code, out = http(url + "/tld/track.object", *multipart(fields))
+        check(code == 200 and (out["x"], out["y"], out["width"],
+                               out["height"]) == tuple(int(v) for v in
+                                                        want[1].split()[1:5]),
+              f"/tld: {code} {out} against {want[1]}")
+        del fields["height"]
+        code, missing = http(url + "/tld/track.object", *multipart(fields))
+        check(code == 400 and "height" in missing["error"],
+              f"/tld without height: {code} {missing}")
+        crop_png = open(os.path.join(DATA, "crop180.png"), "rb").read()
+        code, ranks = http(url + "/convnet/classify", *multipart(
+            {"source": crop_png, "model": "tiny.sqlite3"}))
+        net = Convnet.read(os.path.join(tmp, "tiny.sqlite3"), dev)
+        direct = net.classify(read(os.path.join(DATA, "crop180.png"),
+                                   IO_RGB_COLOR, device=dev).tensor, tops=5)
+        check(code == 200 and [(r["id"], r["confidence"]) for r in ranks]
+              == [(i + 1, c) for i, c in direct], f"/convnet: {code} {ranks}")
+        code, esc = http(url + "/convnet/classify", *multipart(
+            {"source": crop_png, "model": "../tiny.sqlite3"}))
+        check(code == 400, f"/convnet with ../: {code} {esc}")
+        log(26, f"bin/tld on the card over 3 frames = direct track_object "
+                f"({lines[-1]}); /tld/track.object = a direct step, 400 "
+                f"without height; /convnet/classify (tiny_convnet_f32, "
+                f"crop180) = direct classify {[r['id'] for r in ranks]}, "
+                f"400 for a model outside the models directory; {card}")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def profile():   # the bin/tld check's tracker, one step further
+        busy, by_name, wall = device_ms(
+            lambda: t.track_object(on[2], on[3]), 1)
+        log(26, f"TLD 1080p step under torch.profiler (1 frame): device busy "
+                f"{busy:.2f} ms over a wall of {wall:.2f} ms: idle share "
+                f"{1 - busy / wall:.3f}; largest: {top_kernels(by_name)}; "
+                f"{card}")
+    return dict(ms=float(np.median(ms))), profile
+
+
 def main():
     sys.path.insert(0, ROOT)
     from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
@@ -2585,6 +3202,11 @@ def main():
     _swt_res, swt_profile = swt_path(dev, card, read)
     _sift_res, sift_profile = sift_path(dev, card, read)
 
+    # -- 22-26: BBF, DPM, MSER / MSCR, DAISY, TLD (their profiles come
+    # last) -----------------------------------------------------------------
+    slice_profiles = [path(dev, card, read)[1] for path in (
+        bbf_path, dpm_path, mser_path, daisy_path, tld_path)]
+
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
@@ -2609,7 +3231,7 @@ def main():
     cubic_device_ms(scd, dev, card, frame, face, up_params)
     vgg_profiled(vgg_model, vgg_x, card)
     seq2seq_profiled(decode_step, decode_res["ms_per_step"], wmt_steps, card)
-    for profile in (icf_profile, swt_profile, sift_profile):
+    for profile in (icf_profile, swt_profile, sift_profile, *slice_profiles):
         profile()
     for entry, key in zip(kernels[1:4], ("fwd", "dq", "dkv")):
         # launches on the wmt step (dropout 0) over its timed steps, and

@@ -51,3 +51,41 @@ def test_port_imports_no_jax():
             "ccv_tpu_torch.ops.classic", "ccv_tpu_torch.bin.icfdetect",
             "ccv_tpu_torch.bin.swtdetect",
             "ccv_tpu_torch.bin.siftmatch"} <= set(names.split())
+
+
+def test_package_data_holds_every_native_source():
+    """Every file of ccv_tpu_torch/csrc (the CUDA kernels, their headers, the
+    host C++ of the JPEG decoder, SWT and MSER / MSCR) matches a glob of the
+    port's package-data entry, so an installed port can build them."""
+    import fnmatch
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "ccv_tpu_torch"]
+    csrc = os.path.join(ROOT, "ccv_tpu_torch", "csrc")
+    files = sorted(os.listdir(csrc))
+    assert {"ccv_tpu_mser.cpp", "ccv_tpu_mscr.cpp", "scd_planes.cuh",
+            "image_decode.cpp"} <= set(files)
+    missing = [f for f in files
+               if not any(fnmatch.fnmatch(f"csrc/{f}", g) for g in globs)]
+    assert missing == [], (missing, globs)
+
+
+def test_slice_modules_import_alone():
+    """This slice's modules are among those the probe imports."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    counts, names = out.stdout.splitlines()
+    assert counts.split(" ", 1)[1].strip() == "[]", counts
+    assert {"ccv_tpu_torch.detectors.bbf", "ccv_tpu_torch.detectors.dpm",
+            "ccv_tpu_torch.detectors.mser", "ccv_tpu_torch.detectors.daisy",
+            "ccv_tpu_torch.detectors.ferns", "ccv_tpu_torch.detectors.tld",
+            "ccv_tpu_torch.ops.transform", "ccv_tpu_torch.bin.bbfdetect",
+            "ccv_tpu_torch.bin.dpmdetect", "ccv_tpu_torch.bin.msermatch",
+            "ccv_tpu_torch.bin.tld"} <= set(names.split())
+    from ccv_tpu_torch.ops import classic
+    assert callable(classic.hog)
+    assert callable(classic.optical_flow_lucas_kanade)

@@ -34,8 +34,10 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMAGE = os.path.join(DATA, "crop180.png")
 LAST_THRESHOLD = -4.6630
-ENDPOINTS = ["/icf/detect.objects", "/scd/detect.objects", "/sift",
-             "/swt/detect.words"]
+ENDPOINTS = ["/bbf/detect.objects", "/convnet/classify",
+             "/dpm/detect.objects", "/icf/detect.objects", "/mser",
+             "/scd/detect.objects", "/sift", "/swt/detect.words",
+             "/tld/track.object"]
 
 
 def pedestrian_cascade(path):
@@ -164,7 +166,7 @@ def test_multipart_equals_raw_body(url, served, form):
 
 @pytest.mark.parametrize("path,body,headers,code,word", [
     ("/nope", None, None, 404, "unknown"),
-    ("/mser", b"\x89PNG", None, 404, "unknown"),
+    ("/daisy", b"\x89PNG", None, 404, "unknown"),
     ("/scd/detect.objects", b"this is not an image", None, 400, "image"),
     ("/scd/detect.objects", b"", None, 400, "empty"),
     ("/scd/detect.objects", b"\xff\xd8\xff\xe0" + b"\x00" * 64, None, 400,
