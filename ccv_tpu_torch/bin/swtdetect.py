@@ -1,11 +1,14 @@
 """bin/swtdetect twin on the PyTorch port:
 
     python -m ccv_tpu_torch.bin.swtdetect <image> [--device cuda|cpu]
+        [--letters compact|device]
 
 Prints `x y width height` per word and a total line, as
 bin/swtdetect.py does (default SwtParams, the image read as gray). Runs on
 the first CUDA device (the default, which raises without one), or on the
-CPU with `--device cpu`."""
+CPU with `--device cpu`. `--letters device` runs the letter stage's
+components and filters on the device (`swt.detect_words(letters=...)`;
+ccv_tpu's SWT_LETTERS=device); the words are the same."""
 
 import argparse
 import sys
@@ -22,13 +25,14 @@ def main(argv=None) -> int:
         description="SWT text detection; prints one word per line.")
     ap.add_argument("image")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--letters", default="compact", choices=swt.LETTER_ROUTES)
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     dev = (device.default_device() if args.device == "cuda"
            else device.resolve("cpu"))
     image = read(args.image, IO_GRAY, device=dev)
-    swt.detect_words(image)  # warm-up: the native build, allocator
+    swt.detect_words(image, letters=args.letters)  # warm-up: builds, allocator
     t0 = time.perf_counter()
-    words = swt.detect_words(image)
+    words = swt.detect_words(image, letters=args.letters)
     elapsed = int((time.perf_counter() - t0) * 1000)
     for w in words:
         print(f"{int(w.x)} {int(w.y)} {int(w.width)} {int(w.height)}")

@@ -1,5 +1,5 @@
-"""Summed-area tables and prefix sums (counterpart of the ``sat`` half of
-ccv_tpu/core/algebra.py; reference: lib/ccv_algebra.c).
+"""Summed-area tables, prefix sums and the small algebra of ccv (counterpart
+of ccv_tpu/core/algebra.py; reference: lib/ccv_algebra.c).
 
 ``sat`` is two cumulative sums, the building block of the cascade
 detectors' box features. Integer images sum exactly with ``torch.cumsum``.
@@ -15,17 +15,29 @@ order would move features, not just confidences.
 ``associative_scan_add`` is ``jax.lax.associative_scan(jnp.add, x, axis)``
 step for step (ICF sums its trees with it), for the same reason.
 
+``gemm`` (with the ``CCV_*_TRANSPOSE`` bits), ``normalize``, ``dot``,
+``sum_``, ``variance`` and the elementwise ``multiply`` / ``add`` /
+``subtract`` / ``scale`` are plain torch ops; ``gemm`` is ``torch.matmul``
+in float32 with TF32 off (``device.py``).
+
 ccv_tpu's ``sat_mxu`` (triangular matmuls, the TPU form) and ``sat_auto``
 (its measured choice between forms) are not ported.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 NO_PADDING = 0x00
 PADDING_ZERO = 0x01
+
+# transpose flags (lib/ccv.h ccv_gemm)
+CCV_A_TRANSPOSE = 0x01
+CCV_B_TRANSPOSE = 0x02
+CCV_C_TRANSPOSE = 0x04
 
 TILE = 16  # XLA's tile for cumulative sums on the CPU
 
@@ -99,3 +111,52 @@ def sat(a: torch.Tensor, padding: int = NO_PADDING) -> torch.Tensor:
         pad[2 * (-1 - w_axis)] = pad[2 * (-1 - h_axis)] = 1
         out = F.pad(out, pad)
     return out
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,
+         transpose: int = 0, c: Optional[torch.Tensor] = None,
+         beta: float = 0.0) -> torch.Tensor:
+    """ccv_gemm twin: alpha * op(a) @ op(b) + beta * op(c), float32."""
+    x = a.T if transpose & CCV_A_TRANSPOSE else a
+    y = b.T if transpose & CCV_B_TRANSPOSE else b
+    out = alpha * torch.matmul(x.to(torch.float32), y.to(torch.float32))
+    if c is not None and beta != 0.0:
+        out = out + beta * (c.T if transpose & CCV_C_TRANSPOSE else c)
+    return out
+
+
+def normalize(a: torch.Tensor, btype=None, flag: int = 1) -> torch.Tensor:
+    """ccv_normalize twin: L1 (flag 1) or L2 (flag 2) normalisation."""
+    x = a.to(torch.float32)
+    norm = x.abs().sum() if flag == 1 else torch.sqrt((x * x).sum())
+    return x / torch.clamp(norm, min=1e-12)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1).to(torch.float32),
+                     b.reshape(-1).to(torch.float32))
+
+
+def sum_(a: torch.Tensor, flag: int = 0) -> torch.Tensor:
+    return a.sum()
+
+
+def variance(a: torch.Tensor) -> torch.Tensor:
+    x = a.to(torch.float32)
+    return (x * x).mean() - x.mean() ** 2
+
+
+def multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a * b
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
+
+
+def subtract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a - b
+
+
+def scale(a: torch.Tensor, ds: float) -> torch.Tensor:
+    return a * ds

@@ -5,7 +5,11 @@ reconstruction, so the port needs neither PIL nor libpng: 8-bit,
 non-interlaced gray, gray+alpha, RGB, RGBA and palette images. JPEG (files
 and bytes that start with ``\xff\xd8``) goes through libjpeg in the port's
 native decoder (``core/native.py``), from memory. The reference's
-``CCVBINDM`` binary matrices are read as in ``ccv_tpu``.
+``CCVBINDM`` binary matrices are read and written as in ``ccv_tpu``.
+
+``write`` writes PNG itself (signature, IHDR, unfiltered rows in one zlib
+IDAT, IEND) where ``ccv_tpu`` calls PIL, and CCVBINDM for ``.bin``. The
+port has no JPEG encoder: a ``.jpg`` / ``.jpeg`` path raises.
 
 Grayscale conversion matches the reference bit-exactly: libpng's
 ``png_set_rgb_to_gray`` for PNG, ``(r*6969 + g*23434 + b*2365) >> 15`` for
@@ -16,16 +20,19 @@ from __future__ import annotations
 
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
 
 from ccv_tpu_torch import device as _device
 from ccv_tpu_torch.core import native
 from ccv_tpu_torch.core.dense_matrix import (
+    _DTYPE_TO_CCV,
     DenseMatrix,
     ccv_type_channels,
     ccv_type_to_dtype,
     from_numpy,
+    to_numpy,
 )
 
 # io flags (lib/ccv.h:500-540)
@@ -35,6 +42,7 @@ IO_RGB_COLOR = 0x300
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_COLOR = {1: 0, 2: 4, 3: 2, 4: 6}  # channels -> colour type
 
 
 def rgb_to_gray_u8(rgb: np.ndarray, libpng: bool = False) -> np.ndarray:
@@ -183,4 +191,68 @@ def read(path: str, flags: int = 0,
         arr = decode(data, flags)
     except NotImplementedError as e:
         raise NotImplementedError(f"{path}: {e}") from None
-    return from_numpy(arr, device)
+    return from_numpy(arr, device=device)
+
+
+def write_ccv_binary(m, path: str) -> None:
+    """A CCVBINDM file of ``m`` (DenseMatrix, tensor or array): the type
+    tag, rows and cols, then each row padded to a 4-byte step."""
+    arr = to_numpy(m)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    rows, cols, ch = arr.shape
+    type_tag = _DTYPE_TO_CCV[arr.dtype.name] | ch
+    row_bytes = cols * ch * arr.dtype.itemsize
+    step = (row_bytes + 3) & ~3
+    buf = np.zeros((rows, step), np.uint8)
+    buf[:, :row_bytes] = np.ascontiguousarray(arr).view(np.uint8).reshape(
+        rows, row_bytes)
+    with open(path, "wb") as f:
+        f.write(b"CCVBINDM")
+        f.write(struct.pack("<iii", type_tag, rows, cols))
+        f.write(buf.tobytes())
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """uint8 (H, W) or (H, W, C) with C 1-4 -> PNG bytes: 8-bit gray, gray
+    + alpha, RGB or RGBA, every row with filter 0, one IDAT."""
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] not in _PNG_COLOR:
+        raise ValueError(f"PNG needs uint8 (H, W) or (H, W, 1-4), got "
+                         f"{arr.dtype} {arr.shape}")
+    h, w, ch = arr.shape
+    raw = np.zeros((h, 1 + w * ch), np.uint8)   # column 0: filter type 0
+    raw[:, 1:] = arr.reshape(h, w * ch)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR[ch], 0, 0, 0)
+    return (_PNG_MAGIC + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _png_chunk(b"IEND", b""))
+
+
+def write(m, path: str, format: Optional[str] = None) -> None:
+    """ccv_write twin: CCVBINDM for a path (or ``format``) ending in
+    ``.bin`` / ``binary``, else PNG. Pixels that are not uint8 are rounded
+    and clamped to 0-255, as ``ccv_tpu`` does before PIL. JPEG raises
+    NotImplementedError: the port has no JPEG encoder."""
+    name = (format or path).lower()
+    if name.endswith((".bin", "binary")):
+        write_ccv_binary(m, path)
+        return
+    if name.endswith((".jpg", ".jpeg", "jpeg", "jpg")):
+        raise NotImplementedError(
+            f"{path}: the port has no JPEG encoder; write PNG (.png) or "
+            f"CCVBINDM (.bin)")
+    if not name.endswith("png"):
+        raise ValueError(f"{path}: the port writes PNG (.png) and CCVBINDM "
+                         f"(.bin) only")
+    arr = to_numpy(m)
+    if arr.dtype != np.uint8:
+        arr = np.clip(np.round(arr), 0, 255).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(encode_png(arr))

@@ -10,13 +10,16 @@ ccv_tpu/core/native.py).
 - ``swt_cc`` (csrc/swt_cc.cpp): SWT's width-ratio-gated 8-connected
   components, built with g++ at the first call. A failed build raises with
   the compiler's message; nothing falls back.
-
-siphash and the LRU blob cache are not ported yet.
+- ``siphash24`` and ``NativeLru`` (csrc/ccv_tpu_native.cpp): the 64-bit
+  content signatures of ``core.cache`` and a byte-bounded LRU of blobs
+  (ccv_tpu's native runtime, lib/ccv_cache.c's twin), built with g++ at
+  the first call. A failed build raises with the compiler's message.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 
@@ -103,3 +106,80 @@ def swt_cc(swt: np.ndarray, ratio: int = 3) -> np.ndarray:
     if n < 0:
         raise ValueError(f"swt_cc refused a {s8.shape} map")
     return labels
+
+
+_SIP_KEY = b"ccv_tpu_sipkey00"  # 16 bytes, ccv_tpu's key
+
+
+def _runtime_lib() -> ctypes.CDLL:
+    lib = _native_build.load_host_library("ccv_tpu_native",
+                                          ["ccv_tpu_native.cpp"])
+    if not hasattr(lib, "_bound"):
+        lib.ccv_tpu_siphash24.restype = ctypes.c_uint64
+        lib.ccv_tpu_siphash24.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                          ctypes.c_char_p]
+        lib.ccv_tpu_cache_new.restype = ctypes.c_void_p
+        lib.ccv_tpu_cache_new.argtypes = [ctypes.c_size_t]
+        lib.ccv_tpu_cache_put.restype = ctypes.c_int
+        lib.ccv_tpu_cache_put.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                          ctypes.c_char_p, ctypes.c_size_t]
+        lib.ccv_tpu_cache_get.restype = ctypes.c_size_t
+        lib.ccv_tpu_cache_get.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                          ctypes.c_void_p, ctypes.c_size_t]
+        lib.ccv_tpu_cache_delete.restype = ctypes.c_int
+        lib.ccv_tpu_cache_delete.argtypes = [ctypes.c_void_p,
+                                             ctypes.c_uint64]
+        lib.ccv_tpu_cache_drain.argtypes = [ctypes.c_void_p]
+        lib.ccv_tpu_cache_size.restype = ctypes.c_size_t
+        lib.ccv_tpu_cache_size.argtypes = [ctypes.c_void_p]
+        lib.ccv_tpu_cache_free.argtypes = [ctypes.c_void_p]
+        lib._bound = True
+    return lib
+
+
+def siphash24(data: bytes, key: bytes = _SIP_KEY) -> int:
+    """SipHash-2-4 of ``data`` under a 16-byte ``key``, as an unsigned
+    64-bit int."""
+    if len(key) != 16:
+        raise ValueError(f"siphash24 needs a 16-byte key, got {len(key)}")
+    return int(_runtime_lib().ccv_tpu_siphash24(data, len(data), key))
+
+
+class NativeLru:
+    """Byte-bounded LRU of blobs keyed by 64-bit signature: ``put`` copies
+    the bytes in (refused when larger than the budget) and evicts the
+    least recently used until the rest fits; ``get`` refreshes."""
+
+    def __init__(self, budget: int):
+        self._lib = _runtime_lib()
+        self._handle = self._lib.ccv_tpu_cache_new(budget)
+
+    def put(self, sig: int, data: bytes) -> bool:
+        return self._lib.ccv_tpu_cache_put(self._handle, sig, data,
+                                           len(data)) == 0
+
+    def get(self, sig: int) -> Optional[bytes]:
+        size = self._lib.ccv_tpu_cache_get(self._handle, sig, None, 0)
+        if size == 0:
+            return None
+        buf = ctypes.create_string_buffer(size)
+        self._lib.ccv_tpu_cache_get(self._handle, sig, buf, size)
+        return buf.raw
+
+    def delete(self, sig: int) -> bool:
+        return self._lib.ccv_tpu_cache_delete(self._handle, sig) == 0
+
+    def drain(self) -> None:
+        self._lib.ccv_tpu_cache_drain(self._handle)
+
+    @property
+    def used_bytes(self) -> int:
+        return int(self._lib.ccv_tpu_cache_size(self._handle))
+
+    def close(self) -> None:
+        if getattr(self, "_handle", None):
+            self._lib.ccv_tpu_cache_free(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        self.close()

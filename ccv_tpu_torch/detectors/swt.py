@@ -23,14 +23,32 @@ The main path of ``detect_words``, per pyramid level:
 
 This is ccv_tpu's "compact" letter route without its lane, ray-length and
 slot buckets: the port sizes every tensor from the real edge, ray and
-path-cell counts, which it reads from the device. ccv_tpu's on-device
-connected components ("device" route) are not ported.
+path-cell counts, which it reads from the device.
+
+``letters="device"`` (``detect_words``, ``detect_words_async``, the
+``swtdetect`` CLI's ``--letters``; ccv_tpu's ``SWT_LETTERS=device``) runs
+steps 3-4's components and letter filters on the device instead
+(``_letters_device``): the stroke cells of both polarities compact into P
+lanes (P: the painted count read from the device), components are
+min-label propagation with pointer jumping over the 8-neighbour lane table,
+and the per-component counts, bboxes, moments, width histogram and
+statistics, the scalar filters, the median by histogram rank and the
+occlusion pre-count run as torch ops. Every payload is an integer summed in
+int64, so the card's rows equal the CPU's, and the filters take the host
+route's float64 arithmetic, so the letters are the compact route's. Only
+the (K, 13) letter rows and 3 counts cross to the host; textline pairing
+and the word breakdown stay there. More than ``_LETTER_CAP`` candidate
+components or ``_KEPT_CAP`` kept letters is an overflow: the words then
+come from the compact route, and ``LETTER_OVERFLOWS`` (and
+``timings["letter_overflows"]``) counts it. The default is "compact", as
+ccv_tpu's on accelerators.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import List, Optional, Tuple
@@ -254,6 +272,206 @@ def _expand_strokes(packed: np.ndarray, H: int, W: int):
     gray = np.zeros(H * W, np.uint8)
     gray[pos % (H * W)] = packed & 255
     return maps.reshape(2, H, W), gray.reshape(H, W)
+
+
+_LETTER_CAP = 512   # candidate components, both polarities (device route)
+_KEPT_CAP = 128     # letters that pass the scalar filters (occlusion stage)
+_SWEEPS = 4         # propagation sweeps between convergence reads
+_LANE_CHUNK = 1 << 16  # lanes of the pixel-in-bbox test at once
+LETTER_OVERFLOWS = 0   # device-route calls that fell back to compact
+_OVERFLOWS_LOCK = threading.Lock()  # detect_words_async runs in threads
+LETTER_ROUTES = ("compact", "device")
+_NEIGHBOURS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                    if dy or dx)
+
+
+def _min_label(nb: torch.Tensor) -> torch.Tensor:
+    """Each lane's smallest lane index in its component over the (P, 8)
+    neighbour table ``nb`` (a lane's own index where no neighbour joins):
+    sweeps of min over the neighbours, each followed by three pointer
+    jumps, to the fixpoint, which is read every _SWEEPS sweeps."""
+    lbl = torch.arange(nb.shape[0], device=nb.device)
+    while True:
+        for _ in range(_SWEEPS):
+            prev = lbl
+            lbl = torch.minimum(lbl, lbl[nb].amin(1))
+            for _ in range(3):
+                lbl = torch.minimum(lbl, lbl[lbl])
+        if torch.equal(lbl, prev):
+            return lbl
+
+
+def _sqrt64(t: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float64 square root on every device: the
+    card's is, while torch's vectorised one on the CPU can be an ulp off
+    (numpy's is not), which would move the host route's std and moment
+    filters."""
+    if t.device.type == "cuda":
+        return torch.sqrt(t)
+    return torch.from_numpy(np.sqrt(t.numpy()))
+
+
+def _rank_desc(score: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of the ``k`` largest scores, ties to the lower index
+    (lax.top_k's order: a stable sort, so the card and the CPU agree)."""
+    return torch.sort(score, descending=True, stable=True).indices[:k]
+
+
+def _letters_device(maps: torch.Tensor, gray: torch.Tensor,
+                    params: SwtParams):
+    """_ccv_swt_connected_letters on the device (ccv_tpu's
+    ``_letters_device``) over both (2, H, W) uint8 stroke maps and the
+    (H, W) uint8 gray plane. Returns (rows, counts) on the host: rows a
+    (_LETTER_CAP, 13) float64 array [keep, pol, x, y, w, h, thickness,
+    intensity, mean, std, nocc, cx, cy] of the candidate components (the
+    largest, cnt >= min_area) in the order of their first pixel (lane), so
+    each polarity's letters come in the compact route's scan order, zeros
+    after them; counts (painted cells, candidate components, kept
+    letters)."""
+    K, K2 = _LETTER_CAP, _KEPT_CAP
+    dev = maps.device
+    H, W = gray.shape
+    HW = H * W
+    flat = maps.reshape(-1)
+    pidx = torch.nonzero(flat).squeeze(1)             # lanes, scan order
+    P = pidx.numel()
+    if P == 0:
+        return np.zeros((K, 13)), (0, 0, 0)
+    pv = flat[pidx].to(torch.int64)
+    pos, pol = pidx % HW, pidx // HW
+    y, x = pos // W, pos % W
+    grayp = gray.reshape(-1)[pos].to(torch.int64)
+    inv = torch.full((2 * HW,), -1, dtype=torch.int64, device=dev)
+    own = torch.arange(P, device=dev)
+    inv[pidx] = own
+    nbs = []
+    for dy, dx in _NEIGHBOURS:
+        ny, nx = y + dy, x + dx
+        inb = (ny >= 0) & (ny < H) & (nx >= 0) & (nx < W)
+        nidx = inv[pol * HW + ny.clamp(0, H - 1) * W + nx.clamp(0, W - 1)]
+        nval = torch.where(nidx >= 0, pv[nidx.clamp(min=0)], 0)
+        join = inb & (nidx >= 0) & (nval <= 3 * pv) & (pv <= 3 * nval)
+        nbs.append(torch.where(join, nidx, own))
+    lbl = _min_label(torch.stack(nbs, 1))
+
+    # per-component tables keyed by the root lane
+    cnt = torch.bincount(lbl, minlength=P)
+    big = torch.iinfo(torch.int64).max
+    xy = torch.stack([x, y], 1)
+    mn = torch.full((P, 2), big, dtype=torch.int64, device=dev
+                    ).scatter_reduce_(0, lbl[:, None].expand(-1, 2), xy,
+                                      "amin")
+    mx = torch.full((P, 2), -1, dtype=torch.int64, device=dev
+                    ).scatter_reduce_(0, lbl[:, None].expand(-1, 2), xy,
+                                      "amax")
+    score = torch.where(cnt >= params.min_area, cnt, -1)
+    n_cand = (cnt >= params.min_area).sum()
+    kidx = _rank_desc(score, K)                       # candidate roots
+    cand = score[kidx] > 0
+    # candidate row of each lane (K: none), then integer sums per row
+    rowof = torch.full((P,), K, dtype=torch.int64, device=dev)
+    rowof[kidx[cand]] = torch.arange(K, device=dev)[:kidx.numel()][cand]
+    lrow = rowof[lbl]
+    payload = torch.stack([x, y, x * x, y * y, x * y, pv, pv * pv, grayp], 1)
+    sums = torch.zeros((K + 1, 8), dtype=torch.int64, device=dev
+                       ).index_add_(0, lrow, payload)[:K]
+    hist = torch.bincount(lrow * 128 + pv.clamp(0, 127),
+                          minlength=(K + 1) * 128).reshape(K + 1, 128)[:K]
+
+    def rows_of(t, fill):
+        out = torch.full((K,) + t.shape[1:], fill, dtype=t.dtype, device=dev)
+        out[:kidx.numel()] = t[kidx]
+        return out
+
+    C = rows_of(cnt, 0)
+    kcand = torch.zeros(K, dtype=torch.bool, device=dev)
+    kcand[:kidx.numel()] = cand
+    bx0, by0 = rows_of(mn, 0).unbind(1)
+    bx1, by1 = rows_of(mx, 0).unbind(1)
+    polk = rows_of(pol, 0)
+    # the host route's float64 arithmetic (_letters_from_components)
+    size = C.to(torch.float64).clamp(min=1)
+    S = sums.to(torch.float64)
+    width = (bx1 - bx0 + 1).to(torch.float64)
+    height = (by1 - by0 + 1).to(torch.float64)
+    aspect = params.aspect_ratio
+    keep = (kcand & (height >= params.min_height)
+            & (height <= params.max_height))
+    ar = width / height
+    keep &= (ar >= 1.0 / aspect) & (ar <= aspect)
+    xc, yc = S[:, 0] / size, S[:, 1] / size
+    af = S[:, 2] / size - xc * xc
+    bf = 2 * (S[:, 4] / size - xc * yc)
+    cf = S[:, 3] / size - yc * yc
+    d = af - cf
+    delta = _sqrt64(bf * bf + d * d)
+    mom = _sqrt64((af + cf + delta) / torch.clamp(af + cf - delta,
+                                                  min=1e-12))
+    keep &= (mom >= 1.0 / aspect) & (mom <= aspect)
+    mean = S[:, 5] / size
+    std = _sqrt64(torch.clamp(S[:, 6] / size - mean * mean, min=0))
+    keep &= std <= mean * params.std_ratio
+    # thickness: the width of rank (cnt - 1) // 2 in the histogram
+    rank = (C - 1) // 2 + 1
+    med = torch.argmax((hist.cumsum(1) >= rank[:, None]).to(torch.uint8), 1)
+    inten = torch.trunc(S[:, 7] / size)
+    n_kept = keep.sum()
+
+    # occlusion pre-count: the kept letters of the same polarity with a
+    # pixel inside each kept letter's bbox (ccv_swt.c:368-399)
+    kk = _rank_desc(torch.where(keep, C, -1), K2)     # kept rows of K
+    kvalid = keep[kk]
+    invk = torch.full((K + 1,), K2, dtype=torch.int64, device=dev)
+    invk[kk[kvalid]] = torch.arange(K2, device=dev)[kvalid]
+    j2 = invk[lrow]                                   # kept row of a lane
+    lanes = torch.nonzero(j2 < K2).squeeze(1)
+    kx0, ky0, kx1, ky1, kpol = (t[kk] for t in (bx0, by0, bx1, by1, polk))
+    presence = torch.zeros((K2 + 1, K2), dtype=torch.int64, device=dev)
+    for c0 in range(0, lanes.numel(), _LANE_CHUNK):
+        ln = lanes[c0:c0 + _LANE_CHUNK]
+        lx, ly = x[ln, None], y[ln, None]
+        inbox = (kvalid[None] & (pol[ln, None] == kpol[None])
+                 & (lx >= kx0[None]) & (lx <= kx1[None])
+                 & (ly >= ky0[None]) & (ly <= ky1[None]))
+        presence.index_add_(0, j2[ln], inbox.to(torch.int64))
+    other = ~torch.eye(K2, dtype=torch.bool, device=dev)
+    nocc = ((presence[:K2] > 0) & other & kvalid[:, None]).sum(0)
+    noccK = torch.zeros(K, dtype=torch.int64, device=dev)
+    noccK[kk[kvalid]] = nocc[kvalid]
+    rows = torch.stack([
+        keep.to(torch.float64), polk.to(torch.float64), bx0.to(torch.float64),
+        by0.to(torch.float64), width, height, med.to(torch.float64), inten,
+        mean, std, noccK.to(torch.float64),
+        (bx0 + (bx1 - bx0 + 1) // 2).to(torch.float64),
+        (by0 + (by1 - by0 + 1) // 2).to(torch.float64)], 1)
+    rows = torch.where(kcand[:, None], rows, 0.0)
+    # candidates in the order of their root lane, i.e. of their first
+    # pixel: the compact route's component order
+    root = torch.full((K,), big, dtype=torch.int64, device=dev)
+    root[:kidx.numel()] = torch.where(cand, kidx, big)
+    rows = rows[torch.sort(root, stable=True).indices]
+    out = torch.cat([rows.reshape(-1), torch.stack(
+        [torch.tensor(P, device=dev), n_cand, n_kept]).to(torch.float64)])
+    host = out.cpu().numpy()
+    return host[:-3].reshape(K, 13), tuple(int(v) for v in host[-3:])
+
+
+def _device_letters(rows: np.ndarray, params: SwtParams):
+    """The two polarities' letter dicts from _letters_device's rows, less
+    the occluded, as _letters_from_components gives them."""
+    letters = [[], []]
+    for row in rows:
+        if row[0] == 0.0:
+            continue
+        if (params.letter_occlude_thresh
+                and row[10] > params.letter_occlude_thresh):
+            continue
+        letters[int(row[1])].append(dict(
+            x=int(row[2]), y=int(row[3]), width=int(row[4]),
+            height=int(row[5]), cx=int(row[11]), cy=int(row[12]),
+            thickness=int(row[6]), intensity=int(row[7]),
+            mean=float(row[8]), std=float(row[9])))
+    return letters
 
 
 def cc_plain(swt_np: np.ndarray, ratio: int = 3) -> np.ndarray:
@@ -511,9 +729,12 @@ def _break_words(textlines: List[dict], params: SwtParams) -> List[dict]:
 # ---------------------------------------------------------------------------
 
 def _scale_words(img: torch.Tensor, params: SwtParams,
-                 timings: Optional[dict]) -> List[dict]:
-    """The words of one pyramid level: device front end and rays, one copy
-    to the host, the host letter stage."""
+                 timings: Optional[dict], letters: str) -> List[dict]:
+    """The words of one pyramid level: device front end and rays, then the
+    letter stage by the ``letters`` route, then textlines and words on the
+    host."""
+    global LETTER_OVERFLOWS
+
     def mark(stage, t0):
         if timings is None:
             return t0
@@ -529,17 +750,32 @@ def _scale_words(img: torch.Tensor, params: SwtParams,
                                 int(params.low_thresh + 0.5),
                                 int(params.high_thresh + 0.5))
     t = mark("frontend", t)
-    packed = _compact_strokes(_rays(c, dx, dy), gray)
+    maps = _rays(c, dx, dy)
     t = mark("rays", t)
-    maps, gray_np = _expand_strokes(packed.cpu().numpy(), H, W)
-    t = mark("fetch", t)
-    labels = [native.swt_cc(maps[d]) for d in range(2)]
-    t = mark("cc", t)
+    per_pol = None
+    if letters == "device":
+        rows, (_, n_cand, n_kept) = _letters_device(maps, gray, params)
+        t = mark("device_letters", t)
+        if n_cand <= _LETTER_CAP and n_kept <= _KEPT_CAP:
+            per_pol = _device_letters(rows, params)
+        else:
+            with _OVERFLOWS_LOCK:
+                LETTER_OVERFLOWS += 1
+            if timings is not None:
+                timings["letter_overflows"] = timings.get(
+                    "letter_overflows", 0) + 1
+    if per_pol is None:
+        packed = _compact_strokes(maps, gray)
+        t = mark("rays", t)
+        maps_np, gray_np = _expand_strokes(packed.cpu().numpy(), H, W)
+        t = mark("fetch", t)
+        labels = [native.swt_cc(maps_np[d]) for d in range(2)]
+        t = mark("cc", t)
+        per_pol = [_letters_from_components(gray_np, maps_np[d], labels[d],
+                                            params) for d in range(2)]
     textlines = []
     for d in range(2):  # DARK_TO_BRIGHT, BRIGHT_TO_DARK
-        letters = _letters_from_components(gray_np, maps[d], labels[d],
-                                           params)
-        textlines += _merge_textline(letters, params)
+        textlines += _merge_textline(per_pol[d], params)
     textlines = _swt_group_textlines(textlines, params)
     words = (_break_words(textlines, params) if params.breakdown else
              [{k: t_[k] for k in ("x", "y", "width", "height")}
@@ -549,14 +785,24 @@ def _scale_words(img: torch.Tensor, params: SwtParams,
 
 
 def detect_words(a, params: Optional[SwtParams] = None,
-                 timings: Optional[dict] = None, device=None) -> List[Comp]:
+                 timings: Optional[dict] = None, device=None,
+                 letters: str = "compact") -> List[Comp]:
     """ccv_swt_detect_words twin (ccv_swt.c:625), single scale unless
     ``params.scale_invariant``. ``a`` is (H, W) or (H, W, C) (channel 0 is
     read) on ``device`` (default: where a tensor is, else the card).
+    ``letters`` is the letter stage's route, "compact" (the stroke cells
+    to the host) or "device" (see the module docstring); both give the
+    same words.
 
     Pass a dict as ``timings`` for a per-stage wall-clock breakdown in ms,
-    summed over scales: frontend / rays / fetch / cc / letters (each stage
-    ends in a device synchronize when one is timed)."""
+    summed over scales: frontend / rays / fetch / cc / letters on the
+    compact route, frontend / rays / device_letters / letters on the
+    device route, and ``letter_overflows``, the calls of the device route
+    that fell back to the compact one (each stage ends in a device
+    synchronize when one is timed)."""
+    if letters not in LETTER_ROUTES:
+        raise ValueError(f"letters must be one of {LETTER_ROUTES}, got "
+                         f"{letters!r}")
     params = params or SwtParams()
     img = as_array(a, device)
     if img.dim() == 3:
@@ -585,7 +831,7 @@ def detect_words(a, params: Optional[SwtParams] = None,
             pyr = phx
         else:
             pyr = phx
-        words = _scale_words(pyr, params, timings)
+        words = _scale_words(pyr, params, timings, letters)
         if params.scale_invariant:
             for wd in words:
                 all_words.append(dict(
@@ -619,14 +865,14 @@ _EXECUTOR: Optional[ThreadPoolExecutor] = None
 
 
 def detect_words_async(a, params: Optional[SwtParams] = None,
-                       device=None) -> Future:
+                       device=None, letters: str = "compact") -> Future:
     """Submit an image to a small thread pool, so that one image's host
     letter stage overlaps the next one's device work; resolve the future
     with ``detect_words_collect``."""
     global _EXECUTOR
     if _EXECUTOR is None:
         _EXECUTOR = ThreadPoolExecutor(max_workers=3)
-    return _EXECUTOR.submit(detect_words, a, params, None, device)
+    return _EXECUTOR.submit(detect_words, a, params, None, device, letters)
 
 
 def detect_words_collect(fut: Future) -> List[Comp]:

@@ -2,7 +2,8 @@
 
 ``blur``, ``sobel`` and ``gradient`` on ``(..., H, W, C)`` tensors. Integer
 inputs reproduce the reference's fixed-point arithmetic exactly
-(lib/ccv_basic.c). ``flip``, ``erode`` and ``dilate`` are not ported.
+(lib/ccv_basic.c). ``flip``, ``erode`` and ``dilate`` return new tensors
+and never write into their input.
 """
 
 from __future__ import annotations
@@ -152,6 +153,20 @@ def gradient(a: torch.Tensor, dx: int = 1, dy: int = 1):
     return _fast_atan2(gx, gy), sqrt32(gx * gx + gy * gy)
 
 
+FLIP_X = 0x01  # horizontal mirror
+FLIP_Y = 0x02  # vertical mirror
+
+
+def flip(a: torch.Tensor, ftype: int) -> torch.Tensor:
+    """ccv_flip twin: mirror the columns (FLIP_X) and/or the rows
+    (FLIP_Y)."""
+    a, had = to_hwc(a)
+    dims = ([ROWS] if ftype & FLIP_Y else []) + (
+        [COLS] if ftype & FLIP_X else [])
+    out = torch.flip(a, dims) if dims else a.clone()
+    return from_hwc(out, had)
+
+
 def blur_taps(sigma: float, as_int: bool) -> np.ndarray:
     """Gaussian taps with ccv's size rule and quantization (ccv_basic.c:418)."""
     fsz = max(1, int(4.0 * sigma + 1.0 - 1e-8)) * 2 + 1
@@ -179,4 +194,20 @@ def blur(a: torch.Tensor, sigma: float, out_float: bool = False
     out = correlate1d(out, taps, ROWS, shift=shift)
     if int_path and a.dtype == torch.uint8:
         out = out.clamp(0, 255).to(torch.uint8)
+    return from_hwc(out, had)
+
+
+def erode(a: torch.Tensor, fsz: int = 3) -> torch.Tensor:
+    """ccv_erode twin: separable running min, replicate borders."""
+    a, had = to_hwc(a)
+    out = filters.min_filter1d(a, fsz, COLS)
+    out = filters.min_filter1d(out, fsz, ROWS)
+    return from_hwc(out, had)
+
+
+def dilate(a: torch.Tensor, fsz: int = 3) -> torch.Tensor:
+    """ccv_dilate twin: separable running max, replicate borders."""
+    a, had = to_hwc(a)
+    out = filters.max_filter1d(a, fsz, COLS)
+    out = filters.max_filter1d(out, fsz, ROWS)
     return from_hwc(out, had)

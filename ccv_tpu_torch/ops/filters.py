@@ -64,6 +64,28 @@ def correlate1d(x: torch.Tensor, taps: Sequence, axis: int,
     return acc
 
 
+def min_filter1d(x: torch.Tensor, fsz: int, axis: int) -> torch.Tensor:
+    """Running minimum over a window of ``fsz`` (center fsz//2) along
+    ``axis``, replicate-padded."""
+    return _running(x, fsz, axis, torch.minimum)
+
+
+def max_filter1d(x: torch.Tensor, fsz: int, axis: int) -> torch.Tensor:
+    """Running maximum over a window of ``fsz`` (center fsz//2) along
+    ``axis``, replicate-padded."""
+    return _running(x, fsz, axis, torch.maximum)
+
+
+def _running(x: torch.Tensor, fsz: int, axis: int, pick) -> torch.Tensor:
+    hfz = fsz // 2
+    xp = edge_pad(x, hfz, fsz - 1 - hfz, axis)
+    n = x.shape[axis]
+    out = xp.narrow(axis, 0, n)
+    for k in range(1, fsz):
+        out = pick(out, xp.narrow(axis, k, n))
+    return out
+
+
 def gaussian_taps(sigma: float, fsz: int) -> np.ndarray:
     """Unnormalized Gaussian taps, center fsz//2."""
     hfz = fsz // 2

@@ -103,7 +103,24 @@ started together) and drives the port's main paths:
   against CPU on a 256x256 crop and timed at 1080p; TLD over 8 frames of
   1920x1080 (crop180.png pasted on the text at known shifts), IoU >= 0.7,
   card against CPU, ms per frame, ``bin/tld``, ``/tld/track.object`` and
-  ``/convnet/classify``; their profiles last.
+  ``/convnet/classify``; their profiles last;
+- phase 27, ccv's classic surface (torch ops and the host siphash; no
+  kernel): with the cache on, the 17 ``compat`` ops and ``ccv_otsu`` on the
+  1080p gray and RGB frames against the same calls on the CPU (integer
+  outputs equal, float within 1e-5 of the largest, contrast within 1 at
+  <= 0.1% of the pixels), each again as a hit (same signature and tensor,
+  no CUDA kernel under torch.profiler), a CPU matrix of the same bytes
+  answered on the CPU, eviction, drain and disable, PNG and CCVBINDM
+  writes read back, ``core.numeric`` on the card against the CPU (FFT
+  filter, distance transform at (270, 480), invert / solve / eigen at
+  256x256, a torch COO product) and ``bin/msermatch``'s out.png at 1080p,
+  ms per op first call and hit;
+- phase 28, SWT with ``letters="device"``: on text_test.png and the 1080p
+  frame the card's letter rows equal the CPU's and the words the compact
+  route's; both routes' stage timings and counts (painted cells,
+  candidates, kept letters, overflows to the compact route), the device
+  stage at 1080p with the caps raised (a diagnostic), and each route's
+  profile last.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -2919,6 +2936,381 @@ def tld_path(dev, card, read):
     return dict(ms=float(np.median(ms))), profile
 
 
+# ops of phase 27, as tests/test_torch_compat.py drives them (1080p sizes)
+CLASSIC_PERSPECTIVE = dict(zip(("m00", "m01", "m02", "m10", "m11", "m12",
+                                "m20", "m21", "m22"),
+                               (0.9, 0.05, -10.0, -0.04, 1.1, 5.0, 1e-4,
+                                2e-4, 1.0)))
+CLASSIC_COMMON = [
+    ("ccv_sobel", dict(dx=1, dy=0)), ("ccv_sobel", dict(dx=0, dy=3)),
+    ("ccv_sobel", dict(dx=5, dy=5)), ("ccv_gradient", dict(dx=1, dy=1)),
+    ("ccv_flip", dict(ftype=1)), ("ccv_flip", dict(ftype=2)),
+    ("ccv_flip", dict(ftype=3)), ("ccv_blur", dict(sigma=1.5)),
+    ("ccv_erode", dict(fsz=3)), ("ccv_erode", dict(fsz=5)),
+    ("ccv_dilate", dict(fsz=3)), ("ccv_dilate", dict(fsz=5)),
+    ("ccv_resample", dict(rows=720, cols=1280, rows_scale=720 / 1080,
+                          cols_scale=1280 / 1920, interp=1)),
+    ("ccv_sample_down", {}), ("ccv_sample_up", {}),
+    ("ccv_decimal_slice", dict(y=10.5, x=5.25, rows=500, cols=600)),
+    ("ccv_perspective_transform", CLASSIC_PERSPECTIVE),
+    ("ccv_sat", dict(padding=1))]
+CLASSIC_GRAY = CLASSIC_COMMON + [
+    ("ccv_canny", dict(size=3, low_thresh=36, high_thresh=108)),
+    ("ccv_close_outline", None)]   # on the canny result: a derived input
+CLASSIC_RGB = CLASSIC_COMMON + [
+    ("ccv_color_transform", {}), ("ccv_saturation", dict(ds=0.5)),
+    ("ccv_saturation", dict(ds=1.5)), ("ccv_contrast", dict(ds=0.5)),
+    ("ccv_contrast", dict(ds=1.5))]
+SWT_CAPS_RAISED = (4096, 1024)  # phase 28's uncapped timing, diagnostic
+CLASSIC_CACHE_BYTES = 2 << 30
+
+
+def classic_same(name, got, want):
+    """Card result ``got`` against the CPU's ``want``: equal for integer
+    outputs, within 1e-5 of the largest for float ones, contrast within
+    tests/test_torch_compat.py's tolerance (1 in value at <= 0.1% of the
+    pixels). Returns the max difference."""
+    g, w = got.cpu(), want
+    check(g.shape == w.shape and g.dtype == w.dtype,
+          f"{name}: card {g.dtype} {tuple(g.shape)}, CPU {w.dtype} "
+          f"{tuple(w.shape)}")
+    diff = (g.to(torch.float64) - w.to(torch.float64)).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if name == "ccv_contrast":
+        check(err <= 1 and float((diff > 0).to(torch.float64).mean())
+              <= 1e-3, f"{name}: card vs CPU {err}")
+    elif w.dtype.is_floating_point:
+        check(err <= 1e-5 * max(float(w.abs().max()), 1.0),
+              f"{name}: card vs CPU {err}")
+    else:
+        check(err == 0, f"{name}: card vs CPU differ by {err}")
+    return err
+
+
+def classic_path(dev, card, read):
+    """Phase 27, ccv's classic surface on the card: with the cache on, the
+    17 compat ops (and ccv_otsu) on the 1080p gray and RGB frames against
+    the same calls on the CPU; each op again as a hit (same sig, same
+    tensor, hits + 1, no CUDA kernel under torch.profiler); a CPU matrix of
+    the same bytes gets a CPU result; eviction, drain and disable; PNG and
+    CCVBINDM writes of card results read back; numeric on the card against
+    the CPU; bin/msermatch's out.png at 1080p. Returns the profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ccv_tpu_torch import compat as ccv
+    from ccv_tpu_torch.bin import msermatch
+    from ccv_tpu_torch.core import cache, io as tio, numeric, util
+    from ccv_tpu_torch.core.dense_matrix import from_numpy
+    gray_np, rgb_np = frame_1080p(read), rgb_frame_1080p(read)
+    # a budget that holds a frame's every result (the RGB frame's come to
+    # ~0.5 GB): the default 256 MB would evict the first before the sweep
+    # of hits below
+    cache.enable(max_bytes=CLASSIC_CACHE_BYTES)
+    cache.drain()
+    rows, hits_ms, maxerr = [], [], 0.0
+    for label, arr, ops in (("gray", gray_np, CLASSIC_GRAY),
+                            ("rgb", rgb_np, CLASSIC_RGB)):
+        on_card = from_numpy(arr, device=dev)
+        on_cpu = from_numpy(arr, device="cpu")
+        check(on_card.sig == on_cpu.sig != 0, "one signature on both devices")
+        prev = (None, None)
+        for name, kw in ops:
+            fn = getattr(ccv, name)
+            src_d, src_c = ((prev[0], prev[1]) if kw is None
+                            else (on_card, on_cpu))
+            kw = kw or {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(src_d, **kw)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1000
+            want = fn(src_c, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            wants = want if isinstance(want, tuple) else (want,)
+            for o, w in zip(outs, wants):
+                check(o.tensor.device.type == "cuda"
+                      and w.tensor.device.type == "cpu" and o.sig == w.sig,
+                      f"{name}: devices or signatures")
+                maxerr = max(maxerr, classic_same(name, o.tensor, w.tensor))
+            h0 = cache.hits
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = fn(src_d, **kw)
+            torch.cuda.synchronize()
+            hit = (time.perf_counter() - t0) * 1000
+            agains = again if isinstance(again, tuple) else (again,)
+            check(cache.hits == h0 + len(outs) and all(
+                a.sig == o.sig and a.tensor.data_ptr() == o.tensor.data_ptr()
+                for a, o in zip(agains, outs)), f"{name}: no hit")
+            hits_ms.append(hit)
+            rows.append(f"{label} {name}{'' if not kw else ' ' + ','.join(f'{k}={v}' for k, v in list(kw.items())[:2])}"
+                        f" {first:.3f}/{hit:.4f}")
+            if name == "ccv_canny":
+                prev = (out, want)
+        # every hit again, under the profiler: no CUDA kernel at all
+        calls = []
+        prev = (None, None)
+        for name, kw in ops:
+            src = prev[0] if kw is None else on_card
+            calls.append((getattr(ccv, name), src, kw or {}))
+            if name == "ccv_canny":
+                prev = (getattr(ccv, name)(on_card, **kw), None)
+        torch.cuda.synchronize()
+        h0 = cache.hits
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fn, src, kw in calls:
+                fn(src, **kw)
+            torch.cuda.synchronize()
+        n_cuda = sum(e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+        check(n_cuda == 0, f"{label}: the hits launched {n_cuda} kernels")
+        held = cache._cur_bytes
+        check(cache.hits - h0 == sum(2 if fn is ccv.ccv_gradient else 1
+                                     for fn, _, _ in calls),
+              f"{label}: the profiled calls were not all hits")
+        t, v = ccv.ccv_otsu(on_card)
+        check((t, v) == ccv.ccv_otsu(on_cpu) or (
+            t == ccv.ccv_otsu(on_cpu)[0]
+            and abs(v - ccv.ccv_otsu(on_cpu)[1]) <= 1e-5 * abs(v)),
+            f"ccv_otsu {label}: card {(t, v)}, CPU {ccv.ccv_otsu(on_cpu)}")
+    log(27, f"classic surface at 1080p, cache on: {len(rows)} op calls "
+            f"card = CPU (integer outputs equal, float within 1e-5 of the "
+            f"largest, contrast within 1 at <= 0.1%; largest difference "
+            f"{maxerr:.3g}); every second call a "
+            f"hit on the same tensor, and the hits of each frame launched 0 "
+            f"CUDA kernels under torch.profiler ({held / 2 ** 20:.1f} MiB "
+            f"cached); ms first call / hit "
+            f"(synchronised): " + "; ".join(rows) + f"; {card}")
+    # a CPU matrix of the card's bytes gets a CPU result, never the card's
+    on_cpu = from_numpy(gray_np, device="cpu")
+    on_card = from_numpy(gray_np, device=dev)
+    card_out = ccv.ccv_blur(on_card, sigma=1.5)   # cached on the card above
+    h0 = cache.hits
+    cpu_out = ccv.ccv_blur(on_cpu, sigma=1.5)
+    check(cpu_out.tensor.device.type == "cpu" and cache.hits == h0 + 1
+          and cpu_out.tensor.data_ptr() != card_out.tensor.data_ptr(),
+          "a CPU matrix was answered from the card's entry")
+    # eviction at a small budget, drain, disable
+    cache.enable(max_bytes=gray_np.size * 4 + 1024)   # one int32 plane
+    cache.drain()
+    ccv.ccv_sobel(on_card, dx=1, dy=0)
+    ccv.ccv_sobel(on_card, dx=0, dy=1)                # evicts dx=1
+    h0 = cache.hits
+    ccv.ccv_sobel(on_card, dx=1, dy=0)
+    check(cache.hits == h0, "eviction: the evicted entry answered")
+    ccv.ccv_sobel(on_card, dx=1, dy=0)
+    check(cache.hits == h0 + 1, "eviction: the kept entry missed")
+    cache.drain()
+    ccv.ccv_sobel(on_card, dx=1, dy=0)
+    check(cache.hits == h0 + 1 and cache.is_enabled(), "drain")
+    ccv.ccv_disable_cache()
+    ccv.ccv_sobel(on_card, dx=1, dy=0)
+    check(cache.hits == h0 + 1 and not cache.is_enabled(), "disable")
+    # writes of card results
+    tmp = tempfile.mkdtemp(prefix="ccv_classic_")
+    try:
+        flipped = ccv.ccv_flip(from_numpy(rgb_np, device=dev), ftype=3)
+        png = os.path.join(tmp, "flip.png")
+        t0 = time.perf_counter()
+        tio.write(flipped, png)
+        png_ms = (time.perf_counter() - t0) * 1000
+        back = tio.read(png, device="cpu").tensor
+        check(torch.equal(back, flipped.tensor.cpu()), "PNG round trip")
+        sob = ccv.ccv_sobel(on_card, dx=1, dy=0)
+        binp = os.path.join(tmp, "sobel.bin")
+        t0 = time.perf_counter()
+        tio.write(sob, binp)
+        bin_ms = (time.perf_counter() - t0) * 1000
+        check(torch.equal(tio.read(binp, device="cpu").tensor,
+                          sob.tensor.cpu()), "CCVBINDM round trip")
+        # bin/msermatch's out.png at 1080p on the card
+        gray_png = os.path.join(tmp, "gray.png")
+        tio.write(gray_np, gray_png)
+        out_png = os.path.join(tmp, "out.png")
+        code, lines = captured(msermatch.main, [gray_png, out_png])
+        painted = tio.read(out_png, device="cpu").tensor
+        check(code == 0 and tuple(painted.shape) == (*gray_np.shape, 3)
+              and bool((painted[..., 0] != painted[..., 1]).any()),
+              f"msermatch out.png: {code} {lines} {tuple(painted.shape)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(27, f"a CPU matrix of the same bytes got a CPU result; eviction at "
+            f"one plane's budget, drain and disable as ccv_tpu's; 1080p RGB "
+            f"PNG write {png_ms:.1f} ms (zlib, host), int32 CCVBINDM write "
+            f"{bin_ms:.1f} ms, both read back equal; bin/msermatch "
+            f"gray.png out.png on the card: {lines}, out.png (1080, 1920, "
+            f"3); {card}")
+    # numeric on the card against the CPU
+    g32 = torch.from_numpy(gray_np.astype(np.float32))
+    yy = np.arange(15) - 7
+    kern = torch.from_numpy(np.exp(-(yy[:, None] ** 2 + yy[None] ** 2)
+                                   / (2 * 2.0 ** 2)).astype(np.float32))
+    kern /= kern.sum()
+    f_cpu = numeric.filter(g32, kern)
+    f_ms, _ = median_ms(lambda: numeric.filter(g32.to(dev), kern.to(dev)), 3)
+    f_err = float((numeric.filter(g32.to(dev), kern.to(dev)).cpu()
+                   - f_cpu).abs().max())
+    check(f_err <= 1e-5 * float(f_cpu.abs().max()), f"filter: {f_err}")
+    plane = g32[:270, :480].contiguous()
+    dt_cpu = numeric.distance_transform(plane, 0.1, -0.2, 0.5, 0.8)
+    dt_ms, _ = median_ms(lambda: numeric.distance_transform(
+        plane.to(dev), 0.1, -0.2, 0.5, 0.8), 3)
+    dt_card = numeric.distance_transform(plane.to(dev), 0.1, -0.2, 0.5, 0.8)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(dt_card, dt_cpu)),
+          "distance_transform: card != CPU (values or offsets)")
+    rng = np.random.default_rng(27)
+    m = rng.standard_normal((256, 256)).astype(np.float32)
+    spd = torch.from_numpy(m @ m.T / 256 + np.eye(256, dtype=np.float32))
+    rhs = torch.from_numpy(rng.standard_normal((256, 4)).astype(np.float32))
+    eye = torch.eye(256)
+    inv_d = numeric.invert(spd.to(dev)).cpu()
+    inv_c = numeric.invert(spd)
+    x_d = numeric.solve(spd.to(dev), rhs.to(dev)).cpu()
+    vec_d, lam_d = (t.cpu() for t in numeric.eigen(spd.to(dev)))
+    vec_c, lam_c = numeric.eigen(spd)
+    la = dict(
+        inv=float((inv_d @ spd - eye).abs().max()),
+        inv_cpu=float((inv_c @ spd - eye).abs().max()),
+        solve=float((spd @ x_d - rhs).abs().max()),
+        eig_vals=float((lam_d - lam_c).abs().max() / lam_c.abs().max()),
+        eig_res=float((vec_d @ spd - lam_d[:, None] * vec_d).abs().max()))
+    # float32 eigensolvers are backward stable to O(n eps |a|): the card's
+    # (cuSOLVER) and the CPU's (LAPACK) eigenvalues within 16 n eps of the
+    # largest
+    check(la["inv"] <= 1e-3 and la["solve"] <= 1e-3 and la["eig_vals"]
+          <= 16 * 256 * 2.0 ** -24 and la["eig_res"] <= 1e-3,
+          f"linear algebra: {la}")
+    sp = util.SparseMatrix(1024, 1024)
+    idx = rng.choice(1024 * 1024, 10000, replace=False)
+    vals = rng.standard_normal(10000).astype(np.float32)
+    for k, v in zip(idx.tolist(), vals.tolist()):
+        sp.set(k // 1024, k % 1024, v)
+    dense_rhs = torch.from_numpy(rng.standard_normal((1024, 64))
+                                 .astype(np.float32))
+    coo = util.sparse_to_bcoo(sp, device=dev)
+    prod = torch.sparse.mm(coo, dense_rhs.to(dev)).cpu()
+    want = torch.from_numpy(sp.to_dense()) @ dense_rhs
+    sp_err = float((prod - want).abs().max())
+    check(coo.device.type == "cuda" and sp_err <= 1e-4 * float(
+        want.abs().max()), f"sparse product: {sp_err}")
+    log(27, f"numeric on the card against the CPU: filter of the 1080p gray "
+            f"frame with a 15x15 Gaussian max diff {f_err:.3g} (largest "
+            f"{float(f_cpu.abs().max()):.1f}), {f_ms:.2f} ms; "
+            f"distance_transform at (270, 480) values and both offsets "
+            f"equal, {dt_ms:.2f} ms; 256x256 SPD: |inv a - I| {la['inv']:.3g} "
+            f"(CPU {la['inv_cpu']:.3g}), |a x - b| {la['solve']:.3g}, "
+            f"eigenvalues card vs CPU {la['eig_vals']:.3g} of the largest, "
+            f"|v a - lam v| {la['eig_res']:.3g}; sparse_to_bcoo (torch COO, "
+            f"10,000 of 1024x1024) @ (1024, 64) = the dense product within "
+            f"{sp_err:.3g}; {card}")
+
+    def profile():
+        ccv.ccv_enable_default_cache()
+        cache.drain()
+        img = from_numpy(gray_np, device=dev)
+        busy, by_name, wall = device_ms(
+            lambda: ccv.ccv_blur(img, sigma=1.5), 1)
+        hit_busy, _, hit_wall = device_ms(
+            lambda: ccv.ccv_blur(img, sigma=1.5), 3)
+        ccv.ccv_disable_cache()
+        log(27, f"ccv_blur 1080p under torch.profiler: first call device "
+                f"busy {busy:.3f} ms over a wall of {wall:.3f} ms (largest: "
+                f"{top_kernels(by_name)}); hits {hit_busy:.3f} ms busy over "
+                f"{hit_wall:.3f} ms; {card}")
+    return dict(ops=len(rows), hit_ms=max(hits_ms), png_ms=png_ms), profile
+
+
+def swt_route_ms(swt, img, letters, n=3):
+    """(median ms, per-stage median ms) of ``n`` timed calls after a
+    warm-up."""
+    swt.detect_words(img, letters=letters)
+    walls, stages = [], {}
+    for _ in range(n):
+        tm = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        swt.detect_words(img, letters=letters, timings=tm)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1000)
+        for k, v in tm.items():
+            stages.setdefault(k, []).append(v)
+    return float(np.median(walls)), {k: float(np.median(v))
+                                     for k, v in stages.items()}
+
+
+def swt_device_path(dev, card, read):
+    """Phase 28, SWT with letters="device": on text_test.png and the 1080p
+    gray frame the words equal letters="compact"'s on the card and the
+    card's letter rows equal the CPU's; both routes' stage timings (median
+    of 3) and the counts (painted cells, candidate components, kept
+    letters, overflows); the device stage timed once more with the caps
+    raised (a diagnostic: what the stage costs at 1080p without the
+    compact fallback). Returns the profile."""
+    from ccv_tpu_torch.core.io import IO_GRAY
+    from ccv_tpu_torch.detectors import swt
+    tt = read(os.path.join(DATA, "text_test.png"), IO_GRAY,
+              device="cpu").tensor
+    frame = torch.from_numpy(frame_1080p(read))
+    params = swt.SwtParams()
+    lines, res = [], {}
+    for name, img in (("text_test.png", tt), ("1080p", frame)):
+        img_d = img.to(dev)
+        c, dx, dy, gray = swt._frontend(img_d, 3, 124, 204)
+        maps = swt._rays(c, dx, dy)
+        rows_d, counts = swt._letters_device(maps, gray, params)
+        rows_c, counts_c = swt._letters_device(maps.cpu(), gray.cpu(),
+                                               params)
+        check(counts == counts_c and np.array_equal(rows_d, rows_c),
+              f"SWT {name}: the card's letter rows differ from the CPU's")
+        before = swt.LETTER_OVERFLOWS
+        compact = word_rects(swt.detect_words(img_d))
+        device_words = word_rects(swt.detect_words(img_d, letters="device"))
+        check(device_words == compact and compact,
+              f"SWT {name}: device words {device_words} != compact "
+              f"{compact}")
+        overflows = swt.LETTER_OVERFLOWS - before
+        c_ms, c_st = swt_route_ms(swt, img_d, "compact")
+        d_ms, d_st = swt_route_ms(swt, img_d, "device")
+        res[name] = dict(compact=c_ms, device=d_ms, counts=counts,
+                         overflows=overflows)
+        lines.append(
+            f"{name}: {len(compact)} words equal; letter rows card = CPU; "
+            f"painted {counts[0]}, candidates {counts[1]}, kept {counts[2]} "
+            f"(caps {swt._LETTER_CAP} / {swt._KEPT_CAP}), overflows "
+            f"{overflows} of 1 call; compact median {c_ms:.2f} ms ("
+            + ", ".join(f"{k} {v:.2f}" for k, v in c_st.items())
+            + f"); device median {d_ms:.2f} ms ("
+            + ", ".join(f"{k} {v:.2f}" for k, v in d_st.items()) + ")")
+    log(28, "; ".join(lines) + f"; {card}")
+    frame_d = frame.to(dev)
+    caps = (swt._LETTER_CAP, swt._KEPT_CAP)
+    swt._LETTER_CAP, swt._KEPT_CAP = SWT_CAPS_RAISED
+    try:
+        before = swt.LETTER_OVERFLOWS
+        raised_words = word_rects(swt.detect_words(frame_d, letters="device"))
+        r_ms, r_st = swt_route_ms(swt, frame_d, "device")
+        check(swt.LETTER_OVERFLOWS == before and raised_words == word_rects(
+            swt.detect_words(frame_d)), "SWT 1080p, caps raised: words "
+            "differ from compact or overflowed")
+    finally:
+        swt._LETTER_CAP, swt._KEPT_CAP = caps
+    log(28, f"diagnostic, 1080p with the caps raised to {SWT_CAPS_RAISED} "
+            f"(no fallback; words = compact): median {r_ms:.2f} ms ("
+            + ", ".join(f"{k} {v:.2f}" for k, v in r_st.items())
+            + f"); {card}")
+
+    def profile():
+        for route in ("compact", "device"):
+            busy, by_name, wall = device_ms(
+                lambda: swt.detect_words(frame_d, letters=route), 1)
+            log(28, f"SWT 1080p letters={route!r} under torch.profiler (1 "
+                    f"image): device busy {busy:.2f} ms over a wall of "
+                    f"{wall:.2f} ms: idle share {1 - busy / wall:.3f}; "
+                    f"largest: {top_kernels(by_name)}; {card}")
+    return res, profile
+
+
 def main():
     sys.path.insert(0, ROOT)
     from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
@@ -3206,6 +3598,11 @@ def main():
     # last) -----------------------------------------------------------------
     slice_profiles = [path(dev, card, read)[1] for path in (
         bbf_path, dpm_path, mser_path, daisy_path, tld_path)]
+
+    # -- 27-28: ccv's classic surface and SWT's device letter route (their
+    # profiles come last) ---------------------------------------------------
+    slice_profiles += [path(dev, card, read)[1] for path in (
+        classic_path, swt_device_path)]
 
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------

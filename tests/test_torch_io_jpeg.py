@@ -99,12 +99,16 @@ def test_truncated_or_damaged_jpeg_raises(jpegs, cut):
 def test_missing_header_is_named_and_nothing_falls_back(monkeypatch,
                                                         tmp_path, jpegs):
     """A compiler that cannot find jpeglib.h (here a stand-in that fails as
-    g++ does) makes a JPEG decode raise an error naming the header, and so
-    does a second decode without running the compiler again; PNG still
-    decodes, and no other JPEG decoder is tried."""
+    g++ does on the decoder's source, and passes every other build, such
+    as the signature hash a PNG read needs, to g++) makes a JPEG decode
+    raise an error naming the header, and so does a second decode without
+    running the compiler again; PNG still decodes, and no other JPEG
+    decoder is tried."""
     fake = tmp_path / "cxx"
     runs = tmp_path / "runs"
-    fake.write_text(f"#!/bin/sh\necho run >> {runs}\n"
+    fake.write_text("#!/bin/sh\ncase \"$*\" in *image_decode.cpp*) ;;\n"
+                    "*) exec g++ \"$@\" ;;\nesac\n"
+                    f"echo run >> {runs}\n"
                     "echo 'image_decode.cpp:20:10: fatal error: "
                     "jpeglib.h: No such file or directory' >&2\nexit 1\n")
     fake.chmod(fake.stat().st_mode | stat.S_IXUSR)

@@ -66,7 +66,7 @@ def test_package_data_holds_every_native_source():
     csrc = os.path.join(ROOT, "ccv_tpu_torch", "csrc")
     files = sorted(os.listdir(csrc))
     assert {"ccv_tpu_mser.cpp", "ccv_tpu_mscr.cpp", "scd_planes.cuh",
-            "image_decode.cpp"} <= set(files)
+            "image_decode.cpp", "ccv_tpu_native.cpp"} <= set(files)
     missing = [f for f in files
                if not any(fnmatch.fnmatch(f"csrc/{f}", g) for g in globs)]
     assert missing == [], (missing, globs)
@@ -85,7 +85,13 @@ def test_slice_modules_import_alone():
             "ccv_tpu_torch.detectors.ferns", "ccv_tpu_torch.detectors.tld",
             "ccv_tpu_torch.ops.transform", "ccv_tpu_torch.bin.bbfdetect",
             "ccv_tpu_torch.bin.dpmdetect", "ccv_tpu_torch.bin.msermatch",
-            "ccv_tpu_torch.bin.tld"} <= set(names.split())
+            "ccv_tpu_torch.bin.tld",
+            # the classic surface
+            "ccv_tpu_torch.compat", "ccv_tpu_torch.core.cache",
+            "ccv_tpu_torch.core.numeric", "ccv_tpu_torch.core.util",
+            "ccv_tpu_torch.ops.color", "ccv_tpu_torch.utils.flags",
+            "ccv_tpu_torch.utils.log",
+            "ccv_tpu_torch.utils.profiler"} <= set(names.split())
     from ccv_tpu_torch.ops import classic
     assert callable(classic.hog)
     assert callable(classic.optical_flow_lucas_kanade)
