@@ -1,5 +1,8 @@
 """Optimizers of the port (counterpart of ccv_tpu/nn/optimizers.py): Adam
-and AdamW through ``_adam_family``.
+and AdamW through ``_adam_family``, and the per-tensor update commands
+(``sgd_step``, ``adam_step``, ``adamw_step``, ``lamb_step``,
+``rmsprop_step``: pure functions, the cpu_ref kernels' formulas in
+``ccv_tpu``'s order) that ``nn/cmd.py`` registers.
 
 The interface mirrors ``ccv_tpu``'s: ``opt.init(params) -> state`` and
 ``opt.update(grads, state, params) -> (params, state)``, over nested
@@ -105,3 +108,75 @@ def adamw(rate: float = 0.001, scale: float = 1.0, decay: float = 0.01,
           amsgrad: bool = False) -> Optimizer:
     return _adam_family(rate, scale, decay, beta1, beta2, epsilon, amsgrad,
                         decoupled=True, kind="adamw")
+
+
+# ---------------------------------------------------------------------------
+# per-tensor update commands (cmd/sgd, cmd/adam, cmd/lamb, cmd/rmsprop)
+# ---------------------------------------------------------------------------
+
+def sgd_step(grad, x, mom, rate=0.001, scale=1.0, decay=0.0, momentum=0.9,
+             dampening=0.0, nesterov=False):
+    """CCV_NNC_SGD_FORWARD (cmd/sgd/ccv_nnc_sgd_cpu_ref.c:79-114): (grad,
+    x, momentum) -> (new x, new momentum)."""
+    if nesterov:
+        if dampening != 0:
+            raise ValueError("nesterov needs dampening 0")
+        g = scale * grad
+        m = momentum * mom + g + decay * x
+        return x - rate * (g + momentum * m), m
+    m = momentum * mom + (1.0 - dampening) * (scale * grad + decay * x)
+    return x - rate * m, m
+
+
+def adam_step(grad, x, m, v, step, rate=0.001, scale=1.0, beta1=0.9,
+              beta2=0.999, decay=0.0, epsilon=1e-8):
+    """CCV_NNC_ADAM_FORWARD (cmd/adam/ccv_nnc_adam_cpu_ref.c:112-122):
+    (grad, x, m, v) and the 1-based step -> (new x, new m, new v)."""
+    g = scale * grad + decay * x
+    m2 = beta1 * m + (1.0 - beta1) * g
+    v2 = beta2 * v + (1.0 - beta2) * g * g
+    inv_b1 = 1.0 / (1.0 - beta1 ** step)
+    inv_b2 = 1.0 / (1.0 - beta2 ** step)
+    return (x - (m2 * rate * inv_b1) / (torch.sqrt(v2 * inv_b2) + epsilon),
+            m2, v2)
+
+
+def adamw_step(grad, x, m, v, step, rate=0.001, scale=1.0, beta1=0.9,
+               beta2=0.999, decay=0.01, epsilon=1e-8):
+    """CCV_NNC_ADAMW_FORWARD (cmd/adam/ccv_nnc_adamw_cpu_ref.c:157-160):
+    the decay is decoupled from the moments."""
+    g = scale * grad
+    m2 = beta1 * m + (1.0 - beta1) * g
+    v2 = beta2 * v + (1.0 - beta2) * g * g
+    inv_b1 = 1.0 / (1.0 - beta1 ** step)
+    inv_b2 = 1.0 / (1.0 - beta2 ** step)
+    return (x - rate * decay * x
+            - (m2 * rate * inv_b1) / (torch.sqrt(v2 * inv_b2) + epsilon),
+            m2, v2)
+
+
+def lamb_step(grad, x, m, v, step, rate=0.001, scale=1.0, beta1=0.9,
+              beta2=0.999, decay=0.0, epsilon=1e-6):
+    """CCV_NNC_LAMB_FORWARD (cmd/lamb/ccv_nnc_lamb_cpu_ref.c:96-130): the
+    Adam-style update scaled by the trust ratio |x| / |update|."""
+    g = scale * grad
+    m2 = beta1 * m + (1.0 - beta1) * g
+    v2 = beta2 * v + (1.0 - beta2) * g * g
+    inv_b1 = 1.0 / (1.0 - beta1 ** step)
+    inv_b2 = 1.0 / (1.0 - beta2 ** step)
+    update = (m2 * inv_b1) / (torch.sqrt(v2 * inv_b2) + epsilon) + decay * x
+    w_norm = torch.sqrt((x.float() ** 2).sum())
+    u_norm = torch.sqrt((update.float() ** 2).sum())
+    trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
+                        torch.ones_like(w_norm))
+    return x - rate * trust * update, m2, v2
+
+
+def rmsprop_step(grad, x, mom, v, rate=0.001, scale=1.0, decay=0.0,
+                 alpha=0.99, momentum=0.9, epsilon=1e-8):
+    """CCV_NNC_RMSPROP_FORWARD (cmd/rmsprop/ccv_nnc_rmsprop_cpu_ref.c:90-94):
+    (grad, x, momentum, velocity) -> (new x, new momentum, new velocity)."""
+    g = scale * grad + decay * x
+    v2 = alpha * v + (1.0 - alpha) * g * g
+    m2 = momentum * mom + g / (torch.sqrt(v2) + epsilon)
+    return x - rate * m2, m2, v2

@@ -109,7 +109,8 @@ started together) and drives the port's main paths:
   1080p gray and RGB frames against the same calls on the CPU (integer
   outputs equal, float within 1e-5 of the largest, contrast within 1 at
   <= 0.1% of the pixels), each again as a hit (same signature and tensor,
-  no CUDA kernel under torch.profiler), a CPU matrix of the same bytes
+  no CUDA kernel under torch.profiler, in a window that must also show
+  its HIT_CONTROL control kernels), a CPU matrix of the same bytes
   answered on the CPU, eviction, drain and disable, PNG and CCVBINDM
   writes read back, ``core.numeric`` on the card against the CPU (FFT
   filter, distance transform at (270, 480), invert / solve / eigen at
@@ -120,7 +121,25 @@ started together) and drives the port's main paths:
   route's; both routes' stage timings and counts (painted cells,
   candidates, kept letters, overflows to the compact route), the device
   stage at 1080p with the caps raised (a diagnostic), and each route's
-  profile last.
+  profile last;
+- phase 29, the graph model (``nn/functional.Model``; no kernel of the
+  port's own: cuDNN's convolutions, torch ops): ResNet50-v1d + FPN with the
+  shared RPN head (``models/resnet.py``) at full width, seeded weights, at
+  COCO's inference scale 800 x 1344: one image in float32 on the card
+  against the CPU (P2..P6 and the RPN maps), B 2 in bf16 against float32
+  on the card (beside a control with batch norm in bf16), the bf16
+  forward timed (ms a batch, images/s, MFU from the built graph's
+  convolution FLOPs), its profile last (busy, idle share, the top four
+  device ops; the events of three batches three times one's, busy within
+  the CUDA events' span, and the same batches without the profiler);
+- phase 30, the rest of nn on the card against the CPU: a graph model
+  with ``ScaledDotProductAttention`` (16 heads of 64, B 4 x T 1024, bf16),
+  whose attention launches K2a (counted by the wrapper, and by kernel name
+  under torch.profiler, last); LSTM (one way and both) and GRU at B 32 x
+  T 64 x 256; ConvolutionTranspose, the three norms, upsample, nms on 2000
+  boxes and roi_align; the MoE forward (8 experts, top 2, 1024 / 4096, 4096
+  tokens); ``depalettize_device`` on the three goldens; LSSC; while_loop
+  and case_of.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -129,6 +148,7 @@ limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed check 
 device; imports no JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -219,6 +239,37 @@ DECODE_TOL = 3e-2
 K2_DECODE = (256, 128, 128, 64, True)
 K2_WMT = (128, 128, 128, 64, True)
 K2_PADDED = [(2, t, 8, 16, c) for t in (16, 128) for c in (False, True)]
+# phase 29, the graph model's path: ResNet50-v1d + FPN + RPN at COCO's
+# inference scale (short side 800, the long side 1333 padded to a multiple
+# of 32: every FPN merge an exact 2x), seeded weights and batch-norm
+# statistics. Card against CPU in float32: each level's and RPN map's
+# largest difference within RESNET_F32 of its largest magnitude (53
+# convolutions deep; cuDNN's and oneDNN's float32 sums in other orders,
+# TF32 off). bf16 at B 2 against float32 on the card: within RESNET_BF16,
+# the bf16 gate of the other card-vs-CPU checks (every layer rounds to
+# bf16). It catches gross faults only: the control printed beside it, batch
+# norm in bf16 instead of float32, lies about as far from float32 (0.0140
+# against 0.0131 at the largest, NVIDIA H100 80GB HBM3, 700 W)
+RESNET_HW = (800, 1344)
+RESNET_B = 2
+RESNET_F32, RESNET_BF16 = 1e-3, 3e-2
+RESNET_REPS = 10
+# phase 30, the rest of the slice on the card against the CPU: float32
+# within NN_F32 of the largest magnitude (the same arithmetic in another
+# order), bf16 attention within CLS_BF16; integer results and the LSSC
+# codes equal; the MoE forward (8 experts, top 2, dim 1024, ff 4096, 4096
+# tokens) with at least MOE_AGREE of its tokens within NN_F32 (a token
+# whose two best experts' probabilities lie within float32 noise of a tie
+# may route otherwise on the card), the rest counted
+NN_F32 = 1e-4
+MOE_AGREE = 0.999
+SDPA_SHAPE = (4, 1024, 1024, 16, 64)  # B, T, d_model, heads, head dim
+RNN_SHAPE = (32, 64, 256)             # B, T, width
+FMAP_SHAPE = (2, 100, 168, 256)       # the FPN's P3 at 800 x 1344, B 2
+NMS_BOXES, ROIS = 2000, 64
+MOE = dict(dim=1024, ff=4096, experts=8, top_k=2)
+MOE_TOKENS = 4096
+LSSC_SHAPE = (2, 200, 336, 64)
 
 
 def log(phase, msg):
@@ -321,6 +372,13 @@ def kernel_vs_plain(scd, k1, cascade, sat_l, dims):
     return float(err.max()), int(pass0.sum()), int((~margin_ok).sum())
 
 
+# every profiled window opens with PROFILE_HEAD spin kernels
+# (torch.cuda._sleep, named HEAD_KERNEL in the profiler), left out of every
+# figure: see profile_head
+PROFILE_HEAD = 1000
+HEAD_KERNEL = "spin_kernel"
+
+
 def time_cuda(fn, reps):
     """Mean ms per call on the card: CUDA events around `reps` calls."""
     fn()
@@ -341,20 +399,52 @@ def device_ms(fn, n):
     busy is the sum of the device-side events (the host-side ops carry
     their kernels' time too); wall is the host clock around the calls,
     ending in a synchronize, profiler overhead included."""
+    w = device_window(fn, n)
+    return w["busy"], w["by_name"], w["wall"]
+
+
+def device_window(fn, n):
+    """``device_ms``'s window as a dict: ``busy``, ``by_name`` and ``wall``
+    (ms per call) and besides ``span``, the CUDA events' ms per call from
+    before the first call to after the last (the device's own clock over
+    the same window), ``counts``, the device events the profiler kept by
+    name, and ``events``, their sum. The window opens with
+    ``profile_head``, whose kernels no figure counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profile_head()
         t0 = time.perf_counter()
+        start.record()
         for _ in range(n):
             fn()
+        end.record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1000 / n
-    by_name = {e.key: e.self_device_time_total / 1e3 / n
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
-    return sum(by_name.values()), by_name, wall
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and HEAD_KERNEL not in e.key]
+    by_name = {e.key: e.self_device_time_total / 1e3 / n for e in events}
+    counts = {e.key: e.count for e in events}
+    return dict(busy=sum(by_name.values()), by_name=by_name, wall=wall,
+                span=start.elapsed_time(end) / n, counts=counts,
+                events=sum(counts.values()))
+
+
+def profile_head():
+    """Open a profiled window with PROFILE_HEAD spin kernels (named
+    HEAD_KERNEL) and a synchronize. Late in a process torch.profiler loses
+    the first device records of each window: two of 1, 2, 8, 24 or 96
+    matmuls (``python -m ccv_tpu_torch.bin.profiler_windows``), three of
+    phase 29's 705 a batch, all 24 of phase 30's attention window in two
+    whole runs of this script. Those lost are then the head's, which no
+    figure counts."""
+    for _ in range(PROFILE_HEAD):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
 
 
 def k2_inputs(shape, dtype, dev, rng):
@@ -2962,6 +3052,7 @@ CLASSIC_RGB = CLASSIC_COMMON + [
     ("ccv_saturation", dict(ds=1.5)), ("ccv_contrast", dict(ds=0.5)),
     ("ccv_contrast", dict(ds=1.5))]
 SWT_CAPS_RAISED = (4096, 1024)  # phase 28's uncapped timing, diagnostic
+HIT_CONTROL = 1000  # control kernels in the window of phase 27's hits
 CLASSIC_CACHE_BYTES = 2 << 30
 
 
@@ -3055,15 +3146,30 @@ def classic_path(dev, card, read):
             calls.append((getattr(ccv, name), src, kw or {}))
             if name == "ccv_canny":
                 prev = (getattr(ccv, name)(on_card, **kw), None)
+        # after the head (profile_head) and the hits, HIT_CONTROL
+        # bitwise_not kernels that the window must show (a window that lost
+        # its device records would show no kernel)
+        ctrl = torch.zeros(64, dtype=torch.uint8, device=dev)
         torch.cuda.synchronize()
         h0 = cache.hits
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            profile_head()
             for fn, src, kw in calls:
                 fn(src, **kw)
+            for _ in range(HIT_CONTROL):
+                ctrl.bitwise_not_()
             torch.cuda.synchronize()
-        n_cuda = sum(e.count for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA)
+        n_ctrl = n_cuda = 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or HEAD_KERNEL in e.key:
+                continue
+            if "bitwise_not" in e.key:
+                n_ctrl += e.count
+            else:
+                n_cuda += e.count
+        check(n_ctrl == HIT_CONTROL, f"{label}: the profiler kept {n_ctrl} "
+                                     f"of the {HIT_CONTROL} control kernels")
         check(n_cuda == 0, f"{label}: the hits launched {n_cuda} kernels")
         held = cache._cur_bytes
         check(cache.hits - h0 == sum(2 if fn is ccv.ccv_gradient else 1
@@ -3079,8 +3185,9 @@ def classic_path(dev, card, read):
             f"largest, contrast within 1 at <= 0.1%; largest difference "
             f"{maxerr:.3g}); every second call a "
             f"hit on the same tensor, and the hits of each frame launched 0 "
-            f"CUDA kernels under torch.profiler ({held / 2 ** 20:.1f} MiB "
-            f"cached); ms first call / hit "
+            f"CUDA kernels under torch.profiler (beside the window's "
+            f"{HIT_CONTROL} control kernels, all kept; "
+            f"{held / 2 ** 20:.1f} MiB cached); ms first call / hit "
             f"(synchronised): " + "; ".join(rows) + f"; {card}")
     # a CPU matrix of the card's bytes gets a CPU result, never the card's
     on_cpu = from_numpy(gray_np, device="cpu")
@@ -3309,6 +3416,374 @@ def swt_device_path(dev, card, read):
                     f"{wall:.2f} ms: idle share {1 - busy / wall:.3f}; "
                     f"largest: {top_kernels(by_name)}; {card}")
     return res, profile
+
+
+def seeded_stats(model, seed):
+    """Batch-norm affine terms and statistics and the convolution biases
+    from a seed, node by node (the initialisers leave them constant)."""
+    rng = np.random.default_rng(seed)
+    for node in model.order:
+        uid = str(node.uid)
+        for tree in (model.params, model.state):
+            for k in sorted(tree[uid]):
+                v = tree[uid][k]
+                if k in ("scale", "var"):
+                    a = rng.uniform(0.5, 1.0, tuple(v.shape))
+                elif k in ("b", "bias", "mean"):
+                    a = rng.normal(0, 0.1, tuple(v.shape))
+                else:
+                    continue
+                tree[uid][k] = torch.from_numpy(a.astype(np.float32)).to(
+                    v.device)
+
+
+@contextlib.contextmanager
+def bf16_batch_norm():
+    """Phase 29's control: ``ops.batch_norm`` in the activation's type
+    (bf16) instead of float32, for as long as the context lasts."""
+    from ccv_tpu_torch.nn import ops
+    saved = ops.batch_norm
+
+    def in_x_type(x, scale, bias, mean, var, epsilon=1e-5, format=None):
+        assert format is None
+        t = x.dtype
+        return ((x - mean.to(t)) * torch.rsqrt(var + epsilon).to(t)
+                * scale.to(t) + bias.to(t))
+    ops.batch_norm = in_x_type
+    try:
+        yield
+    finally:
+        ops.batch_norm = saved
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, in float32 on the CPU."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(got.shape == want.shape, f"shape {tuple(got.shape)} != "
+                                   f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), "not finite")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def resnet_path(dev, card):
+    """Phase 29: ``resnet.resnet50_v1d_fpn()`` -> ``Model.build`` ->
+    ``Model.evaluate`` -> ``resnet.rpn_apply`` on the card at full width;
+    one 800x1344 image in float32 against the CPU (P2..P6 and the RPN
+    maps), B 2 in bf16 against float32 on the card, then the bf16 forward
+    timed (median of RESNET_REPS synchronised batches after a warm-up):
+    ms a batch, images/s, MFU from the built graph's convolution FLOPs.
+    Returns (result, profile)."""
+    from ccv_tpu_torch.bin.lm_bench import peak_tflops
+    from ccv_tpu_torch.models import resnet
+    H, W = RESNET_HW
+    t0 = time.perf_counter()
+    models = {}
+    for where in ("cpu", dev):
+        m = resnet.resnet50_v1d_fpn()
+        m.build((RESNET_B, H, W, 3), torch.Generator().manual_seed(0),
+                device=where)
+        seeded_stats(m, 1)
+        models[str(where)] = m
+    cpu_m, card_m = models["cpu"], models[str(dev)]
+    rpn_cpu = resnet.rpn_init(torch.Generator().manual_seed(2),
+                              device="cpu")
+    rpn_cpu["b"] = torch.linspace(-0.1, 0.1, resnet.RPN_CHANNELS)
+    rpn = {k: v.to(dev) for k, v in rpn_cpu.items()}
+    build_s = time.perf_counter() - t0
+    levels = [tuple(s[1:3]) for s in card_m.output_shape]
+    check(levels == [(200, 336), (100, 168), (50, 84), (25, 42), (12, 21)],
+          f"levels {levels}")
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (RESNET_B, H, W, 3)).astype(np.float32))
+
+    def forward(model, inp, params):
+        feats = model.evaluate(inp)
+        with torch.no_grad():
+            return feats + resnet.rpn_apply(params, feats)
+
+    t0 = time.perf_counter()
+    want = forward(cpu_m, x[:1], rpn_cpu)
+    cpu_s = time.perf_counter() - t0
+    got = forward(card_m, x[:1].to(dev), rpn)
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    check(max(errs) <= RESNET_F32, f"ResNet-FPN float32 card vs CPU: "
+                                   f"{errs} > {RESNET_F32}")
+    xb = x.to(dev)
+    f32 = forward(card_m, xb, rpn)
+    xh = xb.to(torch.bfloat16)
+    bf16 = forward(card_m, xh, rpn)
+    check(all(o.dtype == torch.bfloat16 for o in bf16), "bf16 outputs")
+    errs16 = [rel_err(g, w) for g, w in zip(bf16, f32)]
+    # the control: batch norm in bf16 instead of float32
+    with bf16_batch_norm():
+        ctrl = forward(card_m, xh, rpn)
+    errs_ctrl = [rel_err(g, w) for g, w in zip(ctrl, f32)]
+    check(max(errs16) <= RESNET_BF16, f"ResNet-FPN bf16 vs float32: "
+                                      f"{errs16} > {RESNET_BF16}")
+    del f32, bf16, got, ctrl
+    ms, all_ms = median_ms(lambda: forward(card_m, xh, rpn), RESNET_REPS)
+    flops = resnet.conv_flops(card_m)
+    peak = peak_tflops(dev) * 1e12
+    res = dict(ms=ms, images_s=RESNET_B * 1e3 / ms, gflop=flops / 1e9,
+               mfu=flops / (ms / 1e3) / peak, f32_err=errs, bf16_err=errs16,
+               bf16_bn_err=errs_ctrl,
+               params_m=card_m.parameter_count() / 1e6)
+    names = ["P2", "P3", "P4", "P5", "P6"] + [f"RPN{i}" for i in range(2, 7)]
+    log(29, f"ResNet50-v1d-FPN + RPN ({res['params_m']:.2f} M params, "
+            f"{len(card_m.order)} graph nodes, built twice in {build_s:.1f} "
+            f"s), levels {levels}: float32 1 x {H} x {W} card vs CPU (CPU "
+            f"{cpu_s:.1f} s) max rel err "
+            + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, errs))
+            + f" (limit {RESNET_F32}); bf16 B {RESNET_B} vs float32 on the "
+            f"card: " + ", ".join(f"{n} {e:.3g}" for n, e in
+                                  zip(names, errs16))
+            + f" (limit {RESNET_BF16}); the control, batch norm in bf16: "
+            + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, errs_ctrl)))
+    log(29, f"bf16 B {RESNET_B} x {H} x {W} forward (graph + RPN): median "
+            f"{ms:.3f} ms a batch (min {min(all_ms):.3f}, max "
+            f"{max(all_ms):.3f}, n={RESNET_REPS}), {res['images_s']:.1f} "
+            f"images/s, {flops / 1e9:.1f} GFLOP a batch (2 Ho Wo Cout Cin "
+            f"kh kw over its convolutions and the RPN), MFU "
+            f"{res['mfu']:.4f} of {peak / 1e12:.0f} TFLOP/s; {card}")
+
+    def profile():
+        def batch():
+            return forward(card_m, xh, rpn)
+        one, w = device_window(batch, 1), device_window(batch, 3)
+        # the profiler keeps every batch's device events (one window of
+        # three against one of one), and its busy time fits in the CUDA
+        # events' span of the same window
+        check(w["events"] == 3 * one["events"] > 0, f"the profiler kept "
+              f"{w['events']} device events in 3 batches, {one['events']} "
+              f"in 1")
+        check(w["busy"] <= 1.01 * w["span"], f"busy {w['busy']:.3f} ms a "
+              f"batch past the CUDA events' {w['span']:.3f}")
+        # the same three batches without the profiler, host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            batch()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1000 / 3
+        busy = w["busy"]
+        res.update(busy_ms=busy, wall_ms=w["wall"], idle=1 - busy / w["wall"],
+                   span_ms=w["span"], events=w["events"], wall_plain_ms=plain,
+                   idle_plain=1 - busy / plain)
+        log(29, f"bf16 B {RESNET_B} forward under torch.profiler (3 "
+                f"batches, {w['events']} device events, {one['events']} in "
+                f"a window of one): device busy {busy:.3f} ms a batch over "
+                f"a wall of {w['wall']:.3f} ms: idle share "
+                f"{1 - busy / w['wall']:.3f}; CUDA events over the same "
+                f"window {w['span']:.3f} ms a batch (idle "
+                f"{1 - busy / w['span']:.3f}); the same batches without the "
+                f"profiler {plain:.3f} ms a batch (idle against the "
+                f"profiled busy {1 - busy / plain:.3f}); largest: "
+                f"{top_kernels(w['by_name'])}; {card}")
+    return res, profile
+
+
+def card_vs_cpu(name, fn, inputs, dev, limit=NN_F32):
+    """fn on the CPU inputs and on their copies on the card: (relative
+    error of each output, card ms median of 3). Raises past ``limit``."""
+    want = fn(*inputs)
+    card_in = [t.to(dev) if isinstance(t, torch.Tensor) else t
+               for t in inputs]
+    got = fn(*card_in)
+    want = want if isinstance(want, (tuple, list)) else [want]
+    got = got if isinstance(got, (tuple, list)) else [got]
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    check(max(errs) <= limit, f"{name}: card vs CPU {errs} > {limit}")
+    ms, _ = median_ms(lambda: fn(*card_in), 3)
+    return errs, ms
+
+
+def nn_rest_path(dev, card, k2):
+    """Phase 30: the rest of the slice on the card against the CPU. A
+    graph model with ScaledDotProductAttention at T 1024 in bf16 (its
+    attention runs K2a: counted by the wrapper and, by kernel name, under
+    torch.profiler); LSTM and GRU; ConvolutionTranspose, the three norms,
+    upsample, nms on 2000 boxes, roi_align; the MoE forward;
+    depalettize_device on the goldens; LSSC; while_loop and case_of.
+    Returns (K2a's launches on the layer's run, the profile, which counts
+    fwd_sm90_kernel in one evaluate under torch.profiler)."""
+    from ccv_tpu_torch.nn import compression, control_flow, moe, palettize
+    from ccv_tpu_torch.nn import functional as F
+    from ccv_tpu_torch.nn import layers as L
+    from ccv_tpu_torch.nn import ops
+    rng = np.random.default_rng(30)
+    lines = []
+
+    # the attention model through the graph API: K2 from the layer
+    B, T, D, heads, hd = SDPA_SHAPE
+    model, x = attention_model(dev)
+    cpu_m, _ = attention_model("cpu")
+    want = cpu_m.evaluate(x)
+    xd = x.to(dev)
+    k2.reset_launches()
+    got = model.evaluate(xd)
+    torch.cuda.synchronize()
+    launches = dict(k2.LAUNCHES)
+    check(launches == {"fwd": 1, "dq": 0, "dkv": 0},
+          f"the attention layer launched K2 {launches}")
+    err = rel_err(got, want)
+    check(err <= CLS_BF16, f"attention model bf16 card vs CPU {err}")
+    ms, _ = median_ms(lambda: model.evaluate(xd), 5)
+    lines.append(f"Model(LayerNorm, ScaledDotProductAttention({heads}, {hd},"
+                 f" causal), Add) B {B} x T {T} x {D} bf16: K2 launches "
+                 f"{launches}, card vs CPU {err:.3g} (limit {CLS_BF16}), "
+                 f"{ms:.3f} ms")
+
+    # the recurrences
+    Bn, Tn, Wn = RNN_SHAPE
+    xr = torch.from_numpy(rng.normal(0, 1, (Bn, Tn, Wn)).astype(np.float32))
+    for layer in (L.LSTM(Wn), L.LSTM(Wn, bidirectional=True), F.GRU(Wn)):
+        p, s, _ = layer.init(torch.Generator().manual_seed(5), (Bn, Tn, Wn))
+
+        def run(t, layer=layer, p=p, s=s):
+            pd = {k: v.to(t.device) for k, v in p.items()}
+            with torch.no_grad():
+                return layer.apply(pd, s, t)[0]
+        errs, ms = card_vs_cpu(layer.name, run, [xr], dev)
+        lines.append(f"{type(layer).__name__}"
+                     f"{'(bi)' if getattr(layer, 'bidirectional', 0) else ''}"
+                     f" {Bn} x {Tn} x {Wn}: {errs[0]:.3g} ({ms:.2f} ms)")
+
+    # convolution transpose, norms, upsample, roi_align
+    c = FMAP_SHAPE[-1]
+    fm = torch.from_numpy(rng.normal(0, 1, FMAP_SHAPE).astype(np.float32))
+    wt = torch.from_numpy(rng.normal(0, 0.05, (c, 3, 3, c)).astype(
+        np.float32))
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    bi = torch.from_numpy(rng.normal(0, 0.1, c).astype(np.float32))
+    cases = {
+        "conv2d_transpose s2": lambda t, w: ops.conv2d_transpose(
+            t, w, stride=(2, 2)),
+        "layer_norm": lambda t, s, b: ops.layer_norm(t, s, b),
+        "group_norm(32)": lambda t, s, b: ops.group_norm(t, s, b, 32),
+        "rmsnorm": lambda t, s: ops.rmsnorm(t, s),
+        "upsample bilinear 2x": lambda t: ops.upsample(t, 2.0, 2.0),
+        "upsample nearest 1.5x": lambda t: ops.upsample(t, 1.5, 1.5,
+                                                        "nearest"),
+    }
+    args = {"conv2d_transpose s2": [fm, wt], "layer_norm": [fm, sc, bi],
+            "group_norm(32)": [fm, sc, bi], "rmsnorm": [fm, sc],
+            "upsample bilinear 2x": [fm], "upsample nearest 1.5x": [fm]}
+    for name, fn in cases.items():
+        errs, ms = card_vs_cpu(name, fn, args[name], dev)
+        lines.append(f"{name} {FMAP_SHAPE}: {errs[0]:.3g} ({ms:.3f} ms)")
+    rois = torch.from_numpy(np.concatenate([
+        rng.uniform(0, 0.7, (ROIS, 2)), rng.uniform(0.05, 0.3, (ROIS, 2))],
+        1).astype(np.float32))
+    errs, ms = card_vs_cpu("roi_align", lambda t, r: ops.roi_align(
+        t, r, 7, 7), [fm[0], rois], dev)
+    lines.append(f"roi_align {ROIS} rois 7x7 of {FMAP_SHAPE[1:]}: "
+                 f"{errs[0]:.3g} ({ms:.2f} ms)")
+    boxes = torch.from_numpy(np.concatenate([
+        rng.uniform(0, 1300, (NMS_BOXES, 2)),
+        rng.uniform(10, 200, (NMS_BOXES, 2))], 1).astype(np.float32))
+    scores = torch.from_numpy(rng.uniform(0, 1, NMS_BOXES).astype(
+        np.float32))
+    order, keep = ops.nms(boxes, scores, 0.5)
+    order_d, keep_d = ops.nms(boxes.to(dev), scores.to(dev), 0.5)
+    check(torch.equal(order, order_d.cpu()) and torch.equal(
+        keep, keep_d.cpu()), "nms: the card's order or keep differs")
+    ms, _ = median_ms(lambda: ops.nms(boxes.to(dev), scores.to(dev), 0.5), 3)
+    lines.append(f"nms {NMS_BOXES} boxes: order and keep equal "
+                 f"({int(keep.sum())} kept, {ms:.2f} ms)")
+
+    # the MoE forward
+    cfg = moe.MoEConfig(**MOE)
+    mp = moe.init(torch.Generator().manual_seed(7), cfg, device="cpu")
+    xt = torch.from_numpy(rng.normal(0, 1, (MOE_TOKENS, cfg.dim)).astype(
+        np.float32))
+    out_c, aux_c = moe.forward(mp, cfg, xt)
+    mpd = {k: v.to(dev) for k, v in mp.items()}
+    out_d, aux_d = moe.forward(mpd, cfg, xt.to(dev))
+    tok = ((out_d.cpu() - out_c).abs().amax(-1)
+           <= NN_F32 * float(out_c.abs().max()))
+    agree = float(tok.float().mean())
+    aux_err = abs(float(aux_d) - float(aux_c)) / abs(float(aux_c))
+    check(agree >= MOE_AGREE and aux_err <= NN_F32,
+          f"MoE: {agree:.5f} of tokens agree, aux err {aux_err:.3g}")
+    ms, _ = median_ms(lambda: moe.forward(mpd, cfg, xt.to(dev)), 3)
+    lines.append(f"MoE {MOE}, {MOE_TOKENS} tokens: {int(tok.sum())} "
+                 f"tokens within {NN_F32} (limit {MOE_AGREE} of them), aux "
+                 f"err {aux_err:.3g} ({ms:.2f} ms)")
+
+    # depalettize on the card, LSSC
+    for gname in ("palettize_f32_q4.bin", "palettize_f32_q5.bin",
+                  "palettize_f16_q8.bin"):
+        raw = open(os.path.join(DATA, gname), "rb").read()
+        datatype, qbits, nb, n = struct.unpack("<4i", raw[:16])
+        (sz,) = struct.unpack("<q", raw[16:24])
+        ref = np.frombuffer(raw[24 + sz:], {0x20000: np.float16,
+                                            0x04000: np.float32}[datatype])
+        dec = palettize.depalettize_device(raw[24:24 + sz], datatype, n,
+                                           qbits, nb, device=dev)
+        check(dec.device.type == "cuda" and np.array_equal(
+            dec.cpu().numpy(), ref), f"depalettize_device {gname}")
+    lines.append("depalettize_device: the three goldens equal the C output")
+    act = torch.from_numpy(rng.normal(0, 2, LSSC_SHAPE).astype(np.float32))
+    codes_c = compression.lssc_compress(act)
+    codes_d = compression.lssc_compress(act.to(dev))
+    check(all(torch.equal(c, d.cpu()) for c, d in zip(codes_c, codes_d)),
+          "LSSC codes differ between the card and the CPU")
+    back_c = compression.lssc_decompress(*codes_c, act.shape)
+    back_d = compression.lssc_decompress(*codes_d, act.shape)
+    check(torch.equal(back_c, back_d.cpu()), "LSSC decompress differs")
+    lines.append(f"LSSC {LSSC_SHAPE}: codes and decompressed values card = "
+                 f"CPU")
+
+    # control flow
+    def newton(v):
+        return control_flow.while_loop(
+            lambda c: bool((c[0] * c[0] - v).abs().max() > 1e-4 * v.max())
+            and int(c[1]) < 50,
+            lambda c: ((c[0] + v / c[0]) / 2, c[1] + 1),
+            (torch.ones_like(v), torch.zeros((), dtype=torch.int64,
+                                             device=v.device)))
+    v = torch.from_numpy(rng.uniform(1, 100, 1000).astype(np.float32))
+    (r_c, n_c), (r_d, n_d) = newton(v), newton(v.to(dev))
+    check(int(n_c) == int(n_d) and rel_err(r_d, r_c) <= NN_F32,
+          "while_loop: the card's iterations or roots differ")
+    branches = [lambda t: t + 1, lambda t: t * t, lambda t: -t]
+    for i in (-1, 1, 5):
+        check(torch.equal(control_flow.case_of(torch.tensor(i, device=dev),
+                                               branches, v.to(dev)).cpu(),
+                          control_flow.case_of(i, branches, v)),
+              f"case_of({i}) differs")
+    lines.append(f"while_loop (Newton, {int(n_d)} steps) and case_of: card "
+                 f"= CPU")
+    log(30, "; ".join(lines) + f"; float32 limit {NN_F32}; {card}")
+
+    def profile():
+        k2.reset_launches()
+        w = device_window(lambda: model.evaluate(xd), 1)
+        fwd = sum(c for k, c in w["counts"].items() if "fwd_sm90_kernel" in k)
+        check(fwd == 1 and k2.LAUNCHES["fwd"] == 1, f"the attention layer's "
+              f"evaluate under torch.profiler: {fwd} fwd_sm90_kernel "
+              f"launches among {w['events']} device events, K2 launches "
+              f"{dict(k2.LAUNCHES)}")
+        log(30, f"the attention model's evaluate under torch.profiler: "
+                f"{fwd} fwd_sm90_kernel launch among {w['events']} device "
+                f"events, K2 launches {dict(k2.LAUNCHES)}; {card}")
+    return launches["fwd"], profile
+
+
+def attention_model(dev):
+    """Phase 30's graph model: LayerNorm, causal ScaledDotProductAttention
+    and a residual Add at SDPA_SHAPE, seeded, built on ``dev``."""
+    from ccv_tpu_torch.nn import functional as F
+    from ccv_tpu_torch.nn import layers as L
+    B, T, D, heads, hd = SDPA_SHAPE
+    inp = F.Input()
+    h = L.LayerNorm(name="ln")(inp)
+    a = L.ScaledDotProductAttention(heads, hd, is_causal=True)(h)
+    model = F.Model([inp], [F.Add()(inp, a)], name="attention")
+    model.build((B, T, D), torch.Generator().manual_seed(4), device=dev)
+    x = torch.from_numpy(np.random.default_rng(30).normal(
+        0, 1, (B, T, D)).astype(np.float32)).to(torch.bfloat16)
+    return model, x
 
 
 def main():
@@ -3604,6 +4079,11 @@ def main():
     slice_profiles += [path(dev, card, read)[1] for path in (
         classic_path, swt_device_path)]
 
+    # -- 29-30: the graph model's ResNet50-v1d-FPN + RPN path, and the rest
+    # of nn on the card against the CPU (29's profile comes last) ----------
+    _resnet_res, resnet_profile = resnet_path(dev, card)
+    k2_layer, nn_rest_profile = nn_rest_path(dev, card, k2)
+
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
@@ -3628,7 +4108,8 @@ def main():
     cubic_device_ms(scd, dev, card, frame, face, up_params)
     vgg_profiled(vgg_model, vgg_x, card)
     seq2seq_profiled(decode_step, decode_res["ms_per_step"], wmt_steps, card)
-    for profile in (icf_profile, swt_profile, sift_profile, *slice_profiles):
+    for profile in (icf_profile, swt_profile, sift_profile, *slice_profiles,
+                    resnet_profile, nn_rest_profile):
         profile()
     for entry, key in zip(kernels[1:4], ("fwd", "dq", "dkv")):
         # launches on the wmt step (dropout 0) over its timed steps, and
@@ -3641,6 +4122,8 @@ def main():
         decode_steps=decode_res["steps"], decode_shape=list(K2_DECODE),
         **{f"decode_{k}": v for k, v in k2_decode.items()})
     kernels[0].update(launches_upscaled=k1_up, launches_served=k1_served)
+    # K2a from the graph model's ScaledDotProductAttention (phase 30)
+    kernels[1].update(launches_layer=k2_layer)
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",
         "source": "ccv_tpu_torch/csrc/scd_phase.cu",
