@@ -13,16 +13,22 @@ lo, 1e-6)) clamped to [0, 3].
 that saves the compressed input and, in the backward pass, recomputes the
 layer on the decompressed (lossy) input for its gradients, as the
 reference inserts compress / decompress nodes around the backward;
-``reduced_apply`` does the same with a bfloat16 copy of a float32 input.
-The forward outputs are exact. The divisions go through ``ops.ewdiv``,
-so the card's codes equal the CPU's.
+``reduced_apply`` does the same with a bfloat16 copy of a float32 input;
+``checkpointed_apply`` (gradient checkpointing) keeps nothing and
+recomputes through ``torch.utils.checkpoint``. The forward outputs are
+exact. Every recompute replays the forward's random draws: it runs on a
+fresh generator set to the state the forward's generator had before the
+layer (``generator_replay``), as ``ccv_tpu`` hands both passes the same
+key, so a ``Dropout`` inside draws the same mask. The divisions go through
+``ops.ewdiv``, so the card's codes equal the CPU's.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ccv_tpu_torch.nn.ops import ewdiv
 
@@ -91,15 +97,32 @@ def lssc_decompress(lo: torch.Tensor, hi: torch.Tensor, idx: torch.Tensor,
     return v[..., :H, :W, :].contiguous()
 
 
+def generator_replay(generator: Optional[torch.Generator]
+                     ) -> Callable[[], Optional[torch.Generator]]:
+    """A function that returns a new generator on ``generator``'s device at
+    the state ``generator`` has now, each call (None for None)."""
+    if generator is None:
+        return lambda: None
+    state = generator.get_state()
+
+    def fresh() -> torch.Generator:
+        g = torch.Generator(device=generator.device)
+        g.set_state(state)
+        return g
+
+    return fresh
+
+
 class _Recomputed(torch.autograd.Function):
-    """y = apply(params, state, x); the backward recomputes the apply on
-    ``restore(saved)`` for the gradients of x and of the parameters."""
+    """y = run(params, x, generator); the backward recomputes the apply on
+    ``restore(saved)`` with a replay of the forward's generator, for the
+    gradients of x and of the parameters."""
 
     @staticmethod
-    def forward(ctx, run, save, restore, keys, x, *pvals):
+    def forward(ctx, run, replay, save, restore, keys, x, *pvals):
         with torch.no_grad():
-            y = run(dict(zip(keys, pvals)), x)
-        ctx.run, ctx.restore, ctx.keys = run, restore, keys
+            y = run(dict(zip(keys, pvals)), x, None)
+        ctx.run, ctx.replay, ctx.restore, ctx.keys = run, replay, restore, keys
         ctx.x_meta = (x.shape, x.dtype)
         saved = save(x)
         ctx.n_saved = len(saved)
@@ -115,24 +138,28 @@ class _Recomputed(torch.autograd.Function):
             x = ctx.restore(saved, shape).to(dtype).detach().requires_grad_()
             ps = [p.detach().requires_grad_(p.is_floating_point())
                   for p in pvals]
-            y = ctx.run(dict(zip(ctx.keys, ps)), x)
+            y = ctx.run(dict(zip(ctx.keys, ps)), x, ctx.replay())
             wrt = [x] + [p for p in ps if p.requires_grad]
             grads = iter(torch.autograd.grad(y, wrt, g, allow_unused=True))
         dx = next(grads)
         dps = [next(grads) if p.requires_grad else None for p in ps]
-        return (None, None, None, None, dx, *dps)
+        return (None, None, None, None, None, dx, *dps)
 
 
 def _recomputed(apply_fn, training: bool, save, restore):
     def wrapped(params, state, x, generator=None):
         holder = {}
+        replay = generator_replay(generator)
 
-        def run(p, v):
-            y, holder["state"] = apply_fn(p, state, v, training, generator)
+        def run(p, v, gen):
+            # the forward draws from the model's generator, a recompute
+            # from a replay of it
+            y, holder["state"] = apply_fn(p, state, v, training,
+                                          generator if gen is None else gen)
             return y
 
         keys = tuple(params)
-        y = _Recomputed.apply(run, save, restore, keys, x,
+        y = _Recomputed.apply(run, replay, save, restore, keys, x,
                               *(params[k] for k in keys))
         return y, holder["state"]
 
@@ -154,3 +181,25 @@ def reduced_apply(apply_fn, dtype, training: bool):
     return _recomputed(apply_fn, training,
                        lambda x: (x.to(torch.bfloat16),),
                        lambda saved, s: saved[0].to(dtype))
+
+
+def checkpointed_apply(apply_fn):
+    """A layer apply ``(params, state, x, training, generator)`` under
+    gradient checkpointing (ccv_cnnp_model_set_gradient_checkpointing,
+    ``ccv_tpu``'s ``jax.checkpoint``): ``torch.utils.checkpoint`` with
+    ``use_reentrant=False`` saves no activation of the layer and runs it
+    again in the backward, the recompute drawing from a replay of the
+    forward's generator."""
+    def wrapped(params, state, x, training=False, generator=None):
+        replay = generator_replay(generator)
+        calls = [0]
+
+        def run(p, s, v):
+            gen = generator if calls[0] == 0 else replay()
+            calls[0] += 1
+            return apply_fn(p, s, v, training, gen)
+
+        return torch.utils.checkpoint.checkpoint(run, params, state, x,
+                                                 use_reentrant=False)
+
+    return wrapped

@@ -13,15 +13,19 @@ fan-in (residual and branching topologies that ``Sequential`` cannot say):
     model.build((1, 32, 32, 64), device="cuda")
     out = model.evaluate(x_tensor)
 
-``Model`` has the inference half of ``Sequential``'s lifecycle: ``build``
-(shape inference and initialisation on a device), ``__call__``,
-``evaluate`` (under ``torch.no_grad``, on the input's device), parameter
-access, ``dot``, and ``write`` / ``read`` onto ``ccv_tpu``'s checkpoint rows
+``Model`` has ``Sequential``'s lifecycle: ``build`` (shape inference and
+initialisation on a device), ``__call__``, ``evaluate`` (under
+``torch.no_grad``, on the input's device), parameter access, ``dot``, and
+``write`` / ``read`` onto ``ccv_tpu``'s checkpoint rows
 ``__<model>__/<topological index>/<layer name>/<param>``, so a checkpoint
 written by either package reads into the other. ``params_from_jax`` copies
-a built ``ccv_tpu`` graph model's parameters by topological position.
-Training (``compile``, ``fit``, ``backward``, ``apply_gradients``) is not
-ported yet and raises.
+a built ``ccv_tpu`` graph model's parameters by topological position. The
+training half (``compile``, ``fit``, ``backward``, ``apply_gradients``,
+``cancel``, gradient checkpointing, memory compression and reduction,
+``checkpoint`` / ``resume``) is ``model.Trainable``'s, as ``ccv_tpu``
+binds ``Sequential``'s methods onto ``Model``; ``ccv_tpu``'s ``Model``
+takes no memory compression or reduction and writes no trainer
+checkpoint, the port's does both.
 
 Nodes are numbered by a process-wide counter, as in ``ccv_tpu``; a built
 model keys its parameters by ``str(node.uid)``, so the same topology built
@@ -41,7 +45,7 @@ import torch
 from ccv_tpu_torch import device as _device
 from ccv_tpu_torch.nn import ops
 from ccv_tpu_torch.nn.layers import Layer
-from ccv_tpu_torch.nn.model import _tensor
+from ccv_tpu_torch.nn.model import Trainable, _tensor
 
 
 class Node:
@@ -279,13 +283,7 @@ def _arg(node: Node, values: list):
         else values[0]
 
 
-def _training_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "graph-model training (compile / fit / backward / apply_gradients) "
-        "is not ported yet; the port runs Model at inference")
-
-
-class Model:
+class Model(Trainable):
     """ccv_cnnp_model_new twin: a DAG of layers from inputs to outputs."""
 
     def __init__(self, inputs: Sequence[Input], outputs: Sequence[Node],
@@ -298,9 +296,7 @@ class Model:
         self.state: Any = None
         self.shapes: Dict[int, Any] = {}
         self.output_shape = None
-
-    compile = fit = backward = apply_gradients = staticmethod(
-        _training_not_ported)
+        self._init_training()
 
     # -- build -------------------------------------------------------------
     def build(self, input_shapes, generator: Optional[torch.Generator] = None,
@@ -341,12 +337,18 @@ class Model:
         for node in self.order:
             uid = str(node.uid)
             arg = _arg(node, [vals[p.uid] for p in node.inputs])
-            y, ns = node.layer.apply(params[uid], states[uid], arg, training,
-                                     generator)
+            y, ns = self._apply_layer(node.layer, params[uid], states[uid],
+                                      arg, training, generator)
             new_states[uid] = ns
             vals[node.uid] = y
         outs = [vals[o.uid] for o in self.outputs]
         return (outs if len(outs) > 1 else outs[0]), new_states
+
+    def _positions(self, tree) -> List[int]:
+        """Checkpoint rows go by topological position (``positions``): the
+        ``leaves()`` order sorts the keys ``str(uid)``, which differ from
+        build to build."""
+        return positions(self.order, tree)
 
     def _build_for(self, xs):
         if self.params is None:
@@ -470,6 +472,29 @@ def params_from_jax(jax_model, model: Model,
                                      f"{tuple(t.shape)} against "
                                      f"{tuple(new[k].shape)}")
                 new[k] = t
+
+
+def positions(order: Sequence[Node], tree) -> List[int]:
+    """For a graph model's tree of per-node dicts keyed ``str(uid)`` (its
+    parameters or states), the ``leaves()`` index of each leaf taken node
+    by node in topological ``order``, keys sorted. Works on ``ccv_tpu``'s
+    models too (the same attributes)."""
+    index = {key: i for i, key in enumerate(
+        (uid, k) for uid in sorted(tree) for k in sorted(tree[uid]))}
+    return [index[(str(node.uid), k)] for node in order
+            for k in sorted(tree[str(node.uid)])]
+
+
+def leaf_order(jax_model, model: Model) -> List[int]:
+    """For each parameter leaf of the port's ``model`` in ``leaves()``
+    order, the index of the same parameter among ``jax_model``'s leaves
+    (both sort the keys ``str(uid)``, and the uids differ between the
+    packages); ``optimizers.opt_state_from_jax`` takes it as ``perm``."""
+    theirs = positions(jax_model.order, jax_model.params)
+    out = [0] * len(theirs)
+    for mine, j in zip(positions(model.order, model.params), theirs):
+        out[mine] = j
+    return out
 
 
 # ---------------------------------------------------------------------------

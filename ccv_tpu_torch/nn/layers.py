@@ -18,10 +18,10 @@ biases (the reference's default).
 
 ``ScaledDotProductAttention`` on the card at T >= 1024 runs the flash
 kernels K2 (``ops/kernels/flash_attention.py``), else the plain op, as
-``ccv_tpu`` routes it to its Pallas kernel.
-
-Not ported yet: the training half (BatchNorm's batch statistics; the
-layers' gradients run through autograd, but no trainer is ported).
+``ccv_tpu`` routes it to its Pallas kernel (``attention_route``). The
+layers' gradients run through autograd (K2's through K2b and K2c);
+``BatchNorm`` in training normalises by the batch's statistics and returns
+the running ones as its state.
 """
 
 from __future__ import annotations
@@ -134,9 +134,10 @@ class Convolution(Layer):
 
 
 class BatchNorm(Layer):
-    """ccv_cnnp_batch_norm at inference; state carries the running mean and
-    var. Training (batch statistics) waits with the training half of
-    ``Sequential``."""
+    """ccv_cnnp_batch_norm; state carries the running mean and var. In
+    training, y uses the batch's statistics over every axis but the last
+    and the state becomes the updated running statistics (no gradient
+    flows into them)."""
 
     def __init__(self, momentum: float = 0.9, epsilon: float = 1e-5,
                  name: str = "bn"):
@@ -152,8 +153,11 @@ class BatchNorm(Layer):
 
     def apply(self, params, state, x, training=False, generator=None):
         if training:
-            raise NotImplementedError(
-                "BatchNorm in training mode is not ported yet")
+            y, mean, var = ops.batch_norm(
+                x, params["scale"], params["bias"], state["mean"],
+                state["var"], self.epsilon, is_training=True,
+                momentum=self.momentum, axis=tuple(range(x.ndim - 1)))
+            return y, {"mean": mean.detach(), "var": var.detach()}
         y = ops.batch_norm(x, params["scale"], params["bias"], state["mean"],
                            state["var"], self.epsilon)
         return y, state
@@ -414,13 +418,23 @@ class LSTM(Layer):
 FLASH_MIN_T = 1024  # the sequence length from which attention takes K2
 
 
+def attention_route(device_type: str, t: int) -> str:
+    """"flash" (K2) or "plain" for attention over ``t`` positions on a
+    device of ``device_type``: K2 on the card from ``FLASH_MIN_T`` on, the
+    plain op on the CPU or below it. No flag changes the route: on a CUDA
+    tensor at that length the layer launches K2 or raises."""
+    if device_type == "cuda" and t >= FLASH_MIN_T:
+        return "flash"
+    return "plain"
+
+
 class ScaledDotProductAttention(Layer):
     """ccv_cnnp_scaled_dot_product_attention (model_addons.c:3979) with the
     optional fused QKV projection; input (B, T, D), ``dim`` per head.
 
     On a CUDA tensor with T >= ``FLASH_MIN_T`` attention runs the flash
     kernels (``flash_attention``: K2a forward, K2b / K2c backward), else
-    the plain ``ops.scaled_dot_product_attention``. The kernels take head
+    the plain ``ops.scaled_dot_product_attention`` (``attention_route``). The kernels take head
     dims up to 64 (``ccv_tpu`` pads to 128 lanes and takes more): a larger
     ``dim`` on that route raises rather than running the plain op."""
 
@@ -451,7 +465,7 @@ class ScaledDotProductAttention(Layer):
         return params, {}, (*in_shape[:-1], out_d)
 
     def _use_flash(self, x: torch.Tensor) -> bool:
-        return x.device.type == "cuda" and x.shape[1] >= FLASH_MIN_T
+        return attention_route(x.device.type, x.shape[1]) == "flash"
 
     def apply(self, params, state, x, training=False, generator=None):
         B, T, _ = x.shape

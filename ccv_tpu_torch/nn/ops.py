@@ -17,6 +17,10 @@ lower half first, so stride 2 or an even kernel pads more at the bottom and
 right, which torch's symmetric ``padding=`` cannot say: such pads are
 explicit (zeros for a convolution, -inf for a max, excluded from the count
 of an average).
+
+Where an op says it sums or normalises "in float32" (``gemm``, the pools,
+the norms, ``upsample``), a float64 input keeps float64 (``_wide``): the
+casts widen half types and never narrow a float64 tensor.
 """
 
 from __future__ import annotations
@@ -34,6 +38,15 @@ FORMAT_NHWC = "NHWC"
 FORMAT_NCHW = "NCHW"
 FORMAT_CHWN = "CHWN"
 FORMATS = (FORMAT_NHWC, FORMAT_NCHW, FORMAT_CHWN)
+
+
+
+def _wide(x: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 when it or one of ``others`` is
+    float64."""
+    wide = any(t.dtype == torch.float64 for t in (x, *others))
+    return x.to(torch.float64 if wide else torch.float32)
+
 
 # format -> position of (N, H, W, C)
 _FORMAT_AXES = {
@@ -101,7 +114,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
     before the cast, as ``ccv_tpu`` (``preferred_element_type=float32``)."""
     x = a.mT if transpose_a else a
     y = w.mT if transpose_b else w
-    out = torch.matmul(x.float(), y.float())
+    out = torch.matmul(_wide(x, y), _wide(y, x))
     if bias is not None:
         out = out + bias
     return out.to(a.dtype)
@@ -363,7 +376,7 @@ def avg_pool(x: torch.Tensor, size=(2, 2), stride=None, padding="VALID",
     count of its cells inside the input, then cast to x's type."""
     size = tuple(size)
     stride = tuple(stride or size)
-    xc, pads = _pool_pads(x.float(), size, stride, padding, format)
+    xc, pads = _pool_pads(_wide(x), size, stride, padding, format)
     summed = F.avg_pool2d(_pad(xc, pads), size, stride, divisor_override=1)
     if count_include_pad or padding == "VALID":
         out = summed / (size[0] * size[1])
@@ -381,17 +394,37 @@ def avg_pool(x: torch.Tensor, size=(2, 2), stride=None, padding="VALID",
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, var: torch.Tensor, epsilon: float = 1e-5,
-               format: Optional[str] = None) -> torch.Tensor:
-    """CCV_NNC_BATCH_NORM_FORWARD at inference, in float32, cast back to
-    x's type. Scale, bias, mean and var are per channel: along the
-    format's channel axis with ``format``, else along the last axis."""
+               is_training: bool = False, momentum: float = 0.9,
+               axis: Sequence[int] = (0, 1, 2),
+               format: Optional[str] = None):
+    """CCV_NNC_BATCH_NORM_FORWARD, in float32, cast back to x's type. At
+    inference y; scale, bias, mean and var are per channel: along the
+    format's channel axis with ``format``, else along the last axis.
+
+    With ``is_training``: (y, new_mean, new_var) from the batch statistics
+    over ``axis`` (every axis but the format's channel axis with
+    ``format``), the population variance in float32; the running
+    statistics become ``momentum * old + (1 - momentum) * batch``."""
     if format is not None:
+        c_axis = _FORMAT_AXES[format][3]
+        axis = tuple(i for i in range(4) if i != c_axis)
         shape = [1] * 4
-        shape[_FORMAT_AXES[format][3]] = -1
+        shape[c_axis] = -1
         scale, bias = scale.reshape(shape), bias.reshape(shape)
         mean, var = mean.reshape(shape), var.reshape(shape)
-    y = (x.float() - mean) * torch.rsqrt(var + epsilon) * scale + bias
-    return y.to(x.dtype)
+    if not is_training:
+        y = (_wide(x) - mean) * torch.rsqrt(var + epsilon) * scale + bias
+        return y.to(x.dtype)
+    xf = _wide(x)
+    m, v = _mean_var(xf, tuple(axis))
+    if format is None:
+        m, v = m.reshape(mean.shape), v.reshape(var.shape)
+    y = (xf - m) * torch.rsqrt(v + epsilon) * scale + bias
+    new_mean = momentum * mean + (1 - momentum) * m
+    new_var = momentum * var + (1 - momentum) * v
+    if format is not None:
+        new_mean, new_var = new_mean.reshape(-1), new_var.reshape(-1)
+    return y.to(x.dtype), new_mean, new_var
 
 
 def _mean_var(xf: torch.Tensor, axis) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -407,8 +440,9 @@ def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                axis: Sequence[int] = (-1,),
                elementwise_affine: bool = True) -> torch.Tensor:
     """CCV_NNC_LAYER_NORM_FORWARD, in float32, cast back to x's type."""
-    m, v = _mean_var(x.float(), tuple(axis))
-    y = (x.float() - m) * torch.rsqrt(v + epsilon)
+    xf = _wide(x)
+    m, v = _mean_var(xf, tuple(axis))
+    y = (xf - m) * torch.rsqrt(v + epsilon)
     if elementwise_affine and scale is not None:
         y = y * scale
         if bias is not None:
@@ -422,7 +456,7 @@ def group_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     """CCV_NNC_GROUP_NORM_FORWARD: statistics per sample and channel group
     over every other axis, in float32; scale and bias broadcast along the
     last axis, as ``ccv_tpu``'s."""
-    xf = x.float()
+    xf = _wide(x)
     c = xf.shape[channel_axis]
     if c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
@@ -442,7 +476,7 @@ def group_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, epsilon: float = 1e-6,
             axis: Sequence[int] = (-1,)) -> torch.Tensor:
     """CCV_NNC_RMSNORM_FORWARD, in float32, cast back to x's type."""
-    xf = x.float()
+    xf = _wide(x)
     ms = (xf * xf).mean(dim=tuple(axis), keepdim=True)
     return (xf * torch.rsqrt(ms + epsilon) * scale).to(x.dtype)
 
@@ -653,7 +687,7 @@ def upsample(x: torch.Tensor, hfactor: float = 2.0, wfactor: float = 2.0,
     type (``align_corners`` is taken and ignored, as in ``ccv_tpu``)."""
     n, h, w, c = x.shape
     size = (int(h * hfactor), int(w * wfactor))
-    xc = x.permute(0, 3, 1, 2).float()
+    xc = _wide(x.permute(0, 3, 1, 2))
     if mode == "nearest":
         y = F.interpolate(xc, size=size, mode="nearest-exact")
     else:

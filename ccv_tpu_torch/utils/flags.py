@@ -5,13 +5,14 @@ The same five bits and names as ``ccv_tpu``. They start from the
 ``CCV_TPU_FLAGS`` environment variable (comma-separated names), read once
 when this module is imported; that variable is the one the port reads.
 
-Of the five, the port reads only ``DISABLE_NATIVE_RUNTIME``: with it set,
-``core.cache.generate_signature`` hashes with blake2b instead of the
+Of the five, the port reads two. ``DISABLE_NATIVE_RUNTIME``: with it
+set, ``core.cache.generate_signature`` hashes with blake2b instead of the
 native siphash-2-4 (``core/native.py``), as ``ccv_tpu`` does without its
-native library. The flag does not reach the port's other host C++ (the
+native library; the flag does not reach the port's other host C++ (the
 MSER / MSCR trees, SWT's components, the JPEG decoder), which have no
-pure-Python twin. The other four bits are kept for the API and select
-nothing in the port.
+pure-Python twin. ``DISABLE_MEMORY_COMPRESSION``: training ignores
+``set_memory_compression`` (``nn.model.Trainable``). The other three bits
+are kept for the API and select nothing in the port.
 """
 
 from __future__ import annotations

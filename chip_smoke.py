@@ -139,7 +139,27 @@ started together) and drives the port's main paths:
   T 64 x 256; ConvolutionTranspose, the three norms, upsample, nms on 2000
   boxes and roi_align; the MoE forward (8 experts, top 2, 1024 / 4096, 4096
   tokens); ``depalettize_device`` on the three goldens; LSSC; while_loop
-  and case_of.
+  and case_of;
+- phase 31, training: path B, phase 30's attention model trained through
+  ``Model.fit`` under compile(adamw, "mse") (K2a forward, K2b and K2c
+  backward, one launch each a step, counted by the wrappers and by kernel
+  name under torch.profiler): one fit in float32 with the kernels against
+  one on the plain route (``layers.attention_route`` patched, a control)
+  from the same weights and batch (loss, gradients; every fit's update
+  against AdamW's first step of its own gradients), the bf16 fit's
+  gradients held to the float32 fit's within 1.5x the bf16 plain route's
+  distance, the bf16 fit timed beside the plain route's, and K2 alone at
+  its attention shape; path A, the coco trainer
+  (``ccv_tpu_torch.bin.coco``: ResNet50-v1d-FPN + RPN, batch norm in
+  training, sgd with clipping) on the card against the CPU at B 1 x 256 x
+  256 in float64 (loss, every gradient, batch-norm statistics) and float32
+  (loss, batch-norm statistics, each gradient's distance from float64
+  printed), timed at B 2 x 800 x 1344 in float32 (ms a step, images/s, MFU over
+  the float32 peak, peak memory, the host's batch assembly) and profiled
+  last (busy, idle share, the top four device ops); ``coco --demo`` on the
+  card (20 steps at 96 x 96, the loss under 1.25); an imdb_lstm fit,
+  ``DynamicGraph.minimize``, a micro ``Combine`` forward and backward and
+  ``Dataframe.iter(prefetch=2)`` onto the card, each against the CPU.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -270,6 +290,43 @@ NMS_BOXES, ROIS = 2000, 64
 MOE = dict(dim=1024, ff=4096, experts=8, top_k=2)
 MOE_TOKENS = 4096
 LSSC_SHAPE = (2, 200, 336, 64)
+# phase 31, training. Path B: phase 30's attention graph model (SDPA_SHAPE)
+# trained through Model.fit under compile(adamw, "mse"), its attention on
+# K2a forward and K2b + K2c backward (one launch each a step). Gates, from
+# the same carried weights and batch, the kernels against the plain route
+# (``layers.attention_route`` patched within the check, a control only): in
+# float32 ("wmma-smem") the loss within TRAIN_LOSS_REL and every gradient
+# within TRAIN_GRAD_REL of its largest magnitude. Every fit's update is held
+# to AdamW's first step (``optimizers.adamw_step``, the command form) of that
+# fit's own gradients from the parameters before it, within TRAIN_PARAM_REL
+# of each tensor's largest magnitude; at TRAIN_RATE every tensor moves by
+# more than that, so an update skipped or of the wrong sign fails. In bf16
+# K2's backward and the plain one each round differently, so the bf16
+# kernel fit's gradients are held to the float32 plain fit's: no farther
+# than BF16_GRAD_RATIO times the bf16 plain fit's worst distance, or
+# K2_BF16, the larger (wmt_gate's rule for the wmt step)
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_REL = 1e-5, 1e-4, 1e-4
+TRAIN_RATE = 1e-3
+TRAIN_STEPS = 5      # timed fit steps after a warm-up
+# path A: the coco trainer (ResNet50-v1d-FPN + RPN at its published widths,
+# TF32 off). Card against the CPU at COCO_CPU (B 1 x 256 x 256) from the
+# same weights and batch, in float64 and in float32: the loss within
+# COCO_LOSS_REL and every batch-norm running statistic within COCO_BN_REL of
+# its tensor's largest magnitude, in each; every gradient, leaf by leaf,
+# within COCO_GRAD_REL of its largest magnitude in float64 (the norms,
+# pools and upsample keep float64: ``ops._wide``). At initialisation
+# float32's gradients lie several percent of a leaf's largest magnitude
+# from float64's on the CPU itself (printed: the CPU's worst, and how many
+# leaves lie beyond COCO_GRAD_REL); so float64 holds the card's step to
+# the CPU's, and float32's distances from float64 are printed leaf by
+# leaf, card beside CPU. Timed at COCO's training scale, B 2 x 800 x 1344 in float32,
+# COCO_SELECT anchors an image; the demo as tests/test_bin_coco.py runs
+# bin/coco.py, its loss under DEMO_LOSS at the end
+COCO_CPU = (1, 256, 256)
+COCO_LOSS_REL, COCO_GRAD_REL, COCO_BN_REL = 1e-4, 1e-3, 1e-5
+COCO_B, COCO_HW, COCO_SELECT, COCO_STEPS = 2, (800, 1344), 256, 5
+DEMO_ARGS = ["--demo", "--steps", "20", "--size", "96", "--batch", "2"]
+DEMO_LOSS = 1.25
 
 
 def log(phase, msg):
@@ -3786,6 +3843,491 @@ def attention_model(dev):
     return model, x
 
 
+def fit_model(dev, dtype, plain, rate=TRAIN_RATE):
+    """Phase 31's path B model: attention_model's weights and a layer norm
+    bias from seed 31, compiled with adamw(rate) and "mse". With ``plain``
+    the attention takes the plain route (the control). Returns (model,
+    inputs in ``dtype``, float32 fits)."""
+    from ccv_tpu_torch.nn import optimizers
+    B, T, D, _, _ = SDPA_SHAPE
+    model, _ = attention_model(dev)
+    ln = str(model.order[0].uid)
+    rng = np.random.default_rng(31)
+    model.params[ln]["bias"] = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, D).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(0, 1, (B, T, D)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(0, 1, (B, T, D)).astype(np.float32))
+    model.compile(optimizers.adamw(rate=rate), "mse")
+    return model, x.to(dev, dtype), y.to(dev)
+
+
+@contextlib.contextmanager
+def plain_attention_route(plain):
+    """Within the block, with ``plain``, the attention layer takes the
+    plain route on the card: ``layers.attention_route`` is patched (the
+    package has no switch for it; the control of the checks only)."""
+    from ccv_tpu_torch.nn import layers
+    route = layers.attention_route
+    if plain:
+        layers.attention_route = lambda device_type, t: "plain"
+    try:
+        yield
+    finally:
+        layers.attention_route = route
+
+
+def fit_gate_run(k2, dev, dtype, plain):
+    """One path B fit from the carried weights: (loss, {name: the fit's
+    gradient}, (worst update distance from AdamW's first step, its leaf,
+    the smallest move of a leaf), all by max |.| over a tensor's largest
+    magnitude); checks the K2 launches of the fit (1 / 1 / 1 in the design
+    of ``dtype``, none on the plain route)."""
+    from ccv_tpu_torch.nn import optimizers
+    model, x, y = fit_model(dev, dtype, plain)
+    pos = {str(n.uid): i for i, n in enumerate(model.order)}
+    keys = [f"{pos[u]}/{model.order[pos[u]].layer.name}/{k}"  # leaves order
+            for u in sorted(model.params) for k in sorted(model.params[u])]
+    seen, update = {}, model.opt.update
+
+    def spy(grads, state, params):
+        seen["grads"] = [g.clone() for g in grads]
+        seen["before"] = [p.clone() for p in optimizers.leaves(params)]
+        return update(grads, state, params)
+    model.opt = dataclasses.replace(model.opt, update=spy)
+    with plain_attention_route(plain):
+        k2.reset_launches()
+        loss = model.fit(x, y)
+        torch.cuda.synchronize()
+    design = "wgmma-tma" if dtype == torch.bfloat16 else "wmma-smem"
+    n = 0 if plain else 1
+    check(k2.LAUNCHES == {"fwd": n, "dq": n, "dkv": n} and all(
+        k2.DESIGN_LAUNCHES[key][design] == n for key in k2.LAUNCHES),
+        f"path B fit ({dtype}, plain={plain}) launched K2 {k2.LAUNCHES}, "
+        f"by design {k2.DESIGN_LAUNCHES}")
+    h = model.opt.hyper
+    want = {k: optimizers.adamw_step(
+        g, p, torch.zeros_like(p), torch.zeros_like(p), 1, rate=h["rate"],
+        scale=h["scale"], beta1=h["beta1"], beta2=h["beta2"],
+        decay=h["decay"], epsilon=h["epsilon"])[0]
+        for k, g, p in zip(keys, seen["grads"], seen["before"])}
+    upd = rel_dist(dict(zip(keys, optimizers.leaves(model.params))), want)
+    moved = rel_dist(dict(zip(keys, seen["before"])), want)
+    wu, wm = max(upd, key=upd.get), min(moved, key=moved.get)
+    check(moved[wm] > TRAIN_PARAM_REL, f"path B fit ({dtype}, plain={plain})"
+          f": {wm} moves {moved[wm]:.3g} of its largest magnitude, within "
+          f"the update gate {TRAIN_PARAM_REL}")
+    check(upd[wu] <= TRAIN_PARAM_REL, f"path B fit ({dtype}, plain={plain})"
+          f": {wu} {upd[wu]:.3g} of its largest magnitude from AdamW's "
+          f"first step of the fit's gradients")
+    return loss, dict(zip(keys, seen["grads"])), (upd[wu], wu, moved[wm])
+
+
+def rel_dist(a, b):
+    """{name: max |a - b| / max |b|}, in float64 on the CPU."""
+    out = {}
+    for n, want in b.items():
+        want = want.detach().double().cpu()
+        got = a[n].detach().double().cpu()
+        out[n] = float((got - want).abs().max()
+                       / want.abs().max().clamp_min(1e-300))
+    return out
+
+
+def fit_path(dev, card, k2, roofline):
+    """Phase 31, path B: ``Model.fit`` of the attention model. Gates in
+    float32 and bf16 (kernels against the plain route), then the bf16 fit
+    timed (the main path: its K2 launches counted from 0), the plain
+    route's beside it, and K2 alone at the model's shape. Returns (result,
+    profile)."""
+    B, T, D, heads, hd = SDPA_SHAPE
+    runs = {(dt, plain): fit_gate_run(k2, dev, dt, plain)
+            for dt in (torch.float32, torch.bfloat16) for plain in (False,
+                                                                     True)}
+    (lk, gk, _), (lp, gp, _) = (runs[(torch.float32, False)],
+                                runs[(torch.float32, True)])
+    g_rel = rel_dist(gk, gp)
+    wg = max(g_rel, key=g_rel.get)
+    upd = max(r[2] for r in runs.values())
+    step = min(r[2][2] for r in runs.values())
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(np.isfinite(lk) and loss_rel <= TRAIN_LOSS_REL, f"path B float32 "
+          f"fit loss {lk} with K2, {lp} plain")
+    check(g_rel[wg] <= TRAIN_GRAD_REL, f"path B float32 gradient {wg} "
+          f"{g_rel[wg]:.3g} of its largest magnitude from the plain route's")
+    (lk16, gk16, _), (lp16, gp16, _) = (runs[(torch.bfloat16, False)],
+                                        runs[(torch.bfloat16, True)])
+    kf, pf = rel_dist(gk16, gp), rel_dist(gp16, gp)
+    wk16, wp16 = max(kf, key=kf.get), max(pf, key=pf.get)
+    bound = max(K2_BF16, BF16_GRAD_RATIO * pf[wp16])
+    check(np.isfinite(lk16) and abs(lk16 - lp16) <= LM_LOSS_REL * abs(lp16),
+          f"path B bf16 fit loss {lk16} with K2, {lp16} plain")
+    check(kf[wk16] <= bound, f"path B bf16 kernel fit: gradient {wk16} "
+          f"{kf[wk16]:.3g} of its largest magnitude from the float32 fit "
+          f"(bound {bound:.3g})")
+    log(31, f"path B, Model(LayerNorm, ScaledDotProductAttention({heads}, "
+            f"{hd}, causal), Add) B {B} x T {T} x {D} under compile(adamw, "
+            f"'mse'), one fit from the same weights and batch, K2 against "
+            f"the plain route: float32 (wmma-smem) loss {lk:.7f} / {lp:.7f} "
+            f"(rel {loss_rel:.3g}, limit {TRAIN_LOSS_REL}), gradients within "
+            f"{g_rel[wg]:.3g} of their largest magnitude (worst {wg}, limit "
+            f"{TRAIN_GRAD_REL}); each of the four fits' updates within "
+            f"{upd[0]:.3g} of AdamW's first step of its gradients (worst "
+            f"{upd[1]}, limit {TRAIN_PARAM_REL}; rate {TRAIN_RATE}, every "
+            f"tensor moves at least {step:.3g}); bf16 "
+            f"(wgmma-tma) loss {lk16:.6f} / {lp16:.6f}, gradients from the "
+            f"float32 plain fit: K2 {kf[wk16]:.3g} (worst {wk16}), plain "
+            f"{pf[wp16]:.3g} (worst {wp16}), bound {bound:.3g}; K2 launches "
+            f"a fit 1 / 1 / 1, none on the plain route")
+
+    # the main path: bf16 fits timed, K2's launches counted from 0
+    model, x, y = fit_model(dev, torch.bfloat16, False, rate=1e-4)
+    k2.reset_launches()
+    ms, all_ms = median_ms(lambda: model.fit(x, y), TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(k2.LAUNCHES)
+    n = TRAIN_STEPS + 1
+    check(launches == {"fwd": n, "dq": n, "dkv": n} and all(
+        k2.DESIGN_LAUNCHES[k]["wgmma-tma"] == n for k in launches),
+        f"path B's {n} fits launched K2 {launches}, by design "
+        f"{k2.DESIGN_LAUNCHES}")
+    plain_model, _, _ = fit_model(dev, torch.bfloat16, True, rate=1e-4)
+    with plain_attention_route(True):
+        plain_ms, _ = median_ms(lambda: plain_model.fit(x, y), TRAIN_STEPS)
+    del plain_model
+    # K2 alone at the model's attention shape, in turns with the library
+    shape = (B * heads, T, T, hd, True)
+    rng = np.random.default_rng(31)
+    q, k, v, do = k2_inputs(shape, torch.bfloat16, dev, rng)
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = k2.flash_fwd(q, k, v, scale, True)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, scale, True)
+    lib_fwd, lib_bwd = k2_library(q, k, v, do, scale, b=B)
+    kern = {}
+    for key, fn, plain_fn, lib in (
+            ("fwd", lambda: k2.flash_fwd(q, k, v, scale, True),
+             lambda: k2.flash_fwd_ref(q, k, v, scale, True), lib_fwd),
+            ("dq", lambda: k2.flash_dq(*bwd), lambda: k2.flash_dq_ref(*bwd),
+             lib_bwd),
+            ("dkv", lambda: k2.flash_dkv(*bwd),
+             lambda: k2.flash_dkv_ref(*bwd), lib_bwd)):
+        t = [time_cuda(fn, 20), time_cuda(lib, 20), time_cuda(lib, 20),
+             time_cuda(fn, 20)]
+        flop, nbytes = k2.flash_work(key, *shape, torch.bfloat16)
+        bound_ms, by = roofline.bound_ms(flop, nbytes, "bf16")
+        kern[key] = dict(ms=(t[0] + t[3]) / 2, library_ms=(t[1] + t[2]) / 2,
+                         plain_ms=time_cuda(plain_fn, 3), bound_ms=bound_ms,
+                         bound_by=by)
+    res = dict(ms=ms, plain_ms=plain_ms, launches=launches, steps=n,
+               kernels=kern, shape=list(shape), f32_grad=g_rel[wg],
+               bf16_grad=kf[wk16], bf16_plain_grad=pf[wp16])
+    log(31, f"path B bf16 fit (adamw 1e-4): median {ms:.3f} ms a step (min "
+            f"{min(all_ms):.3f}, max {max(all_ms):.3f}, n={TRAIN_STEPS} after "
+            f"a warm-up), the plain route {plain_ms:.3f} ms; K2 launches over "
+            f"the {n} fits {launches} (wgmma-tma); K2 alone at {shape} bf16 "
+            f"(CUDA events, 2 x 20 in turns with the library): " + "; ".join(
+                f"{key} {r['ms']:.4f} ms (library {r['library_ms']:.4f}, "
+                f"plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+                f"{r['bound_by']})" for key, r in kern.items()) + f"; {card}")
+
+    def profile():
+        w = device_window(lambda: model.fit(x, y), 1)
+        got = {key: sum(c for name, c in w["counts"].items()
+                        if f"{key}_sm90_kernel" in name)
+               for key in ("fwd", "dq", "dkv")}
+        check(got == {"fwd": 1, "dq": 1, "dkv": 1}, f"path B's fit under "
+              f"torch.profiler: K2 kernels by name {got} among "
+              f"{w['events']} device events")
+        res.update(busy_ms=w["busy"], wall_ms=w["wall"],
+                   idle=1 - w["busy"] / w["wall"])
+        log(31, f"path B bf16 fit under torch.profiler: fwd_sm90_kernel, "
+                f"dq_sm90_kernel, dkv_sm90_kernel {got} among {w['events']} "
+                f"device events; busy {w['busy']:.3f} ms of a {w['wall']:.3f} "
+                f"ms wall (idle {1 - w['busy'] / w['wall']:.3f}); largest: "
+                f"{top_kernels(w['by_name'])}; {card}")
+    return res, profile
+
+
+def coco_leaf_names(trainer):
+    """Names of a coco Trainer's parameter and batch-norm state leaves, in
+    ``leaves()`` order, by topological position (node uids, and so the
+    order of their sorted keys, differ from build to build)."""
+    fpn = trainer.fpn
+    pos = {str(n.uid): i for i, n in enumerate(fpn.order)}
+    params = [f"fpn/{pos[u]}/{fpn.order[pos[u]].layer.name}/{k}"
+              for u in sorted(fpn.params) for k in sorted(fpn.params[u])]
+    params += [f"rpn/{k}" for k in sorted(trainer.params["rpn"])]
+    states = [f"{pos[u]}/{k}" for u in sorted(trainer.state)
+              for k in sorted(trainer.state[u])]
+    return params, states
+
+
+def coco_step_grads(dtype, device):
+    """(loss, {name: gradient}, {name: batch-norm statistic after the
+    step}) of one coco step at COCO_CPU on ``device`` in ``dtype``
+    (``Trainer.grads``): the weights drawn in float32 from the trainer's
+    seeds, then cast; scenes from seed 31, the anchor selection from seed
+    32."""
+    from ccv_tpu_torch.bin import coco
+    from ccv_tpu_torch.nn import optimizers
+    b, h, w = COCO_CPU
+    rng = np.random.default_rng(31)
+    scenes = [coco.synthetic_scene(rng, h, w) for _ in range(b)]
+    t = coco.Trainer(b, h, w, select_count=COCO_SELECT, device=device,
+                     dtype=dtype)
+    host = t.batch(scenes, np.random.default_rng(32))
+    loss, _acc, grads, state = t.grads(*t.to_device(*host))
+    pnames, snames = coco_leaf_names(t)
+    return (float(loss), dict(zip(pnames, grads)),
+            dict(zip(snames, optimizers.leaves(state))))
+
+
+def coco_card_vs_cpu(dev, card):
+    """Phase 31, path A's gate: the coco step at COCO_CPU, card against the
+    CPU from the same weights (seeded on the CPU) and batch, in float64
+    (loss, every gradient leaf by leaf, batch-norm statistics) and in
+    float32 (loss, batch-norm statistics; each leaf's gradient distance
+    from the CPU's float64 one printed, card beside CPU)."""
+    check(not (torch.backends.cuda.matmul.allow_tf32
+               or torch.backends.cudnn.allow_tf32), "TF32 is on")
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        for where in ("cpu", dev):
+            t0 = time.perf_counter()
+            runs[(dtype, str(where))] = coco_step_grads(dtype, where)
+            if where == "cpu" and dtype == torch.float32:
+                cpu_s = time.perf_counter() - t0
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        (lc, gc, sc), (ld, gd, sd) = (runs[(dtype, "cpu")],
+                                      runs[(dtype, str(dev))])
+        loss_rel = abs(ld - lc) / abs(lc)
+        s_err = max(rel_dist(sd, sc).values())
+        check(np.isfinite(ld) and loss_rel <= COCO_LOSS_REL, f"coco step "
+              f"({dtype}) loss {ld} on the card, {lc} on the CPU")
+        check(all(bool(torch.isfinite(g).all()) for g in gd.values()),
+              f"coco step ({dtype}) gradients on the card not finite")
+        check(s_err <= COCO_BN_REL, f"coco step ({dtype}) batch-norm "
+              f"statistics: card vs CPU {s_err:.3g} > {COCO_BN_REL}")
+        res[dtype] = dict(loss=ld, loss_cpu=lc, loss_rel=loss_rel, bn=s_err,
+                          grads=gd, grads_cpu=gc, n_stats=len(sd))
+    r64, r32 = res[torch.float64], res[torch.float32]
+    d64 = rel_dist(r64["grads"], r64["grads_cpu"])
+    w64 = max(d64, key=d64.get)
+    check(d64[w64] <= COCO_GRAD_REL, f"coco step (float64) gradient {w64} on "
+          f"the card {d64[w64]:.3g} of its largest magnitude from the CPU's")
+    g64 = r64["grads_cpu"]
+    d_card = rel_dist(r32["grads"], g64)
+    d_cpu = rel_dist(r32["grads_cpu"], g64)
+    wd, wc = max(d_card, key=d_card.get), max(d_cpu, key=d_cpu.get)
+    ratio = {n: d_card[n] / max(d_cpu[n], 1e-300) for n in g64}
+    wr = max(ratio, key=ratio.get)
+    over = sum(d > COCO_GRAD_REL for d in d_card.values())
+    over_cpu = sum(d > COCO_GRAD_REL for d in d_cpu.values())
+    card_cpu = max(rel_dist(r32["grads"], r32["grads_cpu"]).values())
+    log(31, f"path A, the coco step (ResNet50-v1d-FPN + RPN, training batch "
+            f"norm, {COCO_SELECT} anchors) at {COCO_CPU}, card against the "
+            f"CPU from the same weights and batch. float64: loss "
+            f"{r64['loss']:.12f} / {r64['loss_cpu']:.12f} (rel "
+            f"{r64['loss_rel']:.3g}, limit {COCO_LOSS_REL}), {len(d64)} "
+            f"gradients each within {d64[w64]:.3g} of its largest magnitude "
+            f"(worst {w64}, limit {COCO_GRAD_REL}), {r64['n_stats']} "
+            f"batch-norm statistics within {r64['bn']:.3g} (limit "
+            f"{COCO_BN_REL}). float32 (CPU {cpu_s:.1f} s): loss "
+            f"{r32['loss']:.6f} / {r32['loss_cpu']:.6f} (rel "
+            f"{r32['loss_rel']:.3g}, limit {COCO_LOSS_REL}), batch-norm "
+            f"statistics within {r32['bn']:.3g} (limit {COCO_BN_REL}); each "
+            f"leaf's gradient from the CPU's float64 one, by max |diff| over "
+            f"that leaf's largest magnitude: card worst {d_card[wd]:.3g} "
+            f"({wd}; the CPU there {d_cpu[wd]:.3g}), CPU worst "
+            f"{d_cpu[wc]:.3g} ({wc}; the card there {d_card[wc]:.3g}), "
+            f"largest ratio card / CPU {ratio[wr]:.3g} ({wr}: "
+            f"{d_card[wr]:.3g} / {d_cpu[wr]:.3g}), leaves beyond "
+            f"{COCO_GRAD_REL}: card {over}, CPU {over_cpu} of {len(g64)}; "
+            f"card against CPU float32 {card_cpu:.3g}; {card}")
+
+
+def coco_path(dev, card):
+    """Phase 31, path A timed: the coco step at B 2 x 800 x 1344, float32,
+    from batches already on the card (median of COCO_STEPS after a
+    warm-up), the host's batch assembly alone, and whole iterations
+    (assembly, copy, step, loss read); peak memory; then the demo on the
+    card. Returns (result, profile)."""
+    from ccv_tpu_torch.bin import coco
+    from ccv_tpu_torch.bin.lm_bench import peak_tflops
+    from ccv_tpu_torch.models import resnet
+    from ccv_tpu_torch.ops.kernels import roofline
+    h, w = COCO_HW
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    t = coco.Trainer(COCO_B, h, w, select_count=COCO_SELECT, device=dev)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(33)
+    scenes = [coco.synthetic_scene(rng, h, w) for _ in range(2 * COCO_B)]
+    host_ms = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        host = t.batch(scenes[(i % 2) * COCO_B:(i % 2 + 1) * COCO_B], rng)
+        host_ms.append((time.perf_counter() - t0) * 1000)
+    batch = t.to_device(*host)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    ms, all_ms = median_ms(lambda: losses.append(t.step(*batch)[0]),
+                           COCO_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"coco step losses {losses}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(COCO_STEPS):
+        host = t.batch(scenes[(i % 2) * COCO_B:(i % 2 + 1) * COCO_B], rng)
+        loss, _ = t.step(*t.to_device(*host))
+        float(loss)
+    e2e_ms = (time.perf_counter() - t0) * 1000 / COCO_STEPS
+    flops = 3 * resnet.conv_flops(t.fpn)
+    peak = roofline.PEAK_OPS_PER_S["f32"]
+    res = dict(ms=ms, images_s=COCO_B * 1e3 / ms, mfu=flops / (ms / 1e3) / peak,
+               mfu_bf16_peak=flops / (ms / 1e3) / (peak_tflops(dev) * 1e12),
+               tflop=flops / 1e12, peak_gb=peak_gb,
+               host_ms=float(np.median(host_ms)), e2e_ms=e2e_ms)
+    log(31, f"path A, the coco step at B {COCO_B} x {h} x {w} float32 "
+            f"({COCO_SELECT} anchors an image; built in {build_s:.1f} s): "
+            f"median {ms:.2f} ms a step (min {min(all_ms):.2f}, max "
+            f"{max(all_ms):.2f}, n={COCO_STEPS} after a warm-up, batch on the "
+            f"card), {res['images_s']:.2f} images/s, {flops / 1e12:.3f} TFLOP "
+            f"a step (3 x resnet.conv_flops), MFU {res['mfu']:.4f} of the "
+            f"float32 ALU peak {peak / 1e12:.0f} TFLOP/s "
+            f"(ops/kernels/roofline.py); peak memory {peak_gb:.2f} GiB "
+            f"(max_memory_allocated); the host's batch assembly (rpn_gt, "
+            f"select_anchors) median {res['host_ms']:.1f} ms; whole "
+            f"iterations (assembly, copy, step, loss read) {e2e_ms:.2f} ms; "
+            f"losses {[round(x, 4) for x in losses]}; {card}")
+
+    # the demo, on the card, as tests/test_bin_coco.py runs bin/coco.py
+    t0 = time.perf_counter()
+    code, lines = captured(lambda argv: coco.main(argv), DEMO_ARGS)
+    demo = coco.main.losses
+    demo_s = time.perf_counter() - t0
+    check(len(demo) == 20 and all(np.isfinite(demo)) and demo[-1] < DEMO_LOSS,
+          f"coco --demo losses {demo}")
+    res.update(demo_losses=demo, demo_s=demo_s)
+    log(31, f"python -m ccv_tpu_torch.bin.coco {' '.join(DEMO_ARGS)} on the "
+            f"card: {demo_s:.1f} s, losses {demo[0]:.4f} -> {demo[-1]:.4f} "
+            f"(limit {DEMO_LOSS}), '{lines[-1]}'")
+
+    def profile():
+        win = device_window(lambda: t.step(*batch), 1)
+        res.update(busy_ms=win["busy"], wall_ms=win["wall"],
+                   idle=1 - win["busy"] / win["wall"], span_ms=win["span"])
+        log(31, f"the coco step at B {COCO_B} x {h} x {w} float32 under "
+                f"torch.profiler (1 step, {win['events']} device events): "
+                f"busy {win['busy']:.2f} ms over a wall of {win['wall']:.2f} "
+                f"ms: idle share {1 - win['busy'] / win['wall']:.3f} (CUDA "
+                f"events' span {win['span']:.2f} ms); largest: "
+                f"{top_kernels(win['by_name'])}; {card}")
+    return res, profile
+
+
+def train_rest_path(dev, card):
+    """Phase 31, the rest on the card against the CPU: an imdb_lstm fit,
+    DynamicGraph.minimize, a micro Combine forward and backward, and
+    Dataframe.iter(prefetch=2) onto the card."""
+    from ccv_tpu_torch.bin import imdb_lstm
+    from ccv_tpu_torch.bin.bin_imdb_shared import synthetic_corpus
+    from ccv_tpu_torch.nn import micro, optimizers
+    from ccv_tpu_torch.nn.dataframe import Dataframe
+    from ccv_tpu_torch.nn.dynamic import DynamicGraph
+    lines = []
+    # imdb_lstm: one fit at the CLI's widths on the demo corpus; its
+    # gradients within NN_F32, then Adam's first step as lm_two_layers
+    # checks it (a gradient within float32 noise of 0 may take either sign)
+    xs, ys = synthetic_corpus(np.random.default_rng(0), max_len=64)
+    rate = 1e-3
+    runs = {}
+    for where in ("cpu", dev):
+        net = imdb_lstm.build(200, 64, 32, 64, rate, torch.device(where))
+        x = torch.from_numpy(xs[:32].astype(np.int64)).to(where)
+        y = torch.from_numpy(ys[:32].astype(np.int64)).to(where)
+        _, grads, _ = net._step(x, y)
+        net._step_key[:] = 0
+        runs[str(where)] = (net.fit(x, y), grads,
+                            optimizers.leaves(net.params))
+    (lc, gc, pc), (ld, gd, pd) = runs["cpu"], runs[str(dev)]
+    g_err = max(rel_err(a, b) for a, b in zip(gd, gc))
+    diffs = torch.cat([(a.cpu() - b).abs().flatten() for a, b in zip(pd, pc)])
+    same = float((diffs <= 1e-6).float().mean())
+    check(abs(ld - lc) <= NN_F32 * abs(lc) and g_err <= NN_F32,
+          f"imdb_lstm fit: loss {ld} / {lc}, gradients {g_err:.3g}")
+    check(float(diffs.max()) <= 2 * rate and same >= LM_SAME_SIGN,
+          f"imdb_lstm parameters after Adam: max diff "
+          f"{float(diffs.max()):.3g}, {same:.4f} equal")
+    lines.append(f"imdb_lstm fit (B 32 x 64, dim 64): loss {ld:.6f} / "
+                 f"{lc:.6f}, gradients within {g_err:.3g}, after Adam "
+                 f"{same:.5f} of parameters equal (max diff "
+                 f"{float(diffs.max()):.3g}, limit {2 * rate})")
+    # DynamicGraph.minimize: two layers, three sgd steps (linear in the
+    # gradients, so float32 noise stays noise)
+    rng = np.random.default_rng(34)
+    arrs = [rng.normal(0, s, shape).astype(np.float32) for s, shape in (
+        (1, (64, 128)), (0.1, (128, 256)), (0.1, (256, 10)))]
+    vals = {}
+    for where in ("cpu", dev):
+        g = DynamicGraph(device=where)
+        x = g.constant(arrs[0])
+        a, b = g.variable(arrs[1]), g.variable(arrs[2])
+        opt, state = optimizers.sgd(rate=0.05, momentum=0.9), None
+        for _ in range(3):
+            g.reset_tape()
+            hid = g.exec(lambda u, v: torch.tanh(u @ v), x, a)
+            out = g.exec(lambda u, v: u @ v, hid, b)
+            loss = g.exec(lambda v: (v * v).mean(), out)
+            state = g.minimize(loss, opt, (a, b), state)
+        vals[str(where)] = (a.value, b.value)
+    d_err = max(rel_err(u, v) for u, v in zip(vals[str(dev)], vals["cpu"]))
+    check(d_err <= NN_F32, f"DynamicGraph.minimize card vs CPU {d_err:.3g}")
+    lines.append(f"DynamicGraph.minimize (64x128 @ 128x256 @ 256x10, 3 sgd "
+                 f"steps): {d_err:.3g}")
+    # micro: the reference's convolution from reindex / mul / sum
+    xm, wm = micro.input(4), micro.input(4)
+    shape = ["dA0", "dA1 - $kh + 1", "dA2 - $kw + 1", "$kh", "$kw", "dA3",
+             "$kc"]
+    yy = micro.reduce(micro.REDUCE_OP_SUM, [3, 4, 5], micro.binary(
+        micro.BINARY_OP_MUL,
+        micro.reindex(shape, [xm], ["i0", "i1 + i3", "i2 + i4", "i5"], xm),
+        micro.reindex(shape, [xm], ["i6", "i3", "i4", "i5"], wm)))
+    comb = micro.Combine([xm, wm], ["$kh", "$kw", "$kc"], [yy],
+                         [micro.grad(yy), xm, wm],
+                         [micro.grad(xm), micro.grad(wm)])
+    xin = rng.random((2, 32, 32, 16), np.float32)
+    win = rng.random((8, 3, 3, 16), np.float32)
+    (fc,) = comb.interpret("forward", [xin, win], [3, 3, 8], device="cpu")
+    (fd,) = comb.interpret("forward", [xin, win], [3, 3, 8], device=dev)
+    dy = rng.normal(0, 1, tuple(fc.shape)).astype(np.float32)
+    bc = comb.interpret("backward", [dy, xin, win], [3, 3, 8], device="cpu")
+    bd = comb.interpret("backward", [dy, xin, win], [3, 3, 8], device=dev)
+    m_err = max(rel_err(u, v) for u, v in zip([fd, *bd], [fc, *bc]))
+    check(fd.device.type == "cuda" and m_err <= NN_F32,
+          f"micro Combine card vs CPU {m_err:.3g}")
+    lines.append(f"micro convolution Combine (2 x 32 x 32 x 16, 8 filters "
+                 f"of 3 x 3) forward and backward: {m_err:.3g}")
+    # Dataframe.iter(prefetch=2) onto the card
+    imgs = rng.integers(0, 256, (64, 32, 32, 3)).astype(np.uint8)
+    df = Dataframe.from_arrays(img=imgs, y=np.arange(64) % 10)
+    df.map("f", lambda v: v.astype(np.float32) / 255, ["img"])
+    df.one_hot("yh", "y", 10)
+    df.shuffle(seed=5)
+    want = list(df.batch(["f", "yh"], 16))
+    got = list(df.iter(["f", "yh"], 16, prefetch=2, device=dev))
+    check(len(got) == len(want) == 4 and all(
+        g.device.type == "cuda" and np.array_equal(g.cpu().numpy(), w)
+        for gb, wb in zip(got, want) for g, w in zip(gb, wb)),
+        "Dataframe.iter onto the card: batches differ from the CPU's")
+    lines.append("Dataframe.iter(prefetch=2) onto the card: 4 batches of 16 "
+                 "bytes equal to the CPU's")
+    log(31, "; ".join(lines) + f"; float32 limit {NN_F32}; {card}")
+
+
 def main():
     sys.path.insert(0, ROOT)
     from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
@@ -4084,6 +4626,13 @@ def main():
     _resnet_res, resnet_profile = resnet_path(dev, card)
     k2_layer, nn_rest_profile = nn_rest_path(dev, card, k2)
 
+    # -- 31: training: Model.fit through K2 (path B), the coco trainer (path
+    # A) and the rest of the slice (their profiles come last) ---------------
+    fit_res, fit_profile = fit_path(dev, card, k2, roofline)
+    coco_card_vs_cpu(dev, card)
+    _coco_res, coco_profile = coco_path(dev, card)
+    train_rest_path(dev, card)
+
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
@@ -4109,7 +4658,8 @@ def main():
     vgg_profiled(vgg_model, vgg_x, card)
     seq2seq_profiled(decode_step, decode_res["ms_per_step"], wmt_steps, card)
     for profile in (icf_profile, swt_profile, sift_profile, *slice_profiles,
-                    resnet_profile, nn_rest_profile):
+                    resnet_profile, nn_rest_profile, fit_profile,
+                    coco_profile):
         profile()
     for entry, key in zip(kernels[1:4], ("fwd", "dq", "dkv")):
         # launches on the wmt step (dropout 0) over its timed steps, and
@@ -4124,6 +4674,15 @@ def main():
     kernels[0].update(launches_upscaled=k1_up, launches_served=k1_served)
     # K2a from the graph model's ScaledDotProductAttention (phase 30)
     kernels[1].update(launches_layer=k2_layer)
+    # K2a/b/c in Model.fit of the attention model (phase 31): launches a
+    # step, and the kernels timed at its attention shape
+    for entry, key in zip(kernels[1:4], ("fwd", "dq", "dkv")):
+        r = fit_res["kernels"][key]
+        entry.update(launches_fit=fit_res["launches"][key] // fit_res["steps"],
+                     fit_steps=fit_res["steps"], fit_shape=fit_res["shape"],
+                     fit_ms=r["ms"], fit_plain_ms=r["plain_ms"],
+                     fit_bound_ms=r["bound_ms"], fit_bound_by=r["bound_by"],
+                     fit_library_ms=r["library_ms"])
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",
         "source": "ccv_tpu_torch/csrc/scd_phase.cu",

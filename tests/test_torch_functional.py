@@ -170,11 +170,25 @@ def test_layer_call_takes_nodes_only():
 
 
 def test_training_waits():
+    """The training methods wait for their prerequisites: ``compile`` for
+    a built model, ``fit`` / ``backward`` for ``compile``,
+    ``apply_gradients`` for ``backward``; data parallelism is not ported
+    (tests/test_torch_train.py trains the graph model)."""
+    from ccv_tpu_torch.nn import optimizers
+
     x = TF.Input()
-    m = TF.Model([x], [TL.ReLU()(x)])
-    for meth in (m.compile, m.fit, m.backward, m.apply_gradients):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            meth()
+    m = TF.Model([x], [TL.Dense(2)(x)])
+    with pytest.raises(RuntimeError, match="build"):
+        m.compile(optimizers.sgd(), "mse")
+    for meth in (m.fit, m.backward):
+        with pytest.raises(RuntimeError, match="compile"):
+            meth(torch.zeros(1, 3), torch.zeros(1, 2))
+    m.build((1, 3), device="cpu")
+    m.compile(optimizers.sgd(), "mse")
+    with pytest.raises(RuntimeError, match="backward"):
+        m.apply_gradients()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        m.set_data_parallel(2)
 
 
 # ---------------------------------------------------------------------------

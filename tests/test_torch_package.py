@@ -95,3 +95,31 @@ def test_slice_modules_import_alone():
     from ccv_tpu_torch.ops import classic
     assert callable(classic.hog)
     assert callable(classic.optical_flow_lucas_kanade)
+
+
+def test_training_slice_modules_import_alone():
+    """The training slice's modules (the dynamic graph, micro ops, the
+    dataframe, the coco / imdb_lstm / csvtool twins) are among those the
+    probe imports without jax, and chip_smoke.py imports neither jax nor
+    ccv_tpu at any level."""
+    import ast
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    counts, names = out.stdout.splitlines()
+    assert counts.split(" ", 1)[1].strip() == "[]", counts
+    assert {"ccv_tpu_torch.nn.dynamic", "ccv_tpu_torch.nn.micro",
+            "ccv_tpu_torch.nn.dataframe", "ccv_tpu_torch.nn.optimizers",
+            "ccv_tpu_torch.bin.coco", "ccv_tpu_torch.bin.imdb_lstm",
+            "ccv_tpu_torch.bin.csvtool"} <= set(names.split())
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "ccv_tpu", "bin"}, roots
