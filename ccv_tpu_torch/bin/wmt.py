@@ -8,8 +8,18 @@ main()'s shape by default: 6 + 6 layers, d 512 = 8 heads x 64, ff 2048).
     python -m ccv_tpu_torch.bin.wmt --demo    # synthetic copy task
 
 Runs on the first CUDA device unless ``--device`` says otherwise.
-``--data-parallel`` is not ported yet (it waits for the port of
-``ccv_tpu/parallel``) and is refused.
+
+Data parallelism, one process per rank (each on the card of its
+``LOCAL_RANK``):
+
+    torchrun --nproc-per-node N -m ccv_tpu_torch.bin.wmt --data-parallel N \\
+        --dist-backend nccl --src ... --tgt ... --src-vocab ... --tgt-vocab ...
+
+Every rank draws the same batches and runs its 1/N of each batch's rows;
+dropout masks and the masked loss's token count are the global batch's,
+the gradients are allreduced, and Adam runs alike on every rank, so the
+step is the one-rank step on the whole batch. N must equal the world size
+(1 without a process group); ``--dist-backend`` names the backend.
 """
 
 from __future__ import annotations
@@ -25,6 +35,9 @@ import torch
 from ccv_tpu_torch import device as _device
 from ccv_tpu_torch.models import transformer as tfm
 from ccv_tpu_torch.nn import optimizers
+from ccv_tpu_torch.parallel import data as _data
+from ccv_tpu_torch.parallel import distributed
+from ccv_tpu_torch.parallel import mesh as _mesh
 
 
 def load_vocab(path):
@@ -102,16 +115,26 @@ def seq2seq_loss(params, cfg: tfm.TransformerConfig, src_b, tgt_b, out_b,
 def train_step(params, opt: optimizers.Optimizer, state,
                cfg: tfm.TransformerConfig, batch, spad: int, tpad: int,
                key: Optional[torch.Generator],
-               smoothing: float = 0.1) -> torch.Tensor:
-    """One step: loss, backward, Adam in place. ``batch`` is (src, tgt,
-    out) on the device. Returns the loss (not synchronised)."""
+               smoothing: float = 0.1, group=None) -> torch.Tensor:
+    """One step: loss, backward, Adam in place; each parameter's ``.grad``
+    is then the step's gradient. ``batch`` is (src, tgt, out) on the
+    device. With a data-parallel ``group`` the batch is this rank's rows
+    of the global batch: the forward runs inside ``parallel.data.sharded``,
+    the gradients and the loss are allreduced (a group of one rank, or
+    None, splits nothing: the one-rank step). Returns the loss (not
+    synchronised)."""
     ps = optimizers.leaves(params)
     for p in ps:
         p.grad = None
-    loss = seq2seq_loss(params, cfg, *batch, spad, tpad, smoothing, key)
+    with _data.sharded((0, group)):
+        loss = seq2seq_loss(params, cfg, *batch, spad, tpad, smoothing, key)
+        total = _data.global_sum(loss.detach())
     loss.backward()
+    for p, g in zip(ps, _data.allreduce_grads([p.grad for p in ps],
+                                              [group])):
+        p.grad = g
     opt.update([p.grad for p in ps], state, ps)
-    return loss.detach()
+    return total
 
 
 def batch_on(arrays, sel, dev: torch.device):
@@ -120,7 +143,7 @@ def batch_on(arrays, sel, dev: torch.device):
                  for a in arrays)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> float:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src")
     ap.add_argument("--tgt")
@@ -136,14 +159,38 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     ap.add_argument("--ff", type=int, default=2048)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--data-parallel", type=int, default=0,
-                    help="not ported yet (waits for ccv_tpu/parallel's port)")
+                    help="split each batch over N ranks (the world size)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    help="torch.distributed backend of --data-parallel")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the first CUDA device)")
+                    help="torch device (default: the first CUDA device; "
+                         "with --data-parallel, the card of LOCAL_RANK)")
+    return ap
+
+
+def run(argv: Optional[Sequence[str]] = None):
+    """Trains as ``main``; returns (final loss, the parameters)."""
+    ap = parser()
     args = ap.parse_args(argv)
+    group, rank = None, 0
     if args.data_parallel:
-        ap.error("--data-parallel is not ported yet: it waits for the port "
-                 "of ccv_tpu/parallel onto torch.distributed")
-    dev = _device.resolve(args.device)
+        if args.dist_backend is None:
+            ap.error("--data-parallel needs --dist-backend (nccl or gloo)")
+        if distributed.init(args.dist_backend):
+            group = torch.distributed.group.WORLD
+        world = _mesh.world_size(group)
+        if args.data_parallel != world:
+            ap.error(f"--data-parallel {args.data_parallel} against a world "
+                     f"of {world} rank(s)")
+        if args.batch % world:
+            ap.error(f"--batch {args.batch} does not split over {world} "
+                     f"ranks")
+        rank = distributed.process_index()
+        dev = distributed.local_device(args.device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+    else:
+        dev = _device.resolve(args.device)
 
     rng = np.random.default_rng(0)
     demo = args.demo or not args.src
@@ -171,22 +218,30 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
 
     key = torch.Generator(device=dev).manual_seed(1)
     n, bs = len(src), args.batch
+    part = bs // _mesh.world_size(group)
     t0 = time.time()
     it = 0
     loss = None
     for epoch in range(args.epochs):
         order = rng.permutation(n)
         for i in range(0, n - bs + 1, bs):
-            batch = batch_on((src, tgt, out), order[i:i + bs], dev)
+            # every rank draws the same batch and takes its rows of it
+            sel = order[i:i + bs][rank * part:(rank + 1) * part]
+            batch = batch_on((src, tgt, out), sel, dev)
             loss = train_step(params, opt, state, cfg, batch, spad, tpad,
-                              key)
+                              key, group=group)
             it += 1
-            if it % 5 == 0:
+            if it % 5 == 0 and rank == 0:
                 tok_s = it * bs * max_len / (time.time() - t0)
                 print(f"epoch {epoch} iter {it}: loss {float(loss):.4f} "
                       f"({tok_s:,.0f} tgt tok/s)")
-    print(f"final loss {float(loss):.4f}")
-    return float(loss)
+    if rank == 0:
+        print(f"final loss {float(loss):.4f}")
+    return float(loss), params
+
+
+def main(argv: Optional[Sequence[str]] = None) -> float:
+    return run(argv)[0]
 
 
 if __name__ == "__main__":

@@ -12,8 +12,8 @@ PyTorch ("torch", "cuda" or "cpu" in ``cmd_ok``); "differentiable" means
 autograd runs through the forward.
 
 The three collectives (``COMM_ALLREDUCE``, ``COMM_BROADCAST``,
-``COMM_REDUCE``) are registered with their metadata, and calling them
-raises until ``ccv_tpu``'s ``parallel`` is ported.
+``COMM_REDUCE``) are ``parallel.mesh``'s ``comm_*`` over a process group
+(``group=``, default the world), differentiable by the reference's rules.
 
     >>> cmd("CCV_NNC_GEMM_FORWARD")(a, b)
     >>> cmd_ok("CCV_NNC_CONVOLUTION_FORWARD", dtype=torch.float16,
@@ -29,6 +29,7 @@ from typing import Callable, Dict, Optional, Tuple
 from ccv_tpu_torch.nn import compression as _compression
 from ccv_tpu_torch.nn import ops
 from ccv_tpu_torch.nn import optimizers as _opt
+from ccv_tpu_torch.parallel import mesh as _mesh
 
 # attribute bits (ccv_nnc.h:63-65)
 CMD_ATTR_PASSTHROUGH = 0x01
@@ -73,14 +74,6 @@ def _register(short: str, fn: Callable, attrs: int = 0,
     _REGISTRY[name] = entry
     _BY_ID[entry.id] = entry
     globals()[name] = entry.id
-
-
-def _collective(name: str) -> Callable:
-    def run(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: the collectives are not ported yet (they wait for "
-            f"ccv_tpu's parallel on torch.distributed)")
-    return run
 
 
 for _short, _fn, _diff, _caps in [
@@ -169,10 +162,11 @@ for _short, _fn in [("SGD", _opt.sgd_step), ("ADAM", _opt.adam_step),
     _register(_short, _fn, differentiable=False,
               inplace=((0, 0), (1, 1)), arity=(3, 2))
 
-_register("COMM_ALLREDUCE", _collective("COMM_ALLREDUCE"),
-          inplace=_EW_INPLACE)
-_register("COMM_BROADCAST", _collective("COMM_BROADCAST"))
-_register("COMM_REDUCE", _collective("COMM_REDUCE"))
+# the collectives (cmd/comm/ccv_nnc_comm.c:97+): allreduce's backward is an
+# allreduce, broadcast's a reduce to root
+_register("COMM_ALLREDUCE", _mesh.comm_allreduce, inplace=_EW_INPLACE)
+_register("COMM_BROADCAST", _mesh.comm_broadcast)
+_register("COMM_REDUCE", _mesh.comm_reduce)
 
 _register("COMPRESSION_LSSC", _compression.lssc_compress,
           differentiable=False, dtypes=("float16", "bfloat16"))

@@ -24,8 +24,16 @@ layer's apply in the training forward as ``ccv_tpu``'s ``_forward`` does
 checkpoint written by either package resumes in the other. There is no
 ``torch.compile``: every step runs eagerly.
 
-Not ported yet: ``set_data_parallel`` (it raises; ROADMAP queue 1 item 4,
-``parallel/*`` on ``torch.distributed``).
+Data parallelism (``set_data_parallel(n)``): one process per rank
+(``torchrun``), each given the whole batch; a rank runs its 1/n of the
+rows inside ``parallel.data.sharded``, so batch norm's statistics and the
+dropout masks are the global batch's, its loss is its share of the global
+loss (every loss must keep that convention: ``LOSSES`` do, a function of
+one's own is taken once marked ``parallel.data.global_batch_loss``), and
+the gradients are allreduced before the optimizer, which then runs
+alike on every rank: the step is the one-rank step on the whole batch, as
+GSPMD makes ``ccv_tpu``'s. Unlike ``ccv_tpu`` (which replicates on fewer
+devices with a warning), ``n`` must equal the group's world size.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ import torch
 from ccv_tpu_torch import device as _device
 from ccv_tpu_torch.nn import compression, ops, optimizers
 from ccv_tpu_torch.nn.layers import Layer
+from ccv_tpu_torch.parallel import data as _data
+from ccv_tpu_torch.parallel import mesh as _mesh
 from ccv_tpu_torch.utils import flags
 
 
@@ -66,18 +76,19 @@ def params_from_jax(params, device: _device.DeviceLike = None
 
 
 # the losses of ccv_cnnp_model_compile (the CMD_*_FORWARD losses), each the
-# mean over the batch
-LOSSES = {
-    "softmax_crossentropy": lambda out, fit: ops.softmax_crossentropy(
-        out, fit)[0].mean(),
+# mean over the batch (under data parallelism, this rank's share of the
+# global batch's mean)
+LOSSES = {name: _data.global_batch_loss(fn) for name, fn in {
+    "softmax_crossentropy": lambda out, fit: _data.mean(
+        ops.softmax_crossentropy(out, fit)[0]),
     "categorical_crossentropy": lambda out, fit:
-        ops.categorical_crossentropy(out, fit).mean(),
-    "sigmoid_binary_crossentropy": lambda out, fit:
-        ops.sigmoid_binary_crossentropy(out, fit)[0].mean(),
-    "mse": lambda out, fit: ops.mse_loss(out, fit).mean(),
-    "mae": lambda out, fit: ops.mae_loss(out, fit).mean(),
-    "smooth_l1": lambda out, fit: ops.smooth_l1_loss(out, fit).mean(),
-}
+        _data.mean(ops.categorical_crossentropy(out, fit)),
+    "sigmoid_binary_crossentropy": lambda out, fit: _data.mean(
+        ops.sigmoid_binary_crossentropy(out, fit)[0]),
+    "mse": lambda out, fit: _data.mean(ops.mse_loss(out, fit)),
+    "mae": lambda out, fit: _data.mean(ops.mae_loss(out, fit)),
+    "smooth_l1": lambda out, fit: _data.mean(ops.smooth_l1_loss(out, fit)),
+}.items()}
 
 _MASK64 = (1 << 64) - 1
 
@@ -97,14 +108,6 @@ def _unflatten(tree, it):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(v, it) for v in tree)
     return next(it)
-
-
-def _zip_map(fn: Callable, a, b):
-    if isinstance(a, dict):
-        return {k: _zip_map(fn, a[k], b[k]) for k in a}
-    if isinstance(a, (list, tuple)):
-        return type(a)(_zip_map(fn, x, y) for x, y in zip(a, b))
-    return fn(a, b)
 
 
 def loss_and_grads(params, loss_of: Callable):
@@ -144,6 +147,8 @@ class Trainable:
         self._pending_grads: Optional[List[torch.Tensor]] = None
         self._cancel_event = threading.Event()
         self._step_key = np.zeros(2, np.uint32)  # ccv_tpu's PRNGKey(0)
+        self.parallel = 1
+        self._data_group = None  # set_data_parallel's group, None: 1 rank
 
     # -- compile ------------------------------------------------------------
     def compile(self, optimizer: optimizers.Optimizer, loss,
@@ -152,8 +157,10 @@ class Trainable:
                 device: _device.DeviceLike = None):
         """ccv_cnnp_model_compile twin (model.c:572): the optimizer (its
         state from ``init``) and the loss (a name of ``LOSSES`` or a
-        function of (outputs, fits)). With ``input_shape`` an unbuilt model
-        is built first (``generator``, ``device`` as ``build``)."""
+        function of (outputs, fits); under data parallelism one marked
+        ``parallel.data.global_batch_loss``). With ``input_shape`` an
+        unbuilt model is built first (``generator``, ``device`` as
+        ``build``)."""
         if input_shape is not None and self.params is None:
             self.build(input_shape, generator, device)
         if self.params is None:
@@ -162,13 +169,37 @@ class Trainable:
         self.opt_state = optimizer.init(self.params)
         self.loss = LOSSES[loss] if isinstance(loss, str) else loss
         self._pending_grads = None
+        self._check_loss()
+
+    def _check_loss(self):
+        """Under data parallelism a rank's loss must be its share of the
+        global batch's loss; a loss not marked so would scale or average
+        the gradients wrongly, so it is refused."""
+        if self.parallel > 1 and self.loss is not None and not getattr(
+                self.loss, "global_batch", False):
+            raise ValueError(
+                f"set_data_parallel({self.parallel}) needs a loss that "
+                f"returns this rank's share of the global batch's loss: a "
+                f"name of LOSSES, or a function marked "
+                f"parallel.data.global_batch_loss (got {self.loss!r})")
 
     def set_data_parallel(self, parallel: int):
-        """Not ported yet: ``parallel/*`` on ``torch.distributed`` (ROADMAP
-        queue 1 item 4). Raises rather than replicating quietly."""
-        raise NotImplementedError(
-            f"set_data_parallel({parallel}): data parallelism is not ported "
-            f"yet (ROADMAP queue 1 item 4: parallel/* on torch.distributed)")
+        """ccv_cnnp_model_set_data_parallel twin (model.c:635): every rank
+        of the process group runs 1/``parallel`` of each batch's rows and
+        the gradients are allreduced. ``parallel`` must be the world size;
+        1 without a process group is the one-rank step. Raises otherwise
+        (``ccv_tpu`` replicates quietly instead)."""
+        world = _mesh.world_size()
+        if parallel != world:
+            raise ValueError(
+                f"set_data_parallel({parallel}): the process group holds "
+                f"{world} rank(s); start {parallel} (torchrun "
+                f"--nproc-per-node {parallel}) and call "
+                f"parallel.distributed.init first")
+        self.parallel = parallel
+        self._data_group = (torch.distributed.group.WORLD
+                            if torch.distributed.is_initialized() else None)
+        self._check_loss()
 
     def set_gradient_checkpointing(self, enable: bool = True):
         """ccv_cnnp_model_set_gradient_checkpointing twin (model.c:670):
@@ -237,12 +268,22 @@ class Trainable:
             raise RuntimeError("compile() first")
         inputs, fits = self._inputs(inputs), self._inputs(fits)
         generator = self._next_generator()
+        group = self._data_group  # None: one rank, nothing split
 
-        def loss_of(tp):
+        def rows(x):  # this rank's rows of the global batch
+            if isinstance(x, list):
+                return [rows(v) for v in x]
+            return _data.rows(x, group)
+        inputs, fits = rows(inputs), rows(fits)
+
+        def loss_of(tp):  # this rank's share of the global batch's loss
             out, new_states = self._forward(tp, self.state, inputs, True,
                                             generator)
             return self.loss(out, fits), new_states
-        return loss_and_grads(self.params, loss_of)
+        with _data.sharded((0, group)):
+            loss, grads, states = loss_and_grads(self.params, loss_of)
+            loss = _data.global_sum(loss)
+        return loss, _data.allreduce_grads(grads, [group]), states
 
     # -- cancellation (ccv_cnnp_model_cancel, ccv_nnc.h:3823) --------------
     def cancel(self):
@@ -298,7 +339,7 @@ class Trainable:
     def parameters_zip_map(self, fn: Callable, other):
         """ccv_cnnp_model_parameters_zip_map twin: params = fn(params,
         other) leaf by leaf (``other`` of the same structure)."""
-        self.params = _zip_map(fn, self.params, other)
+        self.params = optimizers.tree_zip(fn, self.params, other)
 
     # -- trainer checkpoints -------------------------------------------------
     def _positions(self, tree) -> List[int]:

@@ -13,8 +13,15 @@ the output.
 
 Ties in the router: ``lax.top_k`` takes the lower expert index first;
 ``torch.topk`` promises no order on CUDA, so the choice is a stable
-descending sort, which does. Expert-parallel placement (``shardings``)
-waits for the port of ``parallel``.
+descending sort, which does.
+
+Expert parallelism (``shardings``, ``forward(..., expert=(mesh, axis))``):
+each rank of the axis holds E / n experts (``shard_params``) and every
+token; the routing is computed whole on every rank, each rank runs its
+own experts' buffers, and the combine is an allreduce of the partial
+outputs (Megatron's pair: the tokens and the gates enter the experts
+through ``copy_to``, the output leaves through ``reduce_from``), so the
+output and the aux loss equal the dense forward's on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ccv_tpu_torch import device as _device
+from ccv_tpu_torch.parallel import mesh as _mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +67,36 @@ def init(generator: torch.Generator, cfg: MoEConfig,
     return {k: v.to(device) for k, v in params.items()}
 
 
+def shardings(params, mesh, axis: str = "model"):
+    """``ccv_tpu``'s expert-parallel placements (one per mesh axis for each
+    leaf): the expert dimension of w1, b1, w2, b2 split over ``axis``
+    (replicated where E does not divide), the router whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    n = mesh.size(names.index(axis))
+    whole = tuple(Replicate() for _ in names)
+    split = tuple(Shard(0) if name == axis else Replicate()
+                  for name in names)
+    return {k: whole if k == "router" or v.shape[0] % n else split
+            for k, v in params.items()}
+
+
+def shard_params(params, mesh, axis: str = "model"):
+    """This rank's block of ``params`` under ``shardings``."""
+    place = shardings(params, mesh, axis)
+    return {k: _mesh.local_shard(v, mesh, place[k]).clone()
+            for k, v in params.items()}
+
+
 def forward(params: Dict[str, torch.Tensor], cfg: MoEConfig, x: torch.Tensor,
-            capacity: Optional[int] = None
+            capacity: Optional[int] = None, expert=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (..., T, D) -> (out (..., T, D) in x's type, aux loss, a float32
     scalar). The expert matmuls run in the parameters' type (float32
-    parameters: x is promoted, as in ``ccv_tpu``)."""
+    parameters: x is promoted, as in ``ccv_tpu``). expert: (mesh, axis):
+    ``params`` hold this rank's experts (``shard_params``), x every
+    token."""
     orig_shape = x.shape
     D = orig_shape[-1]
     t = x.reshape(-1, D)
@@ -92,18 +124,28 @@ def forward(params: Dict[str, torch.Tensor], cfg: MoEConfig, x: torch.Tensor,
     keep = pos < C
 
     flat_slot = (gate_idx * C + torch.where(keep, pos, C - 1)).reshape(-1)
+    weights = (gate_vals * keep).to(wdt)
+    E_here, first, group = E, 0, None
+    if expert is not None and params["w1"].shape[0] != E:
+        mesh, axis = expert
+        group, E_here = mesh.get_group(axis), params["w1"].shape[0]
+        first = mesh.get_local_rank(axis) * E_here  # this rank's first expert
+        tw, weights = _mesh.copy_to(tw, group), _mesh.copy_to(weights, group)
     contrib = (tw[:, None, :] * keep.to(wdt)[..., None]).reshape(N * K, D)
     buffers = torch.zeros((E * C, D), dtype=wdt, device=x.device)
     buffers.index_add_(0, flat_slot, contrib)
-    buffers = buffers.reshape(E, C, D)
+    buffers = buffers.reshape(E, C, D)[first:first + E_here]
 
     h = F.gelu(torch.bmm(buffers, params["w1"].to(wdt))
                + params["b1"].to(wdt)[:, None, :], approximate="tanh")
     y = torch.bmm(h, params["w2"].to(wdt)) + params["b2"].to(wdt)[:, None, :]
+    if group is not None:  # the other experts' slots stay zero here
+        y = F.pad(y, (0, 0, 0, 0, first, E - first - E_here))
 
     gathered = y.reshape(E * C, D)[flat_slot].reshape(N, K, D)
-    weights = (gate_vals * keep).to(wdt)
     out = (gathered * weights[..., None]).sum(dim=1)
+    if group is not None:
+        out = _mesh.reduce_from(out, group)
 
     me = probs.mean(dim=0)
     fe = F.one_hot(gate_idx[:, 0], E).float().sum(dim=0) / N

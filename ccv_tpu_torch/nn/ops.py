@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ccv_tpu_torch import device as _device
+from ccv_tpu_torch.parallel import data as _data
 
 # tensor formats (reference: CCV_TENSOR_FORMAT_*, lib/nnc/ccv_nnc.h:45-49)
 FORMAT_NHWC = "NHWC"
@@ -267,7 +268,8 @@ def dropout(x: torch.Tensor, rate: float,
     1 / (1 - rate)); ``entirety`` drops the whole tensor with probability
     ``rate``. ``generator`` lives on x's device."""
     shape = () if entirety else x.shape
-    keep = torch.rand(shape, generator=generator, device=x.device) < 1 - rate
+    # under data parallelism, this rank's rows of the global batch's mask
+    keep = _data.rand(shape, generator, x.device) < 1 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -404,7 +406,9 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     With ``is_training``: (y, new_mean, new_var) from the batch statistics
     over ``axis`` (every axis but the format's channel axis with
     ``format``), the population variance in float32; the running
-    statistics become ``momentum * old + (1 - momentum) * batch``."""
+    statistics become ``momentum * old + (1 - momentum) * batch``. Under
+    data parallelism (``parallel.data.sharded``) the statistics are the
+    global batch's: the sums and squared deviations are allreduced."""
     if format is not None:
         c_axis = _FORMAT_AXES[format][3]
         axis = tuple(i for i in range(4) if i != c_axis)
@@ -416,7 +420,7 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         y = (_wide(x) - mean) * torch.rsqrt(var + epsilon) * scale + bias
         return y.to(x.dtype)
     xf = _wide(x)
-    m, v = _mean_var(xf, tuple(axis))
+    m, v = _batch_mean_var(xf, tuple(axis))
     if format is None:
         m, v = m.reshape(mean.shape), v.reshape(var.shape)
     y = (xf - m) * torch.rsqrt(v + epsilon) * scale + bias
@@ -433,6 +437,24 @@ def _mean_var(xf: torch.Tensor, axis) -> Tuple[torch.Tensor, torch.Tensor]:
     m = xf.mean(dim=axis, keepdim=True)
     c = xf - m
     return m, (c * c).mean(dim=axis, keepdim=True)
+
+
+def _batch_mean_var(xf: torch.Tensor, axis
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_mean_var`` over the global batch: on one rank the same; inside
+    ``parallel.data.sharded`` the mean from the sum allreduced over the
+    ranks that split a dimension of ``axis``, then the variance from the
+    squared deviations allreduced alike (SyncBatchNorm's two passes, both
+    differentiable). A split dimension outside ``axis`` indexes the
+    statistics, so its ranks keep their own."""
+    axis = tuple(a % xf.ndim for a in axis)
+    if _data.parts(axis) == 1:
+        return _mean_var(xf, axis)
+    n = math.prod(xf.shape[a] for a in axis) * _data.parts(axis)
+    m = _data.global_sum(xf.sum(dim=axis, keepdim=True), dims=axis) / n
+    c = xf - m
+    return m, _data.global_sum((c * c).sum(dim=axis, keepdim=True),
+                               dims=axis) / n
 
 
 def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,

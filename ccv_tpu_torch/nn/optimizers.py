@@ -44,6 +44,17 @@ def leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def tree_zip(fn: Callable, a, b):
+    """``fn(x, y)`` on every leaf x of ``a`` and the leaf y at the same place
+    in ``b`` (``b``'s leaves may themselves be tuples), ``a``'s structure
+    kept."""
+    if isinstance(a, dict):
+        return {k: tree_zip(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return type(a)(tree_zip(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
 def tree_map(fn: Callable, tree):
     """``fn`` on every tensor of a nested dict/list/tuple, the structure
     kept."""

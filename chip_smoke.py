@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (ccv_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nccl-cards 4   # phase 32 (b) alone over NCCL,
+                                           # a rank a card
 
 Builds every kernel from ccv_tpu_torch/csrc with nvcc (one nvcc per source,
 started together) and drives the port's main paths:
@@ -159,7 +161,20 @@ started together) and drives the port's main paths:
   last (busy, idle share, the top four device ops); ``coco --demo`` on the
   card (20 steps at 96 x 96, the loss under 1.25); an imdb_lstm fit,
   ``DynamicGraph.minimize``, a micro ``Combine`` forward and backward and
-  ``Dataframe.iter(prefetch=2)`` onto the card, each against the CPU.
+  ``Dataframe.iter(prefetch=2)`` onto the card, each against the CPU;
+  and the float32 coco loss's distance from float64 at
+  tests/test_torch_coco.py's input;
+- phase 32, parallelism on torch.distributed (``ccv_tpu_torch.parallel``),
+  its ranks spawned in child processes: (a) one NCCL rank, the world-1
+  ``--data-parallel 1`` wmt step at wmt.c's widths against the un-parallel
+  step (loss, parameters and Adam's moments to the bit), K2a/b/c 6 / 6 / 6
+  counted and by name in a profiled step, ms against the un-parallel step,
+  busy and idle, the allreduce's ms, and the CLI with and without
+  ``--data-parallel 1``; (b) two gloo ranks on the one card: a probe of
+  the collectives gloo takes on CUDA tensors, then data parallelism at B
+  16, tp 2 against tp 1 at lm_bench's widths (float64, and float32 through
+  K2), ring attention at sp 2 and GPipe over 2 stages, each check run or
+  reported refused by name.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -327,6 +342,59 @@ COCO_LOSS_REL, COCO_GRAD_REL, COCO_BN_REL = 1e-4, 1e-3, 1e-5
 COCO_B, COCO_HW, COCO_SELECT, COCO_STEPS = 2, (800, 1344), 256, 5
 DEMO_ARGS = ["--demo", "--steps", "20", "--size", "96", "--batch", "2"]
 DEMO_LOSS = 1.25
+
+# phase 32, parallelism on torch.distributed (ccv_tpu_torch/parallel), each
+# group of ranks spawned in child processes (the main process and phases
+# 1-31 untouched; a failed rank fails the run). (a) One NCCL rank, a mesh
+# of 1 on every axis: the wmt step at phases 14-18's widths (bf16, B 16 x
+# 128, source mask, dropout 0) through --data-parallel 1's path (the world
+# group, which splits nothing: ``parallel.data`` drops a group of one rank,
+# so no allreduce is launched and world 1 pays nothing) against the
+# un-parallel step from the same seed: parameters and Adam's moments equal
+# to the bit, or no farther apart than a second un-parallel step (the
+# control) lies; the loss likewise and within PAR_LOSS_CAP of the
+# un-parallel loss whatever the control shows; K2a / K2b / K2c launched
+# 6 / 6 / 6 as in the un-parallel step, and by name in a profiled window
+# beside NCCL's kernels; the CLI (``wmt --data-parallel 1 --dist-backend nccl`` on a
+# generated corpus at the same widths, dropout 0.1) against the CLI without
+# it, to the bit. (b) Two gloo ranks on the one card (NCCL takes one rank a
+# device), float32: a probe pair first tries each collective the checks use
+# on CUDA tensors (PAR_COLLECTIVES). A wrong answer fails the run, and so
+# does a refusal of one of PAR_REQUIRED (gloo took both in every call so
+# far); only send / recv may be refused (measured: "writev ... Bad
+# address", or the rank aborts). Then every check whose collectives gloo
+# took runs (the rest are reported refused, by name): --data-parallel
+# 2 against the one-rank step at 2 + 2 layers of the same widths, B 16,
+# dropout 0.1 (the global batch's masks); the LM at lm_bench's widths
+# (PAR_LM) under tp 2 against tp 1; ring attention at sp 2 and gpipe over
+# 2 stages against their one-rank versions. float32 splits a sum in two
+# and adds the halves: losses within PAR_LOSS_REL, gradients and outputs
+# within PAR_GRAD_REL of the largest. The LM at lm_bench's widths is not so
+# tame: at initialisation the float32 one-rank step's gradients lie 3.1e-3
+# and 4.6e-3 of the largest from the float64 step's (f32_tp1_from_f64 on
+# ranks 1 and 0, an H100 80GB HBM3 at 700 W), and any other order of the
+# same float32 sums lies as far, so tp 2 is held to tp 1 in float64
+# (PAR_F64_REL; 6.1e-10 and 1.2e-9 on that card: the float64 order
+# amplified as float32's is, and far below float32's 6e-8 rounding, so no
+# float32 step is on the path), and in float32 by its distance from
+# float64 against the float32 tp 1 step's (PAR_F32_RATIO; 0.53 and 1.0
+# there). ``chip_smoke.py --nccl-cards N`` runs (b)'s checks
+# alone over N NCCL ranks, a rank a card, ring attention and GPipe too
+PAR_TIMED = 4          # alternated timed steps, parallel and un-parallel
+PAR_TIMEOUT = 420      # seconds for a group of ranks, start-up included
+PAR_LOSS_REL, PAR_GRAD_REL = 1e-5, 1e-4
+PAR_LOSS_CAP = 1e-3    # (a): |loss difference| / loss, whatever the control
+PAR_F64_REL, PAR_F32_RATIO = 1e-8, 2.0
+PAR_LM = dict(vocab_size=32768, layers=2, heads=16, head_dim=64, ff=4096,
+              max_len=1024)
+PAR_LM_BT = (8, 1024)
+PAR_COLLECTIVES = ("allreduce", "all_gather", "send/recv")
+PAR_REQUIRED = ("allreduce", "all_gather")  # gloo must take these
+PAR_NEEDS = {"data_parallel": ("allreduce",),
+             "lm_tp": ("allreduce", "all_gather"),
+             "ring_sp": ("send/recv",),
+             "gpipe": ("send/recv", "allreduce")}
+
 
 
 def log(phase, msg):
@@ -4147,6 +4215,27 @@ def coco_card_vs_cpu(dev, card):
             f"card against CPU float32 {card_cpu:.3g}; {card}")
 
 
+def coco_f32_gap(dev, card):
+    """Phase 31: how far the float32 coco step's loss lies from the float64
+    one on the card, at tests/test_torch_coco.py::test_trainer_float64_step's
+    input (64 x 64, B 1, 32 anchors, scene seed 31, selection seed 32),
+    beside which that test's F32_LOSS_GAP was set."""
+    from ccv_tpu_torch.bin import coco
+    scene = coco.synthetic_scene(np.random.default_rng(31), 64, 64)
+    loss = {}
+    for dtype in (torch.float32, torch.float64):
+        t = coco.Trainer(1, 64, 64, select_count=32, device=dev, dtype=dtype)
+        args = t.to_device(*t.batch([scene], np.random.default_rng(32)))
+        loss[dtype] = float(t.grads(*args)[0])
+    f32, f64 = loss[torch.float32], loss[torch.float64]
+    gap = abs(f32 - f64) / abs(f64)
+    check(np.isfinite(gap), f"coco float32 loss {f32}, float64 {f64}")
+    log(31, f"coco step at tests/test_torch_coco.py's float64 input (64 x 64,"
+            f" B 1) on the card: float32 loss {f32!r} against float64 "
+            f"{f64!r}, {gap:.4g} of it; {card}")
+    return gap
+
+
 def coco_path(dev, card):
     """Phase 31, path A timed: the coco step at B 2 x 800 x 1344, float32,
     from batches already on the card (median of COCO_STEPS after a
@@ -4328,8 +4417,519 @@ def train_rest_path(dev, card):
     log(31, "; ".join(lines) + f"; float32 limit {NN_F32}; {card}")
 
 
+# -- phase 32: parallelism on torch.distributed -----------------------------
+
+def par_entry(rank, fn, world, store, args):
+    """A spawned rank: fn(rank, world, store, *args), its result saved for
+    the parent."""
+    sys.path.insert(0, ROOT)
+    torch.save(fn(rank, world, store, *args), f"{store}.out{rank}")
+
+
+def par_spawn(fn, world, tmp, *args):
+    """fn on ``world`` spawned ranks; their results in rank order. A rank
+    that raises or dies fails the run."""
+    import torch.multiprocessing as mp
+    store = os.path.join(tmp, fn.__name__)
+    ctx = mp.start_processes(par_entry, args=(fn, world, store, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + PAR_TIMEOUT
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"phase 32: {fn.__name__} on {world} ranks "
+                                 f"did not end in {PAR_TIMEOUT} s")
+    return [torch.load(f"{store}.out{r}", weights_only=False)
+            for r in range(world)]
+
+
+def par_max_diff(a, b):
+    """The largest |a - b| over two lists of tensors (0.0: equal bits)."""
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def par_wmt_corpus(tmp, sv, tv, n, max_len, rng):
+    """wmt CLI arguments for a generated corpus of ``n`` sentence pairs of
+    2 to ``max_len`` - 8 words and vocabularies of sv - 4 and tv - 4
+    words (so the model's vocabularies are sv and tv)."""
+    paths = {k: os.path.join(tmp, k) for k in ("sv", "tv", "src", "tgt")}
+    for key, size, p in (("sv", sv, "s"), ("tv", tv, "t")):
+        with open(paths[key], "w") as f:
+            f.write("\n".join(f"{p}{i}" for i in range(size - 4)))
+    for key, size, p in (("src", sv, "s"), ("tgt", tv, "t")):
+        with open(paths[key], "w") as f:
+            for _ in range(n):
+                words = rng.integers(0, size - 4, rng.integers(2, max_len - 8))
+                f.write(" ".join(f"{p}{w}" for w in words) + "\n")
+    return ["--src", paths["src"], "--tgt", paths["tgt"], "--src-vocab",
+            paths["sv"], "--tgt-vocab", paths["tv"]]
+
+
+def par_nccl_one_rank(rank, world, store):
+    """Phase 32 (a), in the one NCCL rank: see the comment at PAR_TIMED."""
+    from ccv_tpu_torch.bin import wmt
+    from ccv_tpu_torch.bin.wmt_grad_trial import synthetic_batch
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.nn import optimizers
+    from ccv_tpu_torch.ops.kernels import flash_attention as k2
+    from ccv_tpu_torch.parallel import distributed
+    from ccv_tpu_torch.parallel import mesh as pmesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    check(distributed.init("nccl", f"file://{store}", 1, 0),
+          "no NCCL process group")
+    mesh = pmesh.make_mesh({"data": 1, "model": 1, "seq": 1}, dev)
+    group = mesh.get_group("data")
+    k2.build()
+    T, sv, tv = S2S["max_len"], S2S["vocab_size"], S2S["tgt_vocab_size"]
+    spad, tpad = sv - 1, tv - 1
+    batch = tuple(torch.from_numpy(x).to(dev) for x in synthetic_batch(
+        np.random.default_rng(31), WMT_B, T, sv, tv))
+    cfg = s2s_config(dropout=0.0)
+
+    def fresh():
+        params = tfm.init_encoder_decoder(
+            torch.Generator(device=dev).manual_seed(6), cfg)
+        opt = optimizers.adam(rate=1e-4)
+        return params, opt, opt.init(params)
+
+    runs = {}
+    for name, grp in (("plain", None), ("parallel", group),
+                      ("control", None)):
+        params, opt, state = fresh()
+        k2.reset_launches()
+        loss = wmt.train_step(params, opt, state, cfg, batch, spad, tpad,
+                              None, group=grp)
+        torch.cuda.synchronize()
+        runs[name] = dict(
+            loss=float(loss), launches=dict(k2.LAUNCHES),
+            leaves=optimizers.leaves(params) + state.m + state.v,
+            step=(lambda p=params, o=opt, s=state, g=grp: wmt.train_step(
+                p, o, s, cfg, batch, spad, tpad, None, group=g)))
+    plain, par, ctl = runs["plain"], runs["parallel"], runs["control"]
+    res = dict(loss=plain["loss"], loss_parallel=par["loss"],
+               loss_control=ctl["loss"],
+               diff=par_max_diff(par["leaves"], plain["leaves"]),
+               control=par_max_diff(ctl["leaves"], plain["leaves"]),
+               launches=plain["launches"],
+               launches_parallel=par["launches"],
+               n_leaves=len(plain["leaves"]))
+    for run in runs.values():
+        del run["leaves"]
+
+    # timed in turns: the un-parallel and the parallel step, each on its
+    # own parameters
+    ms = {"plain": [], "parallel": []}
+    for _ in range(PAR_TIMED):
+        for name in ms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]["step"]()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1000)
+    res.update(ms_plain=float(np.median(ms["plain"])),
+               ms_parallel=float(np.median(ms["parallel"])))
+    for name in ("parallel", "plain"):
+        w = device_window(runs[name]["step"], 1)
+        nccl = {k: v for k, v in w["by_name"].items() if "nccl" in k.lower()}
+        res[name + "_window"] = dict(
+            busy=w["busy"], wall=w["wall"],
+            k2={key: sum(c for n, c in w["counts"].items()
+                         if f"{key}_sm90_kernel" in n)
+                for key in ("fwd", "dq", "dkv")},
+            nccl_ms=sum(nccl.values()),
+            nccl={k[:60]: w["counts"][k] for k in nccl},
+            memcpy_ms=sum(v for k, v in w["by_name"].items()
+                          if "memcpy" in k.lower()))
+
+    # the CLI at the same widths on a generated corpus (dropout 0.1), with
+    # and without --data-parallel 1
+    argv = par_wmt_corpus(os.path.dirname(store), sv, tv, WMT_B, T,
+                          np.random.default_rng(33))
+    cli = {}
+    for name, extra in (("plain", []), ("parallel", [
+            "--data-parallel", "1", "--dist-backend", "nccl"])):
+        loss, params = wmt.run(argv + extra)
+        cli[name] = (loss, optimizers.leaves(params))
+    res.update(cli_loss=cli["plain"][0], cli_loss_parallel=cli["parallel"][0],
+               cli_diff=par_max_diff(cli["parallel"][1], cli["plain"][1]))
+    torch.distributed.destroy_process_group()
+    return res
+
+
+def par_probe(rank, world, store):
+    """Phase 32 (b)'s probe: each collective of PAR_COLLECTIVES on CUDA
+    tensors over gloo, in turn: "ok", or what gloo raised (a rank that
+    dies leaves its last "trying" line in ``store``.rank<r>.log)."""
+    import datetime
+    from ccv_tpu_torch.parallel import mesh as pmesh
+    dist = torch.distributed
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=30))
+    dev = torch.device("cuda", 0)
+    x = torch.full((4,), rank + 1.0, device=dev)
+    ops = {
+        "allreduce": lambda: pmesh.comm_allreduce(x),
+        "all_gather": lambda: pmesh.all_gather(x).reshape(-1),
+        "send/recv": lambda: pmesh.ppermute(x, None, [(0, 1), (1, 0)]),
+    }
+    want = {"allreduce": [3.0] * 4, "all_gather": [1.0] * 4 + [2.0] * 4,
+            "send/recv": [2.0 - rank] * 4}
+    out = {}
+    with open(f"{store}.rank{rank}.log", "w") as logf:
+        for name in PAR_COLLECTIVES:
+            logf.write(f"trying {name}\n")
+            logf.flush()
+            try:
+                got = ops[name]().cpu().tolist()
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # the backend's refusal, reported
+                out[name] = f"{type(e).__name__}: {str(e)[:160]}"
+            else:
+                out[name] = "ok" if got == want[name] else f"wrong: {got}"
+            logf.write(f"{name}: {out[name]}\n")
+            logf.flush()
+    dist.destroy_process_group()
+    return out
+
+
+def par_probe_pair(tmp):
+    """The probe pair's answers, one dict a rank. A rank that dies in a
+    collective (a backend reading a CUDA pointer on the host) names it in
+    its log: that collective is answered with the death, those after it
+    "not tried"."""
+    import torch.multiprocessing as mp
+    try:
+        return par_spawn(par_probe, 2, tmp)
+    except mp.ProcessExitedException as e:
+        store = os.path.join(tmp, "par_probe")
+        out = []
+        for r in range(2):
+            with open(f"{store}.rank{r}.log") as f:
+                lines = f.read().splitlines()
+            got = dict(line.split(": ", 1) for line in lines
+                       if not line.startswith("trying "))
+            for name in PAR_COLLECTIVES:
+                if name not in got:
+                    got[name] = (f"rank {e.error_index} died in it ({e})"
+                                 if f"trying {name}" in lines
+                                 else "not tried")
+            out.append(got)
+        return out
+
+
+def par_stage_fn(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def par_rel(got, want):
+    """max |got - want| over max |want|, over lists of tensors."""
+    return (max(float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want))
+            / max(float(w.float().abs().max()) for w in want))
+
+
+def par_checks(rank, world, store, taken, backend="gloo"):
+    """Phase 32 (b)'s checks on ``world`` ranks, those whose collectives
+    the backend took (``taken``); each returns its distances from the
+    one-rank result, computed on every rank. gloo: every rank on the card
+    0; nccl: rank r on card r (``--nccl-cards``), where the data-parallel
+    step is also profiled for NCCL's allreduce."""
+    from ccv_tpu_torch.bin import wmt
+    from ccv_tpu_torch.bin.wmt_grad_trial import named_grads, synthetic_batch
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.nn import optimizers
+    from ccv_tpu_torch.nn.model import _unflatten
+    from ccv_tpu_torch.ops.kernels import flash_attention as k2
+    from ccv_tpu_torch.parallel import distributed, pipeline
+    from ccv_tpu_torch.parallel import mesh as pmesh
+    from ccv_tpu_torch.parallel.sequence import ring_attention
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    check(distributed.init(backend, f"file://{store}", world, rank),
+          f"no {backend} process group")
+    k2.build()
+    out = {}
+
+    def data_parallel():
+        mesh = pmesh.make_mesh({"data": world}, dev)
+        T, sv, tv = S2S["max_len"], S2S["vocab_size"], S2S["tgt_vocab_size"]
+        batch = tuple(torch.from_numpy(x).to(dev) for x in synthetic_batch(
+            np.random.default_rng(31), WMT_B, T, sv, tv))
+        cfg = s2s_config(layers=2, dtype=torch.float32, dropout=0.1)
+        got = {}
+        for name, grp in (("one", None), ("all", mesh.get_group("data"))):
+            params = tfm.init_encoder_decoder(
+                torch.Generator(device=dev).manual_seed(6), cfg)
+            opt = optimizers.adam(rate=1e-4)
+            state = opt.init(params)
+            rows = batch if grp is None else tuple(
+                x.chunk(world)[rank] for x in batch)
+            loss = wmt.train_step(
+                params, opt, state, cfg, rows, sv - 1, tv - 1,
+                torch.Generator(device=dev).manual_seed(7), group=grp)
+            got[name] = (float(loss), named_grads(params))
+        (l1, g1), (l2, g2) = got["one"], got["all"]
+        res = dict(loss=l1, loss_rel=abs(l2 - l1) / abs(l1),
+                   grad_rel=par_rel(list(g2.values()), list(g1.values())))
+        if backend == "nccl":  # NCCL's allreduce in a profiled step
+            w = device_window(lambda: wmt.train_step(
+                params, opt, state, cfg, rows, sv - 1, tv - 1,
+                torch.Generator(device=dev).manual_seed(7), group=grp), 1)
+            res.update(busy_ms=w["busy"], wall_ms=w["wall"], nccl_ms=sum(
+                v for k, v in w["by_name"].items() if "nccl" in k.lower()))
+        return res
+
+    def lm_tp():
+        """tp ``world`` against tp 1, from the same weights and ids: in float64
+        (plain attention, as a control: K2 takes f32 and bf16) within
+        PAR_F64_REL, and in float32 through K2 (2 / 2 / 2 launches a rank)
+        no farther from the float64 step than PAR_F32_RATIO times the
+        float32 tp 1 step lies."""
+        from ccv_tpu_torch.bin import lm_bench
+        mesh = pmesh.make_mesh({"model": world}, dev)
+        B, T = PAR_LM_BT
+        ids = torch.randint(0, PAR_LM["vocab_size"], (B, T + 1),
+                            generator=torch.Generator().manual_seed(12)
+                            ).to(dev)
+        got = {}
+        for dtype in (torch.float64, torch.float32):
+            cfg = tfm.TransformerConfig(**PAR_LM, dropout=0.0, dtype=dtype)
+            params = optimizers.tree_map(
+                lambda p: p.detach().to(dtype).requires_grad_(True),
+                tfm.init_lm(torch.Generator(device=dev).manual_seed(11),
+                            cfg))
+            places = tfm.shardings(params, mesh, cfg)
+            with lm_bench.plain_attention(dtype == torch.float64):
+                loss1 = tfm.cross_entropy(tfm.lm_forward(
+                    params, cfg, ids[:, :-1]), ids[:, 1:])
+                g1 = torch.autograd.grad(loss1, optimizers.leaves(params))
+                local = tfm.shard_params(params, mesh, cfg)
+                k2.reset_launches()
+                loss2 = tfm.cross_entropy(tfm.lm_forward(
+                    local, cfg, ids[:, :-1],
+                    tensor=tfm.TensorSpec(mesh, "model")), ids[:, 1:])
+                g2 = torch.autograd.grad(loss2, optimizers.leaves(local))
+                launches = dict(k2.LAUNCHES)
+            g1 = optimizers.leaves(optimizers.tree_zip(
+                lambda g, pl: pmesh.local_shard(g, mesh, pl),
+                _unflatten(params, iter(g1)), places))
+            got[dtype] = (float(loss1.detach()), float(loss2.detach()),
+                          [g.detach() for g in g1],
+                          [g.detach() for g in g2], launches)
+            del params, local, loss1, loss2
+            torch.cuda.empty_cache()
+        l1, l2, t1, t2, _ = got[torch.float64]
+        f1, f2, s1, s2, launches = got[torch.float32]
+        d1, d2 = par_rel(s1, t1), par_rel(s2, t1)
+        return dict(loss=l1, loss_rel=abs(l2 - l1) / abs(l1),
+                    grad_rel=par_rel(t2, t1),
+                    f32_loss_rel=abs(f2 - f1) / abs(f1),
+                    f32_tp1_from_f64=d1, f32_tp_from_f64=d2,
+                    f32_ratio=d2 / d1, launches=launches)
+
+    def ring_sp():
+        mesh = pmesh.make_mesh({"seq": world}, dev)
+        B, T = PAR_LM_BT
+        H, D = PAR_LM["heads"], PAR_LM["head_dim"]
+        gen = torch.Generator().manual_seed(13)
+        q, k, v, w = (torch.randn((B, T, H, D), generator=gen).to(dev)
+                      for _ in range(4))
+        q, k, v = (a.requires_grad_(True) for a in (q, k, v))
+        scale = 1.0 / D ** 0.5
+        ref = tfm._sdpa_plain(q, k, v, scale, True, None, 0.0, None, False)
+        g1 = torch.autograd.grad((ref * w).sum(), (q, k, v))
+        half = slice(rank * T // world, (rank + 1) * T // world)
+        ql, kl, vl = (a.detach()[:, half].clone().requires_grad_(True)
+                      for a in (q, k, v))
+        got = ring_attention(ql, kl, vl, mesh, "seq", is_causal=True)
+        g2 = torch.autograd.grad((got * w[:, half]).sum(), (ql, kl, vl))
+        return dict(out_rel=par_rel([got], [ref[:, half]]),
+                    grad_rel=max(par_rel([a], [b[:, half]])
+                                 for a, b in zip(g2, g1)))
+
+    def gpipe():
+        mesh = pmesh.make_mesh({"stage": world}, dev)
+        gen = torch.Generator().manual_seed(14)
+        d = PAR_LM["heads"] * PAR_LM["head_dim"]
+        params = {"w": (torch.randn((world, d, d), generator=gen) * 0.03),
+                  "b": (torch.randn((world, d), generator=gen) * 0.1)}
+        params = {k: v.to(dev).requires_grad_(True)
+                  for k, v in params.items()}
+        x_mb = torch.randn((4, PAR_LM_BT[0], d), generator=gen).to(dev)
+        ref = x_mb
+        for s in range(world):
+            ref = par_stage_fn({k: v[s] for k, v in params.items()}, ref)
+        g1 = torch.autograd.grad((ref ** 2).sum(), list(params.values()))
+        local = {k: v.detach()[rank:rank + 1].clone().requires_grad_(True)
+                 for k, v in params.items()}
+        got = pipeline.gpipe(par_stage_fn, local, x_mb, mesh, "stage")
+        g2 = torch.autograd.grad((got ** 2).sum(), list(local.values()))
+        return dict(out_rel=par_rel([got], [ref]),
+                    grad_rel=par_rel(g2, [g[rank:rank + 1] for g in g1]))
+
+    checks = dict(data_parallel=data_parallel, lm_tp=lm_tp, ring_sp=ring_sp,
+                  gpipe=gpipe)
+    for name, needs in PAR_NEEDS.items():
+        if all(n in taken for n in needs):
+            t0 = time.perf_counter()
+            out[name] = checks[name]()
+            out[name]["s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def par_report(res, refused, where, card):
+    """Log each phase 32 (b) check of ``res`` (the ranks' results) or its
+    refusal, then fail if any check missed its gate."""
+    failed = []
+    for name, needs in PAR_NEEDS.items():
+        if name not in res[0]:
+            log(32, f"(b) {name}: refused by gloo on CUDA tensors ("
+                    + ", ".join(c for c in needs if c in refused)
+                    + "); left to a machine with two cards")
+            continue
+        if name == "lm_tp":
+            n = PAR_LM["layers"]
+            ok = all(g[name]["loss_rel"] <= PAR_F64_REL
+                     and g[name]["grad_rel"] <= PAR_F64_REL
+                     and g[name]["f32_ratio"] <= PAR_F32_RATIO
+                     and g[name]["launches"] == {"fwd": n, "dq": n, "dkv": n}
+                     for g in res)
+        else:
+            ok = all(g[name].get("loss_rel", 0.0) <= PAR_LOSS_REL
+                     and g[name].get("out_rel", 0.0) <= PAR_GRAD_REL
+                     and g[name]["grad_rel"] <= PAR_GRAD_REL for g in res)
+        log(32, f"(b) {name} over {len(res)}, {where}, float32: "
+                + "; ".join(", ".join(
+                    f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in g[name].items()) for g in res)
+                + f" (ranks 0 to {len(res) - 1}): "
+                f"{'passed' if ok else 'FAILED'}; {card}")
+        if not ok:
+            failed.append(name)
+    check(not failed, f"phase 32 (b): {failed} failed its gates")
+
+
+def parallel_cards(n, card):
+    """``chip_smoke.py --nccl-cards n``: phase 32 (b)'s checks on n NCCL
+    ranks, one a card (the checks a single card's gloo ranks cannot run:
+    ring attention and GPipe need send / recv), and NCCL's allreduce time
+    in the data-parallel step."""
+    check(torch.cuda.device_count() >= n, f"--nccl-cards {n}: "
+          f"{torch.cuda.device_count()} card(s)")
+    tmp = tempfile.mkdtemp(prefix="phase32-cards-")
+    try:
+        t0 = time.perf_counter()
+        res = par_spawn(par_checks, n, tmp, list(PAR_COLLECTIVES), "nccl")
+        par_report(res, {}, "NCCL ranks, one a card", card)
+        log(32, f"(b) {time.perf_counter() - t0:.1f} s with the ranks' "
+                f"start")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parallel_path(dev, card):
+    """Phase 32: (a) one NCCL rank, (b) the probe and the checks on two
+    gloo ranks (see the comment at PAR_TIMED); returns (a)'s results."""
+    tmp = tempfile.mkdtemp(prefix="phase32-")
+    try:
+        t0 = time.perf_counter()
+        (a,) = par_spawn(par_nccl_one_rank, 1, tmp)
+        a_s = time.perf_counter() - t0
+        dl = abs(a["loss_parallel"] - a["loss"])
+        check(dl <= abs(a["loss_control"] - a["loss"])
+              and dl <= PAR_LOSS_CAP * abs(a["loss"]),
+              f"phase 32 (a): the world-1 wmt step's loss "
+              f"{a['loss_parallel']} against {a['loss']} (control "
+              f"{a['loss_control']})")
+        check(a["diff"] <= a["control"], f"phase 32 (a): parameters and "
+              f"moments {a['diff']} from the un-parallel step's, beyond the "
+              f"control's {a['control']}")
+        n = S2S["layers"]
+        check(a["launches"] == a["launches_parallel"] == {
+            "fwd": n, "dq": n, "dkv": n}, f"phase 32 (a): K2 launches "
+              f"{a['launches_parallel']} (un-parallel {a['launches']})")
+        win = a["parallel_window"]
+        check(win["k2"] == {"fwd": n, "dq": n, "dkv": n},
+              f"phase 32 (a): K2 by name in the profiled step {win['k2']}")
+        check(a["cli_loss"] == a["cli_loss_parallel"]
+              and a["cli_diff"] == 0.0, f"phase 32 (a): wmt --data-parallel "
+              f"1 loss {a['cli_loss_parallel']} against {a['cli_loss']}, "
+              f"parameters {a['cli_diff']} apart")
+        plain_win = a["plain_window"]
+        log(32, f"(a) one NCCL rank, mesh data 1 x model 1 x seq 1, the wmt "
+                f"step at {s2s_name(s2s_config())}, B {WMT_B} x T "
+                f"{S2S['max_len']}, bf16, dropout 0: --data-parallel 1 "
+                f"against the un-parallel step: loss {a['loss_parallel']!r} "
+                f"against {a['loss']!r} (control {a['loss_control']!r}), "
+                f"{a['n_leaves']} parameter and Adam moment "
+                f"tensors {'equal to the bit' if a['diff'] == 0 else 'max diff ' + repr(a['diff'])}"
+                f" (control, a second un-parallel step: {a['control']!r}); K2 "
+                f"launches {a['launches_parallel']} (un-parallel "
+                f"{a['launches']}); the CLI, wmt --data-parallel 1 "
+                f"--dist-backend nccl on a generated corpus (dropout 0.1): "
+                f"loss {a['cli_loss_parallel']!r} = {a['cli_loss']!r}, "
+                f"parameters equal to the bit; {card}")
+        log(32, f"(a) step ms (host clock, median of {PAR_TIMED} in turns): "
+                f"--data-parallel 1 {a['ms_parallel']:.3f}, un-parallel "
+                f"{a['ms_plain']:.3f}; under torch.profiler (1 step): device "
+                f"busy {win['busy']:.3f} ms of a {win['wall']:.3f} ms wall, "
+                f"idle {1 - win['busy'] / win['wall']:.3f} (un-parallel: busy "
+                f"{plain_win['busy']:.3f} of {plain_win['wall']:.3f}, idle "
+                f"{1 - plain_win['busy'] / plain_win['wall']:.3f}); the "
+                f"allreduce: none at world 1 (a group of one rank splits "
+                f"nothing), NCCL kernels in the window {win['nccl'] or 'none'}"
+                f" {win['nccl_ms']:.3f} ms a step, copies {win['memcpy_ms']:.3f}"
+                f" ms (un-parallel {plain_win['memcpy_ms']:.3f}); K2 by name "
+                f"{win['k2']}; {a_s:.1f} s with the rank's start; {card}")
+
+        t0 = time.perf_counter()
+        probe = par_probe_pair(tmp)
+        taken = [c for c in PAR_COLLECTIVES
+                 if all(p[c] == "ok" for p in probe)]
+        refused = {c: probe[0][c] if probe[0][c] != "ok" else probe[1][c]
+                   for c in PAR_COLLECTIVES if c not in taken}
+        log(32, f"(b) gloo on CUDA tensors, two ranks on the card: " + "; ".join(
+            f"{c} {'taken' if c in taken else 'refused: ' + refused[c]}"
+            for c in PAR_COLLECTIVES))
+        wrong = {c: p[c] for p in probe for c in PAR_COLLECTIVES
+                 if p[c].startswith("wrong")}
+        check(not wrong, f"phase 32 (b): collectives gave wrong answers on "
+              f"CUDA tensors: {wrong}")
+        missing = [c for c in PAR_REQUIRED if c not in taken]
+        check(not missing, f"phase 32 (b): gloo did not take {missing} on "
+              f"CUDA tensors: {[refused[c] for c in missing]}")
+        res = par_spawn(par_checks, 2, tmp, taken)
+        par_report(res, refused, "two gloo ranks on the card", card)
+        log(32, f"(b) {time.perf_counter() - t0:.1f} s with the ranks' "
+                f"start")
+        return a
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--nccl-cards"]:
+        # phase 32 (b) alone over NCCL, a rank a card: a four-card machine
+        from ccv_tpu_torch.device import default_device
+        default_device()  # raises without a card: no result is printed
+        card = "; ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines())
+        parallel_cards(int(sys.argv[2]), card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
     from ccv_tpu_torch.detectors import scd
     from ccv_tpu_torch.device import default_device
@@ -4630,8 +5230,12 @@ def main():
     # A) and the rest of the slice (their profiles come last) ---------------
     fit_res, fit_profile = fit_path(dev, card, k2, roofline)
     coco_card_vs_cpu(dev, card)
+    coco_f32_gap(dev, card)
     _coco_res, coco_profile = coco_path(dev, card)
     train_rest_path(dev, card)
+
+    # -- 32: parallelism on torch.distributed, in child processes ---------
+    par = parallel_path(dev, card)
 
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
@@ -4683,6 +5287,10 @@ def main():
                      fit_ms=r["ms"], fit_plain_ms=r["plain_ms"],
                      fit_bound_ms=r["bound_ms"], fit_bound_by=r["bound_by"],
                      fit_library_ms=r["library_ms"])
+    # K2a/b/c in the world-1 NCCL wmt step under --data-parallel 1 (phase
+    # 32 (a)): launches a step
+    for entry, key in zip(kernels[1:4], ("fwd", "dq", "dkv")):
+        entry.update(launches_wmt_data_parallel=par["launches_parallel"][key])
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",
         "source": "ccv_tpu_torch/csrc/scd_phase.cu",

@@ -4,8 +4,8 @@ ccv_tpu/nn/cmd.py, on the CPU.
 The same names, ids, attributes and capability metadata, and the same
 ``cmd_ok`` answer on every (command, dtype, format) of the grid; dispatch
 through ``cmd`` gives ``ccv_tpu``'s values (float32 within 1e-5 + 1e-5 *
-max), the optimizer update commands included; the collectives raise until
-``parallel`` is ported.
+max), the optimizer update commands included; the collectives compute
+their sums over two gloo ranks, with the reference's gradients.
 """
 
 import itertools
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_parallel_ranks as torch_ranks
 from ccv_tpu.nn import cmd as jcmd
 from ccv_tpu_torch.nn import cmd as tcmd
 
@@ -107,9 +108,28 @@ def test_optimizer_update_commands(name):
             _close(g, w)
 
 
+@pytest.fixture(scope="module")
+def comm_ranks(tmp_path_factory):
+    rng = np.random.default_rng(3)
+    x, w = (rng.standard_normal((2, 5)).astype(np.float32)
+            for _ in range(2))
+    return x, w, torch_ranks.run(torch_ranks.comm_commands, 2,
+                                 tmp_path_factory.mktemp("comm"), x, w)
+
+
 @pytest.mark.parametrize("name", ["CCV_NNC_COMM_ALLREDUCE_FORWARD",
                                   "CCV_NNC_COMM_BROADCAST_FORWARD",
                                   "CCV_NNC_COMM_REDUCE_FORWARD"])
-def test_collectives_wait(name):
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tcmd.cmd(name)(torch.zeros(2))
+def test_collectives_wait(comm_ranks, name):
+    """Each COMM_* command on two ranks: the sum (root 0's value for the
+    broadcast) on both, and the gradient of sum(y * w_r): allreduce's and
+    reduce's the sum of the w, broadcast's that sum at root and 0
+    elsewhere."""
+    x, w, ranks = comm_ranks
+    for r, res in enumerate(ranks):
+        y, g = res[name]
+        bcast = name == "CCV_NNC_COMM_BROADCAST_FORWARD"
+        np.testing.assert_allclose(y, x[0] if bcast else x.sum(0),
+                                   rtol=0, atol=1e-6)
+        want = w.sum(0) * (0.0 if bcast and r != 0 else 1.0)
+        np.testing.assert_allclose(g, want, rtol=0, atol=1e-6)

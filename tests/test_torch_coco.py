@@ -146,31 +146,73 @@ def test_trainer_grads_and_step():
 
 def test_demo_three_steps():
     """``--demo`` for three steps at 64 x 64, B 1, on the CPU: every loss
-    finite and the last below the first."""
+    finite. Each demo step draws a new scene, so its losses need not fall;
+    descent is held on one fixed batch instead: three steps at the demo's
+    own size, batch and rate, in float64, lower that batch's loss (from
+    1.511 to 1.160 here; the float32 gradient norm of ``clip_grad_norm``
+    moves the end by ~3e-4 from one build's leaf order to another's)."""
     loss, acc = tcoco.main(["--demo", "--steps", "3", "--size", "64",
                             "--batch", "1", "--device", "cpu"])
     losses = tcoco.main.losses
     assert len(losses) == 3 and all(np.isfinite(losses))
-    assert losses[-1] < losses[0], losses
     assert 0.0 <= acc <= 1.0 and loss == losses[-1]
+    demo = tcoco.parser().parse_args(["--demo"])
+    t = tcoco.Trainer(demo.batch, demo.size, demo.size, lr=demo.lr,
+                      select_count=demo.select_count, device="cpu",
+                      dtype=torch.float64)
+    rng = np.random.default_rng(0)
+    scenes = [tcoco.synthetic_scene(rng, demo.size, demo.size)
+              for _ in range(demo.batch)]
+    args = t.to_device(*t.batch(scenes, rng))
+    first = float(t.grads(*args)[0])
+    for _ in range(3):
+        t.step(*args)
+    last = float(t.grads(*args)[0])
+    assert last < first, (first, last)
+
+
+def _params_by_position(t):
+    """A trainer's parameter tensors by topological position (node uids,
+    and so ``leaves()`` order, differ from build to build)."""
+    fpn = t.fpn
+    out = [fpn.params[str(n.uid)][k] for n in fpn.order
+           if str(n.uid) in fpn.params for k in sorted(fpn.params[str(n.uid)])]
+    return out + [t.params["rpn"][k] for k in sorted(t.params["rpn"])]
+
+
+# |float32 loss - float64 loss| / |float64 loss| of this step: 1.24e-4 on
+# one CPU, 9.93e-06 on an H100 80GB HBM3 (chip_smoke.py phase 31); how
+# far float32 lands after 53 convolutions depends on the convolution
+# algorithm the device picks, so the bound is set above both
+F32_LOSS_GAP = 1e-3
 
 
 def test_trainer_float64_step():
     """A Trainer in float64 draws the float32 trainer's weights and casts
-    them: the same batch gives the float32 step's loss within 1e-4 (float32
-    rounds through 53 layers), float64 gradients shaped as the parameters,
-    and finite float64 batch-norm statistics."""
+    them (equal to the bit); its loss equals a second float64 evaluation
+    of the same graph and loss within 1e-10; the float32 loss lies within
+    ``F32_LOSS_GAP`` of the float64 one; float64 gradients shaped as the
+    parameters and finite float64 batch-norm statistics."""
     rng = np.random.default_rng(31)
     scene = tcoco.synthetic_scene(rng, 64, 64)
     out = {}
     for dtype in (torch.float32, torch.float64):
         t = tcoco.Trainer(1, 64, 64, select_count=32, device="cpu",
                           dtype=dtype)
-        host = t.batch([scene], np.random.default_rng(32))
-        out[dtype] = t, t.grads(*t.to_device(*host))
-    t64, (loss64, _acc, grads, state) = out[torch.float64]
-    t32, (loss32, _, grads32, _) = out[torch.float32]
-    assert abs(float(loss64) - float(loss32)) <= 1e-4 * abs(float(loss64))
+        args = t.to_device(*t.batch([scene], np.random.default_rng(32)))
+        out[dtype] = t, args, t.grads(*args)
+    t64, args64, (loss64, _acc, grads, state) = out[torch.float64]
+    t32, _, (loss32, _, grads32, _) = out[torch.float32]
+    for a, b in zip(_params_by_position(t64), _params_by_position(t32)):
+        assert a.dtype == torch.float64 and torch.equal(a, b.double())
+    with torch.no_grad():
+        feats, _ = t64.fpn._forward(t64.params["fpn"], t64.state,
+                                    [args64[0]], True, None)
+        again, _ = tcoco.rpn_loss(
+            resnet.rpn_apply(t64.params["rpn"], feats), *args64[1:])
+    assert abs(float(again) - float(loss64)) <= 1e-10 * abs(float(loss64))
+    gap = abs(float(loss64) - float(loss32)) / abs(float(loss64))
+    assert gap <= F32_LOSS_GAP, gap
     for t, g in ((t64, grads), (t32, grads32)):  # each build's leaf order
         assert [x.shape for x in g] == [
             p.shape for p in tcoco.optimizers.leaves(t.params)]

@@ -172,7 +172,8 @@ def test_layer_call_takes_nodes_only():
 def test_training_waits():
     """The training methods wait for their prerequisites: ``compile`` for
     a built model, ``fit`` / ``backward`` for ``compile``,
-    ``apply_gradients`` for ``backward``; data parallelism is not ported
+    ``apply_gradients`` for ``backward``; data parallelism over more
+    ranks than the process group holds raises, naming its world size
     (tests/test_torch_train.py trains the graph model)."""
     from ccv_tpu_torch.nn import optimizers
 
@@ -187,7 +188,7 @@ def test_training_waits():
     m.compile(optimizers.sgd(), "mse")
     with pytest.raises(RuntimeError, match="backward"):
         m.apply_gradients()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="holds 1 rank"):
         m.set_data_parallel(2)
 
 

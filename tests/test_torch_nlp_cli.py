@@ -155,11 +155,21 @@ def test_real_mode_from_text_files(tmp_path, capsys):
     assert all(w.startswith("W") for line in decoded for w in line.split())
 
 
-def test_data_parallel_is_refused(capsys):
-    with pytest.raises(SystemExit) as exc:
-        t_wmt.main(["--demo", "--data-parallel", "2", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+def test_data_parallel_is_refused(capsys, monkeypatch):
+    """--data-parallel 2 in a world of one process exits naming both, and
+    without --dist-backend names the flag (tests/test_torch_parallel_data.py
+    runs it on two ranks)."""
+    for name in ("CCV_TPU_COORDINATOR", "CCV_TPU_NUM_PROCESSES",
+                 "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    for extra, said in ((["--dist-backend", "gloo"],
+                         "--data-parallel 2 against a world of 1"),
+                        ([], "needs --dist-backend")):
+        with pytest.raises(SystemExit) as exc:
+            t_wmt.main(["--demo", "--data-parallel", "2", "--device",
+                        "cpu"] + extra)
+        assert exc.value.code == 2
+        assert said in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("module", [t_wmt, t_iwslt, t_imdb],

@@ -402,9 +402,17 @@ def test_cancel():
 
 
 def test_data_parallel_not_ported():
-    _, tm = _pair("seq", "sgd")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    """set_data_parallel needs as many ranks as it is given: 2 in a world
+    of one process raises naming the world size; 1 is the one-rank step
+    (tests/test_torch_parallel_data.py runs 4 ranks)."""
+    jm, tm = _pair("seq", "sgd")
+    with pytest.raises(ValueError, match="holds 1 rank"):
         tm.set_data_parallel(2)
+    tm.set_data_parallel(1)
+    x, y = _batch(80)
+    tl, jl = tm.fit(x, y), jm.fit(jnp.asarray(x), jnp.asarray(y))
+    assert abs(tl - jl) <= 1e-5 * abs(jl)
+    _same_models(jm, tm)
 
 
 def test_parameters_zip_map():
