@@ -1,15 +1,27 @@
 """Image / matrix I/O (counterpart of ccv_tpu/core/io.py).
 
-PNG is decoded here with the standard library's zlib and a small filter
-reconstruction, so the port needs neither PIL nor libpng: 8-bit,
-non-interlaced gray, gray+alpha, RGB, RGBA and palette images. JPEG (files
-and bytes that start with ``\xff\xd8``) goes through libjpeg in the port's
-native decoder (``core/native.py``), from memory. The reference's
-``CCVBINDM`` binary matrices are read and written as in ``ccv_tpu``.
+Decoding follows ``ccv_tpu``'s order: the native decoders first, then PIL.
+
+- Native: PNG is decoded here with the standard library's zlib, as libpng
+  decodes it under ``ccv_tpu``'s transforms (palette to RGB, gray of 1, 2
+  or 4 bits scaled to 8, 16 bits cut to their high byte, Adam7 interlacing
+  undone, alpha dropped). Gray + alpha is the one difference: the port
+  replicates the gray to RGB, where ``ccv_tpu``'s libpng route keeps it
+  gray (``ccv_tpu``'s PIL route converts it to RGB). JPEG (``\xff\xd8``)
+  goes through libjpeg in the port's native decoder (``core/native.py``),
+  from memory. The reference's ``CCVBINDM`` binary matrices are read and
+  written as in ``ccv_tpu``.
+- PIL: any other format (BMP, GIF, TIFF, ...), and JPEG where libjpeg's
+  header is missing (any other failure to build the decoder raises), with
+  ``ccv_tpu``'s mode conversions (palette, RGBA, CMYK and gray + alpha to
+  RGB).
+
+``DECODED`` counts the decodes each route made. Damaged data that a native
+decoder takes raises ValueError, as PIL's refusals do.
 
 ``write`` writes PNG itself (signature, IHDR, unfiltered rows in one zlib
-IDAT, IEND) where ``ccv_tpu`` calls PIL, and CCVBINDM for ``.bin``. The
-port has no JPEG encoder: a ``.jpg`` / ``.jpeg`` path raises.
+IDAT, IEND) and CCVBINDM for ``.bin``; any other extension (JPEG, BMP,
+...) is saved by PIL, as ``ccv_tpu`` saves it.
 
 Grayscale conversion matches the reference bit-exactly: libpng's
 ``png_set_rgb_to_gray`` for PNG, ``(r*6969 + g*23434 + b*2365) >> 15`` for
@@ -18,6 +30,7 @@ the jpeg/bmp path (lib/io/_ccv_io_libjpeg.inc:232).
 
 from __future__ import annotations
 
+import io as _bytes_io
 import struct
 import zlib
 from typing import Optional
@@ -38,11 +51,21 @@ from ccv_tpu_torch.core.dense_matrix import (
 # io flags (lib/ccv.h:500-540)
 IO_GRAY = 0x100
 IO_RGB_COLOR = 0x300
+IO_ANY_FILE = 0x022
+
+# decodes by route: "native" (the port's PNG and libjpeg decoders,
+# CCVBINDM) and "pil"
+DECODED = {"native": 0, "pil": 0}
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _PNG_COLOR = {1: 0, 2: 4, 3: 2, 4: 6}  # channels -> colour type
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# libpng's png_set_expand_gray_1_2_4_to_8: the factor of a gray sample
+_GRAY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}
 
 
 def rgb_to_gray_u8(rgb: np.ndarray, libpng: bool = False) -> np.ndarray:
@@ -89,8 +112,57 @@ def _unfilter_seq(kind: int, line: bytearray, prior: bytes, bpp: int):
         line[i] = (line[i] + pred) & 0xFF
 
 
+def _unfilter(raw: bytes, off: int, rows: int, stride: int, bpp: int):
+    """Rows ``rows`` of ``stride`` bytes from filtered scanlines at ``off``
+    of the inflated stream (``bpp`` bytes a pixel, at least 1): the
+    (rows, stride) uint8 image and the offset after it."""
+    if len(raw) < off + rows * (stride + 1):
+        raise ValueError("truncated PNG image data")
+    out = np.empty((rows, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(rows):
+        at = off + y * (stride + 1)
+        kind = raw[at]
+        line = np.frombuffer(raw, np.uint8, stride, at + 1)
+        if kind == 0:
+            rec = line.copy()
+        elif kind == 1:
+            n = stride // bpp
+            rec = (np.cumsum(line[:n * bpp].reshape(n, bpp), axis=0,
+                             dtype=np.int64) & 0xFF).astype(np.uint8)
+            rec = rec.reshape(n * bpp)
+        elif kind == 2:
+            rec = line + prior  # uint8 arithmetic wraps mod 256
+        elif kind in (3, 4):
+            buf = bytearray(line.tobytes())
+            _unfilter_seq(kind, buf, prior.tobytes(), bpp)
+            rec = np.frombuffer(bytes(buf), np.uint8)
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
+        out[y] = rec
+        prior = out[y]
+    return out, off + rows * (stride + 1)
+
+
+def _samples(rows: np.ndarray, width: int, depth: int,
+             channels: int) -> np.ndarray:
+    """(H, stride) unfiltered bytes -> (H, width, channels) samples: 8-bit
+    as they are, 16-bit cut to their high byte (libpng's strip_16), 1, 2 or
+    4 bits unpacked (MSB first) to one value a byte."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :width * channels].reshape(h, width, channels)
+    if depth == 16:
+        return rows[:, :width * channels * 2:2].reshape(h, width, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :width * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    vals = (bits.reshape(h, width, depth) * weights).sum(-1, dtype=np.uint8)
+    return vals[..., None]
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """8-bit, non-interlaced PNG -> uint8 (H, W) gray or (H, W, 3|4)."""
+    """PNG -> uint8 (H, W) gray or (H, W, 3|4), as libpng gives it under
+    ``ccv_tpu``'s transforms: any bit depth (1-16) and either interlace."""
     if data[:8] != _PNG_MAGIC:
         raise ValueError("not a PNG file")
     pos, idat, palette, ihdr = 8, [], None, None
@@ -109,39 +181,31 @@ def decode_png(data: bytes) -> np.ndarray:
     if ihdr is None:
         raise ValueError("PNG without IHDR")
     width, height, depth, color, _comp, _filt, interlace = ihdr
-    if depth != 8 or interlace != 0 or color not in _PNG_CHANNELS:
-        raise NotImplementedError(
-            f"PNG bit depth {depth}, color type {color}, interlace "
-            f"{interlace}: only 8-bit non-interlaced images are decoded")
-    bpp = _PNG_CHANNELS[color]
-    stride = width * bpp
+    if (color not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16)
+            or interlace not in (0, 1)
+            or (depth < 8 and color not in (0, 3))
+            or (depth == 16 and color == 3)):
+        raise ValueError(f"PNG bit depth {depth}, color type {color}, "
+                         f"interlace {interlace}: not a valid combination")
+    ch = _PNG_CHANNELS[color]
+    bpp = max(1, ch * depth // 8)
     raw = zlib.decompress(b"".join(idat))
-    if len(raw) < height * (stride + 1):
-        raise ValueError("truncated PNG image data")
-    out = np.empty((height, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(height):
-        off = y * (stride + 1)
-        kind = raw[off]
-        line = np.frombuffer(raw, np.uint8, stride, off + 1)
-        if kind == 0:
-            rec = line.copy()
-        elif kind == 1:
-            rec = (np.cumsum(line.reshape(width, bpp), axis=0, dtype=np.int64)
-                   & 0xFF).astype(np.uint8).reshape(stride)
-        elif kind == 2:
-            rec = line + prior  # uint8 arithmetic wraps mod 256
-        elif kind in (3, 4):
-            buf = bytearray(line.tobytes())
-            _unfilter_seq(kind, buf, prior.tobytes(), bpp)
-            rec = np.frombuffer(bytes(buf), np.uint8)
-        else:
-            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
-        out[y] = rec
-        prior = out[y]
-    img = out.reshape(height, width, bpp)
+    if interlace == 0:
+        rows, _ = _unfilter(raw, 0, height, (width * ch * depth + 7) // 8,
+                            bpp)
+        img = _samples(rows, width, depth, ch)
+    else:
+        img = np.zeros((height, width, ch), np.uint8)
+        off = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            rows, off = _unfilter(raw, off, ph, (pw * ch * depth + 7) // 8,
+                                  bpp)
+            img[y0::dy, x0::dx] = _samples(rows, pw, depth, ch)
     if color == 0:
-        return img[..., 0]
+        return img[..., 0] * np.uint8(_GRAY_SCALE[min(depth, 8)])
     if color == 3:
         if palette is None:
             raise ValueError("palette PNG without PLTE")
@@ -151,23 +215,57 @@ def decode_png(data: bytes) -> np.ndarray:
     return img
 
 
+def _pil_decode(data: bytes) -> np.ndarray:
+    """PIL's decode as ``ccv_tpu.core.io.read`` takes it: palette, RGBA,
+    CMYK and gray + alpha converted to RGB. PIL's refusal of damaged or
+    unknown data raises ValueError."""
+    from PIL import Image
+
+    try:
+        img = Image.open(_bytes_io.BytesIO(data))
+        if img.mode in ("P", "RGBA", "CMYK", "LA"):
+            img = img.convert("RGB")
+        arr = np.array(img)   # a writable copy: tensors are made from it
+    except (OSError, SyntaxError) as e:   # UnidentifiedImageError is OSError
+        raise ValueError(f"undecodable image (PIL): {e}") from None
+    DECODED["pil"] += 1
+    return arr
+
+
+def _native_decode(data: bytes) -> Optional[np.ndarray]:
+    """The native decoders' array, or None where they take no such data
+    (not PNG or JPEG) or libjpeg's header is missing. Any other failure to
+    build the JPEG decoder raises."""
+    if data[:8] == _PNG_MAGIC:
+        arr = decode_png(data)
+    elif data[:2] == _JPEG_MAGIC:
+        try:
+            arr = native.decode_jpeg(data)
+        except RuntimeError as e:
+            if native.JPEG_HEADER not in str(e):
+                raise
+            return None
+    else:
+        return None
+    DECODED["native"] += 1
+    return arr
+
+
 def decode(data: bytes, flags: int = 0) -> np.ndarray:
-    """ccv_read of an image held in memory (PNG, JPEG or a CCVBINDM blob)
-    into a host array; raises NotImplementedError for other formats and
-    ValueError (or zlib.error, struct.error) for a damaged one.
+    """ccv_read of an image held in memory into a host array: a CCVBINDM
+    blob, then the native PNG and JPEG decoders, then PIL; raises
+    ValueError (or zlib.error, struct.error) for damaged or unknown data.
 
     ``IO_RGB_COLOR`` stacks a one-channel image to RGB; ``IO_GRAY`` turns an
     RGB image to gray with libpng's coefficients for a PNG and libjpeg's
-    reader's (6969/23434/2365, truncating) for a JPEG, as ``ccv_tpu`` does."""
+    reader's (6969/23434/2365, truncating) otherwise, as ``ccv_tpu`` does."""
     if data[:8] == b"CCVBINDM":
+        DECODED["native"] += 1
         return _decode_ccv_binary(data)
-    if data[:8] == _PNG_MAGIC:
-        arr, png = decode_png(data), True
-    elif data[:2] == _JPEG_MAGIC:
-        arr, png = native.decode_jpeg(data), False
-    else:
-        raise NotImplementedError(
-            "only PNG, JPEG and CCVBINDM are decoded by the port so far")
+    arr = _native_decode(data)
+    if arr is None:
+        arr = _pil_decode(data)
+    png = data[:8] == _PNG_MAGIC
     want_gray = ((flags & IO_GRAY) == IO_GRAY
                  and (flags & IO_RGB_COLOR) != IO_RGB_COLOR)
     want_rgb = (flags & IO_RGB_COLOR) == IO_RGB_COLOR
@@ -182,15 +280,15 @@ def decode(data: bytes, flags: int = 0) -> np.ndarray:
 
 def read(path: str, flags: int = 0,
          device: _device.DeviceLike = None) -> DenseMatrix:
-    """ccv_read twin: decode a PNG or JPEG (or CCVBINDM blob) into a
+    """ccv_read twin: decode an image file (or CCVBINDM blob) into a
     DenseMatrix on ``device`` (default: the card; raises without one, so
     pass ``device="cpu"`` to keep the image on the host)."""
     with open(path, "rb") as f:
         data = f.read()
     try:
         arr = decode(data, flags)
-    except NotImplementedError as e:
-        raise NotImplementedError(f"{path}: {e}") from None
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     return from_numpy(arr, device=device)
 
 
@@ -237,22 +335,24 @@ def encode_png(arr: np.ndarray) -> bytes:
 
 def write(m, path: str, format: Optional[str] = None) -> None:
     """ccv_write twin: CCVBINDM for a path (or ``format``) ending in
-    ``.bin`` / ``binary``, else PNG. Pixels that are not uint8 are rounded
-    and clamped to 0-255, as ``ccv_tpu`` does before PIL. JPEG raises
-    NotImplementedError: the port has no JPEG encoder."""
+    ``.bin`` / ``binary``, PNG by the port's encoder for ``.png``, any
+    other format by PIL from the extension (JPEG, BMP, ...; PIL raises
+    ValueError for one it does not know), as ``ccv_tpu`` does. Pixels that
+    are not uint8 are rounded and clamped to 0-255, as ``ccv_tpu`` does;
+    one channel of three dimensions is written as gray."""
     name = (format or path).lower()
     if name.endswith((".bin", "binary")):
         write_ccv_binary(m, path)
         return
-    if name.endswith((".jpg", ".jpeg", "jpeg", "jpg")):
-        raise NotImplementedError(
-            f"{path}: the port has no JPEG encoder; write PNG (.png) or "
-            f"CCVBINDM (.bin)")
-    if not name.endswith("png"):
-        raise ValueError(f"{path}: the port writes PNG (.png) and CCVBINDM "
-                         f"(.bin) only")
     arr = to_numpy(m)
     if arr.dtype != np.uint8:
         arr = np.clip(np.round(arr), 0, 255).astype(np.uint8)
-    with open(path, "wb") as f:
-        f.write(encode_png(arr))
+    if name.endswith("png"):
+        with open(path, "wb") as f:
+            f.write(encode_png(arr))
+        return
+    from PIL import Image
+
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        arr = arr[..., 0]
+    Image.fromarray(arr).save(path)

@@ -5,8 +5,9 @@ ccv_tpu/core/native.py).
   memory buffer. The library is built with g++ and ``-ljpeg`` into
   ``ccv_tpu_torch/_build`` at the first JPEG decode, never at import.
   Without libjpeg's header the decode raises an error that names it, and so
-  does every later decode in the process, with no second build; nothing
-  falls back to another decoder.
+  does every later decode in the process, with no second build;
+  ``core.io.decode`` then takes PIL's decode (``core.io.DECODED`` counts
+  it). Any other build failure raises with the compiler's message.
 - ``swt_cc`` (csrc/swt_cc.cpp): SWT's width-ratio-gated 8-connected
   components, built with g++ at the first call. A failed build raises with
   the compiler's message; nothing falls back.

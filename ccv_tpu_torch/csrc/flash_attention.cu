@@ -1,14 +1,14 @@
 // Flash attention for Hopper (sm_90a), the "wmma-smem" design: the forward
-// (K2a), dq backward (K2b) and dk/dv backward (K2c) for f32 and for head
-// dim 32, which the parity tests use. At bf16 and head dim 64, the LM's,
+// (K2a), dq backward (K2b) and dk/dv backward (K2c) for f32 (head dims 32,
+// 64 and 128) and for bf16 at head dim 32. At bf16 and head dim 64 or 128
 // all three run the "wgmma-tma" design of flash_attention_sm90.cu. Port of
 // the Pallas TPU kernels in ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (via _flash_bwd_bthd)
 //
-// What they compute, on (BH, T, D) row-major tensors (D = 32 or 64, f32 or
-// bf16; lse and delta are (BH, Tq) f32):
+// What they compute, on (BH, T, D) row-major tensors (D = 32, 64 or 128,
+// f32 or bf16; lse and delta are (BH, Tq) f32):
 //   s = (q . k) * scale in f32; a key counts if k_pos < Tk and, when causal,
 //   k_pos <= q_pos + (Tk - Tq) (the mask is aligned bottom-right). Masked
 //   scores are -1e30, as in the Pallas kernel.
@@ -25,7 +25,8 @@
 // the block: K2a and K2b take one block per (bh, 64-query tile) and loop
 // over 64-key tiles, K2c one block per (bh, 64-key tile) and loops over
 // query tiles. Each block has 8 warps. The tiles of q, k, v and do sit in
-// shared memory (dynamic: up to 145 KB, f32 K2b and K2c); the products run
+// shared memory (dynamic: up to 145 KB at D 64 and 225 KB at f32 D 128,
+// K2b and K2c, whose rows are unpadded to fit); the products run
 // tile by tile out of shared memory: bf16 through the tensor cores with
 // nvcuda::wmma (16x16x16 fragments, f32 accumulators), f32 as plain FMA
 // loops. The score tile and the running accumulators (o, dq, dk, dv) stay
@@ -70,7 +71,13 @@ constexpr int kTile = 64;              // query and key rows per tile
 constexpr int kThreads = 256;          // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 8;                // padding elements per shared row
-constexpr int kLdS = kTile + kPad;     // row stride of a 64x64 score tile
+// The padding of (T, D)'s shared rows: none for f32 at D 128, whose K2b and
+// K2c tiles would not fit in a block's 227 KB with it (the padding only
+// spreads rows over the banks), and the row stride of a 64x64 score tile.
+template <typename T, int D>
+constexpr int kPadOf = std::is_same<T, float>::value && D == 128 ? 0 : kPad;
+template <typename T, int D>
+constexpr int kLdSOf = kTile + kPadOf<T, D>;
 constexpr float kNegInf = -1e30f;      // NEG_INF of the Pallas kernel
 
 template <typename T>
@@ -140,18 +147,19 @@ __device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
 }
 
 // Rows row0 .. row0+63 of a row-major (rows, D) tensor into a shared tile
-// of row stride D + kPad; rows past `rows` are zero. 16-byte copies.
+// of row stride D + kPadOf; rows past `rows` are zero. 16-byte copies.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
                                           int rows) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = D / kVec;
+  constexpr int ldt = D + kPadOf<T, D>;
   for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
     const int r = c / kChunks, e = (c % kChunks) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < rows)
       val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + e);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + e) = val;
+    *reinterpret_cast<uint4*>(dst + r * ldt + e) = val;
   }
 }
 
@@ -163,15 +171,16 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
                                                        : 0.f;
 }
 
-// A shared f32 accumulator tile (row stride D + kPad) to rows row0.. of a
+// A shared f32 accumulator tile (row stride D + kPadOf) to rows row0.. of a
 // row-major (rows, D) tensor of type T, rows past `rows` dropped.
 template <typename T, int D>
 __device__ __forceinline__ void store_tile(T* dst, const float* acc, int row0,
                                            int rows) {
+  constexpr int ldt = D + kPadOf<T, D>;
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, d = i % D;
     if (row0 + r < rows)
-      dst[(size_t)(row0 + r) * D + d] = from_f32<T>(acc[r * (D + kPad) + d]);
+      dst[(size_t)(row0 + r) * D + d] = from_f32<T>(acc[r * ldt + d]);
   }
 }
 
@@ -194,10 +203,12 @@ __device__ __forceinline__ int k_tiles(int q0, int tk, int diag, int causal) {
 
 template <typename T, int D>
 constexpr size_t fwd_smem() {
-  return 3 * kTile * (D + kPad) * sizeof(T)       // q, k, v
+  constexpr int kLdS = kLdSOf<T, D>;
+  constexpr int ldt = D + kPadOf<T, D>;
+  return 3 * kTile * ldt * sizeof(T)              // q, k, v
          + kTile * kLdS * sizeof(T)               // p
          + kTile * kLdS * sizeof(float)           // s
-         + kTile * (D + kPad) * sizeof(float)     // o accumulator
+         + kTile * ldt * sizeof(float)            // o accumulator
          + 3 * kTile * sizeof(float);             // m, l, corr
 }
 
@@ -208,7 +219,8 @@ __global__ void __launch_bounds__(kThreads)
                float* __restrict__ lse, int tq, int tk, float scale,
                int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ldt = D + kPad;
+  constexpr int ldt = D + kPadOf<T, D>;
+  constexpr int kLdS = kLdSOf<T, D>;
   T* qs = reinterpret_cast<T*>(smem);
   T* ks = qs + kTile * ldt;
   T* vs = ks + kTile * ldt;
@@ -282,10 +294,12 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D>
 constexpr size_t dq_smem() {
-  return 4 * kTile * (D + kPad) * sizeof(T)       // q, do, k, v
+  constexpr int kLdS = kLdSOf<T, D>;
+  constexpr int ldt = D + kPadOf<T, D>;
+  return 4 * kTile * ldt * sizeof(T)              // q, do, k, v
          + 2 * kTile * kLdS * sizeof(float)       // s, dp
          + kTile * kLdS * sizeof(T)               // ds
-         + kTile * (D + kPad) * sizeof(float)     // dq accumulator
+         + kTile * ldt * sizeof(float)            // dq accumulator
          + 2 * kTile * sizeof(float);             // lse, delta
 }
 
@@ -296,7 +310,8 @@ __global__ void __launch_bounds__(kThreads)
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int tq, int tk, float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ldt = D + kPad;
+  constexpr int ldt = D + kPadOf<T, D>;
+  constexpr int kLdS = kLdSOf<T, D>;
   T* qs = reinterpret_cast<T*>(smem);
   T* dos = qs + kTile * ldt;
   T* ks = dos + kTile * ldt;
@@ -347,9 +362,11 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D>
 constexpr size_t dkv_smem() {
-  return 4 * kTile * (D + kPad) * sizeof(T)       // k, v, q, do
+  constexpr int kLdS = kLdSOf<T, D>;
+  constexpr int ldt = D + kPadOf<T, D>;
+  return 4 * kTile * ldt * sizeof(T)              // k, v, q, do
          + 2 * kTile * kLdS * sizeof(float)       // s, dp; then p, ds
-         + 2 * kTile * (D + kPad) * sizeof(float) // dk, dv accumulators
+         + 2 * kTile * ldt * sizeof(float)        // dk, dv accumulators
          + 2 * kTile * sizeof(float);             // lse, delta
 }
 
@@ -363,7 +380,8 @@ __global__ void __launch_bounds__(kThreads)
                T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
                float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ldt = D + kPad;
+  constexpr int ldt = D + kPadOf<T, D>;
+  constexpr int kLdS = kLdSOf<T, D>;
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = ks + kTile * ldt;
   T* qs = vs + kTile * ldt;
@@ -446,10 +464,11 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 inline int n_tiles(int t) { return (t + kTile - 1) / kTile; }
 
-// K2a, K2b and K2c at bf16 and head dim 64 run flash_attention_sm90.cu:
-// this file builds no instance of them and refuses the pair.
+// K2a, K2b and K2c at bf16 and head dim 64 or 128 run
+// flash_attention_sm90.cu: this file builds no instance of them and refuses
+// the pairs.
 template <typename T, int D>
-constexpr bool kSm90Serves = std::is_same<T, bf16>::value && D == 64;
+constexpr bool kSm90Serves = std::is_same<T, bf16>::value && D >= 64;
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
@@ -512,6 +531,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   do {                                                                    \
     if ((dtype) == 0 && (head_dim) == 32) return LAUNCH<float, 32>(__VA_ARGS__); \
     if ((dtype) == 0 && (head_dim) == 64) return LAUNCH<float, 64>(__VA_ARGS__); \
+    if ((dtype) == 0 && (head_dim) == 128) return LAUNCH<float, 128>(__VA_ARGS__); \
     if ((dtype) == 1 && (head_dim) == 32) return LAUNCH<bf16, 32>(__VA_ARGS__);  \
     if ((dtype) == 1 && (head_dim) == 64) return LAUNCH<bf16, 64>(__VA_ARGS__);  \
     return (int)cudaErrorInvalidValue;                                    \

@@ -1,15 +1,16 @@
-// Flash attention for Hopper (sm_90a) at bf16, head dim 64: the forward
-// (K2a), the dq backward (K2b) and the dk/dv backward (K2c) redesigned
-// around wgmma, TMA and register-resident accumulators. They replace the
-// bf16, D 64 path of flash_attention.cu's kernels (that file keeps the f32
-// and D 32 kernels that the parity tests use). Ports of the Pallas TPU
+// Flash attention for Hopper (sm_90a) at bf16, head dim 64 or 128: the
+// forward (K2a), the dq backward (K2b) and the dk/dv backward (K2c)
+// redesigned around wgmma, TMA and register-resident accumulators. They
+// replace the bf16 path of flash_attention.cu's kernels at those head dims
+// (that file keeps the f32 and D 32 kernels). Ports of the Pallas TPU
 // kernels in ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (via _flash_bwd_bthd)
 //
-// What they compute, on (BH, T, 64) row-major bf16 tensors (lse and delta
-// are (BH, Tq) f32), exactly what flash_attention.cu computes:
+// What they compute, on (BH, T, D) row-major bf16 tensors, D = 64 or 128
+// (lse and delta are (BH, Tq) f32), exactly what flash_attention.cu
+// computes:
 //   s = (q . k) * scale in f32; a key counts if k_pos < Tk and, when causal,
 //   k_pos <= q_pos + (Tk - Tq) (bottom-right). Masked scores are -1e30.
 //   K2a: online softmax over 64-key tiles; p is rounded to bf16 before
@@ -35,12 +36,17 @@
 //   once and streams 64-key k and v tiles through a 2-stage ring, signalled
 //   by mbarriers (full: bytes landed; empty: all 8 consumer warps done).
 //   S = Q K^T is a wgmma with both operands in shared memory (128-byte
-//   swizzle: a bf16 row of 64 is exactly 128 B); S stays in registers, the
+//   swizzle: a bf16 row of 64 is exactly 128 B; at D 128 a tile is two
+//   such 64-column halves, one after the other, each TMA-loaded as its own
+//   box, and the K steps over D 64-127 address the second half); S stays
+//   in registers, the
 //   row max and row sum reduce over the 4 threads of a quad, only tiles on
 //   the causal diagonal or the ragged tail run the mask, and P is rounded
 //   to bf16 in registers, where the accumulator layout of S is already the
 //   A-operand layout of O += P V (a register-A wgmma, V MN-major). O stays
-//   in registers in f32 until the epilogue. TMA zero-fills rows past T.
+//   in registers in f32 until the epilogue (an m64n128 wgmma at D 128,
+//   whose MN-major V operand steps from one half to the other by the
+//   descriptor's leading byte offset). TMA zero-fills rows past T.
 //   K2c: one block per (bh, 64-key tile): one consumer warpgroup and a
 //   producer warp. K and V are TMA-loaded once; the producer streams q and
 //   do tiles (TMA) and their lse and delta rows (plain loads) from the
@@ -65,6 +71,10 @@
 //   cap that follows), which measured faster than 2 (PERF.md).
 //   No loop has a block barrier: only mbarrier waits and wgmma
 //   fence/commit/wait. The longest causal tiles are scheduled first.
+//   At D 128 the accumulators over D double (O: 64 f32 registers a thread;
+//   dK and dV: 128), so K2a and K2c ask for one block a SM and K2b for two
+//   (Sm90Cfg); shared memory is 96 KB a block for each kernel. This is the
+//   D 64 design made wider, not yet tuned for D 128.
 //
 // The tensor maps are encoded on the host in the launch function through
 // cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint(ByVersion), so
@@ -81,15 +91,18 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;                    // head dim: one 128-byte row
+constexpr int kHalf = 64;                 // columns of a 128-byte swizzle row
 constexpr int kRows = 64;                 // rows of a tile (one wgmma M)
-constexpr int kTileBytes = kRows * kD * 2;  // 8 KB
-// Ring depth, and blocks per SM asked of the compiler (it caps registers a
-// thread to fit them); what was tried on the card is in PERF.md.
-constexpr int kStages = 2;
-constexpr int kFwdBlocksPerSm = 2;
-constexpr int kDkvBlocksPerSm = 2;
-constexpr int kDqBlocksPerSm = 3;
+constexpr int kStages = 2;                // ring depth
+// Blocks per SM asked of the compiler for head dim D (it caps registers a
+// thread to fit them); what was tried on the card at D 64 is in PERF.md.
+template <int D>
+struct Sm90Cfg {
+  static constexpr int kTileBytes = kRows * D * 2;  // 8 KB at D 64
+  static constexpr int kFwdBlocksPerSm = D == 64 ? 2 : 1;
+  static constexpr int kDkvBlocksPerSm = D == 64 ? 2 : 1;
+  static constexpr int kDqBlocksPerSm = D == 64 ? 3 : 2;
+};
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -170,19 +183,22 @@ __device__ __forceinline__ void wg_wait_all() {
 
 // Pins the accumulator registers at this point of the program, so the
 // compiler moves no read or write of them across an asynchronous wgmma.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Matrix descriptor of a tile of 128-byte rows written by TMA with 128-byte
 // swizzle (atoms of 8 rows, 1024 B apart: the stride byte offset). For a
 // K-major operand the leading byte offset is unused (a wgmma's 16-element K
-// slice lies inside a row); for an MN-major one it is the stride between
-// 64-element column blocks, of which a 64-wide operand has one.
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+// slice lies inside a row); for an MN-major one it is the stride `lbo`
+// between 64-element column blocks: a 64-wide operand has one (lbo is
+// unused), a 128-wide one two, its halves a tile's rows x 128 B apart.
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile,
+                                               uint32_t lbo = 16) {
   const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(16 >> 4) << 16) |
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 // Advance of a descriptor by 16 elements of K: 32 B along a K-major row,
@@ -190,6 +206,21 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
 // 16-byte units.
 constexpr uint64_t kStepKMajor = 32 >> 4;
 constexpr uint64_t kStepMNMajor = 2048 >> 4;
+// The element offset of column half h of a tile of `rows` rows.
+__device__ __forceinline__ int half_at(int rows, int h) {
+  return h * rows * kHalf;
+}
+// The descriptor of K step kk (16 columns) of a K-major tile of `rows`
+// rows: half kk / 4, 32 B a step inside it.
+__device__ __forceinline__ uint64_t kmajor_step(const bf16* tile, int rows,
+                                                int kk) {
+  return desc_sw128(tile + half_at(rows, kk / 4)) + (kk % 4) * kStepKMajor;
+}
+// The descriptor of an MN-major tile of kRows rows and D columns.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(const bf16* tile) {
+  return D == kHalf ? desc_sw128(tile) : desc_sw128(tile, kRows * 128);
+}
 
 #define WG_ACC32(d)                                                         \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
@@ -203,6 +234,26 @@ constexpr uint64_t kStepMNMajor = 2048 >> 4;
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+#define WG_ACC64(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),      \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define WG_D64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
 
 // d (64 x 64, f32) = (scale_d ? d : 0) + A (64 x 16) B (16 x 64), both from
 // shared memory, both K-major.
@@ -227,6 +278,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A (64 x 16, registers) B (16 x 128, shared, MN-major: two halves).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
   return *reinterpret_cast<uint32_t*>(&v);
@@ -248,6 +310,17 @@ __device__ __forceinline__ int key_tiles(int q_lo, int rows, int tk, int diag,
   return causal ? min(n, (q_lo + rows - 1 + diag) / kRows + 1) : n;
 }
 
+// TMA-loads rows row0 .. row0 + rows - 1 of head bh into a tile: one box of
+// 64 columns (128 B, the widest a 128-byte swizzle takes) per column half.
+template <int D>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int row0,
+                                         int bh) {
+#pragma unroll
+  for (int h = 0; h < D / kHalf; ++h)
+    tma_load_3d(dst + half_at(rows, h), map, bar, kHalf * h, row0, bh);
+}
+
 template <typename T>
 __device__ __forceinline__ T* align1024(unsigned char* p) {
   return reinterpret_cast<T*>((reinterpret_cast<uintptr_t>(p) + 1023) &
@@ -259,21 +332,24 @@ __device__ __forceinline__ T* align1024(unsigned char* p) {
 constexpr int kFwdRows = 2 * kRows;            // query rows per block
 constexpr int kFwdThreads = 2 * 128 + 32;      // 2 warpgroups + producer
 
+template <int D>
 struct FwdSmem {
-  bf16 q[kFwdRows * kD];
-  bf16 k[kStages][kRows * kD];
-  bf16 v[kStages][kRows * kD];
+  bf16 q[kFwdRows * D];
+  bf16 k[kStages][kRows * D];
+  bf16 v[kStages][kRows * D];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
-__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, Sm90Cfg<D>::kFwdBlocksPerSm)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
                     bf16* __restrict__ o, float* __restrict__ lse, int tq,
                     int tk, float scale_log2, int causal) {
+  constexpr int kTileBytes = Sm90Cfg<D>::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
-  FwdSmem& sm = *align1024<FwdSmem>(smem_raw);
+  FwdSmem<D>& sm = *align1024<FwdSmem<D>>(smem_raw);
   const int n_qt = (tq + kFwdRows - 1) / kFwdRows;
   const int bh = blockIdx.x / n_qt;
   const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * kFwdRows;
@@ -294,14 +370,14 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
   if (warp == 8) {
     // producer: the q tile once, then k and v tiles through the ring
     if (lane == 0) {
-      mbar_expect_tx(&sm.q_full, kFwdRows * kD * 2);
-      tma_load_3d(sm.q, &q_map, &sm.q_full, 0, q0, bh);
+      mbar_expect_tx(&sm.q_full, kFwdRows * D * 2);
+      tma_tile<D>(sm.q, &q_map, &sm.q_full, kFwdRows, q0, bh);
       for (int j = 0; j < n_kt; ++j) {
         const int s = j % kStages;
         mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
         mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-        tma_load_3d(sm.k[s], &k_map, &sm.full[s], 0, j * kRows, bh);
-        tma_load_3d(sm.v[s], &v_map, &sm.full[s], 0, j * kRows, bh);
+        tma_tile<D>(sm.k[s], &k_map, &sm.full[s], kRows, j * kRows, bh);
+        tma_tile<D>(sm.v[s], &v_map, &sm.full[s], kRows, j * kRows, bh);
       }
     }
     return;
@@ -313,11 +389,12 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
   const int cq = 2 * (lane % 4);              // and columns 8j + cq + {0,1}
   const int q_lo = q0 + kRows * wg;
   const int n_kt_wg = q_lo < tq ? key_tiles(q_lo, kRows, tk, diag, causal) : 0;
-  float o_acc[32];
+  float o_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const uint64_t q_desc = desc_sw128(sm.q + kRows * kD * wg);
+  // this warpgroup's 64 rows of each column half of the 128-row q tile
+  const bf16* q_wg = sm.q + kRows * kHalf * wg;
 
   mbar_wait(&sm.q_full, 0);
   for (int j = 0; j < n_kt; ++j) {
@@ -325,12 +402,11 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
     mbar_wait(&sm.full[s], (j / kStages) & 1);
     if (j < n_kt_wg) {
       float sc[32];
-      const uint64_t k_desc = desc_sw128(sm.k[s]);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_ss(sc, q_desc + kk * kStepKMajor, k_desc + kk * kStepKMajor,
-                 kk);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, kmajor_step(q_wg, kFwdRows, kk),
+                 kmajor_step(sm.k[s], kRows, kk), kk);
       wg_commit();
       wg_wait_all();
       fence_regs(sc);
@@ -368,15 +444,16 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
         const int h = (i >> 1) & 1;
         sc[i] = exp2f(sc[i] - m[h]);
         sum[h] += sc[i];
-        o_acc[i] *= corr[h];
       }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o_acc[i] *= corr[(i >> 1) & 1];
       l[0] = l[0] * corr[0] + sum[0];  // this thread's share of the row
       l[1] = l[1] * corr[1] + sum[1];
       uint32_t pf[16];
 #pragma unroll
       for (int t = 0; t < 16; ++t) pf[t] = pack_bf16(sc[2 * t], sc[2 * t + 1]);
 
-      const uint64_t v_desc = desc_sw128(sm.v[s]);
+      const uint64_t v_desc = mnmajor<D>(sm.v[s]);
       fence_regs(o_acc);
       wg_fence();
 #pragma unroll
@@ -400,9 +477,9 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
     const int qp = q_lo + r0 + 8 * h;
     if (qp >= tq) continue;
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
-    bf16* orow = o + ((size_t)bh * tq + qp) * kD + cq;
+    bf16* orow = o + ((size_t)bh * tq + qp) * D + cq;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
+    for (int jj = 0; jj < D / 8; ++jj) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
           __floats2bfloat162_rn(o_acc[4 * jj + 2 * h] * inv,
                                 o_acc[4 * jj + 2 * h + 1] * inv);
@@ -416,17 +493,19 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
 
 constexpr int kDkvThreads = 128 + 32;  // 1 warpgroup + producer
 
+template <int D>
 struct DkvSmem {
-  bf16 k[kRows * kD];
-  bf16 v[kRows * kD];
-  bf16 q[kStages][kRows * kD];
-  bf16 dout[kStages][kRows * kD];
+  bf16 k[kRows * D];
+  bf16 v[kRows * D];
+  bf16 q[kStages][kRows * D];
+  bf16 dout[kStages][kRows * D];
   float lse[kStages][kRows];
   float delta[kStages][kRows];
   uint64_t kv_full, full[kStages], empty[kStages];
 };
 
-__global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm)
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, Sm90Cfg<D>::kDkvBlocksPerSm)
     dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
@@ -435,8 +514,9 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm)
                     const float* __restrict__ delta, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, int tq, int tk, float scale,
                     int causal) {
+  constexpr int kTileBytes = Sm90Cfg<D>::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
-  DkvSmem& sm = *align1024<DkvSmem>(smem_raw);
+  DkvSmem<D>& sm = *align1024<DkvSmem<D>>(smem_raw);
   const int n_kt = (tk + kRows - 1) / kRows;
   const int bh = blockIdx.x / n_kt;
   const int k0 = (int)(blockIdx.x % n_kt) * kRows;  // causal: long first
@@ -463,16 +543,16 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm)
     // lane arriving once its rows are in shared memory
     if (lane == 0) {
       mbar_expect_tx(&sm.kv_full, 2 * kTileBytes);
-      tma_load_3d(sm.k, &k_map, &sm.kv_full, 0, k0, bh);
-      tma_load_3d(sm.v, &v_map, &sm.kv_full, 0, k0, bh);
+      tma_tile<D>(sm.k, &k_map, &sm.kv_full, kRows, k0, bh);
+      tma_tile<D>(sm.v, &v_map, &sm.kv_full, kRows, k0, bh);
     }
     for (int i = i0; i < n_qt; ++i) {
       const int it = i - i0, s = it % kStages;
       mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
       if (lane == 0) {
         mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-        tma_load_3d(sm.q[s], &q_map, &sm.full[s], 0, i * kRows, bh);
-        tma_load_3d(sm.dout[s], &do_map, &sm.full[s], 0, i * kRows, bh);
+        tma_tile<D>(sm.q[s], &q_map, &sm.full[s], kRows, i * kRows, bh);
+        tma_tile<D>(sm.dout[s], &do_map, &sm.full[s], kRows, i * kRows, bh);
       }
       for (int r = lane; r < kRows; r += 32) {
         const int qp = i * kRows + r;
@@ -488,26 +568,24 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm)
   const int r0 = 16 * warp + lane / 4;  // key rows k0 + r0, k0 + r0 + 8
   const int cq = 2 * (lane % 4);        // query columns 8j + cq + {0, 1}
   const float scale_log2 = scale * kLog2e;
-  float dk_acc[32], dv_acc[32];
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  const uint64_t k_desc = desc_sw128(sm.k), v_desc = desc_sw128(sm.v);
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(&sm.kv_full, 0);
   for (int i = i0; i < n_qt; ++i) {
     const int it = i - i0, s = it % kStages;
     mbar_wait(&sm.full[s], (it / kStages) & 1);
-    const uint64_t q_desc = desc_sw128(sm.q[s]);
-    const uint64_t do_desc = desc_sw128(sm.dout[s]);
     float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(st, k_desc + kk * kStepKMajor, q_desc + kk * kStepKMajor, kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(st, kmajor_step(sm.k, kRows, kk),
+               kmajor_step(sm.q[s], kRows, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(dpt, v_desc + kk * kStepKMajor, do_desc + kk * kStepKMajor,
-               kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dpt, kmajor_step(sm.v, kRows, kk),
+               kmajor_step(sm.dout[s], kRows, kk), kk);
     wg_commit();
     wg_wait_all();
     fence_regs(st);
@@ -533,6 +611,8 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm)
       pf[t] = pack_bf16(st[2 * t], st[2 * t + 1]);
       dsf[t] = pack_bf16(dpt[2 * t], dpt[2 * t + 1]);
     }
+    const uint64_t q_desc = mnmajor<D>(sm.q[s]);
+    const uint64_t do_desc = mnmajor<D>(sm.dout[s]);
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     wg_fence();
@@ -553,9 +633,9 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm)
   for (int h = 0; h < 2; ++h) {
     const int kp = k0 + r0 + 8 * h;
     if (kp >= tk) continue;
-    const size_t row = ((size_t)bh * tk + kp) * kD + cq;
+    const size_t row = ((size_t)bh * tk + kp) * D + cq;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
+    for (int jj = 0; jj < D / 8; ++jj) {
       *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * jj) =
           __floats2bfloat162_rn(dk_acc[4 * jj + 2 * h],
                                 dk_acc[4 * jj + 2 * h + 1]);
@@ -570,15 +650,17 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm)
 
 constexpr int kDqThreads = 128 + 32;  // 1 warpgroup + producer
 
+template <int D>
 struct DqSmem {
-  bf16 q[kRows * kD];
-  bf16 dout[kRows * kD];
-  bf16 k[kStages][kRows * kD];
-  bf16 v[kStages][kRows * kD];
+  bf16 q[kRows * D];
+  bf16 dout[kRows * D];
+  bf16 k[kStages][kRows * D];
+  bf16 v[kStages][kRows * D];
   uint64_t qd_full, full[kStages], empty[kStages];
 };
 
-__global__ void __launch_bounds__(kDqThreads, kDqBlocksPerSm)
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, Sm90Cfg<D>::kDqBlocksPerSm)
     dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
@@ -586,8 +668,9 @@ __global__ void __launch_bounds__(kDqThreads, kDqBlocksPerSm)
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
                    int tq, int tk, float scale, int causal) {
+  constexpr int kTileBytes = Sm90Cfg<D>::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
-  DqSmem& sm = *align1024<DqSmem>(smem_raw);
+  DqSmem<D>& sm = *align1024<DqSmem<D>>(smem_raw);
   const int n_qt = (tq + kRows - 1) / kRows;
   const int bh = blockIdx.x / n_qt;
   const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * kRows;  // long first
@@ -609,14 +692,14 @@ __global__ void __launch_bounds__(kDqThreads, kDqBlocksPerSm)
     // producer: q and do once, then k and v tiles through the ring
     if (lane == 0) {
       mbar_expect_tx(&sm.qd_full, 2 * kTileBytes);
-      tma_load_3d(sm.q, &q_map, &sm.qd_full, 0, q0, bh);
-      tma_load_3d(sm.dout, &do_map, &sm.qd_full, 0, q0, bh);
+      tma_tile<D>(sm.q, &q_map, &sm.qd_full, kRows, q0, bh);
+      tma_tile<D>(sm.dout, &do_map, &sm.qd_full, kRows, q0, bh);
       for (int j = 0; j < n_kt; ++j) {
         const int s = j % kStages;
         mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
         mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-        tma_load_3d(sm.k[s], &k_map, &sm.full[s], 0, j * kRows, bh);
-        tma_load_3d(sm.v[s], &v_map, &sm.full[s], 0, j * kRows, bh);
+        tma_tile<D>(sm.k[s], &k_map, &sm.full[s], kRows, j * kRows, bh);
+        tma_tile<D>(sm.v[s], &v_map, &sm.full[s], kRows, j * kRows, bh);
       }
     }
     return;
@@ -635,26 +718,24 @@ __global__ void __launch_bounds__(kDqThreads, kDqBlocksPerSm)
     lse2[h] = qp < tq ? lse[at] * kLog2e : 0.f;
     dl[h] = qp < tq ? delta[at] : 0.f;
   }
-  float dq_acc[32];
+  float dq_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
-  const uint64_t q_desc = desc_sw128(sm.q), do_desc = desc_sw128(sm.dout);
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
 
   mbar_wait(&sm.qd_full, 0);
   for (int j = 0; j < n_kt; ++j) {
     const int s = j % kStages;
     mbar_wait(&sm.full[s], (j / kStages) & 1);
-    const uint64_t k_desc = desc_sw128(sm.k[s]);
-    const uint64_t v_desc = desc_sw128(sm.v[s]);
     float sc[32], dp[32];  // S = Q K^T and dP = dO V^T: rows queries
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(sc, q_desc + kk * kStepKMajor, k_desc + kk * kStepKMajor, kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, kmajor_step(sm.q, kRows, kk),
+               kmajor_step(sm.k[s], kRows, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(dp, do_desc + kk * kStepKMajor, v_desc + kk * kStepKMajor,
-               kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, kmajor_step(sm.dout, kRows, kk),
+               kmajor_step(sm.v[s], kRows, kk), kk);
     wg_commit();
     wg_wait_all();
     fence_regs(sc);
@@ -677,6 +758,7 @@ __global__ void __launch_bounds__(kDqThreads, kDqBlocksPerSm)
 #pragma unroll
     for (int t = 0; t < 16; ++t) dsf[t] = pack_bf16(sc[2 * t], sc[2 * t + 1]);
 
+    const uint64_t k_desc = mnmajor<D>(sm.k[s]);
     fence_regs(dq_acc);
     wg_fence();
 #pragma unroll
@@ -692,9 +774,9 @@ __global__ void __launch_bounds__(kDqThreads, kDqBlocksPerSm)
   for (int h = 0; h < 2; ++h) {
     const int qp = q0 + r0 + 8 * h;
     if (qp >= tq) continue;
-    bf16* row = dq + ((size_t)bh * tq + qp) * kD + cq;
+    bf16* row = dq + ((size_t)bh * tq + qp) * D + cq;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
+    for (int jj = 0; jj < D / 8; ++jj) {
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * jj) =
           __floats2bfloat162_rn(dq_acc[4 * jj + 2 * h],
                                 dq_acc[4 * jj + 2 * h + 1]);
@@ -730,14 +812,15 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A (bh, t, 64) bf16 tensor as a 3-d map with boxes of `rows` rows of one
-// head, 128-byte swizzle; rows past t read as zero.
-bool map_rows(CUtensorMap* map, const void* ptr, int bh, int t, int rows) {
+// A (bh, t, d) bf16 tensor as a 3-d map with boxes of 64 columns and `rows`
+// rows of one head, 128-byte swizzle; rows past t read as zero.
+bool map_rows(CUtensorMap* map, const void* ptr, int bh, int t, int d,
+              int rows) {
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {kD, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {kD * 2, (cuuint64_t)t * kD * 2};
-  const cuuint32_t box[3] = {kD, (cuuint32_t)rows, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint32_t box[3] = {kHalf, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -752,81 +835,115 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-}  // namespace
-
-// K2a. q (bh, tq, 64), k and v (bh, tk, 64), bf16 -> o (bh, tq, 64),
-// lse (bh, tq) f32.
-extern "C" int flash_attention_fwd_sm90(int device, const void* q,
-                                        const void* k, const void* v, void* o,
-                                        float* lse, int bh, int tq, int tk,
-                                        float scale, int causal,
-                                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int tq, int tk, float scale, int causal,
+               cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
-  if (!map_rows(&q_map, q, bh, tq, kFwdRows) ||
-      !map_rows(&k_map, k, bh, tk, kRows) || !map_rows(&v_map, v, bh, tk, kRows))
+  if (!map_rows(&q_map, q, bh, tq, D, kFwdRows) ||
+      !map_rows(&k_map, k, bh, tk, D, kRows) ||
+      !map_rows(&v_map, v, bh, tk, D, kRows))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(FwdSmem) + 1024;
-  err = set_smem(fwd_sm90_kernel, smem);
+  const size_t smem = sizeof(FwdSmem<D>) + 1024;
+  cudaError_t err = set_smem(fwd_sm90_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = bh * ((tq + kFwdRows - 1) / kFwdRows);
-  fwd_sm90_kernel<<<blocks, kFwdThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  fwd_sm90_kernel<D><<<blocks, kFwdThreads, smem, stream>>>(
       q_map, k_map, v_map, static_cast<bf16*>(o), lse, tq, tk,
       scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
-// K2b. q, dout (bh, tq, 64), k, v (bh, tk, 64), bf16, lse and delta
-// (bh, tq) f32 -> dq (bh, tq, 64).
-extern "C" int flash_attention_dq_sm90(int device, const void* q,
-                                       const void* k, const void* v,
-                                       const void* dout, const float* lse,
-                                       const float* delta, void* dq, int bh,
-                                       int tq, int tk, float scale,
-                                       int causal, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int bh, int tq,
+              int tk, float scale, int causal, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map, do_map;
-  if (!map_rows(&q_map, q, bh, tq, kRows) ||
-      !map_rows(&k_map, k, bh, tk, kRows) ||
-      !map_rows(&v_map, v, bh, tk, kRows) ||
-      !map_rows(&do_map, dout, bh, tq, kRows))
+  if (!map_rows(&q_map, q, bh, tq, D, kRows) ||
+      !map_rows(&k_map, k, bh, tk, D, kRows) ||
+      !map_rows(&v_map, v, bh, tk, D, kRows) ||
+      !map_rows(&do_map, dout, bh, tq, D, kRows))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(DqSmem) + 1024;
-  err = set_smem(dq_sm90_kernel, smem);
+  const size_t smem = sizeof(DqSmem<D>) + 1024;
+  cudaError_t err = set_smem(dq_sm90_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = bh * ((tq + kRows - 1) / kRows);
-  dq_sm90_kernel<<<blocks, kDqThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
+  dq_sm90_kernel<D><<<blocks, kDqThreads, smem, stream>>>(
       q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dq), tq,
       tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
-// K2c. The same inputs as K2b -> dk, dv (bh, tk, 64).
-extern "C" int flash_attention_dkv_sm90(int device, const void* q,
-                                        const void* k, const void* v,
-                                        const void* dout, const float* lse,
-                                        const float* delta, void* dk, void* dv,
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dk, void* dv,
+               int bh, int tq, int tk, float scale, int causal,
+               cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if (!map_rows(&q_map, q, bh, tq, D, kRows) ||
+      !map_rows(&k_map, k, bh, tk, D, kRows) ||
+      !map_rows(&v_map, v, bh, tk, D, kRows) ||
+      !map_rows(&do_map, dout, bh, tq, D, kRows))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(DkvSmem<D>) + 1024;
+  cudaError_t err = set_smem(dkv_sm90_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = bh * ((tk + kRows - 1) / kRows);
+  dkv_sm90_kernel<D><<<blocks, kDkvThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), tq, tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// Instantiates the launcher for head dim 64 or 128, or returns
+// cudaErrorInvalidValue.
+#define SM90_DISPATCH(head_dim, LAUNCH, ...)                        \
+  do {                                                              \
+    if ((head_dim) == 64) return LAUNCH<64>(__VA_ARGS__);           \
+    if ((head_dim) == 128) return LAUNCH<128>(__VA_ARGS__);         \
+    return (int)cudaErrorInvalidValue;                              \
+  } while (0)
+
+}  // namespace
+
+// K2a. q (bh, tq, d), k and v (bh, tk, d), bf16, d = 64 or 128 -> o
+// (bh, tq, d), lse (bh, tq) f32.
+extern "C" int flash_attention_fwd_sm90(int device, int head_dim,
+                                        const void* q, const void* k,
+                                        const void* v, void* o, float* lse,
                                         int bh, int tq, int tk, float scale,
                                         int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  CUtensorMap q_map, k_map, v_map, do_map;
-  if (!map_rows(&q_map, q, bh, tq, kRows) ||
-      !map_rows(&k_map, k, bh, tk, kRows) ||
-      !map_rows(&v_map, v, bh, tk, kRows) ||
-      !map_rows(&do_map, dout, bh, tq, kRows))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(DkvSmem) + 1024;
-  err = set_smem(dkv_sm90_kernel, smem);
+  SM90_DISPATCH(head_dim, launch_fwd, q, k, v, o, lse, bh, tq, tk, scale,
+                causal, static_cast<cudaStream_t>(stream));
+}
+
+// K2b. q, dout (bh, tq, d), k, v (bh, tk, d), bf16, lse and delta
+// (bh, tq) f32 -> dq (bh, tq, d).
+extern "C" int flash_attention_dq_sm90(int device, int head_dim,
+                                       const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const float* lse, const float* delta,
+                                       void* dq, int bh, int tq, int tk,
+                                       float scale, int causal,
+                                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = bh * ((tk + kRows - 1) / kRows);
-  dkv_sm90_kernel<<<blocks, kDkvThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), tq, tk, scale, causal);
-  return (int)cudaGetLastError();
+  SM90_DISPATCH(head_dim, launch_dq, q, k, v, dout, lse, delta, dq, bh, tq,
+                tk, scale, causal, static_cast<cudaStream_t>(stream));
+}
+
+// K2c. The same inputs as K2b -> dk, dv (bh, tk, d).
+extern "C" int flash_attention_dkv_sm90(int device, int head_dim,
+                                        const void* q, const void* k,
+                                        const void* v, const void* dout,
+                                        const float* lse, const float* delta,
+                                        void* dk, void* dv, int bh, int tq,
+                                        int tk, float scale, int causal,
+                                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  SM90_DISPATCH(head_dim, launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh,
+                tq, tk, scale, causal, static_cast<cudaStream_t>(stream));
 }

@@ -171,8 +171,9 @@ def icf_channels(img: torch.Tensor) -> torch.Tensor:
     """ccv_icf twin: the (H, W, 10) float32 map of a colour (H, W, 3) image,
     [L, U, V, |grad|, 6 orientation bins], or (H, W, 8) of a gray one,
     [gray, |grad|, 6 bins]. A colour pixel takes the gradient of its
-    strongest channel, the first on ties (ccv_icf.c:370-380)."""
-    color = img.dim() == 3 and img.shape[-1] == 3
+    strongest channel, the first on ties (ccv_icf.c:370-380). A batch
+    (N, H, W, 3) or (N, H, W, 1) gives (N, H, W, 10) or (N, H, W, 8)."""
+    color = img.dim() >= 3 and img.shape[-1] == 3
     theta, mag = basic.gradient(img)
     if color:
         m0, m1, m2 = mag.unbind(-1)

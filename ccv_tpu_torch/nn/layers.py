@@ -434,9 +434,11 @@ class ScaledDotProductAttention(Layer):
 
     On a CUDA tensor with T >= ``FLASH_MIN_T`` attention runs the flash
     kernels (``flash_attention``: K2a forward, K2b / K2c backward), else
-    the plain ``ops.scaled_dot_product_attention`` (``attention_route``). The kernels take head
-    dims up to 64 (``ccv_tpu`` pads to 128 lanes and takes more): a larger
-    ``dim`` on that route raises rather than running the plain op."""
+    the plain ``ops.scaled_dot_product_attention`` (``attention_route``). The
+    kernels take head dims up to 128, as ``ccv_tpu``'s 128-lane padding
+    does (``flash_attention`` zero-pads D to 32, 64 or 128); a larger
+    ``dim`` on that route raises in ``padded_dim`` rather than running the
+    plain op."""
 
     def __init__(self, heads: int, dim: int, is_causal: bool = False,
                  fused_qkv: bool = True, out_proj: bool = True,
@@ -478,10 +480,6 @@ class ScaledDotProductAttention(Layer):
                        for n in ("wq", "wk", "wv"))
         q, k, v = (t.reshape(B, T, self.heads, self.dim) for t in (q, k, v))
         if self._use_flash(x):
-            if self.dim > k2.HEAD_DIMS[-1]:
-                raise ValueError(
-                    f"attention head dim {self.dim} at T {T} on the card: the "
-                    f"flash kernels take head dims up to {k2.HEAD_DIMS[-1]}")
             out = k2.flash_attention(q, k, v, None, self.is_causal)
         else:
             out = ops.scaled_dot_product_attention(q, k, v,

@@ -10,13 +10,13 @@ kernels' op order:
   kernel or raises. ``LAUNCHES`` counts kernel launches per kernel,
   ``DESIGN_LAUNCHES`` per kernel and design. ``_design`` picks the design:
   "wgmma-tma" (csrc/flash_attention_sm90.cu: wgmma, TMA, register-resident
-  softmax and accumulators) for all three at bf16 and head dim 64, the
-  LM's; "wmma-smem" (csrc/flash_attention.cu: wmma tiles and accumulators in
-  shared memory) for f32 and head dim 32, which the parity tests use;
+  softmax and accumulators) for all three at bf16 and head dim 64 or 128;
+  "wmma-smem" (csrc/flash_attention.cu: wmma tiles and accumulators in
+  shared memory) for f32 and for bf16 at head dim 32;
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
-  It takes any head dim up to 64: q, k and v are zero-padded along D to the
+  It takes any head dim up to 128: q, k and v are zero-padded along D to the
   smallest of ``HEAD_DIMS`` that holds it, and the padded columns of o, dq,
   dk and dv are dropped before they are returned. Zero columns add nothing
   to q.k and the caller's scale is passed on unchanged, so this is exact,
@@ -43,7 +43,7 @@ import torch
 from ccv_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30          # masked score, as in the Pallas kernel
-HEAD_DIMS = (32, 64)     # head dims the kernels are built for
+HEAD_DIMS = (32, 64, 128)  # head dims the kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches made by the wrappers (CUDA tensors only), per kernel and
@@ -64,7 +64,8 @@ def reset_launches() -> None:
 def _design(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The kernel design that serves ``kernel`` ("fwd", "dq" or "dkv") for
     inputs of type ``dtype`` and head dim ``d``."""
-    return "wgmma-tma" if dtype == torch.bfloat16 and d == 64 else "wmma-smem"
+    return ("wgmma-tma" if dtype == torch.bfloat16 and d in (64, 128)
+            else "wmma-smem")
 
 
 def causal_pairs(t_q: int, t_k: int, causal: bool) -> int:
@@ -229,12 +230,12 @@ def _sm90_library() -> ctypes.CDLL:
                               ["flash_attention_sm90.cu"])
     if lib.flash_attention_fwd_sm90.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd_sm90.argtypes = [i, p, p, p, p, p, i, i, i,
-                                                 f, i, p]
-        lib.flash_attention_dq_sm90.argtypes = [i, p, p, p, p, p, p, p, i,
-                                                i, i, f, i, p]
-        lib.flash_attention_dkv_sm90.argtypes = [i, p, p, p, p, p, p, p, p,
-                                                 i, i, i, f, i, p]
+        lib.flash_attention_fwd_sm90.argtypes = [i, i, p, p, p, p, p, i, i,
+                                                 i, f, i, p]
+        lib.flash_attention_dq_sm90.argtypes = [i, i, p, p, p, p, p, p, p,
+                                                i, i, i, f, i, p]
+        lib.flash_attention_dkv_sm90.argtypes = [i, i, p, p, p, p, p, p, p,
+                                                 p, i, i, i, f, i, p]
         for fn in (lib.flash_attention_fwd_sm90, lib.flash_attention_dq_sm90,
                    lib.flash_attention_dkv_sm90):
             fn.restype = ctypes.c_int
@@ -292,7 +293,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     design = _design("fwd", q.dtype, d)
     if design == "wgmma-tma":
         err = _sm90_library().flash_attention_fwd_sm90(
-            dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dev, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, t_q, k.shape[1], scale, int(causal), stream)
     else:
         err = _library().flash_attention_fwd(
@@ -316,7 +317,7 @@ def flash_dq(q, k, v, do, lse, delta, scale: float,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
     if design == "wgmma-tma":
         err = _sm90_library().flash_attention_dq_sm90(
-            dev, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
+            dev, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
     else:
         err = _library().flash_attention_dq(
             dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
@@ -338,7 +339,7 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if design == "wgmma-tma":
         err = _sm90_library().flash_attention_dkv_sm90(
-            dev, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
+            dev, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
     else:
         err = _library().flash_attention_dkv(
             dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
@@ -373,7 +374,7 @@ def _from_bthd(x: torch.Tensor, b: int, d: int) -> torch.Tensor:
 
 class FlashAttention(torch.autograd.Function):
     """Fused attention on (B, T, H, D): K2a forward, K2b and K2c backward,
-    at any D up to 64 (zero-padded to ``padded_dim(D)``).
+    at any D up to 128 (zero-padded to ``padded_dim(D)``).
 
     Forward saves (q, k, v, o, lse), as ccv_tpu's custom_vjp does; the
     backward forms delta = rowsum(dO * O) in plain torch (ccv_tpu forms it
@@ -409,7 +410,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None,
                     is_causal: bool = False) -> torch.Tensor:
     """Fused scaled-dot-product attention, (B, T, H, D) layout, any D up to
-    64; the scale defaults to 1/sqrt(D) of the unpadded D. Differentiable
+    128; the scale defaults to 1/sqrt(D) of the unpadded D. Differentiable
     in q, k and v."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

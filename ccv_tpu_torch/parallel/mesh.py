@@ -24,6 +24,8 @@ rank's loss is its own term of the global loss:
   an all-gather;
 - ``ppermute``: ``perm``'s (source, destination) pairs by batched send and
   receive, zeros where no rank sends; backward the inverse permutation.
+  gloo sends and receives host tensors only, so on a gloo group a CUDA
+  tensor goes through pinned host memory (``STAGED`` counts the copies).
 
 Where every rank of a group computes the same loss (tensor parallelism, the
 expert combine, GPipe's replicated output), the Megatron pair is right
@@ -189,24 +191,57 @@ class _ReduceScatter(Function):
         return _gather(g, ctx.group), None
 
 
+# copies through pinned host memory that ppermute made for gloo on CUDA
+# tensors: "copies" (card to host before a send, host to card after a
+# receive) and their "bytes"
+STAGED = {"copies": 0, "bytes": 0}
+
+
+def _stages(x: torch.Tensor, group) -> bool:
+    """Whether ``ppermute`` stages ``x`` through host memory: gloo's send
+    and receive take host tensors only (on a CUDA tensor it fails with
+    "writev ... Bad address" or the rank aborts), where its allreduce and
+    all-gather take CUDA tensors. Other backends get the tensor as it is."""
+    return x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _pinned_like(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+
+
 def _permute(x: torch.Tensor, group, perm) -> torch.Tensor:
     """x sent along ``perm``'s (source, destination) pairs of group ranks;
-    what this rank receives, zeros if no rank sends to it."""
+    what this rank receives, zeros if no rank sends to it. On a gloo group
+    a CUDA tensor is sent from a pinned host copy and received into a
+    pinned host buffer, then copied to the card (``STAGED`` counts the
+    copies)."""
     me = dist.get_rank(group)
     out = torch.zeros_like(x)
-    ops = []
     x = x.contiguous()
-    for src, dst in perm:
-        if src == me and dst == me:
-            out = x.clone()
-        elif src == me:
-            ops.append(dist.P2POp(dist.isend, x, _global(group, dst), group))
-        elif dst == me:
-            ops.append(dist.P2POp(dist.irecv, out, _global(group, src),
-                                  group))
+    staged = _stages(x, group)
+    sends = [dst for src, dst in perm if src == me and dst != me]
+    recv_from = [src for src, dst in perm if dst == me and src != me]
+    if any(src == me and dst == me for src, dst in perm):
+        out = x.clone()
+    wire, inbox = x, out
+    if staged and sends:
+        wire = _pinned_like(x)
+        wire.copy_(x)          # synchronous: the card's values are in
+        STAGED["copies"] += 1
+        STAGED["bytes"] += x.numel() * x.element_size()
+    if staged and recv_from:
+        inbox = _pinned_like(x)
+    ops = [dist.P2POp(dist.isend, wire, _global(group, dst), group)
+           for dst in sends]
+    ops += [dist.P2POp(dist.irecv, inbox, _global(group, src), group)
+            for src in recv_from]
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    if staged and recv_from:
+        out.copy_(inbox)
+        STAGED["copies"] += 1
+        STAGED["bytes"] += x.numel() * x.element_size()
     return out
 
 

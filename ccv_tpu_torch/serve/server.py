@@ -36,7 +36,9 @@ answers 500 naming it.
 Detection runs on the card unless ``--device cpu`` is given: the device is
 resolved when the server starts, so a machine without a card fails then,
 not on each request. Images are decoded in memory by the port's
-``core.io`` (PNG, JPEG and CCVBINDM; a damaged one answers 400). One lock
+``core.io`` (PNG, JPEG and CCVBINDM natively, other formats and JPEG
+without libjpeg by PIL, as ``ccv_tpu``'s server reads them; a damaged one
+answers 400). One lock
 serialises detection; the first request builds the cascade kernel.
 """
 

@@ -17,7 +17,8 @@ started together) and drives the port's main paths:
 - transformer-LM training (phases 6-7): the flash-attention kernels K2a
   (forward), K2b (dq) and K2c (dk, dv) against their plain versions at the
   parity tests' shapes and the LM's, each launch checked for its design
-  ("wgmma-tma" at bf16 and head dim 64, else "wmma-smem"), timed at the LM
+  ("wgmma-tma" at bf16 and head dim 64 or 128, else "wmma-smem"), timed at
+  the LM
   shape in turns with the PyTorch calls that compute the same functions
   (yardsticks only: SDPA's flash forward, the flash backward op); a 2-layer
   step at the LM's widths with the kernels against
@@ -45,8 +46,9 @@ started together) and drives the port's main paths:
 - phase 12: ``ccv_tpu_torch.serve.server`` on the card in a thread, its
   ``/scd/detect.objects`` answers (1080p frame as PNG, raw and multipart,
   and crop180) against direct ``detect`` calls, its error paths, JPEG
-  bodies (decoded where libjpeg's header is found, else a 500 naming it),
-  and its request latency at 1080p;
+  bodies (libjpeg where its header is found, else PIL, as ``ccv_tpu``'s
+  read: the 1080p frame as a JPEG against direct ``detect``, a truncated
+  one 400), and its request latency at 1080p;
 - phase 13: image classification (no kernel of its own: cuDNN's
   convolutions and cuBLAS's matmuls): a narrow ``Sequential`` and VGG-D
   (10 classes, 64 x 64) on the card against the CPU in float32 and bf16,
@@ -102,7 +104,7 @@ started together) and drives the port's main paths:
   the defaults, ms per image, ``bin/dpmdetect`` and
   ``/dpm/detect.objects``; msermatch on the gray frame and MSCR on the RGB
   one, card against CPU, ``bin/msermatch`` and ``/mser``; DAISY card
-  against CPU on a 256x256 crop and timed at 1080p; TLD over 8 frames of
+  against CPU on a 256x256 crop and timed at 1080p; TLD over 6 frames of
   1920x1080 (crop180.png pasted on the text at known shifts), IoU >= 0.7,
   card against CPU, ms per frame, ``bin/tld``, ``/tld/track.object`` and
   ``/convnet/classify``; their profiles last;
@@ -171,10 +173,31 @@ started together) and drives the port's main paths:
   counted and by name in a profiled step, ms against the un-parallel step,
   busy and idle, the allreduce's ms, and the CLI with and without
   ``--data-parallel 1``; (b) two gloo ranks on the one card: a probe of
-  the collectives gloo takes on CUDA tensors, then data parallelism at B
-  16, tp 2 against tp 1 at lm_bench's widths (float64, and float32 through
-  K2), ring attention at sp 2 and GPipe over 2 stages, each check run or
-  reported refused by name.
+  the collectives on CUDA tensors (allreduce, all_gather, and send / recv,
+  which ``ppermute`` stages through pinned host memory; each required),
+  then data parallelism at B 16, tp 2 against tp 1 at lm_bench's widths
+  (float64, and float32 through K2), ring attention at sp 2 and GPipe over
+  2 stages (ms a step and the staging copies);
+- phase 33, K2 at head dim 128: the bf16 kernels ("wgmma-tma", m64n128
+  products over two 64-column halves) and the f32 ones ("wmma-smem")
+  against their plain versions at phase 6's parity shapes at D 128 and at
+  the LM step's (B 4 x H 16, T 1024), D 96 zero-padded to 128 through
+  ``flash_attention``, and the three kernels timed at the LM step's shape
+  in turns with the library calls;
+- phase 34, the LM at head dim 128 (d 2048 = 16 heads of 128, ff 8192, 2
+  layers, B 4 x T 1024, bf16): ``lm_bench.measure``'s step through K2 at
+  D 128 (launches by design, ms a step), and the forward's logits against
+  the CPU port's float32 forward within 3e-2 of the largest;
+- phase 35, SCD training (``train.scd``) at the published 40 x 40 patch
+  and 1,631 features, 2 stages of at most 6 features, on seeded patches
+  from crop180.png, crop120.png and text_test.png: the card against the CPU
+  port from the same draws (the same features, thresholds within 1e-4),
+  seconds a stage, an Adam step's ms and the card's idle share; the
+  cascade written, loaded and run by ``detect`` on the 1080p RGB frame
+  through K1 (launches counted) against the plain route;
+- phase 36, ICF training (``train.icf``) at the published 30 x 60 patch
+  and 2,000 random features, 8 trees: the card's cascade equal to the CPU
+  port's.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -360,10 +383,11 @@ DEMO_LOSS = 1.25
 # it, to the bit. (b) Two gloo ranks on the one card (NCCL takes one rank a
 # device), float32: a probe pair first tries each collective the checks use
 # on CUDA tensors (PAR_COLLECTIVES). A wrong answer fails the run, and so
-# does a refusal of one of PAR_REQUIRED (gloo took both in every call so
-# far); only send / recv may be refused (measured: "writev ... Bad
-# address", or the rank aborts). Then every check whose collectives gloo
-# took runs (the rest are reported refused, by name): --data-parallel
+# does a refusal of one of PAR_REQUIRED: gloo takes allreduce and all_gather
+# on CUDA tensors, and ``ppermute`` stages its send / recv through pinned
+# host memory on a gloo group (gloo itself refuses CUDA tensors there:
+# "writev ... Bad address", or the rank aborts). Then every check runs:
+# --data-parallel
 # 2 against the one-rank step at 2 + 2 layers of the same widths, B 16,
 # dropout 0.1 (the global batch's masks); the LM at lm_bench's widths
 # (PAR_LM) under tp 2 against tp 1; ring attention at sp 2 and gpipe over
@@ -389,7 +413,62 @@ PAR_LM = dict(vocab_size=32768, layers=2, heads=16, head_dim=64, ff=4096,
               max_len=1024)
 PAR_LM_BT = (8, 1024)
 PAR_COLLECTIVES = ("allreduce", "all_gather", "send/recv")
-PAR_REQUIRED = ("allreduce", "all_gather")  # gloo must take these
+PAR_REQUIRED = PAR_COLLECTIVES  # gloo must take these (send / recv staged)
+PAR_REPS = 5           # timed ring-attention and GPipe steps a rank
+# phase 33, K2 at head dim 128: the kernels (bf16 "wgmma-tma" as an
+# m64n128 design, f32 "wmma-smem" with unpadded shared rows) against their
+# plain versions within phase 6's gates at the parity shapes and the LM
+# step's (B 4 x H 16, T 1024, D 128), and head dim 96 zero-padded to 128
+# inside ``flash_attention`` as (B, T, H, D, causal); then K2 timed at
+# K2_D128 in turns with the library calls, as phase 6 times the LM shape
+K2_D128_SHAPES = ([(6, t, t, 128, c) for t in (128, 100, 257)
+                   for c in (False, True)]
+                  + [(4, 72, 136, 128, c) for c in (False, True)])
+K2_D128 = (64, 1024, 1024, 128, True)
+K2_D96 = [(2, t, 4, 96, c) for t in (100, 1024) for c in (False, True)]
+# phase 34, the LM at head dim 128: d 2048 = 16 heads of 128 (the size of
+# GPT-3 XL's width), ff 8192, 2 layers, B 4 x T 1024, bf16, remat dots: the
+# step through K2 at D 128 (launches by design), and its forward's logits
+# on the card against the CPU port's float32 forward from the same
+# parameters within LM_D128_REL of the largest logit (CLS_BF16's gate)
+LM_D128 = dict(vocab=32768, layers=2, dim=2048, heads=16, ff=8192, batch=4,
+               seq=1024)
+LM_D128_REL = 3e-2
+# and a seq2seq model at d 1024 = 8 heads of 128 (Transformer-big's width
+# and ff with heads of 128), 2 + 2 layers, bf16: the forward's logits at
+# S2S_CPU unmasked (K2a on the encoder's and the decoder's self-attention)
+# on the card against the CPU port's float32 forward within LM_D128_REL of
+# the largest; then the wmt step (B WMT_B x 128, source mask, dropout 0)
+# through K2 at D 128, launches by design
+S2S_D128 = dict(S2S, layers=2, heads=8, head_dim=128, ff=4096)
+# phase 35, SCD training (ccv_tpu_torch/train/scd.py) at the published 40 x
+# 40 patch and all 1,631 stump features; depth cut: 2 stages of at most 6
+# features, 200 Adam steps a round. Seeded patches (``train_patches``):
+# positives from the repository's face crops (crop180.png, crop120.png:
+# jittered, flipped, relit), negatives from text_test.png, from parts of
+# the same faces and from the faces upside down.
+# Parity at SCD_TRAIN_N (the CPU port takes seconds there): the card and
+# the CPU port from the same draws (``uniform_init``), in float32: the same
+# features and stage sizes, thresholds within SCD_THRESHOLD_TOL. Timed on
+# the card at SCD_TRAIN_FULL_N, 4,000 examples: a (F, N, 32) table of 0.84
+# GB, of the order of the face sets scdcreate trains on (FDDB holds 5,171
+# faces); depth alone is cut. That cascade is written,
+# loaded and run by ``detect`` (K1, counted) on the 1080p RGB frame against
+# the plain route, windows within phase 5's margin
+SCD_TRAIN = dict(size=(40, 40), boosting=2, maximum_feature=6,
+                 prune_feature=6, train_steps=200, seed=0)
+SCD_TRAIN_N = (120, 240)   # positives, negatives
+SCD_TRAIN_FULL_N = (1333, 2667)
+SCD_THRESHOLD_TOL = 1e-4
+# phase 36, ICF training (ccv_tpu_torch/train/icf.py) at the published 30
+# x 60 patch and 2,000 random features; depth cut to ICF_WEAK trees. At
+# ICF_TRAIN_N the card's cascade equals the CPU port's: features and splits
+# equal, votes and thresholds within 1e-5. Timed on the card at
+# ICF_TRAIN_FULL_N, SCD's 4,000 examples
+ICF_TRAIN = dict(size=(30, 60), feature_size=2000, weak_classifier=8,
+                 seed=0)
+ICF_TRAIN_N = (150, 300)
+ICF_TRAIN_FULL_N = SCD_TRAIN_FULL_N
 PAR_NEEDS = {"data_parallel": ("allreduce",),
              "lm_tp": ("allreduce", "all_gather"),
              "ring_sp": ("send/recv",),
@@ -596,13 +675,11 @@ def k2_compare(k2, shape, dtype, dev, rng):
     """K2a/b/c and their plain versions on the same inputs. Returns the max
     abs error of each kernel's outputs (fwd: o and lse; dkv: dk and dv) and
     the largest tile-relative error of each (o; dq; dk and dv).
-    Checks that each kernel ran the "wgmma-tma" design at bf16 and head dim
-    64 and the "wmma-smem" one otherwise."""
+    Checks that each kernel ran the design ``k2._design`` names."""
     q, k, v, do = k2_inputs(shape, dtype, dev, rng)
     causal, scale = shape[4], 1.0 / np.sqrt(shape[3])
-    new = dtype == torch.bfloat16 and shape[3] == 64
-    want = dict.fromkeys(("fwd", "dq", "dkv"),
-                         "wgmma-tma" if new else "wmma-smem")
+    want = {key: k2._design(key, dtype, shape[3])
+            for key in ("fwd", "dq", "dkv")}
     before = {key: dict(c) for key, c in k2.DESIGN_LAUNCHES.items()}
     o0, lse0 = k2.flash_fwd_ref(q, k, v, scale, causal)
     delta = (do.float() * o0.float()).sum(-1)
@@ -684,12 +761,37 @@ def k2_vs_plain(k2, roofline, dev, card):
            f"{ {k: f'{e:.3g}' for k, e in errs.items()} }; worst 64-row "
            f"tile error / tile norm "
            f"{ {k: f'{e:.3g}' for k, e in rels.items()} }")
-    q, k, v, do = k2_inputs(K2_LM, torch.bfloat16, dev, rng)
-    scale = 1.0 / np.sqrt(K2_LM[3])
+    out, lib_err = k2_timed(k2, roofline, K2_LM, dev, rng)
+    log(6, "K2 at the LM shape (CUDA events, 2 x 20 launches in turns with "
+        "the library call; plain 5): " + k2_timing_note(out, lib_err)
+        + f"; {card}")
+    return errs, out
+
+
+def k2_timing_note(out, lib_err):
+    return "; ".join(
+        f"{key} {r['ms']:.4f} ms = {r['tflops']:.1f} TFLOP/s, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+        f"{r['bound_ms'] / r['ms']:.3f} of it; library "
+        f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms"
+        for key, r in out.items()) + (
+        f"; library = SDPA flash forward, and for dq and dkv the flash "
+        f"backward op (dq, dk and dv in one call); library vs plain max "
+        f"error / max|plain| (o, dq, dk, dv) "
+        f"{[f'{e:.3g}' for e in lib_err]}")
+
+
+def k2_timed(k2, roofline, shape, dev, rng):
+    """K2a, K2b and K2c at a causal bf16 ``shape`` (BH = B x 16 heads),
+    each timed in turns with the library call that computes the same
+    function (kernel, library, library, kernel; 20 calls each) and its
+    plain version (5 calls), with the bound for these inputs."""
+    q, k, v, do = k2_inputs(shape, torch.bfloat16, dev, rng)
+    scale = 1.0 / np.sqrt(shape[3])
     o, lse = k2.flash_fwd(q, k, v, scale, True)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, scale, True)
-    lib_fwd, lib_bwd = k2_library(q, k, v, do, scale)
+    lib_fwd, lib_bwd = k2_library(q, k, v, do, scale, b=shape[0] // 16)
     # the library against the plain versions, logged (a yardstick, no gate)
     o_ref = k2.flash_fwd_ref(q, k, v, scale, True)[0]
     g_ref = k2.flash_bwd_ref(*bwd)
@@ -707,23 +809,12 @@ def k2_vs_plain(k2, roofline, dev, card):
         # in turns: kernel, library, library, kernel (20 calls each)
         ms = [time_cuda(kern, 20), time_cuda(lib, 20), time_cuda(lib, 20),
               time_cuda(kern, 20)]
-        flop, nbytes = k2.flash_work(key, *K2_LM, torch.bfloat16)
+        flop, nbytes = k2.flash_work(key, *shape, torch.bfloat16)
         bound, by = roofline.bound_ms(flop, nbytes, "bf16")
         out[key] = dict(ms=(ms[0] + ms[3]) / 2, library_ms=(ms[1] + ms[2]) / 2,
                         plain_ms=time_cuda(plain, 5), bound_ms=bound,
                         bound_by=by, tflops=flop / ((ms[0] + ms[3]) / 2) / 1e9)
-    log(6, "K2 at the LM shape (CUDA events, 2 x 20 launches in turns with "
-        "the library call; plain 5): " + "; ".join(
-            f"{key} {r['ms']:.4f} ms = {r['tflops']:.1f} TFLOP/s, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{r['bound_ms'] / r['ms']:.3f} of it; library "
-            f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms"
-            for key, r in out.items())
-        + f"; library = SDPA flash forward, and for dq and dkv the flash "
-          f"backward op (dq, dk and dv in one call); library vs plain max "
-          f"error / max|plain| (o, dq, dk, dv) "
-          f"{[f'{e:.3g}' for e in lib_err]}; {card}")
-    return errs, out
+    return out, lib_err
 
 
 def lm_two_layers(k2, dev):
@@ -1269,37 +1360,37 @@ def served_path(scd, k1, dev, card, frame, face_med):
 
 
 def served_jpeg(scd, server, url, dev, frame, cascade):
-    """Phase 12's JPEG bodies. The port decodes JPEG with libjpeg, built
-    at the first JPEG body; a machine without jpeglib.h answers 500 naming
-    the header, again on the next body without a second build. With the
-    header, a truncated JPEG answers 400, and the 1080p frame as a JPEG
-    (PIL, quality 90) gets a direct detect's rects of its decode."""
-    from ccv_tpu_torch import _native_build
-    from ccv_tpu_torch.core.io import IO_RGB_COLOR, decode
-    head = b"\xff\xd8\xff\xe0" + bytes(64)  # a JPEG's first bytes only
-    code, out = http(url + "/scd/detect.objects", head)
-    if code == 500:
-        check("jpeglib.h" in out["error"], f"/scd JPEG: 500 {out}")
-        again = http(url + "/scd/detect.objects", head)
-        check(again == (code, out) and "image_decode" in _native_build._failed,
-              f"/scd JPEG again: {again}, failed builds "
-              f"{list(_native_build._failed)}")
-        return "jpeglib.h absent: a JPEG body answers 500 naming it, twice, " \
-               "one build tried"
-    check(code == 400 and "JPEG" in out["error"],
-          f"/scd truncated JPEG: {code} {out}")
+    """/scd with JPEG bodies: a truncated one answers 400, and the 1080p
+    frame as a JPEG answers the rects of a direct ``detect`` on the same
+    decode. Where libjpeg's header is missing (the card's machine) the
+    decode is PIL's, as ``ccv_tpu``'s read falls back to PIL, and
+    ``core.io.DECODED`` must count it there; else it is libjpeg's."""
     import io as _io
     from PIL import Image
+    from ccv_tpu_torch import _native_build
+    from ccv_tpu_torch.core import io as tio
+    before = dict(tio.DECODED)
+    head = b"\xff\xd8\xff\xe0" + bytes(64)  # a JPEG's first bytes only
+    code, out = http(url + "/scd/detect.objects", head)
+    check(code == 400, f"/scd truncated JPEG: {code} {out}")
     buf = _io.BytesIO()
     Image.fromarray(frame).save(buf, format="JPEG", quality=90)
     data = buf.getvalue()
     code, out = http(url + "/scd/detect.objects", data)
     want = server._rects(scd.detect(
-        torch.from_numpy(decode(data, IO_RGB_COLOR)).to(dev), cascade))
+        torch.from_numpy(tio.decode(data, tio.IO_RGB_COLOR)).to(dev),
+        cascade))
     check(code == 200 and out == want, f"/scd 1080p JPEG: {code}, "
           f"{len(out)} rects against {len(want)} from detect")
-    return f"1080p JPEG ({len(data)} bytes) = direct detect ({len(out)} " \
-           f"rects), truncated JPEG 400"
+    no_libjpeg = "image_decode" in _native_build._failed
+    route = "pil" if no_libjpeg else "native"
+    used = {k: v - before[k] for k, v in tio.DECODED.items()}
+    check(used[route] >= 2 and (no_libjpeg or used["pil"] == 0),
+          f"/scd JPEG decodes by route {used} (libjpeg "
+          f"{'missing' if no_libjpeg else 'built'})")
+    return (f"1080p JPEG ({len(data)} bytes) = direct detect ({len(out)} "
+            f"rects), truncated JPEG 400; decoded by "
+            f"{'PIL (no jpeglib.h)' if no_libjpeg else 'libjpeg'}: {used}")
 
 
 def narrow_layers(L):
@@ -1557,9 +1648,9 @@ def k2_padded_compare(k2, shape, dtype, dev, rng):
     ran = {key: {n: c - before[key][n] for n, c in cs.items()
                  if c > before[key][n]}
            for key, cs in k2.DESIGN_LAUNCHES.items()}
-    check(ran == {key: {"wmma-smem": 1} for key in ran},
-          f"flash_attention at {shape} {dtype} ran the designs {ran}")
     pad = k2.padded_dim(d)
+    check(ran == {key: {k2._design(key, dtype, pad): 1} for key in ran},
+          f"flash_attention at {shape} {dtype} ran the designs {ran}")
     qp, kp, vp, dop = (k2._to_bthd(x, pad) for x in (q, k, v, do))
     o0, lse0 = k2.flash_fwd_ref(qp, kp, vp, scale, causal)
     delta = (dop.float() * o0.float()).sum(-1)
@@ -2565,10 +2656,11 @@ DPM_PASS = 150            # 1080p windows (default params) above 0.6
 DAISY_CROP = 256
 DAISY_AT = (120, 200)
 TLD_BOX = (820, 420, 180, 180)
-TLD_SHIFTS = [(0, 0), (6, 4), (12, 8), (18, 13), (25, 17), (31, 21),
-              (37, 26), (43, 30)]
-TLD_CPU_FRAMES = 3        # frames of the CPU path held against the card's
-                          # (its host loops take ~15 s a 1080p frame)
+# 6 frames, the CPU path on 2 (depth cut from 8 and 3 when phases 33-36
+# were added, to keep the script inside its time limit)
+TLD_SHIFTS = [(0, 0), (6, 4), (12, 8), (18, 13), (25, 17), (31, 21)]
+TLD_CPU_FRAMES = 2        # frames of the CPU path held against the card's
+                          # (its host loops take ~15-20 s a 1080p frame)
 
 
 def multipart(fields):
@@ -3055,7 +3147,7 @@ def tld_track(tld, frames, dev, n):
 
 
 def tld_path(dev, card, read):
-    """Phase 26, TLD on 8 frames of 1920x1080 (tld_frames): track IoU >= 0.7
+    """Phase 26, TLD on 6 frames of 1920x1080 (tld_frames): track IoU >= 0.7
     against the known boxes on the card, card against the port's CPU path
     (boxes within 1 px, confidence within 1e-3), ms per frame; bin/tld,
     /tld/track.object, and /convnet/classify with tiny_convnet_f32.sqlite3.
@@ -4633,6 +4725,21 @@ def par_rel(got, want):
             / max(float(w.float().abs().max()) for w in want))
 
 
+def par_timed(step, pmesh):
+    """ms a step (forward and backward, host clock, synchronised, the mean
+    of PAR_REPS after the checked one) and ``ppermute``'s staging copies a
+    step (card to host and back; 0 on NCCL)."""
+    pmesh.STAGED.update(copies=0, bytes=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_REPS):
+        step()
+    torch.cuda.synchronize()
+    return dict(ms=(time.perf_counter() - t0) * 1000 / PAR_REPS,
+                staged_copies=pmesh.STAGED["copies"] // PAR_REPS,
+                staged_mb=pmesh.STAGED["bytes"] / PAR_REPS / 2 ** 20)
+
+
 def par_checks(rank, world, store, taken, backend="gloo"):
     """Phase 32 (b)'s checks on ``world`` ranks, those whose collectives
     the backend took (``taken``); each returns its distances from the
@@ -4746,11 +4853,16 @@ def par_checks(rank, world, store, taken, backend="gloo"):
         half = slice(rank * T // world, (rank + 1) * T // world)
         ql, kl, vl = (a.detach()[:, half].clone().requires_grad_(True)
                       for a in (q, k, v))
-        got = ring_attention(ql, kl, vl, mesh, "seq", is_causal=True)
-        g2 = torch.autograd.grad((got * w[:, half]).sum(), (ql, kl, vl))
+
+        def step():
+            got = ring_attention(ql, kl, vl, mesh, "seq", is_causal=True)
+            return got, torch.autograd.grad((got * w[:, half]).sum(),
+                                            (ql, kl, vl))
+        got, g2 = step()
         return dict(out_rel=par_rel([got], [ref[:, half]]),
                     grad_rel=max(par_rel([a], [b[:, half]])
-                                 for a, b in zip(g2, g1)))
+                                 for a, b in zip(g2, g1)),
+                    **par_timed(step, pmesh))
 
     def gpipe():
         mesh = pmesh.make_mesh({"stage": world}, dev)
@@ -4767,10 +4879,14 @@ def par_checks(rank, world, store, taken, backend="gloo"):
         g1 = torch.autograd.grad((ref ** 2).sum(), list(params.values()))
         local = {k: v.detach()[rank:rank + 1].clone().requires_grad_(True)
                  for k, v in params.items()}
-        got = pipeline.gpipe(par_stage_fn, local, x_mb, mesh, "stage")
-        g2 = torch.autograd.grad((got ** 2).sum(), list(local.values()))
+        def step():
+            got = pipeline.gpipe(par_stage_fn, local, x_mb, mesh, "stage")
+            return got, torch.autograd.grad((got ** 2).sum(),
+                                            list(local.values()))
+        got, g2 = step()
         return dict(out_rel=par_rel([got], [ref]),
-                    grad_rel=par_rel(g2, [g[rank:rank + 1] for g in g1]))
+                    grad_rel=par_rel(g2, [g[rank:rank + 1] for g in g1]),
+                    **par_timed(step, pmesh))
 
     checks = dict(data_parallel=data_parallel, lm_tp=lm_tp, ring_sp=ring_sp,
                   gpipe=gpipe)
@@ -4912,6 +5028,427 @@ def parallel_path(dev, card):
         return a
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phases 33-36: K2 at head dim 128, the LM at head dim 128, SCD and ICF
+# training ------------------------------------------------------------------
+
+def k2_d128_path(k2, roofline, dev, card):
+    """Phase 33: K2 at head dim 128 (and 96, padded) against its plain
+    versions in both types, and timed at K2_D128. Returns the worst errors
+    by kernel and the timing."""
+    rng = np.random.default_rng(33)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        w, wr = {}, {}
+        for shape in K2_D128_SHAPES + ([K2_D128] if dtype == torch.bfloat16
+                                       else []):
+            errs, rels = k2_compare(k2, shape, dtype, dev, rng)
+            for key in errs:
+                w[key] = max(w.get(key, 0.0), errs[key])
+                wr[key] = max(wr.get(key, 0.0), rels[key])
+        for shape in K2_D96:
+            errs, rels = k2_padded_compare(k2, shape, dtype, dev, rng)
+            for key in errs:
+                w[key] = max(w.get(key, 0.0), errs[key])
+                wr[key] = max(wr.get(key, 0.0), rels[key])
+        for key in w:
+            worst[key] = max(worst.get(key, 0.0), w[key])
+        log(33, f"K2 at head dim 128 vs plain, {dtype} "
+                f"({k2._design('fwd', dtype, 128)}), "
+                f"{len(K2_D128_SHAPES)} shapes (T 128/100/257 causal and not, "
+                f"72x136 causal and not)"
+                + (f" and {K2_D128}" if dtype == torch.bfloat16 else "")
+                + f", and flash_attention at D 96 padded to 128 at (B, T, H, "
+                f"D, causal) {K2_D96}: max abs error "
+                f"{ {k: f'{e:.3g}' for k, e in w.items()} }; worst 64-row "
+                f"tile error / tile norm "
+                f"{ {k: f'{e:.3g}' for k, e in wr.items()} }; designs "
+                f"checked per shape")
+    out, lib_err = k2_timed(k2, roofline, K2_D128, dev, rng)
+    log(33, f"K2 at {K2_D128} bf16 (CUDA events, 2 x 20 launches in turns "
+            f"with the library call; plain 5): "
+            + k2_timing_note(out, lib_err) + f"; {card}")
+    return worst, out
+
+
+def lm_d128_path(k2, dev, card):
+    """Phase 34: the LM at d 2048 = 16 heads of 128 (LM_D128): the
+    training step through K2 at D 128 (lm_bench.measure: one warm-up and 3
+    timed steps, launches by design), then the forward's logits on the card
+    (bf16, K2a) against the CPU port's float32 forward from the same
+    parameters. Returns K2's launches in the step run."""
+    from ccv_tpu_torch.bin import lm_bench
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.nn import optimizers
+    c = LM_D128
+    k2.reset_launches()
+    res = lm_bench.measure(layers=c["layers"], dim=c["dim"], heads=c["heads"],
+                           ff=c["ff"], batch=c["batch"], seq=c["seq"],
+                           vocab=c["vocab"], steps=3)
+    launches = dict(k2.LAUNCHES)
+    designs = {key: dict(v) for key, v in k2.DESIGN_LAUNCHES.items()}
+    n = c["layers"] * 4   # a warm-up and 3 steps; remat runs the forward twice
+    want = {"fwd": 2 * n, "dq": n, "dkv": n}
+    check(launches == want and all(
+        designs[key] == {"wgmma-tma": want[key], "wmma-smem": 0}
+        for key in want), f"the D 128 LM step launched K2 {designs}")
+    check(all(np.isfinite(res["losses"])), f"D 128 LM losses {res['losses']}")
+    cfg = tfm.TransformerConfig(
+        vocab_size=c["vocab"], layers=c["layers"], heads=c["heads"],
+        head_dim=c["dim"] // c["heads"], ff=c["ff"], max_len=c["seq"],
+        dropout=0.0, dtype=torch.bfloat16)
+    params = tfm.init_lm(torch.Generator(device=dev).manual_seed(4), cfg)
+    ids = torch.randint(0, c["vocab"], (c["batch"], c["seq"]),
+                        generator=torch.Generator().manual_seed(5))
+    k2.reset_launches()
+    with torch.no_grad():
+        got = tfm.lm_forward(params, cfg, ids.to(dev)).float().cpu()
+        fwd = k2.LAUNCHES["fwd"]
+        check(fwd == c["layers"], f"the D 128 forward launched K2a {fwd}")
+        cpu = optimizers.tree_map(lambda p: p.detach().float().cpu(), params)
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        want_l = tfm.lm_forward(cpu, dataclasses.replace(
+            cfg, dtype=torch.float32), ids)
+        cpu_s = time.perf_counter() - t0
+    top = float(want_l.abs().max())
+    err = float((got - want_l).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= LM_D128_REL * top,
+          f"D 128 LM logits: card (bf16) {err:.3g} from the CPU's float32, "
+          f"largest {top:.3g}")
+    log(34, f"LM at head dim 128 ({res['model']}, {res['params_m']} M "
+            f"params, B {c['batch']} x T {c['seq']}, bf16, remat dots): step "
+            f"{res['step_ms']:.2f} ms (mean of 3 after a warm-up of "
+            f"{res['warmup_s']:.2f} s), {res['tokens_per_s']:.0f} tokens/s, "
+            f"MFU {res['mfu']:.4f}, peak memory {res['peak_mem_gb']:.2f} GB, "
+            f"losses {[round(x, 4) for x in res['losses']]}; K2 launches by "
+            f"design {designs}; the forward's logits (bf16 on the card, K2a "
+            f"{fwd}) against the CPU port's float32 forward ({cpu_s:.1f} s): "
+            f"max diff {err:.3g} = {err / top:.3g} of the largest "
+            f"{top:.3g} (gate {LM_D128_REL}); {card}")
+    return launches, res
+
+
+def s2s_d128_path(k2, dev, card):
+    """Phase 34's seq2seq model at head dim 128 (S2S_D128): the forward's
+    logits on the card against the CPU port's float32 forward from the same
+    parameters, then the wmt step timed. Returns K2's launches a step."""
+    from ccv_tpu_torch.bin import wmt
+    from ccv_tpu_torch.bin.wmt_grad_trial import synthetic_batch
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.nn import optimizers
+    cfg = tfm.TransformerConfig(**S2S_D128, dtype=torch.bfloat16,
+                                dropout=0.0)
+    T, sv, tv = cfg.max_len, cfg.vocab_size, cfg.tgt_vocab_size
+    cpu = tfm.init_encoder_decoder(torch.Generator().manual_seed(11), cfg)
+    params = to_device(cpu, dev)
+    cpu = optimizers.tree_map(lambda p: p.detach().float(), cpu)
+    b, ts, tt = S2S_CPU
+    src, tgt, _ = synthetic_batch(np.random.default_rng(34), b, max(ts, tt),
+                                  sv, tv)
+    src, tgt = torch.from_numpy(src[:, :ts]), torch.from_numpy(tgt[:, :tt])
+    with torch.no_grad():
+        want = tfm.encoder_decoder_forward(
+            cpu, dataclasses.replace(cfg, dtype=torch.float32), src, tgt)
+        k2.reset_launches()
+        got = tfm.encoder_decoder_forward(params, cfg, src.to(dev),
+                                          tgt.to(dev)).float().cpu()
+    check(k2.LAUNCHES == {"fwd": 2 * cfg.layers, "dq": 0, "dkv": 0},
+          f"the D 128 seq2seq forward launched K2 {k2.LAUNCHES}")
+    top = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= LM_D128_REL * top,
+          f"D 128 seq2seq logits: card (bf16) {err:.3g} from the CPU's "
+          f"float32, largest {top:.3g}")
+    batch = tuple(torch.from_numpy(x).to(dev) for x in synthetic_batch(
+        np.random.default_rng(35), WMT_B, T, sv, tv))
+    opt = optimizers.adam(rate=1e-4)
+    state = opt.init(params)
+
+    def step():
+        return wmt.train_step(params, opt, state, cfg, batch, sv - 1, tv - 1,
+                              None)
+    losses = [float(step())]
+    torch.cuda.synchronize()
+    k2.reset_launches()
+    before = {key: dict(c) for key, c in k2.DESIGN_LAUNCHES.items()}
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(3)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000 / 3
+    losses = [float(x) for x in losses]
+    n = cfg.layers * 3
+    ran = {key: {d: c - before[key][d] for d, c in cs.items()
+                 if c > before[key][d]}
+           for key, cs in k2.DESIGN_LAUNCHES.items()}
+    check(k2.LAUNCHES == {"fwd": n, "dq": n, "dkv": n}
+          and ran == {key: {"wgmma-tma": n} for key in ("fwd", "dq", "dkv")}
+          and all(np.isfinite(losses)),
+          f"D 128 wmt step: K2 {k2.LAUNCHES} by design {ran} over 3 steps "
+          f"(expected {n} each, wgmma-tma), losses {losses}")
+    log(34, f"seq2seq at head dim 128 ({s2s_name(cfg)}), bf16: the "
+            f"forward's logits at (B, Ts, Tt) {S2S_CPU} unmasked (K2a "
+            f"{2 * cfg.layers}) against the CPU port's float32 forward: max "
+            f"diff {err:.3g} = {err / top:.3g} of the largest {top:.3g} "
+            f"(gate {LM_D128_REL}); the wmt step at B {WMT_B} x T {T}, source "
+            f"mask: {ms:.2f} ms a step (host clock, mean of 3 after a "
+            f"warm-up), K2 {cfg.layers} / {cfg.layers} / {cfg.layers} a "
+            f"step by design {ran}, losses "
+            f"{[round(x, 4) for x in losses]}; {card}")
+    return {key: v // 3 for key, v in k2.LAUNCHES.items()}
+
+
+def train_patches(rng, n_pos, n_neg, size):
+    """Seeded (N, H, W, 3) uint8 patches of ``size`` (W, H) from the
+    repository's images: positives are the faces of crop180.png and
+    crop120.png, cut at a random scale (0.7-0.95 of the side) and place,
+    resized by INTER_AREA, half mirrored, relit by up to +-30; negatives
+    are, in turn, crops of text_test.png (as RGB) at a random scale
+    (0.15-0.5 of each side) and place, parts of the same faces (0.3-0.5 of
+    the side: an eye, a cheek) and the faces upside down (the hard
+    negatives), resized likewise (by INTER_CUBIC where a part is smaller
+    than the patch)."""
+    from ccv_tpu_torch.core.io import IO_RGB_COLOR, read
+    from ccv_tpu_torch.ops import resample
+    W, H = size
+    faces = [read(os.path.join(DATA, n), IO_RGB_COLOR, device="cpu").numpy()
+             for n in ("crop180.png", "crop120.png")]
+    text = read(os.path.join(DATA, "text_test.png"), IO_RGB_COLOR,
+                device="cpu").numpy()
+
+    def cut(img, frac):
+        h, w = img.shape[:2]
+        ch, cw = int(h * frac), int(w * frac)
+        y = int(rng.integers(0, h - ch + 1))
+        x = int(rng.integers(0, w - cw + 1))
+        patch = torch.from_numpy(np.ascontiguousarray(img[y:y + ch,
+                                                          x:x + cw]))
+        up = ch < H or cw < W   # a small face part: INTER_CUBIC
+        return resample.resample(
+            patch, rows=H, cols=W, rows_scale=H / ch, cols_scale=W / cw,
+            interp=resample.INTER_CUBIC if up else
+            resample.INTER_AREA).numpy()
+
+    pos = []
+    for i in range(n_pos):
+        p = cut(faces[i % 2], rng.uniform(0.7, 0.95)).astype(np.int32)
+        if rng.random() < 0.5:
+            p = p[:, ::-1]
+        pos.append(np.clip(p + int(rng.integers(-30, 31)), 0, 255))
+    neg = [cut(text, rng.uniform(0.15, 0.5)) if i % 3 == 0 else
+           cut(faces[i // 3 % 2], rng.uniform(0.3, 0.5)) if i % 3 == 1 else
+           cut(faces[i // 3 % 2], rng.uniform(0.7, 0.95))[::-1]
+           for i in range(n_neg)]
+    return (np.stack(pos).astype(np.uint8), np.stack(neg).astype(np.uint8))
+
+
+def scd_adam_step(tscd, params, pos, neg, dev):
+    """One round's Adam steps alone at this table: (ms a step by CUDA
+    events over 3 rounds, the profiler's window over one round, the table's
+    bytes, seconds to build the table on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fvt = tscd.precompute_feature_vectors(
+        np.concatenate([pos, neg]), tscd.stump_features(params),
+        dev).transpose(0, 1).contiguous()      # the trainer's layout
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    y = tscd._labels(len(pos), len(neg), dev)
+    w = torch.full((len(y),), 1.0 / len(y), device=dev)
+    init = tscd.uniform_init(1)(fvt.shape[0])
+    steps = params.train_steps
+
+    def one_round():
+        return tscd._train_all_stumps(fvt, y, w, params.C, steps,
+                                      params.learning_rate, init)
+    step_ms = time_cuda(one_round, 3) / steps
+    win = device_window(one_round, 1)
+    nbytes = fvt.numel() * 4
+    del fvt
+    torch.cuda.empty_cache()
+    return step_ms, win, nbytes, table_s
+
+
+def scd_train_path(scd, k1, dev, card, read):
+    """Phase 35: SCD training on the card against the CPU port at
+    SCD_TRAIN_N, then timed on the card at SCD_TRAIN_FULL_N, whose
+    cascade's 1080p detect runs through K1 against the plain route.
+    Returns K1's launches in that detect."""
+    from ccv_tpu_torch.ops.kernels import roofline
+    from ccv_tpu_torch.train import scd as tscd
+    rng = np.random.default_rng(35)
+    pos, neg = train_patches(rng, *SCD_TRAIN_N, SCD_TRAIN["size"])
+    params = tscd.ScdTrainParams(**SCD_TRAIN)
+    n_feat = len(tscd.stump_features(params))
+    steps = params.train_steps
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[where.type] = (tscd.train_cascade(pos, neg, params, where,
+                                               timings=timings),
+                            time.perf_counter() - t0, timings)
+    (card_c, card_s, card_t), (cpu_c, cpu_s, cpu_t) = runs["cuda"], runs["cpu"]
+    same = (np.array_equal(card_c.stage_counts, cpu_c.stage_counts)
+            and all(np.array_equal(getattr(card_c, k), getattr(cpu_c, k))
+                    for k in ("sx", "sy", "dx", "dy")))
+    th_diff = (float(np.abs(card_c.thresholds - cpu_c.thresholds).max())
+               if same else float("inf"))
+    w_diff = float(np.abs(card_c.w - cpu_c.w).max()) if same else float("inf")
+    check(same and th_diff <= SCD_THRESHOLD_TOL,
+          f"SCD training: card stages {card_c.stage_counts.tolist()} "
+          f"thresholds {card_c.thresholds.tolist()}, CPU "
+          f"{cpu_c.stage_counts.tolist()} {cpu_c.thresholds.tolist()}; "
+          f"features equal: {same}")
+    step_ms, win, nbytes, _ = scd_adam_step(tscd, params, pos, neg, dev)
+    log(35, f"SCD training at {SCD_TRAIN['size']} ({n_feat} features, "
+            f"{len(pos)} positives, {len(neg)} negatives: a (F, N, 32) table "
+            f"of {nbytes / 2**20:.1f} MiB), {params.boosting} stages "
+            f"of at most {params.maximum_feature} features, {steps} Adam "
+            f"steps a round: card {card_s:.2f} s ({card_t['adam_steps']} "
+            f"steps; stages {[round(x, 3) for x in card_t['stage_s']]} s), "
+            f"CPU {cpu_s:.2f} s (stages "
+            f"{[round(x, 3) for x in cpu_t['stage_s']]} s); stages "
+            f"{card_c.stage_counts.tolist()} with the same features on both, "
+            f"thresholds {card_c.thresholds.tolist()} (card - CPU max "
+            f"{th_diff:.3g}, gate {SCD_THRESHOLD_TOL}), weights max diff "
+            f"{w_diff:.3g}; an Adam step at this table {step_ms:.4f} ms "
+            f"(CUDA events, {steps} steps x 3); under torch.profiler one "
+            f"round: busy {win['busy']:.2f} ms of {win['wall']:.2f} ms, idle "
+            f"{1 - win['busy'] / win['wall']:.3f}; {card}")
+
+    # the card alone at SCD_TRAIN_FULL_N
+    pos, neg = train_patches(rng, *SCD_TRAIN_FULL_N, SCD_TRAIN["size"])
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cascade_t = tscd.train_cascade(pos, neg, params, dev, timings=timings)
+    full_s = time.perf_counter() - t0
+    step_ms, win, nbytes, table_s = scd_adam_step(tscd, params, pos, neg,
+                                                  dev)
+    bound = nbytes / roofline.PEAK_BYTES_PER_S * 1e3
+    top = sorted(win["by_name"].items(), key=lambda kv: -kv[1])[:4]
+    log(35, f"SCD training on the card at {SCD_TRAIN['size']}, "
+            f"{len(pos)} positives, {len(neg)} negatives (a (F, N, 32) "
+            f"table of {nbytes / 2**30:.3f} GiB, built in {table_s:.3f} s): "
+            f"{full_s:.2f} s ({timings['adam_steps']} Adam steps; stages "
+            f"{[round(x, 3) for x in timings['stage_s']]} s), stages "
+            f"{cascade_t.stage_counts.tolist()}, thresholds "
+            f"{cascade_t.thresholds.tolist()}; an Adam step at the whole "
+            f"table {step_ms:.4f} ms (CUDA events, {steps} steps x 3), "
+            f"against one read of the table {bound:.4f} ms at "
+            f"{roofline.PEAK_BYTES_PER_S / 1e12} TB/s (the step reads it "
+            f"twice); under torch.profiler one round: busy "
+            f"{win['busy']:.2f} ms of {win['wall']:.2f} ms, idle "
+            f"{1 - win['busy'] / win['wall']:.3f}, "
+            f"{win['events'] / steps:.1f} device events a step; the largest "
+            f"device ms a round: "
+            + "; ".join(f"{k[:60]} {v:.2f}" for k, v in top) + f"; {card}")
+    tmp = tempfile.mkdtemp(prefix="phase35-")
+    try:
+        path = os.path.join(tmp, "trained.sqlite3")
+        tscd.write_cascade(cascade_t, path)
+        cascade = scd.load_cascade(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(np.array_equal(cascade.w, cascade_t.w)
+          and np.array_equal(cascade.thresholds, cascade_t.thresholds),
+          "the trained SCD cascade does not read back as written")
+    img = torch.from_numpy(rgb_frame_1080p(read)).to(dev)
+    dparams = scd.ScdParams(min_neighbors=0, size=SCD_TRAIN["size"])
+    n_oct = len({s_[0] for s_ in scd._level_specs(
+        1080, 1920, cascade, dparams)[0]})
+    scd.detect(img, cascade, dparams)   # the cascade's tables, warm-up
+    k1.LAUNCHES = 0
+    got = rect_set(scd.detect(img, cascade, dparams))
+    launches = k1.LAUNCHES
+    check(launches == n_oct, f"the trained cascade's detect launched K1 "
+          f"{launches} times for {n_oct} octaves")
+    want = rect_set(scd.detect(img, cascade, dparams,
+                               evaluate=k1.cascade_eval_levels_ref))
+    odd = got ^ want
+    if odd:
+        near = margin_rects(scd, k1, img, cascade, dparams, dev)
+        check(odd <= near, f"trained cascade at 1080p: {len(odd - near)} "
+                           f"windows differ from the plain route outside "
+                           f"the margin")
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scd.detect(img, cascade, dparams)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000)
+    dwin = device_window(lambda: scd.detect(img, cascade, dparams), 2)
+    log(35, f"the {len(pos) + len(neg)}-example cascade written, loaded "
+            f"and run by detect on the 1920x1080 RGB frame (size "
+            f"{SCD_TRAIN['size']}, min_neighbors 0): {len(got)} windows = "
+            f"the plain route's ({len(odd)} in the margin); K1 {launches} "
+            f"launches ({n_oct} octaves); detect median "
+            f"{float(np.median(ms)):.2f} ms/image (n=5); under "
+            f"torch.profiler (2 images) busy {dwin['busy']:.2f} ms of "
+            f"{dwin['wall']:.2f} ms an image, idle "
+            f"{1 - dwin['busy'] / dwin['wall']:.3f}; {card}")
+    return launches
+
+
+def icf_train_path(dev, card):
+    """Phase 36: ICF training on the card against the CPU port at
+    ICF_TRAIN_N, then timed on the card at ICF_TRAIN_FULL_N."""
+    from ccv_tpu_torch.train import icf as ticf
+    rng = np.random.default_rng(36)
+    pos, neg = train_patches(rng, *ICF_TRAIN_N, ICF_TRAIN["size"])
+    params = ticf.IcfTrainParams(**ICF_TRAIN)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[where.type] = (ticf.train_cascade(pos, neg, params, where),
+                            time.perf_counter() - t0)
+    (a, card_s), (b, cpu_s) = runs["cuda"], runs["cpu"]
+    equal = all(np.array_equal(getattr(a, k), getattr(b, k))
+                for k in ("pass_bits", "channel", "sat0", "sat1"))
+    diffs = {k: float(np.abs(getattr(a, k) - getattr(b, k)).max())
+             for k in ("weigh", "thresholds", "alpha", "beta")}
+    check(equal and all(d <= 1e-5 * max(1.0, float(np.abs(
+        getattr(b, k)).max())) for k, d in diffs.items()),
+          f"ICF training: card and CPU cascades differ (structure equal: "
+          f"{equal}; value diffs {diffs})")
+    log(36, f"ICF training at {ICF_TRAIN['size']} ({ICF_TRAIN['feature_size']}"
+            f" random features, {len(pos)} positives, {len(neg)} negatives, "
+            f"{a.n_weak} depth-2 trees, {int(np.count_nonzero(a.pass_bits))} "
+            f"with leaf splits): card {card_s:.2f} s, CPU {cpu_s:.2f} s; "
+            f"features and splits equal, value diffs {diffs}; {card}")
+
+    # the card alone at ICF_TRAIN_FULL_N
+    pos, neg = train_patches(rng, *ICF_TRAIN_FULL_N, ICF_TRAIN["size"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = ticf.train_cascade(pos, neg, params, dev)
+    full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = ticf.random_features(params, np.random.default_rng(params.seed))
+    values = ticf.precompute_feature_values(np.concatenate([pos, neg]),
+                                            feats, dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    y = np.concatenate([np.ones(len(pos), bool), np.zeros(len(neg), bool)])
+    wts = np.where(y, 0.5 / len(pos), 0.5 / len(neg))
+    split_ms = time_cuda(lambda: ticf._best_split(values, wts, y), 3)
+    win = device_window(lambda: ticf.train_cascade(pos, neg, params, dev), 1)
+    log(36, f"ICF training on the card at {ICF_TRAIN['size']}, {len(pos)} "
+            f"positives, {len(neg)} negatives ({tuple(values.shape)} "
+            f"values): {full_s:.2f} s, {full.n_weak} trees, "
+            f"{int(np.count_nonzero(full.pass_bits))} with leaf splits; the "
+            f"values built in {table_s:.3f} s (features drawn on the host "
+            f"included), a root split {split_ms:.3f} ms (CUDA events, mean "
+            f"of 3); under torch.profiler one training: busy "
+            f"{win['busy']:.2f} ms of {win['wall']:.2f} ms, idle "
+            f"{1 - win['busy'] / win['wall']:.3f}; {card}")
+    return card_s
 
 
 def main():
@@ -5237,6 +5774,15 @@ def main():
     # -- 32: parallelism on torch.distributed, in child processes ---------
     par = parallel_path(dev, card)
 
+    # -- 33-34: K2 at head dim 128, and the LM at head dim 128 -------------
+    k2_d128_err, k2_d128 = k2_d128_path(k2, roofline, dev, card)
+    k2_d128_launches, _lm_d128 = lm_d128_path(k2, dev, card)
+    k2_d128_s2s = s2s_d128_path(k2, dev, card)
+
+    # -- 35-36: SCD training (its cascade on K1) and ICF training ---------
+    k1_trained = scd_train_path(scd, k1, dev, card, read)
+    icf_train_path(dev, card)
+
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
@@ -5291,6 +5837,22 @@ def main():
     # 32 (a)): launches a step
     for entry, key in zip(kernels[1:4], ("fwd", "dq", "dkv")):
         entry.update(launches_wmt_data_parallel=par["launches_parallel"][key])
+    # K2a/b/c at head dim 128 (phases 33-34): the launches of the D 128 LM
+    # step, errors and times at K2_D128
+    for key, (name, line, src, design) in sources.items():
+        r = k2_d128[key]
+        kernels.append({
+            "name": f"{name}_d128", "route": "cuda",
+            "source": f"ccv_tpu_torch/csrc/{src}",
+            "replaces": f"ccv_tpu/ops/pallas/{line}",
+            "launches": k2_d128_launches[key],
+            "max_abs_err": k2_d128_err[key], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "design": design, "shape": list(K2_D128),
+            "launches_seq2seq_step": k2_d128_s2s[key]})
+    # K1 on the trained SCD cascade's 1080p detect (phase 35)
+    kernels[0].update(launches_trained=k1_trained)
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",
         "source": "ccv_tpu_torch/csrc/scd_phase.cu",

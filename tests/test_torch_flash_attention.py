@@ -47,6 +47,8 @@ FWD_CASES = {  # (BH, Tq, Tk, D, causal): ccv_tpu's test shapes
     "100c": (6, 100, 100, 64, True), "257": (6, 257, 257, 64, False),
     "72x136": (4, 72, 136, 32, False), "72x136c": (4, 72, 136, 32, True),
     "72x136d64": (4, 72, 136, 64, False), "72x136d64c": (4, 72, 136, 64, True),
+    # head dim 128, which ccv_tpu's 128 lanes hold unpadded
+    "100d128c": (2, 100, 100, 128, True), "72x136d128": (2, 72, 136, 128, False),
 }
 
 
@@ -113,6 +115,28 @@ def test_grads_match_pallas_backward(case, monkeypatch):
 
     want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     _, got = _port_grads(q, k, v, g, causal)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), **F32_TOL)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_grads_head_dim_128_match_pallas_backward(d, monkeypatch):
+    """Head dims 65-128 run at D 128 (96 zero-padded, as ccv_tpu pads to
+    128 lanes); forward and gradients against the Pallas kernels."""
+    monkeypatch.setattr(jfa, "FLASH_BWD", "pallas")
+    rng = np.random.default_rng(d)
+    B, H, T = 1, 2, 72
+    q, k, v, g = (_rand(rng, B, T, H, d) for _ in range(4))
+    assert tfa.padded_dim(d) == 128
+
+    def loss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, None, True) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    o, got = _port_grads(q, k, v, g, True)
+    o_ref = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), None, True)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref),
+                               **F32_TOL)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, np.asarray(b), **F32_TOL)
 
@@ -199,7 +223,7 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_fwd(*(torch.zeros(2, 16, 48),) * 3, 0.1, False)
     with pytest.raises(ValueError, match="head dim"):
-        tfa.flash_attention(*(torch.zeros(1, 16, 2, 128),) * 3)
+        tfa.flash_attention(*(torch.zeros(1, 16, 2, 129),) * 3)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_fwd(torch.zeros(2, 64, 16).transpose(1, 2), q, q, 0.1,
                       False)
@@ -215,14 +239,15 @@ def test_wrapper_rejects_bad_input():
 
 
 def test_design_choice():
-    """bf16 at head dim 64 (the LM's) takes the wgmma-tma K2a, K2b and K2c;
-    everything else the wmma-smem kernels."""
+    """bf16 at head dim 64 (the LM's) or 128 takes the wgmma-tma K2a, K2b
+    and K2c; everything else the wmma-smem kernels."""
     for kernel in ("fwd", "dq", "dkv"):
-        assert tfa._design(kernel, torch.bfloat16, 64) == "wgmma-tma"
+        for d in (64, 128):
+            assert tfa._design(kernel, torch.bfloat16, d) == "wgmma-tma"
         assert "wgmma-tma" in tfa.DESIGN_LAUNCHES[kernel]
     for kernel in ("fwd", "dq", "dkv"):
         for dtype, d in ((torch.float32, 64), (torch.float32, 32),
-                         (torch.bfloat16, 32)):
+                         (torch.float32, 128), (torch.bfloat16, 32)):
             assert tfa._design(kernel, dtype, d) == "wmma-smem"
             assert tfa._design(kernel, dtype, d) in tfa.DESIGN_LAUNCHES[kernel]
 
@@ -296,8 +321,7 @@ def test_cuda_kernels_match_plain(dtype):
         torch.cuda.synchronize()
         assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
             "fwd": 1, "dq": 1, "dkv": 1}
-        new = "wgmma-tma" if dtype == torch.bfloat16 and d == 64 else (
-            "wmma-smem")
+        new = tfa._design("fwd", dtype, d)
         ran = {n: [x for x, c in counts.items() if c > by_design[n][x]]
                for n, counts in tfa.DESIGN_LAUNCHES.items()}
         assert ran == {"fwd": [new], "dq": [new], "dkv": [new]}

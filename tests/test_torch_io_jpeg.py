@@ -102,8 +102,10 @@ def test_missing_header_is_named_and_nothing_falls_back(monkeypatch,
     g++ does on the decoder's source, and passes every other build, such
     as the signature hash a PNG read needs, to g++) makes a JPEG decode
     raise an error naming the header, and so does a second decode without
-    running the compiler again; PNG still decodes, and no other JPEG
-    decoder is tried."""
+    running the compiler again. ``decode`` then takes PIL's decode, as
+    ccv_tpu's read falls back to PIL, and counts it under "pil": nothing
+    falls back without being counted, and the native decoder itself still
+    raises. PNG still decodes natively."""
     fake = tmp_path / "cxx"
     runs = tmp_path / "runs"
     fake.write_text("#!/bin/sh\ncase \"$*\" in *image_decode.cpp*) ;;\n"
@@ -118,13 +120,40 @@ def test_missing_header_is_named_and_nothing_falls_back(monkeypatch,
     monkeypatch.setattr(_native_build, "_failed", {})
     with open(jpegs["small"], "rb") as f:
         data = f.read()
-    with pytest.raises(RuntimeError, match="jpeglib.h"):
-        tio.decode(data)
+    from PIL import Image
+    monkeypatch.setattr(tio, "DECODED", {"native": 0, "pil": 0})
+    with Image.open(jpegs["small"]) as im:
+        want = np.asarray(im)
+    np.testing.assert_array_equal(tio.decode(data), want)
+    assert tio.DECODED == {"native": 0, "pil": 1}
     with pytest.raises(RuntimeError, match="jpeglib.h"):
         native.decode_jpeg(data)
     assert runs.read_text().splitlines() == ["run"]
     png = tio.read(os.path.join(DATA, "crop180.png"), device="cpu")
     assert png.tensor.shape == (180, 180, 3)
+    assert tio.DECODED == {"native": 1, "pil": 1}
+
+
+def test_other_build_failures_raise_through_decode(monkeypatch, tmp_path,
+                                                   jpegs):
+    """Only a missing jpeglib.h sends a JPEG to PIL: a decoder build that
+    fails otherwise (here a stand-in failing as the linker does) raises
+    from ``decode`` with the compiler's message, and nothing is counted."""
+    fake = tmp_path / "cxx"
+    fake.write_text("#!/bin/sh\ncase \"$*\" in *image_decode.cpp*) ;;\n"
+                    "*) exec g++ \"$@\" ;;\nesac\n"
+                    "echo 'ld: cannot find -ljpeg' >&2\nexit 1\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setenv("CXX", str(fake))
+    monkeypatch.setattr(_native_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_native_build, "_loaded", {})
+    monkeypatch.setattr(_native_build, "_failed", {})
+    monkeypatch.setattr(tio, "DECODED", {"native": 0, "pil": 0})
+    with open(jpegs["small"], "rb") as f:
+        data = f.read()
+    with pytest.raises(RuntimeError, match="cannot find -ljpeg"):
+        tio.decode(data)
+    assert tio.DECODED == {"native": 0, "pil": 0}
 
 
 def test_decoder_is_built_from_the_port_s_source():

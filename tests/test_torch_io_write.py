@@ -96,12 +96,20 @@ def test_ccvbindm_both_ways(tmp_path, arr):
 
 @pytest.mark.parametrize("name", ["out.jpg", "out.JPEG"])
 def test_jpeg_raises(tmp_path, name):
-    path = tmp_path / name
-    with pytest.raises(NotImplementedError, match="no JPEG encoder"):
-        tio.write(np.zeros((4, 4), np.uint8), str(path))
-    assert not path.exists()
-    with pytest.raises(ValueError, match="PNG"):
-        tio.write(np.zeros((4, 4), np.uint8), str(tmp_path / "out.gif"))
+    """JPEG (and GIF) are saved by PIL, as ccv_tpu saves them: the same
+    bytes as ccv_tpu's write; an extension PIL does not know raises, as it
+    does in ccv_tpu, and writes nothing."""
+    arr = np.random.default_rng(7).integers(0, 256, (4, 4), np.uint8)
+    for out in (name, "out.gif"):
+        mine, theirs = tmp_path / out, tmp_path / f"jax-{out}"
+        tio.write(arr, str(mine))
+        jio.write(arr, str(theirs))
+        assert mine.read_bytes() == theirs.read_bytes()
+    path = tmp_path / "out.nosuchformat"
+    with pytest.raises(ValueError):
+        tio.write(arr, str(path))
+    with pytest.raises(ValueError):
+        jio.write(arr, str(tmp_path / "jax-out.nosuchformat"))
 
 
 def test_msermatch_out_png_equals_the_jax_cli(tmp_path, monkeypatch,

@@ -385,6 +385,11 @@ LAYERS = {
         2, 4, is_causal=True, fused_qkv=False), (2, 9, 8), None),
     "sdpa_noproj": (lambda L: L.ScaledDotProductAttention(
         3, 4, out_proj=False), (2, 6, 8), None),
+    # head dims 65-128, which the flash kernels take zero-padded to 128
+    "sdpa_d96": (lambda L: L.ScaledDotProductAttention(
+        2, 96, is_causal=True), (2, 9, 16), None),
+    "sdpa_d128": (lambda L: L.ScaledDotProductAttention(2, 128),
+                  (2, 7, 16), None),
 }
 
 
@@ -448,7 +453,7 @@ def test_attention_layer_routes_plain_on_the_cpu(monkeypatch):
 def test_cuda_attention_layer_launches_k2():
     """On the card at T 1024 the layer runs K2a (one forward launch a
     call) and agrees with the plain op within the bf16 gate (3e-2 of the
-    largest); a head dim above 64 raises."""
+    largest); at head dim 128 too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ccv_tpu_torch.ops.kernels import flash_attention as k2
@@ -471,6 +476,16 @@ def test_cuda_attention_layer_launches_k2():
     assert err <= 3e-2 * float(ref.float().abs().max())
     wide = TL.ScaledDotProductAttention(2, 128)
     pw, sw, _ = wide.init(torch.Generator().manual_seed(1), (1, 1024, 64))
-    with pytest.raises(ValueError, match="head dims up to 64"):
-        wide.apply({k: v.to(dev) for k, v in pw.items()}, sw,
-                   x[:1, :, :64].contiguous())
+    pw = {k: v.to(dev) for k, v in pw.items()}
+    xw = x[:1, :, :64].contiguous()
+    k2.reset_launches()
+    with torch.no_grad():
+        yw, _ = wide.apply(pw, sw, xw)
+    torch.cuda.synchronize()
+    assert k2.DESIGN_LAUNCHES["fwd"]["wgmma-tma"] == 1
+    q, k, v = torch.chunk(xw @ pw["wqkv"].to(xw.dtype), 3, dim=-1)
+    ref = tops.scaled_dot_product_attention(
+        *(t.reshape(1, 1024, 2, 128) for t in (q, k, v)))
+    ref = ref.reshape(1, 1024, 256) @ pw["wo"].to(xw.dtype)
+    err = float((yw.float() - ref.float()).abs().max())
+    assert err <= 3e-2 * float(ref.float().abs().max())

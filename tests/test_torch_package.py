@@ -50,7 +50,13 @@ def test_port_imports_no_jax():
             "ccv_tpu_torch.detectors.sift", "ccv_tpu_torch.core.algebra",
             "ccv_tpu_torch.ops.classic", "ccv_tpu_torch.bin.icfdetect",
             "ccv_tpu_torch.bin.swtdetect",
-            "ccv_tpu_torch.bin.siftmatch"} <= set(names.split())
+            "ccv_tpu_torch.bin.siftmatch",
+            # the trainers of SCD and ICF and their tools
+            "ccv_tpu_torch.train", "ccv_tpu_torch.train.scd",
+            "ccv_tpu_torch.train.icf", "ccv_tpu_torch.bin.scdcreate",
+            "ccv_tpu_torch.bin.scdfmt", "ccv_tpu_torch.bin.icfcreate",
+            "ccv_tpu_torch.bin.icfoptimize", "ccv_tpu_torch.bin.icfvldtr",
+            "ccv_tpu_torch.bin.icf_profile"} <= set(names.split())
 
 
 def test_package_data_holds_every_native_source():

@@ -141,3 +141,22 @@ def test_make_mesh_needs_the_whole_world(tmp_path):
             mesh)), x)
     finally:
         torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_ppermute_stages_cuda_tensors_over_gloo(tmp_path):
+    """On the card, gloo takes send / recv only from host memory:
+    ppermute stages CUDA tensors through pinned buffers, two copies a rank
+    each way (forward and backward), and returns CUDA tensors with the
+    ring's values and the inverse permutation's gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5)).astype(np.float32)
+    w = rng.standard_normal((2, 5)).astype(np.float32)
+    res = torch_ranks.run(torch_ranks.permute_cuda, 2, tmp_path, x, w)
+    for r, (kind, y, grad, staged) in enumerate(res):
+        assert kind == "cuda"
+        np.testing.assert_array_equal(y, x[1 - r])
+        np.testing.assert_array_equal(grad, w[1 - r])
+        assert staged == {"copies": 4, "bytes": 4 * 5 * 4}

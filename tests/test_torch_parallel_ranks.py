@@ -97,6 +97,21 @@ def collectives(rank, world, x, x2, w, w_gather, w_scatter):
     return out
 
 
+def permute_cuda(rank, world, x, w):
+    """ppermute round the ring on a CUDA tensor over gloo (staged through
+    pinned host memory): output, the gradient of sum(y * w's row) (the
+    inverse permutation), and the staging copies."""
+    from ccv_tpu_torch.parallel import mesh as M
+    dev = torch.device("cuda", 0)
+    M.STAGED.update(copies=0, bytes=0)
+    ring_ = [(i, (i + 1) % world) for i in range(world)]
+    xl = torch.tensor(x[rank], device=dev, requires_grad=True)
+    y = M.ppermute(xl, None, ring_)
+    (y * torch.tensor(w[rank], device=dev)).sum().backward()
+    torch.cuda.synchronize()
+    return (y.device.type, _np(y), _np(xl.grad), dict(M.STAGED))
+
+
 def comm_commands(rank, world, x, w):
     """The three COMM_* commands on this rank's row: output and the
     gradient of sum(y * w's row)."""

@@ -409,13 +409,15 @@ def test_padded_flash_attention_equals_plain_sdpa(d, causal, monkeypatch):
 
 
 def test_head_dims_past_the_kernels_raise():
-    """Past 64 flash_attention raises (ccv_tpu pads up to 128 lanes, an
-    open narrowing); the (BH, T, D) wrappers take only the built dims."""
-    with pytest.raises(ValueError, match="head dim 128"):
-        tfa.flash_attention(*(torch.zeros(1, 16, 2, 128),) * 3)
-    with pytest.raises(ValueError, match="head dim 65"):
-        tfa.padded_dim(65)
-    for d in (16, 48):
+    """Past 128 flash_attention raises (ccv_tpu pads to a multiple of 128
+    lanes and takes more, an open narrowing); 65-128 pad to 128; the
+    (BH, T, D) wrappers take only the built dims."""
+    with pytest.raises(ValueError, match="head dim 129"):
+        tfa.flash_attention(*(torch.zeros(1, 16, 2, 129),) * 3)
+    with pytest.raises(ValueError, match="head dim 129"):
+        tfa.padded_dim(129)
+    for d in (16, 48, 96):
         with pytest.raises(ValueError, match="head dim"):
             tfa.flash_fwd(*(torch.zeros(2, 16, d),) * 3, 0.1, False)
-    assert [tfa.padded_dim(d) for d in (1, 32, 33, 64)] == [32, 32, 64, 64]
+    assert [tfa.padded_dim(d) for d in (1, 32, 33, 64, 65, 96, 128)] == [
+        32, 32, 64, 64, 128, 128, 128]
