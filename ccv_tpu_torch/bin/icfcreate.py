@@ -27,19 +27,20 @@ from ccv_tpu_torch.ops import resample
 EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp")
 
 
-def load_dir(path, size, crop=False, per_image=8, seed=0) -> np.ndarray:
-    """(N, H, W, 3) uint8 patches of ``size`` (W, H) from the images of
-    ``path`` in name order: each resized (INTER_AREA), or with ``crop``
-    ``per_image`` random crops of each (images no larger than the patch
-    give none), drawn as ccv_tpu's tools draw them."""
+def load_dir(path, size, crop=False, per_image=8, seed=0,
+             flags=IO_RGB_COLOR, device="cpu") -> np.ndarray:
+    """(N, H, W, 3) uint8 patches (with ``flags`` IO_GRAY: (N, H, W)) of
+    ``size`` (W, H) from the images of ``path`` in name order: each
+    resized (INTER_AREA, on ``device``), or with ``crop`` ``per_image``
+    random crops of each (images no larger than the patch give none),
+    drawn as ccv_tpu's tools draw them."""
     rng = np.random.default_rng(seed)
     W, H = size
     out = []
     for name in sorted(os.listdir(path)):
         if not name.lower().endswith(EXTENSIONS):
             continue
-        img = read(os.path.join(path, name), IO_RGB_COLOR,
-                   device="cpu").numpy()
+        img = read(os.path.join(path, name), flags, device="cpu").numpy()
         if crop:
             for _ in range(per_image):
                 if img.shape[0] <= H or img.shape[1] <= W:
@@ -50,9 +51,9 @@ def load_dir(path, size, crop=False, per_image=8, seed=0) -> np.ndarray:
         else:
             if img.shape[:2] != (H, W):
                 img = resample.resample(
-                    torch.from_numpy(img), rows=H, cols=W,
+                    torch.from_numpy(img).to(device), rows=H, cols=W,
                     rows_scale=H / img.shape[0], cols_scale=W / img.shape[1],
-                    interp=resample.INTER_AREA).numpy().astype(np.uint8)
+                    interp=resample.INTER_AREA).cpu().numpy().astype(np.uint8)
             out.append(img)
     return np.stack(out)
 

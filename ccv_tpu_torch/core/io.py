@@ -5,12 +5,11 @@ Decoding follows ``ccv_tpu``'s order: the native decoders first, then PIL.
 - Native: PNG is decoded here with the standard library's zlib, as libpng
   decodes it under ``ccv_tpu``'s transforms (palette to RGB, gray of 1, 2
   or 4 bits scaled to 8, 16 bits cut to their high byte, Adam7 interlacing
-  undone, alpha dropped). Gray + alpha is the one difference: the port
-  replicates the gray to RGB, where ``ccv_tpu``'s libpng route keeps it
-  gray (``ccv_tpu``'s PIL route converts it to RGB). JPEG (``\xff\xd8``)
-  goes through libjpeg in the port's native decoder (``core/native.py``),
-  from memory. The reference's ``CCVBINDM`` binary matrices are read and
-  written as in ``ccv_tpu``.
+  undone, alpha dropped: gray + alpha reads as gray, as libpng's
+  ``png_set_strip_alpha`` leaves it). JPEG (``\xff\xd8``) goes through
+  libjpeg in the port's native decoder (``core/native.py``), from memory.
+  The reference's ``CCVBINDM`` binary matrices are read and written as in
+  ``ccv_tpu``.
 - PIL: any other format (BMP, GIF, TIFF, ...), and JPEG where libjpeg's
   header is missing (any other failure to build the decoder raises), with
   ``ccv_tpu``'s mode conversions (palette, RGBA, CMYK and gray + alpha to
@@ -210,8 +209,8 @@ def decode_png(data: bytes) -> np.ndarray:
         if palette is None:
             raise ValueError("palette PNG without PLTE")
         return palette[img[..., 0]]
-    if color == 4:  # gray + alpha: gray replicated, alpha dropped
-        return np.repeat(img[..., :1], 3, axis=-1)
+    if color == 4:  # gray + alpha: png_set_strip_alpha keeps the gray
+        return img[..., 0]
     return img
 
 

@@ -101,17 +101,10 @@ def _ffloat(tok: str) -> float:
     return float.fromhex(tok) if "x" in tok or "X" in tok else float(tok)
 
 
-def read_mixture_model(path: str) -> DpmMixtureModel:
-    """ccv_dpm_read_mixture_model twin (ccv_dpm.c:2279): text with C99 hex
-    floats."""
-    with open(path) as f:
-        toks = f.read().split()
-    if toks[0] != ".":
-        raise ValueError(f"{path}: not a finished DPM model (starts with "
-                         f"{toks[0]!r})")
-    count = int(toks[1])
-    pos = 2
-
+def parse_roots(toks: List[str], pos: int, count: int
+                ) -> Tuple[List[DpmRootClassifier], int]:
+    """``count`` root classifiers of the model text's tokens from ``pos``
+    on: (the roots, the position after them)."""
     def floats(n):
         nonlocal pos
         out = [_ffloat(t) for t in toks[pos:pos + n]]
@@ -142,19 +135,30 @@ def read_mixture_model(path: str) -> DpmMixtureModel:
                                            palpha, pw, cp))
         roots.append(DpmRootClassifier(beta, np.array(alpha, np.float32), w,
                                        parts))
+    return roots, pos
+
+
+def read_mixture_model(path: str) -> DpmMixtureModel:
+    """ccv_dpm_read_mixture_model twin (ccv_dpm.c:2279): text with C99 hex
+    floats."""
+    with open(path) as f:
+        toks = f.read().split()
+    if toks[0] != ".":
+        raise ValueError(f"{path}: not a finished DPM model (starts with "
+                         f"{toks[0]!r})")
+    roots, pos = parse_roots(toks, 2, int(toks[1]))
     if pos != len(toks):
         raise ValueError(f"{path}: {len(toks) - pos} tokens after the model")
     return DpmMixtureModel(roots)
 
 
-def write_mixture_model(model: DpmMixtureModel, path: str) -> None:
-    """The finished-model text of _ccv_dpm_write_checkpoint (ccv_dpm.c:169),
-    readable by ``read_mixture_model`` and the reference's reader (a copy of
-    ccv_tpu/train/dpm.py's writer)."""
+def model_lines(model: DpmMixtureModel) -> List[str]:
+    """The roots of _ccv_dpm_write_checkpoint's text (ccv_dpm.c:169), C99
+    hex floats, without the header lines."""
     def hexf(vals):
         return " ".join(float(v).hex() for v in vals)
 
-    lines = [".", f"{len(model.roots)}"]
+    lines = []
     for root in model.roots:
         r, c = root.w.shape[0], root.w.shape[1]
         lines += [f"{r} {c}", hexf([root.beta, *root.alpha])]
@@ -166,10 +170,23 @@ def write_mixture_model(model: DpmMixtureModel, path: str) -> None:
                       f"{p.w.shape[0]} {p.w.shape[1]} {p.counterpart}"]
             lines += [hexf(p.w[y].reshape(-1)) + " "
                       for y in range(p.w.shape[0])]
+    return lines
+
+
+def write_lines(lines: List[str], path: str) -> None:
+    """The lines, each ended by a newline, into ``path`` by way of
+    ``path.swp`` (replaced in one step, as the reference's checkpoint)."""
     tmp = path + ".swp"
     with open(tmp, "w") as f:
         f.write("\n".join(lines) + "\n")
     os.replace(tmp, path)
+
+
+def write_mixture_model(model: DpmMixtureModel, path: str) -> None:
+    """The finished-model text of _ccv_dpm_write_checkpoint (ccv_dpm.c:169),
+    readable by ``read_mixture_model`` and the reference's reader (the
+    bytes of ccv_tpu/train/dpm.py's writer)."""
+    write_lines([".", f"{len(model.roots)}"] + model_lines(model), path)
 
 
 # ---------------------------------------------------------------------------

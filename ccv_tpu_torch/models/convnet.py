@@ -17,7 +17,9 @@ grouped convolution (``groups=partition``): the same channel split as
 ``ccv_tpu``'s convolution per partition. Pools let windows overhang the
 bottom and right edges (the reference's ceiled output size), padded as
 ``ccv_tpu`` pads them: -inf for max, and an average over the cells inside.
-``supervised_train`` is not ported yet.
+``supervised_train`` (with bin/cifar-10, image-net and cnnvldtr) is not
+ported yet: it is the next slice; the classic detectors' trainers are in
+``ccv_tpu_torch.train`` (scd, icf, bbf, swt, dpm).
 """
 
 from __future__ import annotations

@@ -197,7 +197,17 @@ started together) and drives the port's main paths:
   through K1 (launches counted) against the plain route;
 - phase 36, ICF training (``train.icf``) at the published 30 x 60 patch
   and 2,000 random features, 8 trees: the card's cascade equal to the CPU
-  port's.
+  port's;
+- phases 37-39, BBF, SWT and DPM training (``train.{bbf,swt,dpm}``; no
+  kernel on their paths): BBF's cascade on the card equal to the CPU
+  port's to the bit, then bbfcreate's defaults on 4,000 gray patches
+  (seconds a stage, ms a generation, the idle share) and the trained
+  cascade's windows on the card against the CPU port's; SWT's search over
+  text_test.png and the 1080p frame, the same parameters on both; DPM on
+  the card within 1e-3 of the CPU port, then dpmcreate's published setting
+  on 24 + 24 seeded 640 x 480 scenes, depth cut (seconds a relabel and a
+  data mining, the SVM fit's ms, the idle share), and the model's 1080p
+  ``detect``.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -469,6 +479,43 @@ ICF_TRAIN = dict(size=(30, 60), feature_size=2000, weak_classifier=8,
                  seed=0)
 ICF_TRAIN_N = (150, 300)
 ICF_TRAIN_FULL_N = SCD_TRAIN_FULL_N
+# phase 37, BBF training (ccv_tpu_torch/train/bbf.py) at the published 24 x
+# 24 on gray ``train_patches``. Parity at BBF_TRAIN_N with
+# tests/test_train_bbf.py's small setting: the card's cascade equals the CPU
+# port's to the bit (the draws, the errors and the thresholds are host
+# numpy; the card computes the pyramids and the responses, integers). Then
+# bbfcreate's defaults (8 stages of at most 32 features, population 256, 4
+# generations) on the card at BBF_TRAIN_FULL_N; its cascade's 1080p
+# ``detect_objects`` on the card against the CPU port's
+BBF_TRAIN = dict(population=128, generations=3, max_features_per_stage=8,
+                 n_stages=3, seed=2)
+BBF_TRAIN_N = (120, 300)
+BBF_TRAIN_FULL_N = (1000, 3000)
+BBF_TRAIN_FULL = dict(n_stages=8, max_features_per_stage=32)
+BBF_TRAIN_CROP = (136, 240)   # the card-against-CPU crop of the 1080p frame
+# phase 38, the SWT parameter search (ccv_tpu_torch/train/swt.py) over
+# text_test.png and the 1080p tiled frame with their annotated lines, two
+# ranges, two iterations, from a min_height that finds nothing: the card
+# and the CPU port pick the same parameters
+SWT_SEARCH = dict(min_height=(8, 26, 34), low_thresh=(100, 24, 124))
+SWT_SEARCH_START = dict(min_height=60)
+# phase 39, DPM training (ccv_tpu_torch/train/dpm.py). Parity at
+# tests/test_train_dpm.py's configuration (DPM_TRAIN_TEST, six 160 x 160
+# scenes and five backgrounds): the card's model within DPM_TRAIN_TOL of
+# the CPU port's largest weight. Then bin/dpmcreate's published setting (1
+# component, 8 parts, symmetric, C 0.002, a negative cache of 2,000, root
+# area 3000-5000) on DPM_TRAIN_SCENES 640 x 480 positive and background
+# scenes, depth cut to DPM_TRAIN_DEPTH (published: relabels 10, data
+# minings 50, iterations 1000); the trained model's 1080p ``detect``
+DPM_TRAIN_TEST = dict(components=1, parts=4, min_area=1200, max_area=2500,
+                      symmetric=True, relabels=1, data_minings=1,
+                      iterations=6, negative_cache_size=20,
+                      include_overlap=0.6, seed=3)
+DPM_TRAIN_TOL = 1e-3
+DPM_TRAIN_SCENES = 24
+DPM_TRAIN_NEGNUM = 200
+DPM_TRAIN_DEPTH = dict(relabels=1, data_minings=2, iterations=10)
+DPM_PROFILED = 4
 PAR_NEEDS = {"data_parallel": ("allreduce",),
              "lm_tp": ("allreduce", "all_gather"),
              "ring_sp": ("send/recv",),
@@ -5451,6 +5498,337 @@ def icf_train_path(dev, card):
     return card_s
 
 
+def gray_train_patches(rng, n_pos, n_neg, size):
+    """``train_patches`` in gray (libjpeg's coefficients, as ``read`` with
+    IO_GRAY), (N, H, W) uint8."""
+    from ccv_tpu_torch.core.io import rgb_to_gray_u8
+    return tuple(rgb_to_gray_u8(p) for p in train_patches(rng, n_pos, n_neg,
+                                                          size))
+
+
+def bbf_fields_equal(a, b):
+    return (a.n_stages == b.n_stages and all(
+        getattr(a, k).tobytes() == getattr(b, k).tobytes()
+        for k in ("stage_of", "thresholds", "alphas", "px", "py", "pz",
+                  "nx", "ny", "nz")))
+
+
+def bbf_train_path(dev, card, read):
+    """Phase 37: BBF training on the card equal to the CPU port's at
+    BBF_TRAIN_N, then bbfcreate's defaults on the card at
+    BBF_TRAIN_FULL_N (seconds a stage, ms a generation, one stage under the
+    profiler), and that cascade's 1080p detect_objects on the card against
+    the CPU port's."""
+    from ccv_tpu_torch.detectors import bbf
+    from ccv_tpu_torch.train import bbf as tbbf
+    rng = np.random.default_rng(37)
+    pos, neg = gray_train_patches(rng, *BBF_TRAIN_N, (24, 24))
+    params = tbbf.BbfTrainParams(**BBF_TRAIN)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append((tbbf.train_cascade(pos, neg, params, where),
+                     time.perf_counter() - t0))
+    (a, card_s), (b, cpu_s) = runs
+    check(bbf_fields_equal(a, b), f"BBF training: the card's cascade "
+          f"({len(a.stage_of)} features, thresholds {a.thresholds}) differs "
+          f"from the CPU port's ({len(b.stage_of)}, {b.thresholds})")
+    log(37, f"BBF training at 24 x 24, {len(pos)} positives, {len(neg)} "
+            f"negatives, {BBF_TRAIN}: card {card_s:.2f} s, CPU {cpu_s:.2f} s;"
+            f" the same cascade to the bit ({a.n_stages} stages, "
+            f"{len(a.stage_of)} features, thresholds "
+            f"{a.thresholds.tolist()}); {card}")
+
+    pos, neg = gray_train_patches(rng, *BBF_TRAIN_FULL_N, (24, 24))
+    params = tbbf.BbfTrainParams(**BBF_TRAIN_FULL)
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cas = tbbf.train_cascade(pos, neg, params, dev, timings=timings)
+    full_s = time.perf_counter() - t0
+    gen_ms = timings["generation_s"] / max(timings["generations"], 1) * 1e3
+    one = dataclasses.replace(params, n_stages=1)
+    win = device_window(lambda: tbbf.train_cascade(pos, neg, one, dev), 1)
+    flat = tbbf.flatten_pyramids(np.concatenate([pos, neg]), params.size,
+                                 dev)
+    feats = tbbf._random_features(params.population, params.size,
+                                  np.random.default_rng(0))
+    resp_ms = time_cuda(lambda: tbbf.feature_responses(flat, *feats,
+                                                       params.size), 10)
+    log(37, f"BBF training on the card at bbfcreate's defaults "
+            f"({params.n_stages} stages of at most "
+            f"{params.max_features_per_stage} features, "
+            f"population {params.population}, {params.generations} "
+            f"generations), {len(pos)} positives, {len(neg)} negatives: "
+            f"{full_s:.2f} s, {cas.n_stages} stages, {len(cas.stage_of)} "
+            f"features (a stage: {[round(x, 3) for x in timings['stage_s']]}"
+            f" s); {timings['generations']} generations at {gen_ms:.2f} ms "
+            f"each (the responses, the errors, the sort and the mutation), "
+            f"of which the responses of the population (one gather of "
+            f"({len(pos) + len(neg)}, {params.population}, 8) a side, the "
+            f"booleans to the host) {resp_ms:.3f} ms (CUDA events, mean of "
+            f"10); one stage under torch.profiler: busy {win['busy']:.2f} ms "
+            f"of {win['wall']:.2f} ms, idle "
+            f"{1 - win['busy'] / win['wall']:.3f}; {card}")
+
+    tmp = tempfile.mkdtemp(prefix="phase37-")
+    try:
+        tbbf.write_cascade(cas, os.path.join(tmp, "face"))
+        back = bbf.load_cascade(os.path.join(tmp, "face"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the CPU port's pass over every window at 1080p takes minutes at this
+    # feature count, and the trained thresholds let most windows of the
+    # text frame through (too many for the O(n^2) grouping): the windows
+    # (min_neighbors 0) are held card against CPU on a crop, and the card's
+    # 1080p pass is timed
+    gray = torch.from_numpy(frame_1080p(read))
+    g_d = gray.to(dev)
+    raw = bbf.BbfParams(min_neighbors=0)
+    h, w = BBF_TRAIN_CROP
+    crop = gray[:h, :w].contiguous()
+    got_r = rect_conf(bbf.detect_objects(crop.to(dev), back, raw))
+    t0 = time.perf_counter()
+    want_r = rect_conf(bbf.detect_objects(crop, back, raw))
+    cpu_s = time.perf_counter() - t0
+    odd = set(got_r) ^ set(want_r)
+    if odd:
+        # phase 22's rule: the card and the CPU sum a stage in another
+        # order, so a window within MARGIN of a threshold may flip
+        rects, sums = bbf.window_sums(crop, back, raw)
+        near = (np.abs(sums - back.thresholds)
+                <= MARGIN * np.maximum(1, np.abs(sums))).any(1)
+        at = {tuple(int(v) for v in r): n for r, n in zip(rects, near)}
+        check(all(at[r] for r in odd), f"the trained BBF cascade on the "
+              f"crop: {len(odd)} windows differ card vs CPU, not all in "
+              f"the margin")
+    both = set(got_r) & set(want_r)
+    diff = max((abs(got_r[r] - want_r[r]) for r in both), default=0.0)
+    check(len(both) > 0 and diff <= ATOL, f"the trained BBF cascade on the "
+          f"crop: {len(both)} windows in common, conf diff {diff}")
+    n_1080 = len(bbf.detect_objects(g_d, back, raw))   # and the warm-up
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bbf.detect_objects(g_d, back, raw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000)
+    med = float(np.median(ms))
+    log(37, f"the trained cascade written, loaded and run by detect_objects "
+            f"(accurate, interval 5, min_neighbors 0): on the {w}x{h} crop "
+            f"of the gray frame {len(both)} windows = the CPU port's "
+            f"({len(odd)} in the margin, conf diff {diff:.3g}; {cpu_s:.1f} s "
+            f"on the CPU); on the 1920x1080 frame {n_1080} windows, mean "
+            f"{med:.2f} ms/image ({', '.join(f'{x:.2f}' for x in ms)}); "
+            f"{card}")
+    return full_s
+
+
+def swt_truth_1080p():
+    """text_test.swt.txt's lines in every tile of ``frame_1080p`` that
+    holds them whole."""
+    with open(os.path.join(DATA, "text_test.swt.txt")) as f:
+        lines = [tuple(int(v) for v in line.split()) for line in f
+                 if line.strip()]
+    return [(x + ox, y + oy, w, h) for oy in (0, 480, 960)
+            for ox in (0, 640, 1280) for x, y, w, h in lines
+            if y + oy + h <= 1080 and x + ox + w <= 1920]
+
+
+def swt_train_path(dev, card, read):
+    """Phase 38: the SWT parameter search over text_test.png and the 1080p
+    frame on the card and the CPU port, the same parameters picked;
+    seconds, and the ms of a detect_words with them."""
+    from ccv_tpu_torch.core.io import IO_GRAY
+    from ccv_tpu_torch.detectors import swt
+    from ccv_tpu_torch.train import swt as tswt
+    tt = read(os.path.join(DATA, "text_test.png"), IO_GRAY,
+              device="cpu").tensor
+    with open(os.path.join(DATA, "text_test.swt.txt")) as f:
+        tt_truth = [tuple(int(v) for v in line.split()) for line in f
+                    if line.strip()]
+    frame = torch.from_numpy(frame_1080p(read))
+    ranges = {k: tswt.Range(*v) for k, v in SWT_SEARCH.items()}
+    base = swt.SwtParams(**SWT_SEARCH_START)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        calls = []
+        detect = swt.detect_words
+
+        def counted(*a, **k):
+            calls.append(1)
+            return detect(*a, **k)
+        swt.detect_words = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            best = tswt.optimize_params(
+                [tt, frame], [tt_truth, swt_truth_1080p()], ranges,
+                base=base, iterations=2, integer_fields=tuple(SWT_SEARCH),
+                device=where)
+            runs.append((best, time.perf_counter() - t0, len(calls)))
+        finally:
+            swt.detect_words = detect
+    (a, card_s, n_calls), (b, cpu_s, _) = runs
+    check(a == b and a != base, f"SWT search: the card picked {a}, the CPU "
+          f"port {b}")
+    picked = {k: getattr(a, k) for k in SWT_SEARCH}
+    f_d = frame.to(dev)
+    med, _ = median_ms(lambda: swt.detect_words(f_d, a), 3)
+    tt_med, _ = median_ms(lambda: swt.detect_words(tt.to(dev), a), 5)
+    words = swt.detect_words(f_d, a)
+    log(38, f"SWT parameter search over text_test.png and the 1080p frame "
+            f"({len(tt_truth)} and {len(swt_truth_1080p())} annotated "
+            f"lines), ranges {SWT_SEARCH}, 2 iterations from "
+            f"{SWT_SEARCH_START}: card {card_s:.2f} s, CPU {cpu_s:.2f} s "
+            f"({n_calls} detect_words calls each); both picked {picked}; "
+            f"with them detect_words takes {tt_med:.2f} ms on text_test.png "
+            f"and {med:.2f} ms on the 1080p frame ({len(words)} words; "
+            f"median); {card}")
+    return card_s
+
+
+def dpm_scene(rng, obj=True, shape=(160, 160), osize=48):
+    """tests/test_train_dpm.py's scene: noise, and on a positive a bright
+    H-shaped object (strong, horizontally symmetric HOG) at a random
+    place; (uint8 image, its box or None)."""
+    img = rng.normal(70, 12, shape + (3,))
+    bbox = None
+    if obj:
+        y = int(rng.integers(4, shape[0] - osize - 4))
+        x = int(rng.integers(4, shape[1] - osize - 4))
+        t = max(4, osize // 7)
+        img[y:y + osize, x:x + t] += 120
+        img[y:y + osize, x + osize - t:x + osize] += 120
+        img[y + osize // 2 - t // 2:y + osize // 2 + t // 2,
+            x:x + osize] += 120
+        bbox = (x, y, osize, osize)
+    return np.clip(img, 0, 255).astype(np.uint8), bbox
+
+
+def dpm_scenes(rng, n_pos, n_bg, **kw):
+    pos = [dpm_scene(rng, True, **kw) for _ in range(n_pos)]
+    return ([p[0] for p in pos], [p[1] for p in pos],
+            [dpm_scene(rng, False, **kw)[0] for _ in range(n_bg)])
+
+
+def dpm_model_gap(a, b):
+    """The largest difference of a's weights and deformations from b's,
+    over b's largest weight; inf where the structure differs."""
+    gaps = []
+    for r, q in zip(a.roots, b.roots):
+        if r.w.shape != q.w.shape or [(p.x, p.y, p.w.shape, p.counterpart)
+                                      for p in r.parts] != [
+                (p.x, p.y, p.w.shape, p.counterpart) for p in q.parts]:
+            return float("inf")
+        scale = float(np.abs(q.w).max())
+        gaps += [np.abs(r.w - q.w).max() / scale,
+                 abs(r.beta - q.beta) / max(1.0, abs(q.beta))]
+        for p, s in zip(r.parts, q.parts):
+            gaps += [np.abs(p.w - s.w).max() / scale,
+                     max(abs(u - v) for u, v in zip(
+                         (p.dx, p.dy, p.dxx, p.dyy),
+                         (s.dx, s.dy, s.dxx, s.dyy)))]
+    return float(max(gaps)) if len(a.roots) == len(b.roots) else float("inf")
+
+
+def dpm_train_path(dev, card, read):
+    """Phase 39: DPM training on the card against the CPU port at
+    DPM_TRAIN_TEST, then bin/dpmcreate's published setting on
+    DPM_TRAIN_SCENES scenes cut to DPM_TRAIN_DEPTH (the seconds of a
+    relabel's latent pass and of a data mining, the SVM fit's ms, the
+    latent pass under the profiler), and the model's 1080p detect."""
+    from ccv_tpu_torch.detectors import dpm
+    from ccv_tpu_torch.train import dpm as tdpm
+    rng = np.random.default_rng(39)
+    posimgs, bboxes, bgimgs = dpm_scenes(rng, 6, 5)
+    params = tdpm.DpmTrainParams(
+        detector=tdpm.DpmParams(interval=2, threshold=0.0), **DPM_TRAIN_TEST)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        tmp = tempfile.mkdtemp(prefix="phase39-")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append((tdpm.mixture_model_new(
+                posimgs, bboxes, bgimgs, 16, tmp, params, log=lambda *a: None,
+                device=where), time.perf_counter() - t0))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    (a, card_s), (b, cpu_s) = runs
+    gap = dpm_model_gap(a, b)
+    check(gap <= DPM_TRAIN_TOL, f"DPM training: the card's model lies "
+          f"{gap:.3g} of the largest weight from the CPU port's")
+    log(39, f"DPM training at tests/test_train_dpm.py's configuration (6 "
+            f"positive 160x160 scenes, 5 backgrounds, {DPM_TRAIN_TEST}): "
+            f"card {card_s:.2f} s, CPU {cpu_s:.2f} s; the same parts, the "
+            f"card's model within {gap:.3g} of the CPU port's largest weight "
+            f"(gate {DPM_TRAIN_TOL}); {card}")
+
+    posimgs, bboxes, bgimgs = dpm_scenes(
+        rng, DPM_TRAIN_SCENES, DPM_TRAIN_SCENES, shape=(480, 640), osize=56)
+    params = tdpm.DpmTrainParams(**DPM_TRAIN_DEPTH)
+    timings = {}
+    tmp = tempfile.mkdtemp(prefix="phase39-")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = tdpm.mixture_model_new(posimgs, bboxes, bgimgs,
+                                       DPM_TRAIN_NEGNUM, tmp, params,
+                                       log=lambda *a: None, device=dev,
+                                       timings=timings)
+        full_s = time.perf_counter() - t0
+        back = dpm.read_mixture_model(os.path.join(tmp, "model"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(dpm_model_gap(back, model) == 0.0,
+          "the trained DPM model does not read back as written")
+    detector = dataclasses.replace(params.detector, threshold=0.0)
+    # the profiler's window over DPM_PROFILED positives: its post-processing
+    # grows with the device events (~2,000 a positive)
+    win = device_window(lambda: [tdpm._collect_best(
+        img, model, bbox, params.include_overlap, detector, dev)
+        for img, bbox in zip(posimgs[:DPM_PROFILED], bboxes)], 1)
+    root = model.roots[0]
+    log(39, f"DPM training on the card at bin/dpmcreate's published "
+            f"setting (1 component, {params.parts} parts, symmetric, C "
+            f"{params.C}, negative cache {params.negative_cache_size}, area "
+            f"{params.min_area}-{params.max_area}) on {len(posimgs)} "
+            f"positive and {len(bgimgs)} background 640x480 scenes, "
+            f"{DPM_TRAIN_NEGNUM} random negatives; depth cut to "
+            f"{DPM_TRAIN_DEPTH} (published: relabels 10, data minings 50, "
+            f"iterations 1000): {full_s:.2f} s; root {root.w.shape[:2]}, "
+            f"{len(root.parts)} parts; initialisation {timings['init_s']:.2f}"
+            f" s (the SVM fit {[round(x, 2) for x in timings['svm_fit_ms']]}"
+            f" ms, 400 steps, synchronised); a relabel's latent pass "
+            f"{[round(x, 2) for x in timings['relabel_s']]} s; a data mining "
+            f"{[round(x, 2) for x in timings['mining_s']]} s, of which the "
+            f"negatives' collection "
+            f"{[round(x, 2) for x in timings['collect_s']]} s and the SGD "
+            f"{[round(x, 2) for x in timings['sgd_s']]} s; the "
+            f"latent pass over {DPM_PROFILED} positives under torch.profiler: "
+            f"{win['events']} device events, busy {win['busy']:.2f} ms of "
+            f"{win['wall']:.2f} ms, idle {1 - win['busy'] / win['wall']:.3f};"
+            f" {card}")
+    # a held-out 1080p scene of the task: one object in the noise
+    scene, (x, y, w, h) = dpm_scene(rng, True, shape=(1080, 1920), osize=56)
+    img = torch.from_numpy(scene).to(dev)
+    dparams = dpm.DpmParams(threshold=0.0)
+    found = dpm.detect(img, back, dparams)
+    best = max((iou((c.x, c.y, c.width, c.height), (x, y, w, h))
+                for c in found), default=0.0)
+    check(best > 0.3, f"the trained DPM model at 1080p: {len(found)} rects, "
+          f"the best at IoU {best:.3f} with the object")
+    med, ms = median_ms(lambda: dpm.detect(img, back, dparams), 3)
+    log(39, f"the trained model read back and run by detect on a held-out "
+            f"1920x1080 scene (threshold 0): {len(found)} rects, the object "
+            f"found at IoU {best:.3f}; median {med:.2f} ms/image "
+            f"({', '.join(f'{x:.2f}' for x in ms)}); {card}")
+    return full_s
+
+
 def main():
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--nccl-cards"]:
@@ -5782,6 +6160,13 @@ def main():
     # -- 35-36: SCD training (its cascade on K1) and ICF training ---------
     k1_trained = scd_train_path(scd, k1, dev, card, read)
     icf_train_path(dev, card)
+
+    # -- 37-39: BBF, SWT and DPM training (no kernel on their paths) -------
+    t0 = time.perf_counter()
+    bbf_train_path(dev, card, read)
+    swt_train_path(dev, card, read)
+    dpm_train_path(dev, card, read)
+    log(39, f"phases 37-39 took {time.perf_counter() - t0:.1f} s")
 
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------

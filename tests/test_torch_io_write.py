@@ -48,16 +48,30 @@ def test_png_reads_back_in_both_packages(tmp_path, shape):
 
 def test_png_gray_alpha(tmp_path):
     """Two channels are written as gray + alpha: PIL reads them back as
-    written, the port's reader gives the gray as RGB (ccv's rule)."""
+    written; the port's reader drops the alpha and keeps the gray, as
+    ccv_tpu's libpng route does (png_set_strip_alpha), with no flag, with
+    IO_GRAY and with IO_RGB_COLOR (the gray stacked to RGB), byte for
+    byte equal to ccv_tpu.core.io.read of the same file."""
     from PIL import Image
-    arr = np.random.default_rng(5).integers(0, 256, (3, 5, 2), np.uint8)
+    from ccv_tpu.core import native
+    assert native.decode_image(os.path.join(DATA, "crop120.png")), \
+        "ccv_tpu's native libpng decoder is not built"
+    arr = np.random.default_rng(5).integers(0, 256, (5, 7, 2), np.uint8)
     path = str(tmp_path / "la.png")
     tio.write(arr, path)
     with Image.open(path) as im:
         assert im.mode == "LA"
         np.testing.assert_array_equal(np.asarray(im), arr)
-    np.testing.assert_array_equal(tio.read(path, device="cpu").numpy(),
-                                  np.repeat(arr[..., :1], 3, -1))
+    for t_flag, j_flag in ((0, 0), (tio.IO_GRAY, jio.IO_GRAY),
+                           (tio.IO_RGB_COLOR, jio.IO_RGB_COLOR)):
+        mine = tio.read(path, t_flag, device="cpu").numpy()
+        theirs = jio.read(path, j_flag).numpy()
+        assert mine.shape == theirs.shape and mine.dtype == theirs.dtype
+        assert mine.tobytes() == theirs.tobytes()
+        gray = arr[..., 0]
+        np.testing.assert_array_equal(
+            mine, np.stack([gray] * 3, -1) if t_flag == tio.IO_RGB_COLOR
+            else gray)
 
 
 def test_png_of_float_and_gray_flag(tmp_path):
