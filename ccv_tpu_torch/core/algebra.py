@@ -20,12 +20,19 @@ step for step (ICF sums its trees with it), for the same reason.
 ``subtract`` / ``scale`` are plain torch ops; ``gemm`` is ``torch.matmul``
 in float32 with TF32 off (``device.py``).
 
-ccv_tpu's ``sat_mxu`` (triangular matmuls, the TPU form) and ``sat_auto``
-(its measured choice between forms) are not ported.
+``sat_mxu`` is ccv_tpu's matrix form of the float SAT: two products with
+triangular matrices of ones, the PADDING_ZERO row and column coming from
+their leading zero row. The products accumulate in float64 and round once to
+the input's dtype, so the card's cuBLAS and the CPU's BLAS give the same
+bits (the correctly rounded sums, not ``sat``'s bits). ``sat_auto`` chooses
+between the two forms by measurement on the card (``nn.autotune``, op
+``sat``, extra ``pad{padding}``); integer inputs, inputs of more than 3 dims
+and CPU tensors take ``sat``, and ``CCV_TPU_SAT=sat|sat_mxu`` forces one.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -111,6 +118,66 @@ def sat(a: torch.Tensor, padding: int = NO_PADDING) -> torch.Tensor:
         pad[2 * (-1 - w_axis)] = pad[2 * (-1 - h_axis)] = 1
         out = F.pad(out, pad)
     return out
+
+
+def sat_mxu(a: torch.Tensor, padding: int = NO_PADDING) -> torch.Tensor:
+    """Float SAT of an (H, W[, C]) input as two triangular-ones products:
+    along W, tri(W) (W', W) contracted with x over W gives (W', H, C); along
+    H the same with tri(H) gives (H', W', C). With PADDING_ZERO each
+    triangular matrix has one more, all-zero, leading row. The products run
+    in float64 (TF32 plays no part) and the result rounds once to x's
+    dtype."""
+    spatial_last = a.dim() == 2
+    x = a[..., None] if spatial_last else a
+    if x.dim() != 3:
+        raise ValueError(f"sat_mxu takes (H, W[, C]), got {tuple(a.shape)}")
+    if not x.dtype.is_floating_point:
+        raise TypeError(f"sat_mxu is float only (integer sums use sat), got "
+                        f"{x.dtype}")
+    pad = 1 if padding == PADDING_ZERO else 0
+
+    def tri(n: int) -> torch.Tensor:
+        # (n + pad, n): row i sums inputs 0 .. i - pad (row 0 all zero when
+        # padding, the PADDING_ZERO row and column)
+        rows = torch.arange(n + pad, device=x.device)[:, None] - pad
+        return (rows >= torch.arange(n, device=x.device)[None, :]).to(
+            torch.float64)
+
+    s1 = torch.tensordot(tri(x.shape[1]), x.to(torch.float64),
+                         dims=([1], [1]))                   # (W', H, C)
+    s2 = torch.tensordot(tri(x.shape[0]), s1, dims=([1], [1]))  # (H', W', C)
+    out = s2.to(x.dtype)
+    return out[..., 0] if spatial_last else out
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def sat_auto(a: torch.Tensor, padding: int = NO_PADDING) -> torch.Tensor:
+    """SAT with the form chosen by measurement (ccv_nnc_cmd_autotune's
+    analog, cmd.c:344-577): on the card, ``sat`` against ``sat_mxu`` per
+    (shape, dtype, card), the winner kept (``nn.autotune``). Integer inputs
+    and inputs of more than 3 dims always take ``sat`` (exact integer
+    sums), as does a CPU tensor, which records nothing: ccv_tpu's callers
+    run it under jit, where a miss on the CPU returns ``sat``.
+    ``CCV_TPU_SAT=sat`` or ``sat_mxu`` forces a form. Where the card cannot
+    measure (under ``torch.compile``) a miss takes ``sat_mxu``, ccv_tpu's
+    default off the CPU."""
+    if not a.dtype.is_floating_point or a.dim() > 3:
+        return sat(a, padding)
+    forced = os.environ.get("CCV_TPU_SAT")
+    if forced in ("sat", "sat_mxu"):
+        return (sat if forced == "sat" else sat_mxu)(a, padding)
+    if not _on_card(a):
+        return sat(a, padding)
+    from ccv_tpu_torch.nn import autotune
+
+    fn = autotune.choose(
+        "sat", {"sat": lambda x: sat(x, padding),
+                "sat_mxu": lambda x: sat_mxu(x, padding)}, (a,),
+        default="sat_mxu", extra=f"pad{padding}")
+    return fn(a)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,

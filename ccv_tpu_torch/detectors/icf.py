@@ -22,10 +22,24 @@ The main path of ``detect_objects``, per image:
    K2 runs again at full capacity (no window is lost), then windows ->
    rects, grouping and the inclusion filters (``_group_and_filter``).
 
-Tree nodes sum boxes of SAT corners gathered per window. ccv_tpu's fused
-accelerator forms (``slices``: exact corner row-takes of the phase planes;
-``matmul``: the corner-matrix product) are TPU layouts of the same cascade
-and are not ported. Type-B multiscale cascades (``detect_multiscale``) run
+Tree nodes sum boxes of SAT corners gathered per window. The SAT is
+``core.algebra.sat_auto``'s: ``sat`` on a CPU tensor, the measured choice of
+``sat`` and ``sat_mxu`` on the card.
+
+``form=`` picks the octave's form (``FORMS``): ``"staged"`` (the default,
+above), or ccv_tpu's fused whole-octave forms, as explicit choices:
+``"slices"`` (its takes form, ``_get_icf_octave_slice_fn``: trees 0-319 on
+every window of the octave, the first K3 survivors by score, the rest on
+them; the same corner arithmetic as the staged form) and ``"matmul"`` (its
+im2col form, ``_get_icf_octave_fn``: each window's SAT tile, centred on its
+first corner, times a corner matrix of +-alpha for trees 0-319, then the
+rest on the first K2 survivors by score; the tiles are centred and
+multiplied in float64, where ccv_tpu asks the TPU for float32-exact
+passes, so a node's value is its exact box sums' rounded once and the
+card's and the CPU's agree; the staged form's float32 corner arithmetic
+can put a node within its rounding of 0 on the other side). Both keep
+ccv_tpu's capacities; an octave that overflows runs again at full capacity
+in the staged form. Type-B multiscale cascades (``detect_multiscale``) run
 the whole cascade on every window of each octave's single channel map.
 """
 
@@ -259,15 +273,20 @@ def _tree_tables(c: IcfCascade, lo: int, hi: int, dev: torch.device):
 
 
 def _tables(c: IcfCascade, dev: torch.device):
-    """Per-phase device tables (None for an empty phase) and the whole
-    cascade's, built once per device."""
+    """Per-phase device tables (None for an empty phase), the whole
+    cascade's, and the fused forms' dense block (trees [0, 320)) and tail
+    (None when there is none), built once per device."""
     cache = c.__dict__.setdefault("_device_tables", {})
     key = str(dev)
     if key not in cache:
+        b1 = min(_ICF_PHASE_B1, c.n_weak)
         cache[key] = dict(
             phases=[None if p is None else _tree_tables(c, *p, dev)
                     for p in _cuts(c)],
-            full=_tree_tables(c, 0, c.n_weak, dev))
+            full=_tree_tables(c, 0, c.n_weak, dev),
+            dense=_tree_tables(c, 0, b1, dev),
+            tail=(_tree_tables(c, b1, c.n_weak, dev) if c.n_weak > b1
+                  else None))
     return cache[key]
 
 
@@ -286,10 +305,24 @@ def _node_votes(g: torch.Tensor, tabs: dict) -> torch.Tensor:
     q = g.reshape(n, -1, 4)
     box = ((q[..., 0] - q[..., 1]) - q[..., 2]) + q[..., 3]
     fval = (box * tabs["alpha"]).reshape(n, -1, 3, 2).sum(-1) + tabs["beta"]
+    return _decide(fval, tabs)
+
+
+def _decide(fval: torch.Tensor, tabs: dict) -> torch.Tensor:
+    """Tree votes (n, T) from node values (n, T, 3) (ccv_tpu's
+    ``_decide_fval``)."""
     c0, c1, c2 = fval.unbind(-1)
     pos = torch.where(tabs["has2"], c2 > 0, True)
     neg = torch.where(tabs["has1"], c1 > 0, False)
     return torch.where(torch.where(c0 > 0, pos, neg), tabs["w1"], tabs["w0"])
+
+
+def _scan_pass(votes: torch.Tensor, prior: torch.Tensor, tabs: dict):
+    """(alive, last running sum) of a block of tree votes (n, T) entering
+    with running sums ``prior``: alive where every prefix sum is at least
+    its tree's threshold."""
+    csum = algebra.associative_scan_add(votes, -1) + prior[:, None]
+    return torch.all(csum >= tabs["thresholds"], dim=-1), csum[:, -1]
 
 
 def _phase(flat: torch.Tensor, base: torch.Tensor, prior: torch.Tensor,
@@ -303,10 +336,9 @@ def _phase(flat: torch.Tensor, base: torch.Tensor, prior: torch.Tensor,
     alive, last = [], []
     for s in range(0, base.numel(), step):
         g = _gather(flat, base[s:s + step], tabs, sat_cols, channels)
-        csum = (algebra.associative_scan_add(_node_votes(g, tabs), -1)
-                + prior[s:s + step, None])
-        alive.append(torch.all(csum >= tabs["thresholds"], dim=-1))
-        last.append(csum[:, -1])
+        a, c = _scan_pass(_node_votes(g, tabs), prior[s:s + step], tabs)
+        alive.append(a)
+        last.append(c)
     if not alive:
         return (torch.zeros(0, dtype=torch.bool, device=flat.device),
                 prior.new_zeros(0))
@@ -359,6 +391,184 @@ def _octave_eval(flat: torch.Tensor, base: torch.Tensor, phases, K1: int,
             torch.stack([c.to(torch.float64) for c in counts]))
 
 
+# ---------------------------------------------------------------------------
+# ccv_tpu's fused whole-octave forms: "slices" and "matmul"
+# ---------------------------------------------------------------------------
+
+FORMS = ("staged", "slices", "matmul")
+
+# SAT values of the windows' tiles per chunk of the matmul form (1 GB as
+# float64)
+TILE_CHUNK = 1 << 27
+
+
+def _icf_slice_caps(ntot: int, n_weak: int):
+    """(ntot, K3) of the slices form (ccv_tpu's ``_icf_slice_caps``): K3
+    bounds the survivors of trees 0-319 (0.02% on pedestrian.png)."""
+    if n_weak <= _ICF_PHASE_B1:
+        return (ntot, ntot)
+    return (ntot, int(min(ntot, max(64, -(-ntot // 64 // 64) * 64))))
+
+
+def _icf_matmul_cap(ntot: int, n_weak: int) -> int:
+    """K2 of the matmul form (ccv_tpu's detect_async)."""
+    return ntot if n_weak <= _ICF_PHASE_B1 else min(ntot,
+                                                    max(64, ntot // 256))
+
+
+def _first_by_score(alive: torch.Tensor, conf: torch.Tensor, K: int):
+    """The K best windows by running sum among the alive ones (dead ones
+    last), ties to the lower index: ``jax.lax.top_k``'s order."""
+    score = torch.where(alive, conf, torch.full_like(conf, -math.inf))
+    return torch.sort(score, descending=True, stable=True).indices[:K]
+
+
+def _slices_eval(flat: torch.Tensor, base: torch.Tensor, tabs: dict,
+                 K3: int, sat_cols: int, channels: int):
+    """The slices form over one octave's windows ``base``: trees 0-319 on
+    every window (one block, one scan), the first K3 survivors by score,
+    the tail on them. Rows (K, 3) float64 [window, passed, conf] and counts
+    (2,) [0, survivors of the dense block]."""
+    ntot = base.numel()
+    zero = base.new_zeros(())
+    alive, conf = _phase(flat, base, torch.zeros(
+        ntot, dtype=torch.float32, device=base.device), tabs["dense"],
+        sat_cols, channels)
+    count = alive.sum()
+    if tabs["tail"] is None:
+        rows = (torch.arange(ntot, device=base.device), alive, conf)
+    else:
+        sidx = _first_by_score(alive, conf, K3)
+        alive2, conf2 = _phase(flat, base[sidx], conf[sidx], tabs["tail"],
+                               sat_cols, channels)
+        rows = (sidx, alive2 & alive[sidx], conf2)
+    return (torch.stack([r.to(torch.float64) for r in rows], 1),
+            torch.stack([zero.to(torch.float64), count.to(torch.float64)]))
+
+
+def _fused_mats(c: IcfCascade, step: int, dev: torch.device):
+    """The matmul form's corner matrices (ccv_tpu's ``_fused_mats``), in
+    float64: m1 (K, trees 0-319 x 3 nodes) and m2 (K, the rest x 3) or None,
+    K = step^2 * th * tw * channels rows in the tile layout of ``_im2col``,
+    each box corner's +-alpha at its (tile position, channel) row; built
+    once per step and device."""
+    cache = c.__dict__.setdefault("_fused_mats", {})
+    key = (step, str(dev))
+    if key in cache:
+        return cache[key]
+    nch = 8 if c.grayscale else 10
+    th, tw = c.height // step + 1, c.width // step + 1
+    K = step * step * th * tw * nch
+    cut = min(_ICF_PHASE_B1, c.n_weak)
+    x0, y0 = c.sat0[..., 0], c.sat0[..., 1]
+    x1, y1 = c.sat1[..., 0] + 1, c.sat1[..., 1] + 1
+    oy = np.stack([y0, y0, y1, y1], -1)                 # (n, 3, 2, 4)
+    ox = np.stack([x0, x1, x0, x1], -1)
+    ch = np.broadcast_to(c.channel[..., None], oy.shape)
+    lin = (((((oy % step) * step + ox % step) * th + oy // step) * tw
+            + ox // step) * nch + ch)
+    val = (c.alpha[..., None] * np.array([1.0, -1.0, -1.0, 1.0])).astype(
+        np.float32)
+    col = np.broadcast_to((np.arange(c.n_weak)[:, None] * 3
+                           + np.arange(3)[None, :])[..., None, None],
+                          oy.shape)
+
+    def build(lo, hi):
+        sel = (val[lo:hi] != 0)
+        m = np.zeros((K, (hi - lo) * 3), np.float32)
+        np.add.at(m, (lin[lo:hi][sel], col[lo:hi][sel] - lo * 3),
+                  val[lo:hi][sel])
+        return to_device(m.astype(np.float64), dev)
+
+    got = dict(th=th, tw=tw, cut=cut, m1=build(0, cut),
+               m2=build(cut, c.n_weak) if c.n_weak > cut else None)
+    cache[key] = got
+    return got
+
+
+def _tile_planes(sat: torch.Tensor, ny: int, nx: int, step: int, th: int,
+                 tw: int) -> torch.Tensor:
+    """(Hs, Ws, step, step, C): a level's SAT zero-padded or cut to (ny +
+    th) * step rows and (nx + tw) * step columns as phase planes, entry
+    [Y, X, py, px] = sat[Y * step + py, X * step + px]."""
+    H1, W1, C = sat.shape
+    Hp, Wp = (ny + th) * step, (nx + tw) * step
+    s = F.pad(sat, (0, 0, 0, max(0, Wp - W1), 0, max(0, Hp - H1)))[:Hp, :Wp]
+    return s.reshape(Hp // step, step, Wp // step, step, C).permute(
+        0, 2, 1, 3, 4)
+
+
+def _im2col(pl: torch.Tensor, sel: torch.Tensor, nx: int, th: int,
+            tw: int) -> torch.Tensor:
+    """(K, step^2 * th * tw * C) float64 tiles of a level's windows ``sel``
+    (wy * nx + wx) off its ``_tile_planes`` (ccv_tpu's ``_icf_im2col``):
+    tile entry ((py*step + px)*th + qy)*tw + qx, channel last, holds
+    sat[(wy + qy) * step + py, (wx + qx) * step + px], less the tile's first
+    entry of its channel (exact in float64)."""
+    C = pl.shape[-1]
+    ry = (sel // nx)[:, None] + torch.arange(th, device=sel.device)
+    rx = (sel % nx)[:, None] + torch.arange(tw, device=sel.device)
+    t = pl[ry[:, :, None], rx[:, None, :]]           # (K, th, tw, s, s, C)
+    D = t.permute(0, 3, 4, 1, 2, 5).reshape(sel.shape[0], -1, C).to(
+        torch.float64)
+    return (D - D[:, :1, :]).reshape(sel.shape[0], -1)
+
+
+def _matmul_block(stack: torch.Tensor, lvls, step: int, mats: dict,
+                  m: torch.Tensor, tabs: dict, glob: torch.Tensor,
+                  prior: torch.Tensor, bounds: np.ndarray):
+    """(alive, last running sum) of a block of trees at the octave's windows
+    ``glob`` (global indices, level after level): node values as each
+    window's tile times ``m``, in chunks of TILE_CHUNK tile floats."""
+    per = m.shape[0]
+    chunk = max(1, TILE_CHUNK // per)
+    lvl = torch.as_tensor(np.searchsorted(bounds[1:], glob.cpu().numpy(),
+                                          side="right"), device=glob.device)
+    alive = torch.zeros(glob.numel(), dtype=torch.bool, device=glob.device)
+    last = torch.zeros(glob.numel(), dtype=torch.float32, device=glob.device)
+    for li, (_k, _sc, _r, _c, ny, nx) in enumerate(lvls):
+        at = torch.nonzero(lvl == li).squeeze(1)
+        if not at.numel():
+            continue
+        pl = _tile_planes(stack[li], ny, nx, step, mats["th"], mats["tw"])
+        for s0 in range(0, at.numel(), chunk):
+            pos = at[s0:s0 + chunk]
+            D = _im2col(pl, glob[pos] - int(bounds[li]), nx, mats["th"],
+                        mats["tw"])
+            fval = ((D @ m).to(torch.float32).reshape(pos.numel(), -1, 3)
+                    + tabs["beta"])
+            a, c = _scan_pass(_decide(fval, tabs), prior[pos], tabs)
+            alive[pos], last[pos] = a, c
+    return alive, last
+
+
+def _matmul_eval(stack: torch.Tensor, lvls, step: int, casc: IcfCascade,
+                 tabs: dict, K2: int):
+    """The matmul form over one octave: trees 0-319 on every window as tile
+    products, the first K2 survivors by score, the tail on them. Rows (K,
+    3) float64 and counts (2,) [survivors of the dense block, 0]."""
+    dev = stack.device
+    mats = _fused_mats(casc, step, dev)
+    bounds = np.cumsum([0] + [ny * nx for (*_r, ny, nx) in lvls])
+    ntot = int(bounds[-1])
+    glob = torch.arange(ntot, device=dev)
+    alive, conf = _matmul_block(stack, lvls, step, mats, mats["m1"],
+                                tabs["dense"], glob, torch.zeros(
+                                    ntot, dtype=torch.float32, device=dev),
+                                bounds)
+    count = alive.sum()
+    if tabs["tail"] is None:
+        rows = (glob, alive, conf)
+    else:
+        sidx = _first_by_score(alive, conf, K2)
+        alive2, conf2 = _matmul_block(stack, lvls, step, mats, mats["m2"],
+                                      tabs["tail"], sidx, conf[sidx], bounds)
+        rows = (sidx, alive2 & alive[sidx], conf2)
+    return (torch.stack([r.to(torch.float64) for r in rows], 1),
+            torch.stack([count.to(torch.float64),
+                         torch.zeros((), dtype=torch.float64, device=dev)]))
+
+
 def _gray_u8(image: torch.Tensor) -> torch.Tensor:
     """core.io.rgb_to_gray_u8 on the device (libjpeg's coefficients), as
     float32, as ccv_tpu's in-graph twin."""
@@ -379,7 +589,7 @@ def _level_sat(src: torch.Tensor, casc: IcfCascade, rows: int, cols: int,
         image = _gray_u8(image)[..., None]
     image = F.pad(image, (0, 0, ml, mr, mt, mb))
     chans = icf_channels(image[..., 0] if casc.grayscale else image)
-    return algebra.sat(chans, algebra.PADDING_ZERO)
+    return algebra.sat_auto(chans, algebra.PADDING_ZERO)
 
 
 def _octave_windows(src: torch.Tensor, casc: IcfCascade, lvls, step: int):
@@ -430,18 +640,22 @@ class _Pending:
 
     host: torch.Tensor            # (N,) float64
     ready: Optional[torch.cuda.Event]
-    specs: list                   # (ci, octave, lvls, K1, K2, offset, nrows)
+    specs: list                   # (ci, octave, lvls, form, caps, offset,
+    #   nrows); caps (K1, K2) for "staged", ccv_tpu's for the fused forms
     pyr: list                     # octave sources on the device
     cascades: list
     params: IcfParams
 
 
 def detect_async(a, cascades, params: Optional[IcfParams] = None,
-                 device=None) -> _Pending:
-    """Queue the pyramid and the staged cascades of every octave without
-    waiting for the device; ``detect_collect`` finishes. ``a`` is (H, W[,
-    C]) uint8 on ``device`` (default: where a tensor is, else the card);
-    ``cascades`` an IcfCascade or a list of them."""
+                 device=None, form: str = "staged") -> _Pending:
+    """Queue the pyramid and the cascades of every octave without waiting
+    for the device (the matmul form waits to group its windows by level);
+    ``detect_collect`` finishes. ``a`` is (H, W[, C]) uint8 on ``device``
+    (default: where a tensor is, else the card); ``cascades`` an IcfCascade
+    or a list of them; ``form`` one of ``FORMS``."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
     params = params or IcfParams()
     cascades = (list(cascades) if isinstance(cascades, (list, tuple))
                 else [cascades])
@@ -465,13 +679,24 @@ def detect_async(a, cascades, params: Optional[IcfParams] = None,
             if not lvls:
                 continue
             ntot = sum(ny * nx for (*_r, ny, nx) in lvls)
-            K1, K2 = _icf_capacity1(ntot), _icf_capacity2(ntot)
             flat, base, W1, C = _octave_windows(level, casc, lvls,
                                                 params.step_through)
-            rows, counts = _octave_eval(flat, base,
-                                        _tables(casc, img.device)["phases"],
-                                        K1, K2, W1, C)
-            specs.append((ci, octave, lvls, K1, K2, offset, rows.shape[0]))
+            tabs = _tables(casc, img.device)
+            if form == "staged":
+                caps = (_icf_capacity1(ntot), _icf_capacity2(ntot))
+                rows, counts = _octave_eval(flat, base, tabs["phases"],
+                                            *caps, W1, C)
+            elif form == "slices":
+                caps = _icf_slice_caps(ntot, casc.n_weak)
+                rows, counts = _slices_eval(flat, base, tabs, caps[-1], W1,
+                                            C)
+            else:
+                caps = (_icf_matmul_cap(ntot, casc.n_weak),)
+                rows, counts = _matmul_eval(
+                    flat.view(len(lvls), -1, W1, C), lvls,
+                    params.step_through, casc, tabs, caps[0])
+            specs.append((ci, octave, lvls, form, caps, offset,
+                          rows.shape[0]))
             pieces += [rows.reshape(-1), counts]
             offset += rows.numel() + 2
     ready = None
@@ -504,13 +729,17 @@ def detect_collect(handle: _Pending) -> List[Comp]:
     params = handle.params
     step = params.step_through
     comps_all: List[List[Comp]] = [[] for _ in handle.cascades]
-    for (ci, octave, lvls, K1, K2, off, nrows) in handle.specs:
+    for (ci, octave, lvls, form, caps, off, nrows) in handle.specs:
         casc = handle.cascades[ci]
         rows = arr[off:off + 3 * nrows].reshape(nrows, 3)
         count_a, count_b1 = arr[off + 3 * nrows:off + 3 * nrows + 2]
         phases = _tables(casc, handle.pyr[0].device)["phases"]
-        if ((phases[1] is not None and count_a > K1)
-                or (phases[2] is not None and count_b1 > K2)):
+        if form == "staged":
+            over = ((phases[1] is not None and count_a > caps[0])
+                    or (phases[2] is not None and count_b1 > caps[1]))
+        else:  # ccv_tpu's test for its fused octaves
+            over = count_a > caps[0] or count_b1 > caps[-1]
+        if over:
             RERUNS += 1
             ntot = sum(ny * nx for (*_r, ny, nx) in lvls)
             flat, base, W1, C = _octave_windows(handle.pyr[octave], casc,
@@ -536,9 +765,9 @@ def detect_collect(handle: _Pending) -> List[Comp]:
 
 
 def detect_objects(a, cascades, params: Optional[IcfParams] = None,
-                   device=None) -> List[Comp]:
+                   device=None, form: str = "staged") -> List[Comp]:
     """ccv_icf_detect_objects twin (type-A cascades, ccv_icf.c:2178)."""
-    return detect_collect(detect_async(a, cascades, params, device))
+    return detect_collect(detect_async(a, cascades, params, device, form))
 
 
 def _group_and_filter(comps_all: List[List[Comp]],
@@ -681,8 +910,8 @@ def detect_multiscale(a, ms: IcfMultiscaleCascade,
     comps: List[Comp] = []
     step = params.step_through
     for octave, level in enumerate(pyr):
-        sat = algebra.sat(icf_channels(level[..., 0] if ms.grayscale
-                                       else level), algebra.PADDING_ZERO)
+        sat = algebra.sat_auto(icf_channels(level[..., 0] if ms.grayscale
+                                            else level), algebra.PADDING_ZERO)
         H1, W1, C = sat.shape
         for casc in ms.cascades:
             ny = max(0, -(-(H1 - 1 - casc.height) // step))

@@ -28,9 +28,25 @@ The main path, per image or per batch of same-shape images:
 
 ``detect_async`` queues steps 1-4 without waiting for the device;
 ``detect_collect`` does step 5; ``detect_batch`` does both for a batch.
-ccv_tpu's other staged forms (``slices``, ``xla``, ``matmul``) and its
-autotuned choice between forms are not ported. Cascade files are the
-reference's SQLite format (ccv_scd.c:1547), read with Python's sqlite3.
+
+``form="auto"`` is ccv_tpu's measured per-octave choice (``nn.autotune``,
+op ``scd_octave_exact``, ccv_tpu's ``_octave_extra`` key): on the card the
+whole octave program of each of K1's form and K3's form is timed on zeros
+of the octave source's shape, the winner is kept and run; a batch reuses
+the single image's record. Only kernel forms compete: a plain torch form
+never stands in for a kernel on the card, and a form that failed to run
+there raises rather than losing quietly. On a CPU tensor ``auto`` measures
+nothing and takes ``"pallas_full"``.
+
+ccv_tpu's other staged forms are explicit choices, plain torch ops on both
+devices (``_form_level``, ccv_tpu's ``_make_level_body`` and
+``_eval_level``): ``"slices"`` (box sums from phase-plane corner slices),
+``"xla"`` (the corners stacked as rows, box sums by four row takes) and
+``"matmul"`` (the first-corner-centred corner matrix product, float32 with
+TF32 off). Phase B1 is dense on the card and, on a CPU tensor, ccv_tpu's
+sparse B1 (the first K1 phase-A survivors by a stable sort). Cascade files
+are the reference's SQLite format (ccv_scd.c:1547), read with Python's
+sqlite3.
 """
 
 from __future__ import annotations
@@ -52,7 +68,11 @@ from ccv_tpu_torch.ops import basic, resample
 from ccv_tpu_torch.ops.kernels import scd_cascade, scd_phase
 from ccv_tpu_torch.ops.kernels.scd_cascade import CascadeTables
 
-FORMS = ("pallas_full", "pallas")
+FORMS = ("pallas_full", "pallas")          # the kernel forms (K1, K3)
+PLAIN_FORMS = ("slices", "xla", "matmul")  # ccv_tpu's other staged forms
+AUTO_FORMS = FORMS                         # what form="auto" measures
+ALL_FORMS = FORMS + PLAIN_FORMS + ("auto",)
+OCTAVE_OP = "scd_octave_exact"             # form="auto"'s autotune op
 
 # levels of the staged form run again at full capacity because more windows
 # survived phases A and B1 than K2 holds (the overflow rerun)
@@ -576,6 +596,314 @@ def staged_level(src: torch.Tensor, spec, cascade: ScdClassifierCascade,
 
 
 # ---------------------------------------------------------------------------
+# ccv_tpu's other staged forms: "slices", "xla", "matmul" (plain torch)
+# ---------------------------------------------------------------------------
+
+def _corner_phase(cascade: ScdClassifierCascade, feats: np.ndarray) -> dict:
+    """ccv_tpu's ``_phase_tables`` for the features ``feats``: the corner
+    matrix M (F*4 boxes, nd distinct corners), the corners (nd, 2) as (oy,
+    ox), each box's four corner rows ``cidx`` (F*4, 4) in the order (sy,sx),
+    (sy,dx), (dy,sx), (dy,dx) with signs +, -, -, +, and the weights,
+    biases, stage one-hot (F, S') and thresholds."""
+    sy, dy = cascade.sy[feats], cascade.dy[feats]
+    sx, dx = cascade.sx[feats], cascade.dx[feats]
+    ys = np.stack([sy, sy, dy, dy], axis=-1)
+    xs = np.stack([sx, dx, sx, dx], axis=-1)
+    F_ = len(feats)
+    pairs = np.stack([ys, xs], axis=-1).reshape(-1, 2)
+    uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    M = np.zeros((F_ * 4, len(uniq)), np.float32)
+    np.add.at(M, (np.repeat(np.arange(F_ * 4), 4), inv),
+              np.tile(np.array([1.0, -1.0, -1.0, 1.0], np.float32), F_ * 4))
+    stages = np.unique(cascade.stage_of[feats])
+    onehot = np.zeros((F_, len(stages)), np.float32)
+    for si, st in enumerate(stages):
+        onehot[cascade.stage_of[feats] == st, si] = 1.0
+    return dict(M=M, offsets=uniq.astype(np.int64),
+                cidx=inv.reshape(F_ * 4, 4).astype(np.int64),
+                w=cascade.w[feats].astype(np.float32),
+                bias=cascade.bias[feats].astype(np.float32), onehot=onehot,
+                thresholds=cascade.thresholds[stages].astype(np.float32))
+
+
+def form_tables(cascade: ScdClassifierCascade) -> dict:
+    """The plain staged forms' tables (ccv_tpu's ``_cascade_tables``): per
+    phase (``phase_split``) a ``_corner_phase`` dict or None, every phase's
+    corners (``all_off``), the stage count and the last stage's feature
+    count; built once and kept on the cascade."""
+    tabs = getattr(cascade, "_form_tables", None)
+    if tabs is None:
+        split, split2 = phase_split(cascade.stage_counts)
+        so = cascade.stage_of
+        phases = {}
+        for name, sel in (("phase_a", so < split),
+                          ("phase_b1", (so >= split) & (so < split2)),
+                          ("phase_b2", so >= split2)):
+            feats = np.nonzero(sel)[0]
+            phases[name] = _corner_phase(cascade, feats) if len(feats) \
+                else None
+        tabs = dict(phases, n_stages=cascade.n_stages,
+                    last_count=float(cascade.stage_counts[-1]),
+                    all_off=np.concatenate([p["offsets"] for p in
+                                            phases.values() if p]))
+        cascade._form_tables = tabs
+    return tabs
+
+
+def _tiled_phase(tabs: dict, name: str, step: int) -> Optional[dict]:
+    """tabs[name] with its corners moved onto the per-window tile layout
+    of ``_tiles_at`` (ccv_tpu's ``_tiled_phase`` / ``_tile_selector``): tile
+    position ((oy%step*step + ox%step)*th + oy//step)*tw + ox//step. The
+    tile-layout M is made when the matmul form first asks for it."""
+    phase = tabs[name]
+    if phase is None:
+        return None
+    got = tabs.get(("tiled", name, step))
+    if got is None:
+        all_off = tabs["all_off"]
+        th = int(all_off[:, 0].max()) // step + 1
+        tw = int(all_off[:, 1].max()) // step + 1
+        off = phase["offsets"]
+        lin = ((((off[:, 0] % step) * step + off[:, 1] % step) * th
+                + off[:, 0] // step) * tw + off[:, 1] // step)
+        got = {k: v for k, v in phase.items() if k != "_dev"}
+        got.update(cidx=lin[phase["cidx"]], lin=lin,
+                   width=step * step * th * tw)
+        tabs[("tiled", name, step)] = got
+    return got
+
+
+def _phase_on(phase: dict, dev: torch.device, matmul: bool) -> dict:
+    """Device copies of a phase's tables, made once per device (M, and the
+    tile layout's M, only for the matmul form)."""
+    cache = phase.setdefault("_dev", {})
+    key = str(dev)
+    d = cache.get(key)
+    if d is None:
+        d = {k: to_device(phase[k], dev)
+             for k in ("cidx", "w", "bias", "onehot", "thresholds")}
+        cache[key] = d
+    if matmul and "M" not in d:
+        M = phase["M"]
+        if "lin" in phase:  # the tile layout: column j moves to lin[j]
+            M = np.zeros((M.shape[0], phase["width"]), np.float32)
+            M[:, phase["lin"]] = phase["M"]
+        d["M"] = to_device(M, dev)
+    return d
+
+
+def _surf_eval_f4n8(box: torch.Tensor, ph: dict):
+    """(stage sums (n, S'), passed (n,)) from box sums (F, 4, n, 8): the
+    L2Hys normalise, clip and renormalise and the stump dot
+    (ccv_scd.c:502-533) reduced over boxes and channels in place (ccv_tpu's
+    ``_surf_eval_f4n8``)."""
+    F_, n = box.shape[0], box.shape[2]
+    inv = 1.0 / (torch.sqrt((box * box).sum(dim=(1, 3))) + 1e-6)
+    surf = torch.clamp(box * inv[:, None, :, None], -scd_cascade.THETA,
+                       scd_cascade.THETA)
+    inv2 = 1.0 / (torch.sqrt((surf * surf).sum(dim=(1, 3))) + 1e-6)
+    dot = (surf * ph["w"].reshape(F_, 4, 1, 8)).sum(dim=(1, 3))   # (F, n)
+    resp = torch.tanh(0.5 * (dot * inv2 + ph["bias"][:, None]))
+    v = resp.T @ ph["onehot"]                                      # (n, S')
+    return v, (v > ph["thresholds"]).all(dim=-1)
+
+
+def _box_from_Dt(Dt: torch.Tensor, ph: dict, form: str) -> torch.Tensor:
+    """Box sums (F*4, n*8) from the corner rows Dt (nd, n*8): the matmul
+    form's corner matrix product on first-corner-centred rows (every box
+    row of M sums to zero), any other form's four row takes c0 - c1 - c2 +
+    c3."""
+    if form == "matmul":
+        return ph["M"] @ (Dt - Dt[0:1])
+    ci = ph["cidx"]
+    return ((Dt[ci[:, 0]] - Dt[ci[:, 1]]) - Dt[ci[:, 2]]) + Dt[ci[:, 3]]
+
+
+def _plane_planes(sat8: torch.Tensor, ny: int, nx: int, max_oy: int,
+                  max_ox: int, step: int):
+    """(planes (step, step, Hp/step, Wp/step, 8), th, tw): the (H1, W1, 8)
+    SAT zero-padded or cut to Hp = (ny + th) * step rows and Wp columns and
+    split into step x step phase planes (ccv_tpu's ``_phase_planes``), so
+    every stride-``step`` corner is a unit-stride slice of one plane."""
+    th, tw = max_oy // step + 1, max_ox // step + 1
+    Hp, Wp = (ny + th) * step, (nx + tw) * step
+    H1, W1 = sat8.shape[:2]
+    s = F.pad(sat8, (0, 0, 0, max(0, Wp - W1), 0, max(0, Hp - H1)))[:Hp, :Wp]
+    return (s.reshape(Hp // step, step, Wp // step, step, 8)
+            .permute(1, 3, 0, 2, 4), th, tw)
+
+
+def _dense_phase(planes: torch.Tensor, phase: dict, ny: int, nx: int,
+                 step: int, form: str):
+    """One phase over every window of the grid: (stage sums, passed)."""
+    n = ny * nx
+    ph = _phase_on(phase, planes.device, form == "matmul")
+    cache: dict = {}
+
+    def corner(j: int) -> torch.Tensor:                # (n, 8)
+        got = cache.get(j)
+        if got is None:
+            oy, ox = (int(v) for v in phase["offsets"][j])
+            got = planes[oy % step, ox % step, oy // step:oy // step + ny,
+                         ox // step:ox // step + nx].reshape(n, 8)
+            cache[j] = got
+        return got
+
+    F_ = phase["w"].shape[0]
+    if form == "slices":
+        # box sums straight off the plane slices: no corner rows, no take
+        box = torch.stack([((corner(a) - corner(b)) - corner(c)) + corner(d)
+                           for a, b, c, d in phase["cidx"].tolist()])
+    else:
+        Dt = torch.stack([corner(j).reshape(n * 8)
+                          for j in range(len(phase["offsets"]))])
+        box = _box_from_Dt(Dt, ph, form)
+    return _surf_eval_f4n8(box.reshape(F_, 4, n, 8), ph)
+
+
+def _tiles_at(planes: torch.Tensor, sel: torch.Tensor, nx: int, th: int,
+              tw: int) -> torch.Tensor:
+    """(K, step*step*th*tw, 8): each selected window's tile of the phase
+    planes in the tile layout of ``_tiled_phase``."""
+    pl = planes.permute(2, 3, 0, 1, 4)                 # (Hs, Ws, s, s, 8)
+    ry = (sel // nx)[:, None] + torch.arange(th, device=sel.device)
+    rx = (sel % nx)[:, None] + torch.arange(tw, device=sel.device)
+    t = pl[ry[:, :, None], rx[:, None, :]]             # (K, th, tw, s, s, 8)
+    return t.permute(0, 3, 4, 1, 2, 5).reshape(sel.shape[0], -1, 8)
+
+
+def _phase_at(planes: torch.Tensor, sel: torch.Tensor, nx: int, th: int,
+              tw: int, phase: dict, form: str):
+    """A tiled phase at the windows ``sel``: (stage sums (K, S'), passed
+    (K,)), from their tiles (``_tiles_at``) in chunks of at most
+    _GATHER_FLOATS tile floats."""
+    ph = _phase_on(phase, planes.device, form == "matmul")
+    chunk = max(1, _GATHER_FLOATS // (phase["width"] * 8))
+    vs, ps = [], []
+    for s0 in range(0, sel.shape[0], chunk):
+        D = _tiles_at(planes, sel[s0:s0 + chunk], nx, th, tw)
+        n = D.shape[0]
+        Dt = D.permute(1, 0, 2).reshape(D.shape[1], n * 8)
+        box = _box_from_Dt(Dt, ph, form)
+        v, p = _surf_eval_f4n8(box.reshape(phase["w"].shape[0], 4, n, 8), ph)
+        vs.append(v)
+        ps.append(p)
+    return torch.cat(vs), torch.cat(ps)
+
+
+def _first(mask: torch.Tensor, K: int) -> torch.Tensor:
+    """The positions of mask's set entries first, in order, then the rest
+    (a stable sort of ~mask), cut to K."""
+    return torch.sort((~mask).to(torch.uint8), stable=True).indices[:K]
+
+
+def _form_level(sat8: torch.Tensor, tabs: dict, ny: int, nx: int,
+                step: int, form: str, K2: int, K1: Optional[int] = None):
+    """One level of a plain staged form (ccv_tpu's ``_eval_level``) from its
+    zero-padded (H1, W1, 8) SAT: phase A over every window; on the card
+    phase B1 over every window too, then ONE compaction of the A & B1
+    survivors to the first K2 and phase B2 on their tiles; on a CPU tensor
+    ccv_tpu's sparse B1, phase B1 on the tiles of the first K1 phase-A
+    survivors (default ``_level_capacity``), then B2 on the first K2 of
+    those that pass. Returns (idx, passed, conf, counts (2,)): counts are the
+    survivors of A and of A & B1, for the host's overflow test."""
+    all_off = tabs["all_off"]
+    planes, th, tw = _plane_planes(sat8, ny, nx, int(all_off[:, 0].max()),
+                                   int(all_off[:, 1].max()), step)
+    dev = sat8.device
+    n = ny * nx
+    last, S = tabs["last_count"], tabs["n_stages"]
+    v_a, pass_a = _dense_phase(planes, tabs["phase_a"], ny, nx, step, form)
+    idx = torch.arange(n, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    count_a = pass_a.sum()
+    if tabs["phase_b1"] is None:
+        return (idx, pass_a, v_a[:, -1] / last + (S - 1),
+                torch.stack([count_a, zero]))
+    b1 = _tiled_phase(tabs, "phase_b1", step)
+    b2 = _tiled_phase(tabs, "phase_b2", step)
+    if dev.type != "cuda":
+        K1 = _level_capacity(n) if K1 is None else K1
+        idx1 = _first(pass_a, K1)
+        v_b1, pass_b1 = _phase_at(planes, idx1, nx, th, tw, b1, form)
+        valid1 = ((torch.arange(K1, device=dev) < torch.clamp(count_a,
+                                                               max=K1))
+                  & pass_a[idx1])
+        alive1 = pass_b1 & valid1
+        if b2 is None:
+            return (idx1, alive1, v_b1[:, -1] / last + (S - 1),
+                    torch.stack([count_a, zero]))
+        count_b1 = alive1.sum()
+        r2 = _first(alive1, K2)
+        v_b2, pass_b2 = _phase_at(planes, idx1[r2], nx, th, tw, b2, form)
+        valid2 = ((torch.arange(K2, device=dev) < torch.clamp(count_b1,
+                                                               max=K2))
+                  & alive1[r2])
+        return (idx1[r2], pass_b2 & valid2, v_b2[:, -1] / last + (S - 1),
+                torch.stack([count_a, count_b1]))
+    v_b1, pass_b1 = _dense_phase(planes, tabs["phase_b1"], ny, nx, step,
+                                 form)
+    alive1 = pass_a & pass_b1
+    if b2 is None:
+        return (idx, alive1, v_b1[:, -1] / last + (S - 1),
+                torch.stack([count_a, zero]))
+    count_b1 = alive1.sum()
+    idx2 = _first(alive1, K2)
+    v_b2, pass_b2 = _phase_at(planes, idx2, nx, th, tw, b2, form)
+    valid2 = ((torch.arange(K2, device=dev) < torch.clamp(count_b1, max=K2))
+              & alive1[idx2])
+    return (idx2, pass_b2 & valid2, v_b2[:, -1] / last + (S - 1),
+            torch.stack([count_a, count_b1]))
+
+
+def _form_out_len(tabs: dict, nwin: int, K2: int, sparse: bool) -> int:
+    """Rows a level gives in a plain form (ccv_tpu's ``_out_len``)."""
+    if tabs["phase_b1"] is None:
+        return nwin
+    if tabs["phase_b2"] is None:
+        return _level_capacity(nwin) if sparse else nwin
+    return K2
+
+
+def _form_eval(sat_l: torch.Tensor, lspecs, B: int, tabs: dict, step: int,
+               form: str, caps):
+    """Every level of every image of an octave's (B*L, 8, H1, W1) SAT stack
+    in a plain form: per level a float32 (n, 3) tensor of rows [window,
+    passed, conf] and the (B*L, 2) survivor counts."""
+    rows, counts = [], []
+    L = len(lspecs)
+    for b in range(B):
+        for li, (_k, _r, _c, ny, nx) in enumerate(lspecs):
+            idx, passed, conf, c2 = _form_level(
+                sat_l[b * L + li].permute(1, 2, 0), tabs, ny, nx, step, form,
+                caps[li])
+            rows.append(torch.stack([idx.to(torch.float32),
+                                     passed.to(torch.float32),
+                                     conf.to(torch.float32)], dim=1))
+            counts.append(c2.to(torch.float32))
+    return rows, torch.stack(counts)
+
+
+def form_level(src: torch.Tensor, spec, cascade: ScdClassifierCascade,
+               params: ScdParams, form: str, capacity: Optional[int] = None):
+    """One level of a plain staged form from its octave's (H, W, C) source,
+    at ``capacity`` (default: every window, as the overflow rerun runs it;
+    K1 and K2 both). Waits for the device; returns numpy (idx, passed,
+    conf, count2)."""
+    if form not in PLAIN_FORMS:
+        raise ValueError(f"form must be one of {PLAIN_FORMS}, got {form!r}")
+    (_octave, k, rows, cols, ny, nx, _scale) = spec
+    sat = _octave_sats(src[None], [(k, rows, cols, ny, nx)], cascade.margin)
+    K = ny * nx if capacity is None else capacity
+    out = _form_level(sat[0].permute(1, 2, 0), form_tables(cascade), ny, nx,
+                      params.step_through, form, K, K)
+    idx, passed, conf, count2 = (t.cpu().numpy() for t in out)
+    return (idx.astype(np.int64), passed.astype(bool),
+            conf.astype(np.float32), count2.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
 # detect
 # ---------------------------------------------------------------------------
 
@@ -586,55 +914,133 @@ class _Pending:
 
     host: torch.Tensor            # (B, N) float32: per image, per octave
     ready: Optional[torch.cuda.Event]
-    layout: list                  # per octave (offset, L, NY, NX) for
-    #   "pallas_full" (passed and conf planes), (offset, lens) for "pallas"
-    #   (rows, then the count pairs)
+    layout: list                  # per octave (form, offset, ...):
+    #   ("pallas_full", offset, L, NY, NX): passed and conf planes;
+    #   (form, offset, lens, sparse) for the staged forms: rows, then the
+    #   count pairs; sparse: the CPU's sparse phase B1 (plain forms)
     specs: tuple
     cascade: ScdClassifierCascade
     params: ScdParams
     form: str
     evaluate: Callable
-    pyr: dict                     # "pallas": octave -> its (B, H, W, C)
+    pyr: dict                     # staged forms: octave -> its (B, H, W, C)
     #   source on the device, for the overflow rerun
+
+
+def _octave_extra(lspecs, cascade: ScdClassifierCascade, step: int,
+                  batch: bool) -> str:
+    """ccv_tpu's ``_octave_extra``: the autotune key's extra field for an
+    octave's level geometry, so both packages name an octave alike."""
+    geom = "o" + ";".join(f"{r}x{c}g{ny}x{nx}"
+                          for (_k, r, c, ny, nx) in lspecs)
+    return f"{geom}s{step}n{len(cascade.stage_counts)}b{int(batch)}v5"
+
+
+def _octave_piece(form: str, sat_l: torch.Tensor, lspecs, B: int,
+                  cascade: ScdClassifierCascade, step: int,
+                  evaluate: Optional[Callable]):
+    """One octave of a (B*L, 8, H1, W1) SAT stack in ``form``: (piece (B, N)
+    float32, its layout entry without the offset)."""
+    dims = np.array([(ny, nx) for (*_r, ny, nx) in lspecs], np.int64)
+    L, dims_b = len(lspecs), np.tile(dims, (B, 1))
+    if form == "pallas_full":
+        conf, passed = (evaluate or scd_cascade.cascade_eval_levels)(
+            sat_l, cascade_tables(cascade), step, dims_b)
+        conf = (conf / float(cascade.stage_counts[-1])
+                + (cascade.n_stages - 1))
+        piece = torch.stack([passed.to(torch.float32), conf]).reshape(
+            2, B, -1).transpose(0, 1).reshape(B, -1)
+        return piece, (L,) + tuple(conf.shape[1:])
+    caps = [_level_capacity2(int(ny) * int(nx)) for ny, nx in dims]
+    if form == "pallas":
+        tabs = staged_tables(cascade)
+        rows, counts = _staged_eval(sat_l, dims_b, tabs, step, caps * B,
+                                    evaluate or scd_phase.phase_a)
+        lens = tuple(_out_len(tabs, int(ny) * int(nx), cap)
+                     for (ny, nx), cap in zip(dims, caps))
+        sparse = False
+    else:
+        tabs = form_tables(cascade)
+        rows, counts = _form_eval(sat_l, lspecs, B, tabs, step, form, caps)
+        sparse = sat_l.device.type != "cuda"
+        lens = tuple(_form_out_len(tabs, int(ny) * int(nx), cap, sparse)
+                     for (ny, nx), cap in zip(dims, caps))
+    piece = torch.cat([torch.cat(rows).reshape(B, -1),
+                       counts.reshape(B, -1)], dim=1)
+    return piece, (lens, sparse)
+
+
+def _octave_program(form: str, lspecs, cascade: ScdClassifierCascade,
+                    step: int) -> Callable:
+    """The whole octave in ``form`` from its (H, W, C) source, the unit
+    ``form="auto"`` times: prolog, then the form's evaluation. Takes
+    (source, last stage's count) as ccv_tpu's octave programs do; the count
+    is in the tables already."""
+    def run(src: torch.Tensor, _last_count: torch.Tensor) -> torch.Tensor:
+        sat_l = _octave_sats(src[None], lspecs, cascade.margin)
+        return _octave_piece(form, sat_l, lspecs, 1, cascade, step, None)[0]
+    return run
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _auto_form(src: torch.Tensor, lspecs, cascade: ScdClassifierCascade,
+               step: int) -> str:
+    """form="auto" for one octave of a (B, H, W, C) source: "pallas_full" on
+    a CPU tensor; on the card the single image's recorded choice, measured
+    now on a miss (ccv_tpu's ``_get_octave_fn``, which a batch shares).
+    Raises if a form recorded no time on the card: the rule that a form that
+    cannot run never wins must not swap K1 and K3 quietly."""
+    if not _on_card(src):
+        return "pallas_full"
+    from ccv_tpu_torch.nn import autotune
+
+    args = (torch.zeros(tuple(src.shape[1:]), dtype=src.dtype,
+                        device=src.device),
+            torch.zeros((), dtype=torch.float32, device=src.device))
+    extra = _octave_extra(lspecs, cascade, step, False)
+    variants = {f: _octave_program(f, lspecs, cascade, step)
+                for f in AUTO_FORMS}
+    fn = autotune.choose(OCTAVE_OP, variants, args, default="pallas_full",
+                         extra=extra)
+    rec = autotune.decisions().get(autotune._key(OCTAVE_OP, args, extra))
+    failed = sorted(k for k, ms in (rec or {}).get("ms", {}).items()
+                    if ms is None)
+    if failed:
+        raise RuntimeError(
+            f"form='auto': the {', '.join(failed)} form of octave {extra} "
+            f"could not run on {autotune._kind(src.device)}: "
+            f"{rec.get('errors', {})}")
+    return next(name for name, f in variants.items() if f is fn)
 
 
 def _dispatch(a: torch.Tensor, cascade: ScdClassifierCascade,
               params: ScdParams, form: str,
               evaluate: Optional[Callable]) -> _Pending:
-    """Queue a (B, H, W, C) batch: per octave one launch of K1 or K3 for
-    every level of every image, then one copy of the packed results to
-    pinned host memory, all without waiting for the device."""
-    if form not in FORMS:
-        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    """Queue a (B, H, W, C) batch: per octave the prolog and the form's
+    evaluation of every level of every image (one launch of K1 or two of K3
+    on the card), then one copy of the packed results to pinned host
+    memory, all without waiting for the device (``auto`` waits while it
+    measures an octave it has no record of)."""
+    if form not in ALL_FORMS:
+        raise ValueError(f"form must be one of {ALL_FORMS}, got {form!r}")
+    if evaluate is not None and form not in FORMS:
+        raise ValueError(f"evaluate replaces the kernel of form "
+                         f"'pallas_full' or 'pallas', not of {form!r}")
     B, H, W = a.shape[:3]
     step = params.step_through
     specs, scale_upto = _level_specs(H, W, cascade, params)
-    if form == "pallas_full":
-        tabs = cascade_tables(cascade)
-        evaluate = evaluate or scd_cascade.cascade_eval_levels
-    else:
-        tabs = staged_tables(cascade)
-        evaluate = evaluate or scd_phase.phase_a
     pieces, layout, pyr, offset = [], [], {}, 0
-    for octave, src, lspecs, sat_l, dims in _octaves(a, specs, scale_upto,
+    for octave, src, lspecs, sat_l, _dims in _octaves(a, specs, scale_upto,
                                                       cascade.margin):
-        L, dims_b = len(lspecs), np.tile(dims, (B, 1))
-        if form == "pallas_full":
-            conf, passed = evaluate(sat_l, tabs, step, dims_b)
-            conf = (conf / float(cascade.stage_counts[-1])
-                    + (cascade.n_stages - 1))
-            piece = torch.stack([passed.to(torch.float32), conf]).reshape(
-                2, B, -1).transpose(0, 1).reshape(B, -1)
-            layout.append((offset, L) + tuple(conf.shape[1:]))
-        else:
-            caps = [_level_capacity2(int(ny) * int(nx)) for ny, nx in dims]
-            rows, counts = _staged_eval(sat_l, dims_b, tabs, step, caps * B,
-                                        evaluate)
-            piece = torch.cat([torch.cat(rows).reshape(B, -1),
-                               counts.reshape(B, -1)], dim=1)
-            layout.append((offset, tuple(
-                _out_len(tabs, int(ny) * int(nx), cap)
-                for (ny, nx), cap in zip(dims, caps))))
+        form_o = (_auto_form(src, lspecs, cascade, step) if form == "auto"
+                  else form)
+        piece, lay = _octave_piece(form_o, sat_l, lspecs, B, cascade, step,
+                                   evaluate)
+        layout.append((form_o, offset) + lay)
+        if form_o != "pallas_full":
             pyr[octave] = src
         pieces.append(piece)
         offset += piece.shape[1]
@@ -665,9 +1071,11 @@ def detect_async(img, cascade: ScdClassifierCascade,
     """Queue the pyramid and one kernel launch per octave without waiting
     for the device; returns a handle for detect_collect. ``img`` is
     (H, W[, C]) on ``device`` (default: where a tensor is, else the default
-    device). ``form`` is "pallas_full" (kernel K1, the whole cascade) or
-    "pallas" (the staged cascade, kernel K3 for phases A and B1).
-    ``evaluate`` replaces the form's kernel (same signature as
+    device). ``form`` is "pallas_full" (kernel K1, the whole cascade),
+    "pallas" (the staged cascade, kernel K3 for phases A and B1), "auto"
+    (the measured choice between those two per octave on the card), or one
+    of the plain staged forms "slices", "xla", "matmul". ``evaluate``
+    replaces the kernel of "pallas_full" or "pallas" (same signature as
     ``scd_cascade.cascade_eval_levels`` or ``scd_phase.phase_a``, which the
     staged form calls with ``planes=``) to compare it with another."""
     params = params or ScdParams()
@@ -703,60 +1111,91 @@ def _host(handle: _Pending, b: int) -> np.ndarray:
     return handle.host[b].numpy()
 
 
-def level_planes(handle: _Pending, b: int = 0):
-    """Wait for a "pallas_full" dispatch; per level of image ``b`` in specs
-    order, (passed (ny, nx) bool, conf (ny, nx) float32) numpy planes."""
-    if handle.form != "pallas_full":
-        raise ValueError(f"level_planes reads a pallas_full dispatch, not "
-                         f"{handle.form!r}: use level_rows")
+def _octave_levels(handle: _Pending, b: int):
+    """Per octave of image ``b``: (form, sparse, per level of it either
+    (passed (ny, nx) bool, conf (ny, nx) float32) planes for "pallas_full",
+    or numpy (idx, passed, conf, count2) rows as the device left them)."""
     arr = _host(handle, b)
-    outs = []
-    for offset, L, NY, NX in handle.layout:
-        grid = arr[offset:offset + 2 * L * NY * NX].reshape(2, L, NY, NX)
-        outs.extend(grid[:, li] for li in range(L))
-    return [(g[0, :ny, :nx] != 0.0, g[1, :ny, :nx])
-            for g, (*_r, ny, nx, _s) in zip(outs, handle.specs)]
-
-
-def level_rows(handle: _Pending, b: int = 0):
-    """Wait for a "pallas" dispatch; per level of image ``b`` in specs
-    order, numpy (idx, passed, conf, count2) as the device left them (no
-    overflow rerun)."""
-    if handle.form != "pallas":
-        raise ValueError(f"level_rows reads a pallas dispatch, not "
-                         f"{handle.form!r}: use level_planes")
-    arr = _host(handle, b)
-    outs = []
-    for offset, lens in handle.layout:
+    specs = iter(handle.specs)
+    out = []
+    for entry in handle.layout:
+        form, offset = entry[:2]
+        if form == "pallas_full":
+            L, NY, NX = entry[2:]
+            grid = arr[offset:offset + 2 * L * NY * NX].reshape(2, L, NY, NX)
+            levels = []
+            for li in range(L):
+                (*_r, ny, nx, _s) = next(specs)
+                levels.append((grid[0, li, :ny, :nx] != 0.0,
+                               grid[1, li, :ny, :nx]))
+            out.append((form, False, levels))
+            continue
+        lens, sparse = entry[2:]
         n = sum(lens)
         rows = arr[offset:offset + 3 * n].reshape(n, 3)
         counts = arr[offset + 3 * n:offset + 3 * n + 2 * len(lens)].reshape(
             -1, 2)
         starts = np.cumsum((0,) + lens)
-        outs.extend((rows[s:e, 0].astype(np.int64), rows[s:e, 1] != 0.0,
-                     rows[s:e, 2], counts[li])
-                    for li, (s, e) in enumerate(zip(starts[:-1], starts[1:])))
-    return outs
+        out.append((form, sparse, [
+            (rows[s:e, 0].astype(np.int64), rows[s:e, 1] != 0.0, rows[s:e, 2],
+             counts[li])
+            for li, (s, e) in enumerate(zip(starts[:-1], starts[1:]))]))
+        for _ in lens:
+            next(specs)
+    return out
+
+
+def level_planes(handle: _Pending, b: int = 0):
+    """Wait for a "pallas_full" dispatch; per level of image ``b`` in specs
+    order, (passed (ny, nx) bool, conf (ny, nx) float32) numpy planes."""
+    octs = _octave_levels(handle, b)
+    if any(form != "pallas_full" for form, _s, _l in octs):
+        raise ValueError(f"level_planes reads a pallas_full dispatch, not "
+                         f"{handle.form!r}: use level_rows")
+    return [lv for _f, _s, levels in octs for lv in levels]
+
+
+def level_rows(handle: _Pending, b: int = 0):
+    """Wait for a dispatch of a staged form; per level of image ``b`` in
+    specs order, numpy (idx, passed, conf, count2) as the device left them
+    (no overflow rerun)."""
+    octs = _octave_levels(handle, b)
+    if any(form == "pallas_full" for form, _s, _l in octs):
+        raise ValueError(f"level_rows reads a dispatch of a staged form, "
+                         f"not {handle.form!r}: use level_planes")
+    return [lv for _f, _s, levels in octs for lv in levels]
 
 
 def _collect(handle: _Pending, b: int) -> List[Comp]:
     """Image ``b`` of a dispatch: its passed windows (rerunning any level
-    whose survivors overflowed K2) -> rects -> merge_detections."""
+    whose survivors overflowed a capacity) -> rects -> merge_detections."""
     global RERUNS
     cascade, params = handle.cascade, handle.params
     outs = []
-    if handle.form == "pallas_full":
-        for passed, conf in level_planes(handle, b):
-            idx = np.flatnonzero(passed)
-            outs.append((idx, conf.reshape(-1)[idx]))
-    else:
-        for spec, (idx, passed, conf, count2) in zip(
-                handle.specs, level_rows(handle, b)):
-            if count2[1] > _level_capacity2(spec[4] * spec[5]):
+    specs = iter(handle.specs)
+    for form, sparse, levels in _octave_levels(handle, b):
+        for level in levels:
+            spec = next(specs)
+            if form == "pallas_full":
+                passed, conf = level
+                idx = np.flatnonzero(passed)
+                outs.append((idx, conf.reshape(-1)[idx]))
+                continue
+            idx, passed, conf, count2 = level
+            nwin = spec[4] * spec[5]
+            over = count2[1] > _level_capacity2(nwin)
+            if sparse and form_tables(cascade)["phase_b1"] is not None:
+                over = over or count2[0] > _level_capacity(nwin)
+            if over:
                 RERUNS += 1
-                idx, passed, conf, _ = staged_level(
-                    handle.pyr[spec[0]][b], spec, cascade, params,
-                    evaluate=handle.evaluate)
+                src = handle.pyr[spec[0]][b]
+                if form == "pallas":
+                    idx, passed, conf, _ = staged_level(
+                        src, spec, cascade, params,
+                        evaluate=handle.evaluate)
+                else:
+                    idx, passed, conf, _ = form_level(src, spec, cascade,
+                                                      params, form)
             outs.append((idx[passed], conf[passed]))
     eff_h = cascade.height - cascade.margin[1] - cascade.margin[3]
     eff_w = cascade.width - cascade.margin[0] - cascade.margin[2]
@@ -776,7 +1215,8 @@ def detect(img, cascade: ScdClassifierCascade,
            device: _device.DeviceLike = None,
            evaluate: Optional[Callable] = None,
            form: str = "pallas_full") -> List[Comp]:
-    """ccv_scd_detect_objects twin (ccv_scd.c:1653) for a single cascade."""
+    """ccv_scd_detect_objects twin (ccv_scd.c:1653) for a single cascade;
+    ``form`` as ``detect_async``'s."""
     return detect_collect(detect_async(img, cascade, params, device,
                                        evaluate, form))
 
@@ -788,7 +1228,8 @@ def detect_batch(imgs, cascade: ScdClassifierCascade,
     """``detect`` for a (B, H, W[, C]) batch of same-shape images: one
     kernel launch per octave for the whole batch (its B*L levels on the
     kernel's level axis) and one device->host copy; a level that overflows
-    K2 is rerun for its image alone."""
+    K2 is rerun for its image alone. ``form="auto"`` reuses the single
+    image's recorded choice for each octave (measuring it on a miss)."""
     params = params or ScdParams()
     handle = _dispatch(_image(imgs, cascade, params, device, batch=True),
                        cascade, params, form, None)

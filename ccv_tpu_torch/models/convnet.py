@@ -17,8 +17,10 @@ grouped convolution (``groups=partition``): the same channel split as
 ``ccv_tpu``'s convolution per partition. Pools let windows overhang the
 bottom and right edges (the reference's ceiled output size), padded as
 ``ccv_tpu`` pads them: -inf for max, and an average over the cells inside.
-``supervised_train`` (with bin/cifar-10, image-net and cnnvldtr) is not
-ported yet: it is the next slice; the classic detectors' trainers are in
+``supervised_train`` (ccv_convnet_supervised_train) trains a wire-format
+net by SGD with momentum and decay, the gradients from torch autograd
+through ``_layer_forward``; its CLIs are ``bin/cifar_10``, ``bin/image_net``
+and ``bin/cnnvldtr``. The classic detectors' trainers are in
 ``ccv_tpu_torch.train`` (scd, icf, bbf, swt, dpm).
 """
 
@@ -172,17 +174,23 @@ class ConvnetLayer:
         return r, c
 
 
+def _relu(y: torch.Tensor) -> torch.Tensor:
+    """max(y, 0) as ccv_tpu's ``jnp.maximum(y, 0.0)``: at y = 0 the gradient
+    is split, half to y (torch.relu gives 0 there)."""
+    return torch.maximum(y, y.new_zeros(()))
+
+
 def _layer_forward(layer: ConvnetLayer, x: torch.Tensor) -> torch.Tensor:
     """One layer on an NHWC float32 batch, as
     _ccv_convnet_layer_forward_propagate (ccv_convnet.c:578)."""
     if layer.type == CONVOLUTIONAL:
         y = ops.conv2d(x, layer.w, layer.bias, stride=(layer.strides,) * 2,
                        padding=layer.border, groups=layer.partition)
-        return torch.relu(y)  # a convolution always applies ReLU
+        return _relu(y)  # a convolution always applies ReLU
     if layer.type == FULL_CONNECT:
         flat = x.reshape(x.shape[0], -1)  # H, W, C row-major, as the reference
         y = torch.matmul(flat, layer.w.T) + layer.bias
-        return torch.relu(y) if layer.relu else y
+        return _relu(y) if layer.relu else y
     if layer.type in (MAX_POOL, AVERAGE_POOL):
         # the output size ceils, so windows may overhang the bottom/right
         # edge: overhanging cells read nothing (max) or are left out of the
@@ -191,6 +199,12 @@ def _layer_forward(layer: ConvnetLayer, x: torch.Tensor) -> torch.Tensor:
         s, k, b = layer.strides, layer.size, layer.border
         out_r = (H + 2 * b - k + s - 1) // s + 1
         out_c = (W + 2 * b - k + s - 1) // s + 1
+        if out_r <= 0 or out_c <= 0:
+            # a window larger than its input by more than a stride leaves
+            # no output, as ccv_tpu's reduce_window does (bin/image-net's
+            # self-test net ends so); torch's pools refuse the shape
+            return x.new_zeros((x.shape[0], max(out_r, 0), max(out_c, 0),
+                                x.shape[3]))
         eh = max(0, (out_r - 1) * s + k - 2 * b - H)
         ew = max(0, (out_c - 1) * s + k - 2 * b - W)
         pad = ((0, 0), (b, b + eh), (b, b + ew), (0, 0))
@@ -454,3 +468,132 @@ class Convnet:
         order = np.argsort(-probs, kind="stable")[:tops]
         denom = z.shape[0]
         return [(int(i), float(probs[i] / denom)) for i in order]
+
+
+# ---------------------------------------------------------------------------
+# supervised training (ccv_convnet_supervised_train, ccv_convnet.c:1304)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ConvnetTrainParams:
+    """ccv_convnet_train_param_t twin (flattened: one learn-rate set for
+    all layers)."""
+
+    max_epoch: int = 10
+    mini_batch: int = 64
+    learn_rate: float = 0.01
+    momentum: float = 0.9
+    decay: float = 0.0005
+    symmetric: bool = False   # random horizontal flips like the reference
+
+
+def _trainable(layers) -> List[int]:
+    return [i for i, l in enumerate(layers)
+            if l.type in (CONVOLUTIONAL, FULL_CONNECT)]
+
+
+def supervised_train(net: Convnet, images, labels,
+                     params: Optional[ConvnetTrainParams] = None,
+                     filename: Optional[str] = None,
+                     tests: Optional[tuple] = None, rng_seed: int = 0,
+                     device: _device.DeviceLike = None):
+    """Train the wire-format net with the reference's update
+    (_ccv_convnet_update): v = momentum * v - decay * rate * p - rate * g,
+    then p = p + v, g the gradient of the batch's mean negative
+    log-likelihood. ``images`` (N, H, W, C) uint8 and ``labels`` (N,) are
+    host arrays; ``mean_activity`` is taken off the images as float32.
+
+    Runs on ``device`` (the net moves there), else on the net's device, in
+    the dtype of its weights. Draws from ``np.random.default_rng(rng_seed)``
+    in ccv_tpu's order: a permutation each epoch, then with ``symmetric``
+    ``random(batch)`` each batch for the flips. Batches go to the device
+    through pinned memory. After every epoch the weights are written back
+    into ``net.layers`` and, with ``filename``, the net is saved there (the
+    momentum is not). Returns per epoch (mean loss, test accuracy or
+    None)."""
+    params = params or ConvnetTrainParams()
+    dev = net.device if device is None else torch.device(device)
+    if dev != net.device:
+        net.device = dev
+        for lay in net.layers:
+            if lay.w is not None:
+                lay.w, lay.bias = lay.w.to(dev), lay.bias.to(dev)
+        if net.mean_activity is not None:
+            net.mean_activity = net.mean_activity.to(dev)
+    idxs = _trainable(net.layers)
+    weights = [net.layers[i].w.detach().clone().requires_grad_(True)
+               for i in idxs]
+    biases = [net.layers[i].bias.detach().clone().requires_grad_(True)
+              for i in idxs]
+    flat_p = weights + biases
+    vel = [torch.zeros_like(p) for p in flat_p]
+    dtype = weights[0].dtype
+    layer_list = net.layers
+
+    def forward(x):
+        for i, lay in enumerate(layer_list):
+            if lay.type in (CONVOLUTIONAL, FULL_CONNECT):
+                k = idxs.index(i)
+                lay = dataclasses.replace(lay, w=weights[k], bias=biases[k])
+            if lay.type == FULL_CONNECT and x.dim() > 2:
+                x = x.reshape(x.shape[0], -1)
+            x = _layer_forward(lay, x)
+        return x
+
+    rate, momentum = params.learn_rate, params.momentum
+    decay_rate = params.decay * params.learn_rate
+
+    def step(x, y):
+        logp = torch.log_softmax(forward(x), dim=-1)
+        loss = -logp.gather(1, y[:, None]).mean()
+        # a layer cut off by an empty pool gets zeros, as jax.grad gives
+        grads = torch.autograd.grad(loss, flat_p, allow_unused=True,
+                                    materialize_grads=True)
+        with torch.no_grad():
+            for p, g, v in zip(flat_p, grads, vel):
+                v.copy_(momentum * v - decay_rate * p - rate * g)
+                p.add_(v)
+        return loss.detach()
+
+    mean = (None if net.mean_activity is None else
+            net.mean_activity.cpu().numpy().astype(np.float32))
+
+    def inputs(x):
+        x = np.asarray(x, np.float32)
+        return x if mean is None else x - mean[None]
+
+    rng = np.random.default_rng(rng_seed)
+    x_all = inputs(images)
+    y_all = np.asarray(labels, np.int64)
+    n = len(x_all)
+    history = []
+    for _epoch in range(params.max_epoch):
+        order = rng.permutation(n)
+        losses = []
+        for b in range(0, n - params.mini_batch + 1, params.mini_batch):
+            sel = order[b:b + params.mini_batch]
+            xb = x_all[sel]
+            if params.symmetric:
+                flip = rng.random(len(sel)) < 0.5
+                xb = xb.copy()
+                xb[flip] = xb[flip, :, ::-1]
+            losses.append(step(_device.to_device(xb, dev).to(dtype),
+                               _device.to_device(y_all[sel], dev)))
+        mean_loss = (float(np.mean(torch.stack(losses).cpu().numpy()
+                                   .astype(np.float64)))
+                     if losses else float("nan"))
+        acc = None
+        if tests is not None:
+            tx, ty = tests
+            with torch.no_grad():
+                logits = forward(_device.to_device(inputs(tx), dev).to(
+                    dtype))
+            acc = float((logits.argmax(-1).cpu().numpy()
+                         == np.asarray(ty)).mean())
+        history.append((mean_loss, acc))
+        for k, i in enumerate(idxs):
+            net.layers[i].w = weights[k].detach().clone()
+            net.layers[i].bias = biases[k].detach().clone()
+        if filename:
+            net.write(filename)
+    return history

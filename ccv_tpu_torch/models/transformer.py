@@ -44,9 +44,10 @@ Parallelism (one process per rank, ``ccv_tpu_torch.parallel``):
   offset by the rank's slice; with ``head_axis`` the blocks are
   tensor-parallel on it as well.
 
-Not ported: the measured Pallas-or-XLA choice in ``_attend``
-(``nn/autotune``): the port takes the kernels wherever ``ccv_tpu``'s
-default does.
+``_attend`` does not ask ``nn.autotune`` as ``ccv_tpu``'s does: its other
+form is library or plain attention, which never competes with a kernel on
+the card, so the port takes the kernels wherever ``ccv_tpu``'s default
+does (``layers.attention_route``).
 """
 
 from __future__ import annotations
@@ -302,8 +303,10 @@ def _attend(q, k, v, heads: int, causal: bool, mask, dropout: float,
         out = sequence.ring_attention(qh, kh, vh, ring.mesh, ring.seq_axis,
                                       scale=scale, is_causal=causal)
     elif _use_flash(mask, dropout, train, q.device) and Tq == Tk:
-        # ccv_tpu measures Pallas against XLA per shape here (autotune); the
-        # port has no autotune yet and always takes the kernels
+        # ccv_tpu measures Pallas against XLA per shape here (autotune). The
+        # port does not: the only other form is library or plain attention,
+        # and on the card no plain form competes with a kernel (K2), so the
+        # route is layers.attention_route's
         out = flash_attention(qh, kh, vh, scale=scale, is_causal=causal)
     else:
         out = _sdpa_plain(qh, kh, vh, scale, causal, mask, dropout, seed,

@@ -80,7 +80,8 @@ started together) and drives the port's main paths:
   frame tiled from crop180.png, and an 8-channel one on the gray frame),
   written with ``write_cascade`` and read back, thresholds near the
   running sums' quantiles so that windows end in phases A, B1 and B2, the
-  card's windows against the port's CPU path (margin as SCD's), ms per
+  card's windows against the port's CPU path (margin as SCD's; the gray
+  cascade's on the frame's top-left 540 x 960 quarter), ms per
   image at default ``IcfParams``, ``bin/icfdetect`` and
   ``/icf/detect.objects``; SWT on text_test.png (edges, sobels and stroke
   maps bit for bit the CPU's, words against text_test.swt.txt at IoU >=
@@ -207,7 +208,26 @@ started together) and drives the port's main paths:
   the card within 1e-3 of the CPU port, then dpmcreate's published setting
   on 24 + 24 seeded 640 x 480 scenes, depth cut (seconds a relabel and a
   data mining, the SVM fit's ms, the idle share), and the model's 1080p
-  ``detect``.
+  ``detect``;
+- phase 40, the legacy convnet's trainer (``models.convnet.
+  supervised_train``): bin/cifar-10's net at its published geometry and
+  settings on 2,048 seeded images for 2 epochs (ms a step, the losses), one
+  step in float64 on the card against the CPU port within 1e-9 of each
+  leaf's largest; bin/image-net's MattNet-C at full width (225 x 225, 1000
+  classes) at B 64, 5 steps in float32 (ms a step, FLOPs and the rate,
+  busy and idle under the profiler), its working file written, read back
+  on the card and classifying; bin/cnnvldtr on its answers;
+- phase 41, ``nn.autotune`` from an empty store: SCD's ``form="auto"`` on
+  the 1080p frame (per octave the recorded choice of K1's and K3's octave
+  programs with both times on zeros and on the frame; K1 and K3 launched
+  by the measurement; the detections equal to pallas_full's; a second call
+  measures nothing), and ``sat_auto`` at ICF's colour 1080p level shapes
+  (choice and times), ICF on the card held against the CPU port on the
+  same SAT forms by phase 19's gate (every other phase pins
+  ``CCV_TPU_SAT=sat``, the form they always ran);
+- phase 42, the explicit forms at 1080p: SCD's ``slices``, ``xla`` and
+  ``matmul`` against ``pallas_full``, ICF's fused ``slices`` and ``matmul``
+  against its staged form, ms of each.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -2163,6 +2183,7 @@ def seq2seq_profiled(decode_step, decode_ms_step, wmt_steps, card):
 # -- phases 19-21: ICF, SWT and SIFT (torch ops, no kernel of the port's) ----
 
 ICF_TREES = 2000  # the trained pedestrian.icf's count (ccv_tpu icf.py:142)
+ICF_GRAY_HELD = (540, 960)  # phase 19's gray card-vs-CPU crop
 SIFT_FRACTION = 0.97
 
 
@@ -2326,49 +2347,148 @@ def icf_windows(comps):
     return {(c.x, c.y, c.width, c.height): c.confidence for c in comps}
 
 
-def icf_card_vs_cpu(icf, casc, img_cpu, dev, name):
-    """Phase 19's gate: the card's windows (min_neighbors 0) against the
-    port's CPU path on the same image. Windows may differ only where a
-    running sum lies within MARGIN * max(1, |sum|) of its threshold;
-    confidences where both pass within ATOL. Returns (windows, differing,
-    max conf diff, cpu s)."""
+def icf_gate(icf, casc, img, a, b, what, atol=ATOL):
+    """Two runs' windows (min_neighbors 0, rect -> conf) on the same image:
+    windows may differ only where a running sum (the port's SAT and trees,
+    on img's device) lies within MARGIN * max(1, |sum|) of its threshold;
+    confidences where both pass within ``atol`` (None: not checked).
+    Returns (windows in both, differing, max conf diff)."""
     params = icf.IcfParams(min_neighbors=0)
-    card = icf_windows(icf.detect_objects(img_cpu.to(dev), casc, params))
-    t0 = time.perf_counter()
-    cpu = icf_windows(icf.detect_objects(img_cpu, casc, params))
-    cpu_s = time.perf_counter() - t0
-    odd = set(card) ^ set(cpu)
+    odd = set(a) ^ set(b)
     if odd:  # where each odd window lies: (octave, level, wy, wx)
-        lvl_of = {}
-        src_shape = img_cpu.shape if img_cpu.dim() == 3 else \
-            img_cpu.shape + (1,)
-        shape = src_shape
-        eff_w = casc.width - casc.margin[0] - casc.margin[2]
-        eff_h = casc.height - casc.margin[1] - casc.margin[3]
-        for octave in range(8):
-            for li, (_k, sc, _r, _c, ny, nx) in enumerate(
-                    icf._octave_levels(shape, casc, params)):
-                s = sc * (1 << octave)
-                for wy in range(ny):
-                    for wx in range(nx):
-                        r = (int((wx * 2 + 0.5) * s - 0.5),
-                             int((wy * 2 + 0.5) * s - 0.5),
-                             int(eff_w * s), int(eff_h * s))
-                        if r in odd:
-                            lvl_of[r] = (octave, li, wy, wx)
-            shape = (shape[0] // 2, shape[1] // 2) + shape[2:]
+        lvl_of = icf_rect_windows(icf, casc, img, params, odd)
         wins = [lvl_of[r] for r in sorted(odd)]
-        sums, _ = icf_sums(icf, casc, img_cpu, params, wins=wins)
+        sums, _ = icf_sums(icf, casc, img, params, wins=wins)
         th = casc.thresholds
         near = (np.abs(sums - th) <= MARGIN * np.maximum(1, np.abs(sums))
                 ).any(1)
-        check(bool(near.all()), f"ICF {name}: {int((~near).sum())} windows "
-                                f"differ card vs CPU outside the margin")
-    both = set(card) & set(cpu)
-    check(len(both) > 0, f"ICF {name}: no window passed")
-    diff = max(abs(card[r] - cpu[r]) for r in both)
-    check(diff <= ATOL, f"ICF {name}: conf differs by {diff}")
-    return len(both), len(odd), diff, cpu_s
+        check(bool(near.all()), f"{what}: {int((~near).sum())} windows "
+                                f"differ outside the margin")
+    both = set(a) & set(b)
+    check(len(both) > 0, f"{what}: no window passed")
+    diff = max(abs(a[r] - b[r]) for r in both)
+    check(atol is None or diff <= atol, f"{what}: conf differs by {diff}")
+    return len(both), len(odd), diff
+
+
+def icf_rect_windows(icf, casc, img, params, rects):
+    """{rect: (octave, level, wy, wx)}: the window of an image like ``img``
+    that each of ``rects`` draws (detect_collect's rect arithmetic)."""
+    shape = tuple(img.shape) if img.dim() == 3 else tuple(img.shape) + (1,)
+    step = params.step_through
+    eff_w = casc.width - casc.margin[0] - casc.margin[2]
+    eff_h = casc.height - casc.margin[1] - casc.margin[3]
+    by_size = {}
+    for r in rects:
+        by_size.setdefault((r[2], r[3]), []).append(r)
+    out = {}
+    for octave in range(8):
+        for li, (_k, sc, _r, _c, ny, nx) in enumerate(
+                icf._octave_levels(shape, casc, params)):
+            s = sc * (1 << octave)
+            for r in by_size.get((int(eff_w * s), int(eff_h * s)), ()):
+                xs = ((np.arange(nx) * step + 0.5) * s - 0.5).astype(np.int64)
+                ys = ((np.arange(ny) * step + 0.5) * s - 0.5).astype(np.int64)
+                wx, wy = np.flatnonzero(xs == r[0]), np.flatnonzero(ys == r[1])
+                if len(wx) and len(wy):
+                    out[r] = (octave, li, int(wy[0]), int(wx[0]))
+        shape = (shape[0] // 2, shape[1] // 2) + shape[2:]
+    return out
+
+
+def icf_corners(icf, casc, img, params, wins):
+    """(n, trees * 24) SAT corner values (the port's SAT, on img's device)
+    of the windows ``wins`` ((octave, level, wy, wx)), in that order."""
+    from ccv_tpu_torch.ops import resample
+    full = icf._tables(casc, img.device)["full"]
+    img = img if img.dim() == 3 else img[..., None]
+    out = [None] * len(wins)
+    src = img
+    for octave in range(max(w[0] for w in wins) + 1):
+        if octave:
+            src = resample.sample_down(src)
+        mine = [i for i, w in enumerate(wins) if w[0] == octave]
+        if not mine:
+            continue
+        lvls = icf._octave_levels(src.shape, casc, params)
+        flat, base, W1, C = icf._octave_windows(src, casc, lvls,
+                                                params.step_through)
+        start = np.cumsum([0] + [ny * nx for (*_r, ny, nx) in lvls])
+        sel = torch.tensor([int(start[wins[i][1]]) + wins[i][2]
+                            * lvls[wins[i][1]][5] + wins[i][3] for i in mine],
+                           device=img.device)
+        g = icf._gather(flat, base[sel], full, W1, C)
+        for k, i in enumerate(mine):
+            out[i] = g[k]
+    return torch.stack(out)
+
+
+def icf_matmul_gate(icf, casc, img, got, base):
+    """Phase 42's gate of ICF's matmul form against its staged form on the
+    same image: windows found by one only, or whose confidences differ by
+    more than ATOL, are each recomputed here from their SAT corners in two
+    ways, node values by the staged form's float32 corner arithmetic and
+    by exact (float64) box sums rounded once, as the matmul form's float64
+    products give them. Each side must be its way's result (its windows and
+    confidences, outside the margin), and every node the two ways put on
+    opposite sides of 0 must lie within float32 rounding of its corners
+    (4 ulps of their summed magnitude). Returns (windows recomputed, nodes
+    flipped)."""
+    params = icf.IcfParams(min_neighbors=0)
+    rects = sorted((set(got) ^ set(base)) | {
+        r for r in set(got) & set(base) if abs(got[r] - base[r]) > ATOL})
+    if not rects:
+        return 0, 0
+    where = icf_rect_windows(icf, casc, img, params, rects)
+    g = icf_corners(icf, casc, img, params, [where[r] for r in rects])
+    full = icf._tables(casc, img.device)["full"]
+    n = len(rects)
+    q = g.reshape(n, -1, 4)
+    box = ((q[..., 0] - q[..., 1]) - q[..., 2]) + q[..., 3]
+    f32 = (box * full["alpha"]).reshape(n, -1, 3, 2).sum(-1) + full["beta"]
+    q64 = q.double()
+    box64 = ((q64[..., 0] - q64[..., 1]) - q64[..., 2]) + q64[..., 3]
+    f64 = ((box64 * full["alpha"].double()).reshape(n, -1, 3, 2).sum(-1)
+           .float() + full["beta"])
+    bound = 2.0 ** -22 * ((q.abs().sum(-1) * full["alpha"].abs())
+                          .reshape(n, -1, 3, 2).sum(-1) + f32.abs())
+    flip = (f32 > 0) != (f64 > 0)
+    check(bool(((f32 - f64).abs() <= bound)[flip].all()),
+          "ICF matmul: a node changes sign beyond float32 rounding")
+    th = torch.as_tensor(casc.thresholds, device=img.device)
+    for name, fval, mine in (("staged", f32, base), ("matmul", f64, got)):
+        cs = torch.cumsum(icf._decide(fval, full), 1)
+        passed = (cs >= th).all(1).tolist()
+        near = ((cs - th).abs() <= MARGIN * torch.clamp(cs.abs(), min=1)
+                ).any(1).tolist()
+        last = cs[:, -1].tolist()
+        for i, r in enumerate(rects):
+            check(near[i] or ((r in mine) == passed[i]), f"ICF {name}: "
+                  f"window {r} {'found' if r in mine else 'not found'} "
+                  f"against its recomputed running sums")
+            check(r not in mine or not passed[i]
+                  or abs(mine[r] - last[i]) <= ATOL,
+                  f"ICF {name}: window {r} conf {mine.get(r)} against "
+                  f"{last[i]} recomputed")
+    return n, int(flip.sum())
+
+
+def icf_card_vs_cpu(icf, casc, img_cpu, dev, name, cpu=None):
+    """Phase 19's gate: the card's windows (min_neighbors 0) against the
+    port's CPU path on the same image (``cpu``: its windows, when a run on
+    the same SAT forms made them already). Windows may differ only where a
+    running sum lies within MARGIN * max(1, |sum|) of its threshold;
+    confidences where both pass within ATOL. Returns (windows, differing,
+    max conf diff, cpu s, the CPU's windows)."""
+    params = icf.IcfParams(min_neighbors=0)
+    card = icf_windows(icf.detect_objects(img_cpu.to(dev), casc, params))
+    t0 = time.perf_counter()
+    if cpu is None:
+        cpu = icf_windows(icf.detect_objects(img_cpu, casc, params))
+    cpu_s = time.perf_counter() - t0
+    n, odd, diff = icf_gate(icf, casc, img_cpu, card, cpu,
+                            f"ICF {name}: card vs CPU")
+    return n, odd, diff, cpu_s, cpu
 
 
 def icf_path(dev, card, read):
@@ -2426,20 +2546,28 @@ def icf_path(dev, card, read):
             check(min(ends) > 0, f"ICF {name}: sampled windows ending in A, "
                                  f"B1, B2 and passing: {ends}")
             cascades[name] = (back, img, path)
-            n, odd, diff, cpu_s = icf_card_vs_cpu(icf, back, img, dev, name)
+            # the gray cascade is held card = CPU on the frame's top-left
+            # quarter (depth cut in PR 18: the CPU port's pass over a 1080p
+            # frame takes ~50 s, and phase 41 holds the colour one again)
+            held = img if name == "colour" else img[:ICF_GRAY_HELD[0],
+                                                    :ICF_GRAY_HELD[1]]
+            n, odd, diff, cpu_s, cpu_w = icf_card_vs_cpu(icf, back, held,
+                                                         dev, name)
             img_d = img.to(dev)
             before = icf.RERUNS
             med, ms = median_ms(lambda: icf.detect_objects(img_d, back), 5)
             reruns = icf.RERUNS - before
             found = icf.detect_objects(img_d, back)
-            out[name] = dict(ms=med, found=len(found), windows=n)
+            out[name] = dict(ms=med, found=len(found), windows=n,
+                             cascade=back, image=img, cpu_windows=cpu_w)
             log(19, f"ICF {name} {tuple(img.shape)}, {ICF_TREES} trees "
                     f"(thresholds from {len(cs)} sampled windows in "
                     f"{th_s:.1f} s: they end in A / B1 / B2 / pass {ends}; "
                     f"the most alive octave keeps {worst[0]:.4f} after A, "
                     f"{worst[1]:.5f} after B1); "
                     f"write_cascade + load_cascade round trip equal; "
-                    f"min_neighbors 0: card = CPU on {n} windows ({odd} "
+                    f"min_neighbors 0 on {tuple(held.shape[:2])}: card = CPU "
+                    f"on {n} windows ({odd} "
                     f"differ, all in the margin), max conf diff {diff:.3g} "
                     f"(CPU path {cpu_s:.1f} s); default IcfParams: "
                     f"{len(found)} detections, median {med:.2f} ms/image "
@@ -5829,6 +5957,393 @@ def dpm_train_path(dev, card, read):
     return full_s
 
 
+# phase 40, the legacy convnet's trainer (models/convnet.supervised_train)
+CIFAR_N = 2048            # seeded 31 x 31 x 3 images, bin/cifar-10's width
+CIFAR_EPOCHS = 2
+CIFAR_F64_TOL = 1e-9      # the card's float64 step against the CPU's
+MATT_B = 64               # bin/image-net's mini-batch, 225 x 225, 1000 classes
+MATT_STEPS = 5
+MATT_RATE = 1e-4
+CNNVLDTR_IMAGES = 8
+FP32_PEAK = 67e12         # the H100's float32 ALU peak (TF32 is off)
+
+
+def conv_train_flops(net, batch):
+    """FLOPs of one training step of a wire-format net: 3 x the forward's
+    multiply-adds (forward, input gradient, weight gradient) of its
+    convolutions and full-connect layers, 2 FLOPs each; pools, LRN and the
+    update are left out."""
+    fwd, r, c = 0, net.rows, net.cols
+    for lay in net.layers:
+        if lay.type == 1:   # CONVOLUTIONAL
+            r2, c2 = lay.out_shape(r, c)
+            fwd += (2 * r2 * c2 * lay.count * lay.rows * lay.cols
+                    * lay.channels // lay.partition)
+        elif lay.type == 2:  # FULL_CONNECT
+            fwd += 2 * lay.node_count * lay.count
+        if lay.type != 2:
+            r, c = lay.out_shape(r, c)
+    return 3 * fwd * batch
+
+
+def convnet_train_path(dev, card):
+    """Phase 40: supervised_train on the card. (a) bin/cifar-10's net at its
+    published geometry and settings on 2,048 seeded images, 2 epochs, and
+    one step in float64 against the CPU port's; (b) bin/image-net's
+    MattNet-C at full width (225 x 225, 1000 classes) at B 64, 5 steps in
+    float32: ms a step, its FLOPs and rate, busy and idle under the
+    profiler; the working file written, read back on the card and
+    classifying; (c) bin/cnnvldtr on (b)'s net's top-5 answers."""
+    from ccv_tpu_torch.bin import cifar_10, cnnvldtr, image_net
+    from ccv_tpu_torch.models import convnet
+    rng = np.random.default_rng(40)
+    # (a) the float64 step, card against the CPU
+    x = rng.integers(0, 256, (CIFAR_N, 31, 31, 3), dtype=np.uint8)
+    y = (x.mean(axis=(1, 2, 3)) > 127.5).astype(np.int64)
+    nets = {}
+    for where in ("cpu", dev):
+        net = cifar_10.cifar10_net(seed=1, device=where)
+        for lay in net.layers:
+            if lay.w is not None:
+                lay.w, lay.bias = lay.w.double(), lay.bias.double()
+        convnet.supervised_train(net, x[:128], y[:128],
+                                 cifar_10.published_params(1))
+        nets[str(where)] = [l for lay in net.layers if lay.w is not None
+                            for l in (lay.w, lay.bias)]
+    worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(nets[str(dev)], nets["cpu"]))
+    check(worst <= CIFAR_F64_TOL, f"cifar-10's float64 step: the card lies "
+          f"{worst:.3g} of a leaf's largest from the CPU")
+    # the published run
+    warm = cifar_10.cifar10_net(seed=2, device=dev)
+    convnet.supervised_train(warm, x[:256], y[:256],
+                             cifar_10.published_params(1))
+    net = cifar_10.cifar10_net(device=dev)
+    steps = CIFAR_EPOCHS * (CIFAR_N // 128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = convnet.supervised_train(net, x, y,
+                                    cifar_10.published_params(CIFAR_EPOCHS),
+                                    tests=(x[:512], y[:512]))
+    torch.cuda.synchronize()
+    cifar_s = time.perf_counter() - t0
+    check(all(np.isfinite(h[0]) for h in hist) and hist[-1][0] < hist[0][0],
+          f"cifar-10's loss does not fall: {hist}")
+    cifar_flops = conv_train_flops(net, 128)
+    log(40, f"(a) bin/cifar-10's net (31 x 31 x 3, 32 / 32 / 64 channels) at "
+            f"its published settings (B 128, rate 5e-4, momentum 0.9, decay "
+            f"5e-4, flips), {CIFAR_N} seeded images, {CIFAR_EPOCHS} epochs: "
+            f"{cifar_s * 1000 / steps:.2f} ms a step ({steps} steps, the "
+            f"epochs' test passes on 512 images included), losses "
+            f"{[round(h[0], 4) for h in hist]}, test accuracy "
+            f"{[h[1] for h in hist]}; a step {cifar_flops / 1e9:.2f} GFLOP; "
+            f"one float64 step card = CPU port within {worst:.3g} of each "
+            f"leaf's largest (gate {CIFAR_F64_TOL}); {card}")
+    # (b) MattNet-C at full width
+    t0 = time.perf_counter()
+    net = image_net.matt_c_net(device=dev)
+    draw_s = time.perf_counter() - t0
+    # the seeded pixels' mean image (127.5) comes off, and the rate is
+    # MATT_RATE: at bin/image-net's 0.01 on raw pixels the loss leaves
+    # float32's range within two steps (on the CPU port too)
+    net.mean_activity = torch.full((225, 225, 3), 127.5, device=dev)
+    xm = rng.integers(0, 256, ((MATT_STEPS + 1) * MATT_B, 225, 225, 3),
+                      dtype=np.uint8)
+    ym = rng.integers(0, 1000, len(xm))
+    params = convnet.ConvnetTrainParams(max_epoch=1, mini_batch=MATT_B,
+                                        learn_rate=MATT_RATE)
+    convnet.supervised_train(net, xm[:MATT_B], ym[:MATT_B], params)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = convnet.supervised_train(net, xm[MATT_B:], ym[MATT_B:], params)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1000 / MATT_STEPS
+    check(np.isfinite(hist[0][0]), f"MattNet-C's loss {hist}")
+    flops = conv_train_flops(net, MATT_B)
+    profile_head()
+    w = device_window(lambda: convnet.supervised_train(
+        net, xm[:2 * MATT_B], ym[:2 * MATT_B], params), 1)
+    tmp = tempfile.mkdtemp(prefix="ccv_convnet_")
+    try:
+        path = os.path.join(tmp, "image-net.sqlite3")
+        t0 = time.perf_counter()
+        net.write(path)
+        write_s = time.perf_counter() - t0
+        back = convnet.Convnet.read(path, device=dev)
+        check(all(torch.equal(a.w, b.w) for a, b in zip(net.layers,
+                                                        back.layers)
+                  if a.w is not None), "MattNet-C's working file changed it")
+        img = torch.from_numpy(rng.integers(0, 256, (256, 256, 3),
+                                            dtype=np.uint8)).to(dev)
+        top = back.classify(img)
+        mine = net.classify(img)
+        check(len(top) == 5 and [c for c, _p in top] == [c for c, _p in mine]
+              and max(abs(p - q) for (_c, p), (_d, q) in zip(top, mine))
+              <= 1e-6 and 0 < sum(p for _c, p in top) <= 1.0 + 1e-6,
+              f"MattNet-C read back classifies {top}, in memory {mine}")
+        # (c) cnnvldtr on its answers for training images
+        with open(os.path.join(tmp, "truth.txt"), "w") as f:
+            f.writelines(f"{int(v)}\n" for v in ym[:CNNVLDTR_IMAGES])
+        with open(os.path.join(tmp, "result.txt"), "w") as f:
+            for i in range(CNNVLDTR_IMAGES):
+                ranks = back.classify(torch.from_numpy(xm[i]).to(dev))
+                f.write(" ".join(f"{c} {p:f}" for c, p in ranks) + "\n")
+        code, lines = captured(cnnvldtr.main, [
+            os.path.join(tmp, "truth.txt"), os.path.join(tmp, "result.txt")])
+        check(code == 0 and len(lines) == 1 and lines[0].endswith("% (5)"),
+              f"cnnvldtr printed {lines}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(40, f"(b) bin/image-net's MattNet-C at full width (225 x 225 x 3, "
+            f"1000 classes, scale 1.0; weights drawn in {draw_s:.1f} s), B "
+            f"{MATT_B}, float32, rate {MATT_RATE}, the mean image 127.5 "
+            f"taken off: {step_ms:.2f} ms a step (mean of "
+            f"{MATT_STEPS} after a warm-up step), loss {hist[0][0]:.4f}; a "
+            f"step {flops / 1e12:.3f} TFLOP (3 x the convolutions' and "
+            f"full-connect layers' forward) = {flops / step_ms / 1e9:.2f} "
+            f"TFLOP/s, {flops / step_ms / 1e-3 / FP32_PEAK:.3f} of the "
+            f"float32 peak; 2 steps under torch.profiler: busy "
+            f"{w['busy']:.2f} ms of a {w['wall']:.2f} ms wall, idle share "
+            f"{1 - w['busy'] / w['wall']:.3f}, largest: "
+            f"{top_kernels(w['by_name'])}; the working file "
+            f"written in {write_s:.2f} s, read back on the card (weights "
+            f"equal) and classifying a 256 x 256 image as the net does "
+            f"({top[0]}); (c) bin/cnnvldtr on its top 5 for "
+            f"{CNNVLDTR_IMAGES} training images: {lines[0]}; {card}")
+    return dict(cifar_ms=cifar_s * 1000 / steps, matt_ms=step_ms,
+                matt_tflops=flops / step_ms / 1e9, idle=1 - w["busy"] / w[
+                    "wall"], f64=worst)
+
+
+@contextlib.contextmanager
+def cpu_sat_forms(algebra, autotune):
+    """While open, ``algebra.sat_auto`` on a CPU tensor takes the form the
+    card recorded for the same shape, dtype and padding (else ``sat``), so
+    the CPU port runs the card's SAT forms (``sat_mxu`` rounds its float64
+    sums once: the card's and the CPU's bits agree)."""
+    recs = {}
+    for key, rec in autotune.decisions().items():
+        op, kind, sig, extra = key.split("|")
+        if op == "sat" and kind != "cpu":
+            recs[sig, extra] = rec["choice"]
+    auto = algebra.sat_auto
+
+    def follow(a, padding=algebra.NO_PADDING):
+        if (a.device.type == "cpu" and recs.get(
+                (autotune._sig_of(a), f"pad{padding}")) == "sat_mxu"):
+            return algebra.sat_mxu(a, padding)
+        return auto(a, padding)
+
+    algebra.sat_auto = follow
+    try:
+        yield recs
+    finally:
+        algebra.sat_auto = auto
+
+
+def autotune_path(scd, k1, k3, dev, card, frame, face_med, icf_res):
+    """Phase 41: nn/autotune on the card, from an empty store. SCD's
+    form="auto" on the 1080p frame (face_low at phase 5's near-median
+    thresholds): per octave the recorded choice between K1's and K3's
+    octave programs and both times on zeros, both forms' times on the real
+    octave, K1 and K3 launched by the measurement, the detections equal to
+    form="pallas_full"'s (windows only in the margin may differ), a second
+    call measuring nothing. Then sat_auto at ICF's colour 1080p level
+    shapes (the choice and both times per shape) under phase 19's colour
+    cascade, held against the CPU port on the card's SAT forms by phase
+    19's gate. Returns (K1, K3) launches in the first auto call."""
+    from ccv_tpu_torch.core import algebra
+    from ccv_tpu_torch.detectors import icf
+    from ccv_tpu_torch.nn import autotune
+    tmp = tempfile.mkdtemp(prefix="ccv_autotune_")
+    saved = {k: os.environ.pop(k, None) for k in ("CCV_TPU_SAT",
+                                                  "CCV_TPU_AUTOTUNE")}
+    os.environ["CCV_TPU_AUTOTUNE_CACHE"] = os.path.join(tmp, "at.json")
+    autotune.clear()
+    try:
+        img = torch.from_numpy(frame).to(dev)
+        params = scd.ScdParams(min_neighbors=0)
+        specs, scale_upto = scd._level_specs(*frame.shape, face_med, params)
+        before = autotune.stats()
+        k1.LAUNCHES = k3.LAUNCHES = 0
+        t0 = time.perf_counter()
+        handle = scd.detect_async(img, face_med, params, form="auto")
+        got = scd.detect_collect(handle)
+        first_s = time.perf_counter() - t0
+        launches = (k1.LAUNCHES, k3.LAUNCHES)
+        measured = autotune.stats_delta(before)
+        n_oct = len(handle.layout)
+        check(measured == {"hits": 0, "measured": n_oct},
+              f"auto's first call: {measured} for {n_oct} octaves")
+        check(launches[0] > 0 and launches[1] > 0, f"auto's measurement "
+              f"launched K1 {launches[0]} and K3 {launches[1]} times")
+        want = scd.detect(img, face_med, params)
+        odd = rect_set(got) ^ rect_set(want)
+        if odd:
+            near = margin_rects(scd, k1, img, face_med, params, dev)
+            check(odd <= near, f"auto: {len(odd - near)} windows differ "
+                               f"from pallas_full's outside the margin")
+        before = autotune.stats()
+        again = scd.detect(img, face_med, params, form="auto")
+        check(autotune.stats_delta(before) == {"hits": n_oct, "measured": 0}
+              and again == got, f"auto's second call: "
+              f"{autotune.stats_delta(before)}")
+        rows, findings = [], []
+        zero = torch.zeros((), device=dev)
+        for (octave, src, lspecs, _sat, _dims), entry in zip(
+                scd._octaves(img[None, ..., None], specs, scale_upto,
+                             face_med.margin), handle.layout):
+            args = (torch.zeros(tuple(src.shape[1:]), dtype=src.dtype,
+                                device=dev), zero)
+            extra = scd._octave_extra(lspecs, face_med, STEP, False)
+            rec = autotune.decisions()[autotune._key(scd.OCTAVE_OP, args,
+                                                     extra)]
+            check(rec["choice"] == entry[0] and all(
+                v is not None for v in rec["ms"].values()),
+                f"octave {octave}: record {rec}, ran {entry[0]}")
+            real = {f: time_cuda(lambda f=f: scd._octave_program(
+                f, lspecs, face_med, STEP)(src[0], zero), 5)
+                for f in scd.AUTO_FORMS}
+            faster = min(real, key=real.get)
+            if faster != rec["choice"]:
+                findings.append(octave)
+            rows.append(f"octave {octave} ({len(lspecs)} levels, "
+                        f"{tuple(src.shape[1:3])}): chose {rec['choice']}; "
+                        f"on zeros " + ", ".join(
+                            f"{k} {v:.4f}" for k, v in rec["ms"].items())
+                        + " ms; on the frame " + ", ".join(
+                            f"{k} {v:.4f}" for k, v in real.items()) + " ms")
+        auto_ms = detect_ms(scd, img, face_med, params, "auto", 3)
+        full_ms = detect_ms(scd, img, face_med, params, "pallas_full", 3)
+        log(41, f"SCD form='auto' on the 1920x1080 frame, face_low at "
+                f"near-median thresholds, from an empty store: the first "
+                f"call {first_s:.2f} s ({n_oct} octaves measured, K1 "
+                f"{launches[0]} and K3 {launches[1]} launches in it); "
+                f"{len(got)} windows = pallas_full's ({len(odd)} in the "
+                f"margin); the second call hit {n_oct} records, measured "
+                f"none; per octave program (1 + 2 x 8 calls on zeros, then 5 "
+                f"on the frame's octave, CUDA events): " + "; ".join(rows)
+                + f"; detect median ms/image (n=3): auto "
+                f"{float(np.median(auto_ms)):.2f}, pallas_full "
+                f"{float(np.median(full_ms)):.2f}; {card}")
+        if findings:
+            log(41, f"FINDING: on octaves {findings} the measurement on "
+                    f"zeros chose the form that is slower on the frame's "
+                    f"octave (the rule is kept)")
+        # sat_auto at ICF's colour 1080p levels
+        res = icf_res["colour"]
+        casc, rgb = res["cascade"], res["image"]
+        before = autotune.stats()
+        t0 = time.perf_counter()
+        icf.detect_objects(rgb.to(dev), casc)
+        icf_s = time.perf_counter() - t0
+        sat_measured = autotune.stats_delta(before)["measured"]
+        recs = {k: v for k, v in autotune.decisions().items()
+                if k.startswith("sat|")}
+        check(len(recs) == sat_measured > 0 and all(
+            all(ms is not None for ms in r["ms"].values())
+            for r in recs.values()), f"sat_auto recorded {recs}")
+        mxu = sum(r["choice"] == "sat_mxu" for r in recs.values())
+        log(41, f"ICF colour 1080p detect_objects with sat_auto measuring "
+                f"{len(recs)} level shapes: {icf_s:.2f} s; sat_mxu chosen at "
+                f"{mxu}")
+        with cpu_sat_forms(algebra, autotune):
+            n, odd_i, diff, cpu_s, _w = icf_card_vs_cpu(
+                icf, casc, rgb, dev, "colour, sat_auto",
+                cpu=None if mxu else res["cpu_windows"])
+        shapes = "; ".join(
+            f"{k.split('|')[2]} {k.split('|')[3]}: {r['choice']} (sat "
+            f"{r['ms']['sat']:.3f}, sat_mxu {r['ms']['sat_mxu']:.3f} ms)"
+            for k, r in sorted(recs.items(), key=lambda kv: kv[0]))
+        log(41, f"sat_auto in ICF's colour 1080p detect_objects (phase 19's "
+                f"cascade): {len(recs)} level shapes measured in "
+                f"{icf_s:.2f} s, sat_mxu chosen at {mxu}: {shapes}; card = "
+                f"the CPU port on the card's SAT forms on {n} windows "
+                f"({odd_i} differ, all in the margin), max conf diff "
+                f"{diff:.3g} ({'the CPU run' if mxu else 'phase 19 CPU windows, the same sat forms,'} "
+                f"{cpu_s:.1f} s); {card}")
+        return launches
+    finally:
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+        os.environ.pop("CCV_TPU_AUTOTUNE_CACHE", None)
+        autotune._MEM = None
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def forms_path(scd, k1, dev, card, frame, face_med, icf_res):
+    """Phase 42: the explicit forms at 1080p on the card. SCD's plain staged
+    forms (slices, xla, matmul; dense B1 on the card) against the default
+    pallas_full (windows only in the margin may differ) and ICF's fused
+    forms (slices, matmul) against its default staged form (phase 19's
+    colour cascade; windows only near a threshold may differ), with ms of
+    each."""
+    from ccv_tpu_torch.detectors import icf
+    img = torch.from_numpy(frame).to(dev)
+    params = scd.ScdParams(min_neighbors=0)
+    want = rect_set(scd.detect(img, face_med, params))
+    near = None
+    rows = []
+    for form in scd.PLAIN_FORMS:
+        reruns = scd.RERUNS
+        got = rect_set(scd.detect(img, face_med, params, form=form))
+        reruns = scd.RERUNS - reruns
+        odd = got ^ want
+        if odd:
+            near = near or margin_rects(scd, k1, img, face_med, params, dev)
+            check(odd <= near, f"SCD {form}: {len(odd - near)} windows "
+                               f"differ from pallas_full's outside the "
+                               f"margin")
+        ms = detect_ms(scd, img, face_med, params, form, 1)
+        rows.append(f"{form} {ms[0]:.2f} ms ({len(odd)} in the margin, "
+                    f"{reruns} reruns)")
+        log(42, f"SCD form {form}: {rows[-1]}")
+    full = detect_ms(scd, img, face_med, params, "pallas_full", 1)
+    log(42, f"SCD's plain staged forms at 1920x1080 (face_low at near-median "
+            f"thresholds, min_neighbors 0), {len(want)} windows each = "
+            f"pallas_full's, ms of one image after the checked one: "
+            + "; ".join(rows) + f"; pallas_full {full[0]:.2f} ms; {card}")
+    res = icf_res["colour"]
+    casc, rgb = res["cascade"], res["image"].to(dev)
+    iparams = icf.IcfParams(min_neighbors=0)
+    t0 = time.perf_counter()
+    base = icf_windows(icf.detect_objects(rgb, casc, iparams))
+    log(42, f"ICF staged form: {len(base)} windows in "
+            f"{time.perf_counter() - t0:.2f} s")
+    rows = []
+    for form in ("slices", "matmul"):
+        reruns = icf.RERUNS
+        t0 = time.perf_counter()
+        got = icf_windows(icf.detect_objects(rgb, casc, iparams, form=form))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000
+        # slices: the staged form's node arithmetic; matmul: node values
+        # from float64 products, where a node within the SAT's float32
+        # rounding of 0 may vote the other way (a whole vote, |w1 - w0|)
+        both = set(got) & set(base)
+        diff = max((abs(got[r] - base[r]) for r in both), default=0.0)
+        if form == "slices":  # the staged form's node arithmetic
+            n, odd, diff = icf_gate(icf, casc, rgb, got, base,
+                                    "ICF slices vs staged")
+            note = f"{odd} in the margin"
+        else:
+            n, flips = icf_matmul_gate(icf, casc, rgb, got, base)
+            check(len(both) > 0, "ICF matmul: no window passed")
+            note = (f"{len(set(got) ^ set(base))} found by one form only; "
+                    f"{n} windows recomputed, {flips} nodes on the other "
+                    f"side of 0 by rounding")
+        rows.append(f"{form} {ms:.2f} ms ({len(got)} windows, {note}, "
+                    f"{icf.RERUNS - reruns} reruns, max conf diff "
+                    f"{diff:.3g})")
+        log(42, f"ICF form {form}: {rows[-1]}")
+    staged_ms = median_ms(lambda: icf.detect_objects(rgb, casc, iparams), 2)[0]
+    log(42, f"ICF's fused forms at 1920x1080 (phase 19's colour cascade, "
+            f"{ICF_TREES} trees, min_neighbors 0) against the staged form's "
+            f"{len(base)} windows: " + "; ".join(rows) + f"; staged "
+            f"{staged_ms:.2f} ms; {card}")
+
+
 def main():
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--nccl-cards"]:
@@ -5855,6 +6370,9 @@ def main():
     from ccv_tpu_torch.ops.kernels import scd_phase as k3
 
     dev = default_device()  # raises without a card: no result is printed
+    # every phase but 41 runs ICF's SAT as "sat", as before sat_auto: phase
+    # 41 lets the card measure its forms
+    os.environ["CCV_TPU_SAT"] = "sat"
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(1, f"device {kind}; torch {torch.__version__} cuda "
@@ -6122,7 +6640,7 @@ def main():
     imdb_path(dev, card)
 
     # -- 19-21: ICF, SWT and SIFT (their profiles come last) ---------------
-    _icf_res, icf_profile = icf_path(dev, card, read)
+    icf_res, icf_profile = icf_path(dev, card, read)
     _swt_res, swt_profile = swt_path(dev, card, read)
     _sift_res, sift_profile = sift_path(dev, card, read)
 
@@ -6167,6 +6685,15 @@ def main():
     swt_train_path(dev, card, read)
     dpm_train_path(dev, card, read)
     log(39, f"phases 37-39 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 40-42: the legacy convnet's trainer, autotune's measured choices
+    # (K1 against K3 per SCD octave, the SAT forms) and the explicit forms -
+    t0 = time.perf_counter()
+    convnet_train_path(dev, card)
+    k1_auto, k3_auto = autotune_path(scd, k1, k3, dev, card, frame, face_med,
+                                     icf_res)
+    forms_path(scd, k1, dev, card, frame, face_med, icf_res)
+    log(42, f"phases 40-42 took {time.perf_counter() - t0:.1f} s")
 
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
@@ -6236,8 +6763,9 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "design": design, "shape": list(K2_D128),
             "launches_seq2seq_step": k2_d128_s2s[key]})
-    # K1 on the trained SCD cascade's 1080p detect (phase 35)
-    kernels[0].update(launches_trained=k1_trained)
+    # K1 on the trained SCD cascade's 1080p detect (phase 35), and in the
+    # first form="auto" detect, its measurement included (phase 41)
+    kernels[0].update(launches_trained=k1_trained, launches_auto=k1_auto)
     kernels.append({
         "name": "scd_phase_a", "route": "cuda",
         "source": "ccv_tpu_torch/csrc/scd_phase.cu",
@@ -6251,7 +6779,7 @@ def main():
         "bound_ms_b1": k3_res["b1"]["bound_ms"],
         "bound_by_b1": k3_res["b1"]["bound_by"],
         "plane_copy_ms": k3_res["plane_copy_ms"],
-        "launches_upscaled": k3_up})
+        "launches_upscaled": k3_up, "launches_auto": k3_auto})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

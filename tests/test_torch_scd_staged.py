@@ -344,7 +344,7 @@ def test_staged_detect_launches_no_kernel_on_cpu(crop, face):
 
 def test_forms_and_shapes_are_checked(crop, face):
     with pytest.raises(ValueError, match="form"):
-        tscd.detect(crop, face, form="slices")
+        tscd.detect(crop, face, form="bogus")
     with pytest.raises(ValueError):
         tscd.level_rows(tscd.detect_async(crop, face, tscd.ScdParams(
             interval=0)))
