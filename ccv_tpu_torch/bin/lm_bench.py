@@ -155,10 +155,13 @@ def measure(layers=24, dim=1024, heads=16, ff=4096, batch=8, seq=1024,
 
 
 # the flash kernels by the names the profiler gives them: the "wgmma-tma"
-# kernels (bf16, D 64 or 128) and the "wmma-smem" ones (f32, or bf16 D 32)
-FLASH_KERNELS = {"fwd": ("fwd_sm90_kernel", "::fwd_kernel<"),
-                 "dq": ("dq_sm90_kernel", "::dq_kernel<"),
-                 "dkv": ("dkv_sm90_kernel", "::dkv_kernel<")}
+# kernels (bf16 and float16, D 64, 128 or 256) and the "wmma-smem" ones
+# (f32, 16-bit D 32, and the wide kernels above those dims)
+FLASH_KERNELS = {"fwd": ("fwd_sm90_kernel", "::fwd_kernel<",
+                         "fwd_wide_kernel"),
+                 "dq": ("dq_sm90_kernel", "::dq_kernel<", "dq_wide_kernel"),
+                 "dkv": ("dkv_sm90_kernel", "::dkv_kernel<",
+                         "dkv_wide_kernel")}
 
 
 def _profile(out_dir: str, step, steps: int = 3) -> Dict:

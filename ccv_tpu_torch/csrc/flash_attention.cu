@@ -1,14 +1,16 @@
 // Flash attention for Hopper (sm_90a), the "wmma-smem" design: the forward
 // (K2a), dq backward (K2b) and dk/dv backward (K2c) for f32 (head dims 32,
-// 64 and 128) and for bf16 at head dim 32. At bf16 and head dim 64 or 128
-// all three run the "wgmma-tma" design of flash_attention_sm90.cu. Port of
-// the Pallas TPU kernels in ccv_tpu/ops/pallas/flash_attention.py:
+// 64 and 128, and every multiple of 64 above 128), for bf16 and float16 at
+// head dim 32, and for every type above head dim 256. At bf16 and float16
+// and head dim 64, 128 or 256 all three run the "wgmma-tma" design of
+// flash_attention_sm90.cu. Port of the Pallas TPU kernels in
+// ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (via _flash_bwd_bthd)
 //
-// What they compute, on (BH, T, D) row-major tensors (D = 32, 64 or 128,
-// f32 or bf16; lse and delta are (BH, Tq) f32):
+// What they compute, on (BH, T, D) row-major tensors (f32, bf16 or
+// float16; lse and delta are (BH, Tq) f32):
 //   s = (q . k) * scale in f32; a key counts if k_pos < Tk and, when causal,
 //   k_pos <= q_pos + (Tk - Tq) (the mask is aligned bottom-right). Masked
 //   scores are -1e30, as in the Pallas kernel.
@@ -24,14 +26,23 @@
 // running state in VMEM scratch. Here the sequential axis is a loop inside
 // the block: K2a and K2b take one block per (bh, 64-query tile) and loop
 // over 64-key tiles, K2c one block per (bh, 64-key tile) and loops over
-// query tiles. Each block has 8 warps. The tiles of q, k, v and do sit in
+// query tiles. Each block has 8 warps. Up to D 128 (the kernels templated
+// on D) the tiles of q, k, v and do sit in
 // shared memory (dynamic: up to 145 KB at D 64 and 225 KB at f32 D 128,
 // K2b and K2c, whose rows are unpadded to fit); the products run
-// tile by tile out of shared memory: bf16 through the tensor cores with
-// nvcuda::wmma (16x16x16 fragments, f32 accumulators), f32 as plain FMA
-// loops. The score tile and the running accumulators (o, dq, dk, dv) stay
-// in shared memory in f32, so the softmax rescale and the masks are plain
-// per-element code. The loops stop at the causal diagonal: a k-tile counts
+// tile by tile out of shared memory: 16-bit types through the tensor cores
+// with nvcuda::wmma (16x16x16 fragments, f32 accumulators), f32 as plain
+// FMA loops. The score tile and the running accumulators (o, dq, dk, dv)
+// stay in shared memory in f32, so the softmax rescale and the masks are
+// plain per-element code. Above that (the "wide" kernels, D a runtime
+// multiple of 64) no tile holds all of D: the same loops stage q, k, v and
+// do 64 columns at a time, the score products sum over those chunks, and
+// the f32 accumulators live in a global scratch the wrapper allocates, each
+// block owning its 64 rows and reading and writing them chunk by chunk. Their
+// shared memory (at most 130 KB, K2b in f32) does not grow with D, so the
+// design has no head-dim limit of its own; the accumulators' round trips
+// through the L2 cache are its price. The loops stop at the causal
+// diagonal: a k-tile counts
 // only if j*64 <= i*64 + 63 + (Tk - Tq). Ragged tails are masked in the
 // kernel; the tensors are not padded. The split of the backward into a dq
 // kernel and a dk/dv kernel needs no atomics, so the gradients are
@@ -45,7 +56,7 @@
 // round-trips its f32 result through shared memory, so shared-memory
 // bandwidth and the block barriers between the phases bound the kernels
 // before the tensor cores do; flash_attention_sm90.cu is the redesign that
-// removes both, for all three kernels at bf16 and head dim 64.
+// removes both, for all three kernels at 16-bit head dims 64, 128 and 256.
 //
 // A query row with no valid key (causal with Tq > Tk) is refused by the
 // wrapper: the Pallas kernel gives such rows the mean of v over the keys of
@@ -56,6 +67,7 @@
 // returns cudaGetLastError() as an int (0 = launched).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -66,6 +78,7 @@ namespace {
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kTile = 64;              // query and key rows per tile
 constexpr int kThreads = 256;          // 8 warps
@@ -88,6 +101,10 @@ template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch and XLA
 }
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half_rn(x);
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -102,8 +119,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // C[M][N] (f32, row stride ldc) = (ACC ? C : 0) + A (M x K) * B (K x N).
 // A(m, k) is A[m*lda + k] when A_ROW, else A[k*lda + m]; B(k, n) is
-// B[k*ldb + n] when B_ROW, else B[n*ldb + k]. All operands in shared
-// memory; the whole block calls it between barriers.
+// B[k*ldb + n] when B_ROW, else B[n*ldb + k]. A and B in shared memory, C
+// in shared or (the wide kernels' accumulators) global memory, 32-byte
+// aligned; the whole block calls it between barriers.
 template <typename T, int M, int N, int K, bool A_ROW, bool B_ROW, bool ACC>
 __device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
                                         int ldb, float* C, int ldc) {
@@ -133,8 +151,8 @@ __device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
         wmma::fill_fragment(c, 0.f);
 #pragma unroll
       for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> b;
         wmma::load_matrix_sync(a, A_ROW ? A + m0 * lda + k0 : A + k0 * lda + m0,
                                lda);
         wmma::load_matrix_sync(b, B_ROW ? B + k0 * ldb + n0 : B + n0 * ldb + k0,
@@ -455,6 +473,309 @@ __global__ void __launch_bounds__(kThreads)
   store_tile<T, D>(dv + (size_t)bh * tk * D, dv_acc, k0, tk);
 }
 
+// ---- the wide kernels: D a runtime multiple of kChunk, f32 accumulators
+// in global scratch -----------------------------------------------------
+
+constexpr int kChunk = 64;            // columns of D staged at a time
+constexpr int kLdC = kChunk + kPad;   // row stride of a staged chunk
+constexpr int kLdW = kTile + kPad;    // row stride of a 64 x 64 score tile
+
+// Rows row0 .. row0+63 and columns col0 .. col0+63 of a row-major (rows, d)
+// tensor into a shared chunk of row stride kLdC; rows past `rows` are zero.
+template <typename T>
+__device__ __forceinline__ void load_chunk(T* dst, const T* src, int row0,
+                                           int rows, int d, int col0) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVecs = kChunk / kVec;
+  for (int c = threadIdx.x; c < kTile * kVecs; c += kThreads) {
+    const int r = c / kVecs, e = (c % kVecs) * kVec;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d +
+                                            col0 + e);
+    *reinterpret_cast<uint4*>(dst + r * kLdC + e) = val;
+  }
+}
+
+// s (f32, 64 x 64, row stride kLdW) = a_tile b_tile^T over all of D: rows
+// a_row0.. of a and b_row0.. of b staged chunk by chunk through as and bs.
+// Starts and ends at a barrier-free point: the caller syncs after it.
+template <typename T>
+__device__ __forceinline__ void scores_wide(float* s, T* as, T* bs,
+                                            const T* a, int a_row0,
+                                            int a_rows, const T* b,
+                                            int b_row0, int b_rows, int d) {
+  for (int c = 0; c < d / kChunk; ++c) {
+    __syncthreads();  // the previous products are done with the chunks
+    load_chunk(as, a, a_row0, a_rows, d, c * kChunk);
+    load_chunk(bs, b, b_row0, b_rows, d, c * kChunk);
+    __syncthreads();
+    if (c == 0)
+      tile_mm<T, kTile, kTile, kChunk, true, false, false>(as, kLdC, bs, kLdC,
+                                                           s, kLdW);
+    else
+      tile_mm<T, kTile, kTile, kChunk, true, false, true>(as, kLdC, bs, kLdC,
+                                                          s, kLdW);
+  }
+}
+
+// A block's f32 accumulator rows (64 x d, row stride d) to rows row0.. of
+// a row-major (rows, d) tensor of type T, rows past `rows` dropped, each
+// divided by div[r] when div is given.
+template <typename T>
+__device__ __forceinline__ void store_wide(T* dst, const float* acc, int row0,
+                                           int rows, int d,
+                                           const float* div = nullptr) {
+  for (int i = threadIdx.x; i < kTile * d; i += kThreads) {
+    const int r = i / d, e = i % d;
+    if (row0 + r < rows)
+      dst[(size_t)(row0 + r) * d + e] = from_f32<T>(
+          div ? acc[i] / fmaxf(div[r], 1e-30f) : acc[i]);
+  }
+}
+
+template <typename T>
+constexpr size_t fwd_wide_smem() {
+  return 3 * kTile * kLdC * sizeof(T)             // q, k, v chunks
+         + kTile * kLdW * sizeof(T)               // p
+         + kTile * kLdW * sizeof(float)           // s
+         + 3 * kTile * sizeof(float);             // m, l, corr
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, float* __restrict__ scratch,
+                    int tq, int tk, int d, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + kTile * kLdC;
+  T* vs = ks + kTile * kLdC;
+  T* ps = vs + kTile * kLdC;
+  float* s = reinterpret_cast<float*>(ps + kTile * kLdW);
+  float* m_s = s + kTile * kLdW;
+  float* l_s = m_s + kTile;
+  float* corr_s = l_s + kTile;
+
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * kTile;  // long first
+  const int diag = tk - tq;
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * d;
+  float* acc = scratch + ((size_t)bh * n_qt * kTile + q0) * d;  // 64 x d
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  zero(acc, kTile * d);
+  if (threadIdx.x < kTile) {
+    m_s[threadIdx.x] = kNegInf;
+    l_s[threadIdx.x] = 0.f;
+  }
+  const int n_kt = k_tiles(q0, tk, diag, causal);
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * kTile;
+    scores_wide(s, qs, ks, qb, q0, tq, kb, k0, tk, d);
+    __syncthreads();
+    // online softmax, as fwd_kernel; the accumulator's rescale waits for
+    // its chunks
+    for (int r = warp; r < kTile; r += kWarps) {
+      const int q_pos = q0 + r;
+      const float s0 = key_ok(q_pos, k0 + lane, tk, diag, causal)
+                           ? s[r * kLdW + lane] * scale
+                           : kNegInf;
+      const float s1 = key_ok(q_pos, k0 + lane + 32, tk, diag, causal)
+                           ? s[r * kLdW + lane + 32] * scale
+                           : kNegInf;
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      const float sum = warp_sum(p0 + p1);
+      const float corr = expf(m_prev - m_new);
+      ps[r * kLdW + lane] = from_f32<T>(p0);
+      ps[r * kLdW + lane + 32] = from_f32<T>(p1);
+      __syncwarp();
+      if (lane == 0) {
+        l_s[r] = l_s[r] * corr + sum;
+        m_s[r] = m_new;
+        corr_s[r] = corr;
+      }
+    }
+    for (int c = 0; c < d / kChunk; ++c) {
+      __syncthreads();  // p and corr written; the last chunk's product done
+      load_chunk(vs, vb, k0, tk, d, c * kChunk);
+      float* acc_c = acc + c * kChunk;
+      for (int i = threadIdx.x; i < kTile * kChunk; i += kThreads)
+        acc_c[(i / kChunk) * d + i % kChunk] *= corr_s[i / kChunk];
+      __syncthreads();
+      tile_mm<T, kTile, kChunk, kTile, true, true, true>(ps, kLdW, vs, kLdC,
+                                                         acc_c, d);
+    }
+  }
+  __syncthreads();
+  store_wide(o + (size_t)bh * tq * d, acc, q0, tq, d, l_s);
+  if (threadIdx.x < kTile && q0 + (int)threadIdx.x < tq)
+    lse[(size_t)bh * tq + q0 + threadIdx.x] =
+        m_s[threadIdx.x] + logf(fmaxf(l_s[threadIdx.x], 1e-30f));
+}
+
+template <typename T>
+constexpr size_t dq_wide_smem() {
+  return 4 * kTile * kLdC * sizeof(T)             // q, do, k, v chunks
+         + kTile * kLdW * sizeof(T)               // ds
+         + 2 * kTile * kLdW * sizeof(float)       // s, dp
+         + 2 * kTile * sizeof(float);             // lse, delta
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq,
+                   float* __restrict__ scratch, int tq, int tk, int d,
+                   float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + kTile * kLdC;
+  T* ks = dos + kTile * kLdC;
+  T* vs = ks + kTile * kLdC;
+  T* dss = vs + kTile * kLdC;
+  float* s = reinterpret_cast<float*>(dss + kTile * kLdW);
+  float* dp = s + kTile * kLdW;
+  float* lse_s = dp + kTile * kLdW;
+  float* dl_s = lse_s + kTile;
+
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * kTile;
+  const int diag = tk - tq;
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* dob = dout + (size_t)bh * tq * d;
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * d;
+  float* acc = scratch + ((size_t)bh * n_qt * kTile + q0) * d;
+
+  load_rows_f32(lse_s, lse + (size_t)bh * tq, q0, tq);
+  load_rows_f32(dl_s, delta + (size_t)bh * tq, q0, tq);
+  zero(acc, kTile * d);
+  const int n_kt = k_tiles(q0, tk, diag, causal);
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * kTile;
+    scores_wide(s, qs, ks, qb, q0, tq, kb, k0, tk, d);
+    scores_wide(dp, dos, vs, dob, q0, tq, vb, k0, tk, d);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+      const int r = i / kTile, c = i % kTile;
+      const int q_pos = q0 + r;
+      const float p = q_pos < tq && key_ok(q_pos, k0 + c, tk, diag, causal)
+                          ? expf(s[r * kLdW + c] * scale - lse_s[r])
+                          : 0.f;
+      dss[r * kLdW + c] = from_f32<T>(p * (dp[r * kLdW + c] - dl_s[r]) * scale);
+    }
+    for (int c = 0; c < d / kChunk; ++c) {
+      __syncthreads();  // ds written; the last chunk's product done
+      load_chunk(ks, kb, k0, tk, d, c * kChunk);
+      __syncthreads();
+      tile_mm<T, kTile, kChunk, kTile, true, true, true>(dss, kLdW, ks, kLdC,
+                                                         acc + c * kChunk, d);
+    }
+  }
+  __syncthreads();
+  store_wide(dq + (size_t)bh * tq * d, acc, q0, tq, d);
+}
+
+template <typename T>
+constexpr size_t dkv_wide_smem() {
+  return 4 * kTile * kLdC * sizeof(T)             // k, v, q, do chunks
+         + 2 * kTile * kLdW * sizeof(float)       // s, dp; then p, ds
+         + 2 * kTile * sizeof(float);             // lse, delta
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, float* __restrict__ scratch, int tq,
+                    int tk, int d, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + kTile * kLdC;
+  T* qs = vs + kTile * kLdC;
+  T* dos = qs + kTile * kLdC;
+  float* s = reinterpret_cast<float*>(dos + kTile * kLdC);
+  float* dp = s + kTile * kLdW;
+  // p and ds, [query][key] in the input type, overwrite s and dp once read
+  T* pss = reinterpret_cast<T*>(s);
+  T* dss = reinterpret_cast<T*>(dp);
+  float* lse_s = dp + kTile * kLdW;
+  float* dl_s = lse_s + kTile;
+
+  const int n_kt = (tk + kTile - 1) / kTile;
+  const int bh = blockIdx.x / n_kt;
+  const int k0 = (int)(blockIdx.x % n_kt) * kTile;  // causal: long first
+  const int diag = tk - tq;
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* dob = dout + (size_t)bh * tq * d;
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * d;
+  // this block's 64 rows of the dk and the dv accumulators: (BH, Tk
+  // rounded up to tiles, d) each, one after the other
+  float* dk_acc = scratch + ((size_t)bh * n_kt * kTile + k0) * d;
+  float* dv_acc = dk_acc + (size_t)gridDim.x * kTile * d;
+
+  zero(dk_acc, kTile * d);
+  zero(dv_acc, kTile * d);
+  const int n_qt = (tq + kTile - 1) / kTile;
+  // causal: the first query tile that reaches key k0 holds q_pos = k0 - diag
+  const int i0 = causal ? max(0, k0 - diag) / kTile : 0;
+  for (int i = i0; i < n_qt; ++i) {
+    const int q0 = i * kTile;
+    __syncthreads();  // the last tile's p and ds are read
+    load_rows_f32(lse_s, lse + (size_t)bh * tq, q0, tq);
+    load_rows_f32(dl_s, delta + (size_t)bh * tq, q0, tq);
+    scores_wide(s, qs, ks, qb, q0, tq, kb, k0, tk, d);
+    scores_wide(dp, dos, vs, dob, q0, tq, vb, k0, tk, d);
+    __syncthreads();
+    float pr[kPerThread], dsr[kPerThread];
+#pragma unroll
+    for (int t = 0; t < kPerThread; ++t) {
+      const int idx = threadIdx.x + t * kThreads;
+      const int r = idx / kTile, c = idx % kTile;
+      const int q_pos = q0 + r;
+      pr[t] = q_pos < tq && key_ok(q_pos, k0 + c, tk, diag, causal)
+                  ? expf(s[r * kLdW + c] * scale - lse_s[r])
+                  : 0.f;
+      dsr[t] = pr[t] * (dp[r * kLdW + c] - dl_s[r]) * scale;
+    }
+    __syncthreads();  // every s and dp is read before p and ds overwrite them
+#pragma unroll
+    for (int t = 0; t < kPerThread; ++t) {
+      const int idx = threadIdx.x + t * kThreads;
+      const int r = idx / kTile, c = idx % kTile;
+      pss[r * kLdW + c] = from_f32<T>(pr[t]);
+      dss[r * kLdW + c] = from_f32<T>(dsr[t]);
+    }
+    for (int c = 0; c < d / kChunk; ++c) {
+      __syncthreads();  // p and ds written; the last chunk's products done
+      load_chunk(qs, qb, q0, tq, d, c * kChunk);
+      load_chunk(dos, dob, q0, tq, d, c * kChunk);
+      __syncthreads();
+      // dv[key][e] += sum_q p[q][key] do[q][e]; dk likewise from ds and q
+      tile_mm<T, kTile, kChunk, kTile, false, true, true>(
+          pss, kLdW, dos, kLdC, dv_acc + c * kChunk, d);
+      tile_mm<T, kTile, kChunk, kTile, false, true, true>(
+          dss, kLdW, qs, kLdC, dk_acc + c * kChunk, d);
+    }
+  }
+  __syncthreads();
+  store_wide(dk + (size_t)bh * tk * d, dk_acc, k0, tk, d);
+  store_wide(dv + (size_t)bh * tk * d, dv_acc, k0, tk, d);
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -464,11 +785,11 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 inline int n_tiles(int t) { return (t + kTile - 1) / kTile; }
 
-// K2a, K2b and K2c at bf16 and head dim 64 or 128 run
+// K2a, K2b and K2c at 16-bit types and head dim 64 or 128 run
 // flash_attention_sm90.cu: this file builds no instance of them and refuses
 // the pairs.
 template <typename T, int D>
-constexpr bool kSm90Serves = std::is_same<T, bf16>::value && D >= 64;
+constexpr bool kSm90Serves = !std::is_same<T, float>::value && D >= 64;
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
@@ -525,8 +846,70 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Instantiates the launcher for one
-// (dtype, head_dim) pair or returns cudaErrorInvalidValue.
+template <typename T>
+int launch_fwd_wide(int d, const void* q, const void* k, const void* v,
+                    void* o, float* lse, float* scratch, int bh, int tq,
+                    int tk, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = fwd_wide_smem<T>();
+  cudaError_t err = set_smem(fwd_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fwd_wide_kernel<T><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, scratch, tq, tk, d,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dq_wide(int d, const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, float* scratch, int bh, int tq, int tk,
+                   float scale, int causal, cudaStream_t stream) {
+  const size_t smem = dq_wide_smem<T>();
+  cudaError_t err = set_smem(dq_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dq_wide_kernel<T><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), scratch, tq, tk, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkv_wide(int d, const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, float* scratch, int bh, int tq,
+                    int tk, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = dkv_wide_smem<T>();
+  cudaError_t err = set_smem(dkv_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dkv_wide_kernel<T><<<bh * n_tiles(tk), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), scratch, tq, tk, d, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Whether the wide kernels
+// serve (dtype, head_dim): multiples of 64 above 128 in f32, above 256 in
+// the 16-bit types (flash_attention_sm90.cu serves 256).
+inline bool wide_dim(int dtype, int head_dim) {
+  return head_dim % kChunk == 0 && head_dim > (dtype == 0 ? 128 : 256);
+}
+
+// Instantiates the wide launcher for dtype; a missing scratch is refused.
+#define WIDE_DISPATCH(dtype, scratch, LAUNCH, ...)                         \
+  do {                                                                    \
+    if ((scratch) == nullptr) return (int)cudaErrorInvalidValue;          \
+    if ((dtype) == 0) return LAUNCH<float>(__VA_ARGS__);                  \
+    if ((dtype) == 1) return LAUNCH<bf16>(__VA_ARGS__);                   \
+    if ((dtype) == 2) return LAUNCH<f16>(__VA_ARGS__);                    \
+    return (int)cudaErrorInvalidValue;                                    \
+  } while (0)
+
+// Instantiates the launcher for one (dtype, head_dim) pair of head dim 128
+// or less or returns cudaErrorInvalidValue.
 #define FLASH_DISPATCH(dtype, head_dim, LAUNCH, ...)                      \
   do {                                                                    \
     if ((dtype) == 0 && (head_dim) == 32) return LAUNCH<float, 32>(__VA_ARGS__); \
@@ -534,46 +917,63 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     if ((dtype) == 0 && (head_dim) == 128) return LAUNCH<float, 128>(__VA_ARGS__); \
     if ((dtype) == 1 && (head_dim) == 32) return LAUNCH<bf16, 32>(__VA_ARGS__);  \
     if ((dtype) == 1 && (head_dim) == 64) return LAUNCH<bf16, 64>(__VA_ARGS__);  \
+    if ((dtype) == 2 && (head_dim) == 32) return LAUNCH<f16, 32>(__VA_ARGS__);   \
     return (int)cudaErrorInvalidValue;                                    \
   } while (0)
 
 }  // namespace
 
 // K2a. q (bh, tq, D), k and v (bh, tk, D) -> o (bh, tq, D), lse (bh, tq).
+// scratch: (bh, tq rounded up to 64, D) f32 for the wide kernels, else
+// unused.
 extern "C" int flash_attention_fwd(int device, int dtype, int head_dim,
                                    const void* q, const void* k,
-                                   const void* v, void* o, float* lse, int bh,
-                                   int tq, int tk, float scale, int causal,
-                                   void* stream) {
+                                   const void* v, void* o, float* lse,
+                                   float* scratch, int bh, int tq, int tk,
+                                   float scale, int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide_dim(dtype, head_dim))
+    WIDE_DISPATCH(dtype, scratch, launch_fwd_wide, head_dim, q, k, v, o, lse,
+                  scratch, bh, tq, tk, scale, causal, st);
   FLASH_DISPATCH(dtype, head_dim, launch_fwd, q, k, v, o, lse, bh, tq, tk,
-                 scale, causal, static_cast<cudaStream_t>(stream));
+                 scale, causal, st);
 }
 
 // K2b. dout (bh, tq, D), lse and delta (bh, tq) -> dq (bh, tq, D).
+// scratch as K2a's.
 extern "C" int flash_attention_dq(int device, int dtype, int head_dim,
                                   const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,
-                                  const float* delta, void* dq, int bh, int tq,
-                                  int tk, float scale, int causal,
-                                  void* stream) {
+                                  const float* delta, void* dq,
+                                  float* scratch, int bh, int tq, int tk,
+                                  float scale, int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide_dim(dtype, head_dim))
+    WIDE_DISPATCH(dtype, scratch, launch_dq_wide, head_dim, q, k, v, dout,
+                  lse, delta, dq, scratch, bh, tq, tk, scale, causal, st);
   FLASH_DISPATCH(dtype, head_dim, launch_dq, q, k, v, dout, lse, delta, dq,
-                 bh, tq, tk, scale, causal, static_cast<cudaStream_t>(stream));
+                 bh, tq, tk, scale, causal, st);
 }
 
-// K2c. The same inputs -> dk, dv (bh, tk, D).
+// K2c. The same inputs -> dk, dv (bh, tk, D). scratch: (2, bh, tk rounded
+// up to 64, D) f32 for the wide kernels, else unused.
 extern "C" int flash_attention_dkv(int device, int dtype, int head_dim,
                                    const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
-                                   void* dk, void* dv, int bh, int tq, int tk,
-                                   float scale, int causal, void* stream) {
+                                   void* dk, void* dv, float* scratch, int bh,
+                                   int tq, int tk, float scale, int causal,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide_dim(dtype, head_dim))
+    WIDE_DISPATCH(dtype, scratch, launch_dkv_wide, head_dim, q, k, v, dout,
+                  lse, delta, dk, dv, scratch, bh, tq, tk, scale, causal, st);
   FLASH_DISPATCH(dtype, head_dim, launch_dkv, q, k, v, dout, lse, delta, dk,
-                 dv, bh, tq, tk, scale, causal,
-                 static_cast<cudaStream_t>(stream));
+                 dv, bh, tq, tk, scale, causal, st);
 }

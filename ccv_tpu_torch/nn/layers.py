@@ -435,10 +435,9 @@ class ScaledDotProductAttention(Layer):
     On a CUDA tensor with T >= ``FLASH_MIN_T`` attention runs the flash
     kernels (``flash_attention``: K2a forward, K2b / K2c backward), else
     the plain ``ops.scaled_dot_product_attention`` (``attention_route``). The
-    kernels take head dims up to 128, as ``ccv_tpu``'s 128-lane padding
-    does (``flash_attention`` zero-pads D to 32, 64 or 128); a larger
-    ``dim`` on that route raises in ``padded_dim`` rather than running the
-    plain op."""
+    kernels take every head dim, as ``ccv_tpu``'s padding to a multiple of
+    128 lanes does (``flash_attention`` zero-pads D to 32, 64, 128 or 256,
+    above that to a multiple of 64), in float32, bfloat16 and float16."""
 
     def __init__(self, heads: int, dim: int, is_causal: bool = False,
                  fused_qkv: bool = True, out_proj: bool = True,

@@ -10,19 +10,27 @@ kernels' op order:
   kernel or raises. ``LAUNCHES`` counts kernel launches per kernel,
   ``DESIGN_LAUNCHES`` per kernel and design. ``_design`` picks the design:
   "wgmma-tma" (csrc/flash_attention_sm90.cu: wgmma, TMA, register-resident
-  softmax and accumulators) for all three at bf16 and head dim 64 or 128;
-  "wmma-smem" (csrc/flash_attention.cu: wmma tiles and accumulators in
-  shared memory) for f32 and for bf16 at head dim 32;
+  softmax and accumulators) for all three at bf16 and float16 and head dim
+  64, 128 or 256; "wmma-smem" (csrc/flash_attention.cu: wmma tiles and
+  accumulators in shared memory) for the rest: float32 and 16-bit D 32 as
+  tiles that hold all of D, float32 above D 128 and every type above D 256
+  in a form that walks D in 64-column chunks, its accumulators in a float32
+  scratch the wrapper allocates (``_wide``);
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
-  It takes any head dim up to 128: q, k and v are zero-padded along D to the
-  smallest of ``HEAD_DIMS`` that holds it, and the padded columns of o, dq,
-  dk and dv are dropped before they are returned. Zero columns add nothing
-  to q.k and the caller's scale is passed on unchanged, so this is exact,
-  and it is the same kernel on padded operands (ccv_tpu pads D to 128
-  lanes the same way). The ``(BH, T, D)`` entry points take only
-  ``HEAD_DIMS``.
+  It takes any head dim D >= 1, as ccv_tpu does: q, k and v are
+  zero-padded along D to ``padded_dim(D)`` (the smallest of ``HEAD_DIMS``
+  that holds D, or above the largest the next multiple of ``WIDE_STEP``),
+  and the padded columns of o, dq, dk and dv are dropped before they are
+  returned. Zero columns add nothing to q.k and the caller's scale is
+  passed on unchanged, so this is exact, and it is the same kernel on
+  padded operands (ccv_tpu pads D to a multiple of 128 lanes the same
+  way). The ``(BH, T, D)`` entry points take only the dims ``padded_dim``
+  returns.
+
+Types: float32, bfloat16 and float16, as ccv_tpu's kernels take the input's
+own type; p and ds are rounded to it before their products.
 
 The TPU layout is gone: D is padded only as far as the next built head
 dim, and lse and delta are ``(BH, Tq)`` float32 rather than broadcast over
@@ -43,8 +51,10 @@ import torch
 from ccv_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30          # masked score, as in the Pallas kernel
-HEAD_DIMS = (32, 64, 128)  # head dims the kernels are built for
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128, 256)  # head dims with kernels of their own
+WIDE_STEP = 64  # above HEAD_DIMS[-1], D is a multiple of this (its chunks)
+WGMMA_DIMS = (64, 128, 256)  # the 16-bit head dims of "wgmma-tma"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches made by the wrappers (CUDA tensors only), per kernel and
 # per kernel and design
@@ -64,8 +74,14 @@ def reset_launches() -> None:
 def _design(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The kernel design that serves ``kernel`` ("fwd", "dq" or "dkv") for
     inputs of type ``dtype`` and head dim ``d``."""
-    return ("wgmma-tma" if dtype == torch.bfloat16 and d in (64, 128)
+    return ("wgmma-tma" if dtype != torch.float32 and d in WGMMA_DIMS
             else "wmma-smem")
+
+
+def _wide(dtype: torch.dtype, d: int) -> bool:
+    """Whether "wmma-smem" runs head dim ``d`` in 64-column chunks of D with
+    float32 scratch accumulators: float32 above 128, 16-bit above 256."""
+    return d > 128 and _design("fwd", dtype, d) == "wmma-smem"
 
 
 def causal_pairs(t_q: int, t_k: int, causal: bool) -> int:
@@ -170,8 +186,8 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                causal: bool) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"{name} must be float32 or bfloat16, got "
-                            f"{t.dtype}")
+            raise TypeError(f"{name} must be float32, bfloat16 or float16, "
+                            f"got {t.dtype}")
         if t.dim() != 3:
             raise ValueError(f"{name} must be (BH, T, D), got "
                              f"{tuple(t.shape)}")
@@ -186,8 +202,9 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit (BH, T, D)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
+    if d < 1 or d != padded_dim(d):
+        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS} and "
+                         f"multiples of {WIDE_STEP} above")
     if t_q < 1 or k.shape[1] < 1:
         raise ValueError("empty sequence")
     if causal and t_q > k.shape[1]:
@@ -213,29 +230,32 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("flash_attention", ["flash_attention.cu"])
     if lib.flash_attention_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd.argtypes = [i, i, i, p, p, p, p, p, i, i, i,
-                                            f, i, p]
-        lib.flash_attention_dq.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i,
-                                           i, f, i, p]
+        lib.flash_attention_fwd.argtypes = [i, i, i, p, p, p, p, p, p, i, i,
+                                            i, f, i, p]
+        lib.flash_attention_dq.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i,
+                                           i, i, f, i, p]
         lib.flash_attention_dkv.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
-                                            i, i, i, f, i, p]
+                                            p, i, i, i, f, i, p]
         for fn in (lib.flash_attention_fwd, lib.flash_attention_dq,
                    lib.flash_attention_dkv):
             fn.restype = ctypes.c_int
     return lib
 
 
-def _sm90_library() -> ctypes.CDLL:
-    lib = _build.load_library("flash_attention_sm90",
-                              ["flash_attention_sm90.cu"])
+def _sm90_library(code: int) -> ctypes.CDLL:
+    """The wgmma-tma library of dtype code 1 (bfloat16) or 2 (float16): one
+    library a type, so the two build at once."""
+    lib = _build.load_library(f"flash_attention_sm90_{code}",
+                              ["flash_attention_sm90.cu"],
+                              [f"-DFLASH_SM90_DTYPE={code}"])
     if lib.flash_attention_fwd_sm90.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd_sm90.argtypes = [i, i, p, p, p, p, p, i, i,
-                                                 i, f, i, p]
-        lib.flash_attention_dq_sm90.argtypes = [i, i, p, p, p, p, p, p, p,
-                                                i, i, i, f, i, p]
-        lib.flash_attention_dkv_sm90.argtypes = [i, i, p, p, p, p, p, p, p,
-                                                 p, i, i, i, f, i, p]
+        lib.flash_attention_fwd_sm90.argtypes = [i, i, i, p, p, p, p, p, i,
+                                                 i, i, f, i, p]
+        lib.flash_attention_dq_sm90.argtypes = [i, i, i, p, p, p, p, p, p,
+                                                p, i, i, i, f, i, p]
+        lib.flash_attention_dkv_sm90.argtypes = [i, i, i, p, p, p, p, p, p,
+                                                 p, p, i, i, i, f, i, p]
         for fn in (lib.flash_attention_fwd_sm90, lib.flash_attention_dq_sm90,
                    lib.flash_attention_dkv_sm90):
             fn.restype = ctypes.c_int
@@ -243,10 +263,11 @@ def _sm90_library() -> ctypes.CDLL:
 
 
 def build() -> None:
-    """Compile (or find on disk) and load the kernels' two libraries, one
+    """Compile (or find on disk) and load the kernels' three libraries, one
     nvcc for each, started together."""
-    with ThreadPoolExecutor(2) as ex:
-        for fut in [ex.submit(_library), ex.submit(_sm90_library)]:
+    with ThreadPoolExecutor(3) as ex:
+        for fut in [ex.submit(_library), ex.submit(_sm90_library, 1),
+                    ex.submit(_sm90_library, 2)]:
             fut.result()
 
 
@@ -278,6 +299,22 @@ def _head(q: torch.Tensor):
             q.shape[1], torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def _scratch(x: torch.Tensor, n: int) -> Optional[torch.Tensor]:
+    """The float32 accumulators of the chunked "wmma-smem" form for ``n``
+    outputs shaped like ``x`` (BH, T, D), T rounded up to whole 64-row
+    tiles: (n, BH, T64, D), or None where the kernel keeps them on chip.
+    The caller holds it until the launch is queued."""
+    bh, t, d = x.shape
+    if not _wide(x.dtype, d):
+        return None
+    return torch.empty((n, bh, -(-t // 64) * 64, d), dtype=torch.float32,
+                       device=x.device)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -292,14 +329,16 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((bh, t_q), dtype=torch.float32, device=q.device)
     design = _design("fwd", q.dtype, d)
     if design == "wgmma-tma":
-        err = _sm90_library().flash_attention_fwd_sm90(
-            dev, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, t_q, k.shape[1], scale, int(causal), stream)
-    else:
-        err = _library().flash_attention_fwd(
+        err = _sm90_library(code).flash_attention_fwd_sm90(
             dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), bh, t_q, k.shape[1], scale,
             int(causal), stream)
+    else:
+        scratch = _scratch(q, 1)
+        err = _library().flash_attention_fwd(
+            dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), _ptr(scratch), bh, t_q,
+            k.shape[1], scale, int(causal), stream)
     _launched("fwd", design, err)
     return o, lse
 
@@ -316,12 +355,14 @@ def flash_dq(q, k, v, do, lse, delta, scale: float,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
     if design == "wgmma-tma":
-        err = _sm90_library().flash_attention_dq_sm90(
-            dev, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
-    else:
-        err = _library().flash_attention_dq(
+        err = _sm90_library(code).flash_attention_dq_sm90(
             dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
             stream)
+    else:
+        scratch = _scratch(q, 1)
+        err = _library().flash_attention_dq(
+            dev, code, d, *ptrs, _ptr(scratch), bh, t_q, k.shape[1], scale,
+            int(causal), stream)
     _launched("dq", design, err)
     return dq
 
@@ -338,24 +379,28 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if design == "wgmma-tma":
-        err = _sm90_library().flash_attention_dkv_sm90(
-            dev, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
-    else:
-        err = _library().flash_attention_dkv(
+        err = _sm90_library(code).flash_attention_dkv_sm90(
             dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
             stream)
+    else:
+        scratch = _scratch(k, 2)
+        err = _library().flash_attention_dkv(
+            dev, code, d, *ptrs, _ptr(scratch), bh, t_q, k.shape[1], scale,
+            int(causal), stream)
     _launched("dkv", design, err)
     return dk, dv
 
 
 def padded_dim(d: int) -> int:
     """The head dim the kernels run a head dim ``d`` at: the smallest of
-    ``HEAD_DIMS`` that holds it. Raises above the largest."""
+    ``HEAD_DIMS`` that holds it, above the largest the next multiple of
+    ``WIDE_STEP``. Raises for d < 1."""
+    if d < 1:
+        raise ValueError(f"head dim {d}: must be at least 1")
     for built in HEAD_DIMS:
         if d <= built:
             return built
-    raise ValueError(f"head dim {d}: the kernels take up to "
-                     f"{HEAD_DIMS[-1]} (zero-padded to one of {HEAD_DIMS})")
+    return -(-d // WIDE_STEP) * WIDE_STEP
 
 
 def _to_bthd(x: torch.Tensor, d_pad: int) -> torch.Tensor:
@@ -374,7 +419,7 @@ def _from_bthd(x: torch.Tensor, b: int, d: int) -> torch.Tensor:
 
 class FlashAttention(torch.autograd.Function):
     """Fused attention on (B, T, H, D): K2a forward, K2b and K2c backward,
-    at any D up to 128 (zero-padded to ``padded_dim(D)``).
+    at any D >= 1 (zero-padded to ``padded_dim(D)``).
 
     Forward saves (q, k, v, o, lse), as ccv_tpu's custom_vjp does; the
     backward forms delta = rowsum(dO * O) in plain torch (ccv_tpu forms it
@@ -409,9 +454,11 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None,
                     is_causal: bool = False) -> torch.Tensor:
-    """Fused scaled-dot-product attention, (B, T, H, D) layout, any D up to
-    128; the scale defaults to 1/sqrt(D) of the unpadded D. Differentiable
-    in q, k and v."""
+    """Fused scaled-dot-product attention, (B, T, H, D) layout, any D >= 1
+    and float32, bfloat16 or float16; the scale defaults to 1/sqrt(D) of
+    the unpadded D. Differentiable in q, k and v."""
+    d = q.shape[-1]
+    padded_dim(d)  # raises for a head dim below 1
     if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+        scale = 1.0 / math.sqrt(d)
     return FlashAttention.apply(q, k, v, float(scale), bool(is_causal))

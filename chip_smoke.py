@@ -80,8 +80,8 @@ started together) and drives the port's main paths:
   frame tiled from crop180.png, and an 8-channel one on the gray frame),
   written with ``write_cascade`` and read back, thresholds near the
   running sums' quantiles so that windows end in phases A, B1 and B2, the
-  card's windows against the port's CPU path (margin as SCD's; the gray
-  cascade's on the frame's top-left 540 x 960 quarter), ms per
+  card's windows against the port's CPU path (margin as SCD's; on the
+  frame's top-left 540 x 960 quarter), ms per
   image at default ``IcfParams``, ``bin/icfdetect`` and
   ``/icf/detect.objects``; SWT on text_test.png (edges, sobels and stroke
   maps bit for bit the CPU's, words against text_test.swt.txt at IoU >=
@@ -105,7 +105,7 @@ started together) and drives the port's main paths:
   the defaults, ms per image, ``bin/dpmdetect`` and
   ``/dpm/detect.objects``; msermatch on the gray frame and MSCR on the RGB
   one, card against CPU, ``bin/msermatch`` and ``/mser``; DAISY card
-  against CPU on a 256x256 crop and timed at 1080p; TLD over 6 frames of
+  against CPU on a 256x256 crop and timed at 1080p; TLD over 4 frames of
   1920x1080 (crop180.png pasted on the text at known shifts), IoU >= 0.7,
   card against CPU, ms per frame, ``bin/tld``, ``/tld/track.object`` and
   ``/convnet/classify``; their profiles last;
@@ -223,11 +223,22 @@ started together) and drives the port's main paths:
   by the measurement; the detections equal to pallas_full's; a second call
   measures nothing), and ``sat_auto`` at ICF's colour 1080p level shapes
   (choice and times), ICF on the card held against the CPU port on the
-  same SAT forms by phase 19's gate (every other phase pins
+  same SAT forms by phase 19's gate on the frame's top-left quarter (every
+  other phase pins
   ``CCV_TPU_SAT=sat``, the form they always ran);
 - phase 42, the explicit forms at 1080p: SCD's ``slices``, ``xla`` and
   ``matmul`` against ``pallas_full``, ICF's fused ``slices`` and ``matmul``
-  against its staged form, ms of each.
+  against its staged form, ms of each;
+- phase 43, K2 at head dims above 128 and in float16: the wgmma-tma
+  kernels at D 256 in bf16 and float16 and the wmma-smem kernels' chunked
+  form (float32 above D 128, every type above D 256) against their plain
+  versions, each launch's design checked, and timed beside SDPA's calls;
+  the LM at Gemma-2B's widths (d 2048 = 8 heads of 256, ff 16384, vocab
+  256,000, 2 layers, B 4 x 1024): one step with the kernels against one
+  with plain attention in float32 and bf16, then ``lm_bench.measure``;
+  greedy decoding at d 1024 = 4 heads of 256; ``Model.fit`` through
+  ``ScaledDotProductAttention(8, 256)`` in float32 and bf16 against the
+  plain route.
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -471,6 +482,49 @@ LM_D128_REL = 3e-2
 # the largest; then the wmt step (B WMT_B x 128, source mask, dropout 0)
 # through K2 at D 128, launches by design
 S2S_D128 = dict(S2S, layers=2, heads=8, head_dim=128, ff=4096)
+# phase 43, K2 at head dims above 128 and in float16. The wgmma-tma kernels
+# at D 256 in bf16 and float16 against their plain versions within phase
+# 6's gates at K2_D256_SHAPES and at K2_D256 (B 4 x 8 heads, T 1024: the
+# attention of Gemma-2B's width); the wmma-smem kernels' chunked form at
+# K2_WIDE_SHAPES (float32 D 256, bf16 D 320 and 512, float16 D 512) and
+# flash_attention at head dims padded inside (K2_WIDE_PADDED), every launch
+# checked for its design; K2 timed at K2_D256 in bf16 and float16 in turns
+# with SDPA's flash calls, and the chunked form at K2_WIDE_TIMED beside the
+# memory-efficient calls
+K2_D256_SHAPES = [(6, 100, 100, 256, True), (4, 72, 136, 256, False),
+                  (2, 257, 257, 256, True)]
+K2_D256 = (32, 1024, 1024, 256, True)
+K2_WIDE_SHAPES = [(torch.float32, (3, 100, 100, 256, True)),
+                  (torch.float32, (2, 72, 136, 256, False)),
+                  (torch.bfloat16, (3, 100, 100, 320, True)),
+                  (torch.bfloat16, (2, 72, 136, 320, False)),
+                  (torch.bfloat16, (3, 100, 100, 512, True)),
+                  (torch.float16, (2, 257, 257, 512, False))]
+K2_WIDE_PADDED = [(torch.bfloat16, (2, 100, 4, 160, True)),
+                  (torch.float16, (2, 100, 4, 200, False)),
+                  (torch.float32, (2, 72, 2, 300, True))]
+K2_WIDE_TIMED = [(torch.float32, K2_D256), (torch.bfloat16,
+                                            (32, 1024, 1024, 512, True))]
+# the LM at Gemma-2B's widths: d 2048 = 8 heads of 256, ff 16384, vocab
+# 256,000, 2 of its 18 layers (depth cut to the script's time), B 4 x T
+# 1024. One step from the same parameters and batch with the kernels and
+# with plain attention (PR 9's two gates, as wmt_gate: in float32, the
+# chunked form, every gradient within LM_GRAD_REL of the plain step's
+# largest magnitude; in bf16, the kernel step's gradients no farther from
+# the float32 plain step than BF16_GRAD_RATIO times the bf16 plain step's
+# worst distance, or LM_GRAD_REL; the loss within LM_LOSS_REL in both);
+# then lm_bench.measure (bf16, remat dots) for a warm-up and LM_D256_STEPS
+LM_D256 = dict(vocab=256000, layers=2, dim=2048, heads=8, ff=16384, batch=4,
+               seq=1024)
+LM_D256_STEPS = 3
+# greedy decoding (phase 16's check) of a seq2seq model at d 1024 = 4
+# heads of 256 (Transformer-big's width and ff with heads of 256), 2 + 2
+# layers, bf16; and Model.fit of phase 31's graph model with
+# ScaledDotProductAttention(8, 256) at B 4 x T 1024 (SDPA_D256), float32
+# (the chunked form) and bf16 (wgmma-tma) against the plain route by
+# phase 31's gates
+S2S_D256 = dict(S2S, layers=2, heads=4, head_dim=256, ff=4096)
+SDPA_D256 = (4, 1024, 2048, 8, 256)
 # phase 35, SCD training (ccv_tpu_torch/train/scd.py) at the published 40 x
 # 40 patch and all 1,631 stump features; depth cut: 2 stages of at most 6
 # features, 200 Adam steps a round. Seeded patches (``train_patches``):
@@ -543,7 +597,15 @@ PAR_NEEDS = {"data_parallel": ("allreduce",),
 
 
 
+PHASE_S = {}     # seconds from the previous log line, by the phase logging
+_LAST_LOG = []
+
+
 def log(phase, msg):
+    now = time.perf_counter()
+    if _LAST_LOG:
+        PHASE_S[phase] = PHASE_S.get(phase, 0.0) + now - _LAST_LOG[0]
+    _LAST_LOG[:] = [now]
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -648,6 +710,7 @@ def kernel_vs_plain(scd, k1, cascade, sat_l, dims):
 # figure: see profile_head
 PROFILE_HEAD = 1000
 HEAD_KERNEL = "spin_kernel"
+PROFILED_IMAGES = 2  # phase 10's 1080p detects a form (3 before PR 19)
 
 
 def time_cuda(fn, reps):
@@ -780,15 +843,32 @@ def k2_compare(k2, shape, dtype, dev, rng):
     return errs, rels
 
 
-def k2_library(q, k, v, do, scale, b=8):
+def k2_library(q, k, v, do, scale, b=8, backend="flash"):
     """The PyTorch calls that compute K2's functions, used only here as
     yardsticks: SDPA's flash forward (the flash backend forced, so a
     missing one raises instead of timing another), and the flash backward
     op, which gives dq, dk and dv in one call, fed from the flash forward
-    op's outputs. Inputs are causal (BH, T, D) with BH = b x heads."""
+    op's outputs. Inputs are causal (BH, T, D) with BH = b x heads.
+    ``backend="efficient"``: the memory-efficient forward and backward ops
+    instead (float32, and head dims past the flash backend's 256)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     h = q.shape[0] // b
     q4, k4, v4, do4 = (x.view(b, h, *x.shape[1:]) for x in (q, k, v, do))
+    if backend == "efficient":
+        o, lse, seed, offset = (
+            torch.ops.aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, None, True, 0.0, True, scale=scale))
+
+        def fwd():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, scale=scale)
+
+        def bwd():
+            return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+                do4, q4, k4, v4, None, o, lse, seed, offset, 0.0,
+                [True, True, True, False], True, scale=scale)[:3]
+        return fwd, bwd
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         out = torch.ops.aten._scaled_dot_product_flash_attention(
             q4, k4, v4, 0.0, True, False, scale=scale)
@@ -835,30 +915,36 @@ def k2_vs_plain(k2, roofline, dev, card):
     return errs, out
 
 
-def k2_timing_note(out, lib_err):
+def k2_timing_note(out, lib_err, backend="flash"):
     return "; ".join(
         f"{key} {r['ms']:.4f} ms = {r['tflops']:.1f} TFLOP/s, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
         f"{r['bound_ms'] / r['ms']:.3f} of it; library "
         f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms"
         for key, r in out.items()) + (
-        f"; library = SDPA flash forward, and for dq and dkv the flash "
-        f"backward op (dq, dk and dv in one call); library vs plain max "
-        f"error / max|plain| (o, dq, dk, dv) "
+        f"; library = SDPA {backend} forward, and for dq and dkv the "
+        f"{backend} backward op (dq, dk and dv in one call); library vs "
+        f"plain max error / max|plain| (o, dq, dk, dv) "
         f"{[f'{e:.3g}' for e in lib_err]}")
 
 
-def k2_timed(k2, roofline, shape, dev, rng):
-    """K2a, K2b and K2c at a causal bf16 ``shape`` (BH = B x 16 heads),
-    each timed in turns with the library call that computes the same
-    function (kernel, library, library, kernel; 20 calls each) and its
-    plain version (5 calls), with the bound for these inputs."""
-    q, k, v, do = k2_inputs(shape, torch.bfloat16, dev, rng)
+ROOFLINE_KIND = {torch.bfloat16: "bf16", torch.float16: "f16",
+                 torch.float32: "f32"}
+
+
+def k2_timed(k2, roofline, shape, dev, rng, dtype=torch.bfloat16,
+             backend="flash", reps=20):
+    """K2a, K2b and K2c at a causal ``shape`` in ``dtype`` (BH = B x 16
+    heads), each timed in turns with the library call that computes the
+    same function (kernel, library, library, kernel; ``reps`` calls each)
+    and its plain version (5 calls), with the bound for these inputs."""
+    q, k, v, do = k2_inputs(shape, dtype, dev, rng)
     scale = 1.0 / np.sqrt(shape[3])
     o, lse = k2.flash_fwd(q, k, v, scale, True)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, scale, True)
-    lib_fwd, lib_bwd = k2_library(q, k, v, do, scale, b=shape[0] // 16)
+    lib_fwd, lib_bwd = k2_library(q, k, v, do, scale, b=shape[0] // 16,
+                                  backend=backend)
     # the library against the plain versions, logged (a yardstick, no gate)
     o_ref = k2.flash_fwd_ref(q, k, v, scale, True)[0]
     g_ref = k2.flash_bwd_ref(*bwd)
@@ -873,11 +959,11 @@ def k2_timed(k2, roofline, shape, dev, rng):
              lib_bwd),
             ("dkv", lambda: k2.flash_dkv(*bwd),
              lambda: k2.flash_dkv_ref(*bwd), lib_bwd)):
-        # in turns: kernel, library, library, kernel (20 calls each)
-        ms = [time_cuda(kern, 20), time_cuda(lib, 20), time_cuda(lib, 20),
-              time_cuda(kern, 20)]
-        flop, nbytes = k2.flash_work(key, *shape, torch.bfloat16)
-        bound, by = roofline.bound_ms(flop, nbytes, "bf16")
+        # in turns: kernel, library, library, kernel (reps calls each)
+        ms = [time_cuda(kern, reps), time_cuda(lib, reps),
+              time_cuda(lib, reps), time_cuda(kern, reps)]
+        flop, nbytes = k2.flash_work(key, *shape, dtype)
+        bound, by = roofline.bound_ms(flop, nbytes, ROOFLINE_KIND[dtype])
         out[key] = dict(ms=(ms[0] + ms[3]) / 2, library_ms=(ms[1] + ms[2]) / 2,
                         plain_ms=time_cuda(plain, 5), bound_ms=bound,
                         bound_by=by, tflops=flop / ((ms[0] + ms[3]) / 2) / 1e9)
@@ -1141,8 +1227,8 @@ def staged_path(scd, k1, k3, dev, card, crop, tt, frame, face, face_med):
     # real sizes: the staged form against the full-cascade form
     params = scd.ScdParams(min_neighbors=0)
     for name, img, cascade, reps in (
-            ("640x480", tt.tensor.to(dev), face, 5),
-            ("1920x1080", torch.from_numpy(frame).to(dev), face_med, 5)):
+            ("640x480", tt.tensor.to(dev), face, 3),
+            ("1920x1080", torch.from_numpy(frame).to(dev), face_med, 3)):
         H, W = img.shape
         _specs, n_oct = levels(H, W, cascade, params)
         before, reruns = k3.LAUNCHES, scd.RERUNS
@@ -2132,7 +2218,7 @@ def imdb_path(dev, card):
 # device kernels by kind, for the seq2seq profiles: the first pattern a
 # kernel's name holds names its kind
 KERNEL_KINDS = (("K2", ("sm90_kernel", "::fwd_kernel<", "::dq_kernel<",
-                        "::dkv_kernel<")),
+                        "::dkv_kernel<", "_wide_kernel<")),
                 ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
                 ("adam", ("multi_tensor_apply",)),
                 ("softmax", ("softmax",)),
@@ -2183,7 +2269,7 @@ def seq2seq_profiled(decode_step, decode_ms_step, wmt_steps, card):
 # -- phases 19-21: ICF, SWT and SIFT (torch ops, no kernel of the port's) ----
 
 ICF_TREES = 2000  # the trained pedestrian.icf's count (ccv_tpu icf.py:142)
-ICF_GRAY_HELD = (540, 960)  # phase 19's gray card-vs-CPU crop
+ICF_HELD = (540, 960)  # phases 19 and 41's card-vs-CPU crop
 SIFT_FRACTION = 0.97
 
 
@@ -2473,22 +2559,20 @@ def icf_matmul_gate(icf, casc, img, got, base):
     return n, int(flip.sum())
 
 
-def icf_card_vs_cpu(icf, casc, img_cpu, dev, name, cpu=None):
+def icf_card_vs_cpu(icf, casc, img_cpu, dev, name):
     """Phase 19's gate: the card's windows (min_neighbors 0) against the
-    port's CPU path on the same image (``cpu``: its windows, when a run on
-    the same SAT forms made them already). Windows may differ only where a
+    port's CPU path on the same image. Windows may differ only where a
     running sum lies within MARGIN * max(1, |sum|) of its threshold;
     confidences where both pass within ATOL. Returns (windows, differing,
-    max conf diff, cpu s, the CPU's windows)."""
+    max conf diff, cpu s)."""
     params = icf.IcfParams(min_neighbors=0)
     card = icf_windows(icf.detect_objects(img_cpu.to(dev), casc, params))
     t0 = time.perf_counter()
-    if cpu is None:
-        cpu = icf_windows(icf.detect_objects(img_cpu, casc, params))
+    cpu = icf_windows(icf.detect_objects(img_cpu, casc, params))
     cpu_s = time.perf_counter() - t0
     n, odd, diff = icf_gate(icf, casc, img_cpu, card, cpu,
                             f"ICF {name}: card vs CPU")
-    return n, odd, diff, cpu_s, cpu
+    return n, odd, diff, cpu_s
 
 
 def icf_path(dev, card, read):
@@ -2546,20 +2630,18 @@ def icf_path(dev, card, read):
             check(min(ends) > 0, f"ICF {name}: sampled windows ending in A, "
                                  f"B1, B2 and passing: {ends}")
             cascades[name] = (back, img, path)
-            # the gray cascade is held card = CPU on the frame's top-left
-            # quarter (depth cut in PR 18: the CPU port's pass over a 1080p
-            # frame takes ~50 s, and phase 41 holds the colour one again)
-            held = img if name == "colour" else img[:ICF_GRAY_HELD[0],
-                                                    :ICF_GRAY_HELD[1]]
-            n, odd, diff, cpu_s, cpu_w = icf_card_vs_cpu(icf, back, held,
-                                                         dev, name)
+            # each cascade is held card = CPU on the frame's top-left
+            # quarter (depth cut: the CPU port's pass over a 1080p frame
+            # takes 36-57 s in colour; gray in PR 18, colour in PR 19)
+            held = img[:ICF_HELD[0], :ICF_HELD[1]]
+            n, odd, diff, cpu_s = icf_card_vs_cpu(icf, back, held, dev, name)
             img_d = img.to(dev)
             before = icf.RERUNS
-            med, ms = median_ms(lambda: icf.detect_objects(img_d, back), 5)
+            med, ms = median_ms(lambda: icf.detect_objects(img_d, back), 3)
             reruns = icf.RERUNS - before
             found = icf.detect_objects(img_d, back)
             out[name] = dict(ms=med, found=len(found), windows=n,
-                             cascade=back, image=img, cpu_windows=cpu_w)
+                             cascade=back, image=img)
             log(19, f"ICF {name} {tuple(img.shape)}, {ICF_TREES} trees "
                     f"(thresholds from {len(cs)} sampled windows in "
                     f"{th_s:.1f} s: they end in A / B1 / B2 / pass {ends}; "
@@ -2831,9 +2913,10 @@ DPM_PASS = 150            # 1080p windows (default params) above 0.6
 DAISY_CROP = 256
 DAISY_AT = (120, 200)
 TLD_BOX = (820, 420, 180, 180)
-# 6 frames, the CPU path on 2 (depth cut from 8 and 3 when phases 33-36
-# were added, to keep the script inside its time limit)
-TLD_SHIFTS = [(0, 0), (6, 4), (12, 8), (18, 13), (25, 17), (31, 21)]
+# 4 frames, the CPU path on 2 (depth cut from 8 and 3 when phases 33-36
+# were added, and to 4 frames with phase 43, to keep the script inside its
+# time limit)
+TLD_SHIFTS = [(0, 0), (6, 4), (12, 8), (18, 13)]
 TLD_CPU_FRAMES = 2        # frames of the CPU path held against the card's
                           # (its host loops take ~15-20 s a 1080p frame)
 
@@ -3322,7 +3405,7 @@ def tld_track(tld, frames, dev, n):
 
 
 def tld_path(dev, card, read):
-    """Phase 26, TLD on 6 frames of 1920x1080 (tld_frames): track IoU >= 0.7
+    """Phase 26, TLD on 4 frames of 1920x1080 (tld_frames): track IoU >= 0.7
     against the known boxes on the card, card against the port's CPU path
     (boxes within 1 px, confidence within 1e-3), ms per frame; bin/tld,
     /tld/track.object, and /convnet/classify with tiny_convnet_f32.sqlite3.
@@ -4162,12 +4245,13 @@ def nn_rest_path(dev, card, k2):
     return launches["fwd"], profile
 
 
-def attention_model(dev):
+def attention_model(dev, shape=SDPA_SHAPE):
     """Phase 30's graph model: LayerNorm, causal ScaledDotProductAttention
-    and a residual Add at SDPA_SHAPE, seeded, built on ``dev``."""
+    and a residual Add at ``shape`` (B, T, d_model, heads, head dim),
+    seeded, built on ``dev``."""
     from ccv_tpu_torch.nn import functional as F
     from ccv_tpu_torch.nn import layers as L
-    B, T, D, heads, hd = SDPA_SHAPE
+    B, T, D, heads, hd = shape
     inp = F.Input()
     h = L.LayerNorm(name="ln")(inp)
     a = L.ScaledDotProductAttention(heads, hd, is_causal=True)(h)
@@ -4178,14 +4262,14 @@ def attention_model(dev):
     return model, x
 
 
-def fit_model(dev, dtype, plain, rate=TRAIN_RATE):
+def fit_model(dev, dtype, plain, rate=TRAIN_RATE, shape=SDPA_SHAPE):
     """Phase 31's path B model: attention_model's weights and a layer norm
     bias from seed 31, compiled with adamw(rate) and "mse". With ``plain``
     the attention takes the plain route (the control). Returns (model,
     inputs in ``dtype``, float32 fits)."""
     from ccv_tpu_torch.nn import optimizers
-    B, T, D, _, _ = SDPA_SHAPE
-    model, _ = attention_model(dev)
+    B, T, D, _, _ = shape
+    model, _ = attention_model(dev, shape)
     ln = str(model.order[0].uid)
     rng = np.random.default_rng(31)
     model.params[ln]["bias"] = torch.from_numpy(rng.uniform(
@@ -4211,14 +4295,14 @@ def plain_attention_route(plain):
         layers.attention_route = route
 
 
-def fit_gate_run(k2, dev, dtype, plain):
+def fit_gate_run(k2, dev, dtype, plain, shape=SDPA_SHAPE):
     """One path B fit from the carried weights: (loss, {name: the fit's
     gradient}, (worst update distance from AdamW's first step, its leaf,
     the smallest move of a leaf), all by max |.| over a tensor's largest
     magnitude); checks the K2 launches of the fit (1 / 1 / 1 in the design
-    of ``dtype``, none on the plain route)."""
+    of ``dtype`` at the shape's head dim, none on the plain route)."""
     from ccv_tpu_torch.nn import optimizers
-    model, x, y = fit_model(dev, dtype, plain)
+    model, x, y = fit_model(dev, dtype, plain, shape=shape)
     pos = {str(n.uid): i for i, n in enumerate(model.order)}
     keys = [f"{pos[u]}/{model.order[pos[u]].layer.name}/{k}"  # leaves order
             for u in sorted(model.params) for k in sorted(model.params[u])]
@@ -4233,7 +4317,7 @@ def fit_gate_run(k2, dev, dtype, plain):
         k2.reset_launches()
         loss = model.fit(x, y)
         torch.cuda.synchronize()
-    design = "wgmma-tma" if dtype == torch.bfloat16 else "wmma-smem"
+    design = k2._design("fwd", dtype, shape[4])
     n = 0 if plain else 1
     check(k2.LAUNCHES == {"fwd": n, "dq": n, "dkv": n} and all(
         k2.DESIGN_LAUNCHES[key][design] == n for key in k2.LAUNCHES),
@@ -5375,6 +5459,328 @@ def s2s_d128_path(k2, dev, card):
     return {key: v // 3 for key, v in k2.LAUNCHES.items()}
 
 
+def merge_worst(worst, errs):
+    """``worst`` updated in place with the larger value of each key."""
+    for key, v in errs.items():
+        worst[key] = max(worst.get(key, 0.0), v)
+
+
+def fmt_errs(d):
+    return "{" + ", ".join(f"{k}: {v:.3g}" for k, v in d.items()) + "}"
+
+
+def k2_d256_path(k2, roofline, dev, card):
+    """Phase 43, the kernels: K2 at head dim 256 in bf16 and float16
+    (wgmma-tma) and the chunked wmma-smem form against their plain
+    versions, then timed. Returns {"bfloat16" / "float16" / "wide": dict(
+    err={kernel: worst max abs error}, timed=...)}, "wide"'s timed a list
+    of (dtype, shape, timing)."""
+    rng = np.random.default_rng(43)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[1]
+        w, wr = {}, {}
+        for shape in K2_D256_SHAPES + [K2_D256]:
+            errs, rels = k2_compare(k2, shape, dtype, dev, rng)
+            merge_worst(w, errs)
+            merge_worst(wr, rels)
+        timed, lib_err = k2_timed(k2, roofline, K2_D256, dev, rng, dtype)
+        log(43, f"K2 at head dim 256 vs plain, {name} "
+                f"({k2._design('fwd', dtype, 256)}), {K2_D256_SHAPES} and "
+                f"{K2_D256}: max abs error {fmt_errs(w)}; worst 64-row tile "
+                f"error / tile norm {fmt_errs(wr)}; designs checked per "
+                f"shape")
+        log(43, f"K2 at {K2_D256} {name} (CUDA events, 2 x 20 launches in "
+                f"turns with the library call; plain 5): "
+                + k2_timing_note(timed, lib_err) + f"; {card}")
+        out[name] = dict(err=w, timed=timed)
+    w, wr = {}, {}
+    for dtype, shape in K2_WIDE_SHAPES:
+        errs, rels = k2_compare(k2, shape, dtype, dev, rng)
+        merge_worst(w, errs)
+        merge_worst(wr, rels)
+    for dtype, shape in K2_WIDE_PADDED:
+        errs, rels = k2_padded_compare(k2, shape, dtype, dev, rng)
+        merge_worst(w, errs)
+        merge_worst(wr, rels)
+    log(43, f"K2's chunked wmma-smem form vs plain at (dtype, (BH, Tq, Tk, "
+            f"D, causal)) "
+            f"{[(str(d).split('.')[1], s) for d, s in K2_WIDE_SHAPES]}, and "
+            f"flash_attention padded inside at (dtype, (B, T, H, D, causal)) "
+            f"{[(str(d).split('.')[1], s) for d, s in K2_WIDE_PADDED]}: max "
+            f"abs error {fmt_errs(w)}; worst 64-row tile error / tile norm "
+            f"{fmt_errs(wr)}; designs checked per shape")
+    timed = []
+    for dtype, shape in K2_WIDE_TIMED:
+        t, lib_err = k2_timed(k2, roofline, shape, dev, rng, dtype,
+                              backend="efficient", reps=5)
+        timed.append((dtype, shape, t))
+        log(43, f"K2's chunked form at {shape} {str(dtype).split('.')[1]} "
+                f"(CUDA events, 2 x 5 launches in turns with the library "
+                f"call; plain 5): "
+                + k2_timing_note(t, lib_err, "memory-efficient") + f"; {card}")
+    out["wide"] = dict(err=w, timed=timed)
+    return out
+
+
+def lm_d256_config(dtype):
+    from ccv_tpu_torch.models import transformer as tfm
+    c = LM_D256
+    return tfm.TransformerConfig(
+        vocab_size=c["vocab"], layers=c["layers"], heads=c["heads"],
+        head_dim=c["dim"] // c["heads"], ff=c["ff"], max_len=c["seq"],
+        dropout=0.0, dtype=dtype, remat=True, remat_policy="dots")
+
+
+def lm_d256_step(k2, dev, dtype, plain, ids):
+    """One LM step at LM_D256's widths in ``dtype`` from the parameters of
+    seed 6, with the kernels or with plain attention: (loss, {name: its
+    gradient}, K2's launches). Checks the launches by design (the forward
+    twice a layer: remat runs it again; none on the plain route)."""
+    from ccv_tpu_torch.bin import lm_bench
+    from ccv_tpu_torch.bin.wmt_grad_trial import named_grads
+    from ccv_tpu_torch.models import transformer as tfm
+    cfg = lm_d256_config(dtype)
+    params = tfm.init_lm(torch.Generator(device=dev).manual_seed(6), cfg)
+    k2.reset_launches()
+    with lm_bench.plain_attention(plain):
+        loss = lm_bench.loss_fn(params, cfg, ids)
+        loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(k2.LAUNCHES)
+    ran = {key: {d: n for d, n in c.items() if n}
+           for key, c in k2.DESIGN_LAUNCHES.items()}
+    n = 0 if plain else cfg.layers
+    design = k2._design("fwd", dtype, cfg.head_dim)
+    want = {key: ({design: m} if m else {}) for key, m in (
+        ("fwd", 2 * n), ("dq", n), ("dkv", n))}
+    check(ran == want, f"the Gemma-width LM step ({dtype}, plain={plain}) "
+                       f"launched K2 {ran}, expected {want}")
+    grads = named_grads(params)
+    del params
+    torch.cuda.empty_cache()
+    return float(loss.detach()), grads, launches
+
+
+def lm_d256_path(k2, dev, card):
+    """Phase 43, the LM at Gemma-2B's widths (LM_D256): the kernel steps
+    against the plain route in float32 and bf16 (see LM_D256), then
+    lm_bench.measure in bf16. Returns the launches of the float32 kernel
+    step (the chunked form) and of the measured run (wgmma-tma)."""
+    from ccv_tpu_torch.bin import lm_bench
+    from ccv_tpu_torch.bin.wmt_grad_trial import grad_dist
+    c = LM_D256
+    ids = torch.randint(0, c["vocab"], (c["batch"], c["seq"] + 1),
+                        generator=torch.Generator(device=dev).manual_seed(7),
+                        device=dev)
+    loss_f, g_f, _ = lm_d256_step(k2, dev, torch.float32, True, ids)
+    loss_k, g_k, wide_launches = lm_d256_step(k2, dev, torch.float32, False,
+                                              ids)
+    kp = grad_dist(g_k, g_f)
+    wk32 = max(kp, key=kp.get)
+    del g_k
+    loss_b, g_b, _ = lm_d256_step(k2, dev, torch.bfloat16, False, ids)
+    kf = grad_dist(g_b, g_f)
+    del g_b
+    loss_bp, g_bp, _ = lm_d256_step(k2, dev, torch.bfloat16, True, ids)
+    pf = grad_dist(g_bp, g_f)
+    del g_bp, g_f
+    torch.cuda.empty_cache()
+    wk, wp = max(kf, key=kf.get), max(pf, key=pf.get)
+    bound = max(LM_GRAD_REL, BF16_GRAD_RATIO * pf[wp])
+    log(43, f"LM at Gemma-2B's widths (d {c['dim']} = {c['heads']} heads of "
+            f"{c['dim'] // c['heads']}, ff {c['ff']}, vocab {c['vocab']}, "
+            f"{c['layers']} layers, B {c['batch']} x T {c['seq']}, remat "
+            f"dots), one step from the same parameters and batch: float32 "
+            f"(wmma-smem, chunked) loss {loss_k:.6f} / plain {loss_f:.6f}, "
+            f"gradients within {kp[wk32]:.3g} of their largest magnitude "
+            f"(worst {wk32}, limit {LM_GRAD_REL}), K2 {wide_launches}; bf16 "
+            f"(wgmma-tma) loss {loss_b:.6f} / plain {loss_bp:.6f}, "
+            f"gradients from the float32 plain step: kernels {kf[wk]:.3g} "
+            f"(worst {wk}), plain {pf[wp]:.3g} (worst {wp}), bound "
+            f"{bound:.3g}")
+    check(np.isfinite(loss_k) and abs(loss_k - loss_f) <= LM_LOSS_REL * abs(
+        loss_f), f"Gemma-width float32 loss {loss_k} with K2, {loss_f} plain")
+    check(kp[wk32] <= LM_GRAD_REL, f"Gemma-width float32 gradient {wk32} "
+          f"{kp[wk32]:.3g} of its largest magnitude from the plain step's")
+    check(np.isfinite(loss_b) and abs(loss_b - loss_bp) <= LM_LOSS_REL * abs(
+        loss_bp), f"Gemma-width bf16 loss {loss_b} with K2, {loss_bp} plain")
+    check(kf[wk] <= bound, f"Gemma-width bf16 kernel step: gradient {wk} "
+          f"{kf[wk]:.3g} of its largest magnitude from the float32 step "
+          f"(bound {bound:.3g})")
+    k2.reset_launches()
+    res = lm_bench.measure(layers=c["layers"], dim=c["dim"], heads=c["heads"],
+                           ff=c["ff"], batch=c["batch"], seq=c["seq"],
+                           vocab=c["vocab"], steps=LM_D256_STEPS)
+    launches = dict(k2.LAUNCHES)
+    designs = {key: dict(v) for key, v in k2.DESIGN_LAUNCHES.items()}
+    n = c["layers"] * (1 + LM_D256_STEPS)   # remat runs the forward twice
+    want = {"fwd": 2 * n, "dq": n, "dkv": n}
+    check(launches == want and all(
+        designs[key] == {"wgmma-tma": want[key], "wmma-smem": 0}
+        for key in want), f"the Gemma-width LM run launched K2 {designs}")
+    check(all(np.isfinite(res["losses"])),
+          f"Gemma-width LM losses {res['losses']}")
+    log(43, f"lm_bench.measure at Gemma-2B's widths ({res['model']}, vocab "
+            f"{c['vocab']}, {res['params_m']} M params, B {c['batch']} x T "
+            f"{c['seq']}, bf16, remat dots): step {res['step_ms']:.2f} ms "
+            f"(mean of {LM_D256_STEPS} after a warm-up of "
+            f"{res['warmup_s']:.2f} s), {res['tokens_per_s']:.0f} tokens/s, "
+            f"MFU {res['mfu']:.4f}, peak memory {res['peak_mem_gb']:.2f} GB, "
+            f"losses {[round(x, 4) for x in res['losses']]}; K2 launches by "
+            f"design {designs}; {card}")
+    return dict(launches=launches, wide_launches=wide_launches, res=res)
+
+
+def decode_d256_path(k2, dev, card):
+    """Phase 43, greedy_decode at S2S_D256 (d 1024 = 4 heads of 256), B
+    DECODE_B, bf16: K2a (wgmma-tma, D 256) once per decoder layer per
+    step, the chosen tokens held to a teacher-forced plain pass as phase
+    16 holds them. Returns K2a's launches and the steps."""
+    from ccv_tpu_torch.bin import iwslt, lm_bench
+    from ccv_tpu_torch.bin.wmt_grad_trial import synthetic_batch
+    from ccv_tpu_torch.models import transformer as tfm
+    cfg = tfm.TransformerConfig(**S2S_D256, dtype=torch.bfloat16,
+                                dropout=0.0)
+    params = tfm.init_encoder_decoder(
+        torch.Generator(device=dev).manual_seed(5), cfg)
+    T, tv = cfg.max_len, cfg.tgt_vocab_size
+    src, _, _ = synthetic_batch(np.random.default_rng(43), DECODE_B, T,
+                                cfg.vocab_size, tv)
+    src = torch.from_numpy(src).to(dev)
+    spad, tpad = cfg.vocab_size - 1, tv - 1
+    iwslt.greedy_decode(params, cfg, src, spad, tpad, 4)  # warm-up
+    torch.cuda.synchronize()
+    k2.reset_launches()
+    t0 = time.perf_counter()
+    dec = iwslt.greedy_decode(params, cfg, src, spad, tpad, T)
+    wall = (time.perf_counter() - t0) * 1000
+    launches = dict(k2.LAUNCHES)
+    on_wgmma = k2.DESIGN_LAUNCHES["fwd"]["wgmma-tma"]
+    steps, chosen = decode_steps(dec, tv - 2)
+    n = cfg.layers * steps
+    check(launches == {"fwd": n, "dq": 0, "dkv": 0} and on_wgmma == n,
+          f"the D 256 greedy_decode ran {steps} steps and launched K2 "
+          f"{launches} ({on_wgmma} wgmma-tma); expected {cfg.layers} K2a a "
+          f"step")
+    with torch.no_grad(), lm_bench.plain_attention():
+        logits = tfm.encoder_decoder_forward(
+            params, cfg, src, torch.from_numpy(dec).to(dev),
+            src_mask=src != spad)
+    check(bool(torch.isfinite(logits).all()),
+          "D 256 teacher-forced logits not finite")
+    rows, ts = np.nonzero(chosen)
+    at = logits[torch.from_numpy(rows).to(dev),
+                torch.from_numpy(ts - 1).to(dev)].float().cpu().numpy()
+    picked = at[np.arange(len(rows)), dec[rows, ts]]
+    gap = (at.max(1) - picked) / np.abs(at).max(1)
+    check(float(gap.max()) <= DECODE_TOL, f"the D 256 greedy_decode chose a "
+          f"token {float(gap.max()):.3g} of the row's largest logit below "
+          f"the plain path's best (limit {DECODE_TOL})")
+    log(43, f"greedy_decode, {s2s_name(cfg)}, B {DECODE_B} x Ts {T}, bf16, "
+            f"random weights (seed 5): {steps} steps, {len(rows)} tokens "
+            f"chosen, {wall:.1f} ms a batch = {wall / steps:.3f} ms a step "
+            f"(host clock, one run after a warm-up); K2a {launches['fwd']} "
+            f"= {cfg.layers} a step, wgmma-tma at D 256; teacher-forced "
+            f"through plain attention: the chosen token's logit within "
+            f"{float(gap.max()):.3g} of the row's best (limit {DECODE_TOL}); "
+            f"{card}")
+    return launches["fwd"], steps
+
+
+def fit_d256_path(k2, dev, card):
+    """Phase 43, Model.fit of phase 31's graph model with
+    ScaledDotProductAttention(8, 256) (SDPA_D256): K2 against the plain
+    route by phase 31's gates, float32 (the chunked wmma-smem form) and
+    bf16 (wgmma-tma). Returns K2's launches a fit by design."""
+    B, T, D, heads, hd = SDPA_D256
+    runs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for plain in (False, True):
+            runs[(dt, plain)] = fit_gate_run(k2, dev, dt, plain, SDPA_D256)
+            if not plain:
+                by = {key: {d: c for d, c in cs.items() if c}
+                      for key, cs in k2.DESIGN_LAUNCHES.items()}
+                runs[(dt, "designs")] = by
+    (lk, gk, _), (lp, gp, _) = (runs[(torch.float32, False)],
+                                runs[(torch.float32, True)])
+    g_rel = rel_dist(gk, gp)
+    wg = max(g_rel, key=g_rel.get)
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(np.isfinite(lk) and loss_rel <= TRAIN_LOSS_REL, f"D 256 float32 "
+          f"fit loss {lk} with K2, {lp} plain")
+    check(g_rel[wg] <= TRAIN_GRAD_REL, f"D 256 float32 fit gradient {wg} "
+          f"{g_rel[wg]:.3g} of its largest magnitude from the plain route's")
+    (lk16, gk16, _), (lp16, gp16, _) = (runs[(torch.bfloat16, False)],
+                                        runs[(torch.bfloat16, True)])
+    kf, pf = rel_dist(gk16, gp), rel_dist(gp16, gp)
+    wk16, wp16 = max(kf, key=kf.get), max(pf, key=pf.get)
+    bound = max(K2_BF16, BF16_GRAD_RATIO * pf[wp16])
+    check(np.isfinite(lk16) and abs(lk16 - lp16) <= LM_LOSS_REL * abs(lp16),
+          f"D 256 bf16 fit loss {lk16} with K2, {lp16} plain")
+    check(kf[wk16] <= bound, f"D 256 bf16 kernel fit: gradient {wk16} "
+          f"{kf[wk16]:.3g} of its largest magnitude from the float32 fit "
+          f"(bound {bound:.3g})")
+    log(43, f"Model(LayerNorm, ScaledDotProductAttention({heads}, {hd}, "
+            f"causal), Add) B {B} x T {T} x {D} under compile(adamw, 'mse'), "
+            f"one fit from the same weights and batch, K2 against the plain "
+            f"route: float32 (wmma-smem, chunked) loss {lk:.7f} / {lp:.7f} "
+            f"(rel {loss_rel:.3g}, limit {TRAIN_LOSS_REL}), gradients within "
+            f"{g_rel[wg]:.3g} (worst {wg}, limit {TRAIN_GRAD_REL}); bf16 "
+            f"(wgmma-tma) loss {lk16:.6f} / {lp16:.6f}, gradients from the "
+            f"float32 plain fit: K2 {kf[wk16]:.3g} (worst {wk16}), plain "
+            f"{pf[wp16]:.3g}, bound {bound:.3g}; K2 a fit by design: float32 "
+            f"{runs[(torch.float32, 'designs')]}, bf16 "
+            f"{runs[(torch.bfloat16, 'designs')]}; {card}")
+    return {str(dt).split(".")[1]: runs[(dt, "designs")]
+            for dt in (torch.float32, torch.bfloat16)}
+
+
+def d256_kernel_entries(sources, k2_wide, lm_d256, decode_d256, fit_d256):
+    """The ``kernels`` line's entries of phase 43: K2a/b/c at head dim 256
+    on wgmma-tma in bf16 (launches of the Gemma-width LM run; times at
+    K2_D256) with float16's times beside, and the chunked wmma-smem form
+    (launches of the float32 Gemma-width step; times at K2_WIDE_TIMED)."""
+    out = []
+    for key, (name, line, src, design) in sources.items():
+        r = k2_wide["bfloat16"]["timed"][key]
+        r16 = k2_wide["float16"]["timed"][key]
+        out.append({
+            "name": f"{name}_d256", "route": "cuda",
+            "source": f"ccv_tpu_torch/csrc/{src}",
+            "replaces": f"ccv_tpu/ops/pallas/{line}",
+            "launches": lm_d256["launches"][key],
+            "max_abs_err": max(k2_wide["bfloat16"]["err"][key],
+                               k2_wide["float16"]["err"][key]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "design": design,
+            "shape": list(K2_D256), "f16_ms": r16["ms"],
+            "f16_plain_ms": r16["plain_ms"], "f16_bound_ms": r16["bound_ms"],
+            "f16_library_ms": r16["library_ms"],
+            "launches_fit_bf16": fit_d256["bfloat16"][key]["wgmma-tma"],
+            **({"launches_decode": decode_d256} if key == "fwd" else {})})
+    (dt0, shape0, wide0), (dt1, shape1, wide1) = k2_wide["wide"]["timed"]
+    for key, (name, line, _src, _design) in sources.items():
+        r, r1 = wide0[key], wide1[key]
+        out.append({
+            "name": f"{name}_wide", "route": "cuda",
+            "source": "ccv_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"ccv_tpu/ops/pallas/{line}",
+            "launches": lm_d256["wide_launches"][key],
+            "max_abs_err": k2_wide["wide"]["err"][key], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "design": "wmma-smem", "shape": list(shape0),
+            "dtype": str(dt0).split(".")[1],
+            "launches_fit_f32": fit_d256["float32"][key]["wmma-smem"],
+            "shape_2": list(shape1), "dtype_2": str(dt1).split(".")[1],
+            "ms_2": r1["ms"], "plain_ms_2": r1["plain_ms"],
+            "bound_ms_2": r1["bound_ms"], "bound_by_2": r1["bound_by"],
+            "library_ms_2": r1["library_ms"]})
+    return out
+
+
 def train_patches(rng, n_pos, n_neg, size):
     """Seeded (N, H, W, 3) uint8 patches of ``size`` (W, H) from the
     repository's images: positives are the faces of crop180.png and
@@ -6247,10 +6653,14 @@ def autotune_path(scd, k1, k3, dev, card, frame, face_med, icf_res):
         log(41, f"ICF colour 1080p detect_objects with sat_auto measuring "
                 f"{len(recs)} level shapes: {icf_s:.2f} s; sat_mxu chosen at "
                 f"{mxu}")
+        # card = CPU on the top-left quarter (depth cut in PR 19: at 1080p
+        # the CPU run took 61-103 s), its level shapes' forms measured on
+        # the card first, so the CPU port follows them
+        held = rgb[:ICF_HELD[0], :ICF_HELD[1]]
+        icf.detect_objects(held.to(dev), casc)
         with cpu_sat_forms(algebra, autotune):
-            n, odd_i, diff, cpu_s, _w = icf_card_vs_cpu(
-                icf, casc, rgb, dev, "colour, sat_auto",
-                cpu=None if mxu else res["cpu_windows"])
+            n, odd_i, diff, cpu_s = icf_card_vs_cpu(
+                icf, casc, held, dev, "colour, sat_auto")
         shapes = "; ".join(
             f"{k.split('|')[2]} {k.split('|')[3]}: {r['choice']} (sat "
             f"{r['ms']['sat']:.3f}, sat_mxu {r['ms']['sat_mxu']:.3f} ms)"
@@ -6258,9 +6668,9 @@ def autotune_path(scd, k1, k3, dev, card, frame, face_med, icf_res):
         log(41, f"sat_auto in ICF's colour 1080p detect_objects (phase 19's "
                 f"cascade): {len(recs)} level shapes measured in "
                 f"{icf_s:.2f} s, sat_mxu chosen at {mxu}: {shapes}; card = "
-                f"the CPU port on the card's SAT forms on {n} windows "
-                f"({odd_i} differ, all in the margin), max conf diff "
-                f"{diff:.3g} ({'the CPU run' if mxu else 'phase 19 CPU windows, the same sat forms,'} "
+                f"the CPU port on the card's SAT forms on "
+                f"{tuple(held.shape[:2])}: {n} windows ({odd_i} differ, all "
+                f"in the margin), max conf diff {diff:.3g} (the CPU run "
                 f"{cpu_s:.1f} s); {card}")
         return launches
     finally:
@@ -6497,8 +6907,8 @@ def main():
     # -- 5: real sizes, kernel against the plain evaluator ------------------
     params = scd.ScdParams(min_neighbors=0)
     for name, img, cascade, reps in (
-            ("640x480", tt.tensor.to(dev), face, 20),
-            ("1920x1080", torch.from_numpy(frame).to(dev), face_med, 20)):
+            ("640x480", tt.tensor.to(dev), face, 6),
+            ("1920x1080", torch.from_numpy(frame).to(dev), face_med, 6)):
         H, W = img.shape
         n_oct = len({s[0] for s in scd._level_specs(H, W, cascade,
                                                     params)[0]})
@@ -6515,7 +6925,7 @@ def main():
             check(odd <= near, f"{name}: {len(odd - near)} windows differ "
                                f"outside the margin")
         timings = []  # per-image ms: (kernel, plain)
-        for evaluate, n in ((None, reps), (k1.cascade_eval_levels_ref, 3)):
+        for evaluate, n in ((None, reps), (k1.cascade_eval_levels_ref, 2)):
             scd.detect(img, cascade, params, evaluate=evaluate)  # warm-up
             ms_each = []
             for _ in range(n):
@@ -6530,7 +6940,7 @@ def main():
                f"the margin); detect with K1: median {med:.2f} ms/image "
                f"(max {worst:.2f}, n={reps}) = {H * W / 1e3 / med:.3f} MP/s; "
                f"with the plain evaluator: median "
-               f"{float(np.median(timings[1])):.2f} ms/image (n=3); {card}")
+               f"{float(np.median(timings[1])):.2f} ms/image (n=2); {card}")
     profiled = (img, cascade, params)  # the 1080p frame, phase 10
     # the crop180 open-threshold windows against the C golden, scored by
     # the ported vldtr scorer (Pascal VOC, IoU >= 0.5)
@@ -6695,22 +7105,33 @@ def main():
     forms_path(scd, k1, dev, card, frame, face_med, icf_res)
     log(42, f"phases 40-42 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 43: K2 at head dims above 128 and in float16: the kernels, the LM
+    # at Gemma-2B's widths, greedy decoding and Model.fit at D 256 ---------
+    t0 = time.perf_counter()
+    k2_wide = k2_d256_path(k2, roofline, dev, card)
+    lm_d256 = lm_d256_path(k2, dev, card)
+    decode_d256, _ = decode_d256_path(k2, dev, card)
+    fit_d256 = fit_d256_path(k2, dev, card)
+    log(43, f"phase 43 took {time.perf_counter() - t0:.1f} s")
+
     # -- 10: the card's busy time in a 1080p detect, both forms (last: the
     # profiler may leave the host slower for what follows) -----------------
     img, cascade, params = profiled
     busy, by_name, wall = device_ms(lambda: scd.detect(img, cascade, params),
-                                    3)
+                                    PROFILED_IMAGES)
     k1_dev = sum(v for key, v in by_name.items()
                  if "scd_cascade_kernel" in key)
-    log(10, f"1920x1080 detect under torch.profiler (3 images): device busy "
+    log(10, f"1920x1080 detect under torch.profiler ({PROFILED_IMAGES} "
+            f"images): device busy "
             f"{busy:.2f} ms per image over a wall of {wall:.2f} ms per image "
             f"in the same window (profiler overhead included): idle share "
             f"{1 - busy / wall:.3f}; K1 {k1_dev:.3f} ms of it; {card}")
     busy, by_name, wall = device_ms(
-        lambda: scd.detect(img, cascade, params, form="pallas"), 3)
+        lambda: scd.detect(img, cascade, params, form="pallas"),
+        PROFILED_IMAGES)
     part = staged_profile.split(by_name)
-    log(10, f"1920x1080 detect(form='pallas') under torch.profiler (3 "
-            f"images): device busy {busy:.2f} ms per image over a wall of "
+    log(10, f"1920x1080 detect(form='pallas') under torch.profiler "
+            f"({PROFILED_IMAGES} images): device busy {busy:.2f} ms per image over a wall of "
             f"{wall:.2f} ms per image: idle share {1 - busy / wall:.3f}; K3 "
             f"{part['k3_ms']:.3f} ms of it, the B2 gathers "
             f"{part['gather_ms']:.3f} ms; the largest device ms per image: "
@@ -6763,6 +7184,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "design": design, "shape": list(K2_D128),
             "launches_seq2seq_step": k2_d128_s2s[key]})
+    kernels += d256_kernel_entries(sources, k2_wide, lm_d256, decode_d256,
+                                   fit_d256)
     # K1 on the trained SCD cascade's 1080p detect (phase 35), and in the
     # first form="auto" detect, its measurement included (phase 41)
     kernels[0].update(launches_trained=k1_trained, launches_auto=k1_auto)
@@ -6780,6 +7203,8 @@ def main():
         "bound_by_b1": k3_res["b1"]["bound_by"],
         "plane_copy_ms": k3_res["plane_copy_ms"],
         "launches_upscaled": k3_up, "launches_auto": k3_auto})
+    print("seconds by phase (from each log line to the next): "
+          + json.dumps({str(k): round(v, 1) for k, v in PHASE_S.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

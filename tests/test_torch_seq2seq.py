@@ -409,15 +409,19 @@ def test_padded_flash_attention_equals_plain_sdpa(d, causal, monkeypatch):
 
 
 def test_head_dims_past_the_kernels_raise():
-    """Past 128 flash_attention raises (ccv_tpu pads to a multiple of 128
-    lanes and takes more, an open narrowing); 65-128 pad to 128; the
-    (BH, T, D) wrappers take only the built dims."""
-    with pytest.raises(ValueError, match="head dim 129"):
-        tfa.flash_attention(*(torch.zeros(1, 16, 2, 129),) * 3)
-    with pytest.raises(ValueError, match="head dim 129"):
-        tfa.padded_dim(129)
-    for d in (16, 48, 96):
+    """flash_attention takes every head dim >= 1 and raises below (as
+    ccv_tpu pads any D to a multiple of 128 lanes): 65-128 pad to 128,
+    129-256 to 256, above to a multiple of 64; the (BH, T, D) wrappers
+    take only the dims it pads to."""
+    with pytest.raises(ValueError, match="head dim 0"):
+        tfa.flash_attention(*(torch.zeros(1, 16, 2, 0),) * 3)
+    with pytest.raises(ValueError, match="head dim 0"):
+        tfa.padded_dim(0)
+    for d in (16, 48, 96, 129):
         with pytest.raises(ValueError, match="head dim"):
             tfa.flash_fwd(*(torch.zeros(2, 16, d),) * 3, 0.1, False)
-    assert [tfa.padded_dim(d) for d in (1, 32, 33, 64, 65, 96, 128)] == [
-        32, 32, 64, 64, 128, 128, 128]
+    assert tfa.flash_attention(*(torch.zeros(1, 16, 2, 129),) * 3).shape == (
+        1, 16, 2, 129)
+    assert [tfa.padded_dim(d) for d in (1, 32, 33, 64, 65, 96, 128, 129,
+                                        256, 257, 320, 321)] == [
+        32, 32, 64, 64, 128, 128, 128, 256, 256, 320, 320, 384]
