@@ -1,16 +1,28 @@
 """K2's times and registers on one CUDA card, in the checkout it runs from.
 
-    python -m ccv_tpu_torch.bin.k2_trial [--label NAME] [--ptxas]  # repo root
+    python -m ccv_tpu_torch.bin.k2_trial [--label NAME] [--library] [--lm]
+                                         [--ptxas]   # from the repo root
 
 Times K2a, K2b and K2c (CUDA events: the least of three means of 20
-launches) at the LMs' bf16 causal shapes, BH 128 x T 1024 at head dim 64,
-BH 64 at 128 and BH 32 at 256, and prints one JSON line with the card's
-name and power limit. It calls only ``flash_fwd``, ``flash_dq`` and
-``flash_dkv``, which older checkouts have too, so copied into one it times
-that checkout's kernels (a head dim they refuse is reported as refused): run
-parent, change, change, parent in one call to compare two. ``--ptxas`` also
-compiles each K2 source with ``nvcc -Xptxas -v`` and adds every kernel's
-registers and spill bytes. Needs a CUDA card (and nvcc).
+launches; 5 at the wide shapes) at the LMs' bf16 causal shapes, BH 128 x T
+1024 at head dim 64, BH 64 at 128 and BH 32 at 256, and at the wide
+shapes, all causal at T 1024: float32 at D 64 (BH 128), 128 (BH 64), 256
+and 512 (BH 32), and bf16 at D 512 (BH 32); prints one JSON line with the
+card's name and power limit. ``--library`` adds, at the wide shapes, the
+plain versions' times, each kernel's bound (``roofline``, of the kind its
+design runs) and the PyTorch calls that compute the same functions
+(yardsticks only: SDPA's memory-efficient forward, and its backward op,
+which gives dq, dk and dv in one call). ``--lm`` times one training step
+of the LM at Gemma-2B's widths in float32 (2 layers, d 2048 = 8 heads of
+256, ff 16384, vocab 256,000, B 4 x T 1024, remat "dots"; host clock, the
+mean of 3 steps after a warm-up) with its K2 launches, by a loop of its
+own, since older checkouts' ``lm_bench.measure`` runs bf16 alone. It
+calls only ``flash_fwd``, ``flash_dq``, ``flash_dkv``, ``build`` and the
+LM's public functions, which older checkouts have too, so copied into one
+it times that checkout's kernels (a head dim they refuse is reported as
+refused): run parent, change, change, parent in one call to compare two.
+``--ptxas`` also compiles each K2 source with ``nvcc -Xptxas -v`` and adds
+every kernel's registers and spill bytes. Needs a CUDA card (and nvcc).
 """
 
 import argparse
@@ -18,17 +30,28 @@ import json
 import re
 import subprocess
 import tempfile
+import time
 
 import numpy as np
 import torch
 
-from ccv_tpu_torch.ops.kernels import _build
+from ccv_tpu_torch.ops.kernels import _build, roofline
 from ccv_tpu_torch.ops.kernels import flash_attention as k2
 
 SHAPES = ((128, 1024, 1024, 64, True), (64, 1024, 1024, 128, True),
           (32, 1024, 1024, 256, True))
-SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu")
+WIDE_SHAPES = ((torch.float32, (128, 1024, 1024, 64, True)),
+               (torch.float32, (64, 1024, 1024, 128, True)),
+               (torch.float32, (32, 1024, 1024, 256, True)),
+               (torch.float32, (32, 1024, 1024, 512, True)),
+               (torch.bfloat16, (32, 1024, 1024, 512, True)))
+HEADS = 16  # BH = B x 16 heads for the library calls
+LM_F32 = dict(vocab_size=256000, layers=2, heads=8, head_dim=256, ff=16384,
+              max_len=1024, batch=4)
+SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu",
+           "flash_attention_tf32.cu")
 TYPES = {"f": "float32", "nv_bfloat16": "bfloat16", "half": "float16"}
+KINDS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def time_cuda(fn, reps: int = 20) -> float:
@@ -44,33 +67,139 @@ def time_cuda(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(shape) -> dict:
-    """{"fwd", "dq", "dkv": ms} at a bf16 (BH, Tq, Tk, D, causal) shape."""
+def library_calls(q, k, v, do, scale, b=8, backend="flash"):
+    """The PyTorch calls that compute K2's functions, used only as
+    yardsticks: SDPA's flash forward (the flash backend forced, so a
+    missing one raises instead of timing another), and the flash backward
+    op, which gives dq, dk and dv in one call, fed from the flash forward
+    op's outputs. Inputs are causal (BH, T, D) with BH = b x heads.
+    ``backend="efficient"``: the memory-efficient forward and backward ops
+    instead (float32, and head dims past the flash backend's 256)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    h = q.shape[0] // b
+    q4, k4, v4, do4 = (x.view(b, h, *x.shape[1:]) for x in (q, k, v, do))
+    if backend == "efficient":
+        o, lse, seed, offset = (
+            torch.ops.aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, None, True, 0.0, True, scale=scale))
+
+        def fwd():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, scale=scale)
+
+        def bwd():
+            return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+                do4, q4, k4, v4, None, o, lse, seed, offset, 0.0,
+                [True, True, True, False], True, scale=scale)[:3]
+        return fwd, bwd
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out = torch.ops.aten._scaled_dot_product_flash_attention(
+            q4, k4, v4, 0.0, True, False, scale=scale)
+    o, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = out
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, scale=scale)
+
+    def bwd():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, o, lse, cum_q, cum_k, max_q, max_k, 0.0, True,
+            seed, offset, scale=scale)
+    return fwd, bwd
+
+
+def bound_kind(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """The roofline kind of ``kernel``'s design (a checkout without
+    ``roofline_kind`` runs every type off the tensor cores' float32)."""
+    kind = getattr(k2, "roofline_kind", None)
+    return kind(kernel, dtype, d) if kind else KINDS[dtype]
+
+
+def kernel_ms(shape, dtype=torch.bfloat16, reps=20, library=False) -> dict:
+    """{"fwd", "dq", "dkv": ms} at a causal (BH, Tq, Tk, D, causal) shape in
+    ``dtype``; with ``library`` each is a dict of the kernel's ms, its
+    plain version's, its bound and the memory-efficient library call's."""
     bh, t_q, t_k, d, causal = shape
     rng = np.random.default_rng(0)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, t, d),
                                                         np.float32))
-                   .to("cuda", torch.bfloat16) for t in (t_q, t_k, t_k, t_q))
+                   .to("cuda", dtype) for t in (t_q, t_k, t_k, t_q))
     scale = 1.0 / np.sqrt(d)
     o, lse = k2.flash_fwd(q, k, v, scale, causal)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, scale, causal)
     fns = {"fwd": lambda: k2.flash_fwd(q, k, v, scale, causal),
            "dq": lambda: k2.flash_dq(*bwd), "dkv": lambda: k2.flash_dkv(*bwd)}
-    return {name: round(min(time_cuda(fn) for _ in range(3)), 4)
-            for name, fn in fns.items()}
+    out = {name: round(min(time_cuda(fn, reps) for _ in range(3)), 4)
+           for name, fn in fns.items()}
+    if not library:
+        return out
+    lib_fwd, lib_bwd = library_calls(q, k, v, do, scale, b=bh // HEADS,
+                                     backend="efficient")
+    plain = {"fwd": lambda: k2.flash_fwd_ref(q, k, v, scale, causal),
+             "dq": lambda: k2.flash_dq_ref(*bwd),
+             "dkv": lambda: k2.flash_dkv_ref(*bwd)}
+    for name in fns:
+        bound, by = roofline.bound_ms(
+            *k2.flash_work(name, *shape, dtype), bound_kind(name, dtype, d))
+        out[name] = dict(
+            ms=out[name], plain_ms=round(time_cuda(plain[name], 5), 4),
+            bound_ms=round(bound, 4), bound_by=by,
+            kind=bound_kind(name, dtype, d),
+            library_ms=round(min(time_cuda(lib_fwd if name == "fwd"
+                                           else lib_bwd, reps)
+                                 for _ in range(3)), 4))
+    return out
+
+
+def lm_step_ms(steps: int = 3) -> dict:
+    """One float32 training step of the LM at LM_F32's widths: host ms (the
+    mean of ``steps`` after a warm-up step), the loss, and K2's launches
+    in the timed steps (by design where the checkout counts them)."""
+    from ccv_tpu_torch.bin import lm_bench
+    from ccv_tpu_torch.models import transformer as tfm
+    from ccv_tpu_torch.nn import optimizers
+    c = dict(LM_F32)
+    batch = c.pop("batch")
+    cfg = tfm.TransformerConfig(**c, dropout=0.0, dtype=torch.float32,
+                                remat=True, remat_policy="dots")
+    dev = torch.device("cuda")
+    params = tfm.init_lm(torch.Generator(device=dev).manual_seed(6), cfg)
+    opt = optimizers.adam(rate=1e-4)
+    state = opt.init(params)
+    ids = torch.randint(0, cfg.vocab_size, (batch, cfg.max_len + 1),
+                        generator=torch.Generator(device=dev).manual_seed(7),
+                        device=dev)
+    loss = float(lm_bench.train_step(params, opt, state, cfg, ids))
+    torch.cuda.synchronize()
+    k2.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = float(lm_bench.train_step(params, opt, state, cfg, ids))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    designs = getattr(k2, "DESIGN_LAUNCHES", {})
+    return dict(ms=round(ms, 2), loss=round(loss, 5), steps=steps,
+                launches=dict(k2.LAUNCHES),
+                by_design={key: {d: n for d, n in c.items() if n}
+                           for key, c in designs.items()})
 
 
 def kernel_name(mangled: str) -> tuple:
-    """(kernel, type or None, head dim or None) of a mangled template
-    kernel name such as ``..._cu_2e7b489815dkv_sm90_kernelI13__nv_bfloat16
-    Li256EE...``: the kernel's name is the one its length prefix spells
-    out; older kernels were templates on the head dim alone."""
-    end = mangled.index("_kernelI") + len("_kernel")
+    """(kernel, type or None, head dim or None) of a mangled kernel name
+    such as ``..._cu_2e7b489815dkv_sm90_kernelI13__nv_bfloat16Li256EE...``
+    or, untemplated, ``..._cu_1a2b3c4d13fwd_tc_kernelEPKfS1_...``: the
+    kernel's name is the one its length prefix spells out; older kernels
+    were templates on the head dim alone."""
+    end = mangled.index("_kernel") + len("_kernel")
     name = next(mangled[end - n:end] for n in range(6, end)
                 if mangled[:end - n].endswith(str(n))
                 and mangled[end - n].isalpha())
     args = re.match(r"I(?:\d*_*(?!Li)(\w+?))?(?:Li(\d+))?E", mangled[end:])
+    if args is None:
+        return name, None, None
     return (name, TYPES.get(args.group(1), args.group(1)),
             int(args.group(2)) if args.group(2) else None)
 
@@ -108,6 +237,8 @@ def ptxas(source: str) -> list:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
+    ap.add_argument("--library", action="store_true")
+    ap.add_argument("--lm", action="store_true")
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args()
     k2.build()
@@ -117,8 +248,14 @@ def main():
             out[f"D{shape[3]}"] = kernel_ms(shape)
         except ValueError as e:   # a checkout whose kernels refuse this D
             out[f"D{shape[3]}"] = f"refused: {e}"
+    for dtype, shape in WIDE_SHAPES:
+        out[f"{KINDS[dtype]}_D{shape[3]}"] = kernel_ms(
+            shape, dtype, reps=5, library=args.library)
+    if args.lm:
+        out["lm_f32_d256"] = lm_step_ms()
     if args.ptxas:
-        out["ptxas"] = {src: ptxas(src) for src in SOURCES}
+        out["ptxas"] = {src: ptxas(src) for src in SOURCES
+                        if (_build.CSRC / src).exists()}
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

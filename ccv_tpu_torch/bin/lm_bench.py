@@ -8,7 +8,8 @@ in bf16 with float32 parameters, Adam at 1e-4, the flash-attention kernels
 MFU convention (PaLM appendix B), the formula of bin/lm_bench.py: model
 FLOPs = 6*N*tokens for the weight matmuls + 3*12*L*B*T^2*d/2 for attention
 (causal halves it), divided by the step's wall time and the card's peak
-dense bf16 rate. The step's wall time is a host clock around ``steps``
+dense rate in the step's type (bf16 by default; float32 with TF32 off runs
+outside the tensor cores). The step's wall time is a host clock around ``steps``
 steps that end in ``torch.cuda.synchronize()``.
 
     python -m ccv_tpu_torch.bin.lm_bench [--layers 24 --dim 1024 --batch 8
@@ -32,18 +33,23 @@ from ccv_tpu_torch.device import default_device
 from ccv_tpu_torch.models import transformer as tfm
 from ccv_tpu_torch.nn import optimizers
 
-# card name (torch.cuda.get_device_name) -> peak dense bf16 TFLOP/s
-# (NVIDIA's H100 SXM data sheet, at its 700 W limit)
+# card name (torch.cuda.get_device_name) -> peak dense TFLOP/s in bf16 and
+# in float32 outside the tensor cores (NVIDIA's H100 SXM data sheet, at its
+# 700 W limit)
 PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989.0}
+PEAK_F32 = {"NVIDIA H100 80GB HBM3": 67.0}
 
 
-def peak_tflops(device: torch.device) -> float:
-    """The card's peak dense bf16 TFLOP/s; raises for a card not listed."""
+def peak_tflops(device: torch.device,
+                dtype: torch.dtype = torch.bfloat16) -> float:
+    """The card's peak dense TFLOP/s in ``dtype`` (bf16 or float32); raises
+    for a card not listed."""
+    table = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
     name = torch.cuda.get_device_name(device)
-    if name not in PEAK_BF16:
-        raise ValueError(f"no bf16 peak known for {name!r}; add it to "
-                         f"PEAK_BF16")
-    return PEAK_BF16[name]
+    if name not in table:
+        raise ValueError(f"no {dtype} peak known for {name!r}; add it to "
+                         f"lm_bench's tables")
+    return table[name]
 
 
 @contextlib.contextmanager
@@ -91,19 +97,20 @@ def model_flops(n: int, layers: int, batch: int, seq: int, dim: int) -> float:
 
 def measure(layers=24, dim=1024, heads=16, ff=4096, batch=8, seq=1024,
             vocab=32768, steps=20, remat=True, remat_policy="dots",
-            flash=True, profile=None) -> Dict:
+            flash=True, profile=None, dtype=torch.bfloat16) -> Dict:
     """Run the LM training-throughput measurement on the first CUDA card.
 
-    One warm-up step, then ``steps`` timed steps on one batch. ``profile``:
+    One warm-up step, then ``steps`` timed steps on one batch, activations
+    in ``dtype`` (bf16 or float32). ``profile``:
     a directory for a ``torch.profiler`` trace of 3 more steps (trace.json,
     a table of device time by kernel, kernels.txt, and summary.json); the
     result then also holds the device's busy ms per step, its idle share
     of the timed step, and the flash kernels' device ms per step."""
     dev = default_device()
-    peak = peak_tflops(dev) * 1e12
+    peak = peak_tflops(dev, dtype) * 1e12
     cfg = tfm.TransformerConfig(
         vocab_size=vocab, layers=layers, heads=heads, head_dim=dim // heads,
-        ff=ff, max_len=seq, dropout=0.0, dtype=torch.bfloat16, remat=remat,
+        ff=ff, max_len=seq, dropout=0.0, dtype=dtype, remat=remat,
         remat_policy=remat_policy)
     params = tfm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
     n = sum(p.numel() for p in optimizers.leaves(params))
@@ -149,18 +156,19 @@ def measure(layers=24, dim=1024, heads=16, ff=4096, batch=8, seq=1024,
         "warmup_s": warmup_s,
         "peak_mem_gb": peak_mem / 1e9,
         "remat": remat, "remat_policy": remat_policy, "flash": flash,
-        "peak_tflops": peak / 1e12,
+        "peak_tflops": peak / 1e12, "dtype": str(dtype).split(".")[1],
         "device": torch.cuda.get_device_name(dev),
     }
 
 
 # the flash kernels by the names the profiler gives them: the "wgmma-tma"
-# kernels (bf16 and float16, D 64, 128 or 256) and the "wmma-smem" ones
-# (f32, 16-bit D 32, and the wide kernels above those dims)
-FLASH_KERNELS = {"fwd": ("fwd_sm90_kernel", "::fwd_kernel<",
+# kernels (bf16 and float16, D 64, 128 or 256), the "tc-f32" ones (K2a and
+# K2c in float32, D 256-512) and the "wmma-smem" ones (f32, 16-bit D 32,
+# and the wide kernels above those dims)
+FLASH_KERNELS = {"fwd": ("fwd_sm90_kernel", "fwd_tc_kernel", "::fwd_kernel<",
                          "fwd_wide_kernel"),
                  "dq": ("dq_sm90_kernel", "::dq_kernel<", "dq_wide_kernel"),
-                 "dkv": ("dkv_sm90_kernel", "::dkv_kernel<",
+                 "dkv": ("dkv_sm90_kernel", "dkv_tc_kernel", "::dkv_kernel<",
                          "dkv_wide_kernel")}
 
 

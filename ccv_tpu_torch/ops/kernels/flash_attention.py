@@ -11,11 +11,15 @@ kernels' op order:
   ``DESIGN_LAUNCHES`` per kernel and design. ``_design`` picks the design:
   "wgmma-tma" (csrc/flash_attention_sm90.cu: wgmma, TMA, register-resident
   softmax and accumulators) for all three at bf16 and float16 and head dim
-  64, 128 or 256; "wmma-smem" (csrc/flash_attention.cu: wmma tiles and
-  accumulators in shared memory) for the rest: float32 and 16-bit D 32 as
-  tiles that hold all of D, float32 above D 128 and every type above D 256
-  in a form that walks D in 64-column chunks, its accumulators in a float32
-  scratch the wrapper allocates (``_wide``);
+  64, 128 or 256; "tc-f32" (csrc/flash_attention_tf32.cu: mma.sync TF32 in
+  three parts, cp.async rings, accumulators in registers) for K2a and K2c
+  in float32 at head dims 256 to 512 (``TC_F32_DIMS``); "wmma-smem"
+  (csrc/flash_attention.cu: wmma tiles and accumulators in shared memory)
+  for the rest: float32 and 16-bit D 32 as tiles that hold all of D, and a
+  form that walks D in 64-column chunks, its accumulators in a float32
+  scratch the wrapper allocates (``_wide``), for K2b in float32 above D
+  128, K2a and K2c in float32 above D 512 and all three in 16-bit above
+  D 256;
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
@@ -54,13 +58,14 @@ NEG_INF = -1e30          # masked score, as in the Pallas kernel
 HEAD_DIMS = (32, 64, 128, 256)  # head dims with kernels of their own
 WIDE_STEP = 64  # above HEAD_DIMS[-1], D is a multiple of this (its chunks)
 WGMMA_DIMS = (64, 128, 256)  # the 16-bit head dims of "wgmma-tma"
+TC_F32_DIMS = (256, 512)  # the float32 head dims of "tc-f32": from, to
+DESIGNS = ("wgmma-tma", "tc-f32", "wmma-smem")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches made by the wrappers (CUDA tensors only), per kernel and
 # per kernel and design
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
-DESIGN_LAUNCHES = {name: {"wgmma-tma": 0, "wmma-smem": 0}
-                   for name in LAUNCHES}
+DESIGN_LAUNCHES = {name: dict.fromkeys(DESIGNS, 0) for name in LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -74,14 +79,27 @@ def reset_launches() -> None:
 def _design(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The kernel design that serves ``kernel`` ("fwd", "dq" or "dkv") for
     inputs of type ``dtype`` and head dim ``d``."""
-    return ("wgmma-tma" if dtype != torch.float32 and d in WGMMA_DIMS
-            else "wmma-smem")
+    if dtype != torch.float32:
+        return "wgmma-tma" if d in WGMMA_DIMS else "wmma-smem"
+    if kernel != "dq" and TC_F32_DIMS[0] <= d <= TC_F32_DIMS[1]:
+        return "tc-f32"
+    return "wmma-smem"
 
 
-def _wide(dtype: torch.dtype, d: int) -> bool:
-    """Whether "wmma-smem" runs head dim ``d`` in 64-column chunks of D with
-    float32 scratch accumulators: float32 above 128, 16-bit above 256."""
-    return d > 128 and _design("fwd", dtype, d) == "wmma-smem"
+def _wide(kernel: str, dtype: torch.dtype, d: int) -> bool:
+    """Whether ``kernel`` runs head dim ``d`` in the chunked "wmma-smem"
+    form (64-column chunks of D, float32 scratch accumulators): above 128
+    wherever "wmma-smem" serves it."""
+    return d > 128 and _design(kernel, dtype, d) == "wmma-smem"
+
+
+def roofline_kind(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """The ``roofline.bound_ms`` kind of ``kernel``'s operations: "tf32x3"
+    where float32 runs on the tensor cores ("tc-f32"), else the type's."""
+    if _design(kernel, dtype, d) == "tc-f32":
+        return "tf32x3"
+    return {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.float16: "f16"}[dtype]
 
 
 def causal_pairs(t_q: int, t_k: int, causal: bool) -> int:
@@ -262,12 +280,28 @@ def _sm90_library(code: int) -> ctypes.CDLL:
     return lib
 
 
+def _tf32_library() -> ctypes.CDLL:
+    """The tc-f32 library (K2a and K2c in float32, head dims 256-512)."""
+    lib = _build.load_library("flash_attention_tf32",
+                              ["flash_attention_tf32.cu"])
+    if lib.flash_attention_fwd_tf32.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_fwd_tf32.argtypes = [i, i, p, p, p, p, p, i, i,
+                                                 i, f, i, p]
+        lib.flash_attention_dkv_tf32.argtypes = [i, i, p, p, p, p, p, p, p,
+                                                 p, i, i, i, f, i, p]
+        for fn in (lib.flash_attention_fwd_tf32,
+                   lib.flash_attention_dkv_tf32):
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def build() -> None:
-    """Compile (or find on disk) and load the kernels' three libraries, one
+    """Compile (or find on disk) and load the kernels' four libraries, one
     nvcc for each, started together."""
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         for fut in [ex.submit(_library), ex.submit(_sm90_library, 1),
-                    ex.submit(_sm90_library, 2)]:
+                    ex.submit(_sm90_library, 2), ex.submit(_tf32_library)]:
             fut.result()
 
 
@@ -299,13 +333,14 @@ def _head(q: torch.Tensor):
             q.shape[1], torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _scratch(x: torch.Tensor, n: int) -> Optional[torch.Tensor]:
-    """The float32 accumulators of the chunked "wmma-smem" form for ``n``
-    outputs shaped like ``x`` (BH, T, D), T rounded up to whole 64-row
-    tiles: (n, BH, T64, D), or None where the kernel keeps them on chip.
-    The caller holds it until the launch is queued."""
+def _scratch(kernel: str, x: torch.Tensor,
+             n: int) -> Optional[torch.Tensor]:
+    """The float32 accumulators of ``kernel``'s chunked "wmma-smem" form
+    for ``n`` outputs shaped like ``x`` (BH, T, D), T rounded up to whole
+    64-row tiles: (n, BH, T64, D), or None where the kernel keeps them on
+    chip. The caller holds it until the launch is queued."""
     bh, t, d = x.shape
-    if not _wide(x.dtype, d):
+    if not _wide(kernel, x.dtype, d):
         return None
     return torch.empty((n, bh, -(-t // 64) * 64, d), dtype=torch.float32,
                        device=x.device)
@@ -333,8 +368,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), bh, t_q, k.shape[1], scale,
             int(causal), stream)
+    elif design == "tc-f32":
+        err = _tf32_library().flash_attention_fwd_tf32(
+            dev, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, t_q, k.shape[1], scale, int(causal), stream)
     else:
-        scratch = _scratch(q, 1)
+        scratch = _scratch("fwd", q, 1)
         err = _library().flash_attention_fwd(
             dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), _ptr(scratch), bh, t_q,
@@ -359,7 +398,7 @@ def flash_dq(q, k, v, do, lse, delta, scale: float,
             dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
             stream)
     else:
-        scratch = _scratch(q, 1)
+        scratch = _scratch("dq", q, 1)
         err = _library().flash_attention_dq(
             dev, code, d, *ptrs, _ptr(scratch), bh, t_q, k.shape[1], scale,
             int(causal), stream)
@@ -382,8 +421,11 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float,
         err = _sm90_library(code).flash_attention_dkv_sm90(
             dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
             stream)
+    elif design == "tc-f32":
+        err = _tf32_library().flash_attention_dkv_tf32(
+            dev, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
     else:
-        scratch = _scratch(k, 2)
+        scratch = _scratch("dkv", k, 2)
         err = _library().flash_attention_dkv(
             dev, code, d, *ptrs, _ptr(scratch), bh, t_q, k.shape[1], scale,
             int(causal), stream)

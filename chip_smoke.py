@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (ccv_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --slow-profiles  # also ICF's, BBF's and TLD's
+                                           # profiles (~110 s more)
     python3 chip_smoke.py --nccl-cards 4   # phase 32 (b) alone over NCCL,
                                            # a rank a card
 
@@ -90,7 +92,8 @@ started together) and drives the port's main paths:
   siftmatch (a 480x360 object in the 1080p scene: >= 97% of keypoints
   card = CPU within 0.5 px, 5% of scale and 0.05 rad both ways, their
   descriptors within 1e-3; ``match_pair`` = ``sift`` + ``match``; ms per
-  pair), ``bin/siftmatch`` and ``/sift``; their profiles last;
+  pair), ``bin/siftmatch`` and ``/sift``; their profiles last (ICF's
+  colour cascade alone, with ``--slow-profiles``);
 - phases 22-26, BBF, DPM with HOG, MSER / MSCR, DAISY and TLD (torch ops,
   the host C++ of MSER / MSCR and numpy; no kernel of their own, as
   ``ccv_tpu`` runs no Pallas kernel there): BBF on the 1080p gray frame
@@ -105,10 +108,12 @@ started together) and drives the port's main paths:
   the defaults, ms per image, ``bin/dpmdetect`` and
   ``/dpm/detect.objects``; msermatch on the gray frame and MSCR on the RGB
   one, card against CPU, ``bin/msermatch`` and ``/mser``; DAISY card
-  against CPU on a 256x256 crop and timed at 1080p; TLD over 4 frames of
+  against CPU on a 256x256 crop and timed at 1080p; TLD over 3 frames of
   1920x1080 (crop180.png pasted on the text at known shifts), IoU >= 0.7,
-  card against CPU, ms per frame, ``bin/tld``, ``/tld/track.object`` and
-  ``/convnet/classify``; their profiles last;
+  card against CPU (the CPU path in a spawned child process from the
+  script's start, beside the card's phases), ms per frame, ``bin/tld``, ``/tld/track.object`` and
+  ``/convnet/classify``; their profiles last (BBF's and TLD's with
+  ``--slow-profiles``);
 - phase 27, ccv's classic surface (torch ops and the host siphash; no
   kernel): with the cache on, the 17 ``compat`` ops and ``ccv_otsu`` on the
   1080p gray and RGB frames against the same calls on the CPU (integer
@@ -162,7 +167,8 @@ started together) and drives the port's main paths:
   printed), timed at B 2 x 800 x 1344 in float32 (ms a step, images/s, MFU over
   the float32 peak, peak memory, the host's batch assembly) and profiled
   last (busy, idle share, the top four device ops); ``coco --demo`` on the
-  card (20 steps at 96 x 96, the loss under 1.25); an imdb_lstm fit,
+  card (20 steps at 96 x 96, twice under deterministic algorithms, equal
+  to the bit, the loss under 1.25); an imdb_lstm fit,
   ``DynamicGraph.minimize``, a micro ``Combine`` forward and backward and
   ``Dataframe.iter(prefetch=2)`` onto the card, each against the CPU;
   and the float32 coco loss's distance from float64 at
@@ -230,15 +236,18 @@ started together) and drives the port's main paths:
   ``matmul`` against ``pallas_full``, ICF's fused ``slices`` and ``matmul``
   against its staged form, ms of each;
 - phase 43, K2 at head dims above 128 and in float16: the wgmma-tma
-  kernels at D 256 in bf16 and float16 and the wmma-smem kernels' chunked
-  form (float32 above D 128, every type above D 256) against their plain
+  kernels at D 256 in bf16 and float16, the tc-f32 kernels (K2a and K2c in
+  float32 from D 256 to 512: 3xTF32 mma.sync) and the wmma-smem kernels'
+  chunked form (K2b in float32 above D 128, K2a and K2c in float32 above
+  D 512, every kernel in 16-bit above D 256) against their plain
   versions, each launch's design checked, and timed beside SDPA's calls;
   the LM at Gemma-2B's widths (d 2048 = 8 heads of 256, ff 16384, vocab
   256,000, 2 layers, B 4 x 1024): one step with the kernels against one
-  with plain attention in float32 and bf16, then ``lm_bench.measure``;
-  greedy decoding at d 1024 = 4 heads of 256; ``Model.fit`` through
-  ``ScaledDotProductAttention(8, 256)`` in float32 and bf16 against the
-  plain route.
+  with plain attention in float32 and bf16, the float32 training step
+  timed, then ``lm_bench.measure``; greedy decoding at d 1024 = 4 heads
+  of 256; ``Model.fit`` through ``ScaledDotProductAttention(8, 256)`` in
+  float32 and bf16 against the plain route, and through
+  ``ScaledDotProductAttention(8, 320)`` in bf16 (the chunked form).
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -400,7 +409,11 @@ TRAIN_STEPS = 5      # timed fit steps after a warm-up
 # the CPU's, and float32's distances from float64 are printed leaf by
 # leaf, card beside CPU. Timed at COCO's training scale, B 2 x 800 x 1344 in float32,
 # COCO_SELECT anchors an image; the demo as tests/test_bin_coco.py runs
-# bin/coco.py, its loss under DEMO_LOSS at the end
+# bin/coco.py, its loss under DEMO_LOSS at the end. The demo runs twice
+# under torch's deterministic algorithms and the two runs' losses must be
+# equal to the bit: with cuDNN's default algorithms and atomics the 20
+# steps differ from run to run (on an H100, 16 runs ended 0.911-1.176 and
+# one 1.258; deterministic, 1.1414 each time; the port on the CPU 0.9749)
 COCO_CPU = (1, 256, 256)
 COCO_LOSS_REL, COCO_GRAD_REL, COCO_BN_REL = 1e-4, 1e-3, 1e-5
 COCO_B, COCO_HW, COCO_SELECT, COCO_STEPS = 2, (800, 1344), 256, 5
@@ -485,21 +498,28 @@ S2S_D128 = dict(S2S, layers=2, heads=8, head_dim=128, ff=4096)
 # phase 43, K2 at head dims above 128 and in float16. The wgmma-tma kernels
 # at D 256 in bf16 and float16 against their plain versions within phase
 # 6's gates at K2_D256_SHAPES and at K2_D256 (B 4 x 8 heads, T 1024: the
-# attention of Gemma-2B's width); the wmma-smem kernels' chunked form at
-# K2_WIDE_SHAPES (float32 D 256, bf16 D 320 and 512, float16 D 512) and
-# flash_attention at head dims padded inside (K2_WIDE_PADDED), every launch
-# checked for its design; K2 timed at K2_D256 in bf16 and float16 in turns
-# with SDPA's flash calls, and the chunked form at K2_WIDE_TIMED beside the
+# attention of Gemma-2B's width); the tc-f32 kernels and the wmma-smem
+# kernels' chunked form at K2_WIDE_SHAPES (float32 D 256, 320, 512 and
+# 576, bf16 D 320 and 512, float16 D 512; bf16 D 320 also at SDPA_D320's
+# attention, BH 32 x T 1024, the shape its fit gives the chunked kernels)
+# and flash_attention at head dims padded inside (K2_WIDE_PADDED), every
+# launch checked for its design; K2
+# timed at K2_D256 in bf16 and float16 in turns with SDPA's flash calls,
+# and in float32 and at bf16 D 512 (K2_WIDE_TIMED) beside the
 # memory-efficient calls
 K2_D256_SHAPES = [(6, 100, 100, 256, True), (4, 72, 136, 256, False),
                   (2, 257, 257, 256, True)]
 K2_D256 = (32, 1024, 1024, 256, True)
 K2_WIDE_SHAPES = [(torch.float32, (3, 100, 100, 256, True)),
                   (torch.float32, (2, 72, 136, 256, False)),
+                  (torch.float32, (2, 130, 130, 320, True)),
+                  (torch.float32, (2, 72, 136, 512, True)),
+                  (torch.float32, (1, 100, 100, 576, True)),
                   (torch.bfloat16, (3, 100, 100, 320, True)),
                   (torch.bfloat16, (2, 72, 136, 320, False)),
                   (torch.bfloat16, (3, 100, 100, 512, True)),
-                  (torch.float16, (2, 257, 257, 512, False))]
+                  (torch.float16, (2, 257, 257, 512, False)),
+                  (torch.bfloat16, (32, 1024, 1024, 320, True))]
 K2_WIDE_PADDED = [(torch.bfloat16, (2, 100, 4, 160, True)),
                   (torch.float16, (2, 100, 4, 200, False)),
                   (torch.float32, (2, 72, 2, 300, True))]
@@ -513,7 +533,8 @@ K2_WIDE_TIMED = [(torch.float32, K2_D256), (torch.bfloat16,
 # largest magnitude; in bf16, the kernel step's gradients no farther from
 # the float32 plain step than BF16_GRAD_RATIO times the bf16 plain step's
 # worst distance, or LM_GRAD_REL; the loss within LM_LOSS_REL in both);
-# then lm_bench.measure (bf16, remat dots) for a warm-up and LM_D256_STEPS
+# then lm_bench.measure (remat dots) in float32 and in bf16, a warm-up and
+# LM_D256_STEPS each, K2's launches by design
 LM_D256 = dict(vocab=256000, layers=2, dim=2048, heads=8, ff=16384, batch=4,
                seq=1024)
 LM_D256_STEPS = 3
@@ -521,10 +542,16 @@ LM_D256_STEPS = 3
 # heads of 256 (Transformer-big's width and ff with heads of 256), 2 + 2
 # layers, bf16; and Model.fit of phase 31's graph model with
 # ScaledDotProductAttention(8, 256) at B 4 x T 1024 (SDPA_D256), float32
-# (the chunked form) and bf16 (wgmma-tma) against the plain route by
-# phase 31's gates
+# (tc-f32 for K2a and K2c, the chunked form for K2b) and bf16 (wgmma-tma)
+# against the plain route by phase 31's gates, and with heads of 320 in
+# bf16 (SDPA_D320: the chunked form for all three) by phase 31's bf16 gate
+# against the float32 plain fit at that width. No published model in the
+# repository's sources has heads of 320: it is the narrowest head dim above
+# 256 that pads to itself, chosen so that a user-facing path runs the
+# chunked K2a and K2c (16-bit above 256), whose float32 range tc-f32 took
 S2S_D256 = dict(S2S, layers=2, heads=4, head_dim=256, ff=4096)
 SDPA_D256 = (4, 1024, 2048, 8, 256)
+SDPA_D320 = (4, 1024, 2560, 8, 320)
 # phase 35, SCD training (ccv_tpu_torch/train/scd.py) at the published 40 x
 # 40 patch and all 1,631 stump features; depth cut: 2 stages of at most 6
 # features, 200 Adam steps a round. Seeded patches (``train_patches``):
@@ -843,49 +870,6 @@ def k2_compare(k2, shape, dtype, dev, rng):
     return errs, rels
 
 
-def k2_library(q, k, v, do, scale, b=8, backend="flash"):
-    """The PyTorch calls that compute K2's functions, used only here as
-    yardsticks: SDPA's flash forward (the flash backend forced, so a
-    missing one raises instead of timing another), and the flash backward
-    op, which gives dq, dk and dv in one call, fed from the flash forward
-    op's outputs. Inputs are causal (BH, T, D) with BH = b x heads.
-    ``backend="efficient"``: the memory-efficient forward and backward ops
-    instead (float32, and head dims past the flash backend's 256)."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    h = q.shape[0] // b
-    q4, k4, v4, do4 = (x.view(b, h, *x.shape[1:]) for x in (q, k, v, do))
-    if backend == "efficient":
-        o, lse, seed, offset = (
-            torch.ops.aten._scaled_dot_product_efficient_attention(
-                q4, k4, v4, None, True, 0.0, True, scale=scale))
-
-        def fwd():
-            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, scale=scale)
-
-        def bwd():
-            return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
-                do4, q4, k4, v4, None, o, lse, seed, offset, 0.0,
-                [True, True, True, False], True, scale=scale)[:3]
-        return fwd, bwd
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        out = torch.ops.aten._scaled_dot_product_flash_attention(
-            q4, k4, v4, 0.0, True, False, scale=scale)
-    o, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = out
-
-    def fwd():
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            return torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, scale=scale)
-
-    def bwd():
-        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            do4, q4, k4, v4, o, lse, cum_q, cum_k, max_q, max_k, 0.0, True,
-            seed, offset, scale=scale)
-    return fwd, bwd
-
-
 def k2_vs_plain(k2, roofline, dev, card):
     rng = np.random.default_rng(17)
     for dtype in (torch.float32, torch.bfloat16):
@@ -928,10 +912,6 @@ def k2_timing_note(out, lib_err, backend="flash"):
         f"{[f'{e:.3g}' for e in lib_err]}")
 
 
-ROOFLINE_KIND = {torch.bfloat16: "bf16", torch.float16: "f16",
-                 torch.float32: "f32"}
-
-
 def k2_timed(k2, roofline, shape, dev, rng, dtype=torch.bfloat16,
              backend="flash", reps=20):
     """K2a, K2b and K2c at a causal ``shape`` in ``dtype`` (BH = B x 16
@@ -943,8 +923,9 @@ def k2_timed(k2, roofline, shape, dev, rng, dtype=torch.bfloat16,
     o, lse = k2.flash_fwd(q, k, v, scale, True)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, scale, True)
-    lib_fwd, lib_bwd = k2_library(q, k, v, do, scale, b=shape[0] // 16,
-                                  backend=backend)
+    from ccv_tpu_torch.bin.k2_trial import library_calls
+    lib_fwd, lib_bwd = library_calls(q, k, v, do, scale, b=shape[0] // 16,
+                                     backend=backend)
     # the library against the plain versions, logged (a yardstick, no gate)
     o_ref = k2.flash_fwd_ref(q, k, v, scale, True)[0]
     g_ref = k2.flash_bwd_ref(*bwd)
@@ -963,10 +944,12 @@ def k2_timed(k2, roofline, shape, dev, rng, dtype=torch.bfloat16,
         ms = [time_cuda(kern, reps), time_cuda(lib, reps),
               time_cuda(lib, reps), time_cuda(kern, reps)]
         flop, nbytes = k2.flash_work(key, *shape, dtype)
-        bound, by = roofline.bound_ms(flop, nbytes, ROOFLINE_KIND[dtype])
+        kind = k2.roofline_kind(key, dtype, shape[3])
+        bound, by = roofline.bound_ms(flop, nbytes, kind)
         out[key] = dict(ms=(ms[0] + ms[3]) / 2, library_ms=(ms[1] + ms[2]) / 2,
                         plain_ms=time_cuda(plain, 5), bound_ms=bound,
-                        bound_by=by, tflops=flop / ((ms[0] + ms[3]) / 2) / 1e9)
+                        bound_by=by, kind=kind,
+                        tflops=flop / ((ms[0] + ms[3]) / 2) / 1e9)
     return out, lib_err
 
 
@@ -1856,7 +1839,8 @@ def k2_slice_shapes(k2, roofline, dev, card):
                 f"{ {k: f'{e:.3g}' for k, e in rels.items()} }")
     q, k, v, do = k2_inputs(K2_DECODE, torch.bfloat16, dev, rng)
     scale = 1.0 / np.sqrt(K2_DECODE[3])
-    lib_fwd, _ = k2_library(q, k, v, do, scale, b=DECODE_B)
+    from ccv_tpu_torch.bin.k2_trial import library_calls
+    lib_fwd, _ = library_calls(q, k, v, do, scale, b=DECODE_B)
     kern = lambda: k2.flash_fwd(q, k, v, scale, True)  # noqa: E731
     # in turns: kernel, library, library, kernel (50 calls each)
     ms = [time_cuda(kern, 50), time_cuda(lib_fwd, 50), time_cuda(lib_fwd, 50),
@@ -2273,6 +2257,36 @@ ICF_HELD = (540, 960)  # phases 19 and 41's card-vs-CPU crop
 SIFT_FRACTION = 0.97
 
 
+# profiles left out unless the script runs with --slow-profiles: ICF, BBF
+# and TLD have no kernel of their own, and torch.profiler's processing of
+# their windows took ~110 s of the script's 1200 s on an H100 host (ICF
+# ~50 s an image, TLD's step 36 s, BBF's image 25 s)
+SLOW_PROFILES = ("icf_path", "bbf_path", "tld_path")
+
+# references that need nothing from the card run in one spawned child
+# process beside the card's phases (spawned: it never touches the card);
+# main closes it, so no process outlives the script
+CPU_POOL = []
+CPU_REFS = {}
+
+
+def cpu_pool():
+    """The CPU child, started on first use."""
+    if not CPU_POOL:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        CPU_POOL.append(ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")))
+    return CPU_POOL[0]
+
+
+def close_cpu_pool():
+    for pool in CPU_POOL:
+        pool.shutdown(cancel_futures=True)
+    CPU_POOL.clear()
+    CPU_REFS.clear()
+
+
 def median_ms(fn, reps):
     """(median, all) host ms of ``reps`` synchronised calls after a
     warm-up."""
@@ -2686,8 +2700,12 @@ def icf_path(dev, card, read):
                 f" ({lines[-1]}); /icf/detect.objects: 500 naming "
                 f"pedestrian.icf before it is there, then the same PNG = "
                 f"direct detect_objects ({len(got)} rects); {card}")
+        # the colour cascade alone under the profiler (depth cut: the
+        # profiler's processing of one 1080p ICF image takes ~40 s on an
+        # H100 host; the gray one read busy 342.97 ms, idle share 0.796,
+        # beside the colour one's 346.42 ms, 0.807)
         on_card = {name: (c, im.to(dev)) for name, (c, im, _p) in
-                   cascades.items()}
+                   cascades.items() if name == "colour"}
 
         def profile():
             for name, (c, im) in on_card.items():
@@ -2913,10 +2931,10 @@ DPM_PASS = 150            # 1080p windows (default params) above 0.6
 DAISY_CROP = 256
 DAISY_AT = (120, 200)
 TLD_BOX = (820, 420, 180, 180)
-# 4 frames, the CPU path on 2 (depth cut from 8 and 3 when phases 33-36
-# were added, and to 4 frames with phase 43, to keep the script inside its
-# time limit)
-TLD_SHIFTS = [(0, 0), (6, 4), (12, 8), (18, 13)]
+# 3 frames, the CPU path on 2, bin/tld on 2 (depth cut from 8 and 3 when
+# phases 33-36 were added, to 4 frames with phase 43, and to 3 when phase
+# 43 grew, to keep the script inside its time limit on slower hosts)
+TLD_SHIFTS = [(0, 0), (6, 4), (12, 8)]
 TLD_CPU_FRAMES = 2        # frames of the CPU path held against the card's
                           # (its host loops take ~15-20 s a 1080p frame)
 
@@ -3404,16 +3422,33 @@ def tld_track(tld, frames, dev, n):
     return boxes, confs, ms
 
 
+def tld_cpu_reference():
+    """Phase 26's reference: (boxes, confidences, seconds) of the port's
+    CPU path over the first TLD_CPU_FRAMES frames of tld_frames. It needs
+    nothing from the card, so main starts it in the CPU child with the
+    script (``cpu_pool``) and phase 26 collects it."""
+    from ccv_tpu_torch.core.io import read
+    from ccv_tpu_torch.detectors import tld
+    frames = tld_frames(read)
+    t0 = time.perf_counter()
+    boxes, confs, _ = tld_track(tld, frames, torch.device("cpu"),
+                                TLD_CPU_FRAMES)
+    return boxes, confs, time.perf_counter() - t0
+
+
 def tld_path(dev, card, read):
-    """Phase 26, TLD on 4 frames of 1920x1080 (tld_frames): track IoU >= 0.7
+    """Phase 26, TLD on 3 frames of 1920x1080 (tld_frames): track IoU >= 0.7
     against the known boxes on the card, card against the port's CPU path
-    (boxes within 1 px, confidence within 1e-3), ms per frame; bin/tld,
+    (boxes within 1 px, confidence within 1e-3; ``tld_cpu_reference``, in
+    the CPU child), ms per frame; bin/tld,
     /tld/track.object, and /convnet/classify with tiny_convnet_f32.sqlite3.
     Returns the profile."""
     from ccv_tpu_torch.bin import tld as tldcli
     from ccv_tpu_torch.core.io import IO_RGB_COLOR
     from ccv_tpu_torch.detectors import tld
     from ccv_tpu_torch.models.convnet import Convnet
+    cpu_ref = CPU_REFS.pop("tld", None) or cpu_pool().submit(
+        tld_cpu_reference)
     frames = tld_frames(read)
     t0 = time.perf_counter()
     boxes, confs, ms = tld_track(tld, frames, dev, len(frames))
@@ -3422,9 +3457,7 @@ def tld_path(dev, card, read):
     ious = [iou(b, (x + dx, y + dy, w, h)) if b is not None else 0.0
             for b, (dx, dy) in zip(boxes, TLD_SHIFTS[1:])]
     check(min(ious) >= 0.7, f"TLD: IoU {ious}")
-    t0 = time.perf_counter()
-    cb, cc, cms = tld_track(tld, frames, torch.device("cpu"), TLD_CPU_FRAMES)
-    cpu_s = time.perf_counter() - t0
+    cb, cc, cpu_s = cpu_ref.result()
     px = max(abs(a - b) for p, q in zip(boxes, cb) for a, b in zip(p, q))
     cdiff = max(abs(a - b) for a, b in zip(confs, cc))
     check(px <= 1 and cdiff <= 1e-3, f"TLD card vs CPU: {px} px, conf "
@@ -3432,7 +3465,8 @@ def tld_path(dev, card, read):
     log(26, f"TLD {len(frames)} frames of 1920x1080, target {w}x{h}: IoU "
             f"against the known boxes {[round(v, 3) for v in ious]}; "
             f"card = CPU over {TLD_CPU_FRAMES} frames (boxes within {px} px, "
-            f"conf within {cdiff:.3g}; CPU path {cpu_s:.1f} s); per step "
+            f"conf within {cdiff:.3g}; CPU path {cpu_s:.1f} s in the CPU "
+            f"child); per step "
             f"on the card {', '.join(f'{v:.1f}' for v in ms)} ms (median "
             f"{float(np.median(ms)):.1f}; init and all steps {card_s:.1f} "
             f"s); {card}")
@@ -3440,15 +3474,15 @@ def tld_path(dev, card, read):
     srv = None
     try:
         pngs = []
-        for i, f in enumerate(frames[:3]):
+        for i, f in enumerate(frames[:2]):
             pngs.append(os.path.join(tmp, f"{i}.png"))
             with open(pngs[-1], "wb") as fh:
                 fh.write(png_bytes(f.numpy()))
         code, lines = captured(tldcli.main, pngs + [str(v) for v in TLD_BOX])
-        on = [f.to(dev) for f in frames[:4]]
+        on = [f.to(dev) for f in frames[:3]]
         t = tld.Tld(on[0], TLD_BOX)
         want = [f"00000: {x} {y} {w} {h} 1.000000"]
-        for i in (1, 2):
+        for i in (1,):
             nb, conf = t.track_object(on[i - 1], on[i])
             want.append(f"{i:05d}: {nb[0]} {nb[1]} {nb[2]} {nb[3]} "
                         f"{conf:f}")
@@ -3480,7 +3514,7 @@ def tld_path(dev, card, read):
         code, esc = http(url + "/convnet/classify", *multipart(
             {"source": crop_png, "model": "../tiny.sqlite3"}))
         check(code == 400, f"/convnet with ../: {code} {esc}")
-        log(26, f"bin/tld on the card over 3 frames = direct track_object "
+        log(26, f"bin/tld on the card over 2 frames = direct track_object "
                 f"({lines[-1]}); /tld/track.object = a direct step, 400 "
                 f"without height; /convnet/classify (tiny_convnet_f32, "
                 f"crop180) = direct classify {[r['id'] for r in ranks]}, "
@@ -3493,7 +3527,7 @@ def tld_path(dev, card, read):
 
     def profile():   # the bin/tld check's tracker, one step further
         busy, by_name, wall = device_ms(
-            lambda: t.track_object(on[2], on[3]), 1)
+            lambda: t.track_object(on[1], on[2]), 1)
         log(26, f"TLD 1080p step under torch.profiler (1 frame): device busy "
                 f"{busy:.2f} ms over a wall of {wall:.2f} ms: idle share "
                 f"{1 - busy / wall:.3f}; largest: {top_kernels(by_name)}; "
@@ -4317,10 +4351,10 @@ def fit_gate_run(k2, dev, dtype, plain, shape=SDPA_SHAPE):
         k2.reset_launches()
         loss = model.fit(x, y)
         torch.cuda.synchronize()
-    design = k2._design("fwd", dtype, shape[4])
     n = 0 if plain else 1
     check(k2.LAUNCHES == {"fwd": n, "dq": n, "dkv": n} and all(
-        k2.DESIGN_LAUNCHES[key][design] == n for key in k2.LAUNCHES),
+        k2.DESIGN_LAUNCHES[key][k2._design(key, dtype, shape[4])] == n
+        for key in k2.LAUNCHES),
         f"path B fit ({dtype}, plain={plain}) launched K2 {k2.LAUNCHES}, "
         f"by design {k2.DESIGN_LAUNCHES}")
     h = model.opt.hyper
@@ -4352,6 +4386,25 @@ def rel_dist(a, b):
     return out
 
 
+def bf16_fit_gate(what, kernel_run, plain_run, f32_grads):
+    """Phase 31's bf16 gate on two ``fit_gate_run`` results, the bf16 fit
+    through K2 and on the plain route: the losses within LM_LOSS_REL, and
+    the kernel fit's gradients no farther from the float32 plain fit's
+    (``f32_grads``) than BF16_GRAD_RATIO times the plain bf16 fit's worst
+    distance, or K2_BF16. Returns (the kernel fit's worst distance, its
+    leaf, the plain fit's worst distance, its leaf, the bound)."""
+    (lk, gk, _), (lp, gp, _) = kernel_run, plain_run
+    kf, pf = rel_dist(gk, f32_grads), rel_dist(gp, f32_grads)
+    wk, wp = max(kf, key=kf.get), max(pf, key=pf.get)
+    bound = max(K2_BF16, BF16_GRAD_RATIO * pf[wp])
+    check(np.isfinite(lk) and abs(lk - lp) <= LM_LOSS_REL * abs(lp),
+          f"{what} bf16 fit loss {lk} with K2, {lp} plain")
+    check(kf[wk] <= bound, f"{what} bf16 kernel fit: gradient {wk} "
+          f"{kf[wk]:.3g} of its largest magnitude from the float32 fit "
+          f"(bound {bound:.3g})")
+    return kf[wk], wk, pf[wp], wp, bound
+
+
 def fit_path(dev, card, k2, roofline):
     """Phase 31, path B: ``Model.fit`` of the attention model. Gates in
     float32 and bf16 (kernels against the plain route), then the bf16 fit
@@ -4373,16 +4426,11 @@ def fit_path(dev, card, k2, roofline):
           f"fit loss {lk} with K2, {lp} plain")
     check(g_rel[wg] <= TRAIN_GRAD_REL, f"path B float32 gradient {wg} "
           f"{g_rel[wg]:.3g} of its largest magnitude from the plain route's")
-    (lk16, gk16, _), (lp16, gp16, _) = (runs[(torch.bfloat16, False)],
-                                        runs[(torch.bfloat16, True)])
-    kf, pf = rel_dist(gk16, gp), rel_dist(gp16, gp)
-    wk16, wp16 = max(kf, key=kf.get), max(pf, key=pf.get)
-    bound = max(K2_BF16, BF16_GRAD_RATIO * pf[wp16])
-    check(np.isfinite(lk16) and abs(lk16 - lp16) <= LM_LOSS_REL * abs(lp16),
-          f"path B bf16 fit loss {lk16} with K2, {lp16} plain")
-    check(kf[wk16] <= bound, f"path B bf16 kernel fit: gradient {wk16} "
-          f"{kf[wk16]:.3g} of its largest magnitude from the float32 fit "
-          f"(bound {bound:.3g})")
+    lk16, lp16 = runs[(torch.bfloat16, False)][0], runs[(torch.bfloat16,
+                                                            True)][0]
+    k16, wk16, p16, wp16, bound = bf16_fit_gate(
+        "path B", runs[(torch.bfloat16, False)], runs[(torch.bfloat16, True)],
+        gp)
     log(31, f"path B, Model(LayerNorm, ScaledDotProductAttention({heads}, "
             f"{hd}, causal), Add) B {B} x T {T} x {D} under compile(adamw, "
             f"'mse'), one fit from the same weights and batch, K2 against "
@@ -4394,8 +4442,8 @@ def fit_path(dev, card, k2, roofline):
             f"{upd[1]}, limit {TRAIN_PARAM_REL}; rate {TRAIN_RATE}, every "
             f"tensor moves at least {step:.3g}); bf16 "
             f"(wgmma-tma) loss {lk16:.6f} / {lp16:.6f}, gradients from the "
-            f"float32 plain fit: K2 {kf[wk16]:.3g} (worst {wk16}), plain "
-            f"{pf[wp16]:.3g} (worst {wp16}), bound {bound:.3g}; K2 launches "
+            f"float32 plain fit: K2 {k16:.3g} (worst {wk16}), plain "
+            f"{p16:.3g} (worst {wp16}), bound {bound:.3g}; K2 launches "
             f"a fit 1 / 1 / 1, none on the plain route")
 
     # the main path: bf16 fits timed, K2's launches counted from 0
@@ -4421,7 +4469,8 @@ def fit_path(dev, card, k2, roofline):
     o, lse = k2.flash_fwd(q, k, v, scale, True)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, scale, True)
-    lib_fwd, lib_bwd = k2_library(q, k, v, do, scale, b=B)
+    from ccv_tpu_torch.bin.k2_trial import library_calls
+    lib_fwd, lib_bwd = library_calls(q, k, v, do, scale, b=B)
     kern = {}
     for key, fn, plain_fn, lib in (
             ("fwd", lambda: k2.flash_fwd(q, k, v, scale, True),
@@ -4439,7 +4488,7 @@ def fit_path(dev, card, k2, roofline):
                          bound_by=by)
     res = dict(ms=ms, plain_ms=plain_ms, launches=launches, steps=n,
                kernels=kern, shape=list(shape), f32_grad=g_rel[wg],
-               bf16_grad=kf[wk16], bf16_plain_grad=pf[wp16])
+               bf16_grad=k16, bf16_plain_grad=p16)
     log(31, f"path B bf16 fit (adamw 1e-4): median {ms:.3f} ms a step (min "
             f"{min(all_ms):.3f}, max {max(all_ms):.3f}, n={TRAIN_STEPS} after "
             f"a warm-up), the plain route {plain_ms:.3f} ms; K2 launches over "
@@ -4587,12 +4636,37 @@ def coco_f32_gap(dev, card):
     return gap
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms, cuDNN's included, inside the block;
+    the earlier settings come back after it. cuBLAS on one stream gives the
+    same bits run after run, so its warning that CUBLAS_WORKSPACE_CONFIG is
+    unset is not shown; the caller checks that two runs agree."""
+    import warnings
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", message="(?s).*CUBLAS_WORKSPACE_CONFIG")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic = before[2]
+        torch.backends.cudnn.benchmark = before[3]
+
+
 def coco_path(dev, card):
     """Phase 31, path A timed: the coco step at B 2 x 800 x 1344, float32,
     from batches already on the card (median of COCO_STEPS after a
     warm-up), the host's batch assembly alone, and whole iterations
     (assembly, copy, step, loss read); peak memory; then the demo on the
-    card. Returns (result, profile)."""
+    card, twice under deterministic algorithms. Returns (result, profile)."""
     from ccv_tpu_torch.bin import coco
     from ccv_tpu_torch.bin.lm_bench import peak_tflops
     from ccv_tpu_torch.models import resnet
@@ -4644,17 +4718,25 @@ def coco_path(dev, card):
             f"iterations (assembly, copy, step, loss read) {e2e_ms:.2f} ms; "
             f"losses {[round(x, 4) for x in losses]}; {card}")
 
-    # the demo, on the card, as tests/test_bin_coco.py runs bin/coco.py
-    t0 = time.perf_counter()
-    code, lines = captured(lambda argv: coco.main(argv), DEMO_ARGS)
-    demo = coco.main.losses
-    demo_s = time.perf_counter() - t0
+    # the demo, on the card, as tests/test_bin_coco.py runs bin/coco.py,
+    # twice under deterministic algorithms
+    runs = []
+    with deterministic():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            code, lines = captured(lambda argv: coco.main(argv), DEMO_ARGS)
+            runs.append(coco.main.losses)
+            demo_s = time.perf_counter() - t0
+    demo = runs[0]
+    check(runs[1] == demo, f"coco --demo under deterministic algorithms: "
+                           f"{demo} in one run, {runs[1]} in the next")
     check(len(demo) == 20 and all(np.isfinite(demo)) and demo[-1] < DEMO_LOSS,
           f"coco --demo losses {demo}")
     res.update(demo_losses=demo, demo_s=demo_s)
     log(31, f"python -m ccv_tpu_torch.bin.coco {' '.join(DEMO_ARGS)} on the "
-            f"card: {demo_s:.1f} s, losses {demo[0]:.4f} -> {demo[-1]:.4f} "
-            f"(limit {DEMO_LOSS}), '{lines[-1]}'")
+            f"card under deterministic algorithms, twice: {demo_s:.1f} s a "
+            f"run, losses {demo[0]:.4f} -> {demo[-1]:.4f} in both, equal to "
+            f"the bit (limit {DEMO_LOSS}), '{lines[-1]}'")
 
     def profile():
         win = device_window(lambda: t.step(*batch), 1)
@@ -5350,7 +5432,8 @@ def lm_d128_path(k2, dev, card):
     n = c["layers"] * 4   # a warm-up and 3 steps; remat runs the forward twice
     want = {"fwd": 2 * n, "dq": n, "dkv": n}
     check(launches == want and all(
-        designs[key] == {"wgmma-tma": want[key], "wmma-smem": 0}
+        designs[key] == {**dict.fromkeys(k2.DESIGNS, 0),
+                         "wgmma-tma": want[key]}
         for key in want), f"the D 128 LM step launched K2 {designs}")
     check(all(np.isfinite(res["losses"])), f"D 128 LM losses {res['losses']}")
     cfg = tfm.TransformerConfig(
@@ -5471,10 +5554,11 @@ def fmt_errs(d):
 
 def k2_d256_path(k2, roofline, dev, card):
     """Phase 43, the kernels: K2 at head dim 256 in bf16 and float16
-    (wgmma-tma) and the chunked wmma-smem form against their plain
-    versions, then timed. Returns {"bfloat16" / "float16" / "wide": dict(
-    err={kernel: worst max abs error}, timed=...)}, "wide"'s timed a list
-    of (dtype, shape, timing)."""
+    (wgmma-tma), the tc-f32 kernels and the chunked wmma-smem form against
+    their plain versions, then timed. Returns {"bfloat16" / "float16":
+    dict(err={kernel: worst max abs error}, timed=...), "wide": dict(
+    err={design: {kernel: worst max abs error}}, timed=[(dtype, shape,
+    timing)])}."""
     rng = np.random.default_rng(43)
     out = {}
     for dtype in (torch.bfloat16, torch.float16):
@@ -5494,30 +5578,34 @@ def k2_d256_path(k2, roofline, dev, card):
                 f"turns with the library call; plain 5): "
                 + k2_timing_note(timed, lib_err) + f"; {card}")
         out[name] = dict(err=w, timed=timed)
-    w, wr = {}, {}
-    for dtype, shape in K2_WIDE_SHAPES:
-        errs, rels = k2_compare(k2, shape, dtype, dev, rng)
-        merge_worst(w, errs)
-        merge_worst(wr, rels)
-    for dtype, shape in K2_WIDE_PADDED:
-        errs, rels = k2_padded_compare(k2, shape, dtype, dev, rng)
-        merge_worst(w, errs)
-        merge_worst(wr, rels)
-    log(43, f"K2's chunked wmma-smem form vs plain at (dtype, (BH, Tq, Tk, "
-            f"D, causal)) "
+    w, wr = {}, {}  # {design: {kernel: worst}}
+    for compare, shapes in ((k2_compare, K2_WIDE_SHAPES),
+                            (k2_padded_compare, K2_WIDE_PADDED)):
+        for dtype, shape in shapes:
+            errs, rels = compare(k2, shape, dtype, dev, rng)
+            for key in errs:
+                design = k2._design(key, dtype, k2.padded_dim(shape[3]))
+                merge_worst(w.setdefault(design, {}), {key: errs[key]})
+                merge_worst(wr.setdefault(design, {}), {key: rels[key]})
+    log(43, f"K2's tc-f32 kernels and chunked wmma-smem form vs plain at "
+            f"(dtype, (BH, Tq, Tk, D, causal)) "
             f"{[(str(d).split('.')[1], s) for d, s in K2_WIDE_SHAPES]}, and "
             f"flash_attention padded inside at (dtype, (B, T, H, D, causal)) "
             f"{[(str(d).split('.')[1], s) for d, s in K2_WIDE_PADDED]}: max "
-            f"abs error {fmt_errs(w)}; worst 64-row tile error / tile norm "
-            f"{fmt_errs(wr)}; designs checked per shape")
+            f"abs error by design "
+            f"{ {d: fmt_errs(e) for d, e in w.items()} }; worst 64-row tile "
+            f"error / tile norm { {d: fmt_errs(e) for d, e in wr.items()} }; "
+            f"designs checked per shape")
     timed = []
     for dtype, shape in K2_WIDE_TIMED:
         t, lib_err = k2_timed(k2, roofline, shape, dev, rng, dtype,
                               backend="efficient", reps=5)
         timed.append((dtype, shape, t))
-        log(43, f"K2's chunked form at {shape} {str(dtype).split('.')[1]} "
-                f"(CUDA events, 2 x 5 launches in turns with the library "
-                f"call; plain 5): "
+        designs = {key: k2._design(key, dtype, shape[3]) for key in t}
+        log(43, f"K2 at {shape} {str(dtype).split('.')[1]} (designs "
+                f"{designs}; CUDA events, 2 x 5 launches in turns with the "
+                f"library call; plain 5; bound kinds "
+                f"{ {key: r['kind'] for key, r in t.items()} }): "
                 + k2_timing_note(t, lib_err, "memory-efficient") + f"; {card}")
     out["wide"] = dict(err=w, timed=timed)
     return out
@@ -5535,8 +5623,9 @@ def lm_d256_config(dtype):
 def lm_d256_step(k2, dev, dtype, plain, ids):
     """One LM step at LM_D256's widths in ``dtype`` from the parameters of
     seed 6, with the kernels or with plain attention: (loss, {name: its
-    gradient}, K2's launches). Checks the launches by design (the forward
-    twice a layer: remat runs it again; none on the plain route)."""
+    gradient}, K2's launches by kernel and design). Checks the launches by
+    design (the forward twice a layer: remat runs it again; none on the
+    plain route)."""
     from ccv_tpu_torch.bin import lm_bench
     from ccv_tpu_torch.bin.wmt_grad_trial import named_grads
     from ccv_tpu_torch.models import transformer as tfm
@@ -5547,26 +5636,25 @@ def lm_d256_step(k2, dev, dtype, plain, ids):
         loss = lm_bench.loss_fn(params, cfg, ids)
         loss.backward()
     torch.cuda.synchronize()
-    launches = dict(k2.LAUNCHES)
     ran = {key: {d: n for d, n in c.items() if n}
            for key, c in k2.DESIGN_LAUNCHES.items()}
     n = 0 if plain else cfg.layers
-    design = k2._design("fwd", dtype, cfg.head_dim)
-    want = {key: ({design: m} if m else {}) for key, m in (
-        ("fwd", 2 * n), ("dq", n), ("dkv", n))}
+    want = {key: ({k2._design(key, dtype, cfg.head_dim): m} if m else {})
+            for key, m in (("fwd", 2 * n), ("dq", n), ("dkv", n))}
     check(ran == want, f"the Gemma-width LM step ({dtype}, plain={plain}) "
                        f"launched K2 {ran}, expected {want}")
     grads = named_grads(params)
     del params
     torch.cuda.empty_cache()
-    return float(loss.detach()), grads, launches
+    return float(loss.detach()), grads, ran
 
 
 def lm_d256_path(k2, dev, card):
     """Phase 43, the LM at Gemma-2B's widths (LM_D256): the kernel steps
     against the plain route in float32 and bf16 (see LM_D256), then
-    lm_bench.measure in bf16. Returns the launches of the float32 kernel
-    step (the chunked form) and of the measured run (wgmma-tma)."""
+    lm_bench.measure in float32 and in bf16. Returns the launches of the
+    float32 kernel step (tc-f32 and the chunked form) and of the bf16
+    measured run (wgmma-tma)."""
     from ccv_tpu_torch.bin import lm_bench
     from ccv_tpu_torch.bin.wmt_grad_trial import grad_dist
     c = LM_D256
@@ -5574,7 +5662,7 @@ def lm_d256_path(k2, dev, card):
                         generator=torch.Generator(device=dev).manual_seed(7),
                         device=dev)
     loss_f, g_f, _ = lm_d256_step(k2, dev, torch.float32, True, ids)
-    loss_k, g_k, wide_launches = lm_d256_step(k2, dev, torch.float32, False,
+    loss_k, g_k, f32_launches = lm_d256_step(k2, dev, torch.float32, False,
                                               ids)
     kp = grad_dist(g_k, g_f)
     wk32 = max(kp, key=kp.get)
@@ -5592,9 +5680,10 @@ def lm_d256_path(k2, dev, card):
             f"{c['dim'] // c['heads']}, ff {c['ff']}, vocab {c['vocab']}, "
             f"{c['layers']} layers, B {c['batch']} x T {c['seq']}, remat "
             f"dots), one step from the same parameters and batch: float32 "
-            f"(wmma-smem, chunked) loss {loss_k:.6f} / plain {loss_f:.6f}, "
+            f"loss {loss_k:.6f} / plain {loss_f:.6f}, "
             f"gradients within {kp[wk32]:.3g} of their largest magnitude "
-            f"(worst {wk32}, limit {LM_GRAD_REL}), K2 {wide_launches}; bf16 "
+            f"(worst {wk32}, limit {LM_GRAD_REL}), K2 by design "
+            f"{f32_launches}; bf16 "
             f"(wgmma-tma) loss {loss_b:.6f} / plain {loss_bp:.6f}, "
             f"gradients from the float32 plain step: kernels {kf[wk]:.3g} "
             f"(worst {wk}), plain {pf[wp]:.3g} (worst {wp}), bound "
@@ -5608,28 +5697,37 @@ def lm_d256_path(k2, dev, card):
     check(kf[wk] <= bound, f"Gemma-width bf16 kernel step: gradient {wk} "
           f"{kf[wk]:.3g} of its largest magnitude from the float32 step "
           f"(bound {bound:.3g})")
-    k2.reset_launches()
-    res = lm_bench.measure(layers=c["layers"], dim=c["dim"], heads=c["heads"],
-                           ff=c["ff"], batch=c["batch"], seq=c["seq"],
-                           vocab=c["vocab"], steps=LM_D256_STEPS)
-    launches = dict(k2.LAUNCHES)
-    designs = {key: dict(v) for key, v in k2.DESIGN_LAUNCHES.items()}
     n = c["layers"] * (1 + LM_D256_STEPS)   # remat runs the forward twice
     want = {"fwd": 2 * n, "dq": n, "dkv": n}
-    check(launches == want and all(
-        designs[key] == {"wgmma-tma": want[key], "wmma-smem": 0}
-        for key in want), f"the Gemma-width LM run launched K2 {designs}")
-    check(all(np.isfinite(res["losses"])),
-          f"Gemma-width LM losses {res['losses']}")
-    log(43, f"lm_bench.measure at Gemma-2B's widths ({res['model']}, vocab "
-            f"{c['vocab']}, {res['params_m']} M params, B {c['batch']} x T "
-            f"{c['seq']}, bf16, remat dots): step {res['step_ms']:.2f} ms "
-            f"(mean of {LM_D256_STEPS} after a warm-up of "
-            f"{res['warmup_s']:.2f} s), {res['tokens_per_s']:.0f} tokens/s, "
-            f"MFU {res['mfu']:.4f}, peak memory {res['peak_mem_gb']:.2f} GB, "
-            f"losses {[round(x, 4) for x in res['losses']]}; K2 launches by "
-            f"design {designs}; {card}")
-    return dict(launches=launches, wide_launches=wide_launches, res=res)
+    for dtype in (torch.float32, torch.bfloat16):
+        k2.reset_launches()
+        res = lm_bench.measure(
+            layers=c["layers"], dim=c["dim"], heads=c["heads"], ff=c["ff"],
+            batch=c["batch"], seq=c["seq"], vocab=c["vocab"],
+            steps=LM_D256_STEPS, dtype=dtype)   # bf16 last: returned
+        torch.cuda.empty_cache()
+        launches = dict(k2.LAUNCHES)
+        designs = {key: {d: m for d, m in v.items() if m}
+                   for key, v in k2.DESIGN_LAUNCHES.items()}
+        check(launches == want and designs == {
+            key: {k2._design(key, dtype, c["dim"] // c["heads"]): want[key]}
+            for key in want}, f"the Gemma-width LM run ({dtype}) launched K2 "
+                              f"{designs}")
+        check(all(np.isfinite(res["losses"])),
+              f"Gemma-width LM losses ({dtype}) {res['losses']}")
+        log(43, f"lm_bench.measure at Gemma-2B's widths ({res['model']}, "
+                f"vocab {c['vocab']}, {res['params_m']} M params, B "
+                f"{c['batch']} x T {c['seq']}, {res['dtype']}, remat dots): "
+                f"step {res['step_ms']:.2f} ms (mean of {LM_D256_STEPS} after "
+                f"a warm-up of {res['warmup_s']:.2f} s), "
+                f"{res['tokens_per_s']:.0f} tokens/s, MFU {res['mfu']:.4f} "
+                f"of {res['peak_tflops']:.0f} TFLOP/s (lm_bench's count: 6 "
+                f"N a token, N with the input embedding, which does no "
+                f"products), peak memory "
+                f"{res['peak_mem_gb']:.2f} GB, losses "
+                f"{[round(x, 4) for x in res['losses']]}; K2 launches by "
+                f"design {designs}; {card}")
+    return dict(launches=launches, f32_launches=f32_launches, res=res)
 
 
 def decode_d256_path(k2, dev, card):
@@ -5691,8 +5789,11 @@ def decode_d256_path(k2, dev, card):
 def fit_d256_path(k2, dev, card):
     """Phase 43, Model.fit of phase 31's graph model with
     ScaledDotProductAttention(8, 256) (SDPA_D256): K2 against the plain
-    route by phase 31's gates, float32 (the chunked wmma-smem form) and
-    bf16 (wgmma-tma). Returns K2's launches a fit by design."""
+    route by phase 31's gates, float32 (tc-f32 for K2a and K2c, the
+    chunked wmma-smem form for K2b) and bf16 (wgmma-tma); then with heads
+    of 320 (SDPA_D320) in bf16, the chunked form for all three, by the same
+    bf16 gate against the float32 plain fit at that width. Returns K2's launches a fit by design:
+    {"float32", "bfloat16", "bfloat16_d320": {kernel: {design: n}}}."""
     B, T, D, heads, hd = SDPA_D256
     runs = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -5711,36 +5812,49 @@ def fit_d256_path(k2, dev, card):
           f"fit loss {lk} with K2, {lp} plain")
     check(g_rel[wg] <= TRAIN_GRAD_REL, f"D 256 float32 fit gradient {wg} "
           f"{g_rel[wg]:.3g} of its largest magnitude from the plain route's")
-    (lk16, gk16, _), (lp16, gp16, _) = (runs[(torch.bfloat16, False)],
-                                        runs[(torch.bfloat16, True)])
-    kf, pf = rel_dist(gk16, gp), rel_dist(gp16, gp)
-    wk16, wp16 = max(kf, key=kf.get), max(pf, key=pf.get)
-    bound = max(K2_BF16, BF16_GRAD_RATIO * pf[wp16])
-    check(np.isfinite(lk16) and abs(lk16 - lp16) <= LM_LOSS_REL * abs(lp16),
-          f"D 256 bf16 fit loss {lk16} with K2, {lp16} plain")
-    check(kf[wk16] <= bound, f"D 256 bf16 kernel fit: gradient {wk16} "
-          f"{kf[wk16]:.3g} of its largest magnitude from the float32 fit "
-          f"(bound {bound:.3g})")
+    lk16, lp16 = runs[(torch.bfloat16, False)][0], runs[(torch.bfloat16,
+                                                            True)][0]
+    k16, wk16, p16, _, bound = bf16_fit_gate(
+        "D 256", runs[(torch.bfloat16, False)], runs[(torch.bfloat16, True)],
+        gp)
     log(43, f"Model(LayerNorm, ScaledDotProductAttention({heads}, {hd}, "
             f"causal), Add) B {B} x T {T} x {D} under compile(adamw, 'mse'), "
             f"one fit from the same weights and batch, K2 against the plain "
-            f"route: float32 (wmma-smem, chunked) loss {lk:.7f} / {lp:.7f} "
+            f"route: float32 loss {lk:.7f} / {lp:.7f} "
             f"(rel {loss_rel:.3g}, limit {TRAIN_LOSS_REL}), gradients within "
             f"{g_rel[wg]:.3g} (worst {wg}, limit {TRAIN_GRAD_REL}); bf16 "
             f"(wgmma-tma) loss {lk16:.6f} / {lp16:.6f}, gradients from the "
-            f"float32 plain fit: K2 {kf[wk16]:.3g} (worst {wk16}), plain "
-            f"{pf[wp16]:.3g}, bound {bound:.3g}; K2 a fit by design: float32 "
+            f"float32 plain fit: K2 {k16:.3g} (worst {wk16}), plain "
+            f"{p16:.3g}, bound {bound:.3g}; K2 a fit by design: float32 "
             f"{runs[(torch.float32, 'designs')]}, bf16 "
             f"{runs[(torch.bfloat16, 'designs')]}; {card}")
-    return {str(dt).split(".")[1]: runs[(dt, "designs")]
-            for dt in (torch.float32, torch.bfloat16)}
+    out = {str(dt).split(".")[1]: runs[(dt, "designs")]
+           for dt in (torch.float32, torch.bfloat16)}
+    k320 = fit_gate_run(k2, dev, torch.bfloat16, False, SDPA_D320)
+    out["bfloat16_d320"] = {key: {d: c for d, c in cs.items() if c}
+                            for key, cs in k2.DESIGN_LAUNCHES.items()}
+    p320 = fit_gate_run(k2, dev, torch.bfloat16, True, SDPA_D320)
+    f320 = fit_gate_run(k2, dev, torch.float32, True, SDPA_D320)[1]
+    k, wk, p, wp, bound = bf16_fit_gate("D 320", k320, p320, f320)
+    log(43, f"Model(LayerNorm, ScaledDotProductAttention({SDPA_D320[3]}, "
+            f"{SDPA_D320[4]}, causal), Add) B {SDPA_D320[0]} x T "
+            f"{SDPA_D320[1]} x {SDPA_D320[2]}, bf16, one fit: loss "
+            f"{k320[0]:.6f} with K2 / {p320[0]:.6f} plain (limit "
+            f"{LM_LOSS_REL} relative), gradients from the float32 plain fit: "
+            f"K2 {k:.3g} (worst {wk}), plain {p:.3g} (worst {wp}), bound "
+            f"{bound:.3g}; K2 a fit by design {out['bfloat16_d320']}; {card}")
+    return out
 
 
-def d256_kernel_entries(sources, k2_wide, lm_d256, decode_d256, fit_d256):
+def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
+                        fit_d256):
     """The ``kernels`` line's entries of phase 43: K2a/b/c at head dim 256
     on wgmma-tma in bf16 (launches of the Gemma-width LM run; times at
-    K2_D256) with float16's times beside, and the chunked wmma-smem form
-    (launches of the float32 Gemma-width step; times at K2_WIDE_TIMED)."""
+    K2_D256) with float16's times beside; K2a and K2c on tc-f32 and
+    K2a/b/c in the chunked wmma-smem form (launches of the float32
+    Gemma-width kernel step and of the bf16 fit at heads of 320; times at
+    K2_WIDE_TIMED, where each design runs: the first timed shape's numbers
+    plain, the next ones' with a suffix _2)."""
     out = []
     for key, (name, line, src, design) in sources.items():
         r = k2_wide["bfloat16"]["timed"][key]
@@ -5760,24 +5874,38 @@ def d256_kernel_entries(sources, k2_wide, lm_d256, decode_d256, fit_d256):
             "f16_library_ms": r16["library_ms"],
             "launches_fit_bf16": fit_d256["bfloat16"][key]["wgmma-tma"],
             **({"launches_decode": decode_d256} if key == "fwd" else {})})
-    (dt0, shape0, wide0), (dt1, shape1, wide1) = k2_wide["wide"]["timed"]
-    for key, (name, line, _src, _design) in sources.items():
-        r, r1 = wide0[key], wide1[key]
-        out.append({
-            "name": f"{name}_wide", "route": "cuda",
-            "source": "ccv_tpu_torch/csrc/flash_attention.cu",
-            "replaces": f"ccv_tpu/ops/pallas/{line}",
-            "launches": lm_d256["wide_launches"][key],
-            "max_abs_err": k2_wide["wide"]["err"][key], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "design": "wmma-smem", "shape": list(shape0),
-            "dtype": str(dt0).split(".")[1],
-            "launches_fit_f32": fit_d256["float32"][key]["wmma-smem"],
-            "shape_2": list(shape1), "dtype_2": str(dt1).split(".")[1],
-            "ms_2": r1["ms"], "plain_ms_2": r1["plain_ms"],
-            "bound_ms_2": r1["bound_ms"], "bound_by_2": r1["bound_by"],
-            "library_ms_2": r1["library_ms"]})
+    for design, suffix, src in (("tc-f32", "tc_f32", "flash_attention_tf32.cu"),
+                                ("wmma-smem", "wide", "flash_attention.cu")):
+        for key, (name, line, _src, _design) in sources.items():
+            timed = [(dt, shape, t[key])
+                     for dt, shape, t in k2_wide["wide"]["timed"]
+                     if k2._design(key, dt, shape[3]) == design]
+            if not timed:
+                continue
+            main = {part: runs.get(key, {}).get(design, 0)
+                    for part, runs in (("step", lm_d256["f32_launches"]),
+                                       ("fit", fit_d256["bfloat16_d320"]))}
+            entry = {
+                "name": f"{name}_{suffix}", "route": "cuda",
+                "source": f"ccv_tpu_torch/csrc/{src}",
+                "replaces": f"ccv_tpu/ops/pallas/{line}",
+                "launches": main["step"] + main["fit"],
+                "launches_f32_step": main["step"],
+                "launches_fit_bf16_d320": main["fit"],
+                "launches_fit_f32": fit_d256["float32"][key].get(design, 0),
+                "max_abs_err": k2_wide["wide"]["err"][design][key],
+                "design": design}
+            for i, (dt, shape, r) in enumerate(timed, 1):
+                tag = "" if i == 1 else f"_{i}"
+                entry.update({
+                    f"ms{tag}": r["ms"], f"plain_ms{tag}": r["plain_ms"],
+                    f"bound_ms{tag}": r["bound_ms"],
+                    f"bound_by{tag}": r["bound_by"],
+                    f"bound_kind{tag}": r["kind"],
+                    f"library_ms{tag}": r["library_ms"],
+                    f"shape{tag}": list(shape),
+                    f"dtype{tag}": str(dt).split(".")[1]})
+            out.append(entry)
     return out
 
 
@@ -6787,6 +6915,8 @@ def main():
     card = card_line()
     log(1, f"device {kind}; torch {torch.__version__} cuda "
            f"{torch.version.cuda}; nvidia-smi: {card}")
+    # phase 26's CPU reference runs in the CPU child from here on
+    CPU_REFS["tld"] = cpu_pool().submit(tld_cpu_reference)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as ex:
@@ -6985,11 +7115,9 @@ def main():
             "dkv": layers * steps}  # remat recomputes the forward
     check(k2_launches == want, f"lm_bench launched K2 {k2_launches}, "
                                f"expected {want}")
-    check(k2_designs == {
-        "fwd": {"wgmma-tma": want["fwd"], "wmma-smem": 0},
-        "dq": {"wgmma-tma": want["dq"], "wmma-smem": 0},
-        "dkv": {"wgmma-tma": want["dkv"], "wmma-smem": 0}},
-        f"lm_bench ran the K2 designs {k2_designs}")
+    check(k2_designs == {key: {**dict.fromkeys(k2.DESIGNS, 0),
+                               "wgmma-tma": n} for key, n in want.items()},
+          f"lm_bench ran the K2 designs {k2_designs}")
     losses = res["losses"]
     check(all(np.isfinite(losses)), f"loss not finite: {losses}")
     check(losses[-1] < losses[0], f"loss does not fall: {losses}")
@@ -7143,7 +7271,9 @@ def main():
     for profile in (icf_profile, swt_profile, sift_profile, *slice_profiles,
                     resnet_profile, nn_rest_profile, fit_profile,
                     coco_profile):
-        profile()
+        if (profile.__qualname__.split(".")[0] not in SLOW_PROFILES
+                or "--slow-profiles" in sys.argv[1:]):
+            profile()
     for entry, key in zip(kernels[1:4], ("fwd", "dq", "dkv")):
         # launches on the wmt step (dropout 0) over its timed steps, and
         # errors at this slice's shapes
@@ -7184,8 +7314,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "design": design, "shape": list(K2_D128),
             "launches_seq2seq_step": k2_d128_s2s[key]})
-    kernels += d256_kernel_entries(sources, k2_wide, lm_d256, decode_d256,
-                                   fit_d256)
+    kernels += d256_kernel_entries(k2, sources, k2_wide, lm_d256,
+                                   decode_d256, fit_d256)
     # K1 on the trained SCD cascade's 1080p detect (phase 35), and in the
     # first form="auto" detect, its measurement included (phase 41)
     kernels[0].update(launches_trained=k1_trained, launches_auto=k1_auto)
@@ -7214,4 +7344,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        close_cpu_pool()

@@ -26,6 +26,15 @@ from ccv_tpu_torch import compat as ccv
 from ccv_tpu_torch.core import cache, native
 from ccv_tpu_torch.core.dense_matrix import DenseMatrix, from_numpy
 from ccv_tpu_torch.utils import flags
+from ccv_tpu_siphash import siphash_signatures
+
+
+@pytest.fixture(scope="module", autouse=True)
+def ccv_tpu_siphash():
+    """ccv_tpu signs with siphash here, as the port does, whichever test
+    worker built ccv_tpu's native library."""
+    with siphash_signatures():
+        yield
 
 
 @pytest.fixture(autouse=True)

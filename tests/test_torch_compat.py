@@ -23,6 +23,7 @@ from ccv_tpu.core import cache as jcache
 from ccv_tpu.core.io import read as jread
 from ccv_tpu_torch import compat as T
 from ccv_tpu_torch.core import cache as tcache
+from ccv_tpu_siphash import siphash_signatures
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 PERSPECTIVE = dict(zip(("m00", "m01", "m02", "m10", "m11", "m12", "m20",
@@ -63,8 +64,16 @@ def _id(case):
                        for k, v in list(kw.items())[:2]))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def ccv_tpu_siphash():
+    """ccv_tpu signs with siphash here, as the port does, whichever test
+    worker built ccv_tpu's native library."""
+    with siphash_signatures():
+        yield
+
+
 @pytest.fixture(scope="module")
-def images():
+def images(ccv_tpu_siphash):
     path = os.path.join(DATA, "crop120.png")
     return {f: (jread(path, f), T.ccv_read(path, f, device="cpu"))
             for f in (T.CCV_IO_GRAY, T.CCV_IO_RGB_COLOR)}

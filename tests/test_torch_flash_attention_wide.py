@@ -32,6 +32,7 @@ from ccv_tpu.models import transformer as jtf
 from ccv_tpu_torch.bin import k2_trial
 from ccv_tpu_torch.models import transformer as ttf
 from ccv_tpu_torch.ops.kernels import flash_attention as tfa
+from ccv_tpu_torch.ops.kernels import roofline
 
 # the package re-exports the function under the module's name
 jfa = importlib.import_module("ccv_tpu.ops.pallas.flash_attention")
@@ -136,24 +137,131 @@ def test_float16_forward_matches_ccv_tpu(d, pallas):
 
 def test_design_choice():
     """bf16 and float16 at head dim 64, 128 or 256 take the wgmma-tma
-    kernels; float32, 16-bit D 32 and 16-bit D above 256 the wmma-smem
-    ones, which walk D in 64-column chunks (``_wide``) in float32 above
-    128 and in every type above 256."""
+    kernels; K2a and K2c in float32 at D 256 to 512 the tc-f32 ones; the
+    rest the wmma-smem ones, which walk D in 64-column chunks (``_wide``)
+    above 128: K2b in float32, K2a and K2c in float32 above 512, all three
+    in 16-bit above 256."""
     for kernel in ("fwd", "dq", "dkv"):
         for dtype in (torch.bfloat16, torch.float16):
             for d in (64, 128, 256):
                 assert tfa._design(kernel, dtype, d) == "wgmma-tma"
             for d in (32, 320, 512, 1024):
                 assert tfa._design(kernel, dtype, d) == "wmma-smem"
-        for d in (32, 64, 128, 256, 320, 512):
+        for d in (32, 64, 128, 576, 1024):
             assert tfa._design(kernel, torch.float32, d) == "wmma-smem"
-    wide = {(dtype, d) for dtype in (torch.float32, torch.bfloat16,
-                                     torch.float16)
-            for d in (32, 64, 128, 256, 320, 512) if tfa._wide(dtype, d)}
-    assert wide == {(torch.float32, 256), (torch.float32, 320),
-                    (torch.float32, 512), (torch.bfloat16, 320),
-                    (torch.bfloat16, 512), (torch.float16, 320),
-                    (torch.float16, 512)}
+        for d in (256, 320, 384, 448, 512):
+            assert tfa._design(kernel, torch.float32, d) == (
+                "wmma-smem" if kernel == "dq" else "tc-f32")
+            assert tfa._design(kernel, torch.float32, d) in tfa.DESIGNS
+    wide = {(kernel, dtype, d) for kernel in ("fwd", "dq", "dkv")
+            for dtype in (torch.float32, torch.bfloat16, torch.float16)
+            for d in (32, 64, 128, 256, 320, 512, 576)
+            if tfa._wide(kernel, dtype, d)}
+    assert wide == (
+        {("dq", torch.float32, d) for d in (256, 320, 512, 576)}
+        | {(kernel, torch.float32, 576) for kernel in ("fwd", "dkv")}
+        | {(kernel, dtype, d) for kernel in ("fwd", "dq", "dkv")
+           for dtype in (torch.bfloat16, torch.float16)
+           for d in (320, 512, 576)})
+
+
+def test_roofline_kind_and_tf32x3_bound_at_d256():
+    """K2a and K2c in float32 at BH 32 x T 1024 x D 256, causal (chip_smoke's
+    K2_D256), are bound by their operations at a third of TF32's 495
+    TFLOP/s: 17.2 GFLOP in 0.104 ms and 34.4 GFLOP in 0.208 ms (0.257 and
+    0.513 ms at float32's 67 TFLOP/s outside the tensor cores, the bound
+    of K2b's chunked form)."""
+    shape = (32, 1024, 1024, 256, True)
+    pairs = 1024 * 1025 // 2
+    for kernel, per_pair, kind, want_ms in (
+            ("fwd", 4, "tf32x3", 0.104), ("dkv", 8, "tf32x3", 0.208),
+            ("dq", 6, "f32", 0.385)):
+        assert tfa.roofline_kind(kernel, torch.float32, 256) == kind
+        flop, nbytes = tfa.flash_work(kernel, *shape, torch.float32)
+        assert flop == per_pair * pairs * 256 * 32
+        ms, by = roofline.bound_ms(flop, nbytes, kind)
+        assert by == "operations"
+        assert ms == pytest.approx(want_ms, abs=5e-4)
+        if kind == "tf32x3":
+            assert ms == pytest.approx(3 * flop / 495e12 * 1e3)
+            assert roofline.bound_ms(flop, nbytes, "f32")[0] == pytest.approx(
+                flop / 67e12 * 1e3)
+    assert tfa.flash_work("fwd", *shape, torch.float32)[0] == pytest.approx(
+        17.2e9, rel=2e-3)
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float16, "f16"),
+                        (torch.float32, "f32")):
+        assert tfa.roofline_kind("fwd", dtype, 64) == kind
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as cvt.rna.tf32.f32."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """x as the tensor cores read a float32 register as TF32: the low 13
+    bits dropped."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the tc-f32 kernels form it: each operand split into hi (TF32)
+    and lo = x - hi (read as TF32), then lo_a hi_b + hi_a lo_b + hi_a hi_b
+    in float32. Each TF32 x TF32 product is exact in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_cut(a - ah), _tf32_cut(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm1(a, b):
+    """a @ b in plain TF32 (one product, each operand rounded)."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated(q, k, v, do, scale, causal, mm):
+    """K2a's (o, lse) and K2c's (dk, dv) with every product formed by
+    ``mm``, on (BH, T, D) float32 tensors."""
+    s = mm(q, k.transpose(1, 2)) * scale
+    valid = tfa._valid(q.shape[1], k.shape[1], causal, q.device)
+    if valid is not None:
+        s = torch.where(valid, s, tfa.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = mm(p, v) / l
+    lse = (m + torch.log(l)).squeeze(-1)
+    delta = (do * o).sum(-1)
+    pb = torch.exp(s - lse[..., None])
+    if valid is not None:
+        pb = torch.where(valid, pb, 0.0)
+    ds = pb * (mm(do, v.transpose(1, 2)) - delta[..., None]) * scale
+    dk = mm(ds.transpose(1, 2), q)
+    dv = mm(pb.transpose(1, 2), do)
+    return o, lse, dk, dv
+
+
+@pytest.mark.parametrize("d", [256, 512])
+def test_3xtf32_split_holds_the_float32_gate(d):
+    """The tc-f32 kernels' arithmetic, emulated on the CPU: K2a and K2c at
+    D 256 and 512, T 256, causal, with every product in three TF32 parts,
+    land within chip_smoke.py's K2_F32 gate (1e-4 + 1e-4 x the largest
+    magnitude) of the plain float32 versions; one TF32 product instead
+    lands at least 10 times further off."""
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(_rand(rng, 2, 256, d)) for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    o0, lse0 = tfa.flash_fwd_ref(q, k, v, scale, True)
+    delta = (do * o0).sum(-1)
+    dk0, dv0 = tfa.flash_dkv_ref(q, k, v, do, lse0, delta, scale, True)
+    errs = {}
+    for name, mm in (("3xtf32", _mm3), ("tf32", _mm1)):
+        got = _emulated(q, k, v, do, scale, True, mm)
+        errs[name] = [float((a - b).abs().max() / (1e-4 + 1e-4 * b.abs().max()))
+                      for a, b in zip(got, (o0, lse0, dk0, dv0))]
+    assert max(errs["3xtf32"]) <= 1.0, errs
+    assert max(errs["tf32"]) >= 10 * max(errs["3xtf32"]), errs
 
 
 def test_padded_dim_at_every_d():
@@ -192,14 +300,23 @@ def test_wrappers_take_the_padded_dims_only():
 
 def test_scratch_of_the_chunked_form():
     """The chunked wmma-smem form's float32 accumulators: (n, BH, T rounded
-    up to 64, D); none for the forms that keep them on chip."""
+    up to 64, D); none for the forms that keep them on chip, K2a's and
+    K2c's tc-f32 kernels among them."""
     x = torch.zeros(3, 100, 320, dtype=torch.bfloat16)
-    s = tfa._scratch(x, 2)
+    s = tfa._scratch("dkv", x, 2)
     assert s.shape == (2, 3, 128, 320) and s.dtype == torch.float32
-    assert tfa._scratch(torch.zeros(3, 100, 256), 1).shape == (1, 3, 128, 256)
-    for dtype, d in ((torch.bfloat16, 256), (torch.float16, 256),
-                     (torch.float32, 128), (torch.bfloat16, 32)):
-        assert tfa._scratch(torch.zeros(3, 100, d, dtype=dtype), 1) is None
+    assert tfa._scratch("dq", torch.zeros(3, 100, 256), 1).shape == (
+        1, 3, 128, 256)
+    assert tfa._scratch("fwd", torch.zeros(3, 100, 576), 1).shape == (
+        1, 3, 128, 576)
+    for kernel in ("fwd", "dq", "dkv"):
+        for dtype, d in ((torch.bfloat16, 256), (torch.float16, 256),
+                         (torch.float32, 128), (torch.bfloat16, 32)):
+            assert tfa._scratch(kernel, torch.zeros(3, 100, d, dtype=dtype),
+                                1) is None
+    for kernel, n in (("fwd", 1), ("dkv", 2)):
+        for d in (256, 320, 512):
+            assert tfa._scratch(kernel, torch.zeros(3, 100, d), n) is None
 
 
 @pytest.mark.parametrize("route", ["plain", "flash"])
@@ -266,6 +383,22 @@ def test_k2_trial_reads_ptxas():
              spill_stores=68, spill_loads=100)]
 
 
+def test_k2_trial_reads_untemplated_kernels():
+    """The tc-f32 kernels take D at run time and are no templates: their
+    mangled names end the name with E and carry no template arguments."""
+    text = PTXAS.replace(
+        "_ZN51_GLOBAL__N__604052e1_18_flash_attention_cu_2c1389799dq_kernelIf"
+        "Li64EEEvPKT_S3_S3_S3_PKfS5_PS1_iifi",
+        "_ZN56_GLOBAL__N__0a1b2c3d_23_flash_attention_tf32_cu_4e5f607113"
+        "dkv_tc_kernelEPKfS1_S1_S1_S1_S1_PfS2_iiifi")
+    got = k2_trial.parse_ptxas(text)
+    assert got[1] == dict(kernel="dkv_tc_kernel", type=None, head_dim=None,
+                          registers=48, spill_stores=8, spill_loads=12)
+    assert [g["kernel"] for g in got] == [
+        "dkv_sm90_kernel", "dkv_tc_kernel", "fwd_wide_kernel",
+        "fwd_sm90_kernel"]
+
+
 # -- on the card -------------------------------------------------------------
 
 GATES = {torch.float32: None, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -297,8 +430,8 @@ def test_cuda_wide_kernels_match_plain(dtype, d):
                tfa.flash_dq(q, k, v, do, lse0, delta, scale, causal),
                *tfa.flash_dkv(q, k, v, do, lse0, delta, scale, causal))
         torch.cuda.synchronize()
-        design = tfa._design("fwd", dtype, d)
         for n, counts in tfa.DESIGN_LAUNCHES.items():
+            design = tfa._design(n, dtype, d)
             assert counts[design] == before[n][design] + 1
         for a, b in zip(got, ref):
             err = float((a.float() - b.float()).abs().max())
@@ -307,3 +440,49 @@ def test_cuda_wide_kernels_match_plain(dtype, d):
                 assert err <= 1e-4 + 1e-4 * top, (bh, tq, tk, causal, err)
             else:
                 assert err <= GATES[dtype] * top, (bh, tq, tk, causal, err)
+
+
+# chip_smoke.py's K2_WIDE_SHAPES in float32, D 320 (two output slices) and
+# a float32 D above 512 (the chunked form keeps it)
+TC_F32_SHAPES = ((3, 100, 100, 256, True), (2, 72, 136, 256, False),
+                 (2, 130, 130, 320, True), (2, 72, 136, 512, True),
+                 (1, 100, 100, 576, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TC_F32_SHAPES, ids=lambda s: f"D{s[3]}-"
+                         f"{s[1]}x{s[2]}-{'causal' if s[4] else 'full'}")
+def test_cuda_tc_f32_kernels_match_plain(shape):
+    """K2a and K2c in float32 on the card against their plain versions:
+    within 1e-4 + 1e-4 of the largest magnitude, each 64-row tile within
+    1e-2 of its norm (chip_smoke.py's K2_F32 and K2_TILE_REL), each launch
+    of the design ``_design`` names (tc-f32 from D 256 to 512)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bh, tq, tk, d, causal = shape
+    rng = np.random.default_rng(d + tq)
+    q, k, v, do = (torch.from_numpy(_rand(rng, bh, t, d)).cuda()
+                   for t in (tq, tk, tk, tq))
+    scale = 1.0 / np.sqrt(d)
+    o0, lse0 = tfa.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do * o0).sum(-1)
+    dk0, dv0 = tfa.flash_dkv_ref(q, k, v, do, lse0, delta, scale, causal)
+    before = {n: dict(c) for n, c in tfa.DESIGN_LAUNCHES.items()}
+    got = (*tfa.flash_fwd(q, k, v, scale, causal),
+           *tfa.flash_dkv(q, k, v, do, lse0, delta, scale, causal))
+    torch.cuda.synchronize()
+    for n in ("fwd", "dkv"):
+        design = tfa._design(n, torch.float32, d)
+        assert design == ("tc-f32" if d <= 512 else "wmma-smem")
+        assert tfa.DESIGN_LAUNCHES[n][design] == before[n][design] + 1
+    for name, a, b in zip(("o", "lse", "dk", "dv"), got, (o0, lse0, dk0, dv0)):
+        err = float((a - b).abs().max())
+        top = float(b.abs().max())
+        assert bool(torch.isfinite(a).all()) and err <= 1e-4 + 1e-4 * top, (
+            name, err, top)
+        if name != "lse":
+            diff = torch.nn.functional.pad(a - b, (0, 0, 0, (-a.shape[1]) % 64))
+            ref = torch.nn.functional.pad(b, (0, 0, 0, (-b.shape[1]) % 64))
+            rel = (diff.reshape(bh, -1, 64 * d).norm(dim=-1)
+                   / ref.reshape(bh, -1, 64 * d).norm(dim=-1).clamp_min(1e-30))
+            assert float(rel.max()) <= 1e-2, (name, float(rel.max()))

@@ -305,6 +305,20 @@ def test_model_flops_is_the_reference_formula():
         6.0 * n * 8 * 1024 + 3 * 12.0 * 24 * 8 * 1024 * 1024 * 1024 / 2)
 
 
+def test_peak_tflops_follows_the_step_type(monkeypatch):
+    """MFU's peak is the card's dense rate in the step's type: bf16 on the
+    tensor cores, float32 outside them; an unlisted card raises."""
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: "NVIDIA H100 80GB HBM3")
+    assert lm_bench.peak_tflops(None) == 989.0
+    assert lm_bench.peak_tflops(None, torch.bfloat16) == 989.0
+    assert lm_bench.peak_tflops(None, torch.float32) == 67.0
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: "some other card")
+    with pytest.raises(ValueError, match="float32 peak"):
+        lm_bench.peak_tflops(None, torch.float32)
+
+
 def test_measure_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
