@@ -12,15 +12,20 @@ card's name and power limit. ``--library`` adds, at the wide shapes, the
 plain versions' times, each kernel's bound (``roofline``, of the kind its
 design runs) and the PyTorch calls that compute the same functions
 (yardsticks only: SDPA's memory-efficient forward, and its backward op,
-which gives dq, dk and dv in one call). ``--lm`` times one training step
-of the LM at Gemma-2B's widths in float32 (2 layers, d 2048 = 8 heads of
-256, ff 16384, vocab 256,000, B 4 x T 1024, remat "dots"; host clock, the
-mean of 3 steps after a warm-up) with its K2 launches, by a loop of its
-own, since older checkouts' ``lm_bench.measure`` runs bf16 alone. It
-calls only ``flash_fwd``, ``flash_dq``, ``flash_dkv``, ``build`` and the
-LM's public functions, which older checkouts have too, so copied into one
-it times that checkout's kernels (a head dim they refuse is reported as
-refused): run parent, change, change, parent in one call to compare two.
+which gives dq, dk and dv in one call). ``--lm`` times float32 training
+steps (host clock, the mean of 3 steps after a warm-up) with their K2
+launches: the LM at Gemma-2B's widths (``LM_F32``: 2 layers, d 2048 = 8
+heads of 256, ff 16384, vocab 256,000, B 4 x T 1024, remat "dots") and at
+d 2048 = 16 heads of 128 (``LM_F32_D128``, chip_smoke.py's LM_D128: ff
+8192, vocab 32,768), by a loop of its own, since older checkouts'
+``lm_bench.measure`` runs bf16 alone; and one ``Model.fit`` of
+chip_smoke.py phase 31's attention model (``FIT_F32``: LayerNorm, causal
+ScaledDotProductAttention of 16 heads of 64, Add; B 4 x T 1024 x 1024;
+adamw, "mse"). It calls only ``flash_fwd``, ``flash_dq``, ``flash_dkv``,
+``build`` and the LM's and the graph model's public functions, which
+older checkouts have too, so copied into one it times that checkout's
+kernels (a head dim they refuse is reported as refused): run parent,
+change, change, parent in one call to compare two.
 ``--ptxas`` also compiles each K2 source with ``nvcc -Xptxas -v`` and adds
 every kernel's registers and spill bytes. Needs a CUDA card (and nvcc).
 """
@@ -48,6 +53,9 @@ WIDE_SHAPES = ((torch.float32, (128, 1024, 1024, 64, True)),
 HEADS = 16  # BH = B x 16 heads for the library calls
 LM_F32 = dict(vocab_size=256000, layers=2, heads=8, head_dim=256, ff=16384,
               max_len=1024, batch=4)
+LM_F32_D128 = dict(vocab_size=32768, layers=2, heads=16, head_dim=128,
+                   ff=8192, max_len=1024, batch=4)
+FIT_F32 = (4, 1024, 1024, 16, 64)  # B, T, d_model, heads, head dim
 SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu",
            "flash_attention_tf32.cu")
 TYPES = {"f": "float32", "nv_bfloat16": "bfloat16", "half": "float16"}
@@ -154,14 +162,23 @@ def kernel_ms(shape, dtype=torch.bfloat16, reps=20, library=False) -> dict:
     return out
 
 
-def lm_step_ms(steps: int = 3) -> dict:
-    """One float32 training step of the LM at LM_F32's widths: host ms (the
+def launch_counts() -> dict:
+    """K2's launches since the last reset, and by design where the
+    checkout counts them."""
+    designs = getattr(k2, "DESIGN_LAUNCHES", {})
+    return dict(launches=dict(k2.LAUNCHES),
+                by_design={key: {d: n for d, n in c.items() if n}
+                           for key, c in designs.items()})
+
+
+def lm_step_ms(widths: dict = LM_F32, steps: int = 3) -> dict:
+    """One float32 training step of the LM at ``widths``: host ms (the
     mean of ``steps`` after a warm-up step), the loss, and K2's launches
-    in the timed steps (by design where the checkout counts them)."""
+    in the timed steps."""
     from ccv_tpu_torch.bin import lm_bench
     from ccv_tpu_torch.models import transformer as tfm
     from ccv_tpu_torch.nn import optimizers
-    c = dict(LM_F32)
+    c = dict(widths)
     batch = c.pop("batch")
     cfg = tfm.TransformerConfig(**c, dropout=0.0, dtype=torch.float32,
                                 remat=True, remat_policy="dots")
@@ -180,11 +197,38 @@ def lm_step_ms(steps: int = 3) -> dict:
         loss = float(lm_bench.train_step(params, opt, state, cfg, ids))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
-    designs = getattr(k2, "DESIGN_LAUNCHES", {})
     return dict(ms=round(ms, 2), loss=round(loss, 5), steps=steps,
-                launches=dict(k2.LAUNCHES),
-                by_design={key: {d: n for d, n in c.items() if n}
-                           for key, c in designs.items()})
+                **launch_counts())
+
+
+def fit_step_ms(steps: int = 5) -> dict:
+    """One float32 ``Model.fit`` of FIT_F32's attention model (seeded as
+    chip_smoke.py phase 31's): host ms (the mean of ``steps`` after a
+    warm-up fit), the loss, and K2's launches in the timed fits."""
+    from ccv_tpu_torch.nn import functional as F
+    from ccv_tpu_torch.nn import layers as L
+    from ccv_tpu_torch.nn import optimizers
+    b, t, d, heads, hd = FIT_F32
+    inp = F.Input()
+    a = L.ScaledDotProductAttention(heads, hd, is_causal=True)(
+        L.LayerNorm(name="ln")(inp))
+    model = F.Model([inp], [F.Add()(inp, a)], name="attention")
+    dev = torch.device("cuda")
+    model.build((b, t, d), torch.Generator().manual_seed(4), device=dev)
+    model.compile(optimizers.adamw(rate=1e-4), "mse")
+    rng = np.random.default_rng(31)
+    x, y = (torch.from_numpy(rng.normal(0, 1, (b, t, d)).astype(np.float32))
+            .to(dev) for _ in range(2))
+    model.fit(x, y)
+    torch.cuda.synchronize()
+    k2.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = float(model.fit(x, y))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return dict(ms=round(ms, 3), loss=round(loss, 6), steps=steps,
+                **launch_counts())
 
 
 def kernel_name(mangled: str) -> tuple:
@@ -252,7 +296,9 @@ def main():
         out[f"{KINDS[dtype]}_D{shape[3]}"] = kernel_ms(
             shape, dtype, reps=5, library=args.library)
     if args.lm:
-        out["lm_f32_d256"] = lm_step_ms()
+        out["lm_f32_d256"] = lm_step_ms(LM_F32)
+        out["lm_f32_d128"] = lm_step_ms(LM_F32_D128)
+        out["fit_f32_d64"] = fit_step_ms()
     if args.ptxas:
         out["ptxas"] = {src: ptxas(src) for src in SOURCES
                         if (_build.CSRC / src).exists()}

@@ -1,9 +1,11 @@
 // Flash attention for Hopper (sm_90a), the "wmma-smem" design: the forward
-// (K2a), dq backward (K2b) and dk/dv backward (K2c) for f32 (head dims 32,
-// 64 and 128, and every multiple of 64 above 128), for bf16 and float16 at
-// head dim 32, and for every type above head dim 256. At bf16 and float16
-// and head dim 64, 128 or 256 all three run the "wgmma-tma" design of
-// flash_attention_sm90.cu. Port of the Pallas TPU kernels in
+// (K2a), dq backward (K2b) and dk/dv backward (K2c) for f32 at head dim 32,
+// for bf16 and float16 at head dim 32, and for every type above head dim
+// 256 (f32 K2a and K2c above 512); K2b also for f32 at head dims 64 and 128
+// and every multiple of 64 above. At bf16 and float16 and head dim 64, 128
+// or 256 all three run the "wgmma-tma" design of flash_attention_sm90.cu;
+// f32 K2a and K2c from head dim 64 to 512 run the "tc-f32" design of
+// flash_attention_tf32.cu. Port of the Pallas TPU kernels in
 // ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
@@ -28,8 +30,8 @@
 // over 64-key tiles, K2c one block per (bh, 64-key tile) and loops over
 // query tiles. Each block has 8 warps. Up to D 128 (the kernels templated
 // on D) the tiles of q, k, v and do sit in
-// shared memory (dynamic: up to 145 KB at D 64 and 225 KB at f32 D 128,
-// K2b and K2c, whose rows are unpadded to fit); the products run
+// shared memory (dynamic: up to 225 KB, K2b at f32 D 128, whose rows are
+// unpadded to fit); the products run
 // tile by tile out of shared memory: 16-bit types through the tensor cores
 // with nvcuda::wmma (16x16x16 fragments, f32 accumulators), f32 as plain
 // FMA loops. The score tile and the running accumulators (o, dq, dk, dv)
@@ -909,16 +911,23 @@ inline bool wide_dim(int dtype, int head_dim) {
   } while (0)
 
 // Instantiates the launcher for one (dtype, head_dim) pair of head dim 128
-// or less or returns cudaErrorInvalidValue.
+// or less or returns cudaErrorInvalidValue: K2a's and K2c's pairs (float32
+// at 64 and 128 runs flash_attention_tf32.cu)...
 #define FLASH_DISPATCH(dtype, head_dim, LAUNCH, ...)                      \
   do {                                                                    \
     if ((dtype) == 0 && (head_dim) == 32) return LAUNCH<float, 32>(__VA_ARGS__); \
-    if ((dtype) == 0 && (head_dim) == 64) return LAUNCH<float, 64>(__VA_ARGS__); \
-    if ((dtype) == 0 && (head_dim) == 128) return LAUNCH<float, 128>(__VA_ARGS__); \
     if ((dtype) == 1 && (head_dim) == 32) return LAUNCH<bf16, 32>(__VA_ARGS__);  \
     if ((dtype) == 1 && (head_dim) == 64) return LAUNCH<bf16, 64>(__VA_ARGS__);  \
     if ((dtype) == 2 && (head_dim) == 32) return LAUNCH<f16, 32>(__VA_ARGS__);   \
     return (int)cudaErrorInvalidValue;                                    \
+  } while (0)
+
+// ... and K2b's: those and float32 at 64 and 128.
+#define DQ_DISPATCH(dtype, head_dim, LAUNCH, ...)                         \
+  do {                                                                    \
+    if ((dtype) == 0 && (head_dim) == 64) return LAUNCH<float, 64>(__VA_ARGS__); \
+    if ((dtype) == 0 && (head_dim) == 128) return LAUNCH<float, 128>(__VA_ARGS__); \
+    FLASH_DISPATCH(dtype, head_dim, LAUNCH, __VA_ARGS__);                 \
   } while (0)
 
 }  // namespace
@@ -955,8 +964,8 @@ extern "C" int flash_attention_dq(int device, int dtype, int head_dim,
   if (wide_dim(dtype, head_dim))
     WIDE_DISPATCH(dtype, scratch, launch_dq_wide, head_dim, q, k, v, dout,
                   lse, delta, dq, scratch, bh, tq, tk, scale, causal, st);
-  FLASH_DISPATCH(dtype, head_dim, launch_dq, q, k, v, dout, lse, delta, dq,
-                 bh, tq, tk, scale, causal, st);
+  DQ_DISPATCH(dtype, head_dim, launch_dq, q, k, v, dout, lse, delta, dq, bh,
+              tq, tk, scale, causal, st);
 }
 
 // K2c. The same inputs -> dk, dv (bh, tk, D). scratch: (2, bh, tk rounded

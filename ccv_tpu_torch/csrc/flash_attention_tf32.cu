@@ -1,16 +1,17 @@
-// Flash attention for Hopper (sm_90a) in float32 at head dims 256 to 512,
+// Flash attention for Hopper (sm_90a) in float32 at head dims 64 to 512,
 // the "tc-f32" design: the forward (K2a) and the dk/dv backward (K2c) on the
-// tensor cores, their products in three TF32 parts. They replace the
-// chunked float32 form of flash_attention.cu (fwd_wide_kernel and
-// dkv_wide_kernel) at those head dims; that file keeps the dq backward
-// (K2b), float32 above D 512 and 16-bit above D 256. Ports of the Pallas
-// TPU kernels in ccv_tpu/ops/pallas/flash_attention.py:
+// tensor cores, their products in three TF32 parts. They replace, in
+// float32, the FMA kernels of flash_attention.cu at D 64 and 128 (fwd_kernel
+// and dkv_kernel) and its chunked form (fwd_wide_kernel, dkv_wide_kernel)
+// from D 256 to 512; that file keeps the dq backward (K2b), float32 D 32,
+// float32 above D 512 and 16-bit above D 256. Ports of the Pallas TPU
+// kernels in ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (:36, via _flash_fwd_bthd)
 //   K2c  _dkv_kernel    (:210, via _flash_bwd_bthd)
 //
-// What they compute, on (BH, T, D) row-major f32 tensors, D a multiple of
-// 64 from 256 to 512 (lse and delta are (BH, Tq) f32), exactly what
-// flash_attention.cu computes:
+// What they compute, on (BH, T, D) row-major f32 tensors, D 64, 128 or a
+// multiple of 64 from 192 to 512 (lse and delta are (BH, Tq) f32), exactly
+// what flash_attention.cu computes:
 //   s = (q . k) * scale; a key counts if k_pos < Tk and, when causal,
 //   k_pos <= q_pos + (Tk - Tq) (bottom-right). Masked scores are -1e30.
 //   K2a: online softmax over 64-key tiles; o = acc / max(l, 1e-30);
@@ -21,11 +22,11 @@
 //   p and ds are "rounded to the input type" (float32: unchanged) and every
 //   product accumulates in f32.
 //
-// Bound on this card. At BH 32, T 1024, D 256, causal, K2a does 17.2 GFLOP
-// on 0.27 GB and K2c 34.4 GFLOP on 0.54 GB: operations bound them. In
-// float32 outside the tensor cores (67 TFLOP/s) that is 0.257 and 0.513 ms;
-// the chunked form reached 6% of it, its products FMA loops out of shared
-// memory and its accumulators in a global scratch. Here the products run
+// Bound on this card. Causal at T 1024, K2a does 17.2 GFLOP and K2c 34.4 at
+// BH 32 x D 256, BH 64 x D 128 and BH 128 x D 64 alike, on 0.27 and 0.54 GB:
+// operations bound them. In float32 outside the tensor cores (67 TFLOP/s)
+// that is 0.257 and 0.513 ms; the FMA and chunked forms reached 3.6-9.4%
+// of it, their products loops out of shared memory. Here the products run
 // on the tensor cores as mma.sync m16n8k8 TF32 in the "3xTF32" split of
 // CUTLASS's OpMultiplyAddFastF32 (PyTorch's memory-efficient attention
 // uses it for float32): each operand x becomes hi = x rounded to TF32 and
@@ -37,39 +38,53 @@
 //
 // Design. 256 threads (8 warps) a block; the accumulators stay in
 // registers; tiles arrive through cp.async into a ring of stages in shared
-// memory, the next stage's copies in flight while this one multiplies, one
-// block barrier a stage. Each stage holds up to four 64-row x 64-column
-// chunks (row stride 72 floats). Fragments load from shared memory and are
-// split in registers; bank-conflict-free: an operand read along D uses
-// lane t's columns 2t and 2t+1 as the k-step's k = t and t + 4 (A and B
-// permuted alike, 8-byte loads; a row stride of 8 mod 32 words puts the
-// 16 lanes of each half-warp on distinct banks), an operand read along the
-// sequence a row stride of 8 (B) or 4 (A) mod 32. Blocks are numbered by
-// tile first and bh second, the longest (causal) tiles first, so the card,
-// which starts blocks in that order, ends with short ones: at one block a
-// SM, numbered by bh first, a long block of the last heads ran alone at
-// the end.
-//   K2a: one block per (bh, 64-query tile, output slice of at most 256
-//   columns of D). q (64 x D) is loaded once and stays in shared memory.
-//   Per 64-key tile: S = Q K^T from 128-column units of K (warp w: query
-//   rows 16 (w/2).., keys 32 (w%2)..: 16 f32 a thread), the online softmax
-//   in registers (the two warps of a row band trade row maxima through
-//   shared memory; each keeps its own partial row sum, summed at the end),
-//   P written once to shared memory (64 x 68) with the row rescale factor,
-//   then O += P V from 128-column units of V (warp w: rows 32 (w%2)..,
-//   columns 32 (w/2).. of the unit; O is 64 x 256 f32 over the block, 64
-//   registers a thread). Above D 256 a second block takes columns 256..
-//   and computes S again. 3 stages of 36 KB (2 where q leaves no room).
-//   K2c: one block per (bh, 64-key tile, dk/dv slice of at most 256
-//   columns): no atomics, deterministic. Per query tile from the first
-//   that reaches the keys: S = Q K^T and dP = dO V^T from 64-column units
-//   of q, do, k and v (warp w: queries 16 (w/2).., keys 32 (w%2)..),
-//   p and ds in registers, written transposed (key-major, 64 x 68) to
-//   shared memory, then dV += P^T dO and dK += dS^T Q from 64-column units
-//   of do and q (warp w: keys 16 (w%4).., columns 32 (w/4)..; dk and dv
-//   are 2 x 64 x 256 f32 over the block, 128 registers a thread). k and v
-//   are read again for each query tile (from L2): they and the q and do
-//   units do not fit in 227 KB together. 2 stages of 72 KB.
+// memory, the next stages' copies in flight while this one multiplies, one
+// block barrier a stage; the ring has the most stages, up to 4, that leave
+// the kernel's blocks a SM room. A stage holds 64-row x 64-column chunks
+// (row stride 72 floats). Fragments load from shared memory and are split
+// in registers; bank-conflict-free: an operand read along D uses lane t's
+// columns 2t and 2t+1 as the k-step's k = t and t + 4 (A and B permuted
+// alike, 8-byte loads; a row stride of 8 mod 32 words puts the 16 lanes of
+// each half-warp on distinct banks), an operand read along the sequence a
+// row stride of 8 (B) or 4 (A) mod 32. Blocks are numbered by tile first
+// and bh second, the longest (causal) tiles first, so the card, which
+// starts blocks in that order, ends with short ones: at one block a SM,
+// numbered by bh first, a long block of the last heads ran alone at the
+// end.
+//   K2a (fwd_tc_kernel<SW>, SW the o slice a block keeps: 64, 128, or 256
+//   above): one block per (bh, 64-query tile, slice). q (64 x D) is loaded
+//   once and stays in shared memory. Per 64-key tile: S = Q K^T from
+//   "units" of K, a stage each (128 columns of D at SW 256, one 64-column
+//   chunk below; warp w: query rows 16 (w/2).., keys 32 (w%2)..: 16 f32 a
+//   thread), the online softmax in registers (the two warps of a row band
+//   trade row maxima through shared memory; each keeps its own partial row
+//   sum, summed at the end), P written once to shared memory (64 x 68) with
+//   the row rescale factor, then O += P V from units of V (warp w: rows
+//   32 (w%2).., a quarter of the unit's columns). O is 64 x SW f32 over the
+//   block: 16, 32 or 64 registers a thread. At D 64 and 128 two blocks fit
+//   a SM (4 and 3 stages of 18 KB); above D 256 a second block takes
+//   columns 256.. and computes S again (3 stages of 36 KB, 2 where q
+//   leaves no room).
+//   K2c at D 64 and 128 (dkv_res_kernel<D>): one block per (bh, 64-key
+//   tile); its k and v tiles stay in shared memory, loaded once, and only q
+//   and do stream through the ring, a 64-column chunk a stage: per query
+//   tile from the first that reaches the keys, dP = dO V^T then S = Q K^T
+//   (warp w: queries 16 (w/2).., keys 32 (w%2)..), p and ds in registers,
+//   written transposed (key-major, 64 x 68) to shared memory, then dK +=
+//   dS^T Q and dV += P^T dO (warp w: keys 16 (w%4).., columns 32 (w/4)..
+//   of a chunk); the last S chunk of q serves dK at once, so a query tile
+//   takes 4 D / 64 - 1 stages. dk and dv are 2 x 64 x D f32 over the block,
+//   D / 4 registers a thread each. Two blocks a SM at D 64 (2 stages),
+//   one at D 128 (4 stages), where k and v take 70 KB.
+//   K2c above (dkv_tc_kernel): one block per (bh, 64-key tile, dk/dv slice
+//   of at most 256 columns). Per query tile: S = Q K^T and dP = dO V^T from
+//   64-column units of q, do, k and v, then dV and dK from 64-column units
+//   of do and q at the block's columns (dk and dv 2 x 64 x 256 f32 over the
+//   block, 128 registers a thread). k and v are read again for each query
+//   tile (from L2): they and the q and do units do not fit in 227 KB
+//   together. 2 stages of 72 KB.
+// No atomics: each block owns its rows of o, dk and dv, so the results are
+// deterministic.
 //
 // A query row with no valid key (causal with Tq > Tk) is refused by the
 // wrapper. Numerics: no fast math; expf and logf are the IEEE-accurate
@@ -88,9 +103,13 @@ constexpr int kLdC = kChunk + 8;           // its row stride (8 mod 32)
 constexpr int kChunkFloats = kTile * kLdC;
 constexpr int kLdP = kTile + 4;            // P's row stride (4 mod 32)
 constexpr int kSlice = 256;                // output columns a block keeps
-constexpr int kMinD = 256, kMaxD = 512;
+constexpr int kMinD = 64, kMaxD = 512;
 constexpr float kNegInf = -1e30f;          // NEG_INF of the Pallas kernel
-constexpr size_t kMaxSmem = 232448;        // a block's shared memory
+constexpr int kMaxStages = 4;              // of a cp.async ring
+
+// the shared memory a block may take with `blocks` blocks a SM (228 KB an
+// SM, 1 KB of it held back a block)
+constexpr size_t smem_budget(int blocks) { return 233472 / blocks - 1024; }
 
 // ---- primitives --------------------------------------------------------
 
@@ -108,6 +127,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// waits for the oldest group of a ring of `stages` (2 to kMaxStages) stages
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  if (stages >= 4)
+    cp_async_wait<2>();
+  else if (stages == 3)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
 }
 
 // x = hi + lo: hi rounded to TF32 (to nearest, ties away from zero, as
@@ -221,12 +250,82 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// S += A B^T over one 64-column chunk of D: A this warp's 16 rows (row
+// stride lda), B its 32 rows (row stride ldb), both read along D.
+__device__ __forceinline__ void s_chunk(float (&acc)[4][4], const float* a,
+                                        int lda, const float* b, int ldb,
+                                        int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kChunk; kk += 8) {
+    const FragA fa = load_a_perm(a + kk, lda, lane);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      mma3(acc[n], fa, load_b_perm(b + n * 8 * ldb + kk, ldb, lane));
+  }
+}
+
+// acc (this warp's 16 keys x 32 columns of a chunk) += A^T B: at is
+// [key][query] (row stride kLdP) at the warp's keys, b the chunk at the
+// warp's columns.
+__device__ __forceinline__ void kv_chunk(float (&acc)[4][4], const float* at,
+                                         const float* b, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kTile; kk += 8) {
+    const FragA a = load_a(at + kk, kLdP, lane);
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+      mma3(acc[ni], a, load_b(b + kk * kLdC + ni * 8, kLdC, lane));
+  }
+}
+
+// K2c's p and ds of a query tile from this warp's s and dp (queries 16 mq
+// + g (+ 8), keys 32 kh + 8 n + 2t (+ 1)), written key-major to pt and dst
+__device__ __forceinline__ void p_ds_tile(
+    float* pt, float* dst, const float (&s)[4][4], const float (&dp)[4][4],
+    const float* lseb, const float* dlb, int q0, int k0, int tq, int tk,
+    int diag, int causal, float scale, int mq, int kh, int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = mq * 16 + g + 8 * r;
+    const int q_pos = q0 + row;
+    const bool q_ok = q_pos < tq;
+    const float l = q_ok ? lseb[q_pos] : 0.f;
+    const float dl = q_ok ? dlb[q_pos] : 0.f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int key = kh * 32 + n * 8 + 2 * t + x;
+        const float pr = q_ok && key_ok(q_pos, k0 + key, tk, diag, causal)
+                             ? expf(s[n][2 * r + x] * scale - l)
+                             : 0.f;
+        pt[key * kLdP + row] = pr;
+        dst[key * kLdP + row] = pr * (dp[n][2 * r + x] - dl) * scale;
+      }
+  }
+}
+
 // ---- K2a ---------------------------------------------------------------
 
-// shared memory of the forward at head dim d with `stages` ring stages
-inline size_t fwd_smem(int d, int stages) {
+// The forward's shape for an o slice of SW columns (64, 128 or 256): a
+// ring stage ("unit") holds kUnit columns of k or v, 128 at SW 256 and one
+// 64-column chunk below, so that two blocks fit a SM there; in P V a warp
+// takes kUnit / 4 columns of a unit, kNi 8-column tiles.
+template <int SW>
+struct Fwd {
+  static constexpr int kUnit = SW > 128 ? 128 : 64;
+  static constexpr int kHalves = kUnit / kChunk;  // chunks a unit
+  static constexpr int kUnits = SW / kUnit;       // units of the slice
+  static constexpr int kCols = kUnit / 4;         // a warp's columns
+  static constexpr int kNi = kCols / 8;
+  static constexpr int kBlocks = SW > 128 ? 1 : 2;  // blocks a SM
+};
+
+// shared memory of the forward at head dim d with `stages` ring stages of
+// `halves` chunks
+inline size_t fwd_smem(int d, int stages, int halves) {
   return sizeof(float) * ((size_t)kTile * (d + 8)         // q
-                          + (size_t)stages * 2 * kChunkFloats  // ring
+                          + (size_t)stages * halves * kChunkFloats  // ring
                           + kTile * kLdP                  // p
                           + 2 * kTile                     // row maxima
                           + kTile                         // rescale
@@ -234,9 +333,10 @@ inline size_t fwd_smem(int d, int stages) {
                           + kTile);                       // m
 }
 
-// O (this warp's 32 x 32 of a 128-column unit) += P V: P 64 x 64 (row
+// O (this warp's 32 rows x 8 NI columns of a unit) += P V: P 64 x 64 (row
 // stride kLdP), v the unit's chunk holding the warp's columns.
-__device__ __forceinline__ void pv_unit(float (&acc)[2][4][4],
+template <int NI>
+__device__ __forceinline__ void pv_unit(float (&acc)[2][NI][4],
                                         const float* ps, const float* v,
                                         int lane) {
 #pragma unroll
@@ -246,7 +346,7 @@ __device__ __forceinline__ void pv_unit(float (&acc)[2][4][4],
     for (int mi = 0; mi < 2; ++mi) a[mi] = load_a(ps + mi * 16 * kLdP + kk,
                                                   kLdP, lane);
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
+    for (int ni = 0; ni < NI; ++ni) {
       const FragB b = load_b(v + kk * kLdC + ni * 8, kLdC, lane);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) mma3(acc[mi][ni], a[mi], b);
@@ -254,16 +354,19 @@ __device__ __forceinline__ void pv_unit(float (&acc)[2][4][4],
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <int SW>
+__global__ void __launch_bounds__(kThreads, Fwd<SW>::kBlocks)
     fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ lse, int tq, int tk, int d,
                   float scale, int causal, int stages) {
+  using C = Fwd<SW>;
+  constexpr int kStage = C::kHalves * kChunkFloats;  // floats a stage
   extern __shared__ __align__(128) float smem[];
   const int ldq = d + 8;
   float* qs = smem;
   float* ring = qs + kTile * ldq;
-  float* ps = ring + stages * 2 * kChunkFloats;
+  float* ps = ring + stages * kStage;
   float* pmax = ps + kTile * kLdP;  // [2][64]
   float* corr_s = pmax + 2 * kTile;
   float* lsum = corr_s + kTile;     // [2][64]
@@ -275,8 +378,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_bh = gridDim.x / n_qt;
   const int bh = blockIdx.x % n_bh;
   const int q0 = (n_qt - 1 - (int)(blockIdx.x / n_bh)) * kTile;
-  const int c0 = blockIdx.y * kSlice;          // this block's columns of o
-  const int nv = min(kSlice, d - c0);
+  const int c0 = blockIdx.y * SW;              // this block's columns of o
+  const int nv = min(SW, d - c0);
   const int diag = tk - tq;
   const float* kb = k + (size_t)bh * tk * d;
   const float* vb = v + (size_t)bh * tk * d;
@@ -292,9 +395,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   cp_async_commit();
 
-  // units of a key tile: D / 128 of k (128 columns of D each, the last
-  // maybe 64), then nv / 128 of v (this block's columns)
-  const int n_ku = (d + 127) / 128, n_vu = (nv + 127) / 128;
+  // units of a key tile: D / kUnit of k (kUnit columns of D each, the
+  // last maybe 64), then nv / kUnit of v (this block's columns)
+  const int n_ku = (d + C::kUnit - 1) / C::kUnit;
+  const int n_vu = (nv + C::kUnit - 1) / C::kUnit;
   const int per_tile = n_ku + n_vu;
   const int n_kt = [&] {
     const int n = (tk + kTile - 1) / kTile;
@@ -304,11 +408,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto fetch = [&](int u) {
     if (u < total) {
       const int k0 = (u / per_tile) * kTile, p = u % per_tile;
-      float* st = ring + (u % stages) * 2 * kChunkFloats;
+      float* st = ring + (u % stages) * kStage;
       const bool is_k = p < n_ku;
-      const int col = is_k ? p * 128 : c0 + (p - n_ku) * 128;
+      const int col = is_k ? p * C::kUnit : c0 + (p - n_ku) * C::kUnit;
       const int end = is_k ? d : c0 + nv;
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < C::kHalves; ++h)
         if (col + h * kChunk < end)
           load_chunk(st + h * kChunkFloats, is_k ? kb : vb, k0, tk, d,
                      col + h * kChunk);
@@ -318,30 +422,27 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // S-phase roles: query rows 16 * (warp / 2) + g (+ 8), keys 32 * (warp %
   // 2) + 8 n + 2t (+ 1); P V roles: rows 32 * (warp % 2) + 16 mi + g (+ 8),
-  // columns 32 * (warp / 2) + 8 ni + 2t (+ 1) of a unit
+  // columns kCols * (warp / 2) + 8 ni + 2t (+ 1) of a unit
   const int mq = warp >> 1, kh = warp & 1;
   const int rg = warp & 1, cg = warp >> 1;
   float s[4][4];
-  float acc[2][2][4][4];
+  float acc[C::kUnits][2][C::kNi][4];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int a = 0; a < C::kUnits; ++a)
 #pragma unroll
     for (int b = 0; b < 2; ++b)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < C::kNi; ++c)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[a][b][c][e] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
 
   for (int u = 0; u < stages - 1; ++u) fetch(u);
   for (int u = 0; u < total; ++u) {
-    if (stages == 3)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
+    cp_async_wait_ring(stages);
     __syncthreads();  // unit u is in; every warp is done with unit u - 1
     fetch(u + stages - 1);
-    const float* st = ring + (u % stages) * 2 * kChunkFloats;
+    const float* st = ring + (u % stages) * kStage;
     const int k0 = (u / per_tile) * kTile, p = u % per_tile;
     if (p < n_ku) {
       // S += Q K^T over this unit's columns of D
@@ -351,18 +452,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
       }
-      for (int h = 0; h < 2; ++h) {
-        const int col = p * 128 + h * kChunk;
+      for (int h = 0; h < C::kHalves; ++h) {
+        const int col = p * C::kUnit + h * kChunk;
         if (col >= d) break;
-        const float* qa = qs + mq * 16 * ldq + col;
-        const float* kc = st + h * kChunkFloats + kh * 32 * kLdC;
-#pragma unroll
-        for (int kk = 0; kk < kChunk; kk += 8) {
-          const FragA a = load_a_perm(qa + kk, ldq, lane);
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-            mma3(s[n], a, load_b_perm(kc + n * 8 * kLdC + kk, kLdC, lane));
-        }
+        s_chunk(s, qs + mq * 16 * ldq + col, ldq,
+                st + h * kChunkFloats + kh * 32 * kLdC, kLdC, lane);
       }
       if (p == n_ku - 1) {
         // online softmax of the tile: mask, row maxima across the warp
@@ -413,7 +507,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     } else {
-      // O += P V over this unit's 128 columns (the warp's 32 of them)
+      // O += P V over this unit's kUnit columns (the warp's kCols)
       const int vi = p - n_ku;
       if (vi == 0) {  // the tile's rescale, before its first product
         float cr[2][2];
@@ -423,21 +517,21 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int r = 0; r < 2; ++r)
             cr[mi][r] = corr_s[rg * 32 + mi * 16 + g + 8 * r];
 #pragma unroll
-        for (int a = 0; a < 2; ++a)
+        for (int a = 0; a < C::kUnits; ++a)
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-            for (int ni = 0; ni < 4; ++ni)
+            for (int ni = 0; ni < C::kNi; ++ni)
 #pragma unroll
               for (int e = 0; e < 4; ++e) acc[a][mi][ni][e] *= cr[mi][e >> 1];
       }
-      if (vi * 128 + cg * 32 < nv) {
-        const float* vc = st + (cg >> 1) * kChunkFloats + (cg & 1) * 32;
+      const int wc = cg * C::kCols;  // the warp's first column of the unit
+      if (vi * C::kUnit + wc < nv) {
+        const float* vc = st + (wc / kChunk) * kChunkFloats + wc % kChunk;
         const float* pa = ps + rg * 32 * kLdP;
-        if (vi == 0)
-          pv_unit(acc[0], pa, vc, lane);
-        else
-          pv_unit(acc[1], pa, vc, lane);
+#pragma unroll
+        for (int a = 0; a < C::kUnits; ++a)
+          if (a == vi) pv_unit<C::kNi>(acc[a], pa, vc, lane);
       }
     }
   }
@@ -463,11 +557,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float inv =
           1.f / fmaxf(lsum[row] + lsum[kTile + row], 1e-30f);
 #pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int col = a * 128 + cg * 32;
+      for (int a = 0; a < C::kUnits; ++a) {
+        const int col = a * C::kUnit + cg * C::kCols;
         if (col >= nv) continue;
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+        for (int ni = 0; ni < C::kNi; ++ni)
           *reinterpret_cast<float2*>(ob + (size_t)(q0 + row) * d + c0 + col +
                                      ni * 8 + 2 * t) =
               make_float2(acc[a][mi][ni][2 * r] * inv,
@@ -488,25 +582,6 @@ constexpr int kDkvStages = 2;
 // stage) and p^T, ds^T
 constexpr size_t kDkvSmem =
     sizeof(float) * ((size_t)kDkvStages * 4 * kChunkFloats + 2 * kTile * kLdP);
-
-// dV and dK (this warp's 16 keys x 32 columns of a 64-column unit) +=
-// P^T dO and dS^T Q: pt and dst are [key][query] (row stride kLdP) at the
-// warp's keys, dO and Q the unit's chunks at the warp's columns.
-__device__ __forceinline__ void dkv_unit(float (&dv)[4][4], float (&dk)[4][4],
-                                         const float* pt, const float* dst,
-                                         const float* dO, const float* qc,
-                                         int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kTile; kk += 8) {
-    const FragA ap = load_a(pt + kk, kLdP, lane);
-    const FragA ad = load_a(dst + kk, kLdP, lane);
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      mma3(dv[ni], ap, load_b(dO + kk * kLdC + ni * 8, kLdC, lane));
-      mma3(dk[ni], ad, load_b(qc + kk * kLdC + ni * 8, kLdC, lane));
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -589,52 +664,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
       }
-      const float* qa = st + mq * 16 * kLdC;
-      const float* da = st + kChunkFloats + mq * 16 * kLdC;
-      const float* kc = st + 2 * kChunkFloats + kh * 32 * kLdC;
-      const float* vc = st + 3 * kChunkFloats + kh * 32 * kLdC;
-#pragma unroll
-      for (int kk = 0; kk < kChunk; kk += 8) {
-        const FragA aq = load_a_perm(qa + kk, kLdC, lane);
-        const FragA ad = load_a_perm(da + kk, kLdC, lane);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          mma3(s[n], aq, load_b_perm(kc + n * 8 * kLdC + kk, kLdC, lane));
-          mma3(dp[n], ad, load_b_perm(vc + n * 8 * kLdC + kk, kLdC, lane));
-        }
-      }
-      if (p == n_su - 1) {
-        // p and ds of the tile, to shared memory key-major
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = mq * 16 + g + 8 * r;
-          const int q_pos = q0 + row;
-          const bool q_ok = q_pos < tq;
-          const float l = q_ok ? lseb[q_pos] : 0.f;
-          const float dl = q_ok ? dlb[q_pos] : 0.f;
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int x = 0; x < 2; ++x) {
-              const int key = kh * 32 + n * 8 + 2 * t + x;
-              const float pr =
-                  q_ok && key_ok(q_pos, k0 + key, tk, diag, causal)
-                      ? expf(s[n][2 * r + x] * scale - l)
-                      : 0.f;
-              pt[key * kLdP + row] = pr;
-              dst[key * kLdP + row] = pr * (dp[n][2 * r + x] - dl) * scale;
-            }
-        }
-      }
+      const float* ka = st + 2 * kChunkFloats + kh * 32 * kLdC;
+      s_chunk(s, st + mq * 16 * kLdC, kLdC, ka, kLdC, lane);
+      s_chunk(dp, st + kChunkFloats + mq * 16 * kLdC, kLdC,
+              ka + kChunkFloats, kLdC, lane);
+      if (p == n_su - 1)  // p and ds of the tile, to shared memory
+        p_ds_tile(pt, dst, s, dp, lseb, dlb, q0, k0, tq, tk, diag, causal,
+                  scale, mq, kh, g, t);
     } else {
+      // dV += P^T dO and dK += dS^T Q over this unit's columns
       const int ci = p - n_su;
-      const float* qc = st + ch * 32;
-      const float* dO = st + kChunkFloats + ch * 32;
       const float* pa = pt + mk * 16 * kLdP;
       const float* da = dst + mk * 16 * kLdP;
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if (c == ci) dkv_unit(dv_acc[c], dk_acc[c], pa, da, dO, qc, lane);
+        if (c == ci) {
+          kv_chunk(dv_acc[c], pa, st + kChunkFloats + ch * 32, lane);
+          kv_chunk(dk_acc[c], da, st + ch * 32, lane);
+        }
     }
   }
 
@@ -660,16 +707,221 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// blocks a SM of the dk/dv backward at head dim D <= 128: at D 128 its k
+// and v tiles leave room for one
+constexpr int dkv_res_blocks(int d) { return d > 64 ? 1 : 2; }
+
+// shared memory of the dk/dv backward at head dim D <= 128 with `stages`
+// ring stages: k and v resident, p^T and ds^T, the ring of q and do chunks
+inline size_t dkv_res_smem(int d, int stages) {
+  return sizeof(float) * (2 * (size_t)kTile * (d + 8) + 2 * kTile * kLdP +
+                          (size_t)stages * kChunkFloats);
+}
+
+// K2c at D 64 and 128: the block's k and v tiles stay in shared memory and
+// only q and do stream through the ring, one 64-column chunk a stage. Per
+// query tile, with n = D / 64, the 4n - 1 stages are do chunks 0..n-1 (dP
+// = dO V^T), q chunks 0..n-1 (S = Q K^T; after the last, p and ds to
+// shared memory and dK's chunk n-1 from the same stage), q chunks n-2..0
+// (dK += dS^T Q), do chunks 0..n-1 (dV += P^T dO). Warp roles as
+// dkv_tc_kernel's; dk and dv are 2 x 64 x D f32 over the block, D / 4
+// registers a thread each. Two blocks a SM at D 64.
+template <int D>
+__global__ void __launch_bounds__(kThreads, dkv_res_blocks(D))
+    dkv_res_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int tq, int tk, float scale,
+                   int causal, int stages) {
+  constexpr int kN = D / kChunk;       // chunks of D
+  constexpr int kLdR = D + 8;          // resident rows' stride (8 mod 32)
+  constexpr int kPer = 4 * kN - 1;     // stages a query tile
+  extern __shared__ __align__(128) float smem[];
+  float* kr = smem;
+  float* vr = kr + kTile * kLdR;
+  float* pt = vr + kTile * kLdR;       // p^T [key][query]
+  float* dst = pt + kTile * kLdP;      // ds^T
+  float* ring = dst + kTile * kLdP;
+
+  // blocks by key tile, the first (the longest when causal) first, then by
+  // bh
+  const int n_kt = (tk + kTile - 1) / kTile;
+  const int n_bh = gridDim.x / n_kt;
+  const int bh = blockIdx.x % n_bh;
+  const int k0 = (int)(blockIdx.x / n_bh) * kTile;
+  const int diag = tk - tq;
+  const float* qb = q + (size_t)bh * tq * D;
+  const float* dob = dout + (size_t)bh * tq * D;
+  const float* lseb = lse + (size_t)bh * tq;
+  const float* dlb = delta + (size_t)bh * tq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  // k and v, once: their own cp.async group, ahead of the ring's
+  {
+    const float* kb = k + (size_t)bh * tk * D;
+    const float* vb = v + (size_t)bh * tk * D;
+    for (int c = threadIdx.x; c < kTile * (D / 4); c += kThreads) {
+      const int r = c / (D / 4), e = (c % (D / 4)) * 4;
+      const bool ok = k0 + r < tk;
+      const size_t at = (size_t)(ok ? k0 + r : 0) * D + e;
+      cp_async16(kr + r * kLdR + e, kb + at, ok);
+      cp_async16(vr + r * kLdR + e, vb + at, ok);
+    }
+    cp_async_commit();
+  }
+
+  const int n_qt = (tq + kTile - 1) / kTile;
+  // causal: the first query tile that reaches key k0 holds q_pos = k0 - diag
+  const int i0 = causal ? max(0, k0 - diag) / kTile : 0;
+  const int total = max(0, n_qt - i0) * kPer;
+  // stage j of a query tile: whether it holds do, and its chunk
+  auto is_do = [](int j) { return j < kN || j >= 3 * kN - 1; };
+  auto chunk = [](int j) {
+    return j < kN ? j : j < 2 * kN ? j - kN
+                      : j < 3 * kN - 1 ? 3 * kN - 2 - j : j - (3 * kN - 1);
+  };
+  auto fetch = [&](int f) {
+    if (f < total) {
+      const int q0 = (i0 + f / kPer) * kTile, j = f % kPer;
+      load_chunk(ring + (f % stages) * kChunkFloats, is_do(j) ? dob : qb, q0,
+                 tq, D, chunk(j) * kChunk);
+    }
+    cp_async_commit();
+  };
+
+  // S-phase roles: queries 16 * (warp / 2) + g (+ 8), keys 32 * (warp % 2)
+  // + 8 n + 2t (+ 1); product roles: keys 16 * (warp % 4) + g (+ 8),
+  // columns 32 * (warp / 4) + 8 ni + 2t (+ 1) of a chunk
+  const int mq = warp >> 1, kh = warp & 1;
+  const int mk = warp & 3, ch = warp >> 2;
+  float s[4][4], dp[4][4];
+  float dv_acc[kN][4][4], dk_acc[kN][4][4];
+#pragma unroll
+  for (int a = 0; a < kN; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv_acc[a][b][e] = dk_acc[a][b][e] = 0.f;
+  const float* pa = pt + mk * 16 * kLdP;
+  const float* da = dst + mk * 16 * kLdP;
+
+  for (int f = 0; f < stages - 1; ++f) fetch(f);
+  for (int f = 0; f < total; ++f) {
+    cp_async_wait_ring(stages);
+    __syncthreads();  // stage f is in; every warp is done with stage f - 1
+    fetch(f + stages - 1);
+    const float* st = ring + (f % stages) * kChunkFloats;
+    const int q0 = (i0 + f / kPer) * kTile, j = f % kPer, c = chunk(j);
+    if (j < 2 * kN) {
+      if (j == 0) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      }
+      const float* a = st + mq * 16 * kLdC;
+      const int bo = kh * 32 * kLdR + c * kChunk;
+      if (j < kN)
+        s_chunk(dp, a, kLdC, vr + bo, kLdR, lane);
+      else
+        s_chunk(s, a, kLdC, kr + bo, kLdR, lane);
+      if (j == 2 * kN - 1) {
+        // p and ds of the tile, to shared memory key-major
+        p_ds_tile(pt, dst, s, dp, lseb, dlb, q0, k0, tq, tk, diag, causal,
+                  scale, mq, kh, g, t);
+        __syncthreads();  // p^T and ds^T are whole
+        kv_chunk(dk_acc[kN - 1], da, st + ch * 32, lane);
+      }
+    } else {
+      // dK += dS^T Q or dV += P^T dO over chunk c
+#pragma unroll
+      for (int cc = 0; cc < kN; ++cc)
+        if (cc == c) {
+          if (is_do(j))
+            kv_chunk(dv_acc[cc], pa, st + ch * 32, lane);
+          else
+            kv_chunk(dk_acc[cc], da, st + ch * 32, lane);
+        }
+    }
+  }
+  cp_async_wait<0>();  // k and v's group, where no query tile came
+
+  float* dkb = dk + (size_t)bh * tk * D;
+  float* dvb = dv + (size_t)bh * tk * D;
+#pragma unroll
+  for (int cc = 0; cc < kN; ++cc)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + mk * 16 + g + 8 * r;
+      if (key >= tk) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const size_t at =
+            (size_t)key * D + cc * kChunk + ch * 32 + ni * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dkb + at) =
+            make_float2(dk_acc[cc][ni][2 * r], dk_acc[cc][ni][2 * r + 1]);
+        *reinterpret_cast<float2*>(dvb + at) =
+            make_float2(dv_acc[cc][ni][2 * r], dv_acc[cc][ni][2 * r + 1]);
+      }
+    }
+}
+
 inline int n_tiles(int t) { return (t + kTile - 1) / kTile; }
 
+// 64, 128 and the multiples of 64 from 192 to 512 (the D 256 form)
 inline bool dim_ok(int d) { return d % kChunk == 0 && d >= kMinD && d <= kMaxD; }
 
-inline int n_slices(int d) { return (d + kSlice - 1) / kSlice; }
+// the most ring stages, at least 2, whose shared memory `bytes(stages)`
+// leaves `blocks` blocks a SM
+template <typename F>
+int ring_stages(F bytes, int blocks) {
+  int stages = kMaxStages;
+  while (stages > 2 && bytes(stages) > smem_budget(blocks)) --stages;
+  return stages;
+}
+
+template <int SW>
+int launch_fwd(int d, const float* q, const float* k, const float* v,
+               float* o, float* lse, int bh, int tq, int tk, float scale,
+               int causal, cudaStream_t stream) {
+  using C = Fwd<SW>;
+  const int stages = ring_stages(
+      [&](int n) { return fwd_smem(d, n, C::kHalves); }, C::kBlocks);
+  const size_t smem = fwd_smem(d, stages, C::kHalves);
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_tc_kernel<SW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh * n_tiles(tq), (d + SW - 1) / SW);
+  fwd_tc_kernel<SW><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, lse, tq, tk, d, scale, causal, stages);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_res(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   float* dk, float* dv, int bh, int tq, int tk, float scale,
+                   int causal, cudaStream_t stream) {
+  const int stages = ring_stages(
+      [](int n) { return dkv_res_smem(D, n); }, dkv_res_blocks(D));
+  const size_t smem = dkv_res_smem(D, stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_res_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dkv_res_kernel<D><<<bh * n_tiles(tk), kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, tq, tk, scale, causal, stages);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 // K2a. q (bh, tq, d), k and v (bh, tk, d) f32 -> o (bh, tq, d), lse (bh,
-// tq). d: a multiple of 64 from 256 to 512; anything else is refused.
+// tq). d: a multiple of 64 from 64 to 512; anything else is refused.
 extern "C" int flash_attention_fwd_tf32(int device, int d, const float* q,
                                         const float* k, const float* v,
                                         float* o, float* lse, int bh, int tq,
@@ -678,16 +930,13 @@ extern "C" int flash_attention_fwd_tf32(int device, int d, const float* q,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!dim_ok(d)) return (int)cudaErrorInvalidValue;
-  const int stages = fwd_smem(d, 3) <= kMaxSmem ? 3 : 2;
-  const size_t smem = fwd_smem(d, stages);
-  err = cudaFuncSetAttribute(fwd_tc_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh * n_tiles(tq), n_slices(d));
-  fwd_tc_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, o, lse, tq, tk, d, scale, causal, stages);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_fwd<64>(d, q, k, v, o, lse, bh, tq, tk, scale, causal, st);
+  if (d == 128)
+    return launch_fwd<128>(d, q, k, v, o, lse, bh, tq, tk, scale, causal, st);
+  return launch_fwd<kSlice>(d, q, k, v, o, lse, bh, tq, tk, scale, causal,
+                            st);
 }
 
 // K2c. The same inputs, dout (bh, tq, d), lse and delta (bh, tq) -> dk, dv
@@ -702,13 +951,19 @@ extern "C" int flash_attention_dkv_tf32(int device, int d, const float* q,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!dim_ok(d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_dkv_res<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
+                              scale, causal, st);
+  if (d == 128)
+    return launch_dkv_res<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
+                               scale, causal, st);
   err = cudaFuncSetAttribute(dkv_tc_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kDkvSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh * n_tiles(tk), n_slices(d));
-  dkv_tc_kernel<<<grid, kThreads, kDkvSmem,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(bh * n_tiles(tk), (d + kSlice - 1) / kSlice);
+  dkv_tc_kernel<<<grid, kThreads, kDkvSmem, st>>>(
       q, k, v, dout, lse, delta, dk, dv, tq, tk, d, scale, causal);
   return (int)cudaGetLastError();
 }

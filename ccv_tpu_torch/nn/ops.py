@@ -98,10 +98,11 @@ def _pads(padding: Padding, size: Sequence[int], kernel: Sequence[int],
 
 
 def _pad(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
-    """Pad the last two axes of an NCHW tensor by ((top, bottom), (left,
-    right))."""
-    (t, b), (l, r) = pads
-    return F.pad(x, (l, r, t, b), value=value)
+    """Pad the trailing axes of an NCHW tensor by XLA's (lo, hi) pairs,
+    the last axis last: ((top, bottom), (left, right)), or N's and C's
+    pairs before those; x itself where every pad is 0."""
+    flat = [p for pair in reversed(pads) for p in pair]
+    return F.pad(x, flat, value=value) if any(flat) else x
 
 
 # ---------------------------------------------------------------------------
@@ -348,26 +349,28 @@ def ewmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _pool_pads(x: torch.Tensor, size, stride, padding, format: str):
-    """(x as NCHW, XLA's pads for its H and W). ``padding`` is "SAME",
-    "VALID" or ``reduce_window``'s (lo, hi) pair for each of x's 4 axes."""
+    """(x as NCHW, XLA's pads for its N, C, H and W). ``padding`` is
+    "SAME", "VALID" or ``reduce_window``'s (lo, hi) pair for each of x's 4
+    axes; the window and stride are 1 on N and C, so a pad there adds
+    pad-only cells to the output, as ``reduce_window`` does."""
     xc = _to_nchw(x, format)
     if isinstance(padding, str):
-        return xc, _pads(padding, xc.shape[2:], size, stride)
+        return xc, ((0, 0), (0, 0),
+                    *_pads(padding, xc.shape[2:], size, stride))
     pairs = [tuple(padding[a]) for a in _FORMAT_AXES[format]]  # N, H, W, C
-    if any(pairs[k] != (0, 0) for k in (0, 3)):
-        raise NotImplementedError("pooling pads only H and W")
-    return xc, (pairs[1], pairs[2])
+    return xc, (pairs[0], pairs[3], pairs[1], pairs[2])
 
 
 def max_pool(x: torch.Tensor, size=(2, 2), stride=None,
              padding="VALID", format: str = FORMAT_NHWC) -> torch.Tensor:
-    """``reduce_window`` max: pads are -inf, so they never win."""
+    """``reduce_window`` max: pads are -inf (an integer type's least
+    value), so they never win, and a window of pads alone gives them."""
     size = tuple(size)
     stride = tuple(stride or size)
     xc, pads = _pool_pads(x, size, stride, padding, format)
-    if any(p for pair in pads for p in pair):
-        xc = _pad(xc, pads, -math.inf)
-    return _from_nchw(F.max_pool2d(xc, size, stride), format)
+    low = -math.inf if x.dtype.is_floating_point else torch.iinfo(x.dtype).min
+    return _from_nchw(F.max_pool2d(_pad(xc, pads, low), size, stride),
+                      format)
 
 
 def avg_pool(x: torch.Tensor, size=(2, 2), stride=None, padding="VALID",
@@ -375,15 +378,19 @@ def avg_pool(x: torch.Tensor, size=(2, 2), stride=None, padding="VALID",
              format: str = FORMAT_NHWC) -> torch.Tensor:
     """``reduce_window`` sums in float32 over the padded input, divided by
     the window's size (``"VALID"`` or ``count_include_pad``) or by the
-    count of its cells inside the input, then cast to x's type."""
+    count of its cells inside the input (0 / 0, NaN, on a window of pads
+    alone), then cast to x's type."""
     size = tuple(size)
     stride = tuple(stride or size)
     xc, pads = _pool_pads(_wide(x), size, stride, padding, format)
-    summed = F.avg_pool2d(_pad(xc, pads), size, stride, divisor_override=1)
+    summed = F.avg_pool2d(_pad(xc, pads), size, stride,
+                          divisor_override=1)
     if count_include_pad or padding == "VALID":
         out = summed / (size[0] * size[1])
     else:
-        ones = torch.ones((1, 1) + tuple(xc.shape[2:]), device=x.device)
+        # N and C only where they are padded; elsewhere 1 and broadcast
+        nc = [n if any(pad) else 1 for n, pad in zip(xc.shape[:2], pads)]
+        ones = torch.ones(nc + list(xc.shape[2:]), device=x.device)
         counts = F.avg_pool2d(_pad(ones, pads), size, stride,
                               divisor_override=1)
         out = summed / counts

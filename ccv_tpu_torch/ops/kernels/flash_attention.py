@@ -12,14 +12,16 @@ kernels' op order:
   "wgmma-tma" (csrc/flash_attention_sm90.cu: wgmma, TMA, register-resident
   softmax and accumulators) for all three at bf16 and float16 and head dim
   64, 128 or 256; "tc-f32" (csrc/flash_attention_tf32.cu: mma.sync TF32 in
-  three parts, cp.async rings, accumulators in registers) for K2a and K2c
-  in float32 at head dims 256 to 512 (``TC_F32_DIMS``); "wmma-smem"
-  (csrc/flash_attention.cu: wmma tiles and accumulators in shared memory)
-  for the rest: float32 and 16-bit D 32 as tiles that hold all of D, and a
-  form that walks D in 64-column chunks, its accumulators in a float32
-  scratch the wrapper allocates (``_wide``), for K2b in float32 above D
-  128, K2a and K2c in float32 above D 512 and all three in 16-bit above
-  D 256;
+  three parts, cp.async rings, accumulators in registers; two blocks a SM
+  at D 64 and K2a's D 128, K2c's k and v resident in shared memory at D 64
+  and 128) for K2a and K2c in float32 at head dims 64 to 512
+  (``TC_F32_DIMS``); "wmma-smem" (csrc/flash_attention.cu: wmma tiles and
+  accumulators in shared memory) for the rest: K2b in float32 up to D 128,
+  all three in float32 D 32 and 16-bit D 32 as tiles that hold all of D,
+  and a form that walks D in 64-column chunks, its accumulators in a
+  float32 scratch the wrapper allocates (``_wide``), for K2b in float32
+  above D 128, K2a and K2c in float32 above D 512 and all three in 16-bit
+  above D 256;
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
@@ -58,7 +60,7 @@ NEG_INF = -1e30          # masked score, as in the Pallas kernel
 HEAD_DIMS = (32, 64, 128, 256)  # head dims with kernels of their own
 WIDE_STEP = 64  # above HEAD_DIMS[-1], D is a multiple of this (its chunks)
 WGMMA_DIMS = (64, 128, 256)  # the 16-bit head dims of "wgmma-tma"
-TC_F32_DIMS = (256, 512)  # the float32 head dims of "tc-f32": from, to
+TC_F32_DIMS = (64, 512)  # the float32 head dims of "tc-f32": from, to
 DESIGNS = ("wgmma-tma", "tc-f32", "wmma-smem")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -281,7 +283,7 @@ def _sm90_library(code: int) -> ctypes.CDLL:
 
 
 def _tf32_library() -> ctypes.CDLL:
-    """The tc-f32 library (K2a and K2c in float32, head dims 256-512)."""
+    """The tc-f32 library (K2a and K2c in float32, head dims 64-512)."""
     lib = _build.load_library("flash_attention_tf32",
                               ["flash_attention_tf32.cu"])
     if lib.flash_attention_fwd_tf32.argtypes is None:

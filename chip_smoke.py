@@ -19,7 +19,8 @@ started together) and drives the port's main paths:
 - transformer-LM training (phases 6-7): the flash-attention kernels K2a
   (forward), K2b (dq) and K2c (dk, dv) against their plain versions at the
   parity tests' shapes and the LM's, each launch checked for its design
-  ("wgmma-tma" at bf16 and head dim 64 or 128, else "wmma-smem"), timed at
+  ("wgmma-tma" at bf16 and head dim 64 or 128; in float32 "tc-f32" for K2a
+  and K2c from D 64 and "wmma-smem" for K2b; "wmma-smem" at D 32), timed at
   the LM
   shape in turns with the PyTorch calls that compute the same functions
   (yardsticks only: SDPA's flash forward, the flash backward op); a 2-layer
@@ -186,7 +187,8 @@ started together) and drives the port's main paths:
   (float64, and float32 through K2), ring attention at sp 2 and GPipe over
   2 stages (ms a step and the staging copies);
 - phase 33, K2 at head dim 128: the bf16 kernels ("wgmma-tma", m64n128
-  products over two 64-column halves) and the f32 ones ("wmma-smem")
+  products over two 64-column halves) and the f32 ones ("tc-f32" K2a and
+  K2c, "wmma-smem" K2b)
   against their plain versions at phase 6's parity shapes at D 128 and at
   the LM step's (B 4 x H 16, T 1024), D 96 zero-padded to 128 through
   ``flash_attention``, and the three kernels timed at the LM step's shape
@@ -237,8 +239,8 @@ started together) and drives the port's main paths:
   against its staged form, ms of each;
 - phase 43, K2 at head dims above 128 and in float16: the wgmma-tma
   kernels at D 256 in bf16 and float16, the tc-f32 kernels (K2a and K2c in
-  float32 from D 256 to 512: 3xTF32 mma.sync) and the wmma-smem kernels'
-  chunked form (K2b in float32 above D 128, K2a and K2c in float32 above
+  float32 from D 64 to 512: 3xTF32 mma.sync; timed at D 64, 128 and 256)
+  and the wmma-smem kernels' chunked form (K2b in float32 above D 128, K2a and K2c in float32 above
   D 512, every kernel in 16-bit above D 256) against their plain
   versions, each launch's design checked, and timed beside SDPA's calls;
   the LM at Gemma-2B's widths (d 2048 = 8 heads of 256, ff 16384, vocab
@@ -383,7 +385,8 @@ LSSC_SHAPE = (2, 200, 336, 64)
 # K2a forward and K2b + K2c backward (one launch each a step). Gates, from
 # the same carried weights and batch, the kernels against the plain route
 # (``layers.attention_route`` patched within the check, a control only): in
-# float32 ("wmma-smem") the loss within TRAIN_LOSS_REL and every gradient
+# float32 (K2a and K2c "tc-f32", K2b "wmma-smem") the loss within
+# TRAIN_LOSS_REL and every gradient
 # within TRAIN_GRAD_REL of its largest magnitude. Every fit's update is held
 # to AdamW's first step (``optimizers.adamw_step``, the command form) of that
 # fit's own gradients from the parameters before it, within TRAIN_PARAM_REL
@@ -470,7 +473,8 @@ PAR_COLLECTIVES = ("allreduce", "all_gather", "send/recv")
 PAR_REQUIRED = PAR_COLLECTIVES  # gloo must take these (send / recv staged)
 PAR_REPS = 5           # timed ring-attention and GPipe steps a rank
 # phase 33, K2 at head dim 128: the kernels (bf16 "wgmma-tma" as an
-# m64n128 design, f32 "wmma-smem" with unpadded shared rows) against their
+# m64n128 design; f32 K2a and K2c "tc-f32", K2b "wmma-smem" with unpadded
+# shared rows) against their
 # plain versions within phase 6's gates at the parity shapes and the LM
 # step's (B 4 x H 16, T 1024, D 128), and head dim 96 zero-padded to 128
 # inside ``flash_attention`` as (B, T, H, D, causal); then K2 timed at
@@ -479,6 +483,9 @@ K2_D128_SHAPES = ([(6, t, t, 128, c) for t in (128, 100, 257)
                    for c in (False, True)]
                   + [(4, 72, 136, 128, c) for c in (False, True)])
 K2_D128 = (64, 1024, 1024, 128, True)
+# float32 K2's designs at D 64 and 128 (phases 6 and 33): K2a and K2c on
+# tc-f32, K2b on wmma-smem; k2_compare holds every launch to ``_design``
+F32_DESIGNS = {"fwd": "tc-f32", "dq": "wmma-smem", "dkv": "tc-f32"}
 K2_D96 = [(2, t, 4, 96, c) for t in (100, 1024) for c in (False, True)]
 # phase 34, the LM at head dim 128: d 2048 = 16 heads of 128 (the size of
 # GPT-3 XL's width), ff 8192, 2 layers, B 4 x T 1024, bf16, remat dots: the
@@ -499,18 +506,21 @@ S2S_D128 = dict(S2S, layers=2, heads=8, head_dim=128, ff=4096)
 # at D 256 in bf16 and float16 against their plain versions within phase
 # 6's gates at K2_D256_SHAPES and at K2_D256 (B 4 x 8 heads, T 1024: the
 # attention of Gemma-2B's width); the tc-f32 kernels and the wmma-smem
-# kernels' chunked form at K2_WIDE_SHAPES (float32 D 256, 320, 512 and
-# 576, bf16 D 320 and 512, float16 D 512; bf16 D 320 also at SDPA_D320's
+# kernels' chunked form at K2_WIDE_SHAPES (float32 D 64, 128, 256, 320, 512
+# and 576, bf16 D 320 and 512, float16 D 512; bf16 D 320 also at SDPA_D320's
 # attention, BH 32 x T 1024, the shape its fit gives the chunked kernels)
 # and flash_attention at head dims padded inside (K2_WIDE_PADDED), every
 # launch checked for its design; K2
 # timed at K2_D256 in bf16 and float16 in turns with SDPA's flash calls,
-# and in float32 and at bf16 D 512 (K2_WIDE_TIMED) beside the
-# memory-efficient calls
+# and in float32 (D 256, and D 64 and 128 at the same operations, where
+# tc-f32 runs K2a and K2c and wmma-smem K2b) and at bf16 D 512
+# (K2_WIDE_TIMED) beside the memory-efficient calls
 K2_D256_SHAPES = [(6, 100, 100, 256, True), (4, 72, 136, 256, False),
                   (2, 257, 257, 256, True)]
 K2_D256 = (32, 1024, 1024, 256, True)
-K2_WIDE_SHAPES = [(torch.float32, (3, 100, 100, 256, True)),
+K2_WIDE_SHAPES = [(torch.float32, (3, 100, 100, 64, True)),
+                  (torch.float32, (2, 257, 257, 128, True)),
+                  (torch.float32, (3, 100, 100, 256, True)),
                   (torch.float32, (2, 72, 136, 256, False)),
                   (torch.float32, (2, 130, 130, 320, True)),
                   (torch.float32, (2, 72, 136, 512, True)),
@@ -524,7 +534,9 @@ K2_WIDE_PADDED = [(torch.bfloat16, (2, 100, 4, 160, True)),
                   (torch.float16, (2, 100, 4, 200, False)),
                   (torch.float32, (2, 72, 2, 300, True))]
 K2_WIDE_TIMED = [(torch.float32, K2_D256), (torch.bfloat16,
-                                            (32, 1024, 1024, 512, True))]
+                                            (32, 1024, 1024, 512, True)),
+                 (torch.float32, (128, 1024, 1024, 64, True)),
+                 (torch.float32, K2_D128)]
 # the LM at Gemma-2B's widths: d 2048 = 8 heads of 256, ff 16384, vocab
 # 256,000, 2 of its 18 layers (depth cut to the script's time), B 4 x T
 # 1024. One step from the same parameters and batch with the kernels and
@@ -870,8 +882,18 @@ def k2_compare(k2, shape, dtype, dev, rng):
     return errs, rels
 
 
+def f32_designs_checked(k2, d):
+    """Checks that ``_design`` sends float32 K2 at head dim ``d`` where
+    F32_DESIGNS says, and returns that map."""
+    got = {key: k2._design(key, torch.float32, d) for key in F32_DESIGNS}
+    check(got == F32_DESIGNS, f"float32 K2 at D {d} routes to {got}, "
+                              f"expected {F32_DESIGNS}")
+    return got
+
+
 def k2_vs_plain(k2, roofline, dev, card):
     rng = np.random.default_rng(17)
+    f32 = f32_designs_checked(k2, 64)
     for dtype in (torch.float32, torch.bfloat16):
         worst, worst_rel = {}, {}
         for shape in K2_SHAPES:
@@ -885,7 +907,8 @@ def k2_vs_plain(k2, roofline, dev, card):
                f"{ {k: f'{e:.3g}' for k, e in worst.items()} }; worst "
                f"64-row tile error / tile norm "
                f"{ {k: f'{e:.3g}' for k, e in worst_rel.items()} }; designs "
-               f"checked per shape")
+               f"checked per shape"
+               + (f" (D 64: {f32})" if dtype == torch.float32 else ""))
     errs, rels = k2_compare(k2, K2_LM, torch.bfloat16, dev, rng)
     log(6, f"K2 vs plain at the LM shape {K2_LM} bf16 (K2a, K2b and K2c "
            f"wgmma-tma): max abs error "
@@ -2101,7 +2124,8 @@ def wmt_gate_step(batch, spad, tpad, dev, dtype, plain):
 def wmt_gate(batch, spad, tpad, dev):
     """Phase 17's gate: one step at dropout 0 with the kernels against one
     with plain attention, from the same parameters and batch, in float32
-    ("wmma-smem") and in bf16 ("wgmma-tma", the main path's).
+    (K2a and K2c "tc-f32", K2b "wmma-smem") and in bf16 ("wgmma-tma", the
+    main path's).
 
     Both: loss within LM_LOSS_REL, parameters after Adam as lm_two_layers
     checks them. Gradients: in float32, every one within LM_GRAD_REL of its
@@ -4412,9 +4436,13 @@ def fit_path(dev, card, k2, roofline):
     route's beside it, and K2 alone at the model's shape. Returns (result,
     profile)."""
     B, T, D, heads, hd = SDPA_SHAPE
-    runs = {(dt, plain): fit_gate_run(k2, dev, dt, plain)
-            for dt in (torch.float32, torch.bfloat16) for plain in (False,
-                                                                     True)}
+    runs, f32_ran = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for plain in (False, True):
+            runs[(dt, plain)] = fit_gate_run(k2, dev, dt, plain)
+            if dt == torch.float32 and not plain:  # its launches by design
+                f32_ran = {key: {d: n for d, n in c.items() if n}
+                           for key, c in k2.DESIGN_LAUNCHES.items()}
     (lk, gk, _), (lp, gp, _) = (runs[(torch.float32, False)],
                                 runs[(torch.float32, True)])
     g_rel = rel_dist(gk, gp)
@@ -4434,7 +4462,7 @@ def fit_path(dev, card, k2, roofline):
     log(31, f"path B, Model(LayerNorm, ScaledDotProductAttention({heads}, "
             f"{hd}, causal), Add) B {B} x T {T} x {D} under compile(adamw, "
             f"'mse'), one fit from the same weights and batch, K2 against "
-            f"the plain route: float32 (wmma-smem) loss {lk:.7f} / {lp:.7f} "
+            f"the plain route: float32 ({f32_ran}) loss {lk:.7f} / {lp:.7f} "
             f"(rel {loss_rel:.3g}, limit {TRAIN_LOSS_REL}), gradients within "
             f"{g_rel[wg]:.3g} of their largest magnitude (worst {wg}, limit "
             f"{TRAIN_GRAD_REL}); each of the four fits' updates within "
@@ -4488,7 +4516,7 @@ def fit_path(dev, card, k2, roofline):
                          bound_by=by)
     res = dict(ms=ms, plain_ms=plain_ms, launches=launches, steps=n,
                kernels=kern, shape=list(shape), f32_grad=g_rel[wg],
-               bf16_grad=k16, bf16_plain_grad=p16)
+               bf16_grad=k16, bf16_plain_grad=p16, f32_launches=f32_ran)
     log(31, f"path B bf16 fit (adamw 1e-4): median {ms:.3f} ms a step (min "
             f"{min(all_ms):.3f}, max {max(all_ms):.3f}, n={TRAIN_STEPS} after "
             f"a warm-up), the plain route {plain_ms:.3f} ms; K2 launches over "
@@ -5380,6 +5408,7 @@ def k2_d128_path(k2, roofline, dev, card):
     by kernel and the timing."""
     rng = np.random.default_rng(33)
     worst = {}
+    f32_designs_checked(k2, 128)
     for dtype in (torch.float32, torch.bfloat16):
         w, wr = {}, {}
         for shape in K2_D128_SHAPES + ([K2_D128] if dtype == torch.bfloat16
@@ -5396,7 +5425,7 @@ def k2_d128_path(k2, roofline, dev, card):
         for key in w:
             worst[key] = max(worst.get(key, 0.0), w[key])
         log(33, f"K2 at head dim 128 vs plain, {dtype} "
-                f"({k2._design('fwd', dtype, 128)}), "
+                f"({ {key: k2._design(key, dtype, 128) for key in w} }), "
                 f"{len(K2_D128_SHAPES)} shapes (T 128/100/257 causal and not, "
                 f"72x136 causal and not)"
                 + (f" and {K2_D128}" if dtype == torch.bfloat16 else "")
@@ -5584,7 +5613,10 @@ def k2_d256_path(k2, roofline, dev, card):
         for dtype, shape in shapes:
             errs, rels = compare(k2, shape, dtype, dev, rng)
             for key in errs:
-                design = k2._design(key, dtype, k2.padded_dim(shape[3]))
+                d = k2.padded_dim(shape[3])
+                design = k2._design(key, dtype, d)
+                if design == "wmma-smem" and not k2._wide(key, dtype, d):
+                    continue  # float32 K2b at D 64-128: phases 6 and 33's
                 merge_worst(w.setdefault(design, {}), {key: errs[key]})
                 merge_worst(wr.setdefault(design, {}), {key: rels[key]})
     log(43, f"K2's tc-f32 kernels and chunked wmma-smem form vs plain at "
@@ -5847,14 +5879,16 @@ def fit_d256_path(k2, dev, card):
 
 
 def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
-                        fit_d256):
+                        fit_d256, fit_f32):
     """The ``kernels`` line's entries of phase 43: K2a/b/c at head dim 256
     on wgmma-tma in bf16 (launches of the Gemma-width LM run; times at
-    K2_D256) with float16's times beside; K2a and K2c on tc-f32 and
-    K2a/b/c in the chunked wmma-smem form (launches of the float32
-    Gemma-width kernel step and of the bf16 fit at heads of 320; times at
-    K2_WIDE_TIMED, where each design runs: the first timed shape's numbers
-    plain, the next ones' with a suffix _2)."""
+    K2_D256) with float16's times beside; K2a and K2c on tc-f32 (float32 D
+    64-512) and K2a/b/c in the chunked wmma-smem form (launches of the
+    float32 Gemma-width kernel step, of the bf16 fit at heads of 320 and,
+    for tc-f32, of phase 31's float32 fit at heads of 64, ``fit_f32``, by
+    kernel and design; times at K2_WIDE_TIMED, where each form runs: the
+    first timed shape's numbers plain, the next ones' with a suffix _2,
+    _3)."""
     out = []
     for key, (name, line, src, design) in sources.items():
         r = k2_wide["bfloat16"]["timed"][key]
@@ -5877,24 +5911,32 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
     for design, suffix, src in (("tc-f32", "tc_f32", "flash_attention_tf32.cu"),
                                 ("wmma-smem", "wide", "flash_attention.cu")):
         for key, (name, line, _src, _design) in sources.items():
+            # the chunked form alone under wmma-smem (not K2b's D 64-128)
             timed = [(dt, shape, t[key])
                      for dt, shape, t in k2_wide["wide"]["timed"]
-                     if k2._design(key, dt, shape[3]) == design]
+                     if k2._design(key, dt, shape[3]) == design
+                     and (design == "tc-f32" or k2._wide(key, dt, shape[3]))]
             if not timed:
                 continue
             main = {part: runs.get(key, {}).get(design, 0)
                     for part, runs in (("step", lm_d256["f32_launches"]),
-                                       ("fit", fit_d256["bfloat16_d320"]))}
+                                       ("fit", fit_d256["bfloat16_d320"]),
+                                       # K2b's D 64 launch is not chunked
+                                       ("fit_d64", fit_f32 if design ==
+                                        "tc-f32" else {}))}
             entry = {
                 "name": f"{name}_{suffix}", "route": "cuda",
                 "source": f"ccv_tpu_torch/csrc/{src}",
                 "replaces": f"ccv_tpu/ops/pallas/{line}",
-                "launches": main["step"] + main["fit"],
+                "launches": main["step"] + main["fit"] + main["fit_d64"],
                 "launches_f32_step": main["step"],
                 "launches_fit_bf16_d320": main["fit"],
                 "launches_fit_f32": fit_d256["float32"][key].get(design, 0),
+                "launches_fit_f32_d64": main["fit_d64"],
                 "max_abs_err": k2_wide["wide"]["err"][design][key],
-                "design": design}
+                "design": design,
+                **({"range": "float32, head dims 64-512"}
+                   if design == "tc-f32" else {})}
             for i, (dt, shape, r) in enumerate(timed, 1):
                 tag = "" if i == 1 else f"_{i}"
                 entry.update({
@@ -6924,8 +6966,8 @@ def main():
             fut.result()
     log(2, f"K1, K2 and K3 built and loaded in "
            f"{time.perf_counter() - t0:.2f} s from ccv_tpu_torch/csrc/"
-           f"{{scd_cascade,flash_attention,flash_attention_sm90,scd_phase}}.cu "
-           f"for sm_90a")
+           f"{{scd_cascade,flash_attention,flash_attention_sm90,"
+           f"flash_attention_tf32,scd_phase}}.cu for sm_90a")
 
     # -- 3: K1 against its plain version on the card ------------------------
     max_err = 0.0
@@ -7315,7 +7357,8 @@ def main():
             "design": design, "shape": list(K2_D128),
             "launches_seq2seq_step": k2_d128_s2s[key]})
     kernels += d256_kernel_entries(k2, sources, k2_wide, lm_d256,
-                                   decode_d256, fit_d256)
+                                   decode_d256, fit_d256,
+                                   fit_res["f32_launches"])
     # K1 on the trained SCD cascade's 1080p detect (phase 35), and in the
     # first form="auto" detect, its measurement included (phase 41)
     kernels[0].update(launches_trained=k1_trained, launches_auto=k1_auto)

@@ -240,16 +240,20 @@ def test_wrapper_rejects_bad_input():
 
 def test_design_choice():
     """bf16 at head dim 64 (the LM's) or 128 takes the wgmma-tma K2a, K2b
-    and K2c; everything else the wmma-smem kernels."""
+    and K2c; float32 at 64 and 128 the tc-f32 K2a and K2c and the
+    wmma-smem K2b; D 32 the wmma-smem kernels."""
     for kernel in ("fwd", "dq", "dkv"):
         for d in (64, 128):
             assert tfa._design(kernel, torch.bfloat16, d) == "wgmma-tma"
+            assert tfa._design(kernel, torch.float32, d) == (
+                "wmma-smem" if kernel == "dq" else "tc-f32")
         assert "wgmma-tma" in tfa.DESIGN_LAUNCHES[kernel]
     for kernel in ("fwd", "dq", "dkv"):
         for dtype, d in ((torch.float32, 64), (torch.float32, 32),
                          (torch.float32, 128), (torch.bfloat16, 32)):
-            assert tfa._design(kernel, dtype, d) == "wmma-smem"
             assert tfa._design(kernel, dtype, d) in tfa.DESIGN_LAUNCHES[kernel]
+        for dtype in (torch.float32, torch.bfloat16):
+            assert tfa._design(kernel, dtype, 32) == "wmma-smem"
 
 
 def test_reset_launches():
@@ -321,10 +325,9 @@ def test_cuda_kernels_match_plain(dtype):
         torch.cuda.synchronize()
         assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
             "fwd": 1, "dq": 1, "dkv": 1}
-        new = tfa._design("fwd", dtype, d)
         ran = {n: [x for x, c in counts.items() if c > by_design[n][x]]
                for n, counts in tfa.DESIGN_LAUNCHES.items()}
-        assert ran == {"fwd": [new], "dq": [new], "dkv": [new]}
+        assert ran == {n: [tfa._design(n, dtype, d)] for n in ran}
         for a, b in zip(got, ref):
             err = float((a.float() - b.float()).abs().max())
             if dtype == torch.float32 or b.dtype == torch.float32:

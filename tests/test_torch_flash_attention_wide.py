@@ -137,19 +137,19 @@ def test_float16_forward_matches_ccv_tpu(d, pallas):
 
 def test_design_choice():
     """bf16 and float16 at head dim 64, 128 or 256 take the wgmma-tma
-    kernels; K2a and K2c in float32 at D 256 to 512 the tc-f32 ones; the
-    rest the wmma-smem ones, which walk D in 64-column chunks (``_wide``)
-    above 128: K2b in float32, K2a and K2c in float32 above 512, all three
-    in 16-bit above 256."""
+    kernels; K2a and K2c in float32 at D 64 to 512 the tc-f32 ones; the
+    rest the wmma-smem ones (float32 D 32, K2b in float32), which walk D in
+    64-column chunks (``_wide``) above 128: K2b in float32, K2a and K2c in
+    float32 above 512, all three in 16-bit above 256."""
     for kernel in ("fwd", "dq", "dkv"):
         for dtype in (torch.bfloat16, torch.float16):
             for d in (64, 128, 256):
                 assert tfa._design(kernel, dtype, d) == "wgmma-tma"
             for d in (32, 320, 512, 1024):
                 assert tfa._design(kernel, dtype, d) == "wmma-smem"
-        for d in (32, 64, 128, 576, 1024):
+        for d in (32, 576, 1024):
             assert tfa._design(kernel, torch.float32, d) == "wmma-smem"
-        for d in (256, 320, 384, 448, 512):
+        for d in (64, 128, 256, 320, 384, 448, 512):
             assert tfa._design(kernel, torch.float32, d) == (
                 "wmma-smem" if kernel == "dq" else "tc-f32")
             assert tfa._design(kernel, torch.float32, d) in tfa.DESIGNS
@@ -189,8 +189,28 @@ def test_roofline_kind_and_tf32x3_bound_at_d256():
     assert tfa.flash_work("fwd", *shape, torch.float32)[0] == pytest.approx(
         17.2e9, rel=2e-3)
     for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float16, "f16"),
-                        (torch.float32, "f32")):
+                        (torch.float32, "tf32x3")):
         assert tfa.roofline_kind("fwd", dtype, 64) == kind
+    for d in (64, 128):
+        assert tfa.roofline_kind("dkv", torch.float32, d) == "tf32x3"
+        assert tfa.roofline_kind("dq", torch.float32, d) == "f32"
+    assert tfa.roofline_kind("fwd", torch.float32, 32) == "f32"
+
+
+@pytest.mark.parametrize("bh,d", [(128, 64), (64, 128)])
+def test_tf32x3_bound_at_d64_and_d128(bh, d):
+    """K2a and K2c in float32 at T 1024, causal, at BH 128 x D 64 and BH 64
+    x D 128 (k2_trial's float32 shapes) do D 256's work at BH 32: 17.2 and
+    34.4 GFLOP, bound at 0.104 and 0.208 ms on tf32x3."""
+    shape = (bh, 1024, 1024, d, True)
+    for kernel, want_ms in (("fwd", 0.104), ("dkv", 0.208)):
+        flop, nbytes = tfa.flash_work(kernel, *shape, torch.float32)
+        assert flop == tfa.flash_work(kernel, 32, 1024, 1024, 256, True,
+                                      torch.float32)[0]
+        ms, by = roofline.bound_ms(flop, nbytes,
+                                   tfa.roofline_kind(kernel, torch.float32, d))
+        assert by == "operations"
+        assert ms == pytest.approx(want_ms, abs=5e-4)
 
 
 def _tf32(x):
@@ -242,10 +262,10 @@ def _emulated(q, k, v, do, scale, causal, mm):
     return o, lse, dk, dv
 
 
-@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
 def test_3xtf32_split_holds_the_float32_gate(d):
     """The tc-f32 kernels' arithmetic, emulated on the CPU: K2a and K2c at
-    D 256 and 512, T 256, causal, with every product in three TF32 parts,
+    D 64, 128, 256 and 512, T 256, causal, with every product in three TF32 parts,
     land within chip_smoke.py's K2_F32 gate (1e-4 + 1e-4 x the largest
     magnitude) of the plain float32 versions; one TF32 product instead
     lands at least 10 times further off."""
@@ -442,11 +462,15 @@ def test_cuda_wide_kernels_match_plain(dtype, d):
                 assert err <= GATES[dtype] * top, (bh, tq, tk, causal, err)
 
 
-# chip_smoke.py's K2_WIDE_SHAPES in float32, D 320 (two output slices) and
-# a float32 D above 512 (the chunked form keeps it)
+# chip_smoke.py's K2_WIDE_SHAPES in float32, D 320 (two output slices), a
+# float32 D above 512 (the chunked form keeps it), and D 64 and 128 (two
+# blocks a SM; K2c's k and v resident) at ragged T, causal and not
 TC_F32_SHAPES = ((3, 100, 100, 256, True), (2, 72, 136, 256, False),
                  (2, 130, 130, 320, True), (2, 72, 136, 512, True),
-                 (1, 100, 100, 576, True))
+                 (1, 100, 100, 576, True), (3, 100, 100, 64, True),
+                 (2, 72, 136, 64, False), (2, 257, 257, 64, True),
+                 (3, 100, 100, 128, True), (2, 72, 136, 128, False),
+                 (2, 257, 257, 128, True), (2, 72, 136, 128, True))
 
 
 @pytest.mark.cuda
@@ -456,7 +480,7 @@ def test_cuda_tc_f32_kernels_match_plain(shape):
     """K2a and K2c in float32 on the card against their plain versions:
     within 1e-4 + 1e-4 of the largest magnitude, each 64-row tile within
     1e-2 of its norm (chip_smoke.py's K2_F32 and K2_TILE_REL), each launch
-    of the design ``_design`` names (tc-f32 from D 256 to 512)."""
+    of the design ``_design`` names (tc-f32 from D 64 to 512)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     bh, tq, tk, d, causal = shape

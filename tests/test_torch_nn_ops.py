@@ -156,6 +156,68 @@ def test_pool_explicit_pairs():
            jops.avg_pool(jnp.asarray(x), (3, 3), (2, 2), pad))
 
 
+NC_PADS = {"c": ((0, 0), (1, 1), (1, 1), (0, 1)),
+           "n": ((1, 0), (0, 1), (1, 0), (0, 0)),
+           "nc": ((1, 1), (1, 1), (0, 1), (2, 0))}
+
+
+@pytest.mark.parametrize("fmt,pads", list(itertools.product(
+    ("NHWC", "NCHW"), NC_PADS)))
+def test_max_pool_pads_n_and_c(fmt, pads):
+    """Pads on N and C (NHWC pairs, put in the format's order) add cells
+    of pads alone: -inf, as reduce_window gives them."""
+    pad_nhwc = NC_PADS[pads]
+    pad = [pad_nhwc[a] for a in jops.format_perm("NHWC", fmt)]
+    x = _in_format(_rand((2, 4, 4, 3), 19), fmt)
+    want = np.asarray(jops.max_pool(jnp.asarray(x), (2, 2), (2, 2), pad,
+                                    format=fmt))
+    got = tops.max_pool(torch.from_numpy(x), (2, 2), (2, 2), pad,
+                        format=fmt).numpy()
+    assert got.shape == want.shape
+    assert np.isneginf(want).any()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fmt,pads,include", list(itertools.product(
+    ("NHWC", "NCHW"), NC_PADS, (False, True))))
+def test_avg_pool_pads_n_and_c(fmt, pads, include):
+    """Average pools over pads on N and C: a window of pads alone is 0
+    with ``count_include_pad``, else 0 / 0, NaN, as in ccv_tpu."""
+    pad_nhwc = NC_PADS[pads]
+    pad = [pad_nhwc[a] for a in jops.format_perm("NHWC", fmt)]
+    x = _in_format(_rand((2, 4, 4, 3), 20), fmt)
+    want = np.asarray(jops.avg_pool(jnp.asarray(x), (2, 2), (2, 2), pad,
+                                    include, format=fmt))
+    got = tops.avg_pool(torch.from_numpy(x), (2, 2), (2, 2), pad, include,
+                        format=fmt)
+    nan = np.isnan(want)
+    assert nan.any() != include
+    np.testing.assert_array_equal(np.isnan(got.numpy()), nan)
+    _close(torch.where(torch.from_numpy(nan), 0.0, got),
+           np.where(nan, 0.0, want))
+
+
+@pytest.mark.parametrize("fmt", ["NHWC", "NCHW"])
+def test_max_pool_integer_c_pad(fmt):
+    """An int32 max pool pads with the type's least value (ccv_tpu's
+    reduce_window takes no narrower integer)."""
+    x = _in_format(np.random.default_rng(21).integers(
+        -100, 100, (2, 4, 4, 3)).astype(np.int32), fmt)
+    pad = [NC_PADS["c"][a] for a in jops.format_perm("NHWC", fmt)]
+    want = np.asarray(jops.max_pool(jnp.asarray(x), (2, 2), (2, 2), pad,
+                                    format=fmt))
+    got = tops.max_pool(torch.from_numpy(x), (2, 2), (2, 2), pad,
+                        format=fmt).numpy()
+    assert got.dtype == want.dtype
+    assert (want == np.iinfo(np.int32).min).any()
+    np.testing.assert_array_equal(got, want)
+    same = np.asarray(jops.max_pool(jnp.asarray(x), (3, 3), (2, 2), "SAME",
+                                    format=fmt))
+    np.testing.assert_array_equal(
+        tops.max_pool(torch.from_numpy(x), (3, 3), (2, 2), "SAME",
+                      format=fmt).numpy(), same)
+
+
 @pytest.mark.parametrize("fmt,dtype", list(itertools.product(
     (*FORMATS, None), ("float32", "bfloat16"))))
 def test_batch_norm_inference(fmt, dtype):
