@@ -7,9 +7,11 @@ Times K2a, K2b and K2c (CUDA events: the least of three means of 20
 launches; 5 at the wide shapes) at the LMs' bf16 causal shapes, BH 128 x T
 1024 at head dim 64, BH 64 at 128 and BH 32 at 256, and at the wide
 shapes, all causal at T 1024: float32 at D 64 (BH 128), 128 (BH 64), 256
-and 512 (BH 32), and bf16 at D 512 (BH 32); prints one JSON line with the
-card's name and power limit. ``--library`` adds, at the wide shapes, the
-plain versions' times, each kernel's bound (``roofline``, of the kind its
+and 512 (BH 32), and bf16 at D 512 (BH 32); and float32 at D 32 (BH 256,
+the same operations), once as it runs (wmma-smem) and once on the same
+tensors zero-padded to D 64 (tc-f32); prints one JSON line with the card's
+name and power limit. ``--library`` adds, at the wide shapes, the plain
+versions' times, each kernel's bound (``roofline``, of the kind its
 design runs) and the PyTorch calls that compute the same functions
 (yardsticks only: SDPA's memory-efficient forward, and its backward op,
 which gives dq, dk and dv in one call). ``--lm`` times float32 training
@@ -50,6 +52,7 @@ WIDE_SHAPES = ((torch.float32, (128, 1024, 1024, 64, True)),
                (torch.float32, (32, 1024, 1024, 256, True)),
                (torch.float32, (32, 1024, 1024, 512, True)),
                (torch.bfloat16, (32, 1024, 1024, 512, True)))
+D32_SHAPE = (256, 1024, 1024, 32, True)  # float32, timed also padded to 64
 HEADS = 16  # BH = B x 16 heads for the library calls
 LM_F32 = dict(vocab_size=256000, layers=2, heads=8, head_dim=256, ff=16384,
               max_len=1024, batch=4)
@@ -125,16 +128,24 @@ def bound_kind(kernel: str, dtype: torch.dtype, d: int) -> str:
     return kind(kernel, dtype, d) if kind else KINDS[dtype]
 
 
-def kernel_ms(shape, dtype=torch.bfloat16, reps=20, library=False) -> dict:
+def kernel_ms(shape, dtype=torch.bfloat16, reps=20, library=False,
+              pad_to=None) -> dict:
     """{"fwd", "dq", "dkv": ms} at a causal (BH, Tq, Tk, D, causal) shape in
     ``dtype``; with ``library`` each is a dict of the kernel's ms, its
-    plain version's, its bound and the memory-efficient library call's."""
+    plain version's, its bound and the memory-efficient library call's.
+    ``pad_to``: the kernels (and plain versions) run on q, k, v and do
+    zero-padded along D to that head dim, with D's scale; the bound counts
+    D's work at the padded dim's kind, the library call runs unpadded."""
     bh, t_q, t_k, d, causal = shape
     rng = np.random.default_rng(0)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, t, d),
                                                         np.float32))
                    .to("cuda", dtype) for t in (t_q, t_k, t_k, t_q))
     scale = 1.0 / np.sqrt(d)
+    lib_args = (q, k, v, do, scale)
+    if pad_to is not None:
+        q, k, v, do = (torch.nn.functional.pad(x, (0, pad_to - d))
+                       for x in (q, k, v, do))
     o, lse = k2.flash_fwd(q, k, v, scale, causal)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, scale, causal)
@@ -144,18 +155,18 @@ def kernel_ms(shape, dtype=torch.bfloat16, reps=20, library=False) -> dict:
            for name, fn in fns.items()}
     if not library:
         return out
-    lib_fwd, lib_bwd = library_calls(q, k, v, do, scale, b=bh // HEADS,
+    lib_fwd, lib_bwd = library_calls(*lib_args, b=bh // HEADS,
                                      backend="efficient")
     plain = {"fwd": lambda: k2.flash_fwd_ref(q, k, v, scale, causal),
              "dq": lambda: k2.flash_dq_ref(*bwd),
              "dkv": lambda: k2.flash_dkv_ref(*bwd)}
     for name in fns:
-        bound, by = roofline.bound_ms(
-            *k2.flash_work(name, *shape, dtype), bound_kind(name, dtype, d))
+        kind = bound_kind(name, dtype, q.shape[2])
+        bound, by = roofline.bound_ms(*k2.flash_work(name, *shape, dtype),
+                                      kind)
         out[name] = dict(
             ms=out[name], plain_ms=round(time_cuda(plain[name], 5), 4),
-            bound_ms=round(bound, 4), bound_by=by,
-            kind=bound_kind(name, dtype, d),
+            bound_ms=round(bound, 4), bound_by=by, kind=kind,
             library_ms=round(min(time_cuda(lib_fwd if name == "fwd"
                                            else lib_bwd, reps)
                                  for _ in range(3)), 4))
@@ -295,6 +306,9 @@ def main():
     for dtype, shape in WIDE_SHAPES:
         out[f"{KINDS[dtype]}_D{shape[3]}"] = kernel_ms(
             shape, dtype, reps=5, library=args.library)
+    for key, pad in (("f32_D32", None), ("f32_D32_pad64", 64)):
+        out[key] = kernel_ms(D32_SHAPE, torch.float32, reps=5,
+                             library=args.library, pad_to=pad)
     if args.lm:
         out["lm_f32_d256"] = lm_step_ms(LM_F32)
         out["lm_f32_d128"] = lm_step_ms(LM_F32_D128)

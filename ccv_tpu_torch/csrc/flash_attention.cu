@@ -1,11 +1,10 @@
 // Flash attention for Hopper (sm_90a), the "wmma-smem" design: the forward
-// (K2a), dq backward (K2b) and dk/dv backward (K2c) for f32 at head dim 32,
-// for bf16 and float16 at head dim 32, and for every type above head dim
-// 256 (f32 K2a and K2c above 512); K2b also for f32 at head dims 64 and 128
-// and every multiple of 64 above. At bf16 and float16 and head dim 64, 128
-// or 256 all three run the "wgmma-tma" design of flash_attention_sm90.cu;
-// f32 K2a and K2c from head dim 64 to 512 run the "tc-f32" design of
-// flash_attention_tf32.cu. Port of the Pallas TPU kernels in
+// (K2a), dq backward (K2b) and dk/dv backward (K2c) at head dim 32 in every
+// type, above head dim 256 in bf16 and float16 and above 512 in f32. At
+// bf16 and float16 and head dim 64, 128 or 256 all three run the
+// "wgmma-tma" design of flash_attention_sm90.cu; in f32 from head dim 64
+// to 512 the "tc-f32" design of flash_attention_tf32.cu. Port of the
+// Pallas TPU kernels in
 // ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
@@ -28,10 +27,8 @@
 // running state in VMEM scratch. Here the sequential axis is a loop inside
 // the block: K2a and K2b take one block per (bh, 64-query tile) and loop
 // over 64-key tiles, K2c one block per (bh, 64-key tile) and loops over
-// query tiles. Each block has 8 warps. Up to D 128 (the kernels templated
-// on D) the tiles of q, k, v and do sit in
-// shared memory (dynamic: up to 225 KB, K2b at f32 D 128, whose rows are
-// unpadded to fit); the products run
+// query tiles. Each block has 8 warps. At D 32 (the kernels templated on
+// D) the tiles of q, k, v and do sit in shared memory; the products run
 // tile by tile out of shared memory: 16-bit types through the tensor cores
 // with nvcuda::wmma (16x16x16 fragments, f32 accumulators), f32 as plain
 // FMA loops. The score tile and the running accumulators (o, dq, dk, dv)
@@ -86,13 +83,7 @@ constexpr int kTile = 64;              // query and key rows per tile
 constexpr int kThreads = 256;          // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 8;                // padding elements per shared row
-// The padding of (T, D)'s shared rows: none for f32 at D 128, whose K2b and
-// K2c tiles would not fit in a block's 227 KB with it (the padding only
-// spreads rows over the banks), and the row stride of a 64x64 score tile.
-template <typename T, int D>
-constexpr int kPadOf = std::is_same<T, float>::value && D == 128 ? 0 : kPad;
-template <typename T, int D>
-constexpr int kLdSOf = kTile + kPadOf<T, D>;
+constexpr int kLdS = kTile + kPad;     // row stride of a 64x64 score tile
 constexpr float kNegInf = -1e30f;      // NEG_INF of the Pallas kernel
 
 template <typename T>
@@ -167,13 +158,13 @@ __device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
 }
 
 // Rows row0 .. row0+63 of a row-major (rows, D) tensor into a shared tile
-// of row stride D + kPadOf; rows past `rows` are zero. 16-byte copies.
+// of row stride D + kPad; rows past `rows` are zero. 16-byte copies.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
                                           int rows) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = D / kVec;
-  constexpr int ldt = D + kPadOf<T, D>;
+  constexpr int ldt = D + kPad;
   for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
     const int r = c / kChunks, e = (c % kChunks) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -191,12 +182,12 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
                                                        : 0.f;
 }
 
-// A shared f32 accumulator tile (row stride D + kPadOf) to rows row0.. of a
+// A shared f32 accumulator tile (row stride D + kPad) to rows row0.. of a
 // row-major (rows, D) tensor of type T, rows past `rows` dropped.
 template <typename T, int D>
 __device__ __forceinline__ void store_tile(T* dst, const float* acc, int row0,
                                            int rows) {
-  constexpr int ldt = D + kPadOf<T, D>;
+  constexpr int ldt = D + kPad;
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, d = i % D;
     if (row0 + r < rows)
@@ -223,8 +214,7 @@ __device__ __forceinline__ int k_tiles(int q0, int tk, int diag, int causal) {
 
 template <typename T, int D>
 constexpr size_t fwd_smem() {
-  constexpr int kLdS = kLdSOf<T, D>;
-  constexpr int ldt = D + kPadOf<T, D>;
+  constexpr int ldt = D + kPad;
   return 3 * kTile * ldt * sizeof(T)              // q, k, v
          + kTile * kLdS * sizeof(T)               // p
          + kTile * kLdS * sizeof(float)           // s
@@ -239,8 +229,7 @@ __global__ void __launch_bounds__(kThreads)
                float* __restrict__ lse, int tq, int tk, float scale,
                int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ldt = D + kPadOf<T, D>;
-  constexpr int kLdS = kLdSOf<T, D>;
+  constexpr int ldt = D + kPad;
   T* qs = reinterpret_cast<T*>(smem);
   T* ks = qs + kTile * ldt;
   T* vs = ks + kTile * ldt;
@@ -314,8 +303,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D>
 constexpr size_t dq_smem() {
-  constexpr int kLdS = kLdSOf<T, D>;
-  constexpr int ldt = D + kPadOf<T, D>;
+  constexpr int ldt = D + kPad;
   return 4 * kTile * ldt * sizeof(T)              // q, do, k, v
          + 2 * kTile * kLdS * sizeof(float)       // s, dp
          + kTile * kLdS * sizeof(T)               // ds
@@ -330,8 +318,7 @@ __global__ void __launch_bounds__(kThreads)
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int tq, int tk, float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ldt = D + kPadOf<T, D>;
-  constexpr int kLdS = kLdSOf<T, D>;
+  constexpr int ldt = D + kPad;
   T* qs = reinterpret_cast<T*>(smem);
   T* dos = qs + kTile * ldt;
   T* ks = dos + kTile * ldt;
@@ -382,8 +369,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D>
 constexpr size_t dkv_smem() {
-  constexpr int kLdS = kLdSOf<T, D>;
-  constexpr int ldt = D + kPadOf<T, D>;
+  constexpr int ldt = D + kPad;
   return 4 * kTile * ldt * sizeof(T)              // k, v, q, do
          + 2 * kTile * kLdS * sizeof(float)       // s, dp; then p, ds
          + 2 * kTile * ldt * sizeof(float)        // dk, dv accumulators
@@ -400,8 +386,7 @@ __global__ void __launch_bounds__(kThreads)
                T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
                float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ldt = D + kPadOf<T, D>;
-  constexpr int kLdS = kLdSOf<T, D>;
+  constexpr int ldt = D + kPad;
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = ks + kTile * ldt;
   T* qs = vs + kTile * ldt;
@@ -480,7 +465,6 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kChunk = 64;            // columns of D staged at a time
 constexpr int kLdC = kChunk + kPad;   // row stride of a staged chunk
-constexpr int kLdW = kTile + kPad;    // row stride of a 64 x 64 score tile
 
 // Rows row0 .. row0+63 and columns col0 .. col0+63 of a row-major (rows, d)
 // tensor into a shared chunk of row stride kLdC; rows past `rows` are zero.
@@ -499,7 +483,7 @@ __device__ __forceinline__ void load_chunk(T* dst, const T* src, int row0,
   }
 }
 
-// s (f32, 64 x 64, row stride kLdW) = a_tile b_tile^T over all of D: rows
+// s (f32, 64 x 64, row stride kLdS) = a_tile b_tile^T over all of D: rows
 // a_row0.. of a and b_row0.. of b staged chunk by chunk through as and bs.
 // Starts and ends at a barrier-free point: the caller syncs after it.
 template <typename T>
@@ -514,10 +498,10 @@ __device__ __forceinline__ void scores_wide(float* s, T* as, T* bs,
     __syncthreads();
     if (c == 0)
       tile_mm<T, kTile, kTile, kChunk, true, false, false>(as, kLdC, bs, kLdC,
-                                                           s, kLdW);
+                                                           s, kLdS);
     else
       tile_mm<T, kTile, kTile, kChunk, true, false, true>(as, kLdC, bs, kLdC,
-                                                          s, kLdW);
+                                                          s, kLdS);
   }
 }
 
@@ -539,8 +523,8 @@ __device__ __forceinline__ void store_wide(T* dst, const float* acc, int row0,
 template <typename T>
 constexpr size_t fwd_wide_smem() {
   return 3 * kTile * kLdC * sizeof(T)             // q, k, v chunks
-         + kTile * kLdW * sizeof(T)               // p
-         + kTile * kLdW * sizeof(float)           // s
+         + kTile * kLdS * sizeof(T)               // p
+         + kTile * kLdS * sizeof(float)           // s
          + 3 * kTile * sizeof(float);             // m, l, corr
 }
 
@@ -555,8 +539,8 @@ __global__ void __launch_bounds__(kThreads)
   T* ks = qs + kTile * kLdC;
   T* vs = ks + kTile * kLdC;
   T* ps = vs + kTile * kLdC;
-  float* s = reinterpret_cast<float*>(ps + kTile * kLdW);
-  float* m_s = s + kTile * kLdW;
+  float* s = reinterpret_cast<float*>(ps + kTile * kLdS);
+  float* m_s = s + kTile * kLdS;
   float* l_s = m_s + kTile;
   float* corr_s = l_s + kTile;
 
@@ -585,18 +569,18 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = warp; r < kTile; r += kWarps) {
       const int q_pos = q0 + r;
       const float s0 = key_ok(q_pos, k0 + lane, tk, diag, causal)
-                           ? s[r * kLdW + lane] * scale
+                           ? s[r * kLdS + lane] * scale
                            : kNegInf;
       const float s1 = key_ok(q_pos, k0 + lane + 32, tk, diag, causal)
-                           ? s[r * kLdW + lane + 32] * scale
+                           ? s[r * kLdS + lane + 32] * scale
                            : kNegInf;
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
       const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       const float sum = warp_sum(p0 + p1);
       const float corr = expf(m_prev - m_new);
-      ps[r * kLdW + lane] = from_f32<T>(p0);
-      ps[r * kLdW + lane + 32] = from_f32<T>(p1);
+      ps[r * kLdS + lane] = from_f32<T>(p0);
+      ps[r * kLdS + lane + 32] = from_f32<T>(p1);
       __syncwarp();
       if (lane == 0) {
         l_s[r] = l_s[r] * corr + sum;
@@ -611,7 +595,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = threadIdx.x; i < kTile * kChunk; i += kThreads)
         acc_c[(i / kChunk) * d + i % kChunk] *= corr_s[i / kChunk];
       __syncthreads();
-      tile_mm<T, kTile, kChunk, kTile, true, true, true>(ps, kLdW, vs, kLdC,
+      tile_mm<T, kTile, kChunk, kTile, true, true, true>(ps, kLdS, vs, kLdC,
                                                          acc_c, d);
     }
   }
@@ -625,8 +609,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 constexpr size_t dq_wide_smem() {
   return 4 * kTile * kLdC * sizeof(T)             // q, do, k, v chunks
-         + kTile * kLdW * sizeof(T)               // ds
-         + 2 * kTile * kLdW * sizeof(float)       // s, dp
+         + kTile * kLdS * sizeof(T)               // ds
+         + 2 * kTile * kLdS * sizeof(float)       // s, dp
          + 2 * kTile * sizeof(float);             // lse, delta
 }
 
@@ -644,9 +628,9 @@ __global__ void __launch_bounds__(kThreads)
   T* ks = dos + kTile * kLdC;
   T* vs = ks + kTile * kLdC;
   T* dss = vs + kTile * kLdC;
-  float* s = reinterpret_cast<float*>(dss + kTile * kLdW);
-  float* dp = s + kTile * kLdW;
-  float* lse_s = dp + kTile * kLdW;
+  float* s = reinterpret_cast<float*>(dss + kTile * kLdS);
+  float* dp = s + kTile * kLdS;
+  float* lse_s = dp + kTile * kLdS;
   float* dl_s = lse_s + kTile;
 
   const int n_qt = (tq + kTile - 1) / kTile;
@@ -672,15 +656,15 @@ __global__ void __launch_bounds__(kThreads)
       const int r = i / kTile, c = i % kTile;
       const int q_pos = q0 + r;
       const float p = q_pos < tq && key_ok(q_pos, k0 + c, tk, diag, causal)
-                          ? expf(s[r * kLdW + c] * scale - lse_s[r])
+                          ? expf(s[r * kLdS + c] * scale - lse_s[r])
                           : 0.f;
-      dss[r * kLdW + c] = from_f32<T>(p * (dp[r * kLdW + c] - dl_s[r]) * scale);
+      dss[r * kLdS + c] = from_f32<T>(p * (dp[r * kLdS + c] - dl_s[r]) * scale);
     }
     for (int c = 0; c < d / kChunk; ++c) {
       __syncthreads();  // ds written; the last chunk's product done
       load_chunk(ks, kb, k0, tk, d, c * kChunk);
       __syncthreads();
-      tile_mm<T, kTile, kChunk, kTile, true, true, true>(dss, kLdW, ks, kLdC,
+      tile_mm<T, kTile, kChunk, kTile, true, true, true>(dss, kLdS, ks, kLdC,
                                                          acc + c * kChunk, d);
     }
   }
@@ -691,7 +675,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 constexpr size_t dkv_wide_smem() {
   return 4 * kTile * kLdC * sizeof(T)             // k, v, q, do chunks
-         + 2 * kTile * kLdW * sizeof(float)       // s, dp; then p, ds
+         + 2 * kTile * kLdS * sizeof(float)       // s, dp; then p, ds
          + 2 * kTile * sizeof(float);             // lse, delta
 }
 
@@ -709,11 +693,11 @@ __global__ void __launch_bounds__(kThreads)
   T* qs = vs + kTile * kLdC;
   T* dos = qs + kTile * kLdC;
   float* s = reinterpret_cast<float*>(dos + kTile * kLdC);
-  float* dp = s + kTile * kLdW;
+  float* dp = s + kTile * kLdS;
   // p and ds, [query][key] in the input type, overwrite s and dp once read
   T* pss = reinterpret_cast<T*>(s);
   T* dss = reinterpret_cast<T*>(dp);
-  float* lse_s = dp + kTile * kLdW;
+  float* lse_s = dp + kTile * kLdS;
   float* dl_s = lse_s + kTile;
 
   const int n_kt = (tk + kTile - 1) / kTile;
@@ -749,17 +733,17 @@ __global__ void __launch_bounds__(kThreads)
       const int r = idx / kTile, c = idx % kTile;
       const int q_pos = q0 + r;
       pr[t] = q_pos < tq && key_ok(q_pos, k0 + c, tk, diag, causal)
-                  ? expf(s[r * kLdW + c] * scale - lse_s[r])
+                  ? expf(s[r * kLdS + c] * scale - lse_s[r])
                   : 0.f;
-      dsr[t] = pr[t] * (dp[r * kLdW + c] - dl_s[r]) * scale;
+      dsr[t] = pr[t] * (dp[r * kLdS + c] - dl_s[r]) * scale;
     }
     __syncthreads();  // every s and dp is read before p and ds overwrite them
 #pragma unroll
     for (int t = 0; t < kPerThread; ++t) {
       const int idx = threadIdx.x + t * kThreads;
       const int r = idx / kTile, c = idx % kTile;
-      pss[r * kLdW + c] = from_f32<T>(pr[t]);
-      dss[r * kLdW + c] = from_f32<T>(dsr[t]);
+      pss[r * kLdS + c] = from_f32<T>(pr[t]);
+      dss[r * kLdS + c] = from_f32<T>(dsr[t]);
     }
     for (int c = 0; c < d / kChunk; ++c) {
       __syncthreads();  // p and ds written; the last chunk's products done
@@ -768,9 +752,9 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       // dv[key][e] += sum_q p[q][key] do[q][e]; dk likewise from ds and q
       tile_mm<T, kTile, kChunk, kTile, false, true, true>(
-          pss, kLdW, dos, kLdC, dv_acc + c * kChunk, d);
+          pss, kLdS, dos, kLdC, dv_acc + c * kChunk, d);
       tile_mm<T, kTile, kChunk, kTile, false, true, true>(
-          dss, kLdW, qs, kLdC, dk_acc + c * kChunk, d);
+          dss, kLdS, qs, kLdC, dk_acc + c * kChunk, d);
     }
   }
   __syncthreads();
@@ -787,46 +771,32 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 inline int n_tiles(int t) { return (t + kTile - 1) / kTile; }
 
-// K2a, K2b and K2c at 16-bit types and head dim 64 or 128 run
-// flash_attention_sm90.cu: this file builds no instance of them and refuses
-// the pairs.
-template <typename T, int D>
-constexpr bool kSm90Serves = !std::is_same<T, float>::value && D >= 64;
-
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int tq, int tk, float scale, int causal,
                cudaStream_t stream) {
-  if constexpr (kSm90Serves<T, D>) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    const size_t smem = fwd_smem<T, D>();
-    cudaError_t err = set_smem(fwd_kernel<T, D>, smem);
-    if (err != cudaSuccess) return (int)err;
-    fwd_kernel<T, D><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, tq, tk, scale,
-        causal);
-    return (int)cudaGetLastError();
-  }
+  const size_t smem = fwd_smem<T, D>();
+  cudaError_t err = set_smem(fwd_kernel<T, D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fwd_kernel<T, D><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, tq, tk, scale,
+      causal);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int tq,
               int tk, float scale, int causal, cudaStream_t stream) {
-  if constexpr (kSm90Serves<T, D>) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    const size_t smem = dq_smem<T, D>();
-    cudaError_t err = set_smem(dq_kernel<T, D>, smem);
-    if (err != cudaSuccess) return (int)err;
-    dq_kernel<T, D><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), tq, tk, scale, causal);
-    return (int)cudaGetLastError();
-  }
+  const size_t smem = dq_smem<T, D>();
+  cudaError_t err = set_smem(dq_kernel<T, D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dq_kernel<T, D><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), tq, tk, scale, causal);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -834,18 +804,14 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int bh, int tq, int tk, float scale, int causal,
                cudaStream_t stream) {
-  if constexpr (kSm90Serves<T, D>) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    const size_t smem = dkv_smem<T, D>();
-    cudaError_t err = set_smem(dkv_kernel<T, D>, smem);
-    if (err != cudaSuccess) return (int)err;
-    dkv_kernel<T, D><<<bh * n_tiles(tk), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, scale, causal);
-    return (int)cudaGetLastError();
-  }
+  const size_t smem = dkv_smem<T, D>();
+  cudaError_t err = set_smem(dkv_kernel<T, D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dkv_kernel<T, D><<<bh * n_tiles(tk), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, scale, causal);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -894,10 +860,11 @@ int launch_dkv_wide(int d, const void* q, const void* k, const void* v,
 }
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Whether the wide kernels
-// serve (dtype, head_dim): multiples of 64 above 128 in f32, above 256 in
-// the 16-bit types (flash_attention_sm90.cu serves 256).
+// serve (dtype, head_dim): multiples of 64 above 512 in f32, above 256 in
+// the 16-bit types (flash_attention_tf32.cu and flash_attention_sm90.cu
+// serve those).
 inline bool wide_dim(int dtype, int head_dim) {
-  return head_dim % kChunk == 0 && head_dim > (dtype == 0 ? 128 : 256);
+  return head_dim % kChunk == 0 && head_dim > (dtype == 0 ? 512 : 256);
 }
 
 // Instantiates the wide launcher for dtype; a missing scratch is refused.
@@ -910,24 +877,16 @@ inline bool wide_dim(int dtype, int head_dim) {
     return (int)cudaErrorInvalidValue;                                    \
   } while (0)
 
-// Instantiates the launcher for one (dtype, head_dim) pair of head dim 128
-// or less or returns cudaErrorInvalidValue: K2a's and K2c's pairs (float32
-// at 64 and 128 runs flash_attention_tf32.cu)...
+// Instantiates the launcher for dtype at head dim 32 or returns
+// cudaErrorInvalidValue: every type runs head dims 64 to 256 in
+// flash_attention_sm90.cu (16-bit) or flash_attention_tf32.cu (float32).
 #define FLASH_DISPATCH(dtype, head_dim, LAUNCH, ...)                      \
   do {                                                                    \
-    if ((dtype) == 0 && (head_dim) == 32) return LAUNCH<float, 32>(__VA_ARGS__); \
-    if ((dtype) == 1 && (head_dim) == 32) return LAUNCH<bf16, 32>(__VA_ARGS__);  \
-    if ((dtype) == 1 && (head_dim) == 64) return LAUNCH<bf16, 64>(__VA_ARGS__);  \
-    if ((dtype) == 2 && (head_dim) == 32) return LAUNCH<f16, 32>(__VA_ARGS__);   \
+    if ((head_dim) != 32) return (int)cudaErrorInvalidValue;              \
+    if ((dtype) == 0) return LAUNCH<float, 32>(__VA_ARGS__);              \
+    if ((dtype) == 1) return LAUNCH<bf16, 32>(__VA_ARGS__);               \
+    if ((dtype) == 2) return LAUNCH<f16, 32>(__VA_ARGS__);                \
     return (int)cudaErrorInvalidValue;                                    \
-  } while (0)
-
-// ... and K2b's: those and float32 at 64 and 128.
-#define DQ_DISPATCH(dtype, head_dim, LAUNCH, ...)                         \
-  do {                                                                    \
-    if ((dtype) == 0 && (head_dim) == 64) return LAUNCH<float, 64>(__VA_ARGS__); \
-    if ((dtype) == 0 && (head_dim) == 128) return LAUNCH<float, 128>(__VA_ARGS__); \
-    FLASH_DISPATCH(dtype, head_dim, LAUNCH, __VA_ARGS__);                 \
   } while (0)
 
 }  // namespace
@@ -964,8 +923,8 @@ extern "C" int flash_attention_dq(int device, int dtype, int head_dim,
   if (wide_dim(dtype, head_dim))
     WIDE_DISPATCH(dtype, scratch, launch_dq_wide, head_dim, q, k, v, dout,
                   lse, delta, dq, scratch, bh, tq, tk, scale, causal, st);
-  DQ_DISPATCH(dtype, head_dim, launch_dq, q, k, v, dout, lse, delta, dq, bh,
-              tq, tk, scale, causal, st);
+  FLASH_DISPATCH(dtype, head_dim, launch_dq, q, k, v, dout, lse, delta, dq,
+                 bh, tq, tk, scale, causal, st);
 }
 
 // K2c. The same inputs -> dk, dv (bh, tk, D). scratch: (2, bh, tk rounded

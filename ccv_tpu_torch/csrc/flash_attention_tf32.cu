@@ -1,12 +1,14 @@
 // Flash attention for Hopper (sm_90a) in float32 at head dims 64 to 512,
-// the "tc-f32" design: the forward (K2a) and the dk/dv backward (K2c) on the
-// tensor cores, their products in three TF32 parts. They replace, in
-// float32, the FMA kernels of flash_attention.cu at D 64 and 128 (fwd_kernel
-// and dkv_kernel) and its chunked form (fwd_wide_kernel, dkv_wide_kernel)
-// from D 256 to 512; that file keeps the dq backward (K2b), float32 D 32,
-// float32 above D 512 and 16-bit above D 256. Ports of the Pallas TPU
-// kernels in ccv_tpu/ops/pallas/flash_attention.py:
+// the "tc-f32" design: the forward (K2a), the dq backward (K2b) and the
+// dk/dv backward (K2c) on the tensor cores, their products in three TF32
+// parts. They replace, in float32, the FMA kernels of flash_attention.cu at
+// D 64 and 128 (fwd_kernel, dq_kernel, dkv_kernel) and its chunked form
+// (fwd_wide_kernel, dq_wide_kernel, dkv_wide_kernel) from D 192 to 512;
+// that file keeps float32 D 32, float32 above D 512 and 16-bit above D
+// 256. Ports of the Pallas TPU kernels in
+// ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (:36, via _flash_fwd_bthd)
+//   K2b  _dq_kernel     (:173, via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (:210, via _flash_bwd_bthd)
 //
 // What they compute, on (BH, T, D) row-major f32 tensors, D 64, 128 or a
@@ -16,17 +18,19 @@
 //   k_pos <= q_pos + (Tk - Tq) (bottom-right). Masked scores are -1e30.
 //   K2a: online softmax over 64-key tiles; o = acc / max(l, 1e-30);
 //        lse = m + log(max(l, 1e-30)).
-//   K2c: p = exp(s * scale - lse) (0 where masked or past Tq),
+//   K2b, K2c: p = exp(s * scale - lse) (0 where masked or past Tq),
 //        dp = do . v, ds = p * (dp - delta) * scale;
-//        dv = sum_q p^T do, dk = sum_q ds^T q.
+//   K2b: dq = sum_k ds k;
+//   K2c: dv = sum_q p^T do, dk = sum_q ds^T q.
 //   p and ds are "rounded to the input type" (float32: unchanged) and every
 //   product accumulates in f32.
 //
-// Bound on this card. Causal at T 1024, K2a does 17.2 GFLOP and K2c 34.4 at
-// BH 32 x D 256, BH 64 x D 128 and BH 128 x D 64 alike, on 0.27 and 0.54 GB:
-// operations bound them. In float32 outside the tensor cores (67 TFLOP/s)
-// that is 0.257 and 0.513 ms; the FMA and chunked forms reached 3.6-9.4%
-// of it, their products loops out of shared memory. Here the products run
+// Bound on this card. Causal at T 1024, K2a does 17.2 GFLOP, K2b 25.8 and
+// K2c 34.4 at BH 32 x D 256, BH 64 x D 128 and BH 128 x D 64 alike, on
+// 0.27-0.54 GB: operations bound them. In float32 outside the tensor cores
+// (67 TFLOP/s) that is 0.257, 0.385 and 0.513 ms; the FMA and chunked
+// forms reached 3.1-9.4% of it, their products loops out of shared memory.
+// Here the products run
 // on the tensor cores as mma.sync m16n8k8 TF32 in the "3xTF32" split of
 // CUTLASS's OpMultiplyAddFastF32 (PyTorch's memory-efficient attention
 // uses it for float32): each operand x becomes hi = x rounded to TF32 and
@@ -34,7 +38,8 @@
 // a b accumulates lo_a hi_b + hi_a lo_b + hi_a hi_b in f32. That keeps
 // about 21 of float32's 24 bits per product, against plain TF32's 11, at
 // three TF32 products a product: 495 / 3 = 165 TFLOP/s dense at most, the
-// "tf32x3" bound of ops/kernels/roofline.py (0.104 and 0.208 ms here).
+// "tf32x3" bound of ops/kernels/roofline.py (0.104, 0.156 and 0.208 ms
+// here).
 //
 // Design. 256 threads (8 warps) a block; the accumulators stay in
 // registers; tiles arrive through cp.async into a ring of stages in shared
@@ -65,6 +70,24 @@
 //   a SM (4 and 3 stages of 18 KB); above D 256 a second block takes
 //   columns 256.. and computes S again (3 stages of 36 KB, 2 where q
 //   leaves no room).
+//   K2b at D 64 and 128 (dq_res_kernel<D>): one block per (bh, 64-query
+//   tile); its q and do tiles stay in shared memory, loaded once, and k and
+//   v stream through the ring, all of D a stage: per key tile, dP = dO V^T
+//   from the v tile, then S = Q K^T from the k tile (S-phase roles as
+//   K2c's below), p and ds in registers, ds written once to shared memory
+//   (64 x 68), and dQ += dS K from the same k stage (warp w: rows 32
+//   (w%2).., columns 16 (w/2).. of each chunk), so each k tile is read
+//   once. dq is 64 x D f32 over the block, D / 4 registers a thread. Two
+//   blocks a SM at D 64 (3 stages of 18 KB), one at D 128 (3 of 36 KB),
+//   where q and do take 70 KB.
+//   K2b above (dq_tc_kernel<DM>, DM 256 up to D 256, else 512): one block
+//   per (bh, 64-query tile) over all of D, dq in registers (DM / 4 a
+//   thread, 128 at 512), so S and dP are formed once a key tile (a block
+//   per 256-column slice, as K2a's, would form them twice at D 512). Per
+//   key tile: S and dP from 64-column units of q, do, k and v, ds to
+//   shared memory, then dQ from units of up to four k chunks. q and do are
+//   read again for each key tile (from L2), as K2c's k and v. 2 stages of
+//   72 KB.
 //   K2c at D 64 and 128 (dkv_res_kernel<D>): one block per (bh, 64-key
 //   tile); its k and v tiles stay in shared memory, loaded once, and only q
 //   and do stream through the ring, a 64-column chunk a stage: per query
@@ -83,8 +106,8 @@
 //   block, 128 registers a thread). k and v are read again for each query
 //   tile (from L2): they and the q and do units do not fit in 227 KB
 //   together. 2 stages of 72 KB.
-// No atomics: each block owns its rows of o, dk and dv, so the results are
-// deterministic.
+// No atomics: each block owns its rows of o, dq, dk and dv, so the results
+// are deterministic.
 //
 // A query row with no valid key (causal with Tq > Tk) is refused by the
 // wrapper. Numerics: no fast math; expf and logf are the IEEE-accurate
@@ -575,6 +598,318 @@ __global__ void __launch_bounds__(kThreads, Fwd<SW>::kBlocks)
   }
 }
 
+// ---- K2b ---------------------------------------------------------------
+
+// K2b's ds of a key tile from this warp's s and dp (queries 16 mq + g (+ 8),
+// keys 32 kh + 8 n + 2t (+ 1)), written query-major to ds; l and dl are the
+// lse and delta of the warp's two rows
+__device__ __forceinline__ void ds_tile(
+    float* ds, const float (&s)[4][4], const float (&dp)[4][4],
+    const float (&l)[2], const float (&dl)[2], int q0, int k0, int tq,
+    int tk, int diag, int causal, float scale, int mq, int kh, int g,
+    int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = mq * 16 + g + 8 * r;
+    const int q_pos = q0 + row;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float x2[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int key = kh * 32 + n * 8 + 2 * t + x;
+        const float pr =
+            q_pos < tq && key_ok(q_pos, k0 + key, tk, diag, causal)
+                ? expf(s[n][2 * r + x] * scale - l[r])
+                : 0.f;
+        x2[x] = pr * (dp[n][2 * r + x] - dl[r]) * scale;
+      }
+      *reinterpret_cast<float2*>(ds + row * kLdP + kh * 32 + n * 8 + 2 * t) =
+          make_float2(x2[0], x2[1]);
+    }
+  }
+}
+
+// The lse and delta of this thread's two S-phase rows (16 mq + g (+ 8)),
+// 0 past tq.
+__device__ __forceinline__ void row_stats(float (&l)[2], float (&dl)[2],
+                                          const float* lseb,
+                                          const float* dlb, int q0, int tq,
+                                          int mq, int g) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q_pos = q0 + mq * 16 + g + 8 * r;
+    l[r] = q_pos < tq ? lseb[q_pos] : 0.f;
+    dl[r] = q_pos < tq ? dlb[q_pos] : 0.f;
+  }
+}
+
+// dq (this warp's rows 32 rg + 16 mi + g (+ 8), columns 16 cg + 8 ni + 2t
+// (+ 1) of each of its NC chunks) to rows q0.. of a (tq, d) tensor: the
+// first n chunks
+template <int NC>
+__device__ __forceinline__ void store_dq(float* dqb,
+                                         const float (&acc)[NC][2][2][4],
+                                         int q0, int tq, int d, int n,
+                                         int rg, int cg, int g, int t) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c >= n) break;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + rg * 32 + mi * 16 + g + 8 * r;
+        if (row >= tq) continue;
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+          *reinterpret_cast<float2*>(dqb + (size_t)row * d + c * kChunk +
+                                     cg * 16 + ni * 8 + 2 * t) =
+              make_float2(acc[c][mi][ni][2 * r], acc[c][mi][ni][2 * r + 1]);
+      }
+  }
+}
+
+// blocks a SM of the dq backward at head dim D <= 128: at D 128 its q and
+// do tiles leave room for one
+constexpr int dq_res_blocks(int d) { return d > 64 ? 1 : 2; }
+
+// shared memory of the dq backward at head dim D <= 128 with `stages`
+// ring stages: q and do resident, ds, the ring of k or v tiles (all of D a
+// stage)
+inline size_t dq_res_smem(int d, int stages) {
+  return sizeof(float) * (2 * (size_t)kTile * (d + 8) + kTile * kLdP +
+                          (size_t)stages * (d / kChunk) * kChunkFloats);
+}
+
+// K2b at D 64 and 128: q and do resident, per key tile a stage of v (dP)
+// then one of k (S, ds, and dQ from the same stage).
+template <int D>
+__global__ void __launch_bounds__(kThreads, dq_res_blocks(D))
+    dq_res_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int tq, int tk, float scale, int causal, int stages) {
+  constexpr int kN = D / kChunk;       // chunks of D
+  constexpr int kLdR = D + 8;          // resident rows' stride (8 mod 32)
+  constexpr int kStage = kN * kChunkFloats;
+  extern __shared__ __align__(128) float smem[];
+  float* qr = smem;
+  float* dor = qr + kTile * kLdR;
+  float* dss = dor + kTile * kLdR;     // ds [query][key]
+  float* ring = dss + kTile * kLdP;
+
+  // blocks by query tile, the last (the longest when causal) first, then by
+  // bh
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int n_bh = gridDim.x / n_qt;
+  const int bh = blockIdx.x % n_bh;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / n_bh)) * kTile;
+  const int diag = tk - tq;
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  // q and do, once: their own cp.async group, ahead of the ring's
+  {
+    const float* qb = q + (size_t)bh * tq * D;
+    const float* dob = dout + (size_t)bh * tq * D;
+    for (int c = threadIdx.x; c < kTile * (D / 4); c += kThreads) {
+      const int r = c / (D / 4), e = (c % (D / 4)) * 4;
+      const bool ok = q0 + r < tq;
+      const size_t at = (size_t)(ok ? q0 + r : 0) * D + e;
+      cp_async16(qr + r * kLdR + e, qb + at, ok);
+      cp_async16(dor + r * kLdR + e, dob + at, ok);
+    }
+    cp_async_commit();
+  }
+
+  // stages: the v tile, then the k tile, of each key tile
+  const int n_kt = [&] {
+    const int n = (tk + kTile - 1) / kTile;
+    return causal ? min(n, (q0 + kTile - 1 + diag) / kTile + 1) : n;
+  }();
+  const int total = 2 * n_kt;
+  auto fetch = [&](int f) {
+    if (f < total) {
+      float* st = ring + (f % stages) * kStage;
+#pragma unroll
+      for (int h = 0; h < kN; ++h)
+        load_chunk(st + h * kChunkFloats, f & 1 ? kb : vb, (f >> 1) * kTile,
+                   tk, D, h * kChunk);
+    }
+    cp_async_commit();
+  };
+
+  const int mq = warp >> 1, kh = warp & 1;
+  const int rg = warp & 1, cg = warp >> 1;
+  float l[2], dl[2];
+  row_stats(l, dl, lse + (size_t)bh * tq, delta + (size_t)bh * tq, q0, tq,
+            mq, g);
+  float s[4][4], dp[4][4];
+  float acc[kN][2][2][4];
+#pragma unroll
+  for (int a = 0; a < kN; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][b][c][e] = 0.f;
+
+  for (int f = 0; f < stages - 1; ++f) fetch(f);
+  for (int f = 0; f < total; ++f) {
+    cp_async_wait_ring(stages);
+    __syncthreads();  // stage f is in; every warp is done with stage f - 1
+    fetch(f + stages - 1);
+    const float* st = ring + (f % stages) * kStage;
+    if (!(f & 1)) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
+#pragma unroll
+      for (int h = 0; h < kN; ++h)
+        s_chunk(dp, dor + mq * 16 * kLdR + h * kChunk, kLdR,
+                st + h * kChunkFloats + kh * 32 * kLdC, kLdC, lane);
+    } else {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int h = 0; h < kN; ++h)
+        s_chunk(s, qr + mq * 16 * kLdR + h * kChunk, kLdR,
+                st + h * kChunkFloats + kh * 32 * kLdC, kLdC, lane);
+      ds_tile(dss, s, dp, l, dl, q0, (f >> 1) * kTile, tq, tk, diag, causal,
+              scale, mq, kh, g, t);
+      __syncthreads();  // ds is whole
+#pragma unroll
+      for (int h = 0; h < kN; ++h)
+        pv_unit<2>(acc[h], dss + rg * 32 * kLdP,
+                   st + h * kChunkFloats + cg * 16, lane);
+    }
+  }
+  cp_async_wait<0>();
+
+  store_dq<kN>(dq + (size_t)bh * tq * D, acc, q0, tq, D, kN, rg, cg, g, t);
+}
+
+constexpr int kDqStages = 2;
+// shared memory of the dq backward above D 128: the ring (q, do, k, v
+// chunks a stage) and ds
+constexpr size_t kDqSmem =
+    sizeof(float) * ((size_t)kDqStages * 4 * kChunkFloats + kTile * kLdP);
+
+// K2b above D 128 up to DM (256 or 512): per key tile D / 64 stages of (q,
+// do, k, v) chunks (S, dP), then stages of up to four k chunks (dQ).
+template <int DM>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int tq, int tk, int d, float scale, int causal) {
+  constexpr int kN = DM / kChunk;      // chunks of dq the block keeps
+  extern __shared__ __align__(128) float smem[];
+  float* ring = smem;
+  float* dss = ring + kDqStages * 4 * kChunkFloats;  // ds [query][key]
+
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int n_bh = gridDim.x / n_qt;
+  const int bh = blockIdx.x % n_bh;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / n_bh)) * kTile;
+  const int diag = tk - tq;
+  const float* qb = q + (size_t)bh * tq * d;
+  const float* dob = dout + (size_t)bh * tq * d;
+  const float* kb = k + (size_t)bh * tk * d;
+  const float* vb = v + (size_t)bh * tk * d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  // stages of a key tile: n_su of (q, do, k, v) chunks, then n_pu of up to
+  // four k chunks
+  const int n_su = d / kChunk, n_pu = (n_su + 3) / 4;
+  const int per_tile = n_su + n_pu;
+  const int n_kt = [&] {
+    const int n = (tk + kTile - 1) / kTile;
+    return causal ? min(n, (q0 + kTile - 1 + diag) / kTile + 1) : n;
+  }();
+  const int total = n_kt * per_tile;
+  auto fetch = [&](int u) {
+    if (u < total) {
+      const int k0 = (u / per_tile) * kTile, p = u % per_tile;
+      float* st = ring + (u % kDqStages) * 4 * kChunkFloats;
+      if (p < n_su) {
+        const int col = p * kChunk;
+        load_chunk(st, qb, q0, tq, d, col);
+        load_chunk(st + kChunkFloats, dob, q0, tq, d, col);
+        load_chunk(st + 2 * kChunkFloats, kb, k0, tk, d, col);
+        load_chunk(st + 3 * kChunkFloats, vb, k0, tk, d, col);
+      } else {
+        for (int h = 0; h < 4; ++h) {
+          const int c = (p - n_su) * 4 + h;
+          if (c < n_su)
+            load_chunk(st + h * kChunkFloats, kb, k0, tk, d, c * kChunk);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int mq = warp >> 1, kh = warp & 1;
+  const int rg = warp & 1, cg = warp >> 1;
+  float l[2], dl[2];
+  row_stats(l, dl, lse + (size_t)bh * tq, delta + (size_t)bh * tq, q0, tq,
+            mq, g);
+  float s[4][4], dp[4][4];
+  float acc[kN][2][2][4];
+#pragma unroll
+  for (int a = 0; a < kN; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][b][c][e] = 0.f;
+
+  fetch(0);
+  for (int u = 0; u < total; ++u) {
+    cp_async_wait<0>();
+    __syncthreads();  // unit u is in; every warp is done with unit u - 1
+    fetch(u + 1);
+    const float* st = ring + (u % kDqStages) * 4 * kChunkFloats;
+    const int p = u % per_tile;
+    if (p < n_su) {
+      if (p == 0) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      }
+      const float* ka = st + 2 * kChunkFloats + kh * 32 * kLdC;
+      s_chunk(s, st + mq * 16 * kLdC, kLdC, ka, kLdC, lane);
+      s_chunk(dp, st + kChunkFloats + mq * 16 * kLdC, kLdC,
+              ka + kChunkFloats, kLdC, lane);
+      if (p == n_su - 1)  // ds of the tile, whole at the next barrier
+        ds_tile(dss, s, dp, l, dl, q0, (u / per_tile) * kTile, tq, tk, diag,
+                causal, scale, mq, kh, g, t);
+    } else {
+      // dQ += dS K over this unit's k chunks
+      const int pu = p - n_su;
+#pragma unroll
+      for (int c = 0; c < kN; ++c)
+        if (c / 4 == pu && c < n_su)
+          pv_unit<2>(acc[c], dss + rg * 32 * kLdP,
+                     st + (c % 4) * kChunkFloats + cg * 16, lane);
+    }
+  }
+
+  store_dq<kN>(dq + (size_t)bh * tq * d, acc, q0, tq, d, n_su, rg, cg, g, t);
+}
+
 // ---- K2c ---------------------------------------------------------------
 
 constexpr int kDkvStages = 2;
@@ -918,6 +1253,37 @@ int launch_dkv_res(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dq_res(const float* q, const float* k, const float* v,
+                  const float* dout, const float* lse, const float* delta,
+                  float* dq, int bh, int tq, int tk, float scale, int causal,
+                  cudaStream_t stream) {
+  const int stages = ring_stages(
+      [](int n) { return dq_res_smem(D, n); }, dq_res_blocks(D));
+  const size_t smem = dq_res_smem(D, stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_res_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dq_res_kernel<D><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, tq, tk, scale, causal, stages);
+  return (int)cudaGetLastError();
+}
+
+template <int DM>
+int launch_dq_tc(int d, const float* q, const float* k, const float* v,
+                 const float* dout, const float* lse, const float* delta,
+                 float* dq, int bh, int tq, int tk, float scale, int causal,
+                 cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_tc_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  dq_tc_kernel<DM><<<bh * n_tiles(tq), kThreads, kDqSmem, stream>>>(
+      q, k, v, dout, lse, delta, dq, tq, tk, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K2a. q (bh, tq, d), k and v (bh, tk, d) f32 -> o (bh, tq, d), lse (bh,
@@ -939,8 +1305,32 @@ extern "C" int flash_attention_fwd_tf32(int device, int d, const float* q,
                             st);
 }
 
-// K2c. The same inputs, dout (bh, tq, d), lse and delta (bh, tq) -> dk, dv
-// (bh, tk, d); d as K2a's.
+// K2b. The same inputs, dout (bh, tq, d), lse and delta (bh, tq) -> dq
+// (bh, tq, d); d as K2a's.
+extern "C" int flash_attention_dq_tf32(int device, int d, const float* q,
+                                       const float* k, const float* v,
+                                       const float* dout, const float* lse,
+                                       const float* delta, float* dq, int bh,
+                                       int tq, int tk, float scale,
+                                       int causal, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!dim_ok(d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_dq_res<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
+                             scale, causal, st);
+  if (d == 128)
+    return launch_dq_res<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
+                              scale, causal, st);
+  if (d <= kSlice)
+    return launch_dq_tc<kSlice>(d, q, k, v, dout, lse, delta, dq, bh, tq, tk,
+                                scale, causal, st);
+  return launch_dq_tc<kMaxD>(d, q, k, v, dout, lse, delta, dq, bh, tq, tk,
+                             scale, causal, st);
+}
+
+// K2c. The same inputs -> dk, dv (bh, tk, d); d as K2a's.
 extern "C" int flash_attention_dkv_tf32(int device, int d, const float* q,
                                         const float* k, const float* v,
                                         const float* dout, const float* lse,

@@ -13,15 +13,14 @@ kernels' op order:
   softmax and accumulators) for all three at bf16 and float16 and head dim
   64, 128 or 256; "tc-f32" (csrc/flash_attention_tf32.cu: mma.sync TF32 in
   three parts, cp.async rings, accumulators in registers; two blocks a SM
-  at D 64 and K2a's D 128, K2c's k and v resident in shared memory at D 64
-  and 128) for K2a and K2c in float32 at head dims 64 to 512
-  (``TC_F32_DIMS``); "wmma-smem" (csrc/flash_attention.cu: wmma tiles and
-  accumulators in shared memory) for the rest: K2b in float32 up to D 128,
-  all three in float32 D 32 and 16-bit D 32 as tiles that hold all of D,
-  and a form that walks D in 64-column chunks, its accumulators in a
-  float32 scratch the wrapper allocates (``_wide``), for K2b in float32
-  above D 128, K2a and K2c in float32 above D 512 and all three in 16-bit
-  above D 256;
+  at D 64 and K2a's D 128, K2b's q and do and K2c's k and v resident in
+  shared memory at D 64 and 128) for all three in float32 at head dims 64
+  to 512 (``TC_F32_DIMS``); "wmma-smem" (csrc/flash_attention.cu: wmma
+  tiles and accumulators in shared memory) for the rest: all three in
+  float32 D 32 and 16-bit D 32 as tiles that hold all of D, and a form
+  that walks D in 64-column chunks, its accumulators in a float32 scratch
+  the wrapper allocates (``_wide``), for all three in float32 above D 512
+  and in 16-bit above D 256;
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
@@ -83,7 +82,7 @@ def _design(kernel: str, dtype: torch.dtype, d: int) -> str:
     inputs of type ``dtype`` and head dim ``d``."""
     if dtype != torch.float32:
         return "wgmma-tma" if d in WGMMA_DIMS else "wmma-smem"
-    if kernel != "dq" and TC_F32_DIMS[0] <= d <= TC_F32_DIMS[1]:
+    if TC_F32_DIMS[0] <= d <= TC_F32_DIMS[1]:
         return "tc-f32"
     return "wmma-smem"
 
@@ -283,16 +282,19 @@ def _sm90_library(code: int) -> ctypes.CDLL:
 
 
 def _tf32_library() -> ctypes.CDLL:
-    """The tc-f32 library (K2a and K2c in float32, head dims 64-512)."""
+    """The tc-f32 library (K2a, K2b and K2c in float32, head dims
+    64-512)."""
     lib = _build.load_library("flash_attention_tf32",
                               ["flash_attention_tf32.cu"])
     if lib.flash_attention_fwd_tf32.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_fwd_tf32.argtypes = [i, i, p, p, p, p, p, i, i,
                                                  i, f, i, p]
+        lib.flash_attention_dq_tf32.argtypes = [i, i, p, p, p, p, p, p, p,
+                                                i, i, i, f, i, p]
         lib.flash_attention_dkv_tf32.argtypes = [i, i, p, p, p, p, p, p, p,
                                                  p, i, i, i, f, i, p]
-        for fn in (lib.flash_attention_fwd_tf32,
+        for fn in (lib.flash_attention_fwd_tf32, lib.flash_attention_dq_tf32,
                    lib.flash_attention_dkv_tf32):
             fn.restype = ctypes.c_int
     return lib
@@ -399,6 +401,9 @@ def flash_dq(q, k, v, do, lse, delta, scale: float,
         err = _sm90_library(code).flash_attention_dq_sm90(
             dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
             stream)
+    elif design == "tc-f32":
+        err = _tf32_library().flash_attention_dq_tf32(
+            dev, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
     else:
         scratch = _scratch("dq", q, 1)
         err = _library().flash_attention_dq(

@@ -19,8 +19,8 @@ started together) and drives the port's main paths:
 - transformer-LM training (phases 6-7): the flash-attention kernels K2a
   (forward), K2b (dq) and K2c (dk, dv) against their plain versions at the
   parity tests' shapes and the LM's, each launch checked for its design
-  ("wgmma-tma" at bf16 and head dim 64 or 128; in float32 "tc-f32" for K2a
-  and K2c from D 64 and "wmma-smem" for K2b; "wmma-smem" at D 32), timed at
+  ("wgmma-tma" at bf16 and head dim 64 or 128; in float32 "tc-f32" for all
+  three from D 64; "wmma-smem" at D 32), timed at
   the LM
   shape in turns with the PyTorch calls that compute the same functions
   (yardsticks only: SDPA's flash forward, the flash backward op); a 2-layer
@@ -187,8 +187,7 @@ started together) and drives the port's main paths:
   (float64, and float32 through K2), ring attention at sp 2 and GPipe over
   2 stages (ms a step and the staging copies);
 - phase 33, K2 at head dim 128: the bf16 kernels ("wgmma-tma", m64n128
-  products over two 64-column halves) and the f32 ones ("tc-f32" K2a and
-  K2c, "wmma-smem" K2b)
+  products over two 64-column halves) and the f32 ones ("tc-f32")
   against their plain versions at phase 6's parity shapes at D 128 and at
   the LM step's (B 4 x H 16, T 1024), D 96 zero-padded to 128 through
   ``flash_attention``, and the three kernels timed at the LM step's shape
@@ -238,10 +237,10 @@ started together) and drives the port's main paths:
   ``matmul`` against ``pallas_full``, ICF's fused ``slices`` and ``matmul``
   against its staged form, ms of each;
 - phase 43, K2 at head dims above 128 and in float16: the wgmma-tma
-  kernels at D 256 in bf16 and float16, the tc-f32 kernels (K2a and K2c in
-  float32 from D 64 to 512: 3xTF32 mma.sync; timed at D 64, 128 and 256)
-  and the wmma-smem kernels' chunked form (K2b in float32 above D 128, K2a and K2c in float32 above
-  D 512, every kernel in 16-bit above D 256) against their plain
+  kernels at D 256 in bf16 and float16, the tc-f32 kernels (K2a, K2b and
+  K2c in float32 from D 64 to 512: 3xTF32 mma.sync; timed at D 64, 128 and
+  256) and the wmma-smem kernels' chunked form (every kernel in float32
+  above D 512 and in 16-bit above D 256) against their plain
   versions, each launch's design checked, and timed beside SDPA's calls;
   the LM at Gemma-2B's widths (d 2048 = 8 heads of 256, ff 16384, vocab
   256,000, 2 layers, B 4 x 1024): one step with the kernels against one
@@ -385,7 +384,7 @@ LSSC_SHAPE = (2, 200, 336, 64)
 # K2a forward and K2b + K2c backward (one launch each a step). Gates, from
 # the same carried weights and batch, the kernels against the plain route
 # (``layers.attention_route`` patched within the check, a control only): in
-# float32 (K2a and K2c "tc-f32", K2b "wmma-smem") the loss within
+# float32 ("tc-f32") the loss within
 # TRAIN_LOSS_REL and every gradient
 # within TRAIN_GRAD_REL of its largest magnitude. Every fit's update is held
 # to AdamW's first step (``optimizers.adamw_step``, the command form) of that
@@ -473,8 +472,7 @@ PAR_COLLECTIVES = ("allreduce", "all_gather", "send/recv")
 PAR_REQUIRED = PAR_COLLECTIVES  # gloo must take these (send / recv staged)
 PAR_REPS = 5           # timed ring-attention and GPipe steps a rank
 # phase 33, K2 at head dim 128: the kernels (bf16 "wgmma-tma" as an
-# m64n128 design; f32 K2a and K2c "tc-f32", K2b "wmma-smem" with unpadded
-# shared rows) against their
+# m64n128 design; f32 "tc-f32") against their
 # plain versions within phase 6's gates at the parity shapes and the LM
 # step's (B 4 x H 16, T 1024, D 128), and head dim 96 zero-padded to 128
 # inside ``flash_attention`` as (B, T, H, D, causal); then K2 timed at
@@ -483,9 +481,9 @@ K2_D128_SHAPES = ([(6, t, t, 128, c) for t in (128, 100, 257)
                    for c in (False, True)]
                   + [(4, 72, 136, 128, c) for c in (False, True)])
 K2_D128 = (64, 1024, 1024, 128, True)
-# float32 K2's designs at D 64 and 128 (phases 6 and 33): K2a and K2c on
-# tc-f32, K2b on wmma-smem; k2_compare holds every launch to ``_design``
-F32_DESIGNS = {"fwd": "tc-f32", "dq": "wmma-smem", "dkv": "tc-f32"}
+# float32 K2's designs at D 64 and 128 (phases 6 and 33): all three on
+# tc-f32; k2_compare holds every launch to ``_design``
+F32_DESIGNS = {"fwd": "tc-f32", "dq": "tc-f32", "dkv": "tc-f32"}
 K2_D96 = [(2, t, 4, 96, c) for t in (100, 1024) for c in (False, True)]
 # phase 34, the LM at head dim 128: d 2048 = 16 heads of 128 (the size of
 # GPT-3 XL's width), ff 8192, 2 layers, B 4 x T 1024, bf16, remat dots: the
@@ -512,8 +510,8 @@ S2S_D128 = dict(S2S, layers=2, heads=8, head_dim=128, ff=4096)
 # and flash_attention at head dims padded inside (K2_WIDE_PADDED), every
 # launch checked for its design; K2
 # timed at K2_D256 in bf16 and float16 in turns with SDPA's flash calls,
-# and in float32 (D 256, and D 64 and 128 at the same operations, where
-# tc-f32 runs K2a and K2c and wmma-smem K2b) and at bf16 D 512
+# and in float32 (D 256, and D 64 and 128 at the same operations, all on
+# tc-f32) and at bf16 D 512
 # (K2_WIDE_TIMED) beside the memory-efficient calls
 K2_D256_SHAPES = [(6, 100, 100, 256, True), (4, 72, 136, 256, False),
                   (2, 257, 257, 256, True)]
@@ -554,7 +552,7 @@ LM_D256_STEPS = 3
 # heads of 256 (Transformer-big's width and ff with heads of 256), 2 + 2
 # layers, bf16; and Model.fit of phase 31's graph model with
 # ScaledDotProductAttention(8, 256) at B 4 x T 1024 (SDPA_D256), float32
-# (tc-f32 for K2a and K2c, the chunked form for K2b) and bf16 (wgmma-tma)
+# (tc-f32) and bf16 (wgmma-tma)
 # against the plain route by phase 31's gates, and with heads of 320 in
 # bf16 (SDPA_D320: the chunked form for all three) by phase 31's bf16 gate
 # against the float32 plain fit at that width. No published model in the
@@ -2124,7 +2122,7 @@ def wmt_gate_step(batch, spad, tpad, dev, dtype, plain):
 def wmt_gate(batch, spad, tpad, dev):
     """Phase 17's gate: one step at dropout 0 with the kernels against one
     with plain attention, from the same parameters and batch, in float32
-    (K2a and K2c "tc-f32", K2b "wmma-smem") and in bf16 ("wgmma-tma", the
+    ("tc-f32") and in bf16 ("wgmma-tma", the
     main path's).
 
     Both: loss within LM_LOSS_REL, parameters after Adam as lm_two_layers
@@ -5613,10 +5611,7 @@ def k2_d256_path(k2, roofline, dev, card):
         for dtype, shape in shapes:
             errs, rels = compare(k2, shape, dtype, dev, rng)
             for key in errs:
-                d = k2.padded_dim(shape[3])
-                design = k2._design(key, dtype, d)
-                if design == "wmma-smem" and not k2._wide(key, dtype, d):
-                    continue  # float32 K2b at D 64-128: phases 6 and 33's
+                design = k2._design(key, dtype, k2.padded_dim(shape[3]))
                 merge_worst(w.setdefault(design, {}), {key: errs[key]})
                 merge_worst(wr.setdefault(design, {}), {key: rels[key]})
     log(43, f"K2's tc-f32 kernels and chunked wmma-smem form vs plain at "
@@ -5821,8 +5816,8 @@ def decode_d256_path(k2, dev, card):
 def fit_d256_path(k2, dev, card):
     """Phase 43, Model.fit of phase 31's graph model with
     ScaledDotProductAttention(8, 256) (SDPA_D256): K2 against the plain
-    route by phase 31's gates, float32 (tc-f32 for K2a and K2c, the
-    chunked wmma-smem form for K2b) and bf16 (wgmma-tma); then with heads
+    route by phase 31's gates, float32 (tc-f32) and bf16 (wgmma-tma); then
+    with heads
     of 320 (SDPA_D320) in bf16, the chunked form for all three, by the same
     bf16 gate against the float32 plain fit at that width. Returns K2's launches a fit by design:
     {"float32", "bfloat16", "bfloat16_d320": {kernel: {design: n}}}."""
@@ -5882,8 +5877,8 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
                         fit_d256, fit_f32):
     """The ``kernels`` line's entries of phase 43: K2a/b/c at head dim 256
     on wgmma-tma in bf16 (launches of the Gemma-width LM run; times at
-    K2_D256) with float16's times beside; K2a and K2c on tc-f32 (float32 D
-    64-512) and K2a/b/c in the chunked wmma-smem form (launches of the
+    K2_D256) with float16's times beside; K2a/b/c on tc-f32 (float32 D
+    64-512) and in the chunked wmma-smem form (launches of the
     float32 Gemma-width kernel step, of the bf16 fit at heads of 320 and,
     for tc-f32, of phase 31's float32 fit at heads of 64, ``fit_f32``, by
     kernel and design; times at K2_WIDE_TIMED, where each form runs: the
@@ -5911,7 +5906,6 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
     for design, suffix, src in (("tc-f32", "tc_f32", "flash_attention_tf32.cu"),
                                 ("wmma-smem", "wide", "flash_attention.cu")):
         for key, (name, line, _src, _design) in sources.items():
-            # the chunked form alone under wmma-smem (not K2b's D 64-128)
             timed = [(dt, shape, t[key])
                      for dt, shape, t in k2_wide["wide"]["timed"]
                      if k2._design(key, dt, shape[3]) == design
@@ -5921,7 +5915,6 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
             main = {part: runs.get(key, {}).get(design, 0)
                     for part, runs in (("step", lm_d256["f32_launches"]),
                                        ("fit", fit_d256["bfloat16_d320"]),
-                                       # K2b's D 64 launch is not chunked
                                        ("fit_d64", fit_f32 if design ==
                                         "tc-f32" else {}))}
             entry = {

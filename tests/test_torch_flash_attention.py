@@ -240,13 +240,12 @@ def test_wrapper_rejects_bad_input():
 
 def test_design_choice():
     """bf16 at head dim 64 (the LM's) or 128 takes the wgmma-tma K2a, K2b
-    and K2c; float32 at 64 and 128 the tc-f32 K2a and K2c and the
-    wmma-smem K2b; D 32 the wmma-smem kernels."""
+    and K2c; float32 at 64 and 128 the tc-f32 ones; D 32 the wmma-smem
+    kernels."""
     for kernel in ("fwd", "dq", "dkv"):
         for d in (64, 128):
             assert tfa._design(kernel, torch.bfloat16, d) == "wgmma-tma"
-            assert tfa._design(kernel, torch.float32, d) == (
-                "wmma-smem" if kernel == "dq" else "tc-f32")
+            assert tfa._design(kernel, torch.float32, d) == "tc-f32"
         assert "wgmma-tma" in tfa.DESIGN_LAUNCHES[kernel]
     for kernel in ("fwd", "dq", "dkv"):
         for dtype, d in ((torch.float32, 64), (torch.float32, 32),

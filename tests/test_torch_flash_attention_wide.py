@@ -137,10 +137,9 @@ def test_float16_forward_matches_ccv_tpu(d, pallas):
 
 def test_design_choice():
     """bf16 and float16 at head dim 64, 128 or 256 take the wgmma-tma
-    kernels; K2a and K2c in float32 at D 64 to 512 the tc-f32 ones; the
-    rest the wmma-smem ones (float32 D 32, K2b in float32), which walk D in
-    64-column chunks (``_wide``) above 128: K2b in float32, K2a and K2c in
-    float32 above 512, all three in 16-bit above 256."""
+    kernels; all three in float32 at D 64 to 512 the tc-f32 ones; the rest
+    the wmma-smem ones (D 32), which walk D in 64-column chunks (``_wide``)
+    above 128: all three in float32 above 512 and in 16-bit above 256."""
     for kernel in ("fwd", "dq", "dkv"):
         for dtype in (torch.bfloat16, torch.float16):
             for d in (64, 128, 256):
@@ -149,33 +148,31 @@ def test_design_choice():
                 assert tfa._design(kernel, dtype, d) == "wmma-smem"
         for d in (32, 576, 1024):
             assert tfa._design(kernel, torch.float32, d) == "wmma-smem"
-        for d in (64, 128, 256, 320, 384, 448, 512):
-            assert tfa._design(kernel, torch.float32, d) == (
-                "wmma-smem" if kernel == "dq" else "tc-f32")
+        for d in (64, 128, 192, 256, 320, 384, 448, 512):
+            assert tfa._design(kernel, torch.float32, d) == "tc-f32"
             assert tfa._design(kernel, torch.float32, d) in tfa.DESIGNS
     wide = {(kernel, dtype, d) for kernel in ("fwd", "dq", "dkv")
             for dtype in (torch.float32, torch.bfloat16, torch.float16)
             for d in (32, 64, 128, 256, 320, 512, 576)
             if tfa._wide(kernel, dtype, d)}
     assert wide == (
-        {("dq", torch.float32, d) for d in (256, 320, 512, 576)}
-        | {(kernel, torch.float32, 576) for kernel in ("fwd", "dkv")}
+        {(kernel, torch.float32, 576) for kernel in ("fwd", "dq", "dkv")}
         | {(kernel, dtype, d) for kernel in ("fwd", "dq", "dkv")
            for dtype in (torch.bfloat16, torch.float16)
            for d in (320, 512, 576)})
 
 
 def test_roofline_kind_and_tf32x3_bound_at_d256():
-    """K2a and K2c in float32 at BH 32 x T 1024 x D 256, causal (chip_smoke's
-    K2_D256), are bound by their operations at a third of TF32's 495
-    TFLOP/s: 17.2 GFLOP in 0.104 ms and 34.4 GFLOP in 0.208 ms (0.257 and
-    0.513 ms at float32's 67 TFLOP/s outside the tensor cores, the bound
-    of K2b's chunked form)."""
+    """K2a, K2b and K2c in float32 at BH 32 x T 1024 x D 256, causal
+    (chip_smoke's K2_D256), are bound by their operations at a third of
+    TF32's 495 TFLOP/s: 17.2 GFLOP in 0.104 ms, 25.8 in 0.156 and 34.4 in
+    0.208 (0.257, 0.385 and 0.513 ms at float32's 67 TFLOP/s outside the
+    tensor cores); K2b at D 512 does twice D 256's work, 0.313 ms."""
     shape = (32, 1024, 1024, 256, True)
     pairs = 1024 * 1025 // 2
     for kernel, per_pair, kind, want_ms in (
             ("fwd", 4, "tf32x3", 0.104), ("dkv", 8, "tf32x3", 0.208),
-            ("dq", 6, "f32", 0.385)):
+            ("dq", 6, "tf32x3", 0.156)):
         assert tfa.roofline_kind(kernel, torch.float32, 256) == kind
         flop, nbytes = tfa.flash_work(kernel, *shape, torch.float32)
         assert flop == per_pair * pairs * 256 * 32
@@ -191,19 +188,26 @@ def test_roofline_kind_and_tf32x3_bound_at_d256():
     for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float16, "f16"),
                         (torch.float32, "tf32x3")):
         assert tfa.roofline_kind("fwd", dtype, 64) == kind
-    for d in (64, 128):
-        assert tfa.roofline_kind("dkv", torch.float32, d) == "tf32x3"
-        assert tfa.roofline_kind("dq", torch.float32, d) == "f32"
-    assert tfa.roofline_kind("fwd", torch.float32, 32) == "f32"
+    for d in (64, 128, 512):
+        for kernel in ("dq", "dkv"):
+            assert tfa.roofline_kind(kernel, torch.float32, d) == "tf32x3"
+    for kernel in ("fwd", "dq", "dkv"):
+        assert tfa.roofline_kind(kernel, torch.float32, 32) == "f32"
+        assert tfa.roofline_kind(kernel, torch.float32, 576) == "f32"
+    flop, nbytes = tfa.flash_work("dq", 32, 1024, 1024, 512, True,
+                                  torch.float32)
+    ms, by = roofline.bound_ms(flop, nbytes, "tf32x3")
+    assert by == "operations" and ms == pytest.approx(0.313, abs=5e-4)
 
 
 @pytest.mark.parametrize("bh,d", [(128, 64), (64, 128)])
 def test_tf32x3_bound_at_d64_and_d128(bh, d):
-    """K2a and K2c in float32 at T 1024, causal, at BH 128 x D 64 and BH 64
-    x D 128 (k2_trial's float32 shapes) do D 256's work at BH 32: 17.2 and
-    34.4 GFLOP, bound at 0.104 and 0.208 ms on tf32x3."""
+    """K2a, K2b and K2c in float32 at T 1024, causal, at BH 128 x D 64 and
+    BH 64 x D 128 (k2_trial's float32 shapes) do D 256's work at BH 32:
+    17.2, 25.8 and 34.4 GFLOP, bound at 0.104, 0.156 and 0.208 ms on
+    tf32x3."""
     shape = (bh, 1024, 1024, d, True)
-    for kernel, want_ms in (("fwd", 0.104), ("dkv", 0.208)):
+    for kernel, want_ms in (("fwd", 0.104), ("dq", 0.156), ("dkv", 0.208)):
         flop, nbytes = tfa.flash_work(kernel, *shape, torch.float32)
         assert flop == tfa.flash_work(kernel, 32, 1024, 1024, 256, True,
                                       torch.float32)[0]
@@ -241,8 +245,8 @@ def _mm1(a, b):
 
 
 def _emulated(q, k, v, do, scale, causal, mm):
-    """K2a's (o, lse) and K2c's (dk, dv) with every product formed by
-    ``mm``, on (BH, T, D) float32 tensors."""
+    """K2a's (o, lse), K2b's dq and K2c's (dk, dv) with every product
+    formed by ``mm``, on (BH, T, D) float32 tensors."""
     s = mm(q, k.transpose(1, 2)) * scale
     valid = tfa._valid(q.shape[1], k.shape[1], causal, q.device)
     if valid is not None:
@@ -257,31 +261,34 @@ def _emulated(q, k, v, do, scale, causal, mm):
     if valid is not None:
         pb = torch.where(valid, pb, 0.0)
     ds = pb * (mm(do, v.transpose(1, 2)) - delta[..., None]) * scale
+    dq = mm(ds, k)
     dk = mm(ds.transpose(1, 2), q)
     dv = mm(pb.transpose(1, 2), do)
-    return o, lse, dk, dv
+    return o, lse, dq, dk, dv
 
 
 @pytest.mark.parametrize("d", [64, 128, 256, 512])
 def test_3xtf32_split_holds_the_float32_gate(d):
-    """The tc-f32 kernels' arithmetic, emulated on the CPU: K2a and K2c at
-    D 64, 128, 256 and 512, T 256, causal, with every product in three TF32 parts,
-    land within chip_smoke.py's K2_F32 gate (1e-4 + 1e-4 x the largest
-    magnitude) of the plain float32 versions; one TF32 product instead
-    lands at least 10 times further off."""
+    """The tc-f32 kernels' arithmetic, emulated on the CPU: K2a, K2b and
+    K2c at D 64, 128, 256 and 512, T 256, causal, with every product in
+    three TF32 parts, land within chip_smoke.py's K2_F32 gate (1e-4 + 1e-4
+    x the largest magnitude) of the plain float32 versions; one TF32
+    product instead lands at least 10 times further off."""
     rng = np.random.default_rng(d)
     q, k, v, do = (torch.from_numpy(_rand(rng, 2, 256, d)) for _ in range(4))
     scale = 1.0 / np.sqrt(d)
     o0, lse0 = tfa.flash_fwd_ref(q, k, v, scale, True)
     delta = (do * o0).sum(-1)
+    dq0 = tfa.flash_dq_ref(q, k, v, do, lse0, delta, scale, True)
     dk0, dv0 = tfa.flash_dkv_ref(q, k, v, do, lse0, delta, scale, True)
     errs = {}
     for name, mm in (("3xtf32", _mm3), ("tf32", _mm1)):
         got = _emulated(q, k, v, do, scale, True, mm)
         errs[name] = [float((a - b).abs().max() / (1e-4 + 1e-4 * b.abs().max()))
-                      for a, b in zip(got, (o0, lse0, dk0, dv0))]
+                      for a, b in zip(got, (o0, lse0, dq0, dk0, dv0))]
     assert max(errs["3xtf32"]) <= 1.0, errs
     assert max(errs["tf32"]) >= 10 * max(errs["3xtf32"]), errs
+    assert errs["tf32"][2] >= 10 * errs["3xtf32"][2], errs  # dq
 
 
 def test_padded_dim_at_every_d():
@@ -320,21 +327,20 @@ def test_wrappers_take_the_padded_dims_only():
 
 def test_scratch_of_the_chunked_form():
     """The chunked wmma-smem form's float32 accumulators: (n, BH, T rounded
-    up to 64, D); none for the forms that keep them on chip, K2a's and
-    K2c's tc-f32 kernels among them."""
+    up to 64, D); none for the forms that keep them on chip, the tc-f32
+    kernels among them."""
     x = torch.zeros(3, 100, 320, dtype=torch.bfloat16)
     s = tfa._scratch("dkv", x, 2)
     assert s.shape == (2, 3, 128, 320) and s.dtype == torch.float32
-    assert tfa._scratch("dq", torch.zeros(3, 100, 256), 1).shape == (
-        1, 3, 128, 256)
-    assert tfa._scratch("fwd", torch.zeros(3, 100, 576), 1).shape == (
-        1, 3, 128, 576)
+    for kernel in ("fwd", "dq"):
+        assert tfa._scratch(kernel, torch.zeros(3, 100, 576), 1).shape == (
+            1, 3, 128, 576)
     for kernel in ("fwd", "dq", "dkv"):
         for dtype, d in ((torch.bfloat16, 256), (torch.float16, 256),
                          (torch.float32, 128), (torch.bfloat16, 32)):
             assert tfa._scratch(kernel, torch.zeros(3, 100, d, dtype=dtype),
                                 1) is None
-    for kernel, n in (("fwd", 1), ("dkv", 2)):
+    for kernel, n in (("fwd", 1), ("dq", 1), ("dkv", 2)):
         for d in (256, 320, 512):
             assert tfa._scratch(kernel, torch.zeros(3, 100, d), n) is None
 
@@ -462,11 +468,14 @@ def test_cuda_wide_kernels_match_plain(dtype, d):
                 assert err <= GATES[dtype] * top, (bh, tq, tk, causal, err)
 
 
-# chip_smoke.py's K2_WIDE_SHAPES in float32, D 320 (two output slices), a
+# chip_smoke.py's K2_WIDE_SHAPES in float32, D 320 and 384 (K2b's dq in
+# five and six chunks, two k stages; K2a's and K2c's two output slices), a
 # float32 D above 512 (the chunked form keeps it), and D 64 and 128 (two
-# blocks a SM; K2c's k and v resident) at ragged T, causal and not
+# blocks a SM; K2b's q and do and K2c's k and v resident) at ragged T,
+# causal and not
 TC_F32_SHAPES = ((3, 100, 100, 256, True), (2, 72, 136, 256, False),
                  (2, 130, 130, 320, True), (2, 72, 136, 512, True),
+                 (2, 100, 100, 384, True), (1, 130, 130, 512, False),
                  (1, 100, 100, 576, True), (3, 100, 100, 64, True),
                  (2, 72, 136, 64, False), (2, 257, 257, 64, True),
                  (3, 100, 100, 128, True), (2, 72, 136, 128, False),
@@ -477,10 +486,10 @@ TC_F32_SHAPES = ((3, 100, 100, 256, True), (2, 72, 136, 256, False),
 @pytest.mark.parametrize("shape", TC_F32_SHAPES, ids=lambda s: f"D{s[3]}-"
                          f"{s[1]}x{s[2]}-{'causal' if s[4] else 'full'}")
 def test_cuda_tc_f32_kernels_match_plain(shape):
-    """K2a and K2c in float32 on the card against their plain versions:
-    within 1e-4 + 1e-4 of the largest magnitude, each 64-row tile within
-    1e-2 of its norm (chip_smoke.py's K2_F32 and K2_TILE_REL), each launch
-    of the design ``_design`` names (tc-f32 from D 64 to 512)."""
+    """K2a, K2b and K2c in float32 on the card against their plain
+    versions: within 1e-4 + 1e-4 of the largest magnitude, each 64-row tile
+    within 1e-2 of its norm (chip_smoke.py's K2_F32 and K2_TILE_REL), each
+    launch of the design ``_design`` names (tc-f32 from D 64 to 512)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     bh, tq, tk, d, causal = shape
@@ -490,16 +499,19 @@ def test_cuda_tc_f32_kernels_match_plain(shape):
     scale = 1.0 / np.sqrt(d)
     o0, lse0 = tfa.flash_fwd_ref(q, k, v, scale, causal)
     delta = (do * o0).sum(-1)
+    dq0 = tfa.flash_dq_ref(q, k, v, do, lse0, delta, scale, causal)
     dk0, dv0 = tfa.flash_dkv_ref(q, k, v, do, lse0, delta, scale, causal)
     before = {n: dict(c) for n, c in tfa.DESIGN_LAUNCHES.items()}
     got = (*tfa.flash_fwd(q, k, v, scale, causal),
+           tfa.flash_dq(q, k, v, do, lse0, delta, scale, causal),
            *tfa.flash_dkv(q, k, v, do, lse0, delta, scale, causal))
     torch.cuda.synchronize()
-    for n in ("fwd", "dkv"):
+    for n in ("fwd", "dq", "dkv"):
         design = tfa._design(n, torch.float32, d)
         assert design == ("tc-f32" if d <= 512 else "wmma-smem")
         assert tfa.DESIGN_LAUNCHES[n][design] == before[n][design] + 1
-    for name, a, b in zip(("o", "lse", "dk", "dv"), got, (o0, lse0, dk0, dv0)):
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got,
+                          (o0, lse0, dq0, dk0, dv0)):
         err = float((a - b).abs().max())
         top = float(b.abs().max())
         assert bool(torch.isfinite(a).all()) and err <= 1e-4 + 1e-4 * top, (
