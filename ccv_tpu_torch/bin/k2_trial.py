@@ -6,11 +6,12 @@
 Times K2a, K2b and K2c (CUDA events: the least of three means of 20
 launches; 5 at the wide shapes) at the LMs' bf16 causal shapes, BH 128 x T
 1024 at head dim 64, BH 64 at 128 and BH 32 at 256, and at the wide
-shapes, all causal at T 1024: float32 at D 64 (BH 128), 128 (BH 64), 256
-and 512 (BH 32), and bf16 at D 512 (BH 32); and float32 at D 32 (BH 256,
-the same operations), once as it runs (wmma-smem) and once on the same
-tensors zero-padded to D 64 (tc-f32); prints one JSON line with the card's
-name and power limit. ``--library`` adds, at the wide shapes, the plain
+shapes, all causal at T 1024: float32 at D 64 (BH 128), 128 (BH 64), 256,
+320, 512 and 576 (BH 32), bf16 at D 320 and 512 and float16 at D 512 (BH
+32); and float32 at D 32 (BH 256, the same operations), once through the
+wrappers as they run it and once on the same tensors zero-padded to D 64
+by the caller; prints one JSON line with the card's name and power
+limit. ``--library`` adds, at the wide shapes, the plain
 versions' times, each kernel's bound (``roofline``, of the kind its
 design runs) and the PyTorch calls that compute the same functions
 (yardsticks only: SDPA's memory-efficient forward, and its backward op,
@@ -26,8 +27,8 @@ ScaledDotProductAttention of 16 heads of 64, Add; B 4 x T 1024 x 1024;
 adamw, "mse"). It calls only ``flash_fwd``, ``flash_dq``, ``flash_dkv``,
 ``build`` and the LM's and the graph model's public functions, which
 older checkouts have too, so copied into one it times that checkout's
-kernels (a head dim they refuse is reported as refused): run parent,
-change, change, parent in one call to compare two.
+kernels (a head dim or route they refuse is reported as refused): run
+parent, change, change, parent in one call to compare two.
 ``--ptxas`` also compiles each K2 source with ``nvcc -Xptxas -v`` and adds
 every kernel's registers and spill bytes. Needs a CUDA card (and nvcc).
 """
@@ -50,8 +51,12 @@ SHAPES = ((128, 1024, 1024, 64, True), (64, 1024, 1024, 128, True),
 WIDE_SHAPES = ((torch.float32, (128, 1024, 1024, 64, True)),
                (torch.float32, (64, 1024, 1024, 128, True)),
                (torch.float32, (32, 1024, 1024, 256, True)),
+               (torch.float32, (32, 1024, 1024, 320, True)),
                (torch.float32, (32, 1024, 1024, 512, True)),
-               (torch.bfloat16, (32, 1024, 1024, 512, True)))
+               (torch.float32, (32, 1024, 1024, 576, True)),
+               (torch.bfloat16, (32, 1024, 1024, 320, True)),
+               (torch.bfloat16, (32, 1024, 1024, 512, True)),
+               (torch.float16, (32, 1024, 1024, 512, True)))
 D32_SHAPE = (256, 1024, 1024, 32, True)  # float32, timed also padded to 64
 HEADS = 16  # BH = B x 16 heads for the library calls
 LM_F32 = dict(vocab_size=256000, layers=2, heads=8, head_dim=256, ff=16384,
@@ -171,6 +176,15 @@ def kernel_ms(shape, dtype=torch.bfloat16, reps=20, library=False,
                                            else lib_bwd, reps)
                                  for _ in range(3)), 4))
     return out
+
+
+def refused_or(fn, *args, **kwargs):
+    """fn's result, or "refused: ..." where the checkout's kernels refuse
+    the shape or route (older checkouts, other routes)."""
+    try:
+        return fn(*args, **kwargs)
+    except (ValueError, RuntimeError) as e:
+        return f"refused: {e}"
 
 
 def launch_counts() -> dict:
@@ -299,16 +313,13 @@ def main():
     k2.build()
     out = {"label": args.label}
     for shape in SHAPES:
-        try:
-            out[f"D{shape[3]}"] = kernel_ms(shape)
-        except ValueError as e:   # a checkout whose kernels refuse this D
-            out[f"D{shape[3]}"] = f"refused: {e}"
+        out[f"D{shape[3]}"] = refused_or(kernel_ms, shape)
     for dtype, shape in WIDE_SHAPES:
-        out[f"{KINDS[dtype]}_D{shape[3]}"] = kernel_ms(
-            shape, dtype, reps=5, library=args.library)
+        out[f"{KINDS[dtype]}_D{shape[3]}"] = refused_or(
+            kernel_ms, shape, dtype, reps=5, library=args.library)
     for key, pad in (("f32_D32", None), ("f32_D32_pad64", 64)):
-        out[key] = kernel_ms(D32_SHAPE, torch.float32, reps=5,
-                             library=args.library, pad_to=pad)
+        out[key] = refused_or(kernel_ms, D32_SHAPE, torch.float32, reps=5,
+                              library=args.library, pad_to=pad)
     if args.lm:
         out["lm_f32_d256"] = lm_step_ms(LM_F32)
         out["lm_f32_d128"] = lm_step_ms(LM_F32_D128)

@@ -163,11 +163,11 @@ def measure(layers=24, dim=1024, heads=16, ff=4096, batch=8, seq=1024,
 
 # the flash kernels by the names the profiler gives them: the "wgmma-tma"
 # kernels (bf16 and float16, D 64, 128 or 256), the "tc-f32" ones (float32,
-# D 64-512; K2b and K2c at D 64 and 128 are dq_res_kernel and
-# dkv_res_kernel) and the "wmma-smem" ones (D 32, and the wide kernels
-# above those dims)
+# D 32-512; K2b and K2c at D 64 and 128 are dq_res_kernel and
+# dkv_res_kernel), K2a's "tc-wide" one above those dims, and the
+# "wmma-smem" ones (16-bit D 32, and K2b's and K2c's wide kernels above)
 FLASH_KERNELS = {"fwd": ("fwd_sm90_kernel", "fwd_tc_kernel", "::fwd_kernel<",
-                         "fwd_wide_kernel"),
+                         "fwd_wide_tc_kernel"),
                  "dq": ("dq_sm90_kernel", "dq_tc_kernel", "dq_res_kernel",
                         "::dq_kernel<", "dq_wide_kernel"),
                  "dkv": ("dkv_sm90_kernel", "dkv_tc_kernel", "dkv_res_kernel",

@@ -1,10 +1,11 @@
 // Flash attention for Hopper (sm_90a), the "wmma-smem" design: the forward
-// (K2a), dq backward (K2b) and dk/dv backward (K2c) at head dim 32 in every
-// type, above head dim 256 in bf16 and float16 and above 512 in f32. At
-// bf16 and float16 and head dim 64, 128 or 256 all three run the
-// "wgmma-tma" design of flash_attention_sm90.cu; in f32 from head dim 64
-// to 512 the "tc-f32" design of flash_attention_tf32.cu. Port of the
-// Pallas TPU kernels in
+// (K2a), dq backward (K2b) and dk/dv backward (K2c) at head dim 32 in bf16
+// and float16, and K2b and K2c above head dim 256 in bf16 and float16 and
+// above 512 in f32 (the chunked "wide" kernels). At bf16 and float16 and
+// head dim 64, 128 or 256 all three run the "wgmma-tma" design of
+// flash_attention_sm90.cu; in f32 up to head dim 512 (D 32 zero-padded to
+// 64) the "tc-f32" design of flash_attention_tf32.cu, which also holds K2a
+// above D 256 in every type ("tc-wide"). Port of the Pallas TPU kernels in
 // ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
@@ -29,14 +30,14 @@
 // over 64-key tiles, K2c one block per (bh, 64-key tile) and loops over
 // query tiles. Each block has 8 warps. At D 32 (the kernels templated on
 // D) the tiles of q, k, v and do sit in shared memory; the products run
-// tile by tile out of shared memory: 16-bit types through the tensor cores
-// with nvcuda::wmma (16x16x16 fragments, f32 accumulators), f32 as plain
-// FMA loops. The score tile and the running accumulators (o, dq, dk, dv)
-// stay in shared memory in f32, so the softmax rescale and the masks are
-// plain per-element code. Above that (the "wide" kernels, D a runtime
-// multiple of 64) no tile holds all of D: the same loops stage q, k, v and
-// do 64 columns at a time, the score products sum over those chunks, and
-// the f32 accumulators live in a global scratch the wrapper allocates, each
+// tile by tile out of shared memory through the tensor cores with
+// nvcuda::wmma (16x16x16 fragments, f32 accumulators). The score tile and
+// the running accumulators (o, dq, dk, dv) stay in shared memory in f32, so
+// the softmax rescale and the masks are plain per-element code. Above that
+// (the "wide" K2b and K2c, D a runtime multiple of 64) no tile holds all of
+// D: the same loops stage q, k, v and do 64 columns at a time, the score
+// products sum over those chunks (f32 as plain FMA loops), and the f32
+// accumulators live in a global scratch the wrapper allocates, each
 // block owning its 64 rows and reading and writing them chunk by chunk. Their
 // shared memory (at most 130 KB, K2b in f32) does not grow with D, so the
 // design has no head-dim limit of its own; the accumulators' round trips
@@ -506,104 +507,14 @@ __device__ __forceinline__ void scores_wide(float* s, T* as, T* bs,
 }
 
 // A block's f32 accumulator rows (64 x d, row stride d) to rows row0.. of
-// a row-major (rows, d) tensor of type T, rows past `rows` dropped, each
-// divided by div[r] when div is given.
+// a row-major (rows, d) tensor of type T, rows past `rows` dropped.
 template <typename T>
 __device__ __forceinline__ void store_wide(T* dst, const float* acc, int row0,
-                                           int rows, int d,
-                                           const float* div = nullptr) {
+                                           int rows, int d) {
   for (int i = threadIdx.x; i < kTile * d; i += kThreads) {
     const int r = i / d, e = i % d;
-    if (row0 + r < rows)
-      dst[(size_t)(row0 + r) * d + e] = from_f32<T>(
-          div ? acc[i] / fmaxf(div[r], 1e-30f) : acc[i]);
+    if (row0 + r < rows) dst[(size_t)(row0 + r) * d + e] = from_f32<T>(acc[i]);
   }
-}
-
-template <typename T>
-constexpr size_t fwd_wide_smem() {
-  return 3 * kTile * kLdC * sizeof(T)             // q, k, v chunks
-         + kTile * kLdS * sizeof(T)               // p
-         + kTile * kLdS * sizeof(float)           // s
-         + 3 * kTile * sizeof(float);             // m, l, corr
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
-                    float* __restrict__ lse, float* __restrict__ scratch,
-                    int tq, int tk, int d, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kTile * kLdC;
-  T* vs = ks + kTile * kLdC;
-  T* ps = vs + kTile * kLdC;
-  float* s = reinterpret_cast<float*>(ps + kTile * kLdS);
-  float* m_s = s + kTile * kLdS;
-  float* l_s = m_s + kTile;
-  float* corr_s = l_s + kTile;
-
-  const int n_qt = (tq + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * kTile;  // long first
-  const int diag = tk - tq;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
-  float* acc = scratch + ((size_t)bh * n_qt * kTile + q0) * d;  // 64 x d
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  zero(acc, kTile * d);
-  if (threadIdx.x < kTile) {
-    m_s[threadIdx.x] = kNegInf;
-    l_s[threadIdx.x] = 0.f;
-  }
-  const int n_kt = k_tiles(q0, tk, diag, causal);
-  for (int j = 0; j < n_kt; ++j) {
-    const int k0 = j * kTile;
-    scores_wide(s, qs, ks, qb, q0, tq, kb, k0, tk, d);
-    __syncthreads();
-    // online softmax, as fwd_kernel; the accumulator's rescale waits for
-    // its chunks
-    for (int r = warp; r < kTile; r += kWarps) {
-      const int q_pos = q0 + r;
-      const float s0 = key_ok(q_pos, k0 + lane, tk, diag, causal)
-                           ? s[r * kLdS + lane] * scale
-                           : kNegInf;
-      const float s1 = key_ok(q_pos, k0 + lane + 32, tk, diag, causal)
-                           ? s[r * kLdS + lane + 32] * scale
-                           : kNegInf;
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      const float corr = expf(m_prev - m_new);
-      ps[r * kLdS + lane] = from_f32<T>(p0);
-      ps[r * kLdS + lane + 32] = from_f32<T>(p1);
-      __syncwarp();
-      if (lane == 0) {
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        corr_s[r] = corr;
-      }
-    }
-    for (int c = 0; c < d / kChunk; ++c) {
-      __syncthreads();  // p and corr written; the last chunk's product done
-      load_chunk(vs, vb, k0, tk, d, c * kChunk);
-      float* acc_c = acc + c * kChunk;
-      for (int i = threadIdx.x; i < kTile * kChunk; i += kThreads)
-        acc_c[(i / kChunk) * d + i % kChunk] *= corr_s[i / kChunk];
-      __syncthreads();
-      tile_mm<T, kTile, kChunk, kTile, true, true, true>(ps, kLdS, vs, kLdC,
-                                                         acc_c, d);
-    }
-  }
-  __syncthreads();
-  store_wide(o + (size_t)bh * tq * d, acc, q0, tq, d, l_s);
-  if (threadIdx.x < kTile && q0 + (int)threadIdx.x < tq)
-    lse[(size_t)bh * tq + q0 + threadIdx.x] =
-        m_s[threadIdx.x] + logf(fmaxf(l_s[threadIdx.x], 1e-30f));
 }
 
 template <typename T>
@@ -815,20 +726,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 template <typename T>
-int launch_fwd_wide(int d, const void* q, const void* k, const void* v,
-                    void* o, float* lse, float* scratch, int bh, int tq,
-                    int tk, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = fwd_wide_smem<T>();
-  cudaError_t err = set_smem(fwd_wide_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fwd_wide_kernel<T><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, scratch, tq, tk, d,
-      scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_dq_wide(int d, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, float* scratch, int bh, int tq, int tk,
@@ -877,13 +774,13 @@ inline bool wide_dim(int dtype, int head_dim) {
     return (int)cudaErrorInvalidValue;                                    \
   } while (0)
 
-// Instantiates the launcher for dtype at head dim 32 or returns
-// cudaErrorInvalidValue: every type runs head dims 64 to 256 in
-// flash_attention_sm90.cu (16-bit) or flash_attention_tf32.cu (float32).
+// Instantiates the launcher for a 16-bit dtype at head dim 32 or returns
+// cudaErrorInvalidValue: 16-bit head dims 64 to 256 run in
+// flash_attention_sm90.cu, and float32 at every head dim up to 512 in
+// flash_attention_tf32.cu (D 32 zero-padded to 64 by the wrappers).
 #define FLASH_DISPATCH(dtype, head_dim, LAUNCH, ...)                      \
   do {                                                                    \
     if ((head_dim) != 32) return (int)cudaErrorInvalidValue;              \
-    if ((dtype) == 0) return LAUNCH<float, 32>(__VA_ARGS__);              \
     if ((dtype) == 1) return LAUNCH<bf16, 32>(__VA_ARGS__);               \
     if ((dtype) == 2) return LAUNCH<f16, 32>(__VA_ARGS__);                \
     return (int)cudaErrorInvalidValue;                                    \
@@ -891,26 +788,24 @@ inline bool wide_dim(int dtype, int head_dim) {
 
 }  // namespace
 
-// K2a. q (bh, tq, D), k and v (bh, tk, D) -> o (bh, tq, D), lse (bh, tq).
-// scratch: (bh, tq rounded up to 64, D) f32 for the wide kernels, else
-// unused.
+// K2a at 16-bit head dim 32. q (bh, tq, D), k and v (bh, tk, D) -> o (bh,
+// tq, D), lse (bh, tq). Above, K2a runs in flash_attention_sm90.cu and
+// flash_attention_tf32.cu.
 extern "C" int flash_attention_fwd(int device, int dtype, int head_dim,
                                    const void* q, const void* k,
                                    const void* v, void* o, float* lse,
-                                   float* scratch, int bh, int tq, int tk,
-                                   float scale, int causal, void* stream) {
+                                   int bh, int tq, int tk, float scale,
+                                   int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wide_dim(dtype, head_dim))
-    WIDE_DISPATCH(dtype, scratch, launch_fwd_wide, head_dim, q, k, v, o, lse,
-                  scratch, bh, tq, tk, scale, causal, st);
   FLASH_DISPATCH(dtype, head_dim, launch_fwd, q, k, v, o, lse, bh, tq, tk,
                  scale, causal, st);
 }
 
 // K2b. dout (bh, tq, D), lse and delta (bh, tq) -> dq (bh, tq, D).
-// scratch as K2a's.
+// scratch: (bh, tq rounded up to 64, D) f32 for the wide kernels, else
+// unused.
 extern "C" int flash_attention_dq(int device, int dtype, int head_dim,
                                   const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,

@@ -1,19 +1,22 @@
-// Flash attention for Hopper (sm_90a) in float32 at head dims 64 to 512,
-// the "tc-f32" design: the forward (K2a), the dq backward (K2b) and the
-// dk/dv backward (K2c) on the tensor cores, their products in three TF32
-// parts. They replace, in float32, the FMA kernels of flash_attention.cu at
-// D 64 and 128 (fwd_kernel, dq_kernel, dkv_kernel) and its chunked form
-// (fwd_wide_kernel, dq_wide_kernel, dkv_wide_kernel) from D 192 to 512;
-// that file keeps float32 D 32, float32 above D 512 and 16-bit above D
-// 256. Ports of the Pallas TPU kernels in
+// Flash attention for Hopper (sm_90a) on mma.sync tensor cores: in float32
+// the "tc-f32" design, the dq backward (K2b) and the dk/dv backward (K2c) at
+// head dims 64 to 512 and the forward (K2a) up to 256, their products in
+// three TF32 parts; and K2a above D 256 in every type, the "tc-wide" design
+// (fwd_wide_tc_kernel: bf16 and float16 through native 16-bit products,
+// float32 through the same three TF32 parts). They replace the FMA kernels
+// of flash_attention.cu at float32 D 32 (zero-padded to 64 by the
+// wrappers), 64 and 128, and its chunked form from float32 D 192 to 512
+// and, for K2a, above; that file keeps 16-bit D 32 and the chunked K2b and
+// K2c above. Ports of the Pallas TPU kernels in
 // ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (:36, via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (:173, via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (:210, via _flash_bwd_bthd)
 //
-// What they compute, on (BH, T, D) row-major f32 tensors, D 64, 128 or a
-// multiple of 64 from 192 to 512 (lse and delta are (BH, Tq) f32), exactly
-// what flash_attention.cu computes:
+// What they compute, on (BH, T, D) row-major tensors, f32 at D 64, 128 or
+// a multiple of 64 from 192 to 512, and for tc-wide any multiple of 64 in
+// f32, bf16 or float16 (lse and delta are (BH, Tq) f32), exactly what
+// flash_attention.cu computes:
 //   s = (q . k) * scale; a key counts if k_pos < Tk and, when causal,
 //   k_pos <= q_pos + (Tk - Tq) (bottom-right). Masked scores are -1e30.
 //   K2a: online softmax over 64-key tiles; o = acc / max(l, 1e-30);
@@ -22,7 +25,7 @@
 //        dp = do . v, ds = p * (dp - delta) * scale;
 //   K2b: dq = sum_k ds k;
 //   K2c: dv = sum_q p^T do, dk = sum_q ds^T q.
-//   p and ds are "rounded to the input type" (float32: unchanged) and every
+//   p and ds are rounded to the input type (float32: unchanged) and every
 //   product accumulates in f32.
 //
 // Bound on this card. Causal at T 1024, K2a does 17.2 GFLOP, K2b 25.8 and
@@ -56,8 +59,10 @@
 // starts blocks in that order, ends with short ones: at one block a SM,
 // numbered by bh first, a long block of the last heads ran alone at the
 // end.
-//   K2a (fwd_tc_kernel<SW>, SW the o slice a block keeps: 64, 128, or 256
-//   above): one block per (bh, 64-query tile, slice). q (64 x D) is loaded
+//   K2a up to D 256 (fwd_tc_kernel<SW>, SW the o a block keeps: 64, 128,
+//   or 256 at D 192 and 256): one block per (bh, 64-query tile; the kernel
+//   can take a slice of o a block, but above D 256 K2a runs tc-wide, below,
+//   whose one block over all of D forms S once). q (64 x D) is loaded
 //   once and stays in shared memory. Per 64-key tile: S = Q K^T from
 //   "units" of K, a stage each (128 columns of D at SW 256, one 64-column
 //   chunk below; warp w: query rows 16 (w/2).., keys 32 (w%2)..: 16 f32 a
@@ -67,9 +72,8 @@
 //   the row rescale factor, then O += P V from units of V (warp w: rows
 //   32 (w%2).., a quarter of the unit's columns). O is 64 x SW f32 over the
 //   block: 16, 32 or 64 registers a thread. At D 64 and 128 two blocks fit
-//   a SM (4 and 3 stages of 18 KB); above D 256 a second block takes
-//   columns 256.. and computes S again (3 stages of 36 KB, 2 where q
-//   leaves no room).
+//   a SM (4 and 3 stages of 18 KB), at D 192 and 256 one (3 stages of 36
+//   KB).
 //   K2b at D 64 and 128 (dq_res_kernel<D>): one block per (bh, 64-query
 //   tile); its q and do tiles stay in shared memory, loaded once, and k and
 //   v stream through the ring, all of D a stage: per key tile, dP = dO V^T
@@ -106,6 +110,23 @@
 //   block, 128 registers a thread). k and v are read again for each query
 //   tile (from L2): they and the q and do units do not fit in 227 KB
 //   together. 2 stages of 72 KB.
+//   K2a above (fwd_wide_tc_kernel<T, 512>, "tc-wide"): one block per (bh,
+//   64-query tile, slice of o of at most 512 columns, ceil(D / 512) slices
+//   as even as whole chunks allow), so S is formed once a key tile up to D
+//   512. q stays in shared memory where three ring stages still fit beside
+//   it (16-bit up to D 832, float32 up to 384) and otherwise streams
+//   through the ring beside k, so the kernel takes any multiple of 64 (a
+//   resident q saves a third of the bytes a key tile). Per key tile: S
+//   stages of k chunks (with q's chunks where q streams: 36 KB a stage in
+//   either type), the softmax as fwd_tc_kernel's, P rounded to T in shared
+//   memory (the reference's rounding), then V stages of the block's v
+//   columns (two chunks in f32, four in 16-bit). O is 64 x 512 f32 over the
+//   block, 128 registers a thread; up to 4 stages, one block a SM. 16-bit
+//   fragments come from ldmatrix (.trans for v, read along the sequence)
+//   and go through m16n8k16 in one native product; f32 goes through mma3.
+//   Bound: bf16 D 512 (BH 32, T 1024, causal) is 34.4 GFLOP on 134 MB,
+//   0.040 ms by its bytes; each block reads k and v once a key tile from
+//   L2, 128 KB there.
 // No atomics: each block owns its rows of o, dq, dk and dv, so the results
 // are deterministic.
 //
@@ -114,8 +135,12 @@
 // versions. Each entry point launches on the given stream, does not
 // synchronise, and returns cudaGetLastError() as an int (0 = launched).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -136,7 +161,7 @@ constexpr size_t smem_budget(int blocks) { return 233472 / blocks - 1024; }
 
 // ---- primitives --------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -589,6 +614,415 @@ __global__ void __launch_bounds__(kThreads, Fwd<SW>::kBlocks)
                                      ni * 8 + 2 * t) =
               make_float2(acc[a][mi][ni][2 * r] * inv,
                           acc[a][mi][ni][2 * r + 1] * inv);
+      }
+    }
+  if (blockIdx.y == 0 && threadIdx.x < kTile && q0 + (int)threadIdx.x < tq) {
+    const float l = fmaxf(lsum[threadIdx.x] + lsum[kTile + threadIdx.x],
+                          1e-30f);
+    lse[(size_t)bh * tq + q0 + threadIdx.x] = m_s[threadIdx.x] + logf(l);
+  }
+}
+
+// ---- K2a above the tc-f32 forward's range: the "tc-wide" design -------
+
+// Why mma.sync and not wgmma: one block keeps up to 512 columns of o in
+// registers, 64 x 512 f32 over the block, 128 a thread at 256 threads. On
+// one wgmma warpgroup that accumulator would be 256 registers a thread, over
+// the 255 a thread may hold, and at 16-bit D 256 the wgmma-tma forward
+// already sits near the 168 registers a thread that two warpgroups and a
+// producer warp leave. mma.sync's m16n8 tiles let eight warps share it.
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// d += a b, m16n8k16 with 16-bit operands of type T (bf16 or f16) and f32
+// accumulators: a product of two 16-bit values is exact in f32, so one
+// native product takes the place of mma3's three
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two values rounded to T (to nearest even, as torch) at p, p + 1.
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  if constexpr (std::is_same<T, float>::value)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  else
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// Rows row0 .. row0+63 and columns col0 .. col0+63 of a row-major (rows, d)
+// tensor of T into a shared chunk of row stride kLdC, rows past `rows` zero.
+template <typename T>
+__device__ __forceinline__ void load_chunk_t(T* dst, const T* src, int row0,
+                                             int rows, int d, int col0) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVecs = kChunk / kVec;
+  for (int c = threadIdx.x; c < kTile * kVecs; c += kThreads) {
+    const int r = c / kVecs, e = (c % kVecs) * kVec;
+    const bool ok = row0 + r < rows;
+    cp_async16(dst + r * kLdC + e,
+               src + (size_t)(ok ? row0 + r : 0) * d + col0 + e, ok);
+  }
+}
+
+// Fragments of m16n8k16 from ldmatrix (r = lane % 8, sel = lane / 8 names
+// the 8 x 8 matrix whose row the lane addresses): A 16 x 16 from a
+// row-major array, matrices (rows, columns) +(0, 0), (8, 0), (0, 8), (8, 8)
+// as a0-a3; B for two 8-column n-tiles at once, {r0, r1} the first and {r2,
+// r3} the second. A row stride of 72 16-bit values (36 words, 4 mod 32) puts
+// the eight 16-byte rows of each matrix on distinct banks.
+
+// S += A B^T over one 64-column chunk of D, 16-bit: A this warp's 16 rows
+// of q (row stride lda), B its 32 rows of k (row stride kLdC), both read
+// along D.
+template <typename T>
+__device__ __forceinline__ void s_chunk16(float (&acc)[4][4], const T* a,
+                                          int lda, const T* b, int lane) {
+  const int r = lane & 7, sel = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < kChunk; kk += 16) {
+    uint32_t fa[4];
+    ldsm_x4(fa, a + (r + 8 * (sel & 1)) * lda + kk + 8 * (sel >> 1));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t fb[4];  // keys 16 np + 8 (sel >> 1) + r, D kk + 8 (sel & 1)
+      ldsm_x4(fb, b + (np * 16 + 8 * (sel >> 1) + r) * kLdC + kk +
+                      8 * (sel & 1));
+      mma16<T>(acc[2 * np], fa, fb[0], fb[1]);
+      mma16<T>(acc[2 * np + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// O (this warp's 32 rows x 8 NI columns) += P V, 16-bit: P 64 x 64 at the
+// warp's rows (row stride kLdC), v the chunk at the warp's first column,
+// read along the sequence (ldmatrix.trans).
+template <typename T, int NI>
+__device__ __forceinline__ void pv16(float (&acc)[2][NI][4], const T* ps,
+                                     const T* v, int lane) {
+  const int r = lane & 7, sel = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < kTile; kk += 16) {
+    uint32_t fa[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldsm_x4(fa[mi], ps + (mi * 16 + r + 8 * (sel & 1)) * kLdC + kk +
+                          8 * (sel >> 1));
+#pragma unroll
+    for (int np = 0; np < NI / 2; ++np) {
+      uint32_t fb[4];  // keys kk + 8 (sel & 1) + r, columns 16 np + 8 (sel >> 1)
+      ldsm_x4_t(fb, v + (kk + 8 * (sel & 1) + r) * kLdC + np * 16 +
+                        8 * (sel >> 1));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma16<T>(acc[mi][2 * np], fa[mi], fb[0], fb[1]);
+        mma16<T>(acc[mi][2 * np + 1], fa[mi], fb[2], fb[3]);
+      }
+    }
+  }
+}
+
+// The wide forward's shape in type T. A ring stage is kWideStage bytes,
+// kCps 64-column chunks (two in float32, four in 16-bit): an S stage holds
+// kCps chunks of k where q is resident, else kCps / 2 of q and as many of
+// k; a V stage kVUnit columns of v. In P V a warp takes a quarter of a V
+// stage's columns, kNi 8-column tiles. A block keeps up to MC columns of o:
+// kUnits V stages' worth, MC / 4 f32 registers a thread (128 at 512).
+constexpr int kWideStage = 36864;
+template <typename T, int MC>
+struct Wide {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kChunkElems = kTile * kLdC;
+  static constexpr int kCps = kWideStage / (kChunkElems * (int)sizeof(T));
+  static constexpr int kVUnit = kCps * kChunk;
+  static constexpr int kCols = kVUnit / 4;
+  static constexpr int kNi = kCols / 8;
+  static constexpr int kUnits = MC / kVUnit;
+  static constexpr int kLdPw = kF32 ? kLdP : kLdC;  // P's row stride
+};
+
+// shared memory of the wide forward at head dim d with `stages` ring
+// stages: q where resident (qr), the ring, P in T, row maxima, rescale, row
+// sums, m
+template <typename T>
+inline size_t wide_smem(int d, int stages, bool qr) {
+  return (qr ? (size_t)kTile * (d + 8) * sizeof(T) : 0) +
+         (size_t)stages * kWideStage +
+         (size_t)kTile * Wide<T, 512>::kLdPw * sizeof(T) +
+         6 * kTile * sizeof(float);
+}
+
+// the most columns of o a tc-wide block keeps, by type
+template <typename T>
+constexpr int wide_cols() { return 512; }
+
+// K2a at any head dim d, a multiple of 64, in T: one block per (bh, 64-query
+// tile, slice of `cols` <= MC columns of o). q (64 x d) stays in shared
+// memory where `qres`, else streams through the ring beside k, so d has no
+// limit. Per key tile: S from the S stages, the online softmax as
+// fwd_tc_kernel's, P to shared memory rounded to T, then O += P V from the
+// V stages of the block's columns.
+template <typename T, int MC>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int tq, int tk, int d,
+                       int cols, float scale, int causal, int stages,
+                       int qres) {
+  using C = Wide<T, MC>;
+  constexpr int kCe = C::kChunkElems;
+  constexpr int kStageElems = C::kCps * kCe;
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  const int ldq = d + 8;
+  T* qs = reinterpret_cast<T*>(wsmem);  // resident q (qres)
+  T* ring = qs + (qres ? kTile * ldq : 0);
+  T* ps = ring + stages * kStageElems;
+  float* pmax = reinterpret_cast<float*>(ps + kTile * C::kLdPw);  // [2][64]
+  float* corr_s = pmax + 2 * kTile;
+  float* lsum = corr_s + kTile;  // [2][64]
+  float* m_s = lsum + 2 * kTile;
+
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int n_bh = gridDim.x / n_qt;
+  const int bh = blockIdx.x % n_bh;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / n_bh)) * kTile;
+  const int c0 = blockIdx.y * cols;  // this block's columns of o
+  const int nv = min(cols, d - c0);
+  const int diag = tk - tq;
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  if (qres) {  // q, once: its own cp.async group, ahead of the ring's
+    constexpr int kVec = 16 / sizeof(T);
+    for (int c = threadIdx.x; c < kTile * (d / kVec); c += kThreads) {
+      const int r = c / (d / kVec), e = (c % (d / kVec)) * kVec;
+      const bool ok = q0 + r < tq;
+      cp_async16(qs + r * ldq + e, qb + (size_t)(ok ? q0 + r : 0) * d + e,
+                 ok);
+    }
+    cp_async_commit();
+  }
+
+  // stages of a key tile: n_su S stages of su columns (k chunks h at h, or
+  // q and k chunks h at 2h, 2h + 1), then n_vu V stages (v chunks of this
+  // block's columns)
+  const int s_chunks = qres ? C::kCps : C::kCps / 2;
+  const int su = s_chunks * kChunk;
+  const int n_su = (d + su - 1) / su;
+  const int n_vu = (nv + C::kVUnit - 1) / C::kVUnit;
+  const int per_tile = n_su + n_vu;
+  const int n_kt = [&] {
+    const int n = (tk + kTile - 1) / kTile;
+    return causal ? min(n, (q0 + kTile - 1 + diag) / kTile + 1) : n;
+  }();
+  const int total = n_kt * per_tile;
+  auto fetch = [&](int u) {
+    if (u < total) {
+      const int k0 = (u / per_tile) * kTile, p = u % per_tile;
+      T* st = ring + (u % stages) * kStageElems;
+      if (p < n_su) {
+        for (int h = 0; h < s_chunks; ++h) {
+          const int col = p * su + h * kChunk;
+          if (col < d) {
+            if (!qres) load_chunk_t(st + 2 * h * kCe, qb, q0, tq, d, col);
+            load_chunk_t(st + (qres ? h : 2 * h + 1) * kCe, kb, k0, tk, d,
+                         col);
+          }
+        }
+      } else {
+        const int col = c0 + (p - n_su) * C::kVUnit;
+        for (int h = 0; h < C::kCps; ++h)
+          if (col + h * kChunk < c0 + nv)
+            load_chunk_t(st + h * kCe, vb, k0, tk, d, col + h * kChunk);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // S-phase roles: query rows 16 * (warp / 2) + g (+ 8), keys 32 * (warp %
+  // 2) + 8 n + 2t (+ 1); P V roles: rows 32 * (warp % 2) + 16 mi + g (+ 8),
+  // columns kCols * (warp / 2) + 8 ni + 2t (+ 1) of a V stage
+  const int mq = warp >> 1, kh = warp & 1;
+  const int rg = warp & 1, cg = warp >> 1;
+  float s[4][4];
+  float acc[C::kUnits][2][C::kNi][4];
+#pragma unroll
+  for (int a = 0; a < C::kUnits; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int c = 0; c < C::kNi; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][b][c][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+  for (int u = 0; u < stages - 1; ++u) fetch(u);
+  for (int u = 0; u < total; ++u) {
+    cp_async_wait_ring(stages);
+    __syncthreads();  // stage u is in; every warp is done with stage u - 1
+    fetch(u + stages - 1);
+    const T* st = ring + (u % stages) * kStageElems;
+    const int k0 = (u / per_tile) * kTile, p = u % per_tile;
+    if (p < n_su) {
+      // S += Q K^T over this stage's columns of D
+      if (p == 0) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int h = 0; h < C::kCps; ++h) {
+        const int col = p * su + h * kChunk;
+        if (h >= s_chunks || col >= d) break;
+        const T* qa = qres ? qs + mq * 16 * ldq + col
+                           : st + 2 * h * kCe + mq * 16 * kLdC;
+        const int lda = qres ? ldq : kLdC;
+        const T* ka = st + (qres ? h : 2 * h + 1) * kCe + kh * 32 * kLdC;
+        if constexpr (C::kF32)
+          s_chunk(s, qa, lda, ka, kLdC, lane);
+        else
+          s_chunk16<T>(s, qa, lda, ka, lane);
+      }
+      if (p == n_su - 1) {
+        // online softmax of the tile, as fwd_tc_kernel's; p rounded to T
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const int q_pos = q0 + mq * 16 + g + 8 * r;
+            const int k_pos = k0 + kh * 32 + n * 8 + 2 * t + (e & 1);
+            s[n][e] = key_ok(q_pos, k_pos, tk, diag, causal)
+                          ? s[n][e] * scale
+                          : kNegInf;
+            mx[r] = fmaxf(mx[r], s[n][e]);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = quad_max(mx[r]);
+          if (t == 0) pmax[kh * kTile + mq * 16 + g + 8 * r] = mx[r];
+        }
+        __syncthreads();
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = mq * 16 + g + 8 * r;
+          const float m_new =
+              fmaxf(m_run[r], fmaxf(pmax[row], pmax[kTile + row]));
+          corr[r] = expf(m_run[r] - m_new);
+          m_run[r] = m_new;
+          l_run[r] *= corr[r];
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float p0 = expf(s[n][2 * r] - m_run[r]);
+            const float p1 = expf(s[n][2 * r + 1] - m_run[r]);
+            l_run[r] += p0 + p1;
+            store2(ps + (mq * 16 + g + 8 * r) * C::kLdPw + kh * 32 + n * 8 +
+                       2 * t,
+                   p0, p1);
+          }
+        if (kh == 0 && t == 0) {
+          corr_s[mq * 16 + g] = corr[0];
+          corr_s[mq * 16 + g + 8] = corr[1];
+        }
+      }
+    } else {
+      // O += P V over this stage's kVUnit columns (the warp's kCols)
+      const int vi = p - n_su;
+      if (vi == 0) {  // the tile's rescale, before its first product
+        float cr[2][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            cr[mi][r] = corr_s[rg * 32 + mi * 16 + g + 8 * r];
+#pragma unroll
+        for (int a = 0; a < C::kUnits; ++a)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < C::kNi; ++ni)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[a][mi][ni][e] *= cr[mi][e >> 1];
+      }
+      const int wc = cg * C::kCols;  // the warp's first column of the stage
+      if (vi * C::kVUnit + wc < nv) {
+        const T* vc = st + (wc / kChunk) * kCe + wc % kChunk;
+        const T* pa = ps + rg * 32 * C::kLdPw;
+#pragma unroll
+        for (int a = 0; a < C::kUnits; ++a)
+          if (a == vi) {
+            if constexpr (C::kF32)
+              pv_unit<C::kNi>(acc[a], pa, vc, lane);
+            else
+              pv16<T, C::kNi>(acc[a], pa, vc, lane);
+          }
+      }
+    }
+  }
+
+  // row sums over the quad and the warp pair; o = acc / l; lse
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    const int row = mq * 16 + g + 8 * r;
+    if (t == 0) {
+      lsum[kh * kTile + row] = l;
+      if (kh == 0) m_s[row] = m_run[r];
+    }
+  }
+  __syncthreads();
+  T* ob = o + (size_t)bh * tq * d;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rg * 32 + mi * 16 + g + 8 * r;
+      if (q0 + row >= tq) continue;
+      const float inv =
+          1.f / fmaxf(lsum[row] + lsum[kTile + row], 1e-30f);
+#pragma unroll
+      for (int a = 0; a < C::kUnits; ++a) {
+        const int col = a * C::kVUnit + cg * C::kCols;
+        if (col >= nv) continue;
+#pragma unroll
+        for (int ni = 0; ni < C::kNi; ++ni)
+          store2(ob + (size_t)(q0 + row) * d + c0 + col + ni * 8 + 2 * t,
+                 acc[a][mi][ni][2 * r] * inv, acc[a][mi][ni][2 * r + 1] * inv);
       }
     }
   if (blockIdx.y == 0 && threadIdx.x < kTile && q0 + (int)threadIdx.x < tq) {
@@ -1284,10 +1718,38 @@ int launch_dq_tc(int d, const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+// the wide forward: q resident where three ring stages fit beside it
+// (16-bit up to D 832, float32 up to 384; streamed, a third more bytes a
+// key tile, above), ceil(d / MC) slices of o, their widths as even as whole
+// chunks allow (D 576: 320 and 256), each a block per query tile
+template <typename T>
+int launch_fwd_wide(int d, const void* q, const void* k, const void* v,
+                    void* o, float* lse, int bh, int tq, int tk, float scale,
+                    int causal, cudaStream_t stream) {
+  constexpr int kMc = wide_cols<T>();
+  const bool qres = wide_smem<T>(d, 3, true) <= smem_budget(1);
+  const int stages = ring_stages(
+      [&](int n) { return wide_smem<T>(d, n, qres); }, 1);
+  const size_t smem = wide_smem<T>(d, stages, qres);
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wide_tc_kernel<T, kMc>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int slices = (d + kMc - 1) / kMc;
+  const int cols = (d / kChunk + slices - 1) / slices * kChunk;
+  const dim3 grid(bh * n_tiles(tq), (d + cols - 1) / cols);
+  fwd_wide_tc_kernel<T, kMc><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, tq, tk, d, cols,
+      scale, causal, stages, (int)qres);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K2a. q (bh, tq, d), k and v (bh, tk, d) f32 -> o (bh, tq, d), lse (bh,
-// tq). d: a multiple of 64 from 64 to 512; anything else is refused.
+// tq). d: 64, 128, 192 or 256 (above, flash_attention_fwd_wide); anything
+// else is refused.
 extern "C" int flash_attention_fwd_tf32(int device, int d, const float* q,
                                         const float* k, const float* v,
                                         float* o, float* lse, int bh, int tq,
@@ -1295,7 +1757,7 @@ extern "C" int flash_attention_fwd_tf32(int device, int d, const float* q,
                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!dim_ok(d)) return (int)cudaErrorInvalidValue;
+  if (!dim_ok(d) || d > kSlice) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
     return launch_fwd<64>(d, q, k, v, o, lse, bh, tq, tk, scale, causal, st);
@@ -1306,7 +1768,8 @@ extern "C" int flash_attention_fwd_tf32(int device, int d, const float* q,
 }
 
 // K2b. The same inputs, dout (bh, tq, d), lse and delta (bh, tq) -> dq
-// (bh, tq, d); d as K2a's.
+// (bh, tq, d). d: a multiple of 64 from 64 to 512; anything else is
+// refused.
 extern "C" int flash_attention_dq_tf32(int device, int d, const float* q,
                                        const float* k, const float* v,
                                        const float* dout, const float* lse,
@@ -1330,7 +1793,7 @@ extern "C" int flash_attention_dq_tf32(int device, int d, const float* q,
                              scale, causal, st);
 }
 
-// K2c. The same inputs -> dk, dv (bh, tk, d); d as K2a's.
+// K2c. The same inputs -> dk, dv (bh, tk, d); d as K2b's.
 extern "C" int flash_attention_dkv_tf32(int device, int d, const float* q,
                                         const float* k, const float* v,
                                         const float* dout, const float* lse,
@@ -1356,4 +1819,28 @@ extern "C" int flash_attention_dkv_tf32(int device, int d, const float* q,
   dkv_tc_kernel<<<grid, kThreads, kDkvSmem, st>>>(
       q, k, v, dout, lse, delta, dk, dv, tq, tk, d, scale, causal);
   return (int)cudaGetLastError();
+}
+
+// K2a in the "tc-wide" design. dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16; q (bh, tq, d), k and v (bh, tk, d) of that type -> o (bh, tq, d)
+// of it, lse (bh, tq) f32. d: any multiple of 64; anything else is refused.
+extern "C" int flash_attention_fwd_wide(int device, int dtype, int d,
+                                        const void* q, const void* k,
+                                        const void* v, void* o, float* lse,
+                                        int bh, int tq, int tk, float scale,
+                                        int causal, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (d < kChunk || d % kChunk) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_fwd_wide<float>(d, q, k, v, o, lse, bh, tq, tk, scale,
+                                  causal, st);
+  if (dtype == 1)
+    return launch_fwd_wide<__nv_bfloat16>(d, q, k, v, o, lse, bh, tq, tk,
+                                          scale, causal, st);
+  if (dtype == 2)
+    return launch_fwd_wide<__half>(d, q, k, v, o, lse, bh, tq, tk, scale,
+                                   causal, st);
+  return (int)cudaErrorInvalidValue;
 }

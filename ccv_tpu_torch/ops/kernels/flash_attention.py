@@ -14,13 +14,18 @@ kernels' op order:
   64, 128 or 256; "tc-f32" (csrc/flash_attention_tf32.cu: mma.sync TF32 in
   three parts, cp.async rings, accumulators in registers; two blocks a SM
   at D 64 and K2a's D 128, K2b's q and do and K2c's k and v resident in
-  shared memory at D 64 and 128) for all three in float32 at head dims 64
-  to 512 (``TC_F32_DIMS``); "wmma-smem" (csrc/flash_attention.cu: wmma
-  tiles and accumulators in shared memory) for the rest: all three in
-  float32 D 32 and 16-bit D 32 as tiles that hold all of D, and a form
-  that walks D in 64-column chunks, its accumulators in a float32 scratch
-  the wrapper allocates (``_wide``), for all three in float32 above D 512
-  and in 16-bit above D 256;
+  shared memory at D 64 and 128) for all three in float32 at head dims up to
+  512 (``TC_F32_DIMS``; D 32 runs as D 64 on zero-padded operands, which
+  the wrappers pad and cut themselves), K2a up to 256; "tc-wide" (the same
+  file's ``fwd_wide_tc_kernel``: mma.sync, native 16-bit products or TF32
+  in three parts, q resident where it fits and streamed beside k above,
+  one block over up to 512 columns of o) for K2a above D 256 in every type
+  (``WIDE_FWD_ABOVE``); "wmma-smem"
+  (csrc/flash_attention.cu: wmma tiles and accumulators in shared memory)
+  for the rest: all three at 16-bit D 32 as tiles that hold all of D, and
+  a form that walks D in 64-column chunks, its accumulators in a float32
+  scratch the wrapper allocates (``_wide``), for K2b and K2c in float32
+  above D 512 and in 16-bit above D 256;
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
@@ -32,7 +37,8 @@ kernels' op order:
   passed on unchanged, so this is exact, and it is the same kernel on
   padded operands (ccv_tpu pads D to a multiple of 128 lanes the same
   way). The ``(BH, T, D)`` entry points take only the dims ``padded_dim``
-  returns.
+  returns; on the card, float32 runs D 1-32 at 64 (``padded_dim(D,
+  torch.float32)``), so there ``FlashAttention`` pads once, to 64.
 
 Types: float32, bfloat16 and float16, as ccv_tpu's kernels take the input's
 own type; p and ds are rounded to it before their products.
@@ -60,7 +66,10 @@ HEAD_DIMS = (32, 64, 128, 256)  # head dims with kernels of their own
 WIDE_STEP = 64  # above HEAD_DIMS[-1], D is a multiple of this (its chunks)
 WGMMA_DIMS = (64, 128, 256)  # the 16-bit head dims of "wgmma-tma"
 TC_F32_DIMS = (64, 512)  # the float32 head dims of "tc-f32": from, to
-DESIGNS = ("wgmma-tma", "tc-f32", "wmma-smem")
+# K2a runs "tc-wide" above these head dims, in each type (float32 D 320-512
+# too: one block over all of D there beat tc-f32's two a query tile)
+WIDE_FWD_ABOVE = {torch.float32: 256, torch.bfloat16: 256, torch.float16: 256}
+DESIGNS = ("wgmma-tma", "tc-f32", "tc-wide", "wmma-smem")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches made by the wrappers (CUDA tensors only), per kernel and
@@ -79,12 +88,13 @@ def reset_launches() -> None:
 
 def _design(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The kernel design that serves ``kernel`` ("fwd", "dq" or "dkv") for
-    inputs of type ``dtype`` and head dim ``d``."""
+    inputs of type ``dtype`` and head dim ``d`` (float32 D 32 runs as D
+    64)."""
+    if kernel == "fwd" and d > WIDE_FWD_ABOVE[dtype]:
+        return "tc-wide"
     if dtype != torch.float32:
         return "wgmma-tma" if d in WGMMA_DIMS else "wmma-smem"
-    if TC_F32_DIMS[0] <= d <= TC_F32_DIMS[1]:
-        return "tc-f32"
-    return "wmma-smem"
+    return "tc-f32" if padded_dim(d, dtype) <= TC_F32_DIMS[1] else "wmma-smem"
 
 
 def _wide(kernel: str, dtype: torch.dtype, d: int) -> bool:
@@ -96,8 +106,10 @@ def _wide(kernel: str, dtype: torch.dtype, d: int) -> bool:
 
 def roofline_kind(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The ``roofline.bound_ms`` kind of ``kernel``'s operations: "tf32x3"
-    where float32 runs on the tensor cores ("tc-f32"), else the type's."""
-    if _design(kernel, dtype, d) == "tc-f32":
+    where float32 runs on the tensor cores ("tc-f32", "tc-wide"), else the
+    type's."""
+    if dtype == torch.float32 and _design(kernel, dtype, d) in (
+            "tc-f32", "tc-wide"):
         return "tf32x3"
     return {torch.float32: "f32", torch.bfloat16: "bf16",
             torch.float16: "f16"}[dtype]
@@ -249,8 +261,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("flash_attention", ["flash_attention.cu"])
     if lib.flash_attention_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd.argtypes = [i, i, i, p, p, p, p, p, p, i, i,
-                                            i, f, i, p]
+        lib.flash_attention_fwd.argtypes = [i, i, i, p, p, p, p, p, i, i, i,
+                                            f, i, p]
         lib.flash_attention_dq.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i,
                                            i, i, f, i, p]
         lib.flash_attention_dkv.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
@@ -282,8 +294,8 @@ def _sm90_library(code: int) -> ctypes.CDLL:
 
 
 def _tf32_library() -> ctypes.CDLL:
-    """The tc-f32 library (K2a, K2b and K2c in float32, head dims
-    64-512)."""
+    """The tc-f32 library (K2a, K2b and K2c in float32, head dims 64-512),
+    which also holds the tc-wide K2a."""
     lib = _build.load_library("flash_attention_tf32",
                               ["flash_attention_tf32.cu"])
     if lib.flash_attention_fwd_tf32.argtypes is None:
@@ -294,8 +306,10 @@ def _tf32_library() -> ctypes.CDLL:
                                                 i, i, i, f, i, p]
         lib.flash_attention_dkv_tf32.argtypes = [i, i, p, p, p, p, p, p, p,
                                                  p, i, i, i, f, i, p]
+        lib.flash_attention_fwd_wide.argtypes = [i, i, i, p, p, p, p, p, i,
+                                                 i, i, f, i, p]
         for fn in (lib.flash_attention_fwd_tf32, lib.flash_attention_dq_tf32,
-                   lib.flash_attention_dkv_tf32):
+                   lib.flash_attention_dkv_tf32, lib.flash_attention_fwd_wide):
             fn.restype = ctypes.c_int
     return lib
 
@@ -354,6 +368,16 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def _widen(d: int, *ts: torch.Tensor):
+    """ts (BH, T, D) zero-padded along D to d."""
+    return [torch.nn.functional.pad(t, (0, d - t.shape[2])) for t in ts]
+
+
+def _cut(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The first d columns of x (BH, T, D'), contiguous."""
+    return x[..., :d].contiguous()
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -363,25 +387,25 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_qkv(q, k, v, causal)
     if not _on_card(q, k, v):
         return flash_fwd_ref(q, k, v, scale, causal)
+    d_run = padded_dim(q.shape[2], q.dtype)
+    if d_run != q.shape[2]:  # float32 D 32: the D 64 kernel, padded
+        o, lse = flash_fwd(*_widen(d_run, q, k, v), scale, causal)
+        return _cut(o, q.shape[2]), lse
     dev, code, d, bh, t_q, stream = _head(q)
     o = torch.empty_like(q)
     lse = torch.empty((bh, t_q), dtype=torch.float32, device=q.device)
     design = _design("fwd", q.dtype, d)
-    if design == "wgmma-tma":
-        err = _sm90_library(code).flash_attention_fwd_sm90(
-            dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), bh, t_q, k.shape[1], scale,
-            int(causal), stream)
-    elif design == "tc-f32":
-        err = _tf32_library().flash_attention_fwd_tf32(
-            dev, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, t_q, k.shape[1], scale, int(causal), stream)
+    if design == "wgmma-tma":
+        err = _sm90_library(code).flash_attention_fwd_sm90(dev, code, d,
+                                                           *ptrs)
+    elif design == "tc-f32":
+        err = _tf32_library().flash_attention_fwd_tf32(dev, d, *ptrs)
+    elif design == "tc-wide":
+        err = _tf32_library().flash_attention_fwd_wide(dev, code, d, *ptrs)
     else:
-        scratch = _scratch("fwd", q, 1)
-        err = _library().flash_attention_fwd(
-            dev, code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), _ptr(scratch), bh, t_q,
-            k.shape[1], scale, int(causal), stream)
+        err = _library().flash_attention_fwd(dev, code, d, *ptrs)
     _launched("fwd", design, err)
     return o, lse
 
@@ -392,6 +416,10 @@ def flash_dq(q, k, v, do, lse, delta, scale: float,
     _check_bwd(q, k, v, do, lse, delta, causal)
     if not _on_card(q, k, v, do, lse, delta):
         return flash_dq_ref(q, k, v, do, lse, delta, scale, causal)
+    d_run = padded_dim(q.shape[2], q.dtype)
+    if d_run != q.shape[2]:  # float32 D 32: the D 64 kernel, padded
+        return _cut(flash_dq(*_widen(d_run, q, k, v, do), lse, delta, scale,
+                             causal), q.shape[2])
     dev, code, d, bh, t_q, stream = _head(q)
     dq = torch.empty_like(q)
     design = _design("dq", q.dtype, d)
@@ -419,6 +447,11 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float,
     _check_bwd(q, k, v, do, lse, delta, causal)
     if not _on_card(q, k, v, do, lse, delta):
         return flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
+    d_run = padded_dim(q.shape[2], q.dtype)
+    if d_run != q.shape[2]:  # float32 D 32: the D 64 kernel, padded
+        dk, dv = flash_dkv(*_widen(d_run, q, k, v, do), lse, delta, scale,
+                           causal)
+        return _cut(dk, q.shape[2]), _cut(dv, q.shape[2])
     dev, code, d, bh, t_q, stream = _head(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     design = _design("dkv", q.dtype, d)
@@ -440,12 +473,16 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float,
     return dk, dv
 
 
-def padded_dim(d: int) -> int:
+def padded_dim(d: int, dtype: Optional[torch.dtype] = None) -> int:
     """The head dim the kernels run a head dim ``d`` at: the smallest of
     ``HEAD_DIMS`` that holds it, above the largest the next multiple of
-    ``WIDE_STEP``. Raises for d < 1."""
+    ``WIDE_STEP``. With ``dtype``, the one the card's kernels run for that
+    type: float32 at most 32 at 64, the smallest tc-f32 dim (16-bit D 32
+    keeps its own kernels). Raises for d < 1."""
     if d < 1:
         raise ValueError(f"head dim {d}: must be at least 1")
+    if dtype == torch.float32 and d < TC_F32_DIMS[0]:
+        return TC_F32_DIMS[0]
     for built in HEAD_DIMS:
         if d <= built:
             return built
@@ -468,7 +505,8 @@ def _from_bthd(x: torch.Tensor, b: int, d: int) -> torch.Tensor:
 
 class FlashAttention(torch.autograd.Function):
     """Fused attention on (B, T, H, D): K2a forward, K2b and K2c backward,
-    at any D >= 1 (zero-padded to ``padded_dim(D)``).
+    at any D >= 1 (zero-padded to ``padded_dim(D)``, on the card
+    ``padded_dim(D, dtype)``).
 
     Forward saves (q, k, v, o, lse), as ccv_tpu's custom_vjp does; the
     backward forms delta = rowsum(dO * O) in plain torch (ccv_tpu forms it
@@ -477,7 +515,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale: float, is_causal: bool):
         d = q.shape[-1]
-        d_pad = padded_dim(d)
+        # on the card, the dim the kernels run at (float32 D 1-32: 64), so
+        # the wrappers need not pad again; the plain versions on the CPU
+        # run at the smallest built dim
+        d_pad = padded_dim(d, q.dtype if q.is_cuda else None)
         o, lse = flash_fwd(_to_bthd(q, d_pad), _to_bthd(k, d_pad),
                            _to_bthd(v, d_pad), scale, is_causal)
         o = _from_bthd(o, q.shape[0], d)

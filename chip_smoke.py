@@ -20,7 +20,8 @@ started together) and drives the port's main paths:
   (forward), K2b (dq) and K2c (dk, dv) against their plain versions at the
   parity tests' shapes and the LM's, each launch checked for its design
   ("wgmma-tma" at bf16 and head dim 64 or 128; in float32 "tc-f32" for all
-  three from D 64; "wmma-smem" at D 32), timed at
+  three, D 32 on operands zero-padded to 64; "wmma-smem" at bf16 D 32),
+  timed at
   the LM
   shape in turns with the PyTorch calls that compute the same functions
   (yardsticks only: SDPA's flash forward, the flash backward op); a 2-layer
@@ -239,8 +240,10 @@ started together) and drives the port's main paths:
 - phase 43, K2 at head dims above 128 and in float16: the wgmma-tma
   kernels at D 256 in bf16 and float16, the tc-f32 kernels (K2a, K2b and
   K2c in float32 from D 64 to 512: 3xTF32 mma.sync; timed at D 64, 128 and
-  256) and the wmma-smem kernels' chunked form (every kernel in float32
-  above D 512 and in 16-bit above D 256) against their plain
+  256), K2a's tc-wide kernel (above D 256 in every type: mma.sync, q
+  resident where it fits and streamed beside k above; timed at bf16 D 320
+  and 512 and float32 D 576) and the wmma-smem kernels' chunked K2b and
+  K2c (16-bit above D 256, float32 above 512) against their plain
   versions, each launch's design checked, and timed beside SDPA's calls;
   the LM at Gemma-2B's widths (d 2048 = 8 heads of 256, ff 16384, vocab
   256,000, 2 layers, B 4 x 1024): one step with the kernels against one
@@ -248,7 +251,8 @@ started together) and drives the port's main paths:
   timed, then ``lm_bench.measure``; greedy decoding at d 1024 = 4 heads
   of 256; ``Model.fit`` through ``ScaledDotProductAttention(8, 256)`` in
   float32 and bf16 against the plain route, and through
-  ``ScaledDotProductAttention(8, 320)`` in bf16 (the chunked form).
+  ``ScaledDotProductAttention(8, 320)`` in bf16 (K2a tc-wide, K2b and K2c
+  chunked).
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -503,15 +507,15 @@ S2S_D128 = dict(S2S, layers=2, heads=8, head_dim=128, ff=4096)
 # phase 43, K2 at head dims above 128 and in float16. The wgmma-tma kernels
 # at D 256 in bf16 and float16 against their plain versions within phase
 # 6's gates at K2_D256_SHAPES and at K2_D256 (B 4 x 8 heads, T 1024: the
-# attention of Gemma-2B's width); the tc-f32 kernels and the wmma-smem
-# kernels' chunked form at K2_WIDE_SHAPES (float32 D 64, 128, 256, 320, 512
-# and 576, bf16 D 320 and 512, float16 D 512; bf16 D 320 also at SDPA_D320's
-# attention, BH 32 x T 1024, the shape its fit gives the chunked kernels)
-# and flash_attention at head dims padded inside (K2_WIDE_PADDED), every
-# launch checked for its design; K2
-# timed at K2_D256 in bf16 and float16 in turns with SDPA's flash calls,
-# and in float32 (D 256, and D 64 and 128 at the same operations, all on
-# tc-f32) and at bf16 D 512
+# attention of Gemma-2B's width); the tc-f32 kernels, K2a's tc-wide kernel
+# and the wmma-smem kernels' chunked K2b and K2c at K2_WIDE_SHAPES (float32
+# D 64, 128, 256, 320, 512 and 576, bf16 D 320 and 512, float16 D 512; bf16
+# D 320 also at SDPA_D320's attention, BH 32 x T 1024, the shape its fit
+# gives the kernels) and flash_attention at head dims padded inside
+# (K2_WIDE_PADDED), every launch checked for its design; K2 timed at
+# K2_D256 in bf16 and float16 in turns with SDPA's flash calls, and in
+# float32 (D 256, and D 64 and 128 at the same operations, all on tc-f32;
+# D 576: K2a tc-wide) and at bf16 D 320 and 512 (K2a tc-wide)
 # (K2_WIDE_TIMED) beside the memory-efficient calls
 K2_D256_SHAPES = [(6, 100, 100, 256, True), (4, 72, 136, 256, False),
                   (2, 257, 257, 256, True)]
@@ -534,7 +538,9 @@ K2_WIDE_PADDED = [(torch.bfloat16, (2, 100, 4, 160, True)),
 K2_WIDE_TIMED = [(torch.float32, K2_D256), (torch.bfloat16,
                                             (32, 1024, 1024, 512, True)),
                  (torch.float32, (128, 1024, 1024, 64, True)),
-                 (torch.float32, K2_D128)]
+                 (torch.float32, K2_D128),
+                 (torch.bfloat16, (32, 1024, 1024, 320, True)),
+                 (torch.float32, (32, 1024, 1024, 576, True))]
 # the LM at Gemma-2B's widths: d 2048 = 8 heads of 256, ff 16384, vocab
 # 256,000, 2 of its 18 layers (depth cut to the script's time), B 4 x T
 # 1024. One step from the same parameters and batch with the kernels and
@@ -1789,9 +1795,10 @@ def s2s_name(cfg):
 
 def k2_padded_compare(k2, shape, dtype, dev, rng):
     """flash_attention at a head dim the kernels are not built for (zero-
-    padded inside, the "wmma-smem" design at D 32) against the plain
-    versions on the same padded operands: o from the forward, dq, dk and dv
-    from autograd's backward, with the K2 gates."""
+    padded inside: at D 1-32 to 32 for the 16-bit "wmma-smem" kernels and
+    to 64 for float32's tc-f32 ones) against the plain versions on the same
+    padded operands: o from the forward, dq, dk and dv from autograd's
+    backward, with the K2 gates."""
     b, t, h, d, causal = shape
     q, k, v, do = (torch.from_numpy(rng.standard_normal((b, t, h, d),
                                                         np.float32))
@@ -1844,9 +1851,10 @@ def k2_slice_shapes(k2, roofline, dev, card):
             errs, rels = k2_padded_compare(k2, shape, dtype, dev, rng)
             for key in errs:
                 worst[key] = max(worst.get(key, 0.0), errs[key])
+            pad = k2.padded_dim(shape[3], dtype)
             log(14, f"flash_attention at (B, T, H, D, causal) {shape} "
-                    f"{dtype}, D padded to {k2.padded_dim(shape[3])} "
-                    f"(wmma-smem): max abs error "
+                    f"{dtype}, D padded to {pad} "
+                    f"({k2._design('fwd', dtype, pad)}): max abs error "
                     f"{ {k: f'{e:.3g}' for k, e in errs.items()} }; worst "
                     f"64-row tile error / tile norm "
                     f"{ {k: f'{e:.3g}' for k, e in rels.items()} }")
@@ -2186,10 +2194,11 @@ def wmt_gate(batch, spad, tpad, dev):
 
 def imdb_path(dev, card):
     """Phase 18: bin/imdb.py's demo on the card at its CLI defaults (2
-    layers, d 128, 4 heads of 32, T 64, B 32; every step masked, so plain
-    SDPA), then one unmasked encoder_classifier_forward of the trained
-    model through K2 (non-causal, D 32: wmma-smem) against plain
-    attention."""
+    layers, d 128, 4 heads of 32, T 64, B 32, bf16; every step masked, so
+    plain SDPA), then one unmasked encoder_classifier_forward of the
+    trained model through K2 (non-causal, D 32) against plain attention:
+    in the demo's bf16 (wmma-smem) and in float32 (tc-f32, the heads
+    zero-padded to 64)."""
     from ccv_tpu_torch.bin import bin_imdb_shared, imdb, lm_bench
     from ccv_tpu_torch.models import transformer as tfm
     from ccv_tpu_torch.ops.kernels import flash_attention as k2
@@ -2200,24 +2209,39 @@ def imdb_path(dev, card):
     xs, _, _, _ = bin_imdb_shared.load_corpus(args)
     ids = torch.from_numpy(xs[:args.batch].astype(np.int64)).to(dev)
     cfg, params = res["cfg"], res["params"]
-    with torch.no_grad():
-        k2.reset_launches()
-        got = tfm.encoder_classifier_forward(params, cfg, ids)
-        with lm_bench.plain_attention():
-            want = tfm.encoder_classifier_forward(params, cfg, ids)
-    check(k2.LAUNCHES == {"fwd": cfg.layers, "dq": 0, "dkv": 0},
-          f"unmasked classifier forward launched K2 {k2.LAUNCHES}")
-    got, want = got.float(), want.float()
-    rel = float((got - want).abs().max() / want.abs().max())
-    check(bool(torch.isfinite(got).all()) and rel <= CLS_BF16,
-          f"classifier through K2 - plain {rel:.3g} of the largest logit")
+    rels, designs = {}, {}
+    for dtype, limit in ((torch.bfloat16, CLS_BF16),
+                         (torch.float32, CLS_F32)):
+        run_cfg = dataclasses.replace(cfg, dtype=dtype)
+        with torch.no_grad():
+            k2.reset_launches()
+            got = tfm.encoder_classifier_forward(params, run_cfg, ids)
+            name = str(dtype).split(".")[1]
+            designs[name] = {d: n for d, n in k2.DESIGN_LAUNCHES["fwd"].items()
+                             if n}
+            check(k2.LAUNCHES == {"fwd": cfg.layers, "dq": 0, "dkv": 0}
+                  and designs[name] == {k2._design(
+                      "fwd", dtype, k2.padded_dim(cfg.head_dim, dtype)):
+                      cfg.layers},
+                  f"unmasked {name} classifier forward launched K2 "
+                  f"{k2.LAUNCHES}, by design {designs[name]}")
+            with lm_bench.plain_attention():
+                want = tfm.encoder_classifier_forward(params, run_cfg, ids)
+        got, want = got.float(), want.float()
+        rels[name] = float((got - want).abs().max() / want.abs().max())
+        check(bool(torch.isfinite(got).all()) and rels[name] <= limit,
+              f"{name} classifier through K2 - plain {rels[name]:.3g} of "
+              f"the largest logit (limit {limit})")
     log(18, f"imdb demo on the card (2 layers, d 128, 4 heads, T 64, B 32, "
             f"bf16, dropout 0.1): {res['iters']} steps, "
             f"{res['ms_per_iter']:.2f} ms a step (host clock, first step "
             f"included), final loss {res['loss']:.4f}, accuracy "
             f"{res['acc']:.3f}; unmasked forward through K2 ({cfg.layers} "
-            f"launches) against plain attention: {rel:.3g} of the largest "
-            f"logit (limit {CLS_BF16}); {card}")
+            f"launches each, D {cfg.head_dim}: bf16 {designs['bfloat16']}, "
+            f"float32 {designs['float32']}) against plain attention: bf16 "
+            f"{rels['bfloat16']:.3g} of the largest logit (limit "
+            f"{CLS_BF16}), float32 {rels['float32']:.3g} (limit "
+            f"{CLS_F32}); {card}")
     return res
 
 
@@ -5581,9 +5605,9 @@ def fmt_errs(d):
 
 def k2_d256_path(k2, roofline, dev, card):
     """Phase 43, the kernels: K2 at head dim 256 in bf16 and float16
-    (wgmma-tma), the tc-f32 kernels and the chunked wmma-smem form against
-    their plain versions, then timed. Returns {"bfloat16" / "float16":
-    dict(err={kernel: worst max abs error}, timed=...), "wide": dict(
+    (wgmma-tma), the tc-f32 kernels, K2a's tc-wide kernel and the chunked
+    wmma-smem K2b and K2c against their plain versions, then timed.
+    Returns {"bfloat16" / "float16": dict(err={kernel: worst max abs error}, timed=...), "wide": dict(
     err={design: {kernel: worst max abs error}}, timed=[(dtype, shape,
     timing)])}."""
     rng = np.random.default_rng(43)
@@ -5614,7 +5638,8 @@ def k2_d256_path(k2, roofline, dev, card):
                 design = k2._design(key, dtype, k2.padded_dim(shape[3]))
                 merge_worst(w.setdefault(design, {}), {key: errs[key]})
                 merge_worst(wr.setdefault(design, {}), {key: rels[key]})
-    log(43, f"K2's tc-f32 kernels and chunked wmma-smem form vs plain at "
+    log(43, f"K2's tc-f32 kernels, tc-wide K2a and chunked wmma-smem K2b "
+            f"and K2c vs plain at "
             f"(dtype, (BH, Tq, Tk, D, causal)) "
             f"{[(str(d).split('.')[1], s) for d, s in K2_WIDE_SHAPES]}, and "
             f"flash_attention padded inside at (dtype, (B, T, H, D, causal)) "
@@ -5878,12 +5903,13 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
     """The ``kernels`` line's entries of phase 43: K2a/b/c at head dim 256
     on wgmma-tma in bf16 (launches of the Gemma-width LM run; times at
     K2_D256) with float16's times beside; K2a/b/c on tc-f32 (float32 D
-    64-512) and in the chunked wmma-smem form (launches of the
+    64-512, K2a to 256), K2a on tc-wide (above D 256) and K2b/c in the
+    chunked wmma-smem form (launches of the
     float32 Gemma-width kernel step, of the bf16 fit at heads of 320 and,
     for tc-f32, of phase 31's float32 fit at heads of 64, ``fit_f32``, by
     kernel and design; times at K2_WIDE_TIMED, where each form runs: the
     first timed shape's numbers plain, the next ones' with a suffix _2,
-    _3)."""
+    _3). Checks that each entry's kernel ran on those paths."""
     out = []
     for key, (name, line, src, design) in sources.items():
         r = k2_wide["bfloat16"]["timed"][key]
@@ -5903,13 +5929,18 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
             "f16_library_ms": r16["library_ms"],
             "launches_fit_bf16": fit_d256["bfloat16"][key]["wgmma-tma"],
             **({"launches_decode": decode_d256} if key == "fwd" else {})})
+    ranges = {"tc-f32": "float32, head dims 32 (as 64) to 512, K2a to 256",
+              "tc-wide": "K2a above head dim 256, every type"}
     for design, suffix, src in (("tc-f32", "tc_f32", "flash_attention_tf32.cu"),
+                                ("tc-wide", "tc_wide",
+                                 "flash_attention_tf32.cu"),
                                 ("wmma-smem", "wide", "flash_attention.cu")):
         for key, (name, line, _src, _design) in sources.items():
             timed = [(dt, shape, t[key])
                      for dt, shape, t in k2_wide["wide"]["timed"]
                      if k2._design(key, dt, shape[3]) == design
-                     and (design == "tc-f32" or k2._wide(key, dt, shape[3]))]
+                     and (design != "wmma-smem"
+                          or k2._wide(key, dt, shape[3]))]
             if not timed:
                 continue
             main = {part: runs.get(key, {}).get(design, 0)
@@ -5928,8 +5959,7 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
                 "launches_fit_f32_d64": main["fit_d64"],
                 "max_abs_err": k2_wide["wide"]["err"][design][key],
                 "design": design,
-                **({"range": "float32, head dims 64-512"}
-                   if design == "tc-f32" else {})}
+                **({"range": ranges[design]} if design in ranges else {})}
             for i, (dt, shape, r) in enumerate(timed, 1):
                 tag = "" if i == 1 else f"_{i}"
                 entry.update({
@@ -5941,6 +5971,9 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
                     f"shape{tag}": list(shape),
                     f"dtype{tag}": str(dt).split(".")[1]})
             out.append(entry)
+    for entry in out:
+        check(entry["launches"] > 0, f"{entry['name']} ({entry['design']}) "
+                                     f"was launched no time on its paths")
     return out
 
 

@@ -137,27 +137,34 @@ def test_float16_forward_matches_ccv_tpu(d, pallas):
 
 def test_design_choice():
     """bf16 and float16 at head dim 64, 128 or 256 take the wgmma-tma
-    kernels; all three in float32 at D 64 to 512 the tc-f32 ones; the rest
-    the wmma-smem ones (D 32), which walk D in 64-column chunks (``_wide``)
-    above 128: all three in float32 above 512 and in 16-bit above 256."""
+    kernels; all three in float32 at D 32 (as D 64) to 256 the tc-f32 ones,
+    and K2b and K2c up to 512; K2a above D 256 in every type the tc-wide
+    one; the rest the wmma-smem ones (16-bit D 32), which walk D in
+    64-column chunks (``_wide``) above 128: K2b and K2c in float32 above 512
+    and in 16-bit above 256."""
     for kernel in ("fwd", "dq", "dkv"):
+        above = "tc-wide" if kernel == "fwd" else "wmma-smem"
         for dtype in (torch.bfloat16, torch.float16):
             for d in (64, 128, 256):
                 assert tfa._design(kernel, dtype, d) == "wgmma-tma"
-            for d in (32, 320, 512, 1024):
-                assert tfa._design(kernel, dtype, d) == "wmma-smem"
-        for d in (32, 576, 1024):
-            assert tfa._design(kernel, torch.float32, d) == "wmma-smem"
-        for d in (64, 128, 192, 256, 320, 384, 448, 512):
+            assert tfa._design(kernel, dtype, 32) == "wmma-smem"
+            for d in (320, 512, 1024):
+                assert tfa._design(kernel, dtype, d) == above
+        for d in (576, 1024):
+            assert tfa._design(kernel, torch.float32, d) == above
+        for d in (32, 64, 128, 192, 256):
             assert tfa._design(kernel, torch.float32, d) == "tc-f32"
+        for d in (320, 384, 448, 512):
+            assert tfa._design(kernel, torch.float32, d) == (
+                "tc-wide" if kernel == "fwd" else "tc-f32")
             assert tfa._design(kernel, torch.float32, d) in tfa.DESIGNS
     wide = {(kernel, dtype, d) for kernel in ("fwd", "dq", "dkv")
             for dtype in (torch.float32, torch.bfloat16, torch.float16)
             for d in (32, 64, 128, 256, 320, 512, 576)
             if tfa._wide(kernel, dtype, d)}
     assert wide == (
-        {(kernel, torch.float32, 576) for kernel in ("fwd", "dq", "dkv")}
-        | {(kernel, dtype, d) for kernel in ("fwd", "dq", "dkv")
+        {(kernel, torch.float32, 576) for kernel in ("dq", "dkv")}
+        | {(kernel, dtype, d) for kernel in ("dq", "dkv")
            for dtype in (torch.bfloat16, torch.float16)
            for d in (320, 512, 576)})
 
@@ -191,9 +198,10 @@ def test_roofline_kind_and_tf32x3_bound_at_d256():
     for d in (64, 128, 512):
         for kernel in ("dq", "dkv"):
             assert tfa.roofline_kind(kernel, torch.float32, d) == "tf32x3"
-    for kernel in ("fwd", "dq", "dkv"):
-        assert tfa.roofline_kind(kernel, torch.float32, 32) == "f32"
-        assert tfa.roofline_kind(kernel, torch.float32, 576) == "f32"
+    for kernel in ("fwd", "dq", "dkv"):  # D 32 runs on tc-f32 at D 64
+        assert tfa.roofline_kind(kernel, torch.float32, 32) == "tf32x3"
+        assert tfa.roofline_kind(kernel, torch.float32, 576) == (
+            "tf32x3" if kernel == "fwd" else "f32")  # K2a on tc-wide
     flop, nbytes = tfa.flash_work("dq", 32, 1024, 1024, 512, True,
                                   torch.float32)
     ms, by = roofline.bound_ms(flop, nbytes, "tf32x3")
@@ -308,6 +316,66 @@ def test_padded_dim_at_every_d():
         tfa.flash_attention(*(torch.zeros(1, 16, 2, 0),) * 3)
 
 
+# (dtype, D, padded_dim(D, dtype), K2a's design, K2b's and K2c's) at the
+# dim the (BH, T, D) wrappers are given, padded_dim(D)
+TYPED_DIMS = ((torch.bfloat16, 320, 320, "tc-wide", "wmma-smem"),
+              (torch.bfloat16, 512, 512, "tc-wide", "wmma-smem"),
+              (torch.float16, 320, 320, "tc-wide", "wmma-smem"),
+              (torch.float16, 512, 512, "tc-wide", "wmma-smem"),
+              (torch.float32, 576, 576, "tc-wide", "wmma-smem"),
+              (torch.float32, 512, 512, "tc-wide", "tc-f32"),
+              (torch.float32, 16, 64, "tc-f32", "tc-f32"),
+              (torch.float32, 32, 64, "tc-f32", "tc-f32"),
+              (torch.bfloat16, 32, 32, "wmma-smem", "wmma-smem"))
+
+
+@pytest.mark.parametrize("dtype,d,pad,fwd,bwd", TYPED_DIMS,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_padded_dim_and_design_by_type(dtype, d, pad, fwd, bwd):
+    """``padded_dim(D, dtype)`` is the dim the card's kernels run: float32
+    D 1-32 at 64 (tc-f32's smallest), every other dim as ``padded_dim(D)``;
+    K2a above D 256 in every type is tc-wide, K2b and K2c there the chunked
+    wmma-smem form in 16-bit and above 512 in float32, tc-f32 below."""
+    assert tfa.padded_dim(d, dtype) == pad
+    assert tfa.padded_dim(d) == (32 if d <= 32 else d)
+    assert tfa._design("fwd", dtype, tfa.padded_dim(d)) == fwd
+    for kernel in ("dq", "dkv"):
+        assert tfa._design(kernel, dtype, tfa.padded_dim(d)) == bwd
+
+
+@pytest.mark.parametrize("route", ["cpu", "card"])
+@pytest.mark.parametrize("d", [16, 32])
+def test_float32_small_head_dims_match_pallas(d, route, pallas):
+    """Float32 D 16 and 32, forward and gradients, against ccv_tpu's Pallas
+    kernels, T 72, causal: "cpu" through ``flash_attention`` as the CPU
+    runs it (the plain versions at D 32); "card" by the card's route on
+    the CPU: the D 64 plain versions on q, k, v and do zero-padded to
+    ``padded_dim(D, torch.float32)``, D's scale, the padded columns cut."""
+    rng = np.random.default_rng(d)
+    q, k, v, g = (_rand(rng, 1, 72, 2, d) for _ in range(4))
+    want_o, want = pallas(q, k, v, g, True)
+    if route == "cpu":
+        o, got = _port(q, k, v, g, True)
+        o = o.detach().numpy()
+    else:
+        pad = tfa.padded_dim(d, torch.float32)
+        assert pad == 64
+        qp, kp, vp, gp = (tfa._to_bthd(torch.from_numpy(x), pad)
+                          for x in (q, k, v, g))
+        scale = 1.0 / np.sqrt(d)
+        o0, lse = tfa.flash_fwd_ref(qp, kp, vp, scale, True)
+        delta = (gp * o0).sum(-1)
+        bwd = (qp, kp, vp, gp, lse, delta, scale, True)
+        grads = (tfa.flash_dq_ref(*bwd), *tfa.flash_dkv_ref(*bwd))
+        o = tfa._from_bthd(o0, 1, d).numpy()
+        got = [tfa._from_bthd(x, 1, d).numpy() for x in grads]
+    assert o.shape == (1, 72, 2, d)
+    np.testing.assert_allclose(o, want_o, **F32_TOL)
+    for a, b in zip(got, want):
+        assert a.shape == (1, 72, 2, d)
+        np.testing.assert_allclose(a, b, **F32_TOL)
+
+
 def test_wrappers_take_the_padded_dims_only():
     """The (BH, T, D) wrappers refuse a head dim padded_dim does not
     return, and take the wide ones in every type."""
@@ -328,13 +396,16 @@ def test_wrappers_take_the_padded_dims_only():
 def test_scratch_of_the_chunked_form():
     """The chunked wmma-smem form's float32 accumulators: (n, BH, T rounded
     up to 64, D); none for the forms that keep them on chip, the tc-f32
-    kernels among them."""
+    kernels and K2a's tc-wide one among them."""
     x = torch.zeros(3, 100, 320, dtype=torch.bfloat16)
     s = tfa._scratch("dkv", x, 2)
     assert s.shape == (2, 3, 128, 320) and s.dtype == torch.float32
-    for kernel in ("fwd", "dq"):
-        assert tfa._scratch(kernel, torch.zeros(3, 100, 576), 1).shape == (
-            1, 3, 128, 576)
+    assert tfa._scratch("dq", torch.zeros(3, 100, 576), 1).shape == (
+        1, 3, 128, 576)
+    for dtype, d in ((torch.float32, 576), (torch.bfloat16, 320),
+                     (torch.float16, 512)):
+        assert tfa._scratch("fwd", torch.zeros(3, 100, d, dtype=dtype),
+                            1) is None
     for kernel in ("fwd", "dq", "dkv"):
         for dtype, d in ((torch.bfloat16, 256), (torch.float16, 256),
                          (torch.float32, 128), (torch.bfloat16, 32)):
@@ -425,6 +496,22 @@ def test_k2_trial_reads_untemplated_kernels():
         "fwd_sm90_kernel"]
 
 
+@pytest.mark.parametrize("arg,dtype", [("f", "float32"),
+                                       ("13__nv_bfloat16", "bfloat16"),
+                                       ("6__half", "float16")])
+def test_k2_trial_reads_the_tc_wide_kernel(arg, dtype):
+    """K2a's tc-wide kernel is a template on the element type and the
+    columns of o a block keeps: ``--ptxas`` reads both."""
+    text = PTXAS.replace(
+        "_ZN51_GLOBAL__N__604052e1_18_flash_attention_cu_2c1389799dq_kernelIf"
+        "Li64EEEvPKT_S3_S3_S3_PKfS5_PS1_iifi",
+        "_ZN56_GLOBAL__N__0a1b2c3d_23_flash_attention_tf32_cu_4e5f607118"
+        f"fwd_wide_tc_kernelI{arg}Li512EEEvPKT_S3_S3_PS1_Pfiiiifiii")
+    assert k2_trial.parse_ptxas(text)[1] == dict(
+        kernel="fwd_wide_tc_kernel", type=dtype, head_dim=512, registers=48,
+        spill_stores=8, spill_loads=12)
+
+
 # -- on the card -------------------------------------------------------------
 
 GATES = {torch.float32: None, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -469,8 +556,9 @@ def test_cuda_wide_kernels_match_plain(dtype, d):
 
 
 # chip_smoke.py's K2_WIDE_SHAPES in float32, D 320 and 384 (K2b's dq in
-# five and six chunks, two k stages; K2a's and K2c's two output slices), a
-# float32 D above 512 (the chunked form keeps it), and D 64 and 128 (two
+# five and six chunks, two k stages; K2c's two output slices; K2a on
+# tc-wide, q resident), a float32 D above 512 (K2b and K2c chunked, K2a
+# tc-wide in two slices of o), and D 64 and 128 (two
 # blocks a SM; K2b's q and do and K2c's k and v resident) at ragged T,
 # causal and not
 TC_F32_SHAPES = ((3, 100, 100, 256, True), (2, 72, 136, 256, False),
@@ -489,7 +577,8 @@ def test_cuda_tc_f32_kernels_match_plain(shape):
     """K2a, K2b and K2c in float32 on the card against their plain
     versions: within 1e-4 + 1e-4 of the largest magnitude, each 64-row tile
     within 1e-2 of its norm (chip_smoke.py's K2_F32 and K2_TILE_REL), each
-    launch of the design ``_design`` names (tc-f32 from D 64 to 512)."""
+    launch of the design ``_design`` names (tc-f32 from D 64 to 512, K2a
+    tc-wide above 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     bh, tq, tk, d, causal = shape
@@ -508,7 +597,8 @@ def test_cuda_tc_f32_kernels_match_plain(shape):
     torch.cuda.synchronize()
     for n in ("fwd", "dq", "dkv"):
         design = tfa._design(n, torch.float32, d)
-        assert design == ("tc-f32" if d <= 512 else "wmma-smem")
+        assert design == ("tc-wide" if n == "fwd" and d > 256 else
+                          "tc-f32" if d <= 512 else "wmma-smem")
         assert tfa.DESIGN_LAUNCHES[n][design] == before[n][design] + 1
     for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got,
                           (o0, lse0, dq0, dk0, dv0)):
@@ -522,3 +612,55 @@ def test_cuda_tc_f32_kernels_match_plain(shape):
             rel = (diff.reshape(bh, -1, 64 * d).norm(dim=-1)
                    / ref.reshape(bh, -1, 64 * d).norm(dim=-1).clamp_min(1e-30))
             assert float(rel.max()) <= 1e-2, (name, float(rel.max()))
+
+
+# chip_smoke.py's K2_WIDE_SHAPES that K2a's tc-wide design serves: 16-bit
+# above D 256 (a ragged and a cross-length tile, D 320 and 512, q resident,
+# and phase 43's bf16 fit shape), float32 above 256 (D 320, q resident; D
+# 512, q streamed; D 576 in two slices of o, 320 and 256 columns) and a
+# 16-bit D past q's room (1024, streamed, two slices)
+TC_WIDE_SHAPES = ((torch.bfloat16, (3, 100, 100, 320, True)),
+                  (torch.bfloat16, (2, 72, 136, 320, False)),
+                  (torch.bfloat16, (3, 100, 100, 512, True)),
+                  (torch.float16, (2, 257, 257, 512, False)),
+                  (torch.float32, (2, 130, 130, 320, True)),
+                  (torch.float32, (2, 72, 136, 512, True)),
+                  (torch.float32, (1, 100, 100, 576, True)),
+                  (torch.float16, (1, 130, 130, 1024, True)),
+                  (torch.bfloat16, (32, 1024, 1024, 320, True)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", TC_WIDE_SHAPES,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_cuda_tc_wide_fwd_matches_plain(dtype, shape):
+    """K2a's tc-wide kernel on the card against ``flash_fwd_ref``, one
+    launch of that design each, within chip_smoke.py phase 6's gates: o
+    within 1e-4 + 1e-4 of the largest magnitude in float32 and 2e-2 of it
+    in 16-bit, each 64-row tile within 1e-2 of its norm; lse (float32)
+    within 1e-4 + 1e-4 of its largest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bh, tq, tk, d, causal = shape
+    rng = np.random.default_rng(d + tq)
+    q, k, v = (torch.from_numpy(_rand(rng, bh, t, d)).to("cuda", dtype)
+               for t in (tq, tk, tk))
+    scale = 1.0 / np.sqrt(d)
+    o0, lse0 = tfa.flash_fwd_ref(q, k, v, scale, causal)
+    assert tfa._design("fwd", dtype, d) == "tc-wide"
+    before = tfa.DESIGN_LAUNCHES["fwd"]["tc-wide"]
+    o, lse = tfa.flash_fwd(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert tfa.DESIGN_LAUNCHES["fwd"]["tc-wide"] == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    for name, a, b in (("o", o, o0), ("lse", lse, lse0)):
+        err = float((a.float() - b.float()).abs().max())
+        top = float(b.float().abs().max())
+        bound = (1e-4 + 1e-4 * top if b.dtype == torch.float32
+                 else HALF_REL * top)
+        assert bool(torch.isfinite(a).all()) and err <= bound, (name, err)
+    diff = torch.nn.functional.pad((o - o0).float(), (0, 0, 0, (-tq) % 64))
+    ref = torch.nn.functional.pad(o0.float(), (0, 0, 0, (-tq) % 64))
+    rel = (diff.reshape(bh, -1, 64 * d).norm(dim=-1)
+           / ref.reshape(bh, -1, 64 * d).norm(dim=-1).clamp_min(1e-30))
+    assert float(rel.max()) <= 1e-2, float(rel.max())
