@@ -8,14 +8,16 @@ launches; 5 at the wide shapes) at the LMs' bf16 causal shapes, BH 128 x T
 1024 at head dim 64, BH 64 at 128 and BH 32 at 256, and at the wide
 shapes, all causal at T 1024: float32 at D 64 (BH 128), 128 (BH 64), 256,
 320, 512 and 576 (BH 32), bf16 at D 320 and 512 and float16 at D 512 (BH
-32); and float32 at D 32 (BH 256, the same operations), once through the
+32), bf16 at D 32 (BH 256, the wmma-smem kernels of phase 18's demo); and
+float32 at D 32 (BH 256, the same operations), once through the
 wrappers as they run it and once on the same tensors zero-padded to D 64
 by the caller; prints one JSON line with the card's name and power
 limit. ``--library`` adds, at the wide shapes, the plain
 versions' times, each kernel's bound (``roofline``, of the kind its
 design runs) and the PyTorch calls that compute the same functions
 (yardsticks only: SDPA's memory-efficient forward, and its backward op,
-which gives dq, dk and dv in one call). ``--lm`` times float32 training
+which gives dq, dk and dv in one call; at bf16 D 32 SDPA's flash forward
+and backward, which take it). ``--lm`` times float32 training
 steps (host clock, the mean of 3 steps after a warm-up) with their K2
 launches: the LM at Gemma-2B's widths (``LM_F32``: 2 layers, d 2048 = 8
 heads of 256, ff 16384, vocab 256,000, B 4 x T 1024, remat "dots") and at
@@ -56,7 +58,8 @@ WIDE_SHAPES = ((torch.float32, (128, 1024, 1024, 64, True)),
                (torch.float32, (32, 1024, 1024, 576, True)),
                (torch.bfloat16, (32, 1024, 1024, 320, True)),
                (torch.bfloat16, (32, 1024, 1024, 512, True)),
-               (torch.float16, (32, 1024, 1024, 512, True)))
+               (torch.float16, (32, 1024, 1024, 512, True)),
+               (torch.bfloat16, (256, 1024, 1024, 32, True)))
 D32_SHAPE = (256, 1024, 1024, 32, True)  # float32, timed also padded to 64
 HEADS = 16  # BH = B x 16 heads for the library calls
 LM_F32 = dict(vocab_size=256000, layers=2, heads=8, head_dim=256, ff=16384,
@@ -137,7 +140,8 @@ def kernel_ms(shape, dtype=torch.bfloat16, reps=20, library=False,
               pad_to=None) -> dict:
     """{"fwd", "dq", "dkv": ms} at a causal (BH, Tq, Tk, D, causal) shape in
     ``dtype``; with ``library`` each is a dict of the kernel's ms, its
-    plain version's, its bound and the memory-efficient library call's.
+    plain version's, its bound and the library call's (SDPA's flash calls
+    in 16-bit up to D 256, else the memory-efficient ones).
     ``pad_to``: the kernels (and plain versions) run on q, k, v and do
     zero-padded along D to that head dim, with D's scale; the bound counts
     D's work at the padded dim's kind, the library call runs unpadded."""
@@ -160,8 +164,10 @@ def kernel_ms(shape, dtype=torch.bfloat16, reps=20, library=False,
            for name, fn in fns.items()}
     if not library:
         return out
+    backend = ("flash" if dtype != torch.float32 and d <= 256
+               else "efficient")
     lib_fwd, lib_bwd = library_calls(*lib_args, b=bh // HEADS,
-                                     backend="efficient")
+                                     backend=backend)
     plain = {"fwd": lambda: k2.flash_fwd_ref(q, k, v, scale, causal),
              "dq": lambda: k2.flash_dq_ref(*bwd),
              "dkv": lambda: k2.flash_dkv_ref(*bwd)}

@@ -162,16 +162,17 @@ def measure(layers=24, dim=1024, heads=16, ff=4096, batch=8, seq=1024,
 
 
 # the flash kernels by the names the profiler gives them: the "wgmma-tma"
-# kernels (bf16 and float16, D 64, 128 or 256), the "tc-f32" ones (float32,
-# D 32-512; K2b and K2c at D 64 and 128 are dq_res_kernel and
-# dkv_res_kernel), K2a's "tc-wide" one above those dims, and the
-# "wmma-smem" ones (16-bit D 32, and K2b's and K2c's wide kernels above)
+# kernels (bf16 and float16, D 64, 128 or 256), the "tc-f32" ones (float32;
+# K2b and K2c at D 64 and 128 are dq_res_kernel and dkv_res_kernel), the
+# "tc-wide" ones above D 256 (K2a's fwd_wide_tc_kernel; K2b and K2c in
+# 16-bit share dq_tc_kernel and dkv_tc_kernel with float32), and the
+# "wmma-smem" ones (16-bit D 32)
 FLASH_KERNELS = {"fwd": ("fwd_sm90_kernel", "fwd_tc_kernel", "::fwd_kernel<",
                          "fwd_wide_tc_kernel"),
                  "dq": ("dq_sm90_kernel", "dq_tc_kernel", "dq_res_kernel",
-                        "::dq_kernel<", "dq_wide_kernel"),
+                        "::dq_kernel<"),
                  "dkv": ("dkv_sm90_kernel", "dkv_tc_kernel", "dkv_res_kernel",
-                         "::dkv_kernel<", "dkv_wide_kernel")}
+                         "::dkv_kernel<")}
 
 
 def _profile(out_dir: str, step, steps: int = 3) -> Dict:

@@ -1,18 +1,17 @@
 // Flash attention for Hopper (sm_90a), the "wmma-smem" design: the forward
 // (K2a), dq backward (K2b) and dk/dv backward (K2c) at head dim 32 in bf16
-// and float16, and K2b and K2c above head dim 256 in bf16 and float16 and
-// above 512 in f32 (the chunked "wide" kernels). At bf16 and float16 and
-// head dim 64, 128 or 256 all three run the "wgmma-tma" design of
-// flash_attention_sm90.cu; in f32 up to head dim 512 (D 32 zero-padded to
-// 64) the "tc-f32" design of flash_attention_tf32.cu, which also holds K2a
-// above D 256 in every type ("tc-wide"). Port of the Pallas TPU kernels in
-// ccv_tpu/ops/pallas/flash_attention.py:
+// and float16, the one range the other designs leave to it. bf16 and
+// float16 at head dim 64, 128 or 256 run the "wgmma-tma" design of
+// flash_attention_sm90.cu; float32 at every head dim (D 32 zero-padded to
+// 64) and every type above D 256 the mma.sync designs of
+// flash_attention_tf32.cu ("tc-f32", "tc-wide"). Port of the Pallas TPU
+// kernels in ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (via _flash_bwd_bthd)
 //
-// What they compute, on (BH, T, D) row-major tensors (f32, bf16 or
-// float16; lse and delta are (BH, Tq) f32):
+// What they compute, on (BH, T, 32) row-major tensors (bf16 or float16;
+// lse and delta are (BH, Tq) f32):
 //   s = (q . k) * scale in f32; a key counts if k_pos < Tk and, when causal,
 //   k_pos <= q_pos + (Tk - Tq) (the mask is aligned bottom-right). Masked
 //   scores are -1e30, as in the Pallas kernel.
@@ -28,35 +27,24 @@
 // running state in VMEM scratch. Here the sequential axis is a loop inside
 // the block: K2a and K2b take one block per (bh, 64-query tile) and loop
 // over 64-key tiles, K2c one block per (bh, 64-key tile) and loops over
-// query tiles. Each block has 8 warps. At D 32 (the kernels templated on
-// D) the tiles of q, k, v and do sit in shared memory; the products run
-// tile by tile out of shared memory through the tensor cores with
-// nvcuda::wmma (16x16x16 fragments, f32 accumulators). The score tile and
-// the running accumulators (o, dq, dk, dv) stay in shared memory in f32, so
-// the softmax rescale and the masks are plain per-element code. Above that
-// (the "wide" K2b and K2c, D a runtime multiple of 64) no tile holds all of
-// D: the same loops stage q, k, v and do 64 columns at a time, the score
-// products sum over those chunks (f32 as plain FMA loops), and the f32
-// accumulators live in a global scratch the wrapper allocates, each
-// block owning its 64 rows and reading and writing them chunk by chunk. Their
-// shared memory (at most 130 KB, K2b in f32) does not grow with D, so the
-// design has no head-dim limit of its own; the accumulators' round trips
-// through the L2 cache are its price. The loops stop at the causal
-// diagonal: a k-tile counts
-// only if j*64 <= i*64 + 63 + (Tk - Tq). Ragged tails are masked in the
-// kernel; the tensors are not padded. The split of the backward into a dq
-// kernel and a dk/dv kernel needs no atomics, so the gradients are
-// deterministic.
+// query tiles. Each block has 8 warps. The tiles of q, k, v and do sit in
+// shared memory; the products run tile by tile out of shared memory through
+// the tensor cores with nvcuda::wmma (16x16x16 fragments, f32
+// accumulators). The score tile and the running accumulators (o, dq, dk,
+// dv) stay in shared memory in f32, so the softmax rescale and the masks
+// are plain per-element code. The loops stop at the causal diagonal: a
+// k-tile counts only if j*64 <= i*64 + 63 + (Tk - Tq). Ragged tails are
+// masked in the kernel; the tensors are not padded. The split of the
+// backward into a dq kernel and a dk/dv kernel needs no atomics, so the
+// gradients are deterministic.
 //
-// Bound on this card. The backward is bound by its operations (K2b at the
-// LM's shape, BH 128, T 1024, D 64, causal, would be 25.8 GFLOP on 84.9 MB:
-// 0.026 ms at 989 TFLOP/s bf16); f32 runs on the 67 TFLOP/s FMA units.
-// wmma's mma.sync path reaches a fraction of the card's
-// bf16 rate (wgmma is the only path to all of it), and every product here
+// Bound on this card. The backward is bound by its operations (K2b causal
+// at BH 256, T 1024, D 32 is 25.8 GFLOP on 50 MB: 0.026 ms at 989 TFLOP/s
+// bf16). wmma's mma.sync path reaches a fraction of the card's bf16 rate
+// (wgmma is the only path to all of it), and every product here
 // round-trips its f32 result through shared memory, so shared-memory
 // bandwidth and the block barriers between the phases bound the kernels
-// before the tensor cores do; flash_attention_sm90.cu is the redesign that
-// removes both, for all three kernels at 16-bit head dims 64, 128 and 256.
+// before the tensor cores do.
 //
 // A query row with no valid key (causal with Tq > Tk) is refused by the
 // wrapper: the Pallas kernel gives such rows the mean of v over the keys of
@@ -90,8 +78,6 @@ constexpr float kNegInf = -1e30f;      // NEG_INF of the Pallas kernel
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch and XLA
 }
@@ -113,48 +99,33 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // C[M][N] (f32, row stride ldc) = (ACC ? C : 0) + A (M x K) * B (K x N).
 // A(m, k) is A[m*lda + k] when A_ROW, else A[k*lda + m]; B(k, n) is
-// B[k*ldb + n] when B_ROW, else B[n*ldb + k]. A and B in shared memory, C
-// in shared or (the wide kernels' accumulators) global memory, 32-byte
-// aligned; the whole block calls it between barriers.
+// B[k*ldb + n] when B_ROW, else B[n*ldb + k]. A, B and C in shared memory,
+// 32-byte aligned; the whole block calls it between barriers.
 template <typename T, int M, int N, int K, bool A_ROW, bool B_ROW, bool ACC>
 __device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
                                         int ldb, float* C, int ldc) {
-  if constexpr (std::is_same<T, float>::value) {
-    for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
-      const int m = idx / N, n = idx % N;
-      float acc = ACC ? C[m * ldc + n] : 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < K; ++kk) {
-        const float a = A_ROW ? A[m * lda + kk] : A[kk * lda + m];
-        const float b = B_ROW ? B[kk * ldb + n] : B[n * ldb + kk];
-        acc = fmaf(a, b, acc);
-      }
-      C[m * ldc + n] = acc;
-    }
-  } else {
-    using ALayout = std::conditional_t<A_ROW, wmma::row_major, wmma::col_major>;
-    using BLayout = std::conditional_t<B_ROW, wmma::row_major, wmma::col_major>;
-    constexpr int kNf = N / 16;
-    const int warp = threadIdx.x / 32;
-    for (int f = warp; f < (M / 16) * kNf; f += kWarps) {
-      const int m0 = (f / kNf) * 16, n0 = (f % kNf) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (ACC)
-        wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.f);
+  using ALayout = std::conditional_t<A_ROW, wmma::row_major, wmma::col_major>;
+  using BLayout = std::conditional_t<B_ROW, wmma::row_major, wmma::col_major>;
+  constexpr int kNf = N / 16;
+  const int warp = threadIdx.x / 32;
+  for (int f = warp; f < (M / 16) * kNf; f += kWarps) {
+    const int m0 = (f / kNf) * 16, n0 = (f % kNf) * 16;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+    if (ACC)
+      wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
+    else
+      wmma::fill_fragment(c, 0.f);
 #pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> b;
-        wmma::load_matrix_sync(a, A_ROW ? A + m0 * lda + k0 : A + k0 * lda + m0,
-                               lda);
-        wmma::load_matrix_sync(b, B_ROW ? B + k0 * ldb + n0 : B + n0 * ldb + k0,
-                               ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> b;
+      wmma::load_matrix_sync(a, A_ROW ? A + m0 * lda + k0 : A + k0 * lda + m0,
+                             lda);
+      wmma::load_matrix_sync(b, B_ROW ? B + k0 * ldb + n0 : B + n0 * ldb + k0,
+                             ldb);
+      wmma::mma_sync(c, a, b, c);
     }
+    wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
   }
 }
 
@@ -461,218 +432,6 @@ __global__ void __launch_bounds__(kThreads)
   store_tile<T, D>(dv + (size_t)bh * tk * D, dv_acc, k0, tk);
 }
 
-// ---- the wide kernels: D a runtime multiple of kChunk, f32 accumulators
-// in global scratch -----------------------------------------------------
-
-constexpr int kChunk = 64;            // columns of D staged at a time
-constexpr int kLdC = kChunk + kPad;   // row stride of a staged chunk
-
-// Rows row0 .. row0+63 and columns col0 .. col0+63 of a row-major (rows, d)
-// tensor into a shared chunk of row stride kLdC; rows past `rows` are zero.
-template <typename T>
-__device__ __forceinline__ void load_chunk(T* dst, const T* src, int row0,
-                                           int rows, int d, int col0) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecs = kChunk / kVec;
-  for (int c = threadIdx.x; c < kTile * kVecs; c += kThreads) {
-    const int r = c / kVecs, e = (c % kVecs) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d +
-                                            col0 + e);
-    *reinterpret_cast<uint4*>(dst + r * kLdC + e) = val;
-  }
-}
-
-// s (f32, 64 x 64, row stride kLdS) = a_tile b_tile^T over all of D: rows
-// a_row0.. of a and b_row0.. of b staged chunk by chunk through as and bs.
-// Starts and ends at a barrier-free point: the caller syncs after it.
-template <typename T>
-__device__ __forceinline__ void scores_wide(float* s, T* as, T* bs,
-                                            const T* a, int a_row0,
-                                            int a_rows, const T* b,
-                                            int b_row0, int b_rows, int d) {
-  for (int c = 0; c < d / kChunk; ++c) {
-    __syncthreads();  // the previous products are done with the chunks
-    load_chunk(as, a, a_row0, a_rows, d, c * kChunk);
-    load_chunk(bs, b, b_row0, b_rows, d, c * kChunk);
-    __syncthreads();
-    if (c == 0)
-      tile_mm<T, kTile, kTile, kChunk, true, false, false>(as, kLdC, bs, kLdC,
-                                                           s, kLdS);
-    else
-      tile_mm<T, kTile, kTile, kChunk, true, false, true>(as, kLdC, bs, kLdC,
-                                                          s, kLdS);
-  }
-}
-
-// A block's f32 accumulator rows (64 x d, row stride d) to rows row0.. of
-// a row-major (rows, d) tensor of type T, rows past `rows` dropped.
-template <typename T>
-__device__ __forceinline__ void store_wide(T* dst, const float* acc, int row0,
-                                           int rows, int d) {
-  for (int i = threadIdx.x; i < kTile * d; i += kThreads) {
-    const int r = i / d, e = i % d;
-    if (row0 + r < rows) dst[(size_t)(row0 + r) * d + e] = from_f32<T>(acc[i]);
-  }
-}
-
-template <typename T>
-constexpr size_t dq_wide_smem() {
-  return 4 * kTile * kLdC * sizeof(T)             // q, do, k, v chunks
-         + kTile * kLdS * sizeof(T)               // ds
-         + 2 * kTile * kLdS * sizeof(float)       // s, dp
-         + 2 * kTile * sizeof(float);             // lse, delta
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq,
-                   float* __restrict__ scratch, int tq, int tk, int d,
-                   float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + kTile * kLdC;
-  T* ks = dos + kTile * kLdC;
-  T* vs = ks + kTile * kLdC;
-  T* dss = vs + kTile * kLdC;
-  float* s = reinterpret_cast<float*>(dss + kTile * kLdS);
-  float* dp = s + kTile * kLdS;
-  float* lse_s = dp + kTile * kLdS;
-  float* dl_s = lse_s + kTile;
-
-  const int n_qt = (tq + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * kTile;
-  const int diag = tk - tq;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* dob = dout + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
-  float* acc = scratch + ((size_t)bh * n_qt * kTile + q0) * d;
-
-  load_rows_f32(lse_s, lse + (size_t)bh * tq, q0, tq);
-  load_rows_f32(dl_s, delta + (size_t)bh * tq, q0, tq);
-  zero(acc, kTile * d);
-  const int n_kt = k_tiles(q0, tk, diag, causal);
-  for (int j = 0; j < n_kt; ++j) {
-    const int k0 = j * kTile;
-    scores_wide(s, qs, ks, qb, q0, tq, kb, k0, tk, d);
-    scores_wide(dp, dos, vs, dob, q0, tq, vb, k0, tk, d);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-      const int r = i / kTile, c = i % kTile;
-      const int q_pos = q0 + r;
-      const float p = q_pos < tq && key_ok(q_pos, k0 + c, tk, diag, causal)
-                          ? expf(s[r * kLdS + c] * scale - lse_s[r])
-                          : 0.f;
-      dss[r * kLdS + c] = from_f32<T>(p * (dp[r * kLdS + c] - dl_s[r]) * scale);
-    }
-    for (int c = 0; c < d / kChunk; ++c) {
-      __syncthreads();  // ds written; the last chunk's product done
-      load_chunk(ks, kb, k0, tk, d, c * kChunk);
-      __syncthreads();
-      tile_mm<T, kTile, kChunk, kTile, true, true, true>(dss, kLdS, ks, kLdC,
-                                                         acc + c * kChunk, d);
-    }
-  }
-  __syncthreads();
-  store_wide(dq + (size_t)bh * tq * d, acc, q0, tq, d);
-}
-
-template <typename T>
-constexpr size_t dkv_wide_smem() {
-  return 4 * kTile * kLdC * sizeof(T)             // k, v, q, do chunks
-         + 2 * kTile * kLdS * sizeof(float)       // s, dp; then p, ds
-         + 2 * kTile * sizeof(float);             // lse, delta
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, float* __restrict__ scratch, int tq,
-                    int tk, int d, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kTile * kLdC;
-  T* qs = vs + kTile * kLdC;
-  T* dos = qs + kTile * kLdC;
-  float* s = reinterpret_cast<float*>(dos + kTile * kLdC);
-  float* dp = s + kTile * kLdS;
-  // p and ds, [query][key] in the input type, overwrite s and dp once read
-  T* pss = reinterpret_cast<T*>(s);
-  T* dss = reinterpret_cast<T*>(dp);
-  float* lse_s = dp + kTile * kLdS;
-  float* dl_s = lse_s + kTile;
-
-  const int n_kt = (tk + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_kt;
-  const int k0 = (int)(blockIdx.x % n_kt) * kTile;  // causal: long first
-  const int diag = tk - tq;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* dob = dout + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
-  // this block's 64 rows of the dk and the dv accumulators: (BH, Tk
-  // rounded up to tiles, d) each, one after the other
-  float* dk_acc = scratch + ((size_t)bh * n_kt * kTile + k0) * d;
-  float* dv_acc = dk_acc + (size_t)gridDim.x * kTile * d;
-
-  zero(dk_acc, kTile * d);
-  zero(dv_acc, kTile * d);
-  const int n_qt = (tq + kTile - 1) / kTile;
-  // causal: the first query tile that reaches key k0 holds q_pos = k0 - diag
-  const int i0 = causal ? max(0, k0 - diag) / kTile : 0;
-  for (int i = i0; i < n_qt; ++i) {
-    const int q0 = i * kTile;
-    __syncthreads();  // the last tile's p and ds are read
-    load_rows_f32(lse_s, lse + (size_t)bh * tq, q0, tq);
-    load_rows_f32(dl_s, delta + (size_t)bh * tq, q0, tq);
-    scores_wide(s, qs, ks, qb, q0, tq, kb, k0, tk, d);
-    scores_wide(dp, dos, vs, dob, q0, tq, vb, k0, tk, d);
-    __syncthreads();
-    float pr[kPerThread], dsr[kPerThread];
-#pragma unroll
-    for (int t = 0; t < kPerThread; ++t) {
-      const int idx = threadIdx.x + t * kThreads;
-      const int r = idx / kTile, c = idx % kTile;
-      const int q_pos = q0 + r;
-      pr[t] = q_pos < tq && key_ok(q_pos, k0 + c, tk, diag, causal)
-                  ? expf(s[r * kLdS + c] * scale - lse_s[r])
-                  : 0.f;
-      dsr[t] = pr[t] * (dp[r * kLdS + c] - dl_s[r]) * scale;
-    }
-    __syncthreads();  // every s and dp is read before p and ds overwrite them
-#pragma unroll
-    for (int t = 0; t < kPerThread; ++t) {
-      const int idx = threadIdx.x + t * kThreads;
-      const int r = idx / kTile, c = idx % kTile;
-      pss[r * kLdS + c] = from_f32<T>(pr[t]);
-      dss[r * kLdS + c] = from_f32<T>(dsr[t]);
-    }
-    for (int c = 0; c < d / kChunk; ++c) {
-      __syncthreads();  // p and ds written; the last chunk's products done
-      load_chunk(qs, qb, q0, tq, d, c * kChunk);
-      load_chunk(dos, dob, q0, tq, d, c * kChunk);
-      __syncthreads();
-      // dv[key][e] += sum_q p[q][key] do[q][e]; dk likewise from ds and q
-      tile_mm<T, kTile, kChunk, kTile, false, true, true>(
-          pss, kLdS, dos, kLdC, dv_acc + c * kChunk, d);
-      tile_mm<T, kTile, kChunk, kTile, false, true, true>(
-          dss, kLdS, qs, kLdC, dk_acc + c * kChunk, d);
-    }
-  }
-  __syncthreads();
-  store_wide(dk + (size_t)bh * tk * d, dk_acc, k0, tk, d);
-  store_wide(dv + (size_t)bh * tk * d, dv_acc, k0, tk, d);
-}
-
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -725,59 +484,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dq_wide(int d, const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, float* scratch, int bh, int tq, int tk,
-                   float scale, int causal, cudaStream_t stream) {
-  const size_t smem = dq_wide_smem<T>();
-  cudaError_t err = set_smem(dq_wide_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dq_wide_kernel<T><<<bh * n_tiles(tq), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), scratch, tq, tk, d, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dkv_wide(int d, const void* q, const void* k, const void* v,
-                    const void* dout, const float* lse, const float* delta,
-                    void* dk, void* dv, float* scratch, int bh, int tq,
-                    int tk, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = dkv_wide_smem<T>();
-  cudaError_t err = set_smem(dkv_wide_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dkv_wide_kernel<T><<<bh * n_tiles(tk), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), scratch, tq, tk, d, scale,
-      causal);
-  return (int)cudaGetLastError();
-}
-
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Whether the wide kernels
-// serve (dtype, head_dim): multiples of 64 above 512 in f32, above 256 in
-// the 16-bit types (flash_attention_tf32.cu and flash_attention_sm90.cu
-// serve those).
-inline bool wide_dim(int dtype, int head_dim) {
-  return head_dim % kChunk == 0 && head_dim > (dtype == 0 ? 512 : 256);
-}
-
-// Instantiates the wide launcher for dtype; a missing scratch is refused.
-#define WIDE_DISPATCH(dtype, scratch, LAUNCH, ...)                         \
-  do {                                                                    \
-    if ((scratch) == nullptr) return (int)cudaErrorInvalidValue;          \
-    if ((dtype) == 0) return LAUNCH<float>(__VA_ARGS__);                  \
-    if ((dtype) == 1) return LAUNCH<bf16>(__VA_ARGS__);                   \
-    if ((dtype) == 2) return LAUNCH<f16>(__VA_ARGS__);                    \
-    return (int)cudaErrorInvalidValue;                                    \
-  } while (0)
-
 // Instantiates the launcher for a 16-bit dtype at head dim 32 or returns
 // cudaErrorInvalidValue: 16-bit head dims 64 to 256 run in
-// flash_attention_sm90.cu, and float32 at every head dim up to 512 in
-// flash_attention_tf32.cu (D 32 zero-padded to 64 by the wrappers).
+// flash_attention_sm90.cu, float32 at every head dim (D 32 zero-padded to
+// 64 by the wrappers) and 16-bit above 256 in flash_attention_tf32.cu.
 #define FLASH_DISPATCH(dtype, head_dim, LAUNCH, ...)                      \
   do {                                                                    \
     if ((head_dim) != 32) return (int)cudaErrorInvalidValue;              \
@@ -803,40 +513,31 @@ extern "C" int flash_attention_fwd(int device, int dtype, int head_dim,
                  scale, causal, st);
 }
 
-// K2b. dout (bh, tq, D), lse and delta (bh, tq) -> dq (bh, tq, D).
-// scratch: (bh, tq rounded up to 64, D) f32 for the wide kernels, else
-// unused.
+// K2b at 16-bit head dim 32. dout (bh, tq, D), lse and delta (bh, tq) ->
+// dq (bh, tq, D).
 extern "C" int flash_attention_dq(int device, int dtype, int head_dim,
                                   const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,
-                                  const float* delta, void* dq,
-                                  float* scratch, int bh, int tq, int tk,
-                                  float scale, int causal, void* stream) {
+                                  const float* delta, void* dq, int bh,
+                                  int tq, int tk, float scale, int causal,
+                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wide_dim(dtype, head_dim))
-    WIDE_DISPATCH(dtype, scratch, launch_dq_wide, head_dim, q, k, v, dout,
-                  lse, delta, dq, scratch, bh, tq, tk, scale, causal, st);
   FLASH_DISPATCH(dtype, head_dim, launch_dq, q, k, v, dout, lse, delta, dq,
                  bh, tq, tk, scale, causal, st);
 }
 
-// K2c. The same inputs -> dk, dv (bh, tk, D). scratch: (2, bh, tk rounded
-// up to 64, D) f32 for the wide kernels, else unused.
+// K2c at 16-bit head dim 32. The same inputs -> dk, dv (bh, tk, D).
 extern "C" int flash_attention_dkv(int device, int dtype, int head_dim,
                                    const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
-                                   void* dk, void* dv, float* scratch, int bh,
-                                   int tq, int tk, float scale, int causal,
-                                   void* stream) {
+                                   void* dk, void* dv, int bh, int tq, int tk,
+                                   float scale, int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wide_dim(dtype, head_dim))
-    WIDE_DISPATCH(dtype, scratch, launch_dkv_wide, head_dim, q, k, v, dout,
-                  lse, delta, dk, dv, scratch, bh, tq, tk, scale, causal, st);
   FLASH_DISPATCH(dtype, head_dim, launch_dkv, q, k, v, dout, lse, delta, dk,
                  dv, bh, tq, tk, scale, causal, st);
 }

@@ -1,22 +1,23 @@
 // Flash attention for Hopper (sm_90a) on mma.sync tensor cores: in float32
 // the "tc-f32" design, the dq backward (K2b) and the dk/dv backward (K2c) at
-// head dims 64 to 512 and the forward (K2a) up to 256, their products in
-// three TF32 parts; and K2a above D 256 in every type, the "tc-wide" design
-// (fwd_wide_tc_kernel: bf16 and float16 through native 16-bit products,
-// float32 through the same three TF32 parts). They replace the FMA kernels
-// of flash_attention.cu at float32 D 32 (zero-padded to 64 by the
-// wrappers), 64 and 128, and its chunked form from float32 D 192 to 512
-// and, for K2a, above; that file keeps 16-bit D 32 and the chunked K2b and
-// K2c above. Ports of the Pallas TPU kernels in
+// every head dim from 64 (D 32 zero-padded to 64 by the wrappers) and the
+// forward (K2a) up to 256, their products in three TF32 parts; and above D
+// 256 the "tc-wide" design, K2a in every type (fwd_wide_tc_kernel) and K2b
+// and K2c in bf16 and float16 (dq_tc_kernel and dkv_tc_kernel, the same
+// templates as float32's above D 128), 16-bit operands through native
+// 16-bit products, float32 through the same three TF32 parts. They replace
+// the FMA kernels and the chunked form (64-column chunks, accumulators in
+// a global scratch) that flash_attention.cu held; that file keeps 16-bit D
+// 32. Ports of the Pallas TPU kernels in
 // ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (:36, via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (:173, via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (:210, via _flash_bwd_bthd)
 //
-// What they compute, on (BH, T, D) row-major tensors, f32 at D 64, 128 or
-// a multiple of 64 from 192 to 512, and for tc-wide any multiple of 64 in
-// f32, bf16 or float16 (lse and delta are (BH, Tq) f32), exactly what
-// flash_attention.cu computes:
+// What they compute, on (BH, T, D) row-major tensors, D a multiple of 64
+// (K2a in float32 on tc-f32: 64, 128, 192 or 256), f32, bf16 or float16
+// (lse and delta are (BH, Tq) f32), exactly what flash_attention.cu
+// computes at D 32:
 //   s = (q . k) * scale; a key counts if k_pos < Tk and, when causal,
 //   k_pos <= q_pos + (Tk - Tq) (bottom-right). Masked scores are -1e30.
 //   K2a: online softmax over 64-key tiles; o = acc / max(l, 1e-30);
@@ -32,7 +33,8 @@
 // K2c 34.4 at BH 32 x D 256, BH 64 x D 128 and BH 128 x D 64 alike, on
 // 0.27-0.54 GB: operations bound them. In float32 outside the tensor cores
 // (67 TFLOP/s) that is 0.257, 0.385 and 0.513 ms; the FMA and chunked
-// forms reached 3.1-9.4% of it, their products loops out of shared memory.
+// forms they replace reached 3.1-9.4% of it, their products loops out of
+// shared memory.
 // Here the products run
 // on the tensor cores as mma.sync m16n8k8 TF32 in the "3xTF32" split of
 // CUTLASS's OpMultiplyAddFastF32 (PyTorch's memory-efficient attention
@@ -84,14 +86,19 @@
 //   once. dq is 64 x D f32 over the block, D / 4 registers a thread. Two
 //   blocks a SM at D 64 (3 stages of 18 KB), one at D 128 (3 of 36 KB),
 //   where q and do take 70 KB.
-//   K2b above (dq_tc_kernel<DM>, DM 256 up to D 256, else 512): one block
-//   per (bh, 64-query tile) over all of D, dq in registers (DM / 4 a
-//   thread, 128 at 512), so S and dP are formed once a key tile (a block
-//   per 256-column slice, as K2a's, would form them twice at D 512). Per
-//   key tile: S and dP from 64-column units of q, do, k and v, ds to
-//   shared memory, then dQ from units of up to four k chunks. q and do are
-//   read again for each key tile (from L2), as K2c's k and v. 2 stages of
-//   72 KB.
+//   K2b above (dq_tc_kernel<T, DM>, DM 256 up to D 256, else 512): one
+//   block per (bh, 64-query tile, slice of dq of at most DM columns; ceil(D
+//   / DM) slices as even as whole chunks allow: D 576 runs 320 + 256), dq
+//   in registers (DM / 4 a thread, 128 at 512), so S and dP are formed once
+//   a key tile up to D 512 (a block per 256-column slice, as K2c's, would
+//   form them twice at D 512). Per key tile: S and dP from stages of
+//   64-column chunks of q, do, k and v, ds rounded to T in shared memory,
+//   then dQ from stages of up to four k chunks of the block's columns. In
+//   float32 q and do are read again for each key tile (from L2), as K2c's k
+//   and v: 2 stages of 72 KB. In 16-bit q and do (64 x D) stay in shared
+//   memory where two ring stages of 36 KB fit beside them (up to D 576),
+//   and an S stage holds k and v chunks of two columns; above, they stream
+//   as in float32, up to 4 stages.
 //   K2c at D 64 and 128 (dkv_res_kernel<D>): one block per (bh, 64-key
 //   tile); its k and v tiles stay in shared memory, loaded once, and only q
 //   and do stream through the ring, a 64-column chunk a stage: per query
@@ -103,13 +110,18 @@
 //   takes 4 D / 64 - 1 stages. dk and dv are 2 x 64 x D f32 over the block,
 //   D / 4 registers a thread each. Two blocks a SM at D 64 (2 stages),
 //   one at D 128 (4 stages), where k and v take 70 KB.
-//   K2c above (dkv_tc_kernel): one block per (bh, 64-key tile, dk/dv slice
-//   of at most 256 columns). Per query tile: S = Q K^T and dP = dO V^T from
-//   64-column units of q, do, k and v, then dV and dK from 64-column units
-//   of do and q at the block's columns (dk and dv 2 x 64 x 256 f32 over the
-//   block, 128 registers a thread). k and v are read again for each query
-//   tile (from L2): they and the q and do units do not fit in 227 KB
-//   together. 2 stages of 72 KB.
+//   K2c above (dkv_tc_kernel<T>): one block per (bh, 64-key tile, dk/dv
+//   slice of at most 256 columns; slices as even as whole chunks allow: D
+//   320 runs 192 + 128, D 576 3 x 192). Per query tile: S = Q K^T and dP =
+//   dO V^T from stages of 64-column chunks of q, do, k and v, p and ds
+//   rounded to T in shared memory (key-major), then dV and dK from stages
+//   of do and q chunks at the block's columns (one column of chunks a stage
+//   in float32, two in 16-bit; dk and dv 2 x 64 x 256 f32 over the block,
+//   128 registers a thread). In float32 k and v are read again for each
+//   query tile (from L2): they and the q and do chunks do not fit in 227 KB
+//   together; 2 stages of 72 KB. In 16-bit k and v stay in shared memory
+//   where two ring stages fit beside them (up to D 512), and an S stage
+//   holds q and do chunks of two columns; above, they stream.
 //   K2a above (fwd_wide_tc_kernel<T, 512>, "tc-wide"): one block per (bh,
 //   64-query tile, slice of o of at most 512 columns, ceil(D / 512) slices
 //   as even as whole chunks allow), so S is formed once a key tile up to D
@@ -127,6 +139,12 @@
 //   Bound: bf16 D 512 (BH 32, T 1024, causal) is 34.4 GFLOP on 134 MB,
 //   0.040 ms by its bytes; each block reads k and v once a key tile from
 //   L2, 128 KB there.
+//   K2b and K2c above D 256 in 16-bit ("tc-wide"): the templates above with
+//   ldmatrix x4 fragments (.trans where an operand is read along the
+//   sequence: k in dQ = dS K, do and q in dV = P^T dO and dK = dS^T Q) and
+//   native m16n8k16 products; rows of 72 values (and resident rows of D + 8)
+//   put each 8 x 8 matrix's rows on distinct banks. Bound: bf16 D 512 K2b
+//   is 51.6 GFLOP, K2c 68.8, 0.052 and 0.070 ms by their operations.
 // No atomics: each block owns its rows of o, dq, dk and dv, so the results
 // are deterministic.
 //
@@ -151,7 +169,7 @@ constexpr int kLdC = kChunk + 8;           // its row stride (8 mod 32)
 constexpr int kChunkFloats = kTile * kLdC;
 constexpr int kLdP = kTile + 4;            // P's row stride (4 mod 32)
 constexpr int kSlice = 256;                // output columns a block keeps
-constexpr int kMinD = 64, kMaxD = 512;
+constexpr int kDqCols = 512;               // dq columns a K2b block keeps
 constexpr float kNegInf = -1e30f;          // NEG_INF of the Pallas kernel
 constexpr int kMaxStages = 4;              // of a cp.async ring
 
@@ -271,15 +289,31 @@ __device__ __forceinline__ FragB load_b(const float* s, int ld, int lane) {
 }
 
 // Rows row0 .. row0+63 and columns col0 .. col0+63 of a row-major (rows, d)
-// tensor into a shared chunk of row stride kLdC, rows past `rows` zero.
-__device__ __forceinline__ void load_chunk(float* dst, const float* src,
-                                           int row0, int rows, int d,
-                                           int col0) {
-  for (int c = threadIdx.x; c < kTile * (kChunk / 4); c += kThreads) {
-    const int r = c / (kChunk / 4), e = (c % (kChunk / 4)) * 4;
+// tensor of T into a shared chunk of row stride kLdC, rows past `rows` zero.
+template <typename T>
+__device__ __forceinline__ void load_chunk(T* dst, const T* src, int row0,
+                                           int rows, int d, int col0) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVecs = kChunk / kVec;
+  for (int c = threadIdx.x; c < kTile * kVecs; c += kThreads) {
+    const int r = c / kVecs, e = (c % kVecs) * kVec;
     const bool ok = row0 + r < rows;
     cp_async16(dst + r * kLdC + e,
                src + (size_t)(ok ? row0 + r : 0) * d + col0 + e, ok);
+  }
+}
+
+// Rows row0 .. row0+63 and all d columns of a row-major (rows, d) tensor of
+// T into shared memory of row stride d + 8, rows past `rows` zero.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
+                                          int rows, int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  for (int c = threadIdx.x; c < kTile * (d / kVec); c += kThreads) {
+    const int r = c / (d / kVec), e = (c % (d / kVec)) * kVec;
+    const bool ok = row0 + r < rows;
+    cp_async16(dst + r * (d + 8) + e,
+               src + (size_t)(ok ? row0 + r : 0) * d + e, ok);
   }
 }
 
@@ -326,12 +360,33 @@ __device__ __forceinline__ void kv_chunk(float (&acc)[4][4], const float* at,
   }
 }
 
+// x rounded to T (to nearest even, as torch)
+template <typename T>
+__device__ __forceinline__ T to_t(float x) {
+  if constexpr (std::is_same<T, float>::value)
+    return x;
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(x);
+  else
+    return __float2half_rn(x);
+}
+
+// The row stride of a 64 x 64 p or ds tile in T: 4 mod 32 words in float32
+// (for load_a), 72 values in 16-bit (for ldmatrix: 4 mod 32 words too)
+template <typename T>
+__host__ __device__ constexpr int ld_p() {
+  return std::is_same<T, float>::value ? kLdP : kLdC;
+}
+
 // K2c's p and ds of a query tile from this warp's s and dp (queries 16 mq
-// + g (+ 8), keys 32 kh + 8 n + 2t (+ 1)), written key-major to pt and dst
+// + g (+ 8), keys 32 kh + 8 n + 2t (+ 1)), rounded to T and written
+// key-major to pt and dst
+template <typename T>
 __device__ __forceinline__ void p_ds_tile(
-    float* pt, float* dst, const float (&s)[4][4], const float (&dp)[4][4],
+    T* pt, T* dst, const float (&s)[4][4], const float (&dp)[4][4],
     const float* lseb, const float* dlb, int q0, int k0, int tq, int tk,
     int diag, int causal, float scale, int mq, int kh, int g, int t) {
+  constexpr int ld = ld_p<T>();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = mq * 16 + g + 8 * r;
@@ -347,8 +402,8 @@ __device__ __forceinline__ void p_ds_tile(
         const float pr = q_ok && key_ok(q_pos, k0 + key, tk, diag, causal)
                              ? expf(s[n][2 * r + x] * scale - l)
                              : 0.f;
-        pt[key * kLdP + row] = pr;
-        dst[key * kLdP + row] = pr * (dp[n][2 * r + x] - dl) * scale;
+        pt[key * ld + row] = to_t<T>(pr);
+        dst[key * ld + row] = to_t<T>(pr * (dp[n][2 * r + x] - dl) * scale);
       }
   }
 }
@@ -676,21 +731,6 @@ __device__ __forceinline__ void store2(T* p, float a, float b) {
     *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
-// Rows row0 .. row0+63 and columns col0 .. col0+63 of a row-major (rows, d)
-// tensor of T into a shared chunk of row stride kLdC, rows past `rows` zero.
-template <typename T>
-__device__ __forceinline__ void load_chunk_t(T* dst, const T* src, int row0,
-                                             int rows, int d, int col0) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecs = kChunk / kVec;
-  for (int c = threadIdx.x; c < kTile * kVecs; c += kThreads) {
-    const int r = c / kVecs, e = (c % kVecs) * kVec;
-    const bool ok = row0 + r < rows;
-    cp_async16(dst + r * kLdC + e,
-               src + (size_t)(ok ? row0 + r : 0) * d + col0 + e, ok);
-  }
-}
-
 // Fragments of m16n8k16 from ldmatrix (r = lane % 8, sel = lane / 8 names
 // the 8 x 8 matrix whose row the lane addresses): A 16 x 16 from a
 // row-major array, matrices (rows, columns) +(0, 0), (8, 0), (0, 8), (8, 8)
@@ -699,11 +739,12 @@ __device__ __forceinline__ void load_chunk_t(T* dst, const T* src, int row0,
 // the eight 16-byte rows of each matrix on distinct banks.
 
 // S += A B^T over one 64-column chunk of D, 16-bit: A this warp's 16 rows
-// of q (row stride lda), B its 32 rows of k (row stride kLdC), both read
+// of q (row stride lda), B its 32 rows of k (row stride ldb), both read
 // along D.
 template <typename T>
 __device__ __forceinline__ void s_chunk16(float (&acc)[4][4], const T* a,
-                                          int lda, const T* b, int lane) {
+                                          int lda, const T* b, int ldb,
+                                          int lane) {
   const int r = lane & 7, sel = lane >> 3;
 #pragma unroll
   for (int kk = 0; kk < kChunk; kk += 16) {
@@ -712,7 +753,7 @@ __device__ __forceinline__ void s_chunk16(float (&acc)[4][4], const T* a,
 #pragma unroll
     for (int np = 0; np < 2; ++np) {
       uint32_t fb[4];  // keys 16 np + 8 (sel >> 1) + r, D kk + 8 (sel & 1)
-      ldsm_x4(fb, b + (np * 16 + 8 * (sel >> 1) + r) * kLdC + kk +
+      ldsm_x4(fb, b + (np * 16 + 8 * (sel >> 1) + r) * ldb + kk +
                       8 * (sel & 1));
       mma16<T>(acc[2 * np], fa, fb[0], fb[1]);
       mma16<T>(acc[2 * np + 1], fa, fb[2], fb[3]);
@@ -748,6 +789,28 @@ __device__ __forceinline__ void pv16(float (&acc)[2][NI][4], const T* ps,
   }
 }
 
+// acc (this warp's 16 keys x 32 columns of a chunk) += A^T B, 16-bit: at
+// is [key][query] (row stride kLdC) at the warp's keys, b the chunk at the
+// warp's columns, read along the sequence (ldmatrix.trans).
+template <typename T>
+__device__ __forceinline__ void kv_chunk16(float (&acc)[4][4], const T* at,
+                                           const T* b, int lane) {
+  const int r = lane & 7, sel = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < kTile; kk += 16) {
+    uint32_t fa[4];
+    ldsm_x4(fa, at + (r + 8 * (sel & 1)) * kLdC + kk + 8 * (sel >> 1));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t fb[4];  // queries kk + 8 (sel & 1) + r, columns 16 np + 8 (sel >> 1)
+      ldsm_x4_t(fb, b + (kk + 8 * (sel & 1) + r) * kLdC + np * 16 +
+                        8 * (sel >> 1));
+      mma16<T>(acc[2 * np], fa, fb[0], fb[1]);
+      mma16<T>(acc[2 * np + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
 // The wide forward's shape in type T. A ring stage is kWideStage bytes,
 // kCps 64-column chunks (two in float32, four in 16-bit): an S stage holds
 // kCps chunks of k where q is resident, else kCps / 2 of q and as many of
@@ -764,7 +827,6 @@ struct Wide {
   static constexpr int kCols = kVUnit / 4;
   static constexpr int kNi = kCols / 8;
   static constexpr int kUnits = MC / kVUnit;
-  static constexpr int kLdPw = kF32 ? kLdP : kLdC;  // P's row stride
 };
 
 // shared memory of the wide forward at head dim d with `stages` ring
@@ -774,7 +836,7 @@ template <typename T>
 inline size_t wide_smem(int d, int stages, bool qr) {
   return (qr ? (size_t)kTile * (d + 8) * sizeof(T) : 0) +
          (size_t)stages * kWideStage +
-         (size_t)kTile * Wide<T, 512>::kLdPw * sizeof(T) +
+         (size_t)kTile * ld_p<T>() * sizeof(T) +
          6 * kTile * sizeof(float);
 }
 
@@ -803,7 +865,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* qs = reinterpret_cast<T*>(wsmem);  // resident q (qres)
   T* ring = qs + (qres ? kTile * ldq : 0);
   T* ps = ring + stages * kStageElems;
-  float* pmax = reinterpret_cast<float*>(ps + kTile * C::kLdPw);  // [2][64]
+  float* pmax = reinterpret_cast<float*>(ps + kTile * ld_p<T>());  // [2][64]
   float* corr_s = pmax + 2 * kTile;
   float* lsum = corr_s + kTile;  // [2][64]
   float* m_s = lsum + 2 * kTile;
@@ -822,13 +884,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = lane >> 2, t = lane & 3;
 
   if (qres) {  // q, once: its own cp.async group, ahead of the ring's
-    constexpr int kVec = 16 / sizeof(T);
-    for (int c = threadIdx.x; c < kTile * (d / kVec); c += kThreads) {
-      const int r = c / (d / kVec), e = (c % (d / kVec)) * kVec;
-      const bool ok = q0 + r < tq;
-      cp_async16(qs + r * ldq + e, qb + (size_t)(ok ? q0 + r : 0) * d + e,
-                 ok);
-    }
+    load_rows(qs, qb, q0, tq, d);
     cp_async_commit();
   }
 
@@ -853,8 +909,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int h = 0; h < s_chunks; ++h) {
           const int col = p * su + h * kChunk;
           if (col < d) {
-            if (!qres) load_chunk_t(st + 2 * h * kCe, qb, q0, tq, d, col);
-            load_chunk_t(st + (qres ? h : 2 * h + 1) * kCe, kb, k0, tk, d,
+            if (!qres) load_chunk(st + 2 * h * kCe, qb, q0, tq, d, col);
+            load_chunk(st + (qres ? h : 2 * h + 1) * kCe, kb, k0, tk, d,
                          col);
           }
         }
@@ -862,7 +918,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int col = c0 + (p - n_su) * C::kVUnit;
         for (int h = 0; h < C::kCps; ++h)
           if (col + h * kChunk < c0 + nv)
-            load_chunk_t(st + h * kCe, vb, k0, tk, d, col + h * kChunk);
+            load_chunk(st + h * kCe, vb, k0, tk, d, col + h * kChunk);
       }
     }
     cp_async_commit();
@@ -911,7 +967,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if constexpr (C::kF32)
           s_chunk(s, qa, lda, ka, kLdC, lane);
         else
-          s_chunk16<T>(s, qa, lda, ka, lane);
+          s_chunk16<T>(s, qa, lda, ka, kLdC, lane);
       }
       if (p == n_su - 1) {
         // online softmax of the tile, as fwd_tc_kernel's; p rounded to T
@@ -951,7 +1007,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const float p0 = expf(s[n][2 * r] - m_run[r]);
             const float p1 = expf(s[n][2 * r + 1] - m_run[r]);
             l_run[r] += p0 + p1;
-            store2(ps + (mq * 16 + g + 8 * r) * C::kLdPw + kh * 32 + n * 8 +
+            store2(ps + (mq * 16 + g + 8 * r) * ld_p<T>() + kh * 32 + n * 8 +
                        2 * t,
                    p0, p1);
           }
@@ -982,7 +1038,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int wc = cg * C::kCols;  // the warp's first column of the stage
       if (vi * C::kVUnit + wc < nv) {
         const T* vc = st + (wc / kChunk) * kCe + wc % kChunk;
-        const T* pa = ps + rg * 32 * C::kLdPw;
+        const T* pa = ps + rg * 32 * ld_p<T>();
 #pragma unroll
         for (int a = 0; a < C::kUnits; ++a)
           if (a == vi) {
@@ -1035,10 +1091,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---- K2b ---------------------------------------------------------------
 
 // K2b's ds of a key tile from this warp's s and dp (queries 16 mq + g (+ 8),
-// keys 32 kh + 8 n + 2t (+ 1)), written query-major to ds; l and dl are the
-// lse and delta of the warp's two rows
+// keys 32 kh + 8 n + 2t (+ 1)), rounded to T and written query-major to ds;
+// l and dl are the lse and delta of the warp's two rows
+template <typename T>
 __device__ __forceinline__ void ds_tile(
-    float* ds, const float (&s)[4][4], const float (&dp)[4][4],
+    T* ds, const float (&s)[4][4], const float (&dp)[4][4],
     const float (&l)[2], const float (&dl)[2], int q0, int k0, int tq,
     int tk, int diag, int causal, float scale, int mq, int kh, int g,
     int t) {
@@ -1058,8 +1115,7 @@ __device__ __forceinline__ void ds_tile(
                 : 0.f;
         x2[x] = pr * (dp[n][2 * r + x] - dl[r]) * scale;
       }
-      *reinterpret_cast<float2*>(ds + row * kLdP + kh * 32 + n * 8 + 2 * t) =
-          make_float2(x2[0], x2[1]);
+      store2(ds + row * ld_p<T>() + kh * 32 + n * 8 + 2 * t, x2[0], x2[1]);
     }
   }
 }
@@ -1079,10 +1135,10 @@ __device__ __forceinline__ void row_stats(float (&l)[2], float (&dl)[2],
 }
 
 // dq (this warp's rows 32 rg + 16 mi + g (+ 8), columns 16 cg + 8 ni + 2t
-// (+ 1) of each of its NC chunks) to rows q0.. of a (tq, d) tensor: the
-// first n chunks
-template <int NC>
-__device__ __forceinline__ void store_dq(float* dqb,
+// (+ 1) of each of its NC chunks) to rows q0.. of a (tq, d) tensor of T
+// from column 0 of dqb: the first n chunks
+template <typename T, int NC>
+__device__ __forceinline__ void store_dq(T* dqb,
                                          const float (&acc)[NC][2][2][4],
                                          int q0, int tq, int d, int n,
                                          int rg, int cg, int g, int t) {
@@ -1097,9 +1153,8 @@ __device__ __forceinline__ void store_dq(float* dqb,
         if (row >= tq) continue;
 #pragma unroll
         for (int ni = 0; ni < 2; ++ni)
-          *reinterpret_cast<float2*>(dqb + (size_t)row * d + c * kChunk +
-                                     cg * 16 + ni * 8 + 2 * t) =
-              make_float2(acc[c][mi][ni][2 * r], acc[c][mi][ni][2 * r + 1]);
+          store2(dqb + (size_t)row * d + c * kChunk + cg * 16 + ni * 8 + 2 * t,
+                 acc[c][mi][ni][2 * r], acc[c][mi][ni][2 * r + 1]);
       }
   }
 }
@@ -1228,44 +1283,84 @@ __global__ void __launch_bounds__(kThreads, dq_res_blocks(D))
   }
   cp_async_wait<0>();
 
-  store_dq<kN>(dq + (size_t)bh * tq * D, acc, q0, tq, D, kN, rg, cg, g, t);
+  store_dq(dq + (size_t)bh * tq * D, acc, q0, tq, D, kN, rg, cg, g, t);
 }
 
-constexpr int kDqStages = 2;
-// shared memory of the dq backward above D 128: the ring (q, do, k, v
-// chunks a stage) and ds
-constexpr size_t kDqSmem =
-    sizeof(float) * ((size_t)kDqStages * 4 * kChunkFloats + kTile * kLdP);
+// The backward's shape above D 128 in type T: a ring stage holds four
+// 64-column chunks (72 KB in float32, 36 KB in 16-bit), p and ds are 64 x 64
+// in T. K2b's q and do, or K2c's k and v, stay in shared memory ("res")
+// where they fit beside two ring stages, in 16-bit only (up to D 576 for
+// K2b and 512 for K2c; 16-bit rings take up to four stages); float32
+// streams them through two stages of 72 KB, fixed at compile time (a ring
+// depth and stage layout read at run time made float32 4-7% slower).
+template <typename T>
+struct Bwd {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kCe = kTile * kLdC;  // values of a chunk
+  static constexpr int kStage = 4 * kCe;    // values of a stage
+  // float32's ring depth, fixed (0: the launch's): two 72 KB stages
+  static constexpr int kStages = kF32 ? 2 : 0;
+  // columns of q and do chunks in a stage of K2c's products
+  static constexpr int kPc = kF32 ? 1 : 2;
+};
 
-// K2b above D 128 up to DM (256 or 512): per key tile D / 64 stages of (q,
-// do, k, v) chunks (S, dP), then stages of up to four k chunks (dQ).
-template <int DM>
+// shared memory of the dq backward above D 128: q and do where resident,
+// the ring, ds
+template <typename T>
+inline size_t dq_tc_smem(int d, int stages, bool res) {
+  return sizeof(T) * ((res ? 2 * (size_t)kTile * (d + 8) : 0) +
+                      (size_t)stages * Bwd<T>::kStage + kTile * ld_p<T>());
+}
+
+// K2b above D 128: one block per (bh, 64-query tile, slice of `cols` <= DM
+// columns of dq). Per key tile: S and dP over all of D from the S stages
+// (streamed: q, do, k and v chunks of one column; q and do resident: k
+// and v chunks of two), ds to shared memory in T, then dQ += dS K from
+// stages of up to four k chunks of the block's columns.
+template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads, 1)
-    dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
+    dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq,
-                 int tq, int tk, int d, float scale, int causal) {
+                 const float* __restrict__ delta, T* __restrict__ dq,
+                 int tq, int tk, int d, int cols, float scale, int causal,
+                 int stages_arg, int res_arg) {
+  using C = Bwd<T>;
   constexpr int kN = DM / kChunk;      // chunks of dq the block keeps
-  extern __shared__ __align__(128) float smem[];
-  float* ring = smem;
-  float* dss = ring + kDqStages * 4 * kChunkFloats;  // ds [query][key]
+  constexpr int kCe = C::kCe;
+  const int stages = C::kStages ? C::kStages : stages_arg;
+  const int res = C::kF32 ? 0 : res_arg;
+  extern __shared__ __align__(128) unsigned char bsmem[];
+  const int ldr = d + 8;               // resident rows' stride
+  T* qr = reinterpret_cast<T*>(bsmem);
+  T* dor = qr + (res ? kTile * ldr : 0);
+  T* ring = dor + (res ? kTile * ldr : 0);
+  T* dss = ring + stages * C::kStage;  // ds [query][key]
 
   const int n_qt = (tq + kTile - 1) / kTile;
   const int n_bh = gridDim.x / n_qt;
   const int bh = blockIdx.x % n_bh;
   const int q0 = (n_qt - 1 - (int)(blockIdx.x / n_bh)) * kTile;
+  const int c0 = blockIdx.y * cols;    // this block's columns of dq
+  const int nc = min(cols, d - c0) / kChunk;
   const int diag = tk - tq;
-  const float* qb = q + (size_t)bh * tq * d;
-  const float* dob = dout + (size_t)bh * tq * d;
-  const float* kb = k + (size_t)bh * tk * d;
-  const float* vb = v + (size_t)bh * tk * d;
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* dob = dout + (size_t)bh * tq * d;
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
 
-  // stages of a key tile: n_su of (q, do, k, v) chunks, then n_pu of up to
-  // four k chunks
-  const int n_su = d / kChunk, n_pu = (n_su + 3) / 4;
+  if (res) {  // q and do, once: their own cp.async group, ahead of the ring's
+    load_rows(qr, qb, q0, tq, d);
+    load_rows(dor, dob, q0, tq, d);
+    cp_async_commit();
+  }
+
+  // stages of a key tile: n_su S stages of s_cols columns of chunks, then
+  // n_pu of up to four k chunks of this block's columns
+  const int s_cols = res ? 2 : 1;
+  const int n_su = (d / kChunk + s_cols - 1) / s_cols, n_pu = (nc + 3) / 4;
   const int per_tile = n_su + n_pu;
   const int n_kt = [&] {
     const int n = (tk + kTile - 1) / kTile;
@@ -1275,24 +1370,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto fetch = [&](int u) {
     if (u < total) {
       const int k0 = (u / per_tile) * kTile, p = u % per_tile;
-      float* st = ring + (u % kDqStages) * 4 * kChunkFloats;
-      if (p < n_su) {
+      T* st = ring + (u % stages) * C::kStage;
+      if (p < n_su && res) {  // k and v chunks h at 2h, 2h + 1
+        for (int h = 0; h < 2; ++h) {
+          const int col = (2 * p + h) * kChunk;
+          if (col < d) {
+            load_chunk(st + 2 * h * kCe, kb, k0, tk, d, col);
+            load_chunk(st + (2 * h + 1) * kCe, vb, k0, tk, d, col);
+          }
+        }
+      } else if (p < n_su) {  // q, do, k and v chunks
         const int col = p * kChunk;
         load_chunk(st, qb, q0, tq, d, col);
-        load_chunk(st + kChunkFloats, dob, q0, tq, d, col);
-        load_chunk(st + 2 * kChunkFloats, kb, k0, tk, d, col);
-        load_chunk(st + 3 * kChunkFloats, vb, k0, tk, d, col);
+        load_chunk(st + kCe, dob, q0, tq, d, col);
+        load_chunk(st + 2 * kCe, kb, k0, tk, d, col);
+        load_chunk(st + 3 * kCe, vb, k0, tk, d, col);
       } else {
         for (int h = 0; h < 4; ++h) {
           const int c = (p - n_su) * 4 + h;
-          if (c < n_su)
-            load_chunk(st + h * kChunkFloats, kb, k0, tk, d, c * kChunk);
+          if (c < nc)
+            load_chunk(st + h * kCe, kb, k0, tk, d, c0 + c * kChunk);
         }
       }
     }
     cp_async_commit();
   };
 
+  // S-phase roles: query rows 16 * (warp / 2) + g (+ 8), keys 32 * (warp %
+  // 2) + 8 n + 2t (+ 1); dQ roles: rows 32 * (warp % 2) + 16 mi + g (+ 8),
+  // columns 16 * (warp / 2) + 8 ni + 2t (+ 1) of each chunk
   const int mq = warp >> 1, kh = warp & 1;
   const int rg = warp & 1, cg = warp >> 1;
   float l[2], dl[2];
@@ -1309,12 +1415,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[a][b][c][e] = 0.f;
 
-  fetch(0);
+  for (int u = 0; u < stages - 1; ++u) fetch(u);
   for (int u = 0; u < total; ++u) {
-    cp_async_wait<0>();
-    __syncthreads();  // unit u is in; every warp is done with unit u - 1
-    fetch(u + 1);
-    const float* st = ring + (u % kDqStages) * 4 * kChunkFloats;
+    cp_async_wait_ring(stages);
+    __syncthreads();  // stage u is in; every warp is done with stage u - 1
+    fetch(u + stages - 1);
+    const T* st = ring + (u % stages) * C::kStage;
     const int p = u % per_tile;
     if (p < n_su) {
       if (p == 0) {
@@ -1323,46 +1429,83 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
       }
-      const float* ka = st + 2 * kChunkFloats + kh * 32 * kLdC;
-      s_chunk(s, st + mq * 16 * kLdC, kLdC, ka, kLdC, lane);
-      s_chunk(dp, st + kChunkFloats + mq * 16 * kLdC, kLdC,
-              ka + kChunkFloats, kLdC, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = (s_cols * p + h) * kChunk;
+        if (h >= s_cols || col >= d) break;
+        const int lda = res ? ldr : kLdC;
+        const T* qa = res ? qr + mq * 16 * ldr + col : st + mq * 16 * kLdC;
+        const T* da = res ? dor + mq * 16 * ldr + col
+                          : st + kCe + mq * 16 * kLdC;
+        const T* ka = st + (res ? 2 * h : 2) * kCe + kh * 32 * kLdC;
+        if constexpr (C::kF32) {
+          s_chunk(s, qa, lda, ka, kLdC, lane);
+          s_chunk(dp, da, lda, ka + kCe, kLdC, lane);
+        } else {
+          s_chunk16<T>(s, qa, lda, ka, kLdC, lane);
+          s_chunk16<T>(dp, da, lda, ka + kCe, kLdC, lane);
+        }
+      }
       if (p == n_su - 1)  // ds of the tile, whole at the next barrier
         ds_tile(dss, s, dp, l, dl, q0, (u / per_tile) * kTile, tq, tk, diag,
                 causal, scale, mq, kh, g, t);
     } else {
-      // dQ += dS K over this unit's k chunks
+      // dQ += dS K over this stage's k chunks
       const int pu = p - n_su;
+      const T* da = dss + rg * 32 * ld_p<T>();
 #pragma unroll
       for (int c = 0; c < kN; ++c)
-        if (c / 4 == pu && c < n_su)
-          pv_unit<2>(acc[c], dss + rg * 32 * kLdP,
-                     st + (c % 4) * kChunkFloats + cg * 16, lane);
+        if (c / 4 == pu && c < nc) {
+          const T* kc = st + (c % 4) * kCe + cg * 16;
+          if constexpr (C::kF32)
+            pv_unit<2>(acc[c], da, kc, lane);
+          else
+            pv16<T, 2>(acc[c], da, kc, lane);
+        }
     }
   }
+  cp_async_wait<0>();
 
-  store_dq<kN>(dq + (size_t)bh * tq * d, acc, q0, tq, d, n_su, rg, cg, g, t);
+  store_dq(dq + (size_t)bh * tq * d + c0, acc, q0, tq, d, nc, rg, cg, g, t);
 }
 
 // ---- K2c ---------------------------------------------------------------
 
-constexpr int kDkvStages = 2;
-// shared memory of the dk/dv backward: the ring (q, do, k, v chunks a
-// stage) and p^T, ds^T
-constexpr size_t kDkvSmem =
-    sizeof(float) * ((size_t)kDkvStages * 4 * kChunkFloats + 2 * kTile * kLdP);
+// shared memory of the dk/dv backward above D 128: k and v where resident,
+// the ring, p^T and ds^T
+template <typename T>
+inline size_t dkv_tc_smem(int d, int stages, bool res) {
+  return sizeof(T) * ((res ? 2 * (size_t)kTile * (d + 8) : 0) +
+                      (size_t)stages * Bwd<T>::kStage +
+                      2 * kTile * ld_p<T>());
+}
 
+// K2c above D 128: one block per (bh, 64-key tile, slice of `cols` <= 256
+// columns of dk and dv). Per query tile: S and dP over all of D from the S
+// stages (streamed: q, do, k and v chunks of one column; k and v resident:
+// q and do chunks of two), p and ds to shared memory key-major in T, then
+// dV += P^T dO and dK += dS^T Q from stages of q and do chunks of the
+// block's columns (a column of chunks a stage in float32, two in 16-bit).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
+    dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dk,
-                  float* __restrict__ dv, int tq, int tk, int d, float scale,
-                  int causal) {
-  extern __shared__ __align__(128) float smem[];
-  float* ring = smem;
-  float* pt = ring + kDkvStages * 4 * kChunkFloats;  // p^T [key][query]
-  float* dst = pt + kTile * kLdP;                    // ds^T
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv, int tq, int tk, int d, int cols,
+                  float scale, int causal, int stages_arg, int res_arg) {
+  using C = Bwd<T>;
+  constexpr int kCe = C::kCe;
+  constexpr int kLd = ld_p<T>();
+  const int stages = C::kStages ? C::kStages : stages_arg;
+  const int res = C::kF32 ? 0 : res_arg;
+  extern __shared__ __align__(128) unsigned char bsmem[];
+  const int ldr = d + 8;               // resident rows' stride
+  T* kr = reinterpret_cast<T*>(bsmem);
+  T* vr = kr + (res ? kTile * ldr : 0);
+  T* ring = vr + (res ? kTile * ldr : 0);
+  T* pt = ring + stages * C::kStage;   // p^T [key][query]
+  T* dst = pt + kTile * kLd;           // ds^T
 
   // blocks by key tile, the first (the longest when causal) first, then by
   // bh
@@ -1370,21 +1513,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_bh = gridDim.x / n_kt;
   const int bh = blockIdx.x % n_bh;
   const int k0 = (int)(blockIdx.x / n_bh) * kTile;
-  const int c0 = blockIdx.y * kSlice;               // this block's columns
-  const int nv = min(kSlice, d - c0);
+  const int c0 = blockIdx.y * cols;    // this block's columns
+  const int nc = min(cols, d - c0) / kChunk;
   const int diag = tk - tq;
-  const float* qb = q + (size_t)bh * tq * d;
-  const float* dob = dout + (size_t)bh * tq * d;
-  const float* kb = k + (size_t)bh * tk * d;
-  const float* vb = v + (size_t)bh * tk * d;
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* dob = dout + (size_t)bh * tq * d;
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * d;
   const float* lseb = lse + (size_t)bh * tq;
   const float* dlb = delta + (size_t)bh * tq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
 
-  // units of a query tile: D / 64 of (q, do, k, v) for S and dP, then
-  // nv / 64 of (q, do) at this block's columns for dV and dK
-  const int n_su = d / kChunk, n_pu = nv / kChunk;
+  if (res) {  // k and v, once: their own cp.async group, ahead of the ring's
+    load_rows(kr, kb, k0, tk, d);
+    load_rows(vr, vb, k0, tk, d);
+    cp_async_commit();
+  }
+
+  // stages of a query tile: n_su S stages of s_cols columns of chunks, then
+  // n_pu of q and do chunks of kPc of this block's columns
+  const int s_cols = res ? 2 : 1;
+  const int n_su = (d / kChunk + s_cols - 1) / s_cols;
+  const int n_pu = (nc + C::kPc - 1) / C::kPc;
   const int per_tile = n_su + n_pu;
   const int n_qt = (tq + kTile - 1) / kTile;
   // causal: the first query tile that reaches key k0 holds q_pos = k0 - diag
@@ -1393,13 +1544,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto fetch = [&](int u) {
     if (u < total) {
       const int q0 = (i0 + u / per_tile) * kTile, p = u % per_tile;
-      float* st = ring + (u % kDkvStages) * 4 * kChunkFloats;
-      const int col = p < n_su ? p * kChunk : c0 + (p - n_su) * kChunk;
-      load_chunk(st, qb, q0, tq, d, col);
-      load_chunk(st + kChunkFloats, dob, q0, tq, d, col);
-      if (p < n_su) {
-        load_chunk(st + 2 * kChunkFloats, kb, k0, tk, d, col);
-        load_chunk(st + 3 * kChunkFloats, vb, k0, tk, d, col);
+      T* st = ring + (u % stages) * C::kStage;
+      if (p < n_su && !res) {  // q, do, k and v chunks
+        const int col = p * kChunk;
+        load_chunk(st, qb, q0, tq, d, col);
+        load_chunk(st + kCe, dob, q0, tq, d, col);
+        load_chunk(st + 2 * kCe, kb, k0, tk, d, col);
+        load_chunk(st + 3 * kCe, vb, k0, tk, d, col);
+      } else {  // q and do chunks h at 2h, 2h + 1: all of D, or the block's
+        for (int h = 0; h < (p < n_su ? 2 : C::kPc); ++h) {
+          const int c = (p < n_su ? 2 * p : C::kPc * (p - n_su)) + h;
+          const int col = p < n_su ? c * kChunk : c0 + c * kChunk;
+          if (p < n_su ? col < d : c < nc) {
+            load_chunk(st + 2 * h * kCe, qb, q0, tq, d, col);
+            load_chunk(st + (2 * h + 1) * kCe, dob, q0, tq, d, col);
+          }
+        }
       }
     }
     cp_async_commit();
@@ -1407,7 +1567,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // S-phase roles: queries 16 * (warp / 2) + g (+ 8), keys 32 * (warp % 2)
   // + 8 n + 2t (+ 1); product roles: keys 16 * (warp % 4) + g (+ 8),
-  // columns 32 * (warp / 4) + 8 ni + 2t (+ 1) of a unit
+  // columns 32 * (warp / 4) + 8 ni + 2t (+ 1) of a chunk
   const int mq = warp >> 1, kh = warp & 1;
   const int mk = warp & 3, ch = warp >> 2;
   float s[4][4], dp[4][4];
@@ -1419,12 +1579,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dv_acc[a][b][e] = dk_acc[a][b][e] = 0.f;
 
-  fetch(0);
+  for (int u = 0; u < stages - 1; ++u) fetch(u);
   for (int u = 0; u < total; ++u) {
-    cp_async_wait<0>();
-    __syncthreads();  // unit u is in; every warp is done with unit u - 1
-    fetch(u + 1);
-    const float* st = ring + (u % kDkvStages) * 4 * kChunkFloats;
+    cp_async_wait_ring(stages);
+    __syncthreads();  // stage u is in; every warp is done with stage u - 1
+    fetch(u + stages - 1);
+    const T* st = ring + (u % stages) * C::kStage;
     const int q0 = (i0 + u / per_tile) * kTile, p = u % per_tile;
     if (p < n_su) {
       if (p == 0) {
@@ -1433,32 +1593,54 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
       }
-      const float* ka = st + 2 * kChunkFloats + kh * 32 * kLdC;
-      s_chunk(s, st + mq * 16 * kLdC, kLdC, ka, kLdC, lane);
-      s_chunk(dp, st + kChunkFloats + mq * 16 * kLdC, kLdC,
-              ka + kChunkFloats, kLdC, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = (s_cols * p + h) * kChunk;
+        if (h >= s_cols || col >= d) break;
+        const T* qa = st + 2 * h * kCe + mq * 16 * kLdC;
+        const int ldb = res ? ldr : kLdC;
+        const T* ka = res ? kr + kh * 32 * ldr + col
+                          : st + 2 * kCe + kh * 32 * kLdC;
+        const T* va = res ? vr + kh * 32 * ldr + col : ka + kCe;
+        if constexpr (C::kF32) {
+          s_chunk(s, qa, kLdC, ka, ldb, lane);
+          s_chunk(dp, qa + kCe, kLdC, va, ldb, lane);
+        } else {
+          s_chunk16<T>(s, qa, kLdC, ka, ldb, lane);
+          s_chunk16<T>(dp, qa + kCe, kLdC, va, ldb, lane);
+        }
+      }
       if (p == n_su - 1)  // p and ds of the tile, to shared memory
         p_ds_tile(pt, dst, s, dp, lseb, dlb, q0, k0, tq, tk, diag, causal,
                   scale, mq, kh, g, t);
     } else {
-      // dV += P^T dO and dK += dS^T Q over this unit's columns
-      const int ci = p - n_su;
-      const float* pa = pt + mk * 16 * kLdP;
-      const float* da = dst + mk * 16 * kLdP;
+      // dV += P^T dO and dK += dS^T Q over this stage's columns
+      const int ci = C::kPc * (p - n_su);
+      const T* pa = pt + mk * 16 * kLd;
+      const T* da = dst + mk * 16 * kLd;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (c == ci) {
-          kv_chunk(dv_acc[c], pa, st + kChunkFloats + ch * 32, lane);
-          kv_chunk(dk_acc[c], da, st + ch * 32, lane);
+      for (int c = 0; c < 4; ++c) {
+        const int h = c - ci;
+        if (h >= 0 && h < C::kPc && c < nc) {
+          const T* qc = st + 2 * h * kCe + ch * 32;
+          if constexpr (C::kF32) {
+            kv_chunk(dv_acc[c], pa, qc + kCe, lane);
+            kv_chunk(dk_acc[c], da, qc, lane);
+          } else {
+            kv_chunk16<T>(dv_acc[c], pa, qc + kCe, lane);
+            kv_chunk16<T>(dk_acc[c], da, qc, lane);
+          }
         }
+      }
     }
   }
+  cp_async_wait<0>();  // k and v's group, where no query tile came
 
-  float* dkb = dk + (size_t)bh * tk * d;
-  float* dvb = dv + (size_t)bh * tk * d;
+  T* dkb = dk + (size_t)bh * tk * d;
+  T* dvb = dv + (size_t)bh * tk * d;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    if (c >= n_pu) break;
+    if (c >= nc) break;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = k0 + mk * 16 + g + 8 * r;
@@ -1467,10 +1649,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int ni = 0; ni < 4; ++ni) {
         const size_t at = (size_t)key * d + c0 + c * kChunk + ch * 32 +
                           ni * 8 + 2 * t;
-        *reinterpret_cast<float2*>(dkb + at) =
-            make_float2(dk_acc[c][ni][2 * r], dk_acc[c][ni][2 * r + 1]);
-        *reinterpret_cast<float2*>(dvb + at) =
-            make_float2(dv_acc[c][ni][2 * r], dv_acc[c][ni][2 * r + 1]);
+        store2(dkb + at, dk_acc[c][ni][2 * r], dk_acc[c][ni][2 * r + 1]);
+        store2(dvb + at, dv_acc[c][ni][2 * r], dv_acc[c][ni][2 * r + 1]);
       }
     }
   }
@@ -1640,8 +1820,15 @@ __global__ void __launch_bounds__(kThreads, dkv_res_blocks(D))
 
 inline int n_tiles(int t) { return (t + kTile - 1) / kTile; }
 
-// 64, 128 and the multiples of 64 from 192 to 512 (the D 256 form)
-inline bool dim_ok(int d) { return d % kChunk == 0 && d >= kMinD && d <= kMaxD; }
+// a multiple of 64, from 64 up
+inline bool dim_ok(int d) { return d >= kChunk && d % kChunk == 0; }
+
+// the columns of each of ceil(d / most) slices of d, as even as whole
+// chunks allow (d 576 by at most 512: 320; by at most 256: 192)
+inline int slice_cols(int d, int most) {
+  const int slices = (d + most - 1) / most;
+  return (d / kChunk + slices - 1) / slices * kChunk;
+}
 
 // the most ring stages, at least 2, whose shared memory `bytes(stages)`
 // leaves `blocks` blocks a SM
@@ -1704,17 +1891,62 @@ int launch_dq_res(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-template <int DM>
-int launch_dq_tc(int d, const float* q, const float* k, const float* v,
-                 const float* dout, const float* lse, const float* delta,
-                 float* dq, int bh, int tq, int tk, float scale, int causal,
+// The dq backward above D 128 in T: q and do resident where two ring
+// stages fit beside them (16-bit up to D 576), slices of at most DM
+// columns of dq, each a block per query tile
+template <typename T, int DM>
+int launch_dq_tc(int d, const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int bh, int tq, int tk, float scale, int causal,
                  cudaStream_t stream) {
+  const bool res = !Bwd<T>::kF32 && dq_tc_smem<T>(d, 2, true) <=
+                                         smem_budget(1);
+  const int stages = Bwd<T>::kStages
+                         ? Bwd<T>::kStages
+                         : ring_stages(
+                               [&](int n) { return dq_tc_smem<T>(d, n, res); },
+                               1);
+  const size_t smem = dq_tc_smem<T>(d, stages, res);
   cudaError_t err = cudaFuncSetAttribute(
-      dq_tc_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDqSmem);
+      dq_tc_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dq_tc_kernel<DM><<<bh * n_tiles(tq), kThreads, kDqSmem, stream>>>(
-      q, k, v, dout, lse, delta, dq, tq, tk, d, scale, causal);
+  const int cols = slice_cols(d, DM);
+  const dim3 grid(bh * n_tiles(tq), (d + cols - 1) / cols);
+  dq_tc_kernel<T, DM><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), tq, tk, d, cols, scale, causal, stages, (int)res);
+  return (int)cudaGetLastError();
+}
+
+// The dk/dv backward above D 128 in T: k and v resident where two ring
+// stages fit beside them (16-bit up to D 512), slices of at most 256
+// columns of dk and dv, each a block per key tile
+template <typename T>
+int launch_dkv_tc(int d, const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dk, void* dv, int bh, int tq, int tk, float scale,
+                  int causal, cudaStream_t stream) {
+  const bool res = !Bwd<T>::kF32 && dkv_tc_smem<T>(d, 2, true) <=
+                                         smem_budget(1);
+  const int stages = Bwd<T>::kStages
+                         ? Bwd<T>::kStages
+                         : ring_stages(
+                               [&](int n) { return dkv_tc_smem<T>(d, n, res); },
+                               1);
+  const size_t smem = dkv_tc_smem<T>(d, stages, res);
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int cols = slice_cols(d, kSlice);
+  const dim3 grid(bh * n_tiles(tk), (d + cols - 1) / cols);
+  dkv_tc_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, d, cols, scale,
+      causal, stages, (int)res);
   return (int)cudaGetLastError();
 }
 
@@ -1735,8 +1967,7 @@ int launch_fwd_wide(int d, const void* q, const void* k, const void* v,
       fwd_wide_tc_kernel<T, kMc>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int slices = (d + kMc - 1) / kMc;
-  const int cols = (d / kChunk + slices - 1) / slices * kChunk;
+  const int cols = slice_cols(d, kMc);
   const dim3 grid(bh * n_tiles(tq), (d + cols - 1) / cols);
   fwd_wide_tc_kernel<T, kMc><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -1767,58 +1998,80 @@ extern "C" int flash_attention_fwd_tf32(int device, int d, const float* q,
                             st);
 }
 
-// K2b. The same inputs, dout (bh, tq, d), lse and delta (bh, tq) -> dq
-// (bh, tq, d). d: a multiple of 64 from 64 to 512; anything else is
-// refused.
-extern "C" int flash_attention_dq_tf32(int device, int d, const float* q,
-                                       const float* k, const float* v,
-                                       const float* dout, const float* lse,
-                                       const float* delta, float* dq, int bh,
-                                       int tq, int tk, float scale,
-                                       int causal, void* stream) {
+// K2b in the "tc-f32" (dtype 0 = float32) and "tc-wide" (1 = bfloat16, 2 =
+// float16) designs. q (bh, tq, d), k and v (bh, tk, d), dout (bh, tq, d)
+// of that type, lse and delta (bh, tq) f32 -> dq (bh, tq, d) of that type.
+// d: any multiple of 64; anything else is refused.
+extern "C" int flash_attention_dq_tc(int device, int dtype, int d,
+                                     const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     void* dq, int bh, int tq, int tk,
+                                     float scale, int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!dim_ok(d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_dq_res<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
+  const float *qf = static_cast<const float*>(q),
+              *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v),
+              *df = static_cast<const float*>(dout);
+  float* dqf = static_cast<float*>(dq);
+  if (dtype == 0 && d == 64)
+    return launch_dq_res<64>(qf, kf, vf, df, lse, delta, dqf, bh, tq, tk,
                              scale, causal, st);
-  if (d == 128)
-    return launch_dq_res<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
+  if (dtype == 0 && d == 128)
+    return launch_dq_res<128>(qf, kf, vf, df, lse, delta, dqf, bh, tq, tk,
                               scale, causal, st);
-  if (d <= kSlice)
-    return launch_dq_tc<kSlice>(d, q, k, v, dout, lse, delta, dq, bh, tq, tk,
-                                scale, causal, st);
-  return launch_dq_tc<kMaxD>(d, q, k, v, dout, lse, delta, dq, bh, tq, tk,
-                             scale, causal, st);
+  if (dtype == 0 && d <= kSlice)
+    return launch_dq_tc<float, kSlice>(d, q, k, v, dout, lse, delta, dq, bh,
+                                       tq, tk, scale, causal, st);
+  if (dtype == 0)
+    return launch_dq_tc<float, kDqCols>(d, q, k, v, dout, lse, delta, dq, bh,
+                                        tq, tk, scale, causal, st);
+  if (dtype == 1)
+    return launch_dq_tc<__nv_bfloat16, kDqCols>(
+        d, q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st);
+  if (dtype == 2)
+    return launch_dq_tc<__half, kDqCols>(d, q, k, v, dout, lse, delta, dq, bh,
+                                         tq, tk, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// K2c. The same inputs -> dk, dv (bh, tk, d); d as K2b's.
-extern "C" int flash_attention_dkv_tf32(int device, int d, const float* q,
-                                        const float* k, const float* v,
-                                        const float* dout, const float* lse,
-                                        const float* delta, float* dk,
-                                        float* dv, int bh, int tq, int tk,
-                                        float scale, int causal,
-                                        void* stream) {
+// K2c in the same designs: the same inputs -> dk, dv (bh, tk, d) of that
+// type; dtype and d as K2b's.
+extern "C" int flash_attention_dkv_tc(int device, int dtype, int d,
+                                      const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const float* lse, const float* delta,
+                                      void* dk, void* dv, int bh, int tq,
+                                      int tk, float scale, int causal,
+                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!dim_ok(d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_dkv_res<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
-                              scale, causal, st);
-  if (d == 128)
-    return launch_dkv_res<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
-                               scale, causal, st);
-  err = cudaFuncSetAttribute(dkv_tc_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kDkvSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh * n_tiles(tk), (d + kSlice - 1) / kSlice);
-  dkv_tc_kernel<<<grid, kThreads, kDkvSmem, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, tq, tk, d, scale, causal);
-  return (int)cudaGetLastError();
+  const float *qf = static_cast<const float*>(q),
+              *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v),
+              *df = static_cast<const float*>(dout);
+  float *dkf = static_cast<float*>(dk), *dvf = static_cast<float*>(dv);
+  if (dtype == 0 && d == 64)
+    return launch_dkv_res<64>(qf, kf, vf, df, lse, delta, dkf, dvf, bh, tq,
+                              tk, scale, causal, st);
+  if (dtype == 0 && d == 128)
+    return launch_dkv_res<128>(qf, kf, vf, df, lse, delta, dkf, dvf, bh, tq,
+                               tk, scale, causal, st);
+  if (dtype == 0)
+    return launch_dkv_tc<float>(d, q, k, v, dout, lse, delta, dk, dv, bh, tq,
+                                tk, scale, causal, st);
+  if (dtype == 1)
+    return launch_dkv_tc<__nv_bfloat16>(d, q, k, v, dout, lse, delta, dk, dv,
+                                        bh, tq, tk, scale, causal, st);
+  if (dtype == 2)
+    return launch_dkv_tc<__half>(d, q, k, v, dout, lse, delta, dk, dv, bh, tq,
+                                 tk, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K2a in the "tc-wide" design. dtype: 0 = float32, 1 = bfloat16, 2 =
@@ -1831,7 +2084,7 @@ extern "C" int flash_attention_fwd_wide(int device, int dtype, int d,
                                         int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d < kChunk || d % kChunk) return (int)cudaErrorInvalidValue;
+  if (!dim_ok(d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_fwd_wide<float>(d, q, k, v, o, lse, bh, tq, tk, scale,

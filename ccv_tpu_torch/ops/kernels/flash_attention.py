@@ -8,24 +8,23 @@ kernels' op order:
 - ``flash_fwd``, ``flash_dq``, ``flash_dkv``: the wrappers. On a CPU tensor
   each runs its plain version; on a CUDA tensor it launches its hand-written
   kernel or raises. ``LAUNCHES`` counts kernel launches per kernel,
-  ``DESIGN_LAUNCHES`` per kernel and design. ``_design`` picks the design:
-  "wgmma-tma" (csrc/flash_attention_sm90.cu: wgmma, TMA, register-resident
-  softmax and accumulators) for all three at bf16 and float16 and head dim
-  64, 128 or 256; "tc-f32" (csrc/flash_attention_tf32.cu: mma.sync TF32 in
-  three parts, cp.async rings, accumulators in registers; two blocks a SM
-  at D 64 and K2a's D 128, K2b's q and do and K2c's k and v resident in
-  shared memory at D 64 and 128) for all three in float32 at head dims up to
-  512 (``TC_F32_DIMS``; D 32 runs as D 64 on zero-padded operands, which
-  the wrappers pad and cut themselves), K2a up to 256; "tc-wide" (the same
-  file's ``fwd_wide_tc_kernel``: mma.sync, native 16-bit products or TF32
-  in three parts, q resident where it fits and streamed beside k above,
-  one block over up to 512 columns of o) for K2a above D 256 in every type
-  (``WIDE_FWD_ABOVE``); "wmma-smem"
-  (csrc/flash_attention.cu: wmma tiles and accumulators in shared memory)
-  for the rest: all three at 16-bit D 32 as tiles that hold all of D, and
-  a form that walks D in 64-column chunks, its accumulators in a float32
-  scratch the wrapper allocates (``_wide``), for K2b and K2c in float32
-  above D 512 and in 16-bit above D 256;
+  ``DESIGN_LAUNCHES`` per kernel and design. ``_design`` picks one of four
+  designs:
+
+  - "wgmma-tma" (csrc/flash_attention_sm90.cu: wgmma, TMA, register-resident
+    softmax and accumulators): all three at bf16 and float16 and head dim
+    64, 128 or 256;
+  - "tc-f32" (csrc/flash_attention_tf32.cu: mma.sync TF32 in three parts,
+    cp.async rings, accumulators in registers): all three in float32 from
+    head dim 64 (``TC_F32_MIN``; D 32 runs as D 64 on zero-padded operands,
+    which the wrappers pad and cut themselves), K2a up to 256, K2b and K2c
+    at every multiple of 64 (slices of dq and of dk / dv above 512 and 256);
+  - "tc-wide" (the same file, the same mma.sync structure with native
+    16-bit products or TF32 in three parts): K2a above D 256 in every type,
+    K2b and K2c above D 256 in bf16 and float16 (``WIDE_ABOVE``), their q
+    and do or k and v resident in shared memory where they fit;
+  - "wmma-smem" (csrc/flash_attention.cu: wmma tiles and accumulators in
+    shared memory): all three at bf16 and float16 head dim 32;
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
@@ -65,10 +64,11 @@ NEG_INF = -1e30          # masked score, as in the Pallas kernel
 HEAD_DIMS = (32, 64, 128, 256)  # head dims with kernels of their own
 WIDE_STEP = 64  # above HEAD_DIMS[-1], D is a multiple of this (its chunks)
 WGMMA_DIMS = (64, 128, 256)  # the 16-bit head dims of "wgmma-tma"
-TC_F32_DIMS = (64, 512)  # the float32 head dims of "tc-f32": from, to
-# K2a runs "tc-wide" above these head dims, in each type (float32 D 320-512
-# too: one block over all of D there beat tc-f32's two a query tile)
-WIDE_FWD_ABOVE = {torch.float32: 256, torch.bfloat16: 256, torch.float16: 256}
+TC_F32_MIN = 64  # the smallest float32 head dim of "tc-f32"
+# "tc-wide" runs K2a above this head dim in every type (float32 D 320-512
+# too: one block over all of D there beat tc-f32's two a query tile), and
+# K2b and K2c above it in 16-bit
+WIDE_ABOVE = 256
 DESIGNS = ("wgmma-tma", "tc-f32", "tc-wide", "wmma-smem")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -90,28 +90,18 @@ def _design(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The kernel design that serves ``kernel`` ("fwd", "dq" or "dkv") for
     inputs of type ``dtype`` and head dim ``d`` (float32 D 32 runs as D
     64)."""
-    if kernel == "fwd" and d > WIDE_FWD_ABOVE[dtype]:
+    if d > WIDE_ABOVE and (kernel == "fwd" or dtype != torch.float32):
         return "tc-wide"
-    if dtype != torch.float32:
-        return "wgmma-tma" if d in WGMMA_DIMS else "wmma-smem"
-    return "tc-f32" if padded_dim(d, dtype) <= TC_F32_DIMS[1] else "wmma-smem"
-
-
-def _wide(kernel: str, dtype: torch.dtype, d: int) -> bool:
-    """Whether ``kernel`` runs head dim ``d`` in the chunked "wmma-smem"
-    form (64-column chunks of D, float32 scratch accumulators): above 128
-    wherever "wmma-smem" serves it."""
-    return d > 128 and _design(kernel, dtype, d) == "wmma-smem"
+    if dtype == torch.float32:
+        return "tc-f32"
+    return "wgmma-tma" if d in WGMMA_DIMS else "wmma-smem"
 
 
 def roofline_kind(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The ``roofline.bound_ms`` kind of ``kernel``'s operations: "tf32x3"
-    where float32 runs on the tensor cores ("tc-f32", "tc-wide"), else the
-    type's."""
-    if dtype == torch.float32 and _design(kernel, dtype, d) in (
-            "tc-f32", "tc-wide"):
-        return "tf32x3"
-    return {torch.float32: "f32", torch.bfloat16: "bf16",
+    in float32, which every design runs on the tensor cores in three TF32
+    products ("tc-f32", "tc-wide"), else the type's."""
+    return {torch.float32: "tf32x3", torch.bfloat16: "bf16",
             torch.float16: "f16"}[dtype]
 
 
@@ -263,10 +253,10 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_fwd.argtypes = [i, i, i, p, p, p, p, p, i, i, i,
                                             f, i, p]
-        lib.flash_attention_dq.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i,
+        lib.flash_attention_dq.argtypes = [i, i, i, p, p, p, p, p, p, p, i,
                                            i, i, f, i, p]
         lib.flash_attention_dkv.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
-                                            p, i, i, i, f, i, p]
+                                            i, i, i, f, i, p]
         for fn in (lib.flash_attention_fwd, lib.flash_attention_dq,
                    lib.flash_attention_dkv):
             fn.restype = ctypes.c_int
@@ -294,22 +284,21 @@ def _sm90_library(code: int) -> ctypes.CDLL:
 
 
 def _tf32_library() -> ctypes.CDLL:
-    """The tc-f32 library (K2a, K2b and K2c in float32, head dims 64-512),
-    which also holds the tc-wide K2a."""
+    """The library of the tc-f32 and tc-wide designs."""
     lib = _build.load_library("flash_attention_tf32",
                               ["flash_attention_tf32.cu"])
     if lib.flash_attention_fwd_tf32.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_fwd_tf32.argtypes = [i, i, p, p, p, p, p, i, i,
                                                  i, f, i, p]
-        lib.flash_attention_dq_tf32.argtypes = [i, i, p, p, p, p, p, p, p,
-                                                i, i, i, f, i, p]
-        lib.flash_attention_dkv_tf32.argtypes = [i, i, p, p, p, p, p, p, p,
-                                                 p, i, i, i, f, i, p]
+        lib.flash_attention_dq_tc.argtypes = [i, i, i, p, p, p, p, p, p, p,
+                                              i, i, i, f, i, p]
+        lib.flash_attention_dkv_tc.argtypes = [i, i, i, p, p, p, p, p, p, p,
+                                               p, i, i, i, f, i, p]
         lib.flash_attention_fwd_wide.argtypes = [i, i, i, p, p, p, p, p, i,
                                                  i, i, f, i, p]
-        for fn in (lib.flash_attention_fwd_tf32, lib.flash_attention_dq_tf32,
-                   lib.flash_attention_dkv_tf32, lib.flash_attention_fwd_wide):
+        for fn in (lib.flash_attention_fwd_tf32, lib.flash_attention_dq_tc,
+                   lib.flash_attention_dkv_tc, lib.flash_attention_fwd_wide):
             fn.restype = ctypes.c_int
     return lib
 
@@ -349,23 +338,6 @@ def _head(q: torch.Tensor):
     """(device index, dtype code, head dim, BH, Tq, stream) for a launch."""
     return (q.get_device(), _DTYPE_CODE[q.dtype], q.shape[2], q.shape[0],
             q.shape[1], torch.cuda.current_stream(q.device).cuda_stream)
-
-
-def _scratch(kernel: str, x: torch.Tensor,
-             n: int) -> Optional[torch.Tensor]:
-    """The float32 accumulators of ``kernel``'s chunked "wmma-smem" form
-    for ``n`` outputs shaped like ``x`` (BH, T, D), T rounded up to whole
-    64-row tiles: (n, BH, T64, D), or None where the kernel keeps them on
-    chip. The caller holds it until the launch is queued."""
-    bh, t, d = x.shape
-    if not _wide(kernel, x.dtype, d):
-        return None
-    return torch.empty((n, bh, -(-t // 64) * 64, d), dtype=torch.float32,
-                       device=x.device)
-
-
-def _ptr(t: Optional[torch.Tensor]) -> int:
-    return 0 if t is None else t.data_ptr()
 
 
 def _widen(d: int, *ts: torch.Tensor):
@@ -424,19 +396,14 @@ def flash_dq(q, k, v, do, lse, delta, scale: float,
     dq = torch.empty_like(q)
     design = _design("dq", q.dtype, d)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t_q,
+            k.shape[1], scale, int(causal), stream)
     if design == "wgmma-tma":
-        err = _sm90_library(code).flash_attention_dq_sm90(
-            dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
-            stream)
-    elif design == "tc-f32":
-        err = _tf32_library().flash_attention_dq_tf32(
-            dev, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
+        err = _sm90_library(code).flash_attention_dq_sm90(dev, code, d, *ptrs)
+    elif design in ("tc-f32", "tc-wide"):
+        err = _tf32_library().flash_attention_dq_tc(dev, code, d, *ptrs)
     else:
-        scratch = _scratch("dq", q, 1)
-        err = _library().flash_attention_dq(
-            dev, code, d, *ptrs, _ptr(scratch), bh, t_q, k.shape[1], scale,
-            int(causal), stream)
+        err = _library().flash_attention_dq(dev, code, d, *ptrs)
     _launched("dq", design, err)
     return dq
 
@@ -456,19 +423,15 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     design = _design("dkv", q.dtype, d)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, t_q, k.shape[1], scale, int(causal), stream)
     if design == "wgmma-tma":
-        err = _sm90_library(code).flash_attention_dkv_sm90(
-            dev, code, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal),
-            stream)
-    elif design == "tc-f32":
-        err = _tf32_library().flash_attention_dkv_tf32(
-            dev, d, *ptrs, bh, t_q, k.shape[1], scale, int(causal), stream)
+        err = _sm90_library(code).flash_attention_dkv_sm90(dev, code, d,
+                                                           *ptrs)
+    elif design in ("tc-f32", "tc-wide"):
+        err = _tf32_library().flash_attention_dkv_tc(dev, code, d, *ptrs)
     else:
-        scratch = _scratch("dkv", k, 2)
-        err = _library().flash_attention_dkv(
-            dev, code, d, *ptrs, _ptr(scratch), bh, t_q, k.shape[1], scale,
-            int(causal), stream)
+        err = _library().flash_attention_dkv(dev, code, d, *ptrs)
     _launched("dkv", design, err)
     return dk, dv
 
@@ -481,8 +444,8 @@ def padded_dim(d: int, dtype: Optional[torch.dtype] = None) -> int:
     keeps its own kernels). Raises for d < 1."""
     if d < 1:
         raise ValueError(f"head dim {d}: must be at least 1")
-    if dtype == torch.float32 and d < TC_F32_DIMS[0]:
-        return TC_F32_DIMS[0]
+    if dtype == torch.float32 and d < TC_F32_MIN:
+        return TC_F32_MIN
     for built in HEAD_DIMS:
         if d <= built:
             return built

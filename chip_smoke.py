@@ -238,21 +238,20 @@ started together) and drives the port's main paths:
   ``matmul`` against ``pallas_full``, ICF's fused ``slices`` and ``matmul``
   against its staged form, ms of each;
 - phase 43, K2 at head dims above 128 and in float16: the wgmma-tma
-  kernels at D 256 in bf16 and float16, the tc-f32 kernels (K2a, K2b and
-  K2c in float32 from D 64 to 512: 3xTF32 mma.sync; timed at D 64, 128 and
-  256), K2a's tc-wide kernel (above D 256 in every type: mma.sync, q
-  resident where it fits and streamed beside k above; timed at bf16 D 320
-  and 512 and float32 D 576) and the wmma-smem kernels' chunked K2b and
-  K2c (16-bit above D 256, float32 above 512) against their plain
-  versions, each launch's design checked, and timed beside SDPA's calls;
+  kernels at D 256 in bf16 and float16, the tc-f32 kernels (float32: K2a
+  from D 64 to 256, K2b and K2c from D 64 up: 3xTF32 mma.sync; timed at D
+  64, 128, 256 and 576) and the tc-wide kernels (above D 256: K2a in every
+  type, K2b and K2c in 16-bit; mma.sync, native 16-bit products, q and do
+  or k and v resident where they fit and streamed above; timed at bf16 D
+  320 and 512, K2a also at float32 D 576) against their plain versions,
+  each launch's design checked, and timed beside SDPA's calls;
   the LM at Gemma-2B's widths (d 2048 = 8 heads of 256, ff 16384, vocab
   256,000, 2 layers, B 4 x 1024): one step with the kernels against one
   with plain attention in float32 and bf16, the float32 training step
   timed, then ``lm_bench.measure``; greedy decoding at d 1024 = 4 heads
   of 256; ``Model.fit`` through ``ScaledDotProductAttention(8, 256)`` in
   float32 and bf16 against the plain route, and through
-  ``ScaledDotProductAttention(8, 320)`` in bf16 (K2a tc-wide, K2b and K2c
-  chunked).
+  ``ScaledDotProductAttention(8, 320)`` in bf16 (tc-wide, all three).
 
 Prints one line per phase, then a JSON line of kernel results (time, plain
 and library time, the bound from ``ops/kernels/roofline.py`` for this run's
@@ -507,16 +506,18 @@ S2S_D128 = dict(S2S, layers=2, heads=8, head_dim=128, ff=4096)
 # phase 43, K2 at head dims above 128 and in float16. The wgmma-tma kernels
 # at D 256 in bf16 and float16 against their plain versions within phase
 # 6's gates at K2_D256_SHAPES and at K2_D256 (B 4 x 8 heads, T 1024: the
-# attention of Gemma-2B's width); the tc-f32 kernels, K2a's tc-wide kernel
-# and the wmma-smem kernels' chunked K2b and K2c at K2_WIDE_SHAPES (float32
-# D 64, 128, 256, 320, 512 and 576, bf16 D 320 and 512, float16 D 512; bf16
-# D 320 also at SDPA_D320's attention, BH 32 x T 1024, the shape its fit
-# gives the kernels) and flash_attention at head dims padded inside
+# attention of Gemma-2B's width); the tc-f32 and tc-wide kernels at
+# K2_WIDE_SHAPES (float32 D 64, 128, 256, 320, 512, 576 and 640, the last
+# with K2b in two slices of dq and K2c in three of dk and dv; bf16 D 320
+# and 512, float16 D 320 at a ragged T and D 512, and bf16 D 896, where
+# K2b's q and do and K2c's k and v stream; bf16 D 320 also at SDPA_D320's
+# attention, BH 32 x T 1024, the shape its fit gives the kernels) and
+# flash_attention at head dims padded inside
 # (K2_WIDE_PADDED), every launch checked for its design; K2 timed at
 # K2_D256 in bf16 and float16 in turns with SDPA's flash calls, and in
 # float32 (D 256, and D 64 and 128 at the same operations, all on tc-f32;
-# D 576: K2a tc-wide) and at bf16 D 320 and 512 (K2a tc-wide)
-# (K2_WIDE_TIMED) beside the memory-efficient calls
+# D 576: K2a tc-wide, K2b and K2c tc-f32) and at bf16 D 320 and 512
+# (tc-wide) (K2_WIDE_TIMED) beside the memory-efficient calls
 K2_D256_SHAPES = [(6, 100, 100, 256, True), (4, 72, 136, 256, False),
                   (2, 257, 257, 256, True)]
 K2_D256 = (32, 1024, 1024, 256, True)
@@ -527,10 +528,13 @@ K2_WIDE_SHAPES = [(torch.float32, (3, 100, 100, 64, True)),
                   (torch.float32, (2, 130, 130, 320, True)),
                   (torch.float32, (2, 72, 136, 512, True)),
                   (torch.float32, (1, 100, 100, 576, True)),
+                  (torch.float32, (1, 130, 130, 640, True)),
                   (torch.bfloat16, (3, 100, 100, 320, True)),
                   (torch.bfloat16, (2, 72, 136, 320, False)),
+                  (torch.float16, (2, 130, 130, 320, True)),
                   (torch.bfloat16, (3, 100, 100, 512, True)),
                   (torch.float16, (2, 257, 257, 512, False)),
+                  (torch.bfloat16, (2, 72, 136, 896, False)),
                   (torch.bfloat16, (32, 1024, 1024, 320, True))]
 K2_WIDE_PADDED = [(torch.bfloat16, (2, 100, 4, 160, True)),
                   (torch.float16, (2, 100, 4, 200, False)),
@@ -544,8 +548,8 @@ K2_WIDE_TIMED = [(torch.float32, K2_D256), (torch.bfloat16,
 # the LM at Gemma-2B's widths: d 2048 = 8 heads of 256, ff 16384, vocab
 # 256,000, 2 of its 18 layers (depth cut to the script's time), B 4 x T
 # 1024. One step from the same parameters and batch with the kernels and
-# with plain attention (PR 9's two gates, as wmt_gate: in float32, the
-# chunked form, every gradient within LM_GRAD_REL of the plain step's
+# with plain attention (wmt_gate's two gates: in float32, every
+# gradient within LM_GRAD_REL of the plain step's
 # largest magnitude; in bf16, the kernel step's gradients no farther from
 # the float32 plain step than BF16_GRAD_RATIO times the bf16 plain step's
 # worst distance, or LM_GRAD_REL; the loss within LM_LOSS_REL in both);
@@ -560,11 +564,11 @@ LM_D256_STEPS = 3
 # ScaledDotProductAttention(8, 256) at B 4 x T 1024 (SDPA_D256), float32
 # (tc-f32) and bf16 (wgmma-tma)
 # against the plain route by phase 31's gates, and with heads of 320 in
-# bf16 (SDPA_D320: the chunked form for all three) by phase 31's bf16 gate
-# against the float32 plain fit at that width. No published model in the
+# bf16 (SDPA_D320: tc-wide for all three) by phase 31's bf16 gate against
+# the float32 plain fit at that width. No published model in the
 # repository's sources has heads of 320: it is the narrowest head dim above
 # 256 that pads to itself, chosen so that a user-facing path runs the
-# chunked K2a and K2c (16-bit above 256), whose float32 range tc-f32 took
+# 16-bit kernels above 256
 S2S_D256 = dict(S2S, layers=2, heads=4, head_dim=256, ff=4096)
 SDPA_D256 = (4, 1024, 2048, 8, 256)
 SDPA_D320 = (4, 1024, 2560, 8, 320)
@@ -2248,7 +2252,7 @@ def imdb_path(dev, card):
 # device kernels by kind, for the seq2seq profiles: the first pattern a
 # kernel's name holds names its kind
 KERNEL_KINDS = (("K2", ("sm90_kernel", "::fwd_kernel<", "::dq_kernel<",
-                        "::dkv_kernel<", "_wide_kernel<")),
+                        "::dkv_kernel<", "_tc_kernel<", "_res_kernel<")),
                 ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
                 ("adam", ("multi_tensor_apply",)),
                 ("softmax", ("softmax",)),
@@ -5605,8 +5609,8 @@ def fmt_errs(d):
 
 def k2_d256_path(k2, roofline, dev, card):
     """Phase 43, the kernels: K2 at head dim 256 in bf16 and float16
-    (wgmma-tma), the tc-f32 kernels, K2a's tc-wide kernel and the chunked
-    wmma-smem K2b and K2c against their plain versions, then timed.
+    (wgmma-tma), the tc-f32 and the tc-wide kernels against their plain
+    versions, then timed.
     Returns {"bfloat16" / "float16": dict(err={kernel: worst max abs error}, timed=...), "wide": dict(
     err={design: {kernel: worst max abs error}}, timed=[(dtype, shape,
     timing)])}."""
@@ -5638,8 +5642,7 @@ def k2_d256_path(k2, roofline, dev, card):
                 design = k2._design(key, dtype, k2.padded_dim(shape[3]))
                 merge_worst(w.setdefault(design, {}), {key: errs[key]})
                 merge_worst(wr.setdefault(design, {}), {key: rels[key]})
-    log(43, f"K2's tc-f32 kernels, tc-wide K2a and chunked wmma-smem K2b "
-            f"and K2c vs plain at "
+    log(43, f"K2's tc-f32 and tc-wide kernels vs plain at "
             f"(dtype, (BH, Tq, Tk, D, causal)) "
             f"{[(str(d).split('.')[1], s) for d, s in K2_WIDE_SHAPES]}, and "
             f"flash_attention padded inside at (dtype, (B, T, H, D, causal)) "
@@ -5705,7 +5708,7 @@ def lm_d256_path(k2, dev, card):
     """Phase 43, the LM at Gemma-2B's widths (LM_D256): the kernel steps
     against the plain route in float32 and bf16 (see LM_D256), then
     lm_bench.measure in float32 and in bf16. Returns the launches of the
-    float32 kernel step (tc-f32 and the chunked form) and of the bf16
+    float32 kernel step (tc-f32 and tc-wide) and of the bf16
     measured run (wgmma-tma)."""
     from ccv_tpu_torch.bin import lm_bench
     from ccv_tpu_torch.bin.wmt_grad_trial import grad_dist
@@ -5842,9 +5845,8 @@ def fit_d256_path(k2, dev, card):
     """Phase 43, Model.fit of phase 31's graph model with
     ScaledDotProductAttention(8, 256) (SDPA_D256): K2 against the plain
     route by phase 31's gates, float32 (tc-f32) and bf16 (wgmma-tma); then
-    with heads
-    of 320 (SDPA_D320) in bf16, the chunked form for all three, by the same
-    bf16 gate against the float32 plain fit at that width. Returns K2's launches a fit by design:
+    with heads of 320 (SDPA_D320) in bf16, tc-wide for all three, by the
+    same bf16 gate against the float32 plain fit at that width. Returns K2's launches a fit by design:
     {"float32", "bfloat16", "bfloat16_d320": {kernel: {design: n}}}."""
     B, T, D, heads, hd = SDPA_D256
     runs = {}
@@ -5902,9 +5904,9 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
                         fit_d256, fit_f32):
     """The ``kernels`` line's entries of phase 43: K2a/b/c at head dim 256
     on wgmma-tma in bf16 (launches of the Gemma-width LM run; times at
-    K2_D256) with float16's times beside; K2a/b/c on tc-f32 (float32 D
-    64-512, K2a to 256), K2a on tc-wide (above D 256) and K2b/c in the
-    chunked wmma-smem form (launches of the
+    K2_D256) with float16's times beside; K2a/b/c on tc-f32 (float32 from
+    D 64, K2a to 256) and on tc-wide (above D 256: K2a in every type, K2b
+    and K2c in 16-bit) (launches of the
     float32 Gemma-width kernel step, of the bf16 fit at heads of 320 and,
     for tc-f32, of phase 31's float32 fit at heads of 64, ``fit_f32``, by
     kernel and design; times at K2_WIDE_TIMED, where each form runs: the
@@ -5929,20 +5931,15 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
             "f16_library_ms": r16["library_ms"],
             "launches_fit_bf16": fit_d256["bfloat16"][key]["wgmma-tma"],
             **({"launches_decode": decode_d256} if key == "fwd" else {})})
-    ranges = {"tc-f32": "float32, head dims 32 (as 64) to 512, K2a to 256",
-              "tc-wide": "K2a above head dim 256, every type"}
-    for design, suffix, src in (("tc-f32", "tc_f32", "flash_attention_tf32.cu"),
-                                ("tc-wide", "tc_wide",
-                                 "flash_attention_tf32.cu"),
-                                ("wmma-smem", "wide", "flash_attention.cu")):
+    ranges = {"tc-f32": "float32 from head dim 32 (as 64): K2a to 256, K2b "
+                        "and K2c at every multiple of 64",
+              "tc-wide": "above head dim 256: K2a in every type, K2b and "
+                         "K2c in bf16 and float16"}
+    for design, suffix in (("tc-f32", "tc_f32"), ("tc-wide", "tc_wide")):
         for key, (name, line, _src, _design) in sources.items():
             timed = [(dt, shape, t[key])
                      for dt, shape, t in k2_wide["wide"]["timed"]
-                     if k2._design(key, dt, shape[3]) == design
-                     and (design != "wmma-smem"
-                          or k2._wide(key, dt, shape[3]))]
-            if not timed:
-                continue
+                     if k2._design(key, dt, shape[3]) == design]
             main = {part: runs.get(key, {}).get(design, 0)
                     for part, runs in (("step", lm_d256["f32_launches"]),
                                        ("fit", fit_d256["bfloat16_d320"]),
@@ -5950,7 +5947,7 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
                                         "tc-f32" else {}))}
             entry = {
                 "name": f"{name}_{suffix}", "route": "cuda",
-                "source": f"ccv_tpu_torch/csrc/{src}",
+                "source": "ccv_tpu_torch/csrc/flash_attention_tf32.cu",
                 "replaces": f"ccv_tpu/ops/pallas/{line}",
                 "launches": main["step"] + main["fit"] + main["fit_d64"],
                 "launches_f32_step": main["step"],
@@ -5959,7 +5956,7 @@ def d256_kernel_entries(k2, sources, k2_wide, lm_d256, decode_d256,
                 "launches_fit_f32_d64": main["fit_d64"],
                 "max_abs_err": k2_wide["wide"]["err"][design][key],
                 "design": design,
-                **({"range": ranges[design]} if design in ranges else {})}
+                "range": ranges[design]}
             for i, (dt, shape, r) in enumerate(timed, 1):
                 tag = "" if i == 1 else f"_{i}"
                 entry.update({

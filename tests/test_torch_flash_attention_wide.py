@@ -39,7 +39,7 @@ jfa = importlib.import_module("ccv_tpu.ops.pallas.flash_attention")
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 HALF_REL = 2e-2
-WIDE_DIMS = (160, 192, 256, 320, 512)
+WIDE_DIMS = (160, 192, 256, 320, 512, 576)
 
 
 @pytest.fixture(autouse=True)
@@ -105,8 +105,8 @@ def test_head_dim_256_returns_ccv_tpus_forward(pallas):
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_wide_forward_and_grads_match_pallas(d, causal, pallas):
-    """D 160-512 (zero-padded to 256, 320, 512 inside): o, dq, dk and dv
-    against ccv_tpu's Pallas kernels, T 72 (a ragged tile)."""
+    """D 160-576 (zero-padded to 256, 320, 512, 576 inside): o, dq, dk and
+    dv against ccv_tpu's Pallas kernels, T 72 (a ragged tile)."""
     rng = np.random.default_rng(d + causal)
     q, k, v, g = (_rand(rng, 1, 72, 2, d) for _ in range(4))
     want_o, want = pallas(q, k, v, g, causal)
@@ -137,36 +137,31 @@ def test_float16_forward_matches_ccv_tpu(d, pallas):
 
 def test_design_choice():
     """bf16 and float16 at head dim 64, 128 or 256 take the wgmma-tma
-    kernels; all three in float32 at D 32 (as D 64) to 256 the tc-f32 ones,
-    and K2b and K2c up to 512; K2a above D 256 in every type the tc-wide
-    one; the rest the wmma-smem ones (16-bit D 32), which walk D in
-    64-column chunks (``_wide``) above 128: K2b and K2c in float32 above 512
-    and in 16-bit above 256."""
+    kernels and at D 32 the wmma-smem ones; above D 256 all three take the
+    tc-wide ones in 16-bit; in float32 K2a takes tc-f32 from D 32 (as D 64)
+    to 256 and tc-wide above, K2b and K2c tc-f32 at every head dim. No
+    kernel runs wmma-smem above D 32."""
     for kernel in ("fwd", "dq", "dkv"):
-        above = "tc-wide" if kernel == "fwd" else "wmma-smem"
         for dtype in (torch.bfloat16, torch.float16):
             for d in (64, 128, 256):
                 assert tfa._design(kernel, dtype, d) == "wgmma-tma"
             assert tfa._design(kernel, dtype, 32) == "wmma-smem"
-            for d in (320, 512, 1024):
-                assert tfa._design(kernel, dtype, d) == above
-        for d in (576, 1024):
-            assert tfa._design(kernel, torch.float32, d) == above
+            for d in (320, 512, 576, 1024):
+                assert tfa._design(kernel, dtype, d) == "tc-wide"
         for d in (32, 64, 128, 192, 256):
             assert tfa._design(kernel, torch.float32, d) == "tc-f32"
-        for d in (320, 384, 448, 512):
+        for d in (320, 384, 448, 512, 576, 640, 1024):
             assert tfa._design(kernel, torch.float32, d) == (
                 "tc-wide" if kernel == "fwd" else "tc-f32")
-            assert tfa._design(kernel, torch.float32, d) in tfa.DESIGNS
-    wide = {(kernel, dtype, d) for kernel in ("fwd", "dq", "dkv")
-            for dtype in (torch.float32, torch.bfloat16, torch.float16)
-            for d in (32, 64, 128, 256, 320, 512, 576)
-            if tfa._wide(kernel, dtype, d)}
-    assert wide == (
-        {(kernel, torch.float32, 576) for kernel in ("dq", "dkv")}
-        | {(kernel, dtype, d) for kernel in ("dq", "dkv")
-           for dtype in (torch.bfloat16, torch.float16)
-           for d in (320, 512, 576)})
+    designs = {(kernel, dtype, d): tfa._design(kernel, dtype, d)
+               for kernel in ("fwd", "dq", "dkv")
+               for dtype in (torch.float32, torch.bfloat16, torch.float16)
+               for d in (32, 64, 128, 256, 320, 512, 576, 896)}
+    assert set(designs.values()) == set(tfa.DESIGNS)
+    assert {key for key, design in designs.items()
+            if design == "wmma-smem"} == {
+        (kernel, dtype, 32) for kernel in ("fwd", "dq", "dkv")
+        for dtype in (torch.bfloat16, torch.float16)}
 
 
 def test_roofline_kind_and_tf32x3_bound_at_d256():
@@ -200,12 +195,30 @@ def test_roofline_kind_and_tf32x3_bound_at_d256():
             assert tfa.roofline_kind(kernel, torch.float32, d) == "tf32x3"
     for kernel in ("fwd", "dq", "dkv"):  # D 32 runs on tc-f32 at D 64
         assert tfa.roofline_kind(kernel, torch.float32, 32) == "tf32x3"
-        assert tfa.roofline_kind(kernel, torch.float32, 576) == (
-            "tf32x3" if kernel == "fwd" else "f32")  # K2a on tc-wide
+        # K2a on tc-wide, K2b and K2c on tc-f32
+        assert tfa.roofline_kind(kernel, torch.float32, 576) == "tf32x3"
     flop, nbytes = tfa.flash_work("dq", 32, 1024, 1024, 512, True,
                                   torch.float32)
     ms, by = roofline.bound_ms(flop, nbytes, "tf32x3")
     assert by == "operations" and ms == pytest.approx(0.313, abs=5e-4)
+
+
+def test_tf32x3_bound_of_the_backward_at_d576():
+    """K2b and K2c in float32 at D 576 run tc-f32 (K2b in two slices of dq,
+    K2c in three of dk and dv) and read "tf32x3": at BH 32 x T 1024, causal,
+    58.0 and 77.4 GFLOP, bound at 0.352 and 0.469 ms by their operations
+    (0.866 and 1.155 at float32's 67 TFLOP/s outside the tensor cores)."""
+    shape = (32, 1024, 1024, 576, True)
+    for kernel, gflop, want_ms, f32_ms in (("dq", 58.0, 0.352, 0.866),
+                                           ("dkv", 77.4, 0.469, 1.155)):
+        assert tfa._design(kernel, torch.float32, 576) == "tc-f32"
+        assert tfa.roofline_kind(kernel, torch.float32, 576) == "tf32x3"
+        flop, nbytes = tfa.flash_work(kernel, *shape, torch.float32)
+        assert flop / 1e9 == pytest.approx(gflop, abs=0.05)
+        ms, by = roofline.bound_ms(flop, nbytes, "tf32x3")
+        assert by == "operations" and ms == pytest.approx(want_ms, abs=5e-4)
+        assert roofline.bound_ms(flop, nbytes, "f32")[0] == pytest.approx(
+            f32_ms, abs=5e-4)
 
 
 @pytest.mark.parametrize("bh,d", [(128, 64), (64, 128)])
@@ -318,11 +331,11 @@ def test_padded_dim_at_every_d():
 
 # (dtype, D, padded_dim(D, dtype), K2a's design, K2b's and K2c's) at the
 # dim the (BH, T, D) wrappers are given, padded_dim(D)
-TYPED_DIMS = ((torch.bfloat16, 320, 320, "tc-wide", "wmma-smem"),
-              (torch.bfloat16, 512, 512, "tc-wide", "wmma-smem"),
-              (torch.float16, 320, 320, "tc-wide", "wmma-smem"),
-              (torch.float16, 512, 512, "tc-wide", "wmma-smem"),
-              (torch.float32, 576, 576, "tc-wide", "wmma-smem"),
+TYPED_DIMS = ((torch.bfloat16, 320, 320, "tc-wide", "tc-wide"),
+              (torch.bfloat16, 512, 512, "tc-wide", "tc-wide"),
+              (torch.float16, 320, 320, "tc-wide", "tc-wide"),
+              (torch.float16, 512, 512, "tc-wide", "tc-wide"),
+              (torch.float32, 576, 576, "tc-wide", "tc-f32"),
               (torch.float32, 512, 512, "tc-wide", "tc-f32"),
               (torch.float32, 16, 64, "tc-f32", "tc-f32"),
               (torch.float32, 32, 64, "tc-f32", "tc-f32"),
@@ -334,8 +347,8 @@ TYPED_DIMS = ((torch.bfloat16, 320, 320, "tc-wide", "wmma-smem"),
 def test_padded_dim_and_design_by_type(dtype, d, pad, fwd, bwd):
     """``padded_dim(D, dtype)`` is the dim the card's kernels run: float32
     D 1-32 at 64 (tc-f32's smallest), every other dim as ``padded_dim(D)``;
-    K2a above D 256 in every type is tc-wide, K2b and K2c there the chunked
-    wmma-smem form in 16-bit and above 512 in float32, tc-f32 below."""
+    above D 256 K2a is tc-wide in every type, K2b and K2c tc-wide in 16-bit
+    and tc-f32 in float32, as below."""
     assert tfa.padded_dim(d, dtype) == pad
     assert tfa.padded_dim(d) == (32 if d <= 32 else d)
     assert tfa._design("fwd", dtype, tfa.padded_dim(d)) == fwd
@@ -393,27 +406,27 @@ def test_wrappers_take_the_padded_dims_only():
                       0.1, False)
 
 
-def test_scratch_of_the_chunked_form():
-    """The chunked wmma-smem form's float32 accumulators: (n, BH, T rounded
-    up to 64, D); none for the forms that keep them on chip, the tc-f32
-    kernels and K2a's tc-wide one among them."""
-    x = torch.zeros(3, 100, 320, dtype=torch.bfloat16)
-    s = tfa._scratch("dkv", x, 2)
-    assert s.shape == (2, 3, 128, 320) and s.dtype == torch.float32
-    assert tfa._scratch("dq", torch.zeros(3, 100, 576), 1).shape == (
-        1, 3, 128, 576)
-    for dtype, d in ((torch.float32, 576), (torch.bfloat16, 320),
-                     (torch.float16, 512)):
-        assert tfa._scratch("fwd", torch.zeros(3, 100, d, dtype=dtype),
-                            1) is None
-    for kernel in ("fwd", "dq", "dkv"):
-        for dtype, d in ((torch.bfloat16, 256), (torch.float16, 256),
-                         (torch.float32, 128), (torch.bfloat16, 32)):
-            assert tfa._scratch(kernel, torch.zeros(3, 100, d, dtype=dtype),
-                                1) is None
-    for kernel, n in (("fwd", 1), ("dq", 1), ("dkv", 2)):
-        for d in (256, 320, 512):
-            assert tfa._scratch(kernel, torch.zeros(3, 100, d), n) is None
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_gradients_above_256_match_pallas(dtype, d, pallas):
+    """bf16 and float16 at D 320 and 512, the range of the tc-wide K2b and
+    K2c on the card: o, dq, dk and dv against ccv_tpu's Pallas kernels, T
+    100 (a ragged tile), causal, each within 2e-2 of its largest magnitude
+    (p and ds rounded to the input type on both sides)."""
+    rng = np.random.default_rng(d + len(dtype))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    q, k, v, g = (_rand(rng, 1, 100, 2, d) for _ in range(4))
+    q, k, v = (np.array(jnp.asarray(x, jdt).astype(jnp.float32))
+               for x in (q, k, v))
+    want_o, want = pallas(q, k, v, g, True, jdt)
+    o, got = _port(q, k, v, g, True, tdt)
+    assert o.dtype == tdt
+    for name, a, b in zip(("o", "dq", "dk", "dv"),
+                          (o.detach().float().numpy(), *got),
+                          (want_o, *want)):
+        assert a.shape == (1, 100, 2, d)
+        err = np.abs(a - b).max()
+        assert err <= HALF_REL * np.abs(b).max(), (name, err)
 
 
 @pytest.mark.parametrize("route", ["plain", "flash"])
@@ -481,8 +494,8 @@ def test_k2_trial_reads_ptxas():
 
 
 def test_k2_trial_reads_untemplated_kernels():
-    """The tc-f32 kernels take D at run time and are no templates: their
-    mangled names end the name with E and carry no template arguments."""
+    """An untemplated kernel (an older checkout's tc-f32 K2c): its mangled
+    name ends the name with E and carries no template arguments."""
     text = PTXAS.replace(
         "_ZN51_GLOBAL__N__604052e1_18_flash_attention_cu_2c1389799dq_kernelIf"
         "Li64EEEvPKT_S3_S3_S3_PKfS5_PS1_iifi",
@@ -512,6 +525,29 @@ def test_k2_trial_reads_the_tc_wide_kernel(arg, dtype):
         spill_stores=8, spill_loads=12)
 
 
+@pytest.mark.parametrize("arg,dtype", [("f", "float32"),
+                                       ("13__nv_bfloat16", "bfloat16"),
+                                       ("6__half", "float16")])
+def test_k2_trial_reads_the_templated_backward(arg, dtype):
+    """K2b's ``dq_tc_kernel`` is a template on the element type and the
+    columns of dq a block keeps, K2c's ``dkv_tc_kernel`` on the element type
+    alone: ``--ptxas`` reads the type of both and K2b's columns."""
+    text = PTXAS.replace(
+        "_ZN51_GLOBAL__N__604052e1_18_flash_attention_cu_2c1389799dq_kernelIf"
+        "Li64EEEvPKT_S3_S3_S3_PKfS5_PS1_iifi",
+        "_ZN56_GLOBAL__N__0a1b2c3d_23_flash_attention_tf32_cu_4e5f607112"
+        f"dq_tc_kernelI{arg}Li512EEEvPKT_S3_S3_S3_PKfS5_PS1_iiiifiii").replace(
+        "_ZN51_GLOBAL__N__604052e1_18_flash_attention_cu_2c13897915fwd_wide_"
+        "kernelI13__nv_bfloat16EEvPKT_S4_S4_PS2_PfS6_iiifi",
+        "_ZN56_GLOBAL__N__0a1b2c3d_23_flash_attention_tf32_cu_4e5f607113"
+        f"dkv_tc_kernelI{arg}EEvPKT_S3_S3_S3_PKfS5_PS1_S6_iiiifiii")
+    got = k2_trial.parse_ptxas(text)
+    assert got[1] == dict(kernel="dq_tc_kernel", type=dtype, head_dim=512,
+                          registers=48, spill_stores=8, spill_loads=12)
+    assert got[2] == dict(kernel="dkv_tc_kernel", type=dtype, head_dim=None,
+                          registers=64, spill_stores=0, spill_loads=0)
+
+
 # -- on the card -------------------------------------------------------------
 
 GATES = {torch.float32: None, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -519,11 +555,14 @@ CARD_SHAPES = ((3, 100, 100, True), (2, 72, 136, False), (2, 257, 257, True))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("d", [256, 320, 512, 640, 896])
 @pytest.mark.parametrize("dtype", list(GATES), ids=["f32", "bf16", "f16"])
 def test_cuda_wide_kernels_match_plain(dtype, d):
-    """K2a/b/c on the card against their plain versions at D 256 and 512,
-    each of the design ``_design`` names: float32 within 1e-4 + 1e-4 of the
+    """K2a/b/c on the card against their plain versions at D 256-896, each
+    of the design ``_design`` names (above 256: K2b in two slices of dq at
+    D 640 and 896, K2c in three and four of dk and dv; in 16-bit K2b's q
+    and do and K2c's k and v resident to D 512 and streamed at 640 and
+    896), at ragged and cross-length T: float32 within 1e-4 + 1e-4 of the
     largest magnitude, 16-bit within 2e-2 of it (chip_smoke.py phase 43
     runs the same at the LM's shape)."""
     if not torch.cuda.is_available():
@@ -557,10 +596,10 @@ def test_cuda_wide_kernels_match_plain(dtype, d):
 
 # chip_smoke.py's K2_WIDE_SHAPES in float32, D 320 and 384 (K2b's dq in
 # five and six chunks, two k stages; K2c's two output slices; K2a on
-# tc-wide, q resident), a float32 D above 512 (K2b and K2c chunked, K2a
-# tc-wide in two slices of o), and D 64 and 128 (two
-# blocks a SM; K2b's q and do and K2c's k and v resident) at ragged T,
-# causal and not
+# tc-wide, q resident), a float32 D above 512 (K2b in two slices of dq, K2c
+# in three of dk and dv, K2a tc-wide in two slices of o), and D 64 and 128
+# (two blocks a SM; K2b's q and do and K2c's k and v resident) at ragged
+# T, causal and not
 TC_F32_SHAPES = ((3, 100, 100, 256, True), (2, 72, 136, 256, False),
                  (2, 130, 130, 320, True), (2, 72, 136, 512, True),
                  (2, 100, 100, 384, True), (1, 130, 130, 512, False),
@@ -577,8 +616,8 @@ def test_cuda_tc_f32_kernels_match_plain(shape):
     """K2a, K2b and K2c in float32 on the card against their plain
     versions: within 1e-4 + 1e-4 of the largest magnitude, each 64-row tile
     within 1e-2 of its norm (chip_smoke.py's K2_F32 and K2_TILE_REL), each
-    launch of the design ``_design`` names (tc-f32 from D 64 to 512, K2a
-    tc-wide above 256)."""
+    launch of the design ``_design`` names (tc-f32 from D 64, K2a tc-wide
+    above 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     bh, tq, tk, d, causal = shape
@@ -597,8 +636,7 @@ def test_cuda_tc_f32_kernels_match_plain(shape):
     torch.cuda.synchronize()
     for n in ("fwd", "dq", "dkv"):
         design = tfa._design(n, torch.float32, d)
-        assert design == ("tc-wide" if n == "fwd" and d > 256 else
-                          "tc-f32" if d <= 512 else "wmma-smem")
+        assert design == ("tc-wide" if n == "fwd" and d > 256 else "tc-f32")
         assert tfa.DESIGN_LAUNCHES[n][design] == before[n][design] + 1
     for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got,
                           (o0, lse0, dq0, dk0, dv0)):
