@@ -8,16 +8,17 @@ launches; 5 at the wide shapes) at the LMs' bf16 causal shapes, BH 128 x T
 1024 at head dim 64, BH 64 at 128 and BH 32 at 256, and at the wide
 shapes, all causal at T 1024: float32 at D 64 (BH 128), 128 (BH 64), 256,
 320, 512 and 576 (BH 32), bf16 at D 320 and 512 and float16 at D 512 (BH
-32), bf16 at D 32 (BH 256, the wmma-smem kernels of phase 18's demo); and
-float32 at D 32 (BH 256, the same operations), once through the
-wrappers as they run it and once on the same tensors zero-padded to D 64
-by the caller; prints one JSON line with the card's name and power
-limit. ``--library`` adds, at the wide shapes, the plain
-versions' times, each kernel's bound (``roofline``, of the kind its
-design runs) and the PyTorch calls that compute the same functions
-(yardsticks only: SDPA's memory-efficient forward, and its backward op,
-which gives dq, dk and dv in one call; at bf16 D 32 SDPA's flash forward
-and backward, which take it). ``--lm`` times float32 training
+32), bf16 and float16 at D 32 (BH 256, the wgmma-tma kernels of phase 18's
+demo), the same bf16 and float16 tensors zero-padded to D 64 by the caller
+(the D 64 kernels on D 32's work: the pad's yardstick); and float32 at D
+32 (BH 256, the same operations), once through the wrappers as they run it
+and once on the same tensors zero-padded to D 64 by the caller; prints one
+JSON line with the card's name and power limit. ``--library`` adds, at the
+wide shapes, the plain versions' times, each kernel's bound (``roofline``,
+of the kind its design runs) and the PyTorch calls that compute the same
+functions (yardsticks only: SDPA's memory-efficient forward, and its
+backward op, which gives dq, dk and dv in one call; at bf16 D 32 SDPA's
+flash forward and backward, which take it). ``--lm`` times float32 training
 steps (host clock, the mean of 3 steps after a warm-up) with their K2
 launches: the LM at Gemma-2B's widths (``LM_F32``: 2 layers, d 2048 = 8
 heads of 256, ff 16384, vocab 256,000, B 4 x T 1024, remat "dots") and at
@@ -59,14 +60,17 @@ WIDE_SHAPES = ((torch.float32, (128, 1024, 1024, 64, True)),
                (torch.bfloat16, (32, 1024, 1024, 320, True)),
                (torch.bfloat16, (32, 1024, 1024, 512, True)),
                (torch.float16, (32, 1024, 1024, 512, True)),
-               (torch.bfloat16, (256, 1024, 1024, 32, True)))
-D32_SHAPE = (256, 1024, 1024, 32, True)  # float32, timed also padded to 64
+               (torch.bfloat16, (256, 1024, 1024, 32, True)),
+               (torch.float16, (256, 1024, 1024, 32, True)))
+D32_SHAPE = (256, 1024, 1024, 32, True)  # timed also padded to 64
 HEADS = 16  # BH = B x 16 heads for the library calls
 LM_F32 = dict(vocab_size=256000, layers=2, heads=8, head_dim=256, ff=16384,
               max_len=1024, batch=4)
 LM_F32_D128 = dict(vocab_size=32768, layers=2, heads=16, head_dim=128,
                    ff=8192, max_len=1024, batch=4)
 FIT_F32 = (4, 1024, 1024, 16, 64)  # B, T, d_model, heads, head dim
+# K2's sources, each read where the checkout has it (flash_attention.cu:
+# older checkouts' wmma-smem kernels)
 SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu",
            "flash_attention_tf32.cu")
 TYPES = {"f": "float32", "nv_bfloat16": "bfloat16", "half": "float16"}
@@ -326,6 +330,10 @@ def main():
     for key, pad in (("f32_D32", None), ("f32_D32_pad64", 64)):
         out[key] = refused_or(kernel_ms, D32_SHAPE, torch.float32, reps=5,
                               library=args.library, pad_to=pad)
+    for dtype in (torch.bfloat16, torch.float16):
+        out[f"{KINDS[dtype]}_D32_pad64"] = refused_or(
+            kernel_ms, D32_SHAPE, dtype, reps=5, library=args.library,
+            pad_to=64)
     if args.lm:
         out["lm_f32_d256"] = lm_step_ms(LM_F32)
         out["lm_f32_d128"] = lm_step_ms(LM_F32_D128)

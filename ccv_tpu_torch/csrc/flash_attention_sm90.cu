@@ -1,20 +1,18 @@
-// Flash attention for Hopper (sm_90a) at bf16 and float16, head dim 64, 128
-// or 256: the forward (K2a), the dq backward (K2b) and the dk/dv backward
-// (K2c) redesigned around wgmma, TMA and register-resident accumulators.
-// They replace the 16-bit path of flash_attention.cu's kernels at those
-// head dims (that file keeps the f32 kernels, 16-bit D 32 and the chunked
-// form above D 256). Ports of the Pallas TPU kernels in
-// ccv_tpu/ops/pallas/flash_attention.py:
+// Flash attention for Hopper (sm_90a) at bf16 and float16, head dim 32, 64,
+// 128 or 256: the forward (K2a), the dq backward (K2b) and the dk/dv backward
+// (K2c) around wgmma, TMA and register-resident accumulators. Every 16-bit
+// head dim up to 256 runs here; float32, and every type above D 256, run the
+// mma.sync designs of flash_attention_tf32.cu. Ports of the Pallas TPU
+// kernels in ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (via _flash_bwd_bthd)
 //   K2c  _dkv_kernel    (via _flash_bwd_bthd)
 //
 // What they compute, on (BH, T, D) row-major bf16 or float16 tensors, D =
-// 64, 128 or 256 (lse and delta are (BH, Tq) f32), exactly what
-// flash_attention.cu computes:
+// 32, 64, 128 or 256 (lse and delta are (BH, Tq) f32):
 //   s = (q . k) * scale in f32; a key counts if k_pos < Tk and, when causal,
 //   k_pos <= q_pos + (Tk - Tq) (bottom-right). Masked scores are -1e30.
-//   K2a: online softmax over 64-key tiles; p is rounded to the input type
+//   K2a: online softmax over key tiles; p is rounded to the input type
 //        before p @ v; o = acc / max(l, 1e-30); lse = m + log(l) (natural
 //        log: the kernel keeps m in base 2 and converts before the store).
 //   K2b: p = exp(s - lse) (0 where masked), dp = do . v,
@@ -29,13 +27,17 @@
 // Bound on this card. At the LM's shape (BH 128, T 1024, D 64, causal) K2a
 // does 17.2 GFLOP on 67.6 MB, K2b 25.8 GFLOP on 84.9 MB and K2c 34.4 GFLOP
 // on 101.7 MB: at the H100's 989 TFLOP/s bf16 and 3.35 TB/s the bounds are
-// 0.020 ms (bytes), 0.026 ms and 0.035 ms (operations); at BH 32, D 256 the
-// same work and bytes, so the same bounds. The tile products are what the
-// tensor cores must do fast, and on Hopper only wgmma reaches their full
-// rate.
+// 0.020 ms (bytes), 0.026 ms and 0.035 ms (operations); at BH 32, D 256 and
+// at BH 256, D 32 the same work and about the same bytes, so the same
+// bounds. The tile products are what the tensor cores must do fast, and on
+// Hopper only wgmma reaches their full rate. At D 32 the exponentials set a
+// floor that the roofline leaves out: BH 256 x 524,800 causal pairs is 134 M
+// exp2 a kernel, and the SFU computes 16 a clock an SM (about 3.7 T/s over 132
+// SMs at ~1.75 GHz): ~0.036 ms, above K2a's bytes bound (K2b and K2c form p
+// once more each).
 //
-// Design (FlashAttention-3's layout, without its pingpong and intra-
-// warpgroup overlap):
+// Design (FlashAttention-3's layout, without its pingpong and
+// intra-warpgroup overlap):
 //   K2a: one block per (bh, 128-query tile): two consumer warpgroups of 64
 //   query rows and one producer warp (at D 256 a 64-query tile and one
 //   consumer warpgroup: see kFwdGroups). The producer TMA-loads the q tile
@@ -90,7 +92,26 @@
 //   block a SM, in 160-192 KB of shared memory (K2a: q 32 KB and a 2-stage
 //   k/v ring of 128 KB). This is the D 64 design made wider, not yet tuned
 //   for D 128 or 256.
-//
+//   At D 32 a 16-bit row is 64 B: tiles are TMA-loaded as boxes of 32
+//   columns with 64-byte swizzle, the matrix descriptors take layout B64
+//   (8-row atoms 512 B apart), a K step is 32 B inside the row (two over D)
+//   and 16 rows (1024 B) down an MN-major tile. The products over D are
+//   m64n32 (16 f32 registers a thread): O += P V, dQ += dS K, dV += P^T dO,
+//   dK += dS^T Q. A score carries half the matrix work it carries at D 64,
+//   so per-tile costs (row max and sum, exp2, mbarrier round trips) weigh
+//   twice as much and the exp floor above, not the products, is the one to
+//   beat; exp2 is ex2.approx.ftz there (one SFU operation, no range
+//   fix-up; exp2f elsewhere). D 32 runs the D 64 design's shape with more
+//   blocks in flight: K2a one warpgroup of 64 query rows on 64-key tiles
+//   through a 3-stage ring, four blocks a SM; K2b one warpgroup of 64 query
+//   rows, three blocks a SM; K2c one of 64 keys, two blocks a SM. Two K2a
+//   warpgroups sharing each k / v stage, with or without FA3's ping-pong,
+//   and two K2b or K2c warpgroups sharing each streamed stage measured
+//   slower on the card (PERF.md): at D 32 the exponentials take far longer
+//   than the products, so ordering the groups' wgmmas made each group's
+//   exp2 wait for the other's, and one block a SM left fewer warps to hide
+//   the SFU latency than four small ones.
+
 // The tensor maps are encoded on the host in the launch function through
 // cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint(ByVersion), so
 // the library needs no -lcuda; they reach the kernel as __grid_constant__
@@ -112,17 +133,22 @@ using f16 = __half;
 template <typename T>
 constexpr bool kIsF16 = std::is_same<T, f16>::value;
 
-constexpr int kHalf = 64;                 // columns of a 128-byte swizzle row
 constexpr int kRows = 64;                 // rows of a tile (one wgmma M)
 constexpr int kStages = 2;                // ring depth
+// Columns of one swizzle row ("half" of a tile) at head dim D: 64 (128 B,
+// 128-byte swizzle) from D 64 up, 32 (64 B, 64-byte swizzle) at D 32.
+template <int D>
+constexpr int kSw = D < 64 ? D : 64;
+template <int D>
+constexpr int kSwBytes = kSw<D> * 2;
 // Blocks per SM asked of the compiler for head dim D (it caps registers a
 // thread to fit them); what was tried on the card at D 64 is in PERF.md.
 template <int D>
 struct Sm90Cfg {
   static constexpr int kTileBytes = kRows * D * 2;  // 8 KB at D 64
-  static constexpr int kFwdBlocksPerSm = D == 64 ? 2 : 1;
-  static constexpr int kDkvBlocksPerSm = D == 64 ? 2 : 1;
-  static constexpr int kDqBlocksPerSm = D == 64 ? 3 : D == 128 ? 2 : 1;
+  static constexpr int kFwdBlocksPerSm = D == 32 ? 4 : D == 64 ? 2 : 1;
+  static constexpr int kDkvBlocksPerSm = D <= 64 ? 2 : 1;
+  static constexpr int kDqBlocksPerSm = D <= 64 ? 3 : D == 128 ? 2 : 1;
 };
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -210,33 +236,41 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Matrix descriptor of a tile of 128-byte rows written by TMA with 128-byte
-// swizzle (atoms of 8 rows, 1024 B apart: the stride byte offset). For a
-// K-major operand the leading byte offset is unused (a wgmma's 16-element K
-// slice lies inside a row); for an MN-major one it is the stride `lbo`
-// between 64-element column blocks: a 64-wide operand has one (lbo is
-// unused), a 128-wide one two, its halves a tile's rows x 128 B apart.
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile,
-                                               uint32_t lbo = 16) {
+// Matrix descriptor of a tile of swizzle rows of head dim D written by TMA:
+// 128-byte rows with 128-byte swizzle (layout B128, atoms of 8 rows 1024 B
+// apart: the stride byte offset), or at D 32 64-byte rows with 64-byte
+// swizzle (layout B64, atoms 512 B apart). For a K-major operand the
+// leading byte offset is unused (a wgmma's 16-element K slice lies inside a
+// row); for an MN-major one it is the stride `lbo` between column blocks of
+// one swizzle row: an operand one row wide has one (lbo is unused), a
+// 128-wide one two, its halves a tile's rows x 128 B apart.
+template <int D>
+__device__ __forceinline__ uint64_t desc_sw(const void* tile,
+                                            uint32_t lbo = 16) {
   const uint64_t addr = smem_u32(tile);
+  constexpr uint64_t kLayout = kSwBytes<D> == 128 ? 1 : 2;  // B128 : B64
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+         (uint64_t(8 * kSwBytes<D> >> 4) << 32) | (kLayout << 62);
 }
 // Advance of a descriptor by 16 elements of K: 32 B along a K-major row,
-// 16 rows (2048 B) down an MN-major tile. The start address field is in
-// 16-byte units.
+// 16 rows (2048 B, or 1024 B at D 32) down an MN-major tile. The start
+// address field is in 16-byte units.
 constexpr uint64_t kStepKMajor = 32 >> 4;
-constexpr uint64_t kStepMNMajor = 2048 >> 4;
+template <int D>
+constexpr uint64_t kStepMNMajor = 16 * kSwBytes<D> >> 4;
 // The element offset of column half h of a tile of `rows` rows.
+template <int D>
 __device__ __forceinline__ int half_at(int rows, int h) {
-  return h * rows * kHalf;
+  return h * rows * kSw<D>;
 }
 // The descriptor of K step kk (16 columns) of a K-major tile of `rows`
-// rows: half kk / 4, 32 B a step inside it.
-template <typename T>
+// rows: half kk / (kSw / 16), 32 B a step inside it.
+template <int D, typename T>
 __device__ __forceinline__ uint64_t kmajor_step(const T* tile, int rows,
                                                 int kk) {
-  return desc_sw128(tile + half_at(rows, kk / 4)) + (kk % 4) * kStepKMajor;
+  constexpr int kPer = kSw<D> / 16;
+  return desc_sw<D>(tile + half_at<D>(rows, kk / kPer)) +
+         (kk % kPer) * kStepKMajor;
 }
 
 #define WG_ACC32(d)                                                         \
@@ -272,11 +306,22 @@ __device__ __forceinline__ uint64_t kmajor_step(const T* tile, int rows,
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
   "%58, %59, %60, %61, %62, %63}"
 
+#define WG_ACC16(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define WG_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
 // The wgmma instructions of element type TY ("bf16" or "f16").
 #define WGMMA_SS(TY)                                                       \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WG_D32      \
   ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define WGMMA_RS32(TY)                                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " WG_D16      \
+  ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
 #define WGMMA_RS64(TY)                                                     \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WG_D32      \
@@ -286,8 +331,8 @@ __device__ __forceinline__ uint64_t kmajor_step(const T* tile, int rows,
   "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " WG_D64     \
   ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
 
-// d (64 x 64, f32) = (scale_d ? d : 0) + A (64 x 16) B (16 x 64), both from
-// shared memory, both K-major.
+// d (64 x 64, f32) = (scale_d ? d : 0) + A (64 x 16) B (16 x 64), both
+// from shared memory, both K-major.
 template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
@@ -301,13 +346,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                  : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x N, N = 64 or 128) += A (64 x 16, 16-bit pairs in registers)
-// B (16 x N, shared, MN-major: N / 64 halves); d is N / 2 registers.
+// d (64 x N, N = 32, 64 or 128) += A (64 x 16, 16-bit pairs in registers)
+// B (16 x N, shared, MN-major: N / 64 halves, or at N 32 one 64-byte row);
+// d is N / 2 registers.
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db) {
-  static_assert(N == 64 || N == 128, "m64n64 or m64n128");
-  if constexpr (N == 64 && kIsF16<T>)
+  static_assert(N == 32 || N == 64 || N == 128, "m64n32, m64n64, m64n128");
+  if constexpr (N == 32 && kIsF16<T>)
+    asm volatile(WGMMA_RS32("f16")
+                 : WG_ACC16(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
+  else if constexpr (N == 32)
+    asm volatile(WGMMA_RS32("bf16")
+                 : WG_ACC16(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
+  else if constexpr (N == 64 && kIsF16<T>)
     asm volatile(WGMMA_RS64("f16")
                  : WG_ACC32(d)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
@@ -330,19 +386,21 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
 }
 
 // The descriptor of the MN-major operand made of columns col0 .. col0 +
-// N - 1 (col0 a multiple of 64) of a tile of kRows rows: N = 64 is one
-// half (lbo unused), N = 128 two, a tile's rows x 128 B apart.
-template <int N, typename T>
+// N - 1 (col0 a multiple of kSw) of a tile of head dim D and kRows rows:
+// N = kSw is one half (lbo unused), N = 128 two, a tile's rows x 128 B
+// apart.
+template <int N, int D, typename T>
 __device__ __forceinline__ uint64_t mn_desc(const T* tile, int col0) {
-  const T* at = tile + half_at(kRows, col0 / kHalf);
-  return N == kHalf ? desc_sw128(at) : desc_sw128(at, kRows * 128);
+  const T* at = tile + half_at<D>(kRows, col0 / kSw<D>);
+  return N == kSw<D> ? desc_sw<D>(at) : desc_sw<D>(at, kRows * 128);
 }
 
 // d (64 x N, f32; N / 2 registers) += A (64 x 16: the K step kk of a
-// product over 64 rows, in registers) times rows 16 kk .. 16 kk + 15 of
-// columns col0 .. col0 + N - 1 of an MN-major tile of kRows rows: one
-// m64n64 or m64n128 wgmma, or N / 128 of the latter.
-template <typename T, int N>
+// product over the tile's rows, in registers) times rows 16 kk .. 16 kk +
+// 15 of columns col0 .. col0 + N - 1 of an MN-major tile of head dim D
+// (kRows rows a column half): one m64n32, m64n64 or m64n128 wgmma, or
+// N / 128 of the latter.
+template <typename T, int N, int D>
 __device__ __forceinline__ void wgmma_rs_cols(float* d, const uint32_t* a,
                                               const T* tile, int col0,
                                               int kk) {
@@ -350,7 +408,8 @@ __device__ __forceinline__ void wgmma_rs_cols(float* d, const uint32_t* a,
 #pragma unroll
   for (int c = 0; c < N / kN; ++c)
     wgmma_rs<T, kN>(d + c * (kN / 2), a,
-                    mn_desc<kN>(tile, col0 + c * kN) + kk * kStepMNMajor);
+                    mn_desc<kN, D>(tile, col0 + c * kN) +
+                        kk * kStepMNMajor<D>);
 }
 
 // Two f32 values as one register of the element type (lo in the low half),
@@ -386,15 +445,29 @@ __device__ __forceinline__ int key_tiles(int q_lo, int rows, int tk, int diag,
   return causal ? min(n, (q_lo + rows - 1 + diag) / kRows + 1) : n;
 }
 
+// 2^x: exp2f, and at D 32, where the exponentials set the floor, the bare
+// SFU instruction (ex2.approx.ftz: no range fix-up around it).
+template <int D>
+__device__ __forceinline__ float exp2_at(float x) {
+  if constexpr (D == 32) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return exp2f(x);
+  }
+}
+
 // TMA-loads rows row0 .. row0 + rows - 1 of head bh into a tile: one box of
-// 64 columns (128 B, the widest a 128-byte swizzle takes) per column half.
+// kSw columns (128 B, the widest a 128-byte swizzle takes, or 64 B at D 32)
+// per column half.
 template <int D, typename T>
 __device__ __forceinline__ void tma_tile(T* dst, const CUtensorMap* map,
                                          uint64_t* bar, int rows, int row0,
                                          int bh) {
 #pragma unroll
-  for (int h = 0; h < D / kHalf; ++h)
-    tma_load_3d(dst + half_at(rows, h), map, bar, kHalf * h, row0, bh);
+  for (int h = 0; h < D / kSw<D>; ++h)
+    tma_load_3d(dst + half_at<D>(rows, h), map, bar, kSw<D> * h, row0, bh);
 }
 
 template <typename T>
@@ -410,20 +483,80 @@ __device__ __forceinline__ T* align1024(unsigned char* p) {
 // count in whole warpgroups against the register file, so 2 groups and the
 // producer warp cap a thread at 168 registers, which D 256's O (128) and S
 // (32) accumulators and P (16) overflow: D 256 runs one group (cap 255).
+// D 32 runs one group at four blocks a SM, which measured faster than two
+// sharing each k / v stage (see the header).
 template <int D>
-constexpr int kFwdGroups = D > 128 ? 1 : 2;
+constexpr int kFwdGroups = D > 128 || D == 32 ? 1 : 2;
 template <int D>
 constexpr int kFwdRows = kRows * kFwdGroups<D>;
 template <int D>
 constexpr int kFwdThreads = 128 * kFwdGroups<D> + 32;
+// Depth of K2a's k / v ring: 3 stages at D 32 (8 KB a stage), else 2.
+template <int D>
+constexpr int kFwdStages = D == 32 ? 3 : kStages;
 
 template <typename T, int D>
 struct FwdSmem {
   T q[kFwdRows<D> * D];
-  T k[kStages][kRows * D];
-  T v[kStages][kRows * D];
-  uint64_t q_full, full[kStages], empty[kStages];
+  T k[kFwdStages<D>][kRows * D];
+  T v[kFwdStages<D>][kRows * D];
+  uint64_t q_full, full[kFwdStages<D>], empty[kFwdStages<D>];
 };
+
+// One key tile of K2a's online softmax in base 2. sc is the 64 x 64 score
+// tile (accumulator layout) of the query rows q_lo + r0 and q_lo + r0 + 8
+// against keys k0 ..: it is scaled and, on the causal diagonal or the
+// ragged tail, masked; the running max m and this thread's share of the
+// row sum l move on, O (D / 2 registers) is rescaled and P is packed to
+// the input type into pf (the A operands of O += P V).
+template <typename T, int D>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
+                                             float (&l)[2], float* o_acc,
+                                             uint32_t (&pf)[16], int k0,
+                                             int q_lo, int r0, int cq, int tk,
+                                             int diag, int causal,
+                                             float scale_log2) {
+  const bool edge =
+      k0 + kRows > tk || (causal && k0 + kRows - 1 > q_lo + diag);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float x = sc[i] * scale_log2;
+    if (edge) {
+      const int kp = k0 + acc_col(i) + cq;
+      const int qp = q_lo + r0 + acc_row(i);
+      if (!(kp < tk && (!causal || kp <= qp + diag))) x = kNegInf;
+    }
+    sc[i] = x;
+  }
+  // rows r0 (h = 0) and r0 + 8 (h = 1)
+  float corr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      mx = fmaxf(mx, fmaxf(sc[4 * jj + 2 * h], sc[4 * jj + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx);
+    corr[h] = exp2_at<D>(m[h] - m_new);
+    m[h] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    sc[i] = exp2_at<D>(sc[i] - m[h]);
+    sum[h] += sc[i];
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_acc[i] *= corr[(i >> 1) & 1];
+  l[0] = l[0] * corr[0] + sum[0];  // this thread's share of the row
+  l[1] = l[1] * corr[1] + sum[1];
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+    pf[t] = pack2<T>(sc[2 * t], sc[2 * t + 1]);
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kFwdThreads<D>,
@@ -434,6 +567,7 @@ __global__ void __launch_bounds__(kFwdThreads<D>,
                     T* __restrict__ o, float* __restrict__ lse, int tq,
                     int tk, float scale_log2, int causal) {
   constexpr int kTileBytes = Sm90Cfg<D>::kTileBytes;
+  constexpr int kSt = kFwdStages<D>;
   extern __shared__ unsigned char smem_raw[];
   constexpr int kQRows = kFwdRows<D>;
   FwdSmem<T, D>& sm = *align1024<FwdSmem<T, D>>(smem_raw);
@@ -445,7 +579,7 @@ __global__ void __launch_bounds__(kFwdThreads<D>,
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], kQRows / 16);  // lane 0 of each consumer warp
     }
@@ -460,8 +594,8 @@ __global__ void __launch_bounds__(kFwdThreads<D>,
       mbar_expect_tx(&sm.q_full, kQRows * D * 2);
       tma_tile<D>(sm.q, &q_map, &sm.q_full, kQRows, q0, bh);
       for (int j = 0; j < n_kt; ++j) {
-        const int s = j % kStages;
-        mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+        const int s = j % kSt;
+        mbar_wait(&sm.empty[s], ((j / kSt) & 1) ^ 1);
         mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
         tma_tile<D>(sm.k[s], &k_map, &sm.full[s], kRows, j * kRows, bh);
         tma_tile<D>(sm.v[s], &v_map, &sm.full[s], kRows, j * kRows, bh);
@@ -481,70 +615,31 @@ __global__ void __launch_bounds__(kFwdThreads<D>,
   for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   // this warpgroup's 64 rows of each column half of the q tile
-  const T* q_wg = sm.q + kRows * kHalf * wg;
+  const T* q_wg = sm.q + kRows * kSw<D> * wg;
 
   mbar_wait(&sm.q_full, 0);
   for (int j = 0; j < n_kt; ++j) {
-    const int s = j % kStages;
-    mbar_wait(&sm.full[s], (j / kStages) & 1);
+    const int s = j % kSt;
+    mbar_wait(&sm.full[s], (j / kSt) & 1);
     if (j < n_kt_wg) {
       float sc[32];
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T>(sc, kmajor_step(q_wg, kQRows, kk),
-                    kmajor_step(sm.k[s], kRows, kk), kk);
+        wgmma_ss<T>(sc, kmajor_step<D>(q_wg, kQRows, kk),
+                    kmajor_step<D>(sm.k[s], kRows, kk), kk);
       wg_commit();
       wg_wait_all();
       fence_regs(sc);
-
-      const int k0 = j * kRows;
-      const bool edge =
-          k0 + kRows > tk || (causal && k0 + kRows - 1 > q_lo + diag);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        float x = sc[i] * scale_log2;
-        if (edge) {
-          const int kp = k0 + acc_col(i) + cq;
-          const int qp = q_lo + r0 + acc_row(i);
-          if (!(kp < tk && (!causal || kp <= qp + diag))) x = kNegInf;
-        }
-        sc[i] = x;
-      }
-      // online softmax in base 2: rows r0 (h = 0) and r0 + 8 (h = 1)
-      float corr[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = kNegInf;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          mx = fmaxf(mx, fmaxf(sc[4 * jj + 2 * h], sc[4 * jj + 2 * h + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[h], mx);
-        corr[h] = exp2f(m[h] - m_new);
-        m[h] = m_new;
-      }
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int h = (i >> 1) & 1;
-        sc[i] = exp2f(sc[i] - m[h]);
-        sum[h] += sc[i];
-      }
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) o_acc[i] *= corr[(i >> 1) & 1];
-      l[0] = l[0] * corr[0] + sum[0];  // this thread's share of the row
-      l[1] = l[1] * corr[1] + sum[1];
       uint32_t pf[16];
-#pragma unroll
-      for (int t = 0; t < 16; ++t) pf[t] = pack2<T>(sc[2 * t], sc[2 * t + 1]);
+      softmax_tile<T, D>(sc, m, l, o_acc, pf, j * kRows, q_lo, r0, cq, tk,
+                         diag, causal, scale_log2);
 
       fence_regs(o_acc);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk)
-        wgmma_rs_cols<T, D>(o_acc, pf + 4 * kk, sm.v[s], 0, kk);
+        wgmma_rs_cols<T, D, D>(o_acc, pf + 4 * kk, sm.v[s], 0, kk);
       wg_commit();
       wg_wait_all();
       fence_regs(o_acc);
@@ -658,7 +753,8 @@ __global__ void __launch_bounds__(kDkvThreads, Sm90Cfg<D>::kDkvBlocksPerSm)
     return;
   }
 
-  // columns c0 .. c0 + kCols - 1 of dK and dV
+  // consumer warpgroup: keys k0 .. k0 + 63, columns c0 .. c0 + kCols - 1
+  // of dK and dV
   const int r0 = 16 * warp + lane / 4;  // key rows k0 + r0, k0 + r0 + 8
   const int cq = 2 * (lane % 4);        // query columns 8j + cq + {0, 1}
   const float scale_log2 = scale * kLog2e;
@@ -674,12 +770,12 @@ __global__ void __launch_bounds__(kDkvThreads, Sm90Cfg<D>::kDkvBlocksPerSm)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<T>(st, kmajor_step(sm.k, kRows, kk),
-                  kmajor_step(sm.q[s], kRows, kk), kk);
+      wgmma_ss<T>(st, kmajor_step<D>(sm.k, kRows, kk),
+                  kmajor_step<D>(sm.q[s], kRows, kk), kk);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<T>(dpt, kmajor_step(sm.v, kRows, kk),
-                  kmajor_step(sm.dout[s], kRows, kk), kk);
+      wgmma_ss<T>(dpt, kmajor_step<D>(sm.v, kRows, kk),
+                  kmajor_step<D>(sm.dout[s], kRows, kk), kk);
     wg_commit();
     wg_wait_all();
     fence_regs(st);
@@ -691,7 +787,7 @@ __global__ void __launch_bounds__(kDkvThreads, Sm90Cfg<D>::kDkvBlocksPerSm)
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int col = acc_col(e) + cq;
-      float p = exp2f(st[e] * scale_log2 - sm.lse[s][col] * kLog2e);
+      float p = exp2_at<D>(st[e] * scale_log2 - sm.lse[s][col] * kLog2e);
       if (edge) {
         const int qp = qs0 + col, kp = k0 + r0 + acc_row(e);
         if (!(qp < tq && kp < tk && (!causal || kp <= qp + diag))) p = 0.f;
@@ -710,10 +806,10 @@ __global__ void __launch_bounds__(kDkvThreads, Sm90Cfg<D>::kDkvBlocksPerSm)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kRows / 16; ++kk)
-      wgmma_rs_cols<T, kCols>(dv_acc, pf + 4 * kk, sm.dout[s], c0, kk);
+      wgmma_rs_cols<T, kCols, D>(dv_acc, pf + 4 * kk, sm.dout[s], c0, kk);
 #pragma unroll
     for (int kk = 0; kk < kRows / 16; ++kk)
-      wgmma_rs_cols<T, kCols>(dk_acc, dsf + 4 * kk, sm.q[s], c0, kk);
+      wgmma_rs_cols<T, kCols, D>(dk_acc, dsf + 4 * kk, sm.q[s], c0, kk);
     wg_commit();
     wg_wait_all();
     fence_regs(dv_acc);
@@ -820,12 +916,12 @@ __global__ void __launch_bounds__(kDqThreads, Sm90Cfg<D>::kDqBlocksPerSm)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<T>(sc, kmajor_step(sm.q, kRows, kk),
-                  kmajor_step(sm.k[s], kRows, kk), kk);
+      wgmma_ss<T>(sc, kmajor_step<D>(sm.q, kRows, kk),
+                  kmajor_step<D>(sm.k[s], kRows, kk), kk);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<T>(dp, kmajor_step(sm.dout, kRows, kk),
-                  kmajor_step(sm.v[s], kRows, kk), kk);
+      wgmma_ss<T>(dp, kmajor_step<D>(sm.dout, kRows, kk),
+                  kmajor_step<D>(sm.v[s], kRows, kk), kk);
     wg_commit();
     wg_wait_all();
     fence_regs(sc);
@@ -837,7 +933,7 @@ __global__ void __launch_bounds__(kDqThreads, Sm90Cfg<D>::kDqBlocksPerSm)
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int h = (i >> 1) & 1;
-      float p = exp2f(sc[i] * scale_log2 - lse2[h]);
+      float p = exp2_at<D>(sc[i] * scale_log2 - lse2[h]);
       if (edge) {
         const int kp = k0 + acc_col(i) + cq, qp = q0 + r0 + acc_row(i);
         if (!(kp < tk && (!causal || kp <= qp + diag))) p = 0.f;
@@ -852,7 +948,7 @@ __global__ void __launch_bounds__(kDqThreads, Sm90Cfg<D>::kDqBlocksPerSm)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kRows / 16; ++kk)
-      wgmma_rs_cols<T, D>(dq_acc, dsf + 4 * kk, sm.k[s], 0, kk);
+      wgmma_rs_cols<T, D, D>(dq_acc, dsf + 4 * kk, sm.k[s], 0, kk);
     wg_commit();
     wg_wait_all();
     fence_regs(dq_acc);
@@ -899,22 +995,25 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A (bh, t, d) 16-bit tensor as a 3-d map with boxes of 64 columns and
-// `rows` rows of one head, 128-byte swizzle; rows past t read as zero.
-template <typename T>
-bool map_rows(CUtensorMap* map, const void* ptr, int bh, int t, int d,
-              int rows) {
+// A (bh, t, D) 16-bit tensor as a 3-d map with boxes of kSw columns and
+// `rows` rows of one head, 128-byte swizzle (64-byte at D 32); rows past t
+// read as zero.
+template <typename T, int D>
+bool map_rows(CUtensorMap* map, const void* ptr, int bh, int t, int rows) {
+  constexpr int d = D;
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {kHalf, (cuuint32_t)rows, 1};
+  const cuuint32_t box[3] = {kSw<D>, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return enc(map,
              kIsF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
              3, const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             kSwBytes<D> == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -933,9 +1032,9 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int tq, int tk, float scale, int causal,
                cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
-  if (!map_rows<T>(&q_map, q, bh, tq, D, kFwdRows<D>) ||
-      !map_rows<T>(&k_map, k, bh, tk, D, kRows) ||
-      !map_rows<T>(&v_map, v, bh, tk, D, kRows))
+  if (!map_rows<T, D>(&q_map, q, bh, tq, kFwdRows<D>) ||
+      !map_rows<T, D>(&k_map, k, bh, tk, kRows) ||
+      !map_rows<T, D>(&v_map, v, bh, tk, kRows))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(FwdSmem<T, D>) + 1024;
   cudaError_t err = set_smem(fwd_sm90_kernel<T, D>, smem);
@@ -952,10 +1051,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int tq,
               int tk, float scale, int causal, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map, do_map;
-  if (!map_rows<T>(&q_map, q, bh, tq, D, kRows) ||
-      !map_rows<T>(&k_map, k, bh, tk, D, kRows) ||
-      !map_rows<T>(&v_map, v, bh, tk, D, kRows) ||
-      !map_rows<T>(&do_map, dout, bh, tq, D, kRows))
+  if (!map_rows<T, D>(&q_map, q, bh, tq, kRows) ||
+      !map_rows<T, D>(&k_map, k, bh, tk, kRows) ||
+      !map_rows<T, D>(&v_map, v, bh, tk, kRows) ||
+      !map_rows<T, D>(&do_map, dout, bh, tq, kRows))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(DqSmem<T, D>) + 1024;
   cudaError_t err = set_smem(dq_sm90_kernel<T, D>, smem);
@@ -973,10 +1072,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                int bh, int tq, int tk, float scale, int causal,
                cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map, do_map;
-  if (!map_rows<T>(&q_map, q, bh, tq, D, kRows) ||
-      !map_rows<T>(&k_map, k, bh, tk, D, kRows) ||
-      !map_rows<T>(&v_map, v, bh, tk, D, kRows) ||
-      !map_rows<T>(&do_map, dout, bh, tq, D, kRows))
+  if (!map_rows<T, D>(&q_map, q, bh, tq, kRows) ||
+      !map_rows<T, D>(&k_map, k, bh, tk, kRows) ||
+      !map_rows<T, D>(&v_map, v, bh, tk, kRows) ||
+      !map_rows<T, D>(&do_map, dout, bh, tq, kRows))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(DkvSmem<T, D>) + 1024;
   cudaError_t err = set_smem(dkv_sm90_kernel<T, D>, smem);
@@ -989,7 +1088,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // Instantiates the launcher for dtype 1 (bfloat16) or 2 (float16) and head
-// dim 64, 128 or 256, or returns cudaErrorInvalidValue. Built with
+// dim 32, 64, 128 or 256, or returns cudaErrorInvalidValue. Built with
 // -DFLASH_SM90_DTYPE=1 or 2 the library holds that type's kernels alone, so
 // the wrapper builds the two types' libraries with two nvcc runs at once.
 #ifndef FLASH_SM90_DTYPE
@@ -997,6 +1096,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 #endif
 #define SM90_DIMS(T, head_dim, LAUNCH, ...)                          \
   do {                                                               \
+    if ((head_dim) == 32) return LAUNCH<T, 32>(__VA_ARGS__);         \
     if ((head_dim) == 64) return LAUNCH<T, 64>(__VA_ARGS__);         \
     if ((head_dim) == 128) return LAUNCH<T, 128>(__VA_ARGS__);       \
     if ((head_dim) == 256) return LAUNCH<T, 256>(__VA_ARGS__);       \
@@ -1021,7 +1121,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // K2a. q (bh, tq, d), k and v (bh, tk, d), bf16 (dtype 1) or float16
-// (dtype 2), d = 64, 128 or 256 -> o (bh, tq, d), lse (bh, tq) f32.
+// (dtype 2), d = 32, 64, 128 or 256 -> o (bh, tq, d), lse (bh, tq) f32.
 extern "C" int flash_attention_fwd_sm90(int device, int dtype, int head_dim,
                                         const void* q, const void* k,
                                         const void* v, void* o, float* lse,

@@ -7,8 +7,8 @@
 // templates as float32's above D 128), 16-bit operands through native
 // 16-bit products, float32 through the same three TF32 parts. They replace
 // the FMA kernels and the chunked form (64-column chunks, accumulators in
-// a global scratch) that flash_attention.cu held; that file keeps 16-bit D
-// 32. Ports of the Pallas TPU kernels in
+// a global scratch) of an earlier design; 16-bit D up to 256 runs
+// flash_attention_sm90.cu. Ports of the Pallas TPU kernels in
 // ccv_tpu/ops/pallas/flash_attention.py:
 //   K2a  _flash_kernel  (:36, via _flash_fwd_bthd)
 //   K2b  _dq_kernel     (:173, via _flash_bwd_bthd)
@@ -16,8 +16,8 @@
 //
 // What they compute, on (BH, T, D) row-major tensors, D a multiple of 64
 // (K2a in float32 on tc-f32: 64, 128, 192 or 256), f32, bf16 or float16
-// (lse and delta are (BH, Tq) f32), exactly what flash_attention.cu
-// computes at D 32:
+// (lse and delta are (BH, Tq) f32), exactly what flash_attention_sm90.cu
+// computes in 16-bit up to D 256:
 //   s = (q . k) * scale; a key counts if k_pos < Tk and, when causal,
 //   k_pos <= q_pos + (Tk - Tq) (bottom-right). Masked scores are -1e30.
 //   K2a: online softmax over 64-key tiles; o = acc / max(l, 1e-30);

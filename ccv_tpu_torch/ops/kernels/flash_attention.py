@@ -8,12 +8,15 @@ kernels' op order:
 - ``flash_fwd``, ``flash_dq``, ``flash_dkv``: the wrappers. On a CPU tensor
   each runs its plain version; on a CUDA tensor it launches its hand-written
   kernel or raises. ``LAUNCHES`` counts kernel launches per kernel,
-  ``DESIGN_LAUNCHES`` per kernel and design. ``_design`` picks one of four
+  ``DESIGN_LAUNCHES`` per kernel and design. ``_design`` picks one of three
   designs:
 
   - "wgmma-tma" (csrc/flash_attention_sm90.cu: wgmma, TMA, register-resident
     softmax and accumulators): all three at bf16 and float16 and head dim
-    64, 128 or 256;
+    32, 64, 128 or 256 (at D 32 64-byte swizzle, m64n32 products over D,
+    exp2 in one SFU instruction and more blocks a SM than at D 64: there
+    the exponentials, about 0.03 ms of the card's time at 256 heads x T
+    1024 causal, outweigh the products);
   - "tc-f32" (csrc/flash_attention_tf32.cu: mma.sync TF32 in three parts,
     cp.async rings, accumulators in registers): all three in float32 from
     head dim 64 (``TC_F32_MIN``; D 32 runs as D 64 on zero-padded operands,
@@ -23,8 +26,6 @@ kernels' op order:
     16-bit products or TF32 in three parts): K2a above D 256 in every type,
     K2b and K2c above D 256 in bf16 and float16 (``WIDE_ABOVE``), their q
     and do or k and v resident in shared memory where they fit;
-  - "wmma-smem" (csrc/flash_attention.cu: wmma tiles and accumulators in
-    shared memory): all three at bf16 and float16 head dim 32;
 - ``flash_work``: the operations and bytes of one call, for its bound;
 - ``FlashAttention`` / ``flash_attention``: the autograd function on
   ``(B, T, H, D)``, counterpart of ccv_tpu's ``flash_attention`` custom_vjp.
@@ -63,13 +64,12 @@ from ccv_tpu_torch.ops.kernels import _build
 NEG_INF = -1e30          # masked score, as in the Pallas kernel
 HEAD_DIMS = (32, 64, 128, 256)  # head dims with kernels of their own
 WIDE_STEP = 64  # above HEAD_DIMS[-1], D is a multiple of this (its chunks)
-WGMMA_DIMS = (64, 128, 256)  # the 16-bit head dims of "wgmma-tma"
 TC_F32_MIN = 64  # the smallest float32 head dim of "tc-f32"
 # "tc-wide" runs K2a above this head dim in every type (float32 D 320-512
 # too: one block over all of D there beat tc-f32's two a query tile), and
 # K2b and K2c above it in 16-bit
 WIDE_ABOVE = 256
-DESIGNS = ("wgmma-tma", "tc-f32", "tc-wide", "wmma-smem")
+DESIGNS = ("wgmma-tma", "tc-f32", "tc-wide")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches made by the wrappers (CUDA tensors only), per kernel and
@@ -94,7 +94,7 @@ def _design(kernel: str, dtype: torch.dtype, d: int) -> str:
         return "tc-wide"
     if dtype == torch.float32:
         return "tc-f32"
-    return "wgmma-tma" if d in WGMMA_DIMS else "wmma-smem"
+    return "wgmma-tma"  # 16-bit, every head dim up to WIDE_ABOVE
 
 
 def roofline_kind(kernel: str, dtype: torch.dtype, d: int) -> str:
@@ -247,22 +247,6 @@ def _check_bwd(q, k, v, do, lse, delta, causal: bool) -> None:
             raise ValueError(f"{name} must be contiguous on {q.device}")
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("flash_attention", ["flash_attention.cu"])
-    if lib.flash_attention_fwd.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd.argtypes = [i, i, i, p, p, p, p, p, i, i, i,
-                                            f, i, p]
-        lib.flash_attention_dq.argtypes = [i, i, i, p, p, p, p, p, p, p, i,
-                                           i, i, f, i, p]
-        lib.flash_attention_dkv.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
-                                            i, i, i, f, i, p]
-        for fn in (lib.flash_attention_fwd, lib.flash_attention_dq,
-                   lib.flash_attention_dkv):
-            fn.restype = ctypes.c_int
-    return lib
-
-
 def _sm90_library(code: int) -> ctypes.CDLL:
     """The wgmma-tma library of dtype code 1 (bfloat16) or 2 (float16): one
     library a type, so the two build at once."""
@@ -304,11 +288,11 @@ def _tf32_library() -> ctypes.CDLL:
 
 
 def build() -> None:
-    """Compile (or find on disk) and load the kernels' four libraries, one
+    """Compile (or find on disk) and load the kernels' three libraries, one
     nvcc for each, started together."""
-    with ThreadPoolExecutor(4) as ex:
-        for fut in [ex.submit(_library), ex.submit(_sm90_library, 1),
-                    ex.submit(_sm90_library, 2), ex.submit(_tf32_library)]:
+    with ThreadPoolExecutor(3) as ex:
+        for fut in [ex.submit(_sm90_library, 1), ex.submit(_sm90_library, 2),
+                    ex.submit(_tf32_library)]:
             fut.result()
 
 
@@ -374,10 +358,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                            *ptrs)
     elif design == "tc-f32":
         err = _tf32_library().flash_attention_fwd_tf32(dev, d, *ptrs)
-    elif design == "tc-wide":
-        err = _tf32_library().flash_attention_fwd_wide(dev, code, d, *ptrs)
     else:
-        err = _library().flash_attention_fwd(dev, code, d, *ptrs)
+        err = _tf32_library().flash_attention_fwd_wide(dev, code, d, *ptrs)
     _launched("fwd", design, err)
     return o, lse
 
@@ -400,10 +382,8 @@ def flash_dq(q, k, v, do, lse, delta, scale: float,
             k.shape[1], scale, int(causal), stream)
     if design == "wgmma-tma":
         err = _sm90_library(code).flash_attention_dq_sm90(dev, code, d, *ptrs)
-    elif design in ("tc-f32", "tc-wide"):
-        err = _tf32_library().flash_attention_dq_tc(dev, code, d, *ptrs)
     else:
-        err = _library().flash_attention_dq(dev, code, d, *ptrs)
+        err = _tf32_library().flash_attention_dq_tc(dev, code, d, *ptrs)
     _launched("dq", design, err)
     return dq
 
@@ -428,10 +408,8 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float,
     if design == "wgmma-tma":
         err = _sm90_library(code).flash_attention_dkv_sm90(dev, code, d,
                                                            *ptrs)
-    elif design in ("tc-f32", "tc-wide"):
-        err = _tf32_library().flash_attention_dkv_tc(dev, code, d, *ptrs)
     else:
-        err = _library().flash_attention_dkv(dev, code, d, *ptrs)
+        err = _tf32_library().flash_attention_dkv_tc(dev, code, d, *ptrs)
     _launched("dkv", design, err)
     return dk, dv
 
@@ -441,7 +419,7 @@ def padded_dim(d: int, dtype: Optional[torch.dtype] = None) -> int:
     ``HEAD_DIMS`` that holds it, above the largest the next multiple of
     ``WIDE_STEP``. With ``dtype``, the one the card's kernels run for that
     type: float32 at most 32 at 64, the smallest tc-f32 dim (16-bit D 32
-    keeps its own kernels). Raises for d < 1."""
+    runs the wgmma-tma kernels at 32). Raises for d < 1."""
     if d < 1:
         raise ValueError(f"head dim {d}: must be at least 1")
     if dtype == torch.float32 and d < TC_F32_MIN:

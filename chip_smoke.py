@@ -19,12 +19,13 @@ started together) and drives the port's main paths:
 - transformer-LM training (phases 6-7): the flash-attention kernels K2a
   (forward), K2b (dq) and K2c (dk, dv) against their plain versions at the
   parity tests' shapes and the LM's, each launch checked for its design
-  ("wgmma-tma" at bf16 and head dim 64 or 128; in float32 "tc-f32" for all
-  three, D 32 on operands zero-padded to 64; "wmma-smem" at bf16 D 32),
-  timed at
-  the LM
-  shape in turns with the PyTorch calls that compute the same functions
-  (yardsticks only: SDPA's flash forward, the flash backward op); a 2-layer
+  ("wgmma-tma" at bf16 and float16 and head dim 32, 64 or 128; in float32
+  "tc-f32" for all three, D 32 on operands zero-padded to 64; the D 32
+  shapes in float16 too), timed at the LM shape and, in bf16 and float16,
+  at 16 x 16 heads of 32 (T 1024, causal; beside the D 64 kernels on the
+  same tensors zero-padded to 64 and the exp2 floor) in turns with the
+  PyTorch calls that compute the same functions (yardsticks only: SDPA's
+  flash forward, the flash backward op); a 2-layer
   step at the LM's widths with the kernels against
   one with plain attention, then ``ccv_tpu_torch.bin.lm_bench.measure`` at
   its defaults (GPT-2-medium shape, 24 layers) for a warm-up step and a few
@@ -76,8 +77,10 @@ started together) and drives the port's main paths:
   wmt step at B 16 x 128 at dropout 0 (6 K2a, K2b and K2c a step) and 0.1
   (none), and its gate against plain attention in float32 and bf16; the
   imdb demo at its CLI defaults and its classifier through K2 against
-  plain attention; last, their profiles (busy, idle share, device ms by
-  kind of kernel);
+  plain attention; ``Model.fit`` through ScaledDotProductAttention(16, 32)
+  in bf16 (the D 32 kernels' main path, one launch each) against the plain
+  route; last, their profiles (busy, idle share, device ms by kind of
+  kernel);
 - phases 19-21, ICF, SWT and SIFT (torch ops, no kernel of their own, as
   ``ccv_tpu`` runs XLA ops): ICF at 1080p with a seeded synthetic cascade
   of 2,000 depth-2 trees (pedestrian.icf's count; 10 channels on an RGB
@@ -300,11 +303,24 @@ K2_BF16 = 2e-2
 # (8-bit mantissas) moves a tile by a few parts in a thousand
 K2_TILE_REL = 1e-2
 # K2 shapes (BH, Tq, Tk, D, causal): the parity tests' (B 2 x H 3 at D 64,
-# B 2 x H 2 at D 32 and 64), then the LM's (B 8 x H 16, T 1024, D 64, causal)
+# B 2 x H 2 at D 32 and 64), ragged D 32 ones, then the LM's (B 8 x H 16, T
+# 1024, D 64, causal); the D 32 ones run in float16 too
 K2_SHAPES = ([(6, t, t, 64, c) for t in (128, 100, 257) for c in (False, True)]
              + [(4, 72, 136, d, c) for d in (32, 64) for c in (False, True)]
-             + [(4, 64, 64, 32, True)])
+             + [(4, 64, 64, 32, True), (4, 100, 100, 32, True),
+                (2, 257, 257, 32, False)])
 K2_LM = (128, 1024, 1024, 64, True)
+# 16-bit D 32 (wgmma-tma: one warpgroup a block on 64-row tiles in each
+# kernel, K2a through a 3-stage ring): checked and timed at B 16 x 16 heads
+# of 32, T 1024, causal, beside SDPA's flash calls and the D 64 kernels on
+# the same tensors zero-padded to 64; and Model.fit of phase 31's graph
+# model with ScaledDotProductAttention(16, 32) (B, T, d_model, heads, head
+# dim), the D 32 kernels' main path
+K2_D32 = (256, 1024, 1024, 32, True)
+SDPA_D32 = (4, 1024, 512, 16, 32)
+# the exponentials' floor of a K2 kernel: one exp2 a counted pair, at the
+# SFU's 16 a clock on each SM (the roofline leaves it out)
+SFU_EXP2_PER_CLOCK = 16
 # the 2-layer LM step with the kernels against plain attention (bf16):
 # loss within 1e-3 relative; each gradient within 1e-1 of its largest
 # magnitude (the plain path's backward runs through bf16 einsums, so it
@@ -902,16 +918,21 @@ def f32_designs_checked(k2, d):
 def k2_vs_plain(k2, roofline, dev, card):
     rng = np.random.default_rng(17)
     f32 = f32_designs_checked(k2, 64)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         worst, worst_rel = {}, {}
-        for shape in K2_SHAPES:
+        shapes = [s for s in K2_SHAPES
+                  if dtype != torch.float16 or s[3] == 32]
+        for shape in shapes:
             errs, rels = k2_compare(k2, shape, dtype, dev, rng)
             for key in errs:
                 worst[key] = max(worst.get(key, 0.0), errs[key])
                 worst_rel[key] = max(worst_rel.get(key, 0.0), rels[key])
-        log(6, f"K2 vs plain, {dtype}, {len(K2_SHAPES)} shapes "
-               f"(T 128/100/257 causal and not at D 64; 72x136 causal and "
-               f"not at D 32 and 64, 64 causal at D 32): max abs error "
+        log(6, f"K2 vs plain, {dtype}, {len(shapes)} shapes ("
+               + ("" if dtype == torch.float16 else
+                  "T 128/100/257 causal and not at D 64; 72x136 causal and "
+                  "not at D 64; ")
+               + f"at D 32 72x136 causal and not, 64 and 100 causal, 257 "
+               f"not): max abs error "
                f"{ {k: f'{e:.3g}' for k, e in worst.items()} }; worst "
                f"64-row tile error / tile norm "
                f"{ {k: f'{e:.3g}' for k, e in worst_rel.items()} }; designs "
@@ -928,6 +949,66 @@ def k2_vs_plain(k2, roofline, dev, card):
         "the library call; plain 5): " + k2_timing_note(out, lib_err)
         + f"; {card}")
     return errs, out
+
+
+def exp_floor_ms(shape):
+    """The least ms in which the card's SFUs compute one exp2 for each
+    counted pair of a causal (BH, Tq, Tk, D, causal) ``shape``, at
+    SFU_EXP2_PER_CLOCK a clock on each SM and the SMs' largest clock
+    (nvidia-smi's clocks.max.sm)."""
+    bh, t_q, t_k, _d, causal = shape
+    from ccv_tpu_torch.ops.kernels import flash_attention as k2
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exps = bh * k2.causal_pairs(t_q, t_k, causal)
+    return exps / (SFU_EXP2_PER_CLOCK * sms * mhz * 1e6) * 1e3
+
+
+def k2_padded_ms(k2, shape, dtype, dev, rng, reps=20):
+    """{kernel: ms} of K2a, K2b and K2c on a causal ``shape``'s q, k, v and
+    do zero-padded along D to 64 by the caller, with D's scale: the D 64
+    kernels doing D's work (CUDA events, ``reps`` calls each; the pad
+    copies are not in the times)."""
+    q, k, v, do = (torch.nn.functional.pad(x, (0, 64 - shape[3]))
+                   for x in k2_inputs(shape, dtype, dev, rng))
+    scale, causal = 1.0 / np.sqrt(shape[3]), shape[4]
+    o, lse = k2.flash_fwd(q, k, v, scale, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, scale, causal)
+    return {"fwd": time_cuda(lambda: k2.flash_fwd(q, k, v, scale, causal),
+                             reps),
+            "dq": time_cuda(lambda: k2.flash_dq(*bwd), reps),
+            "dkv": time_cuda(lambda: k2.flash_dkv(*bwd), reps)}
+
+
+def k2_d32_path(k2, roofline, dev, card):
+    """Phase 6, 16-bit D 32 at K2_D32: K2a, K2b and K2c against their plain
+    versions in bf16 and float16 (the wgmma-tma design checked), timed in
+    turns with SDPA's flash calls (``k2_timed``), and the D 64 kernels on
+    the same tensors zero-padded to 64 (``k2_padded_ms``). Returns {"bfloat16",
+    "float16": {"err": {kernel: max abs error}, "timed": {kernel: timing},
+    "pad64_ms": {kernel: ms}}, "exp_floor_ms": ms}."""
+    rng = np.random.default_rng(32)
+    out = {"exp_floor_ms": exp_floor_ms(K2_D32)}
+    for dtype in (torch.bfloat16, torch.float16):
+        errs, rels = k2_compare(k2, K2_D32, dtype, dev, rng)
+        timed, lib_err = k2_timed(k2, roofline, K2_D32, dev, rng, dtype=dtype)
+        pad = k2_padded_ms(k2, K2_D32, dtype, dev, rng)
+        name = str(dtype).split(".")[1]
+        out[name] = dict(err=errs, timed=timed, pad64_ms=pad)
+        log(6, f"K2 at {K2_D32} {name} (wgmma-tma at D 32) vs plain: max "
+               f"abs error { {k: f'{e:.3g}' for k, e in errs.items()} }; "
+               f"worst 64-row tile error / tile norm "
+               f"{ {k: f'{e:.3g}' for k, e in rels.items()} }; timed (CUDA "
+               f"events, 2 x 20 launches in turns with the library call; "
+               f"plain 5): " + k2_timing_note(timed, lib_err)
+               + f"; the exp2 floor {out['exp_floor_ms']:.4f} ms a kernel; "
+               f"the D 64 kernels on the same tensors zero-padded to 64 "
+               f"{ {k: round(v, 4) for k, v in pad.items()} } ms; {card}")
+    return out
 
 
 def k2_timing_note(out, lib_err, backend="flash"):
@@ -1799,7 +1880,7 @@ def s2s_name(cfg):
 
 def k2_padded_compare(k2, shape, dtype, dev, rng):
     """flash_attention at a head dim the kernels are not built for (zero-
-    padded inside: at D 1-32 to 32 for the 16-bit "wmma-smem" kernels and
+    padded inside: at D 1-32 to 32 for the 16-bit "wgmma-tma" kernels and
     to 64 for float32's tc-f32 ones) against the plain versions on the same
     padded operands: o from the forward, dq, dk and dv from autograd's
     backward, with the K2 gates."""
@@ -2201,7 +2282,7 @@ def imdb_path(dev, card):
     layers, d 128, 4 heads of 32, T 64, B 32, bf16; every step masked, so
     plain SDPA), then one unmasked encoder_classifier_forward of the
     trained model through K2 (non-causal, D 32) against plain attention:
-    in the demo's bf16 (wmma-smem) and in float32 (tc-f32, the heads
+    in the demo's bf16 (wgmma-tma) and in float32 (tc-f32, the heads
     zero-padded to 64)."""
     from ccv_tpu_torch.bin import bin_imdb_shared, imdb, lm_bench
     from ccv_tpu_torch.models import transformer as tfm
@@ -2249,10 +2330,64 @@ def imdb_path(dev, card):
     return res
 
 
+def fit_d32_path(k2, dev, card):
+    """Phase 18, last: Model.fit of phase 31's graph model with
+    ScaledDotProductAttention(16, 32) (SDPA_D32), the 16-bit D 32 kernels'
+    main path: one bf16 fit through K2 (K2a, K2b and K2c one wgmma-tma
+    launch each, the counts set to 0 just before the fit and read just
+    after), held with phase 31's bf16 gate against the plain route and the
+    float32 plain fit. Returns K2's launches in the fit, by kernel."""
+    B, T, D, heads, hd = SDPA_D32
+    kern = fit_gate_run(k2, dev, torch.bfloat16, False, SDPA_D32)
+    launches = dict(k2.LAUNCHES)
+    designs = {key: {d: c for d, c in cs.items() if c}
+               for key, cs in k2.DESIGN_LAUNCHES.items()}
+    plain = fit_gate_run(k2, dev, torch.bfloat16, True, SDPA_D32)
+    f32 = fit_gate_run(k2, dev, torch.float32, True, SDPA_D32)[1]
+    k, wk, p, wp, bound = bf16_fit_gate("D 32", kern, plain, f32)
+    log(18, f"Model(LayerNorm, ScaledDotProductAttention({heads}, {hd}, "
+            f"causal), Add) B {B} x T {T} x {D}, bf16, one fit: loss "
+            f"{kern[0]:.6f} with K2 / {plain[0]:.6f} plain (limit "
+            f"{LM_LOSS_REL} relative), gradients from the float32 plain fit: "
+            f"K2 {k:.3g} (worst {wk}), plain {p:.3g} (worst {wp}), bound "
+            f"{bound:.3g}; K2 launches in the fit {launches}, by design "
+            f"{designs}; {card}")
+    return launches
+
+
+def d32_kernel_entries(sources, k2_d32, fit_d32):
+    """The ``kernels`` line's entries of K2a/b/c at 16-bit head dim 32 on
+    wgmma-tma: launches of phase 18's bf16 fit at heads of 32 (checked
+    there), times at K2_D32 in bf16 with float16's beside, the D 64 kernels
+    on the same tensors padded to 64, and the exp2 floor."""
+    out = []
+    for key, (name, line, src, design) in sources.items():
+        r = k2_d32["bfloat16"]["timed"][key]
+        r16 = k2_d32["float16"]["timed"][key]
+        out.append({
+            "name": f"{name}_d32", "route": "cuda",
+            "source": f"ccv_tpu_torch/csrc/{src}",
+            "replaces": f"ccv_tpu/ops/pallas/{line}",
+            "launches": fit_d32[key],
+            "max_abs_err": max(k2_d32["bfloat16"]["err"][key],
+                               k2_d32["float16"]["err"][key]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "design": design,
+            "shape": list(K2_D32), "exp_floor_ms": k2_d32["exp_floor_ms"],
+            "pad64_ms": k2_d32["bfloat16"]["pad64_ms"][key],
+            "f16_ms": r16["ms"], "f16_plain_ms": r16["plain_ms"],
+            "f16_bound_ms": r16["bound_ms"],
+            "f16_library_ms": r16["library_ms"],
+            "f16_pad64_ms": k2_d32["float16"]["pad64_ms"][key],
+            **({} if key == "fwd" else {
+                "library_note": "one flash backward call: dq, dk and dv"})})
+    return out
+
+
 # device kernels by kind, for the seq2seq profiles: the first pattern a
 # kernel's name holds names its kind
-KERNEL_KINDS = (("K2", ("sm90_kernel", "::fwd_kernel<", "::dq_kernel<",
-                        "::dkv_kernel<", "_tc_kernel<", "_res_kernel<")),
+KERNEL_KINDS = (("K2", ("sm90_kernel", "_tc_kernel<", "_res_kernel<")),
                 ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
                 ("adam", ("multi_tensor_apply",)),
                 ("softmax", ("softmax",)),
@@ -6989,7 +7124,7 @@ def main():
             fut.result()
     log(2, f"K1, K2 and K3 built and loaded in "
            f"{time.perf_counter() - t0:.2f} s from ccv_tpu_torch/csrc/"
-           f"{{scd_cascade,flash_attention,flash_attention_sm90,"
+           f"{{scd_cascade,flash_attention_sm90,"
            f"flash_attention_tf32,scd_phase}}.cu for sm_90a")
 
     # -- 3: K1 against its plain version on the card ------------------------
@@ -7167,6 +7302,7 @@ def main():
 
     # -- 6: K2 against its plain version on the card -----------------------
     k2_err, k2_res = k2_vs_plain(k2, roofline, dev, card)
+    k2_d32 = k2_d32_path(k2, roofline, dev, card)
 
     # -- 7: the LM training step -------------------------------------------
     lm_two_layers(k2, dev)
@@ -7241,6 +7377,7 @@ def main():
     decode_res, decode_step = decode_path(dev, card)
     wmt_res, wmt_steps, _ = wmt_step_path(dev, card)
     imdb_path(dev, card)
+    fit_d32 = fit_d32_path(k2, dev, card)
 
     # -- 19-21: ICF, SWT and SIFT (their profiles come last) ---------------
     icf_res, icf_profile = icf_path(dev, card, read)
@@ -7379,6 +7516,7 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "design": design, "shape": list(K2_D128),
             "launches_seq2seq_step": k2_d128_s2s[key]})
+    kernels += d32_kernel_entries(sources, k2_d32, fit_d32)
     kernels += d256_kernel_entries(k2, sources, k2_wide, lm_d256,
                                    decode_d256, fit_d256,
                                    fit_res["f32_launches"])

@@ -241,8 +241,8 @@ def test_wrapper_rejects_bad_input():
 def test_design_choice():
     """bf16 at head dim 64 (the LM's) or 128 takes the wgmma-tma K2a, K2b
     and K2c; float32 at 64 and 128 the tc-f32 ones, and at D 32 too (the
-    D 64 kernels on zero-padded operands); bf16 D 32 the wmma-smem
-    kernels."""
+    D 64 kernels on zero-padded operands); bf16 D 32 the wgmma-tma kernels
+    too, at D 32."""
     for kernel in ("fwd", "dq", "dkv"):
         for d in (64, 128):
             assert tfa._design(kernel, torch.bfloat16, d) == "wgmma-tma"
@@ -252,7 +252,7 @@ def test_design_choice():
         for dtype, d in ((torch.float32, 64), (torch.float32, 32),
                          (torch.float32, 128), (torch.bfloat16, 32)):
             assert tfa._design(kernel, dtype, d) in tfa.DESIGN_LAUNCHES[kernel]
-        assert tfa._design(kernel, torch.bfloat16, 32) == "wmma-smem"
+        assert tfa._design(kernel, torch.bfloat16, 32) == "wgmma-tma"
         assert tfa._design(kernel, torch.float32, 32) == "tc-f32"
 
 

@@ -136,16 +136,14 @@ def test_float16_forward_matches_ccv_tpu(d, pallas):
 
 
 def test_design_choice():
-    """bf16 and float16 at head dim 64, 128 or 256 take the wgmma-tma
-    kernels and at D 32 the wmma-smem ones; above D 256 all three take the
-    tc-wide ones in 16-bit; in float32 K2a takes tc-f32 from D 32 (as D 64)
-    to 256 and tc-wide above, K2b and K2c tc-f32 at every head dim. No
-    kernel runs wmma-smem above D 32."""
+    """bf16 and float16 at head dim 32, 64, 128 or 256 take the wgmma-tma
+    kernels; above D 256 all three take the tc-wide ones in 16-bit; in
+    float32 K2a takes tc-f32 from D 32 (as D 64) to 256 and tc-wide above,
+    K2b and K2c tc-f32 at every head dim. Those are the three designs."""
     for kernel in ("fwd", "dq", "dkv"):
         for dtype in (torch.bfloat16, torch.float16):
-            for d in (64, 128, 256):
+            for d in (32, 64, 128, 256):
                 assert tfa._design(kernel, dtype, d) == "wgmma-tma"
-            assert tfa._design(kernel, dtype, 32) == "wmma-smem"
             for d in (320, 512, 576, 1024):
                 assert tfa._design(kernel, dtype, d) == "tc-wide"
         for d in (32, 64, 128, 192, 256):
@@ -158,10 +156,14 @@ def test_design_choice():
                for dtype in (torch.float32, torch.bfloat16, torch.float16)
                for d in (32, 64, 128, 256, 320, 512, 576, 896)}
     assert set(designs.values()) == set(tfa.DESIGNS)
+    assert tfa.DESIGNS == ("wgmma-tma", "tc-f32", "tc-wide")
     assert {key for key, design in designs.items()
-            if design == "wmma-smem"} == {
-        (kernel, dtype, 32) for kernel in ("fwd", "dq", "dkv")
-        for dtype in (torch.bfloat16, torch.float16)}
+            if design == "wgmma-tma"} == {
+        (kernel, dtype, d) for kernel in ("fwd", "dq", "dkv")
+        for dtype in (torch.bfloat16, torch.float16)
+        for d in (32, 64, 128, 256)}
+    for kernel in tfa.DESIGN_LAUNCHES:
+        assert tuple(tfa.DESIGN_LAUNCHES[kernel]) == tfa.DESIGNS
 
 
 def test_roofline_kind_and_tf32x3_bound_at_d256():
@@ -339,7 +341,9 @@ TYPED_DIMS = ((torch.bfloat16, 320, 320, "tc-wide", "tc-wide"),
               (torch.float32, 512, 512, "tc-wide", "tc-f32"),
               (torch.float32, 16, 64, "tc-f32", "tc-f32"),
               (torch.float32, 32, 64, "tc-f32", "tc-f32"),
-              (torch.bfloat16, 32, 32, "wmma-smem", "wmma-smem"))
+              (torch.bfloat16, 32, 32, "wgmma-tma", "wgmma-tma"),
+              (torch.float16, 32, 32, "wgmma-tma", "wgmma-tma"),
+              (torch.float16, 16, 32, "wgmma-tma", "wgmma-tma"))
 
 
 @pytest.mark.parametrize("dtype,d,pad,fwd,bwd", TYPED_DIMS,
@@ -427,6 +431,31 @@ def test_half_gradients_above_256_match_pallas(dtype, d, pallas):
         assert a.shape == (1, 100, 2, d)
         err = np.abs(a - b).max()
         assert err <= HALF_REL * np.abs(b).max(), (name, err)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_gradients_at_32_match_pallas(dtype, causal, pallas):
+    """bf16 and float16 at D 32 (and D 16, zero-padded to 32 inside), the
+    range of the wgmma-tma design's D 32 kernels on the card: o, dq, dk and
+    dv against ccv_tpu's Pallas kernels, T 100 (a ragged tile), each within
+    2e-2 of its largest magnitude (p and ds rounded to the input type on
+    both sides)."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    for d in (32, 16):
+        rng = np.random.default_rng(d + len(dtype) + causal)
+        q, k, v, g = (_rand(rng, 1, 100, 2, d) for _ in range(4))
+        q, k, v = (np.array(jnp.asarray(x, jdt).astype(jnp.float32))
+                   for x in (q, k, v))
+        want_o, want = pallas(q, k, v, g, causal, jdt)
+        o, got = _port(q, k, v, g, causal, tdt)
+        assert o.dtype == tdt
+        for name, a, b in zip(("o", "dq", "dk", "dv"),
+                              (o.detach().float().numpy(), *got),
+                              (want_o, *want)):
+            assert a.shape == (1, 100, 2, d)
+            err = np.abs(a - b).max()
+            assert err <= HALF_REL * np.abs(b).max(), (d, name, err)
 
 
 @pytest.mark.parametrize("route", ["plain", "flash"])
@@ -702,3 +731,62 @@ def test_cuda_tc_wide_fwd_matches_plain(dtype, shape):
     rel = (diff.reshape(bh, -1, 64 * d).norm(dim=-1)
            / ref.reshape(bh, -1, 64 * d).norm(dim=-1).clamp_min(1e-30))
     assert float(rel.max()) <= 1e-2, float(rel.max())
+
+
+# 16-bit D 32 on the wgmma-tma design (64-byte swizzle, m64n32 products;
+# one warpgroup a block on 64-row tiles in each kernel): causal and not,
+# ragged T (a partial 64-row tile and a key tile past it), a cross-length
+# tile, Tq < Tk causal (a bottom-right diagonal off the tiles), one head of
+# a 64-row tile, and phase 18's imdb shape
+D32_SHAPES = ((4, 72, 136, True), (4, 72, 136, False), (3, 100, 100, True),
+              (2, 257, 257, True), (2, 257, 257, False), (2, 64, 200, True),
+              (2, 130, 300, True), (1, 64, 64, True), (128, 64, 64, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", D32_SHAPES,
+                         ids=lambda s: f"{s[1]}x{s[2]}-"
+                         f"{'causal' if s[3] else 'full'}-bh{s[0]}")
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_cuda_d32_kernels_match_plain(dtype, shape):
+    """K2a, K2b and K2c at 16-bit D 32 on the card against their plain
+    versions, one launch each of the wgmma-tma design: within 2e-2 of the
+    largest magnitude (lse within 1e-4 + 1e-4 of its largest), each 64-row
+    tile of o, dq, dk and dv within 1e-2 of its norm (chip_smoke.py phase
+    6's K2_BF16 and K2_TILE_REL)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bh, tq, tk, causal = shape
+    rng = np.random.default_rng(tq + tk + causal)
+    q, k, v, do = (torch.from_numpy(_rand(rng, bh, t, 32)).to("cuda", dtype)
+                   for t in (tq, tk, tk, tq))
+    scale = 1.0 / np.sqrt(32)
+    o0, lse0 = tfa.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do.float() * o0.float()).sum(-1)
+    ref = (o0, lse0,
+           *tfa.flash_bwd_ref(q, k, v, do, lse0, delta, scale, causal))
+    before = {n: dict(c) for n, c in tfa.DESIGN_LAUNCHES.items()}
+    got = (*tfa.flash_fwd(q, k, v, scale, causal),
+           tfa.flash_dq(q, k, v, do, lse0, delta, scale, causal),
+           *tfa.flash_dkv(q, k, v, do, lse0, delta, scale, causal))
+    torch.cuda.synchronize()
+    for n, counts in tfa.DESIGN_LAUNCHES.items():
+        assert tfa._design(n, dtype, 32) == "wgmma-tma"
+        assert counts == {**before[n], "wgmma-tma":
+                          before[n]["wgmma-tma"] + 1}
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+        err = float((a.float() - b.float()).abs().max())
+        top = float(b.float().abs().max())
+        bound = (1e-4 + 1e-4 * top if b.dtype == torch.float32
+                 else HALF_REL * top)
+        assert bool(torch.isfinite(a).all()) and err <= bound, (
+            name, err, top)
+        if name != "lse":
+            pad = (-a.shape[1]) % 64
+            diff = torch.nn.functional.pad((a - b).float(), (0, 0, 0, pad))
+            full = torch.nn.functional.pad(b.float(), (0, 0, 0, pad))
+            rel = (diff.reshape(bh, -1, 64 * 32).norm(dim=-1)
+                   / full.reshape(bh, -1, 64 * 32).norm(dim=-1)
+                   .clamp_min(1e-30))
+            assert float(rel.max()) <= 1e-2, (name, float(rel.max()))
